@@ -1,0 +1,287 @@
+"""Decoder-only transformer forward (port of inferflow_tpu/models/decoder.py,
+the subset the serving path uses).
+
+Params are plain dictionaries of tensors: ``dec_embeddings`` (V, E),
+``dec_output_norm`` (E,), ``lm_head`` (E, V), and ``layers``, a list of
+per-layer dicts ``{"attn": {"pre_norm", "qkv" | "wq"/"wk"/"wv", "wo"},
+"ffn": {"pre_norm", "w1n3" | "w1"/"w3", "w2"}}``.  Weights are (K, N)
+tensors or QuantizedTensors; activations are (B, T, E); q/k/v (B, T, H, D).
+
+Attention routes by phase, as on the TPU:
+  - prefill (T > 1, a fresh cache): append K/V, then ``mha`` over the
+    dequantized cache rows (plain PyTorch);
+  - decode (T == 1): append one row per slot, then ``decode_attention``
+    (kernel B2) over the whole stacked cache;
+  - chunked prefill: append the chunk to its slot, then ``chunk_attention``
+    (kernel B3) over rows [0, start + T).
+Every quantized linear goes through ``quantized_matmul`` (kernel B1).
+Not ported: MoE, ALiBi/sinusoidal positions, parallel attention,
+ring/tensor-parallel paths and the whole-model fused decode step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.attention import chunk_attention, decode_attention
+from ..ops.activations import activate
+from ..ops.attention import mha
+from ..ops.linear import linear
+from ..ops.norms import apply_norm, linear_norm
+from ..ops.rope import rope
+from ..quant.codec_torch import QuantizedTensor, concat_quantized
+from ..runtime.kv_cache import KVCache
+from .spec import ModelSpec
+
+
+def check_supported(spec: ModelSpec) -> None:
+    """Refuse the configurations this port does not serve yet."""
+    hp = spec.hyper_params
+    if hp.experts:
+        raise NotImplementedError("MoE models are not ported")
+    if spec.pos_embedding_alg not in ("rope", "empty", ""):
+        raise NotImplementedError(
+            f"position embedding {spec.pos_embedding_alg!r} is not ported")
+    if spec.is_parallel_attn:
+        raise NotImplementedError("parallel attention is not ported")
+    if spec.w1n3_ranks > 1:
+        raise NotImplementedError("rank-major w1n3 layouts are not ported")
+    if spec.device_layout not in ("", "auto", "packed"):
+        raise NotImplementedError(
+            f"device layout {spec.device_layout!r} is not ported; this "
+            "package serves the packed wire layout")
+
+
+def _norm(spec: ModelSpec, x, params: dict, prefix: str, base: float = 0.0):
+    w = params.get(prefix)
+    b = params.get(f"{prefix}_b")
+    if w is None and b is None:
+        return x
+    return apply_norm(spec.norm_alg, x, w, b, spec.norm_eps, base)
+
+
+def _split_qkv(spec: ModelSpec, qkv, n_heads, n_kv_heads, head_dim):
+    """qkv_format=1: [Q | K | V]; 0: per kv-head groups (g q heads, k, v)."""
+    b, t, _ = qkv.shape
+    q_dim = n_heads * head_dim
+    kv_dim = n_kv_heads * head_dim
+    if spec.qkv_format == 1:
+        return (qkv[..., :q_dim], qkv[..., q_dim:q_dim + kv_dim],
+                qkv[..., q_dim + kv_dim:q_dim + 2 * kv_dim])
+    group = n_heads // n_kv_heads
+    x = qkv.reshape(b, t, n_kv_heads, (group + 2) * head_dim)
+    q = x[..., :group * head_dim].reshape(b, t, q_dim)
+    k = x[..., group * head_dim:(group + 1) * head_dim].reshape(b, t, kv_dim)
+    v = x[..., (group + 1) * head_dim:].reshape(b, t, kv_dim)
+    return q, k, v
+
+
+def attention_block(spec: ModelSpec, lp: dict, x, positions,
+                    layer_cache: Optional[dict]):
+    """Self-attention sub-layer.  layer_cache: None, or
+    {"cache", "layer", "start"} (prefill/decode; start (B,) = rows already
+    in the cache), or {"cache", "layer", "slot", "chunk_start"} (a chunk of
+    one slot).  Returns (output, layer_cache)."""
+    hp = spec.hyper_params
+    n_heads, n_kv, head_dim = hp.decoder_heads, hp.kv_heads, hp.head_dim
+    b, t, _ = x.shape
+
+    if "qkv" in lp:
+        qkv = linear(x, lp["qkv"], lp.get("qkv_b"))
+        q, k, v = _split_qkv(spec, qkv, n_heads, n_kv, head_dim)
+    else:
+        q = linear(x, lp["wq"], lp.get("wq_b"))
+        k = linear(x, lp["wk"], lp.get("wk_b"))
+        v = linear(x, lp["wv"], lp.get("wv_b"))
+    q = q.reshape(b, t, n_heads, head_dim)
+    k = k.reshape(b, t, n_kv, head_dim)
+    v = v.reshape(b, t, n_kv, head_dim)
+
+    if spec.pos_embedding_alg == "rope":
+        rd = spec.effective_rope_dim()
+        q = rope(q, positions, base=spec.rope_theta, order=spec.rope_order,
+                 rope_dim=rd)
+        k = rope(k, positions, base=spec.rope_theta, order=spec.rope_order,
+                 rope_dim=rd)
+
+    if layer_cache is None:
+        out = mha(q, k, v, q_positions=positions, kq_scale=spec.kq_scale)
+    elif "slot" in layer_cache:
+        cache, layer = layer_cache["cache"], layer_cache["layer"]
+        slot, start = layer_cache["slot"], layer_cache["chunk_start"]
+        cache.update_layer_slot(layer, slot, k, v, start)
+        out, _ = chunk_attention(q, cache, layer, slot, start,
+                                 kq_scale=spec.kq_scale)
+    else:
+        cache, layer = layer_cache["cache"], layer_cache["layer"]
+        start = layer_cache["start"]
+        cache.update_layer(layer, k, v, start)
+        if t == 1:
+            out, _ = decode_attention(q, cache, layer, start + 1,
+                                      kq_scale=spec.kq_scale)
+        else:
+            k_full, v_full = cache.read_layer(layer, x.dtype)
+            out = mha(q, k_full, v_full, q_positions=positions,
+                      kv_len=start + t, kq_scale=spec.kq_scale)
+
+    out = linear(out.reshape(b, t, n_heads * head_dim), lp["wo"],
+                 lp.get("wo_b"))
+    if spec.attn_out_scale != 1.0:
+        out = out * spec.attn_out_scale
+    return out, layer_cache
+
+
+def ffn_block(spec: ModelSpec, lp: dict, x):
+    """Dense (GLU) FFN: w1 (+ w3 gate) -> activation -> w2."""
+    if "w1n3" in lp:
+        h = linear(x, lp["w1n3"], lp.get("w1n3_b"))
+        inter = h.shape[-1] // 2
+        a, g = h[..., :inter], h[..., inter:]
+    else:
+        a = linear(x, lp["w1"], lp.get("w1_b"))
+        g = linear(x, lp["w3"], lp.get("w3_b")) if "w3" in lp else None
+    out = linear(activate(spec.activation_fn, a, g), lp["w2"],
+                 lp.get("w2_b"))
+    if spec.ffn_out_scale != 1.0:
+        out = out * spec.ffn_out_scale
+    return out
+
+
+def decoder_layer(spec: ModelSpec, lp: dict, x, positions,
+                  layer_cache: Optional[dict]):
+    """One pre-norm decoder layer (is_attn_post_as_residual honoured)."""
+    attn_p = lp["attn"]
+    residual = x
+    h = x
+    if spec.use_self_attn_pre_norm:
+        h = _norm(spec, x, attn_p, "pre_norm", spec.attn_pre_norm_base)
+    attn_out, layer_cache = attention_block(spec, attn_p, h, positions,
+                                            layer_cache)
+    attn_out = _norm(spec, attn_out, attn_p, "post_norm")
+    x = residual + attn_out if spec.is_attn_post_as_residual else attn_out
+    fp = lp["ffn"]
+    h = _norm(spec, x, fp, "pre_norm", spec.ffn_pre_norm_base)
+    ffn_out = _norm(spec, ffn_block(spec, fp, h), fp, "post_norm")
+    return x + ffn_out, layer_cache
+
+
+def embed_tokens(spec: ModelSpec, params: dict, tokens, positions):
+    """Token embedding rows (B, T, E) in bf16, plus the optional embedding
+    scale and learned positions."""
+    x = params["dec_embeddings"][tokens.to(params["dec_embeddings"].device)]
+    x = x.to(torch.bfloat16)
+    if spec.has_embedding_linear_norm:
+        x = linear_norm(x, spec.embedding_linear_scale)
+    if "dec_pos_embeddings" in params:
+        off = spec.pos_embedding_offset
+        x = x + params["dec_pos_embeddings"][positions + off].to(x.dtype)
+    if "dec_input_norm" in params:
+        x = apply_norm(spec.norm_alg, x, params.get("dec_input_norm"),
+                       params.get("dec_input_norm_b"), spec.norm_eps)
+    return x
+
+
+def output_logits(spec: ModelSpec, params: dict, x):
+    """Output norm + lm_head; float32 logits (B, T, V)."""
+    x = apply_norm(spec.norm_alg, x, params.get("dec_output_norm"),
+                   params.get("dec_output_norm_b"), spec.norm_eps,
+                   spec.output_norm_base)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["dec_embeddings"].T  # tied weights
+        if spec.normalize_lm_head:
+            head = head / torch.linalg.norm(head.float(), dim=0,
+                                            keepdim=True).to(head.dtype)
+    logits = linear(x, head, params.get("lm_head_b"))
+    if spec.out_scale != 1.0:
+        logits = logits * spec.out_scale
+    return logits.float()
+
+
+def decoder_forward(spec: ModelSpec, params: dict, tokens, positions,
+                    cache: Optional[KVCache] = None
+                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Full forward; tokens/positions (B, T).  With a cache, K/V rows are
+    appended at cache.length and the length advances by T.  Returns
+    (float32 logits (B, T, V), cache)."""
+    x = embed_tokens(spec, params, tokens, positions)
+    for i, lp in enumerate(params["layers"]):
+        lc = None if cache is None else layer_cache_fused(cache, i)
+        x, _ = decoder_layer(spec, lp, x, positions, lc)
+    logits = output_logits(spec, params, x)
+    if cache is not None:
+        cache.with_length(cache.length + tokens.shape[1])
+    return logits, cache
+
+
+def layer_cache_fused(cache: KVCache, layer: int) -> dict:
+    """Layer view: the whole stacked cache plus a layer index (the kernels
+    index the stacked buffers; no per-layer slice is copied)."""
+    return {"cache": cache, "layer": layer, "start": cache.length}
+
+
+def decoder_layers_unrolled(spec: ModelSpec, layers: list, x, positions,
+                            cache: Optional[KVCache] = None):
+    """The per-layer loop of the decode step (the JAX loop minus its
+    whole-model fused-step branch).  Does NOT advance cache.length."""
+    for i, lp in enumerate(layers):
+        lc = None if cache is None else layer_cache_fused(cache, i)
+        x, _ = decoder_layer(spec, lp, x, positions, lc)
+    return x, cache
+
+
+def decoder_layers_chunk(spec: ModelSpec, layers: list, x, positions,
+                         cache: KVCache, slot: int, start: int):
+    """Chunked-prefill loop: x is a (1, C) chunk of one slot; K/V append to
+    the main cache at `start`, attention covers rows [0, start + C).  Does
+    NOT advance cache.length (the engine commits it at the last chunk)."""
+    for i, lp in enumerate(layers):
+        lc = {"cache": cache, "layer": i, "slot": slot, "chunk_start": start}
+        x, _ = decoder_layer(spec, lp, x, positions, lc)
+    return x, cache
+
+
+def _concat_weights(parts):
+    """Concatenate weights along N: dense tensors, or QuantizedTensors of
+    one format and K.  None when they cannot fuse."""
+    first = parts[0]
+    if isinstance(first, QuantizedTensor):
+        if not all(isinstance(p, QuantizedTensor) and p.format == first.format
+                   and p.shape[0] == first.shape[0]
+                   and p.storage_k == first.storage_k for p in parts):
+            return None
+        return concat_quantized(parts)
+    if not all(isinstance(p, torch.Tensor) and p.shape[0] == first.shape[0]
+               for p in parts):
+        return None
+    return torch.cat(parts, dim=-1)
+
+
+def fuse_layer_weights(layers: list) -> list:
+    """Fuse wq|wk|wv -> qkv (qkv_format=1 order) and w1|w3 -> w1n3 per
+    layer; returns new layer dicts.  Callers set spec.qkv_format = 1 when
+    the attention fusion applies."""
+    out = []
+    for layer in layers:
+        layer = dict(layer)
+        attn = dict(layer.get("attn", {}))
+        if all(k in attn for k in ("wq", "wk", "wv")) and \
+                not any(k + "_b" in attn for k in ("wq", "wk", "wv")):
+            fused = _concat_weights([attn["wq"], attn["wk"], attn["wv"]])
+            if fused is not None:
+                for k in ("wq", "wk", "wv"):
+                    attn.pop(k)
+                attn["qkv"] = fused
+        layer["attn"] = attn
+        ffn = dict(layer.get("ffn", {}))
+        if "w1" in ffn and "w3" in ffn and "w1_b" not in ffn \
+                and "w3_b" not in ffn:
+            fused = _concat_weights([ffn["w1"], ffn["w3"]])
+            if fused is not None:
+                ffn.pop("w1"), ffn.pop("w3")
+                ffn["w1n3"] = fused
+        layer["ffn"] = ffn
+        out.append(layer)
+    return out

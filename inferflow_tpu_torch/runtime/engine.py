@@ -1,0 +1,304 @@
+"""InferenceEngine: the serving facade with continuous batching (port of
+inferflow_tpu/runtime/engine.py).
+
+Same step loop as the JAX engine, run eagerly on one CUDA device:
+  - a query's prompt is prefilled in one bucketed pass (length padded to a
+    power of two) into a (1, bucket) temp cache that is then scattered into
+    the query's slot of the shared cache;
+  - prompts longer than ``prefill_chunk`` are prefilled chunk by chunk
+    straight into the main cache, one chunk per engine step (kernel B3);
+    while that runs the slot's length is parked at max_context_len - 1, so
+    the decode steps of other slots write their throw-away row for it
+    there and not over the chunk's rows;
+  - one batched decode step over every slot (B = max_concurrent_queries,
+    inactive slots included, each with at least one visible key), kernels
+    B1 and B2;
+  - sampling on the host (sampling/strategies.py), saturation as an
+    implicit end of the query.
+Not ported here: host offload, paged KV, speculative decoding, meshes,
+ring and pipelined prefill (their options raise), and CUDA graphs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.decoder import (check_supported, decoder_forward,
+                              decoder_layers_chunk, decoder_layers_unrolled,
+                              embed_tokens, fuse_layer_weights, output_logits)
+from ..models.spec import ModelSpec
+from ..quant.codec_torch import QuantizedTensor
+from ..quant.formats import is_quantized
+from ..sampling.strategies import DecodingStrategies, SamplingOptions
+from .kv_cache import KVCache
+from .query_state import DECODING, FINISHED, QueryState, QueryStateTable
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    """One step's outcome for one query."""
+
+    query_id: int
+    next_tokens: List[int]
+    is_end: bool
+    finish_reason: str = ""
+
+
+def _bucket(n: int, lo: int = 16, hi: int = 4096) -> int:
+    """Smallest power of two >= n, clamped to [lo, hi]."""
+    b = lo
+    while b < n and b < hi:
+        b *= 2
+    return min(b, hi)
+
+
+def _to_device(node, dev):
+    if isinstance(node, QuantizedTensor):
+        return node.to(dev)
+    if isinstance(node, dict):
+        return {k: _to_device(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_device(v, dev) for v in node]
+    return node.to(dev)
+
+
+class InferenceEngine:
+    """Single-model serving engine on one device."""
+
+    def __init__(self, spec: ModelSpec, params: dict,
+                 max_concurrent_queries: int = 8,
+                 max_context_len: int = 0,
+                 tokenizer=None, vocab=None,
+                 kv_cache_quantized: Optional[bool] = None,
+                 device="cuda",
+                 cpu_layer_count: int = 0,
+                 mesh=None,
+                 sequence_parallel: int = 0,
+                 pipeline_prefill: bool = False,
+                 draft: Optional[tuple] = None,
+                 kv_cache_paging: bool = False):
+        unported = {"cpu_layer_count": cpu_layer_count, "mesh": mesh,
+                    "sequence_parallel": sequence_parallel,
+                    "pipeline_prefill": pipeline_prefill, "draft": draft,
+                    "kv_cache_paging": kv_cache_paging,
+                    "host_kv_cache_percent": spec.host_kv_cache_percent,
+                    "decoder_cpu_layer_count":
+                        max(spec.decoder_cpu_layer_count, 0)}
+        used = [k for k, v in unported.items() if v]
+        if used:
+            raise NotImplementedError(f"not ported: {', '.join(used)}")
+        check_supported(spec)
+        self.device = resolve_device(device)
+        hp = spec.hyper_params
+        layers = params["layers"]
+        had_separate = all("wq" in lp["attn"] for lp in layers)
+        layers = fuse_layer_weights(layers)
+        if had_separate and all("qkv" in lp["attn"] for lp in layers):
+            spec = dataclasses.replace(spec, qkv_format=1)
+        self.spec = spec
+        self.params = _to_device(dict(params, layers=layers), self.device)
+        self.tokenizer = tokenizer
+        self.vocab = vocab
+        self.max_slots = max_concurrent_queries
+        self.max_context_len = max_context_len or spec.max_context_len
+        if self.max_context_len <= 0:
+            self.max_context_len = hp.training_context_len
+        if self.max_context_len <= 0:
+            self.max_context_len = 2048
+        if kv_cache_quantized is None:
+            kv_cache_quantized = is_quantized(spec.device_kv_cache_data_type)
+        self.cache = KVCache.create(hp.decoder_layers, self.max_slots,
+                                    self.max_context_len, hp.kv_heads,
+                                    hp.head_dim, quantized=kv_cache_quantized,
+                                    device=self.device)
+        self.table = QueryStateTable(self.max_slots)
+        eos_ids = set()
+        if vocab is not None and getattr(vocab, "eos_id", -1) >= 0:
+            eos_ids.add(vocab.eos_id)
+        self.strategies = DecodingStrategies(eos_ids=eos_ids)
+        self.eos_ids = eos_ids
+        self._lock = threading.Lock()
+        self.perf_stat: Dict[str, float] = {}
+        # chunked prefill: prompts longer than one chunk take prefill_chunk
+        # tokens per engine step against the main cache
+        self.prefill_chunk = 256
+
+    def _tensor(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr), dtype=torch.int32).to(
+            self.device)
+
+    # -- steps ------------------------------------------------------------
+    def _prefill_step(self, tokens: np.ndarray, length: int, bucket: int):
+        """tokens (1, bucket); returns last-token logits and the temp
+        cache to scatter into the slot."""
+        hp = self.spec.hyper_params
+        tmp = KVCache.create(hp.decoder_layers, 1, bucket, hp.kv_heads,
+                             hp.head_dim, quantized=self.cache.quantized,
+                             device=self.device)
+        positions = torch.arange(bucket, dtype=torch.int32,
+                                 device=self.device)[None]
+        logits, tmp = decoder_forward(self.spec, self.params,
+                                      self._tensor(tokens), positions, tmp)
+        return logits[0, length - 1], tmp
+
+    def _chunk_step(self, tokens: np.ndarray, slot: int, start: int,
+                    need_logits: bool):
+        """One prefill chunk (1, C) of one slot against the main cache."""
+        c = tokens.shape[1]
+        positions = start + torch.arange(c, dtype=torch.int32,
+                                         device=self.device)[None]
+        x = embed_tokens(self.spec, self.params, self._tensor(tokens),
+                         positions)
+        x, _ = decoder_layers_chunk(self.spec, self.params["layers"], x,
+                                    positions, self.cache, slot, start)
+        if not need_logits:
+            return None
+        return output_logits(self.spec, self.params, x)[0]
+
+    def _decode_step(self, tokens: np.ndarray, active: np.ndarray):
+        """tokens (B, 1); active (B,) 0/1.  Returns logits (B, V)."""
+        cache = self.cache
+        positions = cache.length[:, None]
+        x = embed_tokens(self.spec, self.params, self._tensor(tokens),
+                         positions)
+        x, _ = decoder_layers_unrolled(self.spec, self.params["layers"], x,
+                                       positions, cache)
+        logits = output_logits(self.spec, self.params, x)
+        cache.with_length(cache.length + self._tensor(active))
+        return logits[:, -1]
+
+    # -- public API -------------------------------------------------------
+    def add_query(self, prompt: Sequence[int] | str,
+                  sampling: Optional[SamplingOptions] = None,
+                  max_new_tokens: int = 256) -> int:
+        """Admission control.  Returns the query id, -1 when every slot is
+        taken, -2 on an empty or oversized prompt."""
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise ValueError("string query but no tokenizer configured")
+            tokens = self.tokenizer.tokenize(prompt, add_bos=True)
+        else:
+            tokens = list(prompt)
+        if not tokens or len(tokens) >= self.max_context_len:
+            return -2
+        with self._lock:
+            qid = self.table.add(tokens, sampling, max_new_tokens)
+        if qid > 0:
+            self.strategies.begin_query(qid, sampling or SamplingOptions())
+        return qid
+
+    def infer(self) -> List[InferenceResult]:
+        """One engine step: at most one prefill (or prefill chunk), then one
+        batched decode step over every decoding slot."""
+        t0 = time.perf_counter()
+        results: List[InferenceResult] = []
+        with self._lock:
+            pending = self.table.prefill_pending()
+        if pending:
+            qs = pending[0]
+            tokens = qs.prompt_tokens
+            if len(tokens) > self.prefill_chunk:
+                c = self.prefill_chunk
+                start = qs.prefill_pos
+                if start == 0:
+                    self.cache.length[qs.slot] = self.max_context_len - 1
+                n = min(c, len(tokens) - start)
+                chunk = np.zeros((1, c), np.int32)
+                chunk[0, :n] = tokens[start:start + n]
+                done = start + n >= len(tokens)
+                logits = self._chunk_step(chunk, qs.slot, start, done)
+                qs.prefill_pos = start + n
+                if done:
+                    self.cache.length[qs.slot] = len(tokens)
+                    self._finish_prefill(
+                        qs, logits[n - 1].cpu().numpy(), results)
+            else:
+                bucket = _bucket(len(tokens), hi=self.max_context_len)
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :len(tokens)] = tokens
+                last_logits, tmp = self._prefill_step(padded, len(tokens),
+                                                      bucket)
+                self.cache.scatter_slot(tmp, qs.slot, len(tokens))
+                self._finish_prefill(qs, last_logits.cpu().numpy(), results)
+            self.perf_stat["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+
+        with self._lock:
+            # a query prefilled this step already produced its token
+            done_ids = {r.query_id for r in results}
+            decoding = [q for q in self.table.decoding()
+                        if q.query_id not in done_ids]
+        if decoding:
+            t1 = time.perf_counter()
+            tokens = np.zeros((self.max_slots, 1), np.int32)
+            active = np.zeros((self.max_slots,), np.int32)
+            by_slot: Dict[int, QueryState] = {}
+            for qs in decoding:
+                tokens[qs.slot, 0] = (qs.generated[-1] if qs.generated
+                                      else qs.prompt_tokens[-1])
+                active[qs.slot] = 1
+                by_slot[qs.slot] = qs
+            rows = self._decode_step(tokens, active).cpu().numpy()
+            for slot, qs in by_slot.items():
+                tok = self.strategies.choose_token(
+                    qs.query_id, rows[slot], qs.prompt_tokens + qs.generated)
+                results.append(self._make_result(qs, tok))
+            self.perf_stat["decode_ms"] = (time.perf_counter() - t1) * 1e3
+        return results
+
+    def _finish_prefill(self, qs: QueryState, row: np.ndarray,
+                        results: list) -> None:
+        tok = self.strategies.choose_token(qs.query_id, row,
+                                           qs.prompt_tokens)
+        results.append(self._make_result(qs, tok))
+        qs.phase = DECODING
+
+    def _make_result(self, qs: QueryState, tok: int) -> InferenceResult:
+        is_eos = tok in self.eos_ids
+        saturated = (qs.context_len + 1 >= self.max_context_len
+                     or len(qs.generated) + 1 >= qs.max_new_tokens)
+        reason = "eos" if is_eos else ("length" if saturated else "")
+        return InferenceResult(qs.query_id, [tok], is_eos or saturated,
+                               reason)
+
+    def commit_inference_result(self, results: List[InferenceResult]) -> None:
+        """Append accepted tokens and finish ended queries."""
+        with self._lock:
+            for r in results:
+                qs = self.table.get(r.query_id)
+                if qs is None or qs.phase == FINISHED:
+                    continue
+                for t in r.next_tokens:
+                    if t not in self.eos_ids:
+                        qs.generated.append(t)
+                if r.is_end:
+                    self.table.finish(r.query_id, r.finish_reason)
+                    self.strategies.end_query(r.query_id)
+
+    def has_work(self) -> bool:
+        with self._lock:
+            return bool(self.table.active)
+
+    def query_tokens(self, qid: int) -> List[int]:
+        qs = self.table.get(qid)
+        return list(qs.generated) if qs else []
+
+    def generate(self, prompt: Sequence[int] | str,
+                 sampling: Optional[SamplingOptions] = None,
+                 max_new_tokens: int = 64) -> List[int]:
+        """One-query convenience loop."""
+        qid = self.add_query(prompt, sampling, max_new_tokens)
+        if qid < 0:
+            raise RuntimeError(f"add_query failed: {qid}")
+        while True:
+            self.commit_inference_result(self.infer())
+            qs = self.table.get(qid)
+            if qs is None or qs.phase == FINISHED:
+                break
+        return self.query_tokens(qid)
