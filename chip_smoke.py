@@ -22,8 +22,10 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    the device memory of the weights and its peaks while building them and
    while serving, profiles
    three decode steps of one more query (device busy and idle share, the
-   device time by kernel), and checks the served logits against the same
-   engine on the CPU (plain versions) for the 7- and 300-token queries.
+   device time by kernel), and holds every served logits row (each prefill
+   and each decode step of the four queries) against the same engine on
+   the CPU (plain versions), run in the same interleaving and fed the
+   tokens the card served.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -50,10 +52,12 @@ MODEL = "tinyllama-1.1b"
 PROMPT_LENS = (7, 60, 200, 300)
 MAX_NEW = 16
 SLOTS, CONTEXT = 4, 1024
-# the same served logits on the card and on the CPU: kernel and plain
-# version differ only in summation order, and the bf16 roundings this moves
-# grow through 22 layers; the gate is a few bf16 steps of logits of ~1-5
-ENGINE_LOGIT_TOL = 0.25
+# every served logits row on the card against the CPU engine fed the same
+# tokens: kernel and plain version differ only in summation order, and the
+# bf16 roundings this moves grow through 22 layers (first rows measured
+# 0.022-0.035 on an H100); the gate is about twice that, under 4% of the
+# largest logit (~2.2)
+ENGINE_LOGIT_TOL = 0.08
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -272,13 +276,19 @@ def phase_b3(timer, dev, spec) -> list:
     return [row]
 
 
-def _record_rows(eng) -> dict:
+def _record_rows(eng, forced=None) -> dict:
+    """Keep every logits row the engine samples from, per query id.  With
+    `forced` ({query id: tokens}) the i-th sample of a query returns
+    forced[qid][i] in place of the sampler's choice: a reference engine fed
+    the tokens another engine served."""
     rows = {}
     choose = eng.strategies.choose_token
 
     def recording(qid, logits, prev=()):
-        rows.setdefault(qid, []).append(np.asarray(logits, np.float32).copy())
-        return choose(qid, logits, prev)
+        seen = rows.setdefault(qid, [])
+        seen.append(np.asarray(logits, np.float32).copy())
+        tok = choose(qid, logits, prev)
+        return tok if forced is None else forced[qid][len(seen) - 1]
 
     eng.strategies.choose_token = recording
     return rows
@@ -396,33 +406,42 @@ def phase_engine(dev, spec) -> dict:
         assert launches.get(k, 0) > 0, f"{k} never launched in the engine run"
     profile_decode(eng, prompts[1])
 
-    # reference: the same model and queries on the CPU (plain versions)
+    check_against_cpu(spec, params, prompts, qids, rows, outputs)
+    return launches
+
+
+def check_against_cpu(spec, params, prompts, qids, rows, outputs) -> None:
+    """The same model and queries served on the CPU (the plain versions),
+    in the same interleaving and fed the tokens the card served: every
+    sampled row (each prefill and each decode step of every query) is held
+    against the card's within ENGINE_LOGIT_TOL."""
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    t0 = time.perf_counter()
     cpu = InferenceEngine(spec, params, max_concurrent_queries=SLOTS,
                           max_context_len=CONTEXT, kv_cache_quantized=True,
                           device="cpu")
-    del params
-    cpu_rows = _record_rows(cpu)
-    ref_prompts = [prompts[0], prompts[3]]
-    ref_qids, _, _, _ = _serve(cpu, ref_prompts, 2)
-    report = {"phase": "engine_vs_cpu", "tolerance":
-              f"first-token logits max_abs_err <= {ENGINE_LOGIT_TOL}"}
+    cpu_rows = _record_rows(cpu, forced=dict(zip(qids, outputs)))
+    ref_qids, _, _, _ = _serve(cpu, prompts, MAX_NEW)
+    assert ref_qids == qids, (ref_qids, qids)
+    report = {"phase": "engine_vs_cpu",
+              "cpu_reference_s": time.perf_counter() - t0,
+              "tolerance": f"every sampled row: max_abs_err <= "
+                           f"{ENGINE_LOGIT_TOL}"}
     ok = True
-    for (card_q, cpu_q, n) in ((qids[0], ref_qids[0], 7),
-                               (qids[3], ref_qids[1], 300)):
-        a, b = rows[card_q][0], cpu_rows[cpu_q][0]
-        err = float(np.abs(a - b).max())
-        top2 = np.sort(b)[-2:]
-        same_first = int(a.argmax()) == int(b.argmax())
+    for q, n, served in zip(qids, PROMPT_LENS, outputs):
+        card, ref = rows[q], cpu_rows[q]
+        assert len(card) == len(ref) == len(served) == MAX_NEW, q
+        assert [int(r.argmax()) for r in card] == served, "not greedy"
+        errs = [float(np.abs(a - b).max()) for a, b in zip(card, ref)]
         report[f"prompt_{n}"] = {
-            "max_abs_err": err, "max_abs_logit": float(np.abs(b).max()),
-            "first_token_card": int(a.argmax()),
-            "first_token_cpu": int(b.argmax()),
-            "cpu_top2_gap": float(top2[1] - top2[0])}
-        ok &= err <= ENGINE_LOGIT_TOL and (
-            same_first or top2[1] - top2[0] <= 2 * ENGINE_LOGIT_TOL)
+            "rows": len(errs), "max_abs_err": max(errs),
+            "worst_row": int(np.argmax(errs)), "first_row_err": errs[0],
+            "max_abs_logit": float(max(np.abs(b).max() for b in ref)),
+            "argmax_equal": sum(int(a.argmax()) == int(b.argmax())
+                                for a, b in zip(card, ref))}
+        ok &= max(errs) <= ENGINE_LOGIT_TOL
     emit(report)
     assert ok, "served logits disagree with the CPU reference"
-    return launches
 
 
 def main() -> int:

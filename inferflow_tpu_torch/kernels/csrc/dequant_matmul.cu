@@ -22,7 +22,8 @@
 //   - decode (`q4_gemv`): neighbouring threads own neighbouring 4-column
 //     groups, so each warp reads 128 contiguous bytes of a plane row and
 //     8 contiguous bytes of scale/base per quant block; K is split over
-//     the warps of a CTA and over CTAs (enough CTAs to fill 132 SMs); a
+//     the warps of a CTA and over CTAs (about two CTAs per SM, from the
+//     SM count the caller reads off the device: `ift_q4_matmul_plan`); a
 //     warp issues the loads of all 32 plane rows of its quant block before
 //     using any (memory-level parallelism), with
 //     the x slice of the CTA staged once in shared memory and one float32
@@ -38,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -284,13 +287,46 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// y = x @ dequant(W).  M <= 8 takes the decode path with `ksplit` K
-// splits of `kb_per_split` (at most kGemvMaxKBlocks) quant blocks
-// (workspace: ksplit*M*N floats when ksplit > 1); larger M the tiled
-// tensor-core path.
+// The launch plan of an (M, K) x (K, N) product on a card with `sm_count`
+// SMs: M <= 8 takes the decode path with *ksplit K splits of
+// *kb_per_split (at most kGemvMaxKBlocks) quant blocks, enough CTAs for
+// about two per SM; larger M the tiled tensor-core path (*kb_per_split 0,
+// *ksplit 1).  The caller allocates ksplit*M*N floats of workspace when
+// *ksplit > 1 and passes the plan to ift_q4_matmul unchanged.
+int ift_q4_matmul_plan(int M, int K, int N, int sm_count, int* kb_per_split,
+                       int* ksplit) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % kBlock || sm_count <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M > 8) {
+    *kb_per_split = 0;
+    *ksplit = 1;
+    return 0;
+  }
+  const int nkb = K / kBlock;
+  const int n_tiles = (N + kGemvCols - 1) / kGemvCols;
+  const int want = (2 * sm_count + n_tiles - 1) / n_tiles;
+  int split = std::min(want, std::max(nkb / 4, 1));
+  split = std::max(split, (nkb + kGemvMaxKBlocks - 1) / kGemvMaxKBlocks);
+  split = std::min(split, nkb);
+  const int per = (nkb + split - 1) / split;
+  *kb_per_split = per;
+  *ksplit = (nkb + per - 1) / per;
+  return 0;
+}
+
+// y = x @ dequant(W) with a plan from ift_q4_matmul_plan; a decode plan
+// that does not cover K exactly once, or that overflows the x staging
+// buffer, is refused with cudaErrorInvalidValue.
 int ift_q4_matmul(const void* x, const void* data, const void* scale,
                   const void* base, void* out, void* workspace, int M, int K,
                   int N, int kb_per_split, int ksplit, void* stream_ptr) {
+  if (M <= 8) {
+    const int nkb = K / kBlock;
+    if (kb_per_split < 1 || kb_per_split > kGemvMaxKBlocks || ksplit < 1 ||
+        kb_per_split * ksplit < nkb || kb_per_split * (ksplit - 1) >= nkb ||
+        (ksplit > 1 && workspace == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* db = static_cast<const uint8_t*>(data);

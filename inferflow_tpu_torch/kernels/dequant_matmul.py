@@ -18,12 +18,6 @@ from ..quant.formats import get_format
 from . import _build
 
 KERNEL = "dequant_matmul"
-_SM_COUNT = 132  # H100 SXM: the decode path sizes its split-K grid for it
-# must match csrc/dequant_matmul.cu: kGemvCols, the largest M of the
-# decode path, and kGemvMaxKBlocks (the size of its x staging buffer)
-_GEMV_COLS = 128
-_GEMV_MAX_M = 8
-_GEMV_MAX_KBLOCKS = 8
 
 
 def quantized_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -40,20 +34,24 @@ def _lib():
         lib.ift_q4_matmul.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                                       vp]
         lib.ift_q4_matmul.restype = ctypes.c_int
+        lib.ift_q4_matmul_plan.argtypes = [i, i, i, i,
+                                           ctypes.POINTER(i),
+                                           ctypes.POINTER(i)]
+        lib.ift_q4_matmul_plan.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
 
 
-def gemv_split(k: int, n: int) -> tuple:
-    """(quant blocks per split, number of splits) of the decode path: at
-    most _GEMV_MAX_KBLOCKS blocks per CTA, and enough CTAs for ~2 per SM."""
-    nkb = k // 64
-    n_tiles = -(-n // _GEMV_COLS)
-    want = -(-2 * _SM_COUNT // n_tiles)
-    ksplit = max(-(-nkb // _GEMV_MAX_KBLOCKS), min(want, max(nkb // 4, 1)))
-    ksplit = min(ksplit, nkb)
-    per = -(-nkb // ksplit)
-    return per, -(-nkb // per)
+def matmul_plan(lib, m: int, k: int, n: int, device) -> tuple:
+    """(quant blocks per K split, number of splits) that the kernel's C
+    side picks for this product on this card's SM count; (0, 1) for the
+    tiled (prefill) path."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per, ksplit = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.ift_q4_matmul_plan(m, k, n, sms, ctypes.byref(per),
+                                             ctypes.byref(ksplit)),
+                 "dequant_matmul plan")
+    return per.value, ksplit.value
 
 
 def _check_kernel_format(qt: QuantizedTensor) -> None:
@@ -79,13 +77,10 @@ def quantized_matmul_cuda(x2: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor
     _build.check_operand(qt.scale, "scale", torch.float16, (k // 64, n))
     _build.check_operand(qt.base, "base", torch.float16, (k // 64, n))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    if m <= _GEMV_MAX_M:
-        per, ksplit = gemv_split(k, n)
-    else:
-        per, ksplit = 0, 1
+    lib = _lib()
+    per, ksplit = matmul_plan(lib, m, k, n, x2.device)
     work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
             if ksplit > 1 else out)
-    lib = _lib()
     rc = lib.ift_q4_matmul(_build.ptr(x2), _build.ptr(data),
                            _build.ptr(qt.scale), _build.ptr(qt.base),
                            _build.ptr(out), _build.ptr(work), m, k, n, per,

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .formats import QuantFormat, get_format
 
 _DEVICE_LAYOUT_PLANES = ("data_i4p", "pair8")
@@ -66,8 +67,10 @@ class QuantizedTensor:
             None if self.base is None else self.base.to(device))
 
     @classmethod
-    def from_np(cls, qt: dict, device="cpu") -> "QuantizedTensor":
-        """From the JAX package's ``QuantizedTensor.to_np()`` dict."""
+    def from_np(cls, qt: dict, device="cuda") -> "QuantizedTensor":
+        """From the JAX package's ``QuantizedTensor.to_np()`` dict, on
+        `device` (the card unless the caller asks for the CPU)."""
+        device = resolve_device(device)
         if any(n in qt["planes"] for n in _DEVICE_LAYOUT_PLANES):
             raise NotImplementedError(
                 f"device layout planes {sorted(qt['planes'])} are not ported")

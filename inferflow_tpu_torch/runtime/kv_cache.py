@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from ..quant.codec_torch import dequantize_q8_sym, quantize_q8_sym
 
 KV_BLOCK = 32
@@ -66,7 +67,8 @@ class KVCache:
     @classmethod
     def create(cls, layers: int, batch: int, max_len: int, kv_heads: int,
                head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
-               device="cpu") -> "KVCache":
+               device="cuda") -> "KVCache":
+        device = resolve_device(device)
         shape = (layers, batch, kv_heads, max_len, head_dim)
         length = torch.zeros((batch,), dtype=torch.int32, device=device)
         if quantized:

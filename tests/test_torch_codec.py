@@ -26,33 +26,38 @@ def _weights(seed, k=256, n=96):
     return w
 
 
-@pytest.mark.parametrize("fmt", PORTED)
-def test_quantize_bytes_match_jax(fmt):
+def test_quantize_bytes_match_jax():
     w = _weights(1)
-    ref = codec_jax.quantize(jnp.asarray(w), fmt).to_np()
-    got = codec_torch.quantize(torch.from_numpy(w), fmt).to_np()
-    assert sorted(got["planes"]) == sorted(ref["planes"])
-    for name, plane in ref["planes"].items():
-        np.testing.assert_array_equal(got["planes"][name], plane)
-    np.testing.assert_array_equal(got["scale"], np.asarray(ref["scale"]))
-    if ref["base"] is None:
-        assert got["base"] is None
-    else:
-        np.testing.assert_array_equal(got["base"], np.asarray(ref["base"]))
+    for fmt in PORTED:
+        ref = codec_jax.quantize(jnp.asarray(w), fmt).to_np()
+        got = codec_torch.quantize(torch.from_numpy(w), fmt).to_np()
+        assert sorted(got["planes"]) == sorted(ref["planes"]), fmt
+        for name, plane in ref["planes"].items():
+            np.testing.assert_array_equal(got["planes"][name], plane,
+                                          err_msg=f"{fmt} {name}")
+        np.testing.assert_array_equal(got["scale"], np.asarray(ref["scale"]),
+                                      err_msg=fmt)
+        if ref["base"] is None:
+            assert got["base"] is None, fmt
+        else:
+            np.testing.assert_array_equal(got["base"],
+                                          np.asarray(ref["base"]),
+                                          err_msg=fmt)
 
 
-@pytest.mark.parametrize("fmt", ["Q4_B64T1", "Q8_B32T2", "Q6_B64T1"])
-def test_dequantize_matches_jax(fmt):
+def test_dequantize_matches_jax():
     w = _weights(2)
-    qt_j = codec_jax.quantize(jnp.asarray(w), fmt)
-    ref = np.asarray(codec_jax.dequantize(qt_j, jnp.float32))
-    qt_t = codec_torch.QuantizedTensor.from_np(qt_j.to_np())
-    got = codec_torch.dequantize(qt_t, torch.float32).numpy()
-    np.testing.assert_array_equal(got, ref)
-    ref16 = np.asarray(codec_jax.dequantize(qt_j, jnp.bfloat16),
-                       np.float32)
-    got16 = codec_torch.dequantize(qt_t).float().numpy()
-    np.testing.assert_array_equal(got16, ref16)
+    for fmt in ("Q4_B64T1", "Q8_B32T2", "Q6_B64T1"):
+        qt_j = codec_jax.quantize(jnp.asarray(w), fmt)
+        ref = np.asarray(codec_jax.dequantize(qt_j, jnp.float32))
+        qt_t = codec_torch.QuantizedTensor.from_np(qt_j.to_np(),
+                                                     device="cpu")
+        got = codec_torch.dequantize(qt_t, torch.float32).numpy()
+        np.testing.assert_array_equal(got, ref, err_msg=fmt)
+        ref16 = np.asarray(codec_jax.dequantize(qt_j, jnp.bfloat16),
+                           np.float32)
+        got16 = codec_torch.dequantize(qt_t).float().numpy()
+        np.testing.assert_array_equal(got16, ref16, err_msg=fmt)
 
 
 def test_dequantize_padded_storage_k():
@@ -87,8 +92,8 @@ def test_q8_sym_matches_jax(block):
                                   np.asarray(deq_j, np.float32))
 
 
-@pytest.mark.parametrize("fmt", ["Q3H_B64T1", "Q5_B32T1"])
-def test_unported_formats_raise(fmt):
+def test_unported_formats_raise():
     w = torch.from_numpy(_weights(5))
-    with pytest.raises(NotImplementedError):
-        codec_torch.quantize(w, fmt)
+    for fmt in ("Q3H_B64T1", "Q5_B32T1"):
+        with pytest.raises(NotImplementedError):
+            codec_torch.quantize(w, fmt)

@@ -43,18 +43,35 @@ def _close(got, ref):
     assert err <= REL_TOL * scale + 1e-6, (err, scale)
 
 
-@pytest.mark.parametrize("m", [1, 4, 8, 9, 130])
 @pytest.mark.parametrize("k,n", [(512, 256), (2048, 2560), (5632, 2048)])
-def test_dequant_matmul_kernel(dev, m, k, n):
-    gen = torch.Generator(device=dev).manual_seed(m * 7 + k)
-    w = torch.randn((k, n), generator=gen, device=dev) * (0.5 / k ** 0.5)
-    qt = quantize(w, "Q4_B64T1")
-    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-    before = _build.launch_counts["dequant_matmul"]
-    got = quantized_matmul(x, qt)
-    torch.cuda.synchronize()
-    assert _build.launch_counts["dequant_matmul"] == before + 1
-    _close(got, quantized_matmul_plain(x, qt))
+def test_dequant_matmul_kernel(dev, k, n):
+    """Each M of the decode (GEMV) and prefill (tiled) paths against the
+    plain version; a decode plan that would overflow the x staging buffer
+    or leave K uncovered is refused by the C entry."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import _lib, matmul_plan
+    for m in (1, 4, 8, 9, 130):
+        gen = torch.Generator(device=dev).manual_seed(m * 7 + k)
+        w = torch.randn((k, n), generator=gen, device=dev) * (0.5 / k ** 0.5)
+        qt = quantize(w, "Q4_B64T1")
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        before = _build.launch_counts["dequant_matmul"]
+        got = quantized_matmul(x, qt)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["dequant_matmul"] == before + 1
+        _close(got, quantized_matmul_plain(x, qt))
+
+    lib = _lib()
+    per, ksplit = matmul_plan(lib, 4, k, n, dev)
+    assert 1 <= per <= 8 and per * ksplit >= k // 64 > per * (ksplit - 1)
+    x = torch.zeros((4, k), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
+    work = torch.empty((k // 64, 4, n), dtype=torch.float32, device=dev)
+    for bad_per, bad_split in ((9, -(-k // 64 // 9)), (1, k // 64 - 1)):
+        rc = lib.ift_q4_matmul(
+            _build.ptr(x), _build.ptr(qt.planes["data"]),
+            _build.ptr(qt.scale), _build.ptr(qt.base), _build.ptr(out),
+            _build.ptr(work), 4, k, n, bad_per, bad_split, _build.stream_of(x))
+        assert rc != 0, (bad_per, bad_split)
 
 
 def _filled_cache(dev, quantized, layers=3, b=3, h=2, s=512, d=64, seed=0):
@@ -69,30 +86,32 @@ def _filled_cache(dev, quantized, layers=3, b=3, h=2, s=512, d=64, seed=0):
     return cache, gen
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("g", [1, 8])
-@pytest.mark.parametrize("d", [64, 128])
-def test_decode_attention_kernel(dev, quantized, g, d):
-    cache, gen = _filled_cache(dev, quantized, d=d)
-    q = (torch.randn((3, 1, 2 * g, d), generator=gen, device=dev) * 0.3).to(
-        torch.bfloat16)
-    lengths = torch.tensor([1, 37, 512], dtype=torch.int32, device=dev)
-    got, _ = decode_attention(q, cache, 2, lengths, kq_scale=1.25)
-    torch.cuda.synchronize()
-    _close(got[:, 0], decode_attention_plain(q[:, 0], cache, 2, lengths,
-                                             1.25))
+def test_decode_attention_kernel(dev):
+    for quantized in (False, True):
+        for g in (1, 8):
+            for d in (64, 128):
+                cache, gen = _filled_cache(dev, quantized, d=d)
+                q = (torch.randn((3, 1, 2 * g, d), generator=gen, device=dev)
+                     * 0.3).to(torch.bfloat16)
+                lengths = torch.tensor([1, 37, 512], dtype=torch.int32,
+                                       device=dev)
+                got, _ = decode_attention(q, cache, 2, lengths, kq_scale=1.25)
+                torch.cuda.synchronize()
+                _close(got[:, 0], decode_attention_plain(q[:, 0], cache, 2,
+                                                         lengths, 1.25))
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("g", [1, 8])
-def test_chunk_attention_kernel(dev, quantized, g):
-    cache, gen = _filled_cache(dev, quantized, seed=1)
-    c, start = 96, 64
-    q = (torch.randn((1, c, 2 * g, 64), generator=gen, device=dev)
-         * 0.3).to(torch.bfloat16)
-    got, _ = chunk_attention(q, cache, 1, 2, start, kq_scale=0.9)
-    torch.cuda.synchronize()
-    _close(got[0], chunk_attention_plain(q[0], cache, 1, 2, start, 0.9))
+def test_chunk_attention_kernel(dev):
+    for quantized in (False, True):
+        for g in (1, 8):
+            cache, gen = _filled_cache(dev, quantized, seed=1)
+            c, start = 96, 64
+            q = (torch.randn((1, c, 2 * g, 64), generator=gen, device=dev)
+                 * 0.3).to(torch.bfloat16)
+            got, _ = chunk_attention(q, cache, 1, 2, start, kq_scale=0.9)
+            torch.cuda.synchronize()
+            _close(got[0], chunk_attention_plain(q[0], cache, 1, 2, start,
+                                                 0.9))
 
 
 def test_engine_on_card_matches_cpu(dev):

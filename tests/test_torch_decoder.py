@@ -96,7 +96,7 @@ def test_prefill_logits_and_cache_match_jax(models):
     jc = JKVCache.create(hp.decoder_layers, 2, 32, hp.kv_heads, hp.head_dim,
                          quantized=True)
     tc = TKVCache.create(hp.decoder_layers, 2, 32, hp.kv_heads, hp.head_dim,
-                         quantized=True)
+                         quantized=True, device="cpu")
     ref, jc = jdec.decoder_forward(spec_j, params_j, jnp.asarray(tokens),
                                    jnp.asarray(pos), jc)
     got, tc = tdec.decoder_forward(spec_t, params_t,
@@ -119,7 +119,7 @@ def test_decode_step_matches_jax(models):
     jc = JKVCache.create(hp.decoder_layers, 2, 32, hp.kv_heads, hp.head_dim,
                          quantized=True)
     tc = TKVCache.create(hp.decoder_layers, 2, 32, hp.kv_heads, hp.head_dim,
-                         quantized=True)
+                         quantized=True, device="cpu")
     _, jc = jdec.decoder_forward(spec_j, params_j, jnp.asarray(tokens),
                                  jnp.asarray(pos), jc)
     tdec.decoder_forward(spec_t, params_t, torch.from_numpy(tokens),
@@ -154,7 +154,7 @@ def test_chunk_loop_matches_jax(models):
     jc = JKVCache.create(hp.decoder_layers, 2, 64, hp.kv_heads, hp.head_dim,
                          quantized=True)
     tc = TKVCache.create(hp.decoder_layers, 2, 64, hp.kv_heads, hp.head_dim,
-                         quantized=True)
+                         quantized=True, device="cpu")
     for start in (0, 8):
         chunk = prompt[:, start:start + 8]
         pos = start + np.arange(8, dtype=np.int32)[None]

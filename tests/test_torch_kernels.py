@@ -46,28 +46,30 @@ def _assert_close(got, ref, rel):
     assert err <= rel * np.abs(ref).max() + 1e-6, (err, np.abs(ref).max())
 
 
-@pytest.mark.parametrize("m", [1, 4, 16])
 @pytest.mark.parametrize("k", [512, 1024])
-def test_dequant_matmul_plain_matches_jax(m, k):
+def test_dequant_matmul_plain_matches_jax(k):
     n = 256
-    rng = np.random.default_rng(m * 31 + k)
-    w = rng.standard_normal((k, n)).astype(np.float32) * (0.5 / np.sqrt(k))
-    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
-    qt_j = codec_jax.quantize(jnp.asarray(w), "Q4_B64T1")
-    got = quantized_matmul(_t(x), QuantizedTensor.from_np(qt_j.to_np()))
-    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
-    got = got.float().numpy()
+    for m in (1, 4, 16):
+        rng = np.random.default_rng(m * 31 + k)
+        w = rng.standard_normal((k, n)).astype(np.float32) * (0.5 / np.sqrt(k))
+        x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+        qt_j = codec_jax.quantize(jnp.asarray(w), "Q4_B64T1")
+        got = quantized_matmul(_t(x), QuantizedTensor.from_np(qt_j.to_np(),
+                                                              device="cpu"))
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        got = got.float().numpy()
 
-    wd = codec_jax.dequantize(qt_j, jnp.bfloat16).astype(jnp.float32)
-    xla = jnp.matmul(x.astype(jnp.float32), wd).astype(jnp.bfloat16)
-    _assert_close(got, xla, 8e-3)
-    _assert_close(got, quantized_matmul_interpret(x, qt_j), 3e-2)
+        wd = codec_jax.dequantize(qt_j, jnp.bfloat16).astype(jnp.float32)
+        xla = jnp.matmul(x.astype(jnp.float32), wd).astype(jnp.bfloat16)
+        _assert_close(got, xla, 8e-3)
+        _assert_close(got, quantized_matmul_interpret(x, qt_j), 3e-2)
 
 
 def _fill_both(rng, layers, b, s, h, d, quantized):
     """The same random rows written into both packages' caches."""
     jc = JKVCache.create(layers, b, s, h, d, quantized=quantized)
-    tc = TKVCache.create(layers, b, s, h, d, quantized=quantized)
+    tc = TKVCache.create(layers, b, s, h, d, quantized=quantized,
+                         device="cpu")
     zeros = np.zeros((b,), np.int32)
     for layer in range(layers):
         k = rng.standard_normal((b, s, h, d)).astype(np.float32)
@@ -84,36 +86,40 @@ def _fill_both(rng, layers, b, s, h, d, quantized):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("g", [1, 2])
-def test_decode_attention_plain_matches_jax(quantized, g):
-    rng = np.random.default_rng(10 + g)
-    layers, b, h, s, d = 3, 2, 2, 1024, 64
-    jc, tc = _fill_both(rng, layers, b, s, h, d, quantized)
-    q = jnp.asarray(rng.standard_normal((b, 1, h * g, d)) * 0.3,
-                    jnp.bfloat16)
-    lengths = np.asarray([5, 700], np.int32)
-    ref, _ = jattn.decode_attention(q, jc, layers - 1, jnp.asarray(lengths),
-                                    kq_scale=1.25, interpret=True)
-    got, _ = tattn.decode_attention(_t(q), tc, layers - 1,
-                                    torch.from_numpy(lengths), kq_scale=1.25)
-    assert got.shape == (b, 1, h * g, d) and got.dtype == torch.bfloat16
-    _assert_close(got.float().numpy(), ref, 8e-3)
+def test_decode_attention_plain_matches_jax(quantized):
+    for g in (1, 2):
+        rng = np.random.default_rng(10 + g)
+        layers, b, h, s, d = 3, 2, 2, 1024, 64
+        jc, tc = _fill_both(rng, layers, b, s, h, d, quantized)
+        q = jnp.asarray(rng.standard_normal((b, 1, h * g, d)) * 0.3,
+                        jnp.bfloat16)
+        lengths = np.asarray([5, 700], np.int32)
+        ref, _ = jattn.decode_attention(q, jc, layers - 1,
+                                        jnp.asarray(lengths), kq_scale=1.25,
+                                        interpret=True)
+        got, _ = tattn.decode_attention(_t(q), tc, layers - 1,
+                                        torch.from_numpy(lengths),
+                                        kq_scale=1.25)
+        assert got.shape == (b, 1, h * g, d) and got.dtype == torch.bfloat16
+        _assert_close(got.float().numpy(), ref, 8e-3)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("g", [1, 2])
-def test_chunk_attention_plain_matches_jax(quantized, g):
-    rng = np.random.default_rng(20 + g)
-    layers, b, h, s, d, c = 2, 3, 2, 512, 64, 32
-    slot, start = 1, 64
-    jc, tc = _fill_both(rng, layers, b, s, h, d, quantized)
-    q = jnp.asarray(rng.standard_normal((1, c, h * g, d)) * 0.3,
-                    jnp.bfloat16)
-    ref, _ = jattn.chunk_attention(q, jc, 1, slot, start, kq_scale=0.9,
-                                   interpret=True)
-    got, _ = tattn.chunk_attention(_t(q), tc, 1, slot, start, kq_scale=0.9)
-    assert got.shape == (1, c, h * g, d) and got.dtype == torch.bfloat16
-    _assert_close(got.float().numpy(), ref, 8e-3)
+def test_chunk_attention_plain_matches_jax():
+    for quantized in (False, True):
+        for g in (1, 2):
+            rng = np.random.default_rng(20 + g)
+            layers, b, h, s, d, c = 2, 3, 2, 512, 64, 32
+            slot, start = 1, 64
+            jc, tc = _fill_both(rng, layers, b, s, h, d, quantized)
+            q = jnp.asarray(rng.standard_normal((1, c, h * g, d)) * 0.3,
+                            jnp.bfloat16)
+            ref, _ = jattn.chunk_attention(q, jc, 1, slot, start,
+                                           kq_scale=0.9, interpret=True)
+            got, _ = tattn.chunk_attention(_t(q), tc, 1, slot, start,
+                                           kq_scale=0.9)
+            assert (got.shape == (1, c, h * g, d)
+                    and got.dtype == torch.bfloat16)
+            _assert_close(got.float().numpy(), ref, 8e-3)
 
 
 def test_kv_cache_update_slot_and_decode_rows_match_jax():
