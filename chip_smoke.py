@@ -7,25 +7,34 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
 
 1. prints the card (torch's name; nvidia-smi's name and power limit);
 2. holds each kernel against its plain PyTorch version at the shapes the
-   serving path gives it (B1 dequant-matmul: M in {1, 4, 256} for the five
-   tinyllama-1.1b projections; B2 decode attention: 4 slots, 1024-row
-   context, layer 21; B3 chunk attention: a 256-row chunk at row 256) and
-   times kernel, plain version and one PyTorch library call (cuBLAS matmul
-   on the pre-dequantized weight, scaled_dot_product_attention on
-   pre-dequantized K/V; timed here only, never used by the package), with
-   the L2 cache flushed before every timed launch; one JSON line each;
+   serving paths give it and times kernel, plain version and one PyTorch
+   library call where there is one (timed here only, never used by the
+   package), with the L2 cache flushed before every timed launch; one
+   JSON line each:
+   - B1 dequant-matmul: M in {1, 4, 256} for the five tinyllama-1.1b
+     projections (library: cuBLAS on the pre-dequantized weight);
+   - B2 decode attention: 4 slots, 1024-row context, layer 21; B3 chunk
+     attention: a 256-row chunk at row 256 (library:
+     scaled_dot_product_attention on pre-dequantized K/V);
+   - B4 the whole-model fused decode step at full tinyllama-1.1b width and
+     depth (i8mm weights from seed-0 Q4_B64T1, a 1024-row Q8 cache) at
+     B = 4 (lengths 1023, 700, 301, 17) and B = 1; and its int8 GEMV alone
+     at the four layer shapes and the lm_head, M in {1, 4} (library:
+     torch._int_mm on the same int8 rows, padded to the 24 rows it takes);
 3. serves four greedy queries (prompts of 7, 60, 200 and 300 tokens, 16
-   new tokens each; the 300-token prompt takes the chunked path) with the
-   engine at full tinyllama-1.1b width (seed-0 synthetic Q4_B64T1 weights,
-   packed wire layout, Q8 KV cache, 4 slots, 1024-token context), counts
-   each kernel's launches in that run and requires all three > 0, reads
-   the device memory of the weights and its peaks while building them and
-   while serving, profiles
-   three decode steps of one more query (device busy and idle share, the
-   device time by kernel), and holds every served logits row (each prefill
-   and each decode step of the four queries) against the same engine on
-   the CPU (plain versions), run in the same interleaving and fed the
-   tokens the card served.
+   new tokens each; the 300-token prompt takes the chunked path, kernel
+   B3) with the engine at full tinyllama-1.1b width, a Q8 KV cache, 4
+   slots and a 1024-token context, twice:
+   (a) the default layout, which resolves to i8mm on the card: every
+       decode step runs B4 (and the lm_head the int8 GEMV); B1 and B2
+       must not launch;
+   (b) slice 1's packed Q4_B64T1 wire layout at ENGINE_B_LAYERS layers
+       (per-layer decode, kernels B1 and B2);
+   each run counts the kernels' launches (reset just before it), reads the
+   device memory, profiles three decode steps of one more query (device
+   busy and idle share, device time by kernel), and holds every served
+   logits row against the same engine on the CPU (plain versions), run in
+   the same interleaving and fed the tokens the card served.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -46,6 +55,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+H100_INT8_OPS = 1979e12  # dense int8 tensor cores, H100 SXM data sheet
 KERNEL_REL_TOL = 8e-3  # |kernel - plain| <= tol * max|plain|: ~2 bf16 ulps
 TIMED_ITERS = 20
 MODEL = "tinyllama-1.1b"
@@ -58,6 +68,25 @@ SLOTS, CONTEXT = 4, 1024
 # 0.022-0.035 on an H100); the gate is about twice that, under 4% of the
 # largest logit (~2.2)
 ENGINE_LOGIT_TOL = 0.08
+# the i8mm engine (a) against the CPU engine: the card's fused step walks
+# the cache in another order than the plain version and can move a bf16
+# rounding, and with it a row's int8 activation scale, that the plain
+# version does not
+ENGINE_I8MM_LOGIT_TOL = 0.12  # measured 0.053-0.062 (H100, 700 W)
+ENGINE_B_LAYERS = 6  # depth of the packed run (b)
+FUSED_LENGTHS = (1023, 700, 301, 17)
+# B4 against its plain version.  One layer (the same inputs on both
+# sides): ONE_LAYER_TOL x max|plain|; at B = 1 (float32 throughout) the
+# two agree exactly, at B > 1 both round p * vscale to bf16 but relative
+# to other running maxima (the kernel's split walk, the plain version's
+# TPU walk), which can move an int8 code of the wo product: measured 0 and
+# 1.4%.  All 22 layers: FUSED_TOL x max|plain|; the
+# random-weight stack amplifies each moved bf16 rounding (and with it an
+# int8 activation code of the next product) layer by layer: measured 4.2%
+# at B = 1 and 6.3% at B = 4 (H100, 700 W), and the JAX package's own two
+# attention modes disagree the same way (tests/test_torch_decode_step.py)
+FUSED_TOL = 0.12
+ONE_LAYER_TOL = 0.03
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -66,6 +95,12 @@ KERNEL_SOURCES = {
                          "inferflow_tpu/kernels/attention.py:68"),
     "chunk_attention": ("inferflow_tpu_torch/kernels/csrc/attention.cu",
                         "inferflow_tpu/kernels/attention.py:507"),
+    "fused_decode_step": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+                          "inferflow_tpu/kernels/decode_step.py:255"),
+    # B4's int8 GEMV (the TPU kernel's percol tile, stream_mm), also the
+    # i8mm lm_head at decode
+    "i8mm_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+                  "inferflow_tpu/kernels/decode_step.py:502"),
 }
 
 
@@ -74,59 +109,76 @@ def emit(obj) -> None:
 
 
 class Timer:
-    """Median device time of a callable over TIMED_ITERS launches, each
-    after an L2 flush, measured with CUDA events.
+    """Median device time of a callable over TIMED_ITERS calls, each after
+    an L2 flush, measured with CUDA events.
 
     The flush READS 128 MiB (a write would leave 50 MB of dirty lines whose
-    write-back the timed kernel would pay for).  A device sleep is queued
-    first, so the host enqueues every launch before the device reaches it:
-    the events then time the device work, not the host's Python between
-    two events.  An event behind the sleep proves it: if the device has
-    passed it by the time the last launch is queued, the host fell behind,
-    and the measurement is repeated with a four times longer sleep."""
+    write-back the timed call would pay for).  Each call is queued behind a
+    device sleep, so the host enqueues all of the call's launches before
+    the device reaches them: the events then time the device work, not the
+    host's Python between launches.  An event behind the sleep proves it:
+    if the device has passed it by the time the call is queued, the host
+    fell behind and the call is timed again behind a four times longer
+    sleep.  One call per sleep keeps the queued launches (the fused step
+    issues about 115) far below the launch queue's depth, past which the
+    host would block.  A callable that waits on the device itself (a
+    device-to-host read) can never be queued ahead: it is timed alone, and
+    its events then include its host gaps (a "timer" line names it)."""
 
-    SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's ~2 GHz clock
+    SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's ~2 GHz clock
 
     def __init__(self, device):
         self.flush_buf = torch.ones(32 * 1024 * 1024, dtype=torch.int32,
                                     device=device)
 
-    def __call__(self, fn) -> float:
+    def _once(self, fn, sleep_cycles: int):
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
+        gate = torch.cuda.Event()
+        gate.record()
+        self.flush_buf.max()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        host_ahead = not gate.query()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), host_ahead
+
+    def __call__(self, fn, label: str = "") -> float:
         fn()  # warm up
         torch.cuda.synchronize()
-        for attempt in range(4):
-            torch.cuda._sleep(self.SLEEP_CYCLES * 4 ** attempt)
-            gate = torch.cuda.Event()
-            gate.record()
-            pairs = []
-            for _ in range(TIMED_ITERS):
-                self.flush_buf.max()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                pairs.append((start, end))
-            host_ahead = not gate.query()
-            torch.cuda.synchronize()
-            if host_ahead:
-                return float(np.median([s.elapsed_time(e) for s, e in pairs]))
-        raise RuntimeError("the host could not queue the timed launches "
-                           "ahead of the device")
+        times = []
+        for _ in range(TIMED_ITERS):
+            for attempt in range(3):
+                ms, ahead = self._once(fn, self.SLEEP_CYCLES * 4 ** attempt)
+                if ahead:
+                    times.append(ms)
+                    break
+            else:
+                break
+        if len(times) == TIMED_ITERS:
+            return float(np.median(times))
+        emit({"phase": "timer", "ungated": label})
+        return float(np.median([self._once(fn, 0)[0]
+                                for _ in range(TIMED_ITERS)]))
 
 
-def bound(bytes_moved: float, flops: float) -> tuple:
+def bound(bytes_moved: float, flops: float,
+          peak: float = H100_BF16_FLOPS) -> tuple:
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(got: torch.Tensor, ref: torch.Tensor) -> dict:
+def compare(got: torch.Tensor, ref: torch.Tensor,
+            rel_tol: float = KERNEL_REL_TOL) -> dict:
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    ok = bool(np.isfinite(err) and err <= KERNEL_REL_TOL * scale + 1e-6)
+    ok = bool(np.isfinite(err) and err <= rel_tol * scale + 1e-6)
     return {"max_abs_err": err, "rel_err": err / max(scale, 1e-30),
-            "tolerance": f"max_abs_err <= {KERNEL_REL_TOL} * max|plain|",
+            "tolerance": f"max_abs_err <= {rel_tol} * max|plain|",
             "ok": ok}
 
 
@@ -276,6 +328,140 @@ def phase_b3(timer, dev, spec) -> list:
     return [row]
 
 
+def phase_i8mm_gemv(timer, dev, params) -> list:
+    """B4's int8 GEMV alone at the four layer shapes and the lm_head."""
+    import torch.nn.functional as F
+    from inferflow_tpu_torch.kernels.decode_step import (i8mm_gemv_cuda,
+                                                         i8mm_matmul_plain)
+    from inferflow_tpu_torch.quant.codec_torch import int8_rowwise_activations
+    lp = params["layers"][0]
+    weights = {"qkv": lp["attn"]["qkv"], "wo": lp["attn"]["wo"],
+               "w1n3": lp["ffn"]["w1n3"], "w2": lp["ffn"]["w2"],
+               "lm_head": params["lm_head"]}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for name, w in weights.items():
+        k, n = w.shape
+        for m in (1, 4):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = i8mm_gemv_cuda(x, w)
+            ref = i8mm_matmul_plain(x, w).float()
+            xq, _ = int8_rowwise_activations(x)
+            xq = F.pad(xq, (0, 0, 0, 24 - m))  # _int_mm takes > 16 rows
+            torch.cuda.synchronize()
+            res = compare(got.to(torch.bfloat16), ref)
+            bytes_moved = k * n + 4 * n + 2 * m * k + 4 * m * n
+            b_ms, b_by = bound(bytes_moved, 2 * m * k * n, H100_INT8_OPS)
+            row = {"phase": "kernel", "kernel": "i8mm_gemv",
+                   "shape": f"{name} M={m} K={k} N={n}", **res,
+                   "ms": timer(lambda: i8mm_gemv_cuda(x, w)),
+                   "plain_ms": timer(lambda: i8mm_matmul_plain(x, w),
+                                     f"i8mm_matmul_plain {name} M={m}"),
+                   "library_ms": timer(lambda: torch._int_mm(xq, w.data)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def _weight_bytes(params) -> int:
+    total = 0
+    for lp in params["layers"]:
+        for grp in (lp["attn"], lp["ffn"]):
+            for t in grp.values():
+                if hasattr(t, "data") and hasattr(t, "scale"):
+                    total += t.nbytes
+                else:
+                    total += t.numel() * t.element_size()
+    return total
+
+
+def phase_b4(timer, dev, spec, params) -> list:
+    """The whole-model fused decode step against its plain version, both on
+    the card, on twin caches; the hidden state and every layer's appended
+    K/V row (in Q8 steps of the plain row's scale)."""
+    import dataclasses
+    from inferflow_tpu_torch.kernels import decode_step
+    hp = spec.hyper_params
+    n_layers = hp.decoder_layers
+    rows = []
+    for lengths in (FUSED_LENGTHS, (700,)):
+        b = len(lengths)
+        cache, gen = _filled_cache(dev, spec, b, CONTEXT, seed=5)
+        cache.with_length(torch.tensor(lengths, device=dev))
+        twin = dataclasses.replace(
+            cache, k=cache.k.clone(), v=cache.v.clone(),
+            k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
+            length=cache.length.clone())
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = params["dec_embeddings"][tokens]
+        pos = cache.length[:, None].clone()
+        # one layer, the same inputs on both sides
+        one = [dataclasses.replace(c, k=c.k[:1], v=c.v[:1],
+                                   k_scale=c.k_scale[:1],
+                                   v_scale=c.v_scale[:1])
+               for c in (cache, twin)]
+        got1, _ = decode_step.fused_decode_step(spec, params["layers"][:1],
+                                                x, pos, one[0])
+        ref1, _ = decode_step.fused_decode_step_plain(
+            spec, params["layers"][:1], x, pos, one[1])
+        one_layer = compare(got1, ref1, ONE_LAYER_TOL)
+        got, _ = decode_step.fused_decode_step(spec, params["layers"], x,
+                                               pos, cache)
+        ref, _ = decode_step.fused_decode_step_plain(spec, params["layers"],
+                                                     x, pos, twin)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        steps = []
+        for layer in range(n_layers):
+            worst = 0.0
+            for a, r in zip(cache.read_layer(layer, torch.float32),
+                            twin.read_layer(layer, torch.float32)):
+                for slot, n in enumerate(lengths):
+                    row = min(n, CONTEXT - 1)
+                    q8 = r[slot, row].abs().amax(dim=-1) / 127.0
+                    diff = (a[slot, row] - r[slot, row]).abs().amax(dim=-1)
+                    worst = max(worst, (diff / q8.clamp(min=1e-12)).max()
+                                .item())
+            steps.append(worst)
+        live = sum(min(n, CONTEXT) for n in lengths)
+        nblk = hp.head_dim // 32
+        kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
+                                                        + 2 * nblk)
+        new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim + 2 * nblk)
+        w_bytes = _weight_bytes(params)
+        bytes_moved = w_bytes + kv_bytes + new_rows + 2 * 2 * b * hp.embd_dims
+        ops = 2 * b * sum(lp[g][w].data.numel() for lp in params["layers"]
+                          for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                       ("ffn", "w1n3"), ("ffn", "w2")))
+        b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
+        ok = bool(np.isfinite(err) and err <= FUSED_TOL * scale
+                  and steps[0] <= 1.0 + 1e-3 and one_layer["ok"])
+        row = {"phase": "kernel", "kernel": "fused_decode_step",
+               "shape": f"{MODEL} L={n_layers} B={b} lengths={list(lengths)} "
+                        f"S={CONTEXT}",
+               "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
+               "tolerance": f"max_abs_err <= {FUSED_TOL} * max|plain|; "
+                            f"layer-0 rows within one Q8 step; one layer "
+                            f"alone: {one_layer['tolerance']}",
+               "one_layer": one_layer,
+               "appended_row_q8_steps_by_layer": steps, "ok": ok,
+               "ms": timer(lambda: decode_step.fused_decode_step(
+                   spec, params["layers"], x, pos, cache),
+                   f"fused_decode_step B={b}"),
+               "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
+                   spec, params["layers"], x, pos, twin),
+                   f"fused_decode_step_plain B={b}"),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound": bytes_moved}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def _record_rows(eng, forced=None) -> dict:
     """Keep every logits row the engine samples from, per query id.  With
     `forced` ({query id: tokens}) the i-th sample of a query returns
@@ -316,7 +502,7 @@ def _device_us(event) -> float:
     return float(event.self_device_time_total)
 
 
-def profile_decode(eng, prompt, steps: int = 3) -> None:
+def profile_decode(eng, prompt, label: str, steps: int = 3) -> None:
     """Where a decode step's time goes: torch.profiler over `steps` decode
     steps of one query (after its prefill and one warm step); the device's
     busy time is the sum of its kernels' times (one stream: they do not
@@ -340,8 +526,9 @@ def profile_decode(eng, prompt, steps: int = 3) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and _device_us(e) > 0]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
-    top = sorted(events, key=_device_us, reverse=True)[:10]
-    emit({"phase": "decode_profile", "decode_steps": steps,
+    top = sorted(events, key=_device_us, reverse=True)[:12]
+    emit({"phase": f"decode_profile_{label}", "decode_steps": steps,
+          "device_launches_per_step": sum(e.count for e in events) / steps,
           "wall_ms_per_step": wall_ms / steps,
           "device_busy_ms_per_step": (busy_ms / steps) if busy_ms
           else "not measured",
@@ -352,23 +539,33 @@ def profile_decode(eng, prompt, steps: int = 3) -> None:
                              for e in top]})
 
 
-def phase_engine(dev, spec) -> dict:
-    from inferflow_tpu_torch.kernels import _build
+def build_params(dev, spec) -> tuple:
+    """Seed-0 synthetic Q4_B64T1 params on the card in the spec's layout
+    ('' resolves on the card), with the device memory they take: resident
+    weights and the peak while building them (float32 draws, quantizer
+    temporaries), above what was allocated before."""
     from inferflow_tpu_torch.models.zoo import make_synthetic_params
-    from inferflow_tpu_torch.runtime.engine import InferenceEngine
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = make_synthetic_params(spec, "Q4_B64T1", seed=0, device=dev)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    # device memory above what the kernel phases left: resident weights,
-    # the peak while building them (float32 draws, quantizer temporaries),
-    # and the peak while serving (weights, cache, activations)
-    memory = {"weights": torch.cuda.memory_allocated(dev) - mem_before,
-              "build_peak": torch.cuda.max_memory_allocated(dev) - mem_before}
+    memory = {"before": mem_before,
+              "weights": torch.cuda.memory_allocated(dev) - mem_before,
+              "build_peak": torch.cuda.max_memory_allocated(dev) - mem_before,
+              "build_s": time.perf_counter() - t0}
+    return params, memory
+
+
+def phase_engine(dev, spec, params, memory, label, must_launch,
+                 must_not_launch, tol) -> dict:
+    """Serve the four queries; the kernels' launches counted from 0 for
+    this run only."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, spec.hyper_params.vocab_size,
@@ -383,7 +580,8 @@ def phase_engine(dev, spec) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
-    memory["serving_peak"] = torch.cuda.max_memory_allocated(dev) - mem_before
+    memory = dict(memory, serving_peak=torch.cuda.max_memory_allocated(dev)
+                  - memory["before"])
     outputs = [eng.query_tokens(q) for q in qids]
     served = sum(len(o) for o in outputs)
     vocab = spec.hyper_params.vocab_size
@@ -392,29 +590,39 @@ def phase_engine(dev, spec) -> dict:
     for q in qids:
         assert all(np.isfinite(r).all() and r.shape == (vocab,)
                    for r in rows[q])
-    emit({"phase": "engine", "model": MODEL, "slots": SLOTS,
-          "context": CONTEXT, "prompt_lens": list(PROMPT_LENS),
+    emit({"phase": f"engine_{label}", "model": MODEL,
+          "layers": spec.hyper_params.decoder_layers,
+          "device_layout": spec.device_layout or "auto",
+          "layout_type": type(params["lm_head"]).__name__,
+          "slots": SLOTS, "context": CONTEXT,
+          "prompt_lens": list(PROMPT_LENS),
           "tokens_served": served, "engine_steps": steps,
-          "wall_s": wall_s, "param_build_s": build_s,
+          "decode_steps": len(decode_ms), "wall_s": wall_s,
           "device_bytes": memory,
           "prefill_ms_per_step": prefill_ms,
           "decode_ms_per_step_median": float(np.median(decode_ms)),
           "decode_ms_per_step": decode_ms,
           "first_tokens": [o[:4] for o in outputs],
           "kernel_launches": {k: launches.get(k, 0) for k in KERNEL_SOURCES}})
-    for k in KERNEL_SOURCES:
-        assert launches.get(k, 0) > 0, f"{k} never launched in the engine run"
-    profile_decode(eng, prompts[1])
+    for k in must_launch:
+        assert launches.get(k, 0) > 0, f"{k} never launched in run {label}"
+    for k in must_not_launch:
+        assert launches.get(k, 0) == 0, f"{k} launched in run {label}"
+    if "fused_decode_step" in must_launch:
+        assert launches["fused_decode_step"] == len(decode_ms), \
+            "a decode step did not take the fused step"
+    profile_decode(eng, prompts[1], label)
 
-    check_against_cpu(spec, params, prompts, qids, rows, outputs)
+    check_against_cpu(spec, params, prompts, qids, rows, outputs, label, tol)
     return launches
 
 
-def check_against_cpu(spec, params, prompts, qids, rows, outputs) -> None:
+def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
+                      tol) -> None:
     """The same model and queries served on the CPU (the plain versions),
     in the same interleaving and fed the tokens the card served: every
     sampled row (each prefill and each decode step of every query) is held
-    against the card's within ENGINE_LOGIT_TOL."""
+    against the card's within `tol`."""
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     t0 = time.perf_counter()
     cpu = InferenceEngine(spec, params, max_concurrent_queries=SLOTS,
@@ -423,10 +631,9 @@ def check_against_cpu(spec, params, prompts, qids, rows, outputs) -> None:
     cpu_rows = _record_rows(cpu, forced=dict(zip(qids, outputs)))
     ref_qids, _, _, _ = _serve(cpu, prompts, MAX_NEW)
     assert ref_qids == qids, (ref_qids, qids)
-    report = {"phase": "engine_vs_cpu",
+    report = {"phase": f"engine_{label}_vs_cpu",
               "cpu_reference_s": time.perf_counter() - t0,
-              "tolerance": f"every sampled row: max_abs_err <= "
-                           f"{ENGINE_LOGIT_TOL}"}
+              "tolerance": f"every sampled row: max_abs_err <= {tol}"}
     ok = True
     for q, n, served in zip(qids, PROMPT_LENS, outputs):
         card, ref = rows[q], cpu_rows[q]
@@ -436,12 +643,21 @@ def check_against_cpu(spec, params, prompts, qids, rows, outputs) -> None:
         report[f"prompt_{n}"] = {
             "rows": len(errs), "max_abs_err": max(errs),
             "worst_row": int(np.argmax(errs)), "first_row_err": errs[0],
+            "row_errs": errs,
             "max_abs_logit": float(max(np.abs(b).max() for b in ref)),
             "argmax_equal": sum(int(a.argmax()) == int(b.argmax())
                                 for a, b in zip(card, ref))}
-        ok &= max(errs) <= ENGINE_LOGIT_TOL
+        ok &= max(errs) <= tol
     emit(report)
-    assert ok, "served logits disagree with the CPU reference"
+    assert ok, f"run {label}: served logits disagree with the CPU reference"
+
+
+def _run(results, failed, pname, fn) -> None:
+    try:
+        results[pname] = fn()
+    except Exception:  # noqa: BLE001 - report every phase, then fail
+        traceback.print_exc()
+        failed.append(pname)
 
 
 def main() -> int:
@@ -455,6 +671,7 @@ def main() -> int:
         return 2
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.models.zoo import make_spec
+    from inferflow_tpu_torch.quant.codec_torch import resolve_auto_layout
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions: fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -473,20 +690,46 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(_build.SOURCES)})
 
-    spec = make_spec(MODEL, device_layout="packed")
+    packed = make_spec(MODEL, device_layout="packed")
     timer = Timer(dev)
     results, failed = {}, []
-    phases = [("dequant_matmul", lambda: phase_b1(timer, dev, spec)),
-              ("decode_attention", lambda: phase_b2(timer, dev, spec)),
-              ("chunk_attention", lambda: phase_b3(timer, dev, spec)),
-              ("engine", lambda: phase_engine(dev, spec))]
-    for pname, fn in phases:
-        try:
-            results[pname] = fn()
-        except Exception:  # noqa: BLE001 - report every phase, then fail
-            traceback.print_exc()
-            failed.append(pname)
-    for pname in ("dequant_matmul", "decode_attention", "chunk_attention"):
+    _run(results, failed, "dequant_matmul",
+         lambda: phase_b1(timer, dev, packed))
+    _run(results, failed, "decode_attention",
+         lambda: phase_b2(timer, dev, packed))
+    _run(results, failed, "chunk_attention",
+         lambda: phase_b3(timer, dev, packed))
+
+    # (a) the default layout: resolves to i8mm on the card
+    spec_a = make_spec(MODEL)
+    layout = resolve_auto_layout(spec_a, "Q4_B64T1", dev)
+    emit({"phase": "layout", "model": MODEL, "weight_format": "Q4_B64T1",
+          "resolved": layout,
+          "device_memory": torch.cuda.get_device_properties(0).total_memory})
+    if layout != "i8mm":
+        failed.append("layout")
+    params_a, memory_a = build_params(dev, spec_a)
+    _run(results, failed, "i8mm_gemv",
+         lambda: phase_i8mm_gemv(timer, dev, params_a))
+    _run(results, failed, "fused_decode_step",
+         lambda: phase_b4(timer, dev, spec_a, params_a))
+    _run(results, failed, "engine_a", lambda: phase_engine(
+        dev, spec_a, params_a, memory_a, "a",
+        ("fused_decode_step", "chunk_attention", "i8mm_gemv"),
+        ("decode_attention", "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL))
+    del params_a
+    torch.cuda.empty_cache()
+
+    # (b) slice 1's packed wire layout, per-layer decode
+    spec_b = make_spec(MODEL, device_layout="packed", layers=ENGINE_B_LAYERS)
+    params_b, memory_b = build_params(dev, spec_b)
+    _run(results, failed, "engine_b", lambda: phase_engine(
+        dev, spec_b, params_b, memory_b, "b",
+        ("dequant_matmul", "decode_attention", "chunk_attention"),
+        ("fused_decode_step",), ENGINE_LOGIT_TOL))
+
+    for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
+                  "i8mm_gemv", "fused_decode_step"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -494,13 +737,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    launches = results["engine"]
-    b1 = next(r for r in results["dequant_matmul"]
-              if r["shape"].startswith("w1n3 M=4 "))
+    # each kernel's launches from the engine run whose path it is on
+    launches = {"dequant_matmul": results["engine_b"]["dequant_matmul"],
+                "decode_attention": results["engine_b"]["decode_attention"],
+                "chunk_attention": results["engine_a"]["chunk_attention"],
+                "fused_decode_step": results["engine_a"]["fused_decode_step"],
+                "i8mm_gemv": results["engine_a"]["i8mm_gemv"]}
+    picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
+                                    if r["shape"].startswith("w1n3 M=4 ")),
+             "decode_attention": results["decode_attention"][0],
+             "chunk_attention": results["chunk_attention"][0],
+             "fused_decode_step": results["fused_decode_step"][0],
+             "i8mm_gemv": next(r for r in results["i8mm_gemv"]
+                               if r["shape"].startswith("lm_head M=4 "))}
     summary = []
-    for kname, row in (("dequant_matmul", b1),
-                       ("decode_attention", results["decode_attention"][0]),
-                       ("chunk_attention", results["chunk_attention"][0])):
+    for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]
         summary.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": row["shape"],

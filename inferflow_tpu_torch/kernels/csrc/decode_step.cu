@@ -1,0 +1,768 @@
+// Whole-model fused decode step (B4) for int8 per-column ("i8mm") weights
+// and a Q8 KV cache, plus the int8 GEMV it is built from.
+//
+// Replaces inferflow_tpu/kernels/decode_step.py `_make_kernel` (its
+// pallas_call at :1373, public entry `fused_decode_step` at :1574) in its
+// i8mm weight mode (`_MM.percol`), with both attention modes: per-slot for
+// B = 1 and batched (bf16-rounded q and p*vscale) for B > 1.
+//
+// Per layer l the step computes (the TPU kernel's phases 1-8):
+//   xn   = bf16(rmsnorm(xres) * anorm)        x quantized per row to int8
+//   qkv  = f32((acc_i32 * xs_row) * wscale_col)
+//   q, k = rope(q), rope(k); the step's K/V row quantized to Q8 (f32 scale
+//          for the self term, f16 scale and the codes into cache row
+//          `length` of layer l)
+//   ctx  = bf16(softmax over cache rows [0, length) and the self row)
+//   xres += bf16(i8mm(ctx, wo))
+//   xn    = bf16(rmsnorm(xres) * fnorm); h2 = i8mm(xn, w1n3) (f32)
+//   hglu  = bf16(act(a) * g)
+//   xres += bf16(i8mm(hglu, w2))
+// as five launches per layer, issued by one C call per step that walks a
+// per-layer pointer table (no Python between the launches):
+//   i8mm_gemv<norm prologue, f32 out>          qkv
+//   step_attention                              rope, self row, cache walk
+//   i8mm_gemv<amax prologue, residual add>      wo
+//   i8mm_gemv<norm prologue, GLU epilogue>      w1n3 (a and g columns paired)
+//   i8mm_gemv<amax prologue, residual add>      w2
+//
+// What bounds it on the H100: a decode step streams every int8 weight once
+// (about 1 GB at tinyllama-1.1b) for B <= 8 rows, about 2*B int8 operations
+// per weight byte, far below the card's operations per byte: it is bound by
+// the weight bytes (and the live KV rows).
+//
+// What the design does about it:
+//   - i8mm_gemv: each thread owns 4 adjacent columns and loads one 32-bit
+//     word from each of 4 consecutive K rows of the (K, N) plane (a warp
+//     reads 128 contiguous bytes of a row); __byte_perm transposes the four
+//     words into four columns of 4 K-values, and __dp4a multiplies them by
+//     the 4 activation codes of each row in int32.  K is split across the
+//     8 warps of a CTA and across CTAs (about two CTAs per SM); integer sums
+//     are associative, so the CTAs add their partials with atomics into a
+//     zeroed int32 workspace, and the last CTA of each column tile (a
+//     counter per tile) applies the scales and the epilogue and zeroes the
+//     workspace again.  The result does not depend on the order;
+//   - prologues: every CTA recomputes the row norm and the row max of its
+//     <= 8 rows from L2 (rmsnorm), or reads the row max that the previous
+//     launch accumulated with atomicMax on the float bits (ctx, hglu), then
+//     quantizes only its own K slice into shared memory;
+//   - the GLU epilogue pairs column j of `a` with column j of `g` in one
+//     CTA, so hglu is produced without another launch;
+//   - step_attention: one CTA per (slot, kv head, split of the cache rows)
+//     serves the head's g query rows from one read of each cache tile
+//     (B2's tile walk); the last split to finish merges the splits'
+//     running max, sum and accumulator (flash-decoding), so up to B * H * 16
+//     CTAs
+//     walk a long cache instead of B * H.
+// Row quantization and the output scaling use __fdiv_rn / __fmul_rn /
+// __fadd_rn (no contraction into FMA), so they equal the plain version's
+// float32 arithmetic bit for bit.
+// Still to do (later work): one persistent kernel or a CUDA graph for the
+// step.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+// ------------------------------------------------------------ int8 GEMV
+constexpr int kGemvWarps = 8;
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kTileCols = 128;  // columns per segment: 32 lanes x 4
+constexpr int kMaxKc = 1024;    // K rows per CTA (shared x staging)
+constexpr int kMinKc = 64;
+constexpr int kUnroll = 4;      // 4-row groups in flight per warp
+
+enum Prologue { kProNorm = 0, kProRow = 1, kProAmax = 2 };
+enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
+
+struct GemvArgs {
+  const __nv_bfloat16* x;      // (M, K) bf16 activations
+  const __nv_bfloat16* norm_w; // (K,) rmsnorm weight (kProNorm)
+  const unsigned* amax_in;     // (M,) row max |x| as float bits (kProAmax)
+  const int8_t* w;             // (K, N) int8 codes
+  const float* w_scale;        // (N,) column scales
+  float* out_f32;              // (M, N) (kEpiF32)
+  __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, N/2) hglu (kEpiGlu)
+  unsigned* amax_out;          // (M,) row max |hglu| (kEpiGlu)
+  int* ws;                     // (M, N) int32, zero on entry and on exit
+  int* counters;               // (column tiles,), zero on entry and on exit
+  int M, K, N, kc, ksplit;
+  int pro, epi, act;           // act: 0 silu, 1 gelu (tanh form), 2 relu
+  float eps;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float bf(const __nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The activation the GEMV quantizes: the bf16 rmsnorm output
+// bf16((x * inv) * w), or x itself.
+__device__ __forceinline__ float activation(const GemvArgs& a, int m, int k, float inv) {
+  const float v = bf(a.x[(size_t)m * a.K + k]);
+  if (a.pro != kProNorm) return v;
+  return round_bf16(__fmul_rn(__fmul_rn(v, inv), bf(a.norm_w[k])));
+}
+
+__device__ __forceinline__ float glu_act(float x, int act) {
+  if (act == 2) return fmaxf(x, 0.f);
+  if (act == 1) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float inner = __fmul_rn(c, __fadd_rn(x, __fmul_rn(0.044715f, __fmul_rn(x, __fmul_rn(x, x)))));
+    return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
+  }
+  return __fmul_rn(x, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x))));
+}
+
+// 4 words (4 consecutive K rows, 4 columns each) -> 4 words (4 columns,
+// 4 consecutive K values each, low byte first)
+__device__ __forceinline__ void transpose4(const uint32_t r[4], int col[4]) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
+  col[1] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
+  col[2] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
+  col[3] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
+}
+
+// grid (column tiles, ksplit).  NSEG = 2 (GLU): segment 1 is column
+// tile*128 + c + N/2, the gate column paired with column tile*128 + c.
+template <int M, int NSEG>
+__global__ void __launch_bounds__(kGemvThreads) i8mm_gemv(const GemvArgs a) {
+  __shared__ int xq_s[M][kMaxKc / 4];
+  __shared__ int red_s[M][kTileCols * NSEG];
+  __shared__ float xs_s[M];
+  __shared__ float inv_s[M];
+  __shared__ int last_s;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tile = blockIdx.x;
+  const int k0 = blockIdx.y * a.kc;
+  const int klen = min(a.kc, a.K - k0);
+  const int ncols = a.N / NSEG;  // columns of one segment
+  const int seg_stride = NSEG == 2 ? ncols : 0;
+
+  // prologue 1: per-row norm factor and row scale, one warp per row; a
+  // row of K % 8 == 0 is read as 16-byte chunks, 4 in flight per lane
+  if (warp < M) {
+    const int m = warp;
+    const bool vec = a.K % 8 == 0;
+    const uint4* xr = reinterpret_cast<const uint4*>(a.x + (size_t)m * a.K);
+    const uint4* wr = reinterpret_cast<const uint4*>(a.norm_w);
+    float inv = 1.f;
+    if (a.pro == kProNorm) {
+      float ss = 0.f;
+      if (vec) {
+#pragma unroll 4
+        for (int c = lane; c < a.K / 8; c += 32) {
+          const uint4 u = __ldg(xr + c);
+          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) ss += bf(h[e]) * bf(h[e]);
+        }
+      } else {
+        for (int k = lane; k < a.K; k += 32) {
+          const float v = bf(a.x[(size_t)m * a.K + k]);
+          ss += v * v;
+        }
+      }
+      ss = warp_sum(ss);
+      inv = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)a.K), a.eps));
+    }
+    float amax = 0.f;
+    if (a.pro == kProAmax) {
+      amax = __uint_as_float(a.amax_in[m]);
+    } else if (vec) {
+#pragma unroll 4
+      for (int c = lane; c < a.K / 8; c += 32) {
+        const uint4 u = __ldg(xr + c);
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+        if (a.pro == kProNorm) {
+          const uint4 wu = __ldg(wr + c);
+          const __nv_bfloat16* wh = reinterpret_cast<const __nv_bfloat16*>(&wu);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            amax = fmaxf(amax, fabsf(round_bf16(__fmul_rn(__fmul_rn(bf(h[e]), inv), bf(wh[e])))));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(bf(h[e])));
+        }
+      }
+      amax = warp_max(amax);
+    } else {
+      for (int k = lane; k < a.K; k += 32) amax = fmaxf(amax, fabsf(activation(a, m, k, inv)));
+      amax = warp_max(amax);
+    }
+    if (lane == 0) {
+      inv_s[m] = inv;
+      xs_s[m] = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+    }
+  }
+  for (int i = tid; i < M * kTileCols * NSEG; i += kGemvThreads) (&red_s[0][0])[i] = 0;
+  __syncthreads();
+
+  // prologue 2: this CTA's K slice of the rows, as int8 codes
+  for (int i = tid; i < M * klen; i += kGemvThreads) {
+    const int m = i / klen, kk = i - m * klen;
+    const float q = rintf(__fdiv_rn(activation(a, m, k0 + kk, inv_s[m]), xs_s[m]));
+    reinterpret_cast<int8_t*>(xq_s[m])[kk] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  }
+  __syncthreads();
+
+  // int8 x int8 -> int32 over the slice
+  const int col0 = tile * kTileCols + lane * 4;
+  const bool col_ok = col0 < ncols;  // N/NSEG % 4 == 0: all 4 columns valid
+  int acc[M][4 * NSEG];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0;
+
+  const int ngroups = klen / 4;
+  if (col_ok) {
+    for (int g0 = warp; g0 < ngroups; g0 += kGemvWarps * kUnroll) {
+      uint32_t words[kUnroll][NSEG][4];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int gi = g0 + u * kGemvWarps;
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            words[u][s][r] = gi < ngroups
+                ? __ldg(reinterpret_cast<const uint32_t*>(
+                      a.w + (size_t)(k0 + 4 * gi + r) * a.N + col0 + s * seg_stride))
+                : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int gi = g0 + u * kGemvWarps;
+        if (gi < ngroups) {
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s) {
+            int col[4];
+            transpose4(words[u][s], col);
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const int xw = xq_s[m][gi];
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[m][s * 4 + c] = __dp4a(col[c], xw, acc[m][s * 4 + c]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          atomicAdd(&red_s[m][s * kTileCols + lane * 4 + c], acc[m][s * 4 + c]);
+  }
+  __syncthreads();
+
+  // split-K: add the partial into the workspace; the last CTA of the tile
+  // takes the totals (and leaves zeros behind)
+  constexpr int kCols = kTileCols * NSEG;
+  if (a.ksplit > 1) {
+    for (int i = tid; i < M * kCols; i += kGemvThreads) {
+      const int m = i / kCols, j = i - m * kCols;
+      const int c = tile * kTileCols + (j % kTileCols);
+      if (c < ncols) atomicAdd(&a.ws[(size_t)m * a.N + c + (j / kTileCols) * seg_stride], red_s[m][j]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_s = atomicAdd(&a.counters[tile], 1) == a.ksplit - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    for (int i = tid; i < M * kCols; i += kGemvThreads) {
+      const int m = i / kCols, j = i - m * kCols;
+      const int c = tile * kTileCols + (j % kTileCols);
+      if (c < ncols)
+        red_s[m][j] = atomicExch(&a.ws[(size_t)m * a.N + c + (j / kTileCols) * seg_stride], 0);
+    }
+    if (tid == 0) a.counters[tile] = 0;
+    __syncthreads();
+  }
+
+  // epilogue: y = (float(acc) * xs_row) * scale_col
+  for (int i = tid; i < M * kTileCols; i += kGemvThreads) {
+    const int m = i / kTileCols, j = i - m * kTileCols;
+    const int c = tile * kTileCols + j;
+    if (c >= ncols) continue;
+    const float y = __fmul_rn(__fmul_rn((float)red_s[m][j], xs_s[m]), a.w_scale[c]);
+    if (a.epi == kEpiF32) {
+      a.out_f32[(size_t)m * a.N + c] = y;
+    } else if (a.epi == kEpiResid) {
+      __nv_bfloat16* r = a.out_bf16 + (size_t)m * a.N + c;
+      *r = __float2bfloat16_rn(__fadd_rn(bf(*r), round_bf16(y)));
+    } else {
+      const float gt = __fmul_rn(__fmul_rn((float)red_s[m][kTileCols + j], xs_s[m]),
+                                 a.w_scale[c + seg_stride]);
+      const __nv_bfloat16 h = __float2bfloat16_rn(__fmul_rn(glu_act(y, a.act), gt));
+      a.out_bf16[(size_t)m * ncols + c] = h;
+      atomicMax(&a.amax_out[m], __float_as_uint(fabsf(bf(h))));
+    }
+  }
+}
+
+// CTAs for about two per SM, K rows per CTA a multiple of 32 (whole 4-row
+// groups per warp) and at most kMaxKc.
+void gemv_plan(int K, int tiles, int sm_count, int* kc, int* ksplit) {
+  const int want = std::max(1, (2 * sm_count + tiles - 1) / tiles);
+  int rows = (K + want - 1) / want;
+  rows = (rows + 31) / 32 * 32;
+  rows = std::min(std::max(rows, kMinKc), kMaxKc);
+  *kc = rows;
+  *ksplit = (K + rows - 1) / rows;
+}
+
+template <int NSEG>
+void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
+  switch (a.M) {
+    case 1: i8mm_gemv<1, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 2: i8mm_gemv<2, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 3: i8mm_gemv<3, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 4: i8mm_gemv<4, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 5: i8mm_gemv<5, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 6: i8mm_gemv<6, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 7: i8mm_gemv<7, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    default: i8mm_gemv<8, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+  }
+}
+
+cudaError_t launch_gemv(GemvArgs a, int sm_count, cudaStream_t stream) {
+  const int nseg = a.epi == kEpiGlu ? 2 : 1;
+  if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % 4 || a.N <= 0 || a.N % (4 * nseg) ||
+      sm_count <= 0)
+    return cudaErrorInvalidValue;
+  const int tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
+  gemv_plan(a.K, tiles, sm_count, &a.kc, &a.ksplit);
+  const dim3 grid(tiles, a.ksplit);
+  if (nseg == 2)
+    launch_gemv_m<2>(a, grid, stream);
+  else
+    launch_gemv_m<1>(a, grid, stream);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- step attention
+constexpr int kAttnWarps = 8;
+constexpr int kAttnThreads = kAttnWarps * 32;
+constexpr int kKeyTile = 32;  // keys per tile: one per lane
+constexpr int kMaxD = 128;
+constexpr int kMaxRows = 16;  // query heads per kv head
+constexpr int kRowsPerWarp = kMaxRows / kAttnWarps;
+constexpr int kDPerLane = kMaxD / 32;
+constexpr int kMaxBlk = kMaxD / 16;  // scale blocks per row
+constexpr int kMaxSplit = 16;        // cache-walk splits per (slot, head)
+constexpr int kMinSplitRows = 64;
+constexpr float kNegInf = -1e30f;
+
+struct AttnArgs {
+  const float* qkv;      // (B, (Hq + 2H) * D) this layer's qkv, [Q | K | V]
+  const float* cos;      // (B, D)
+  const float* sin;      // (B, D)
+  const int* lengths;    // (B,) cache rows per slot before this step
+  int8_t* k_cache;       // (L, B, H, S, D)
+  int8_t* v_cache;
+  __half* k_scale;       // (L, B, H, S, D / blk)
+  __half* v_scale;
+  __nv_bfloat16* ctx;    // (B, Hq * D)
+  unsigned* ctx_amax;    // (B,) row max |ctx| as float bits
+  float* part;           // (B, H, nsplit, g, D + 2) per-split m, l, acc
+  int* counters;         // (B, H), zero on entry and on exit
+  int layer, B, H, S, D, blk, g, order, batched, nsplit, chunk;
+  float scale;
+};
+
+// grid (B, H, nsplit): slot b, kv head h, its g query rows, cache rows
+// [z * chunk, (z + 1) * chunk) of split z.  Each split leaves its running
+// max, sum and accumulator in `part`; the last split of (b, h) to finish
+// (a counter) merges them, adds the self row and writes ctx and the
+// step's K/V row.
+__global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a) {
+  __shared__ float q_s[kMaxRows][kMaxD];
+  __shared__ float kc_s[kKeyTile][kMaxD + 1];  // codes (scratch before the walk)
+  __shared__ float vc_s[kKeyTile][kMaxD + 1];
+  __shared__ float ksc_s[kKeyTile][kMaxBlk];
+  __shared__ float vsc_s[kKeyTile][kMaxBlk];
+  __shared__ float ps[kAttnWarps][kKeyTile];
+  __shared__ float kself_s[kMaxD], vself_s[kMaxD];
+  __shared__ int8_t kcode_s[kMaxD], vcode_s[kMaxD];
+  __shared__ float bsc_s[2][kMaxBlk];
+  __shared__ float sself_s[kMaxRows];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
+  const int D = a.D, g = a.g, H = a.H, hq = H * g;
+  const int nblk = D / a.blk;
+  const int half = D / 2;
+  const int len = a.lengths[b];
+  const int n_keys = min(max(len, 0), a.S);
+  const size_t row_q = (size_t)b * (hq + 2 * H) * D;
+  const float* cs = a.cos + (size_t)b * D;
+  const float* sn = a.sin + (size_t)b * D;
+  float* qraw = &kc_s[0][0];  // scratch: raw q rows, then raw k and v rows
+  float* kraw = &vc_s[0][0];
+
+  for (int i = tid; i < g * D; i += kAttnThreads)
+    qraw[i] = a.qkv[row_q + (size_t)h * g * D + i];
+  for (int j = tid; j < D; j += kAttnThreads) {
+    kraw[j] = a.qkv[row_q + (size_t)hq * D + h * D + j];
+    kraw[kMaxD + j] = a.qkv[row_q + (size_t)(hq + H) * D + h * D + j];
+  }
+  __syncthreads();
+
+  // rope(x) = x * cos + rot(x) * sin; rot is the half split (order 2) or
+  // the interleaved pairs (order 1)
+  auto rot = [&](const float* x, int j) -> float {
+    if (a.order == 2) return j < half ? -x[j + half] : x[j - half];
+    return (j % 2 == 0) ? -x[j + 1] : x[j - 1];
+  };
+  for (int i = tid; i < g * D; i += kAttnThreads) {
+    const int r = i / D, j = i - r * D;
+    const float* x = qraw + r * D;
+    q_s[r][j] = __fadd_rn(__fmul_rn(x[j], cs[j]), __fmul_rn(rot(x, j), sn[j]));
+  }
+  for (int j = tid; j < D; j += kAttnThreads) {
+    kself_s[j] = __fadd_rn(__fmul_rn(kraw[j], cs[j]), __fmul_rn(rot(kraw, j), sn[j]));
+    vself_s[j] = kraw[kMaxD + j];
+  }
+  __syncthreads();
+
+  // the step's own K/V row, quantized per block as the cache codec does;
+  // the self term uses the f32 scale, the cache gets the f16 one
+  if (tid < 2 * nblk) {
+    const int which = tid / nblk, c = tid - which * nblk;
+    const float* row = which == 0 ? kself_s : vself_s;
+    float amax = 0.f;
+    for (int j = c * a.blk; j < (c + 1) * a.blk; ++j) amax = fmaxf(amax, fabsf(row[j]));
+    bsc_s[which][c] = __fdiv_rn(amax, 127.f);
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * D; i += kAttnThreads) {
+    const int which = i / D, j = i - which * D;
+    float* row = which == 0 ? kself_s : vself_s;
+    const float sc = bsc_s[which][j / a.blk];
+    const float inv = sc >= 1e-5f ? __fdiv_rn(1.f, sc) : 0.f;
+    const float q = fminf(fmaxf(rintf(__fmul_rn(row[j], inv)), -128.f), 127.f);
+    (which == 0 ? kcode_s : vcode_s)[j] = static_cast<int8_t>(q);
+    row[j] = __fmul_rn(q, sc);
+  }
+  __syncthreads();
+
+  // self score (f32 q), then the q the cache scores use: bf16-rounded in
+  // the batched mode, as the TPU kernel's batched dots take it
+  for (int r = warp; r < g; r += kAttnWarps) {
+    float s = 0.f;
+    for (int j = lane; j < D; j += 32) s += q_s[r][j] * kself_s[j];
+    s = warp_sum(s);
+    if (lane == 0) sself_s[r] = __fmul_rn(s, a.scale);
+  }
+  __syncthreads();
+  if (a.batched)
+    for (int i = tid; i < g * D; i += kAttnThreads) q_s[i / D][i % D] = round_bf16(q_s[i / D][i % D]);
+
+  float m_r[kRowsPerWarp], l_r[kRowsPerWarp], acc[kRowsPerWarp][kDPerLane];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    m_r[rr] = kNegInf;
+    l_r[rr] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < kDPerLane; ++dd) acc[rr][dd] = 0.f;
+  }
+
+  const size_t head_row = (((size_t)a.layer * a.B + b) * H + h) * a.S;
+  const int8_t* k_rows = a.k_cache + head_row * D;
+  const int8_t* v_rows = a.v_cache + head_row * D;
+  const __half* k_sc = a.k_scale + head_row * nblk;
+  const __half* v_sc = a.v_scale + head_row * nblk;
+
+  const int k_end = min(n_keys, (z + 1) * a.chunk);
+  for (int t0 = z * a.chunk; t0 < k_end; t0 += kKeyTile) {
+    const int nt = min(kKeyTile, k_end - t0);
+    __syncthreads();  // the previous tile (or the scratch) is consumed
+    for (int ch = tid; ch < kKeyTile * D / 16; ch += kAttnThreads) {
+      const int e0 = ch * 16, j = e0 / D, d0 = e0 - j * D;
+      uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
+      if (j < nt) {
+        kw = __ldg(reinterpret_cast<const uint4*>(k_rows + (size_t)(t0 + j) * D + d0));
+        vw = __ldg(reinterpret_cast<const uint4*>(v_rows + (size_t)(t0 + j) * D + d0));
+      }
+      const int8_t* kq = reinterpret_cast<const int8_t*>(&kw);
+      const int8_t* vq = reinterpret_cast<const int8_t*>(&vw);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        kc_s[j][d0 + e] = float(kq[e]);
+        vc_s[j][d0 + e] = float(vq[e]);
+      }
+    }
+    for (int i = tid; i < kKeyTile * nblk; i += kAttnThreads) {
+      const int j = i / nblk, c = i - j * nblk;
+      const bool ok = j < nt;
+      ksc_s[j][c] = ok ? __half2float(k_sc[(size_t)(t0 + j) * nblk + c]) : 0.f;
+      vsc_s[j][c] = ok ? __half2float(v_sc[(size_t)(t0 + j) * nblk + c]) : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int i = warp + rr * kAttnWarps;
+      if (i < g) {  // warp-uniform
+        float s = kNegInf;
+        if (lane < nt) {
+          // sum over scale blocks of (q . codes) * scale, then * kq scale
+          s = 0.f;
+          for (int c = 0; c < nblk; ++c) {
+            float part = 0.f;
+            for (int d = c * a.blk; d < (c + 1) * a.blk; ++d) part = fmaf(q_s[i][d], kc_s[lane][d], part);
+            s = __fadd_rn(s, __fmul_rn(part, ksc_s[lane][c]));
+          }
+          s = __fmul_rn(s, a.scale);
+        }
+        const float m_new = fmaxf(m_r[rr], warp_max(s));
+        const float alpha = expf(m_r[rr] - m_new);
+        const float p = expf(s - m_new);  // 0 for keys past nt
+        l_r[rr] = l_r[rr] * alpha + warp_sum(p);
+        m_r[rr] = m_new;
+        ps[warp][lane] = p;
+        __syncwarp();
+#pragma unroll
+        for (int dd = 0; dd < kDPerLane; ++dd) {
+          const int d = lane + 32 * dd;
+          if (d < D) {
+            const int c = d / a.blk;
+            float v = 0.f;
+            for (int j = 0; j < nt; ++j) {
+              float pv = __fmul_rn(ps[warp][j], vsc_s[j][c]);
+              if (a.batched) pv = round_bf16(pv);
+              v = fmaf(pv, vc_s[j][d], v);
+            }
+            acc[rr][dd] = acc[rr][dd] * alpha + v;
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+  // this split's running max, sum and accumulator
+  const size_t part_row = (size_t)(b * H + h) * a.nsplit;
+  const int stride = D + 2;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int i = warp + rr * kAttnWarps;
+    if (i < g) {
+      float* pr = a.part + ((part_row + z) * g + i) * stride;
+      if (lane == 0) {
+        pr[0] = m_r[rr];
+        pr[1] = l_r[rr];
+      }
+#pragma unroll
+      for (int dd = 0; dd < kDPerLane; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < D) pr[2 + d] = acc[rr][dd];
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last_s;
+  if (tid == 0) last_s = atomicAdd(&a.counters[b * H + h], 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  // the last split: merge the splits, then the self term, ctx and its
+  // row max
+  float amax = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int i = warp + rr * kAttnWarps;
+    if (i < g) {
+      float m = kNegInf;
+      for (int zz = 0; zz < a.nsplit; ++zz)
+        m = fmaxf(m, __ldcg(a.part + ((part_row + zz) * g + i) * stride));
+      float l = 0.f, o[kDPerLane];
+#pragma unroll
+      for (int dd = 0; dd < kDPerLane; ++dd) o[dd] = 0.f;
+      for (int zz = 0; zz < a.nsplit; ++zz) {
+        const float* pr = a.part + ((part_row + zz) * g + i) * stride;
+        const float w = expf(__ldcg(pr) - m);
+        l += w * __ldcg(pr + 1);
+#pragma unroll
+        for (int dd = 0; dd < kDPerLane; ++dd) {
+          const int d = lane + 32 * dd;
+          if (d < D) o[dd] += w * __ldcg(pr + 2 + d);
+        }
+      }
+      const float s_self = sself_s[i];
+      const float m_new = fmaxf(m, s_self);
+      const float alpha = expf(m - m_new);
+      const float p_self = expf(s_self - m_new);
+      const float inv = 1.f / fmaxf(l * alpha + p_self, 1e-30f);
+#pragma unroll
+      for (int dd = 0; dd < kDPerLane; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < D) {
+          const __nv_bfloat16 out =
+              __float2bfloat16_rn((o[dd] * alpha + p_self * vself_s[d]) * inv);
+          a.ctx[(size_t)b * hq * D + (size_t)(h * g + i) * D + d] = out;
+          amax = fmaxf(amax, fabsf(bf(out)));
+        }
+      }
+    }
+  }
+  amax = warp_max(amax);
+  if (lane == 0) atomicMax(&a.ctx_amax[b], __float_as_uint(amax));
+  if (tid == 0) a.counters[b * H + h] = 0;
+
+  // the step's K/V row into cache row `length` of this layer (clamped to
+  // S - 1); written after every split's walk, which never reads it when
+  // length < S
+  const int pos = min(max(len, 0), a.S - 1);
+  for (int j = tid; j < D; j += kAttnThreads) {
+    a.k_cache[(head_row + pos) * D + j] = kcode_s[j];
+    a.v_cache[(head_row + pos) * D + j] = vcode_s[j];
+  }
+  for (int c = tid; c < nblk; c += kAttnThreads) {
+    a.k_scale[(head_row + pos) * nblk + c] = __float2half_rn(bsc_s[0][c]);
+    a.v_scale[(head_row + pos) * nblk + c] = __float2half_rn(bsc_s[1][c]);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ift_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// y (M, N) f32 = (int8 rows of x (M, K) bf16) x (K, N) int8, scaled by the
+// row and column scales.  ws (M*N int32) and counters (ceil(N/128) int32)
+// are zero on entry and are left zero.
+int ift_i8mm_gemv(const void* x, const void* w, const void* w_scale, void* out,
+                  void* ws, void* counters, int M, int K, int N, int sm_count,
+                  void* stream) {
+  GemvArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.w_scale = static_cast<const float*>(w_scale);
+  a.out_f32 = static_cast<float*>(out);
+  a.ws = static_cast<int*>(ws);
+  a.counters = static_cast<int*>(counters);
+  a.M = M, a.K = K, a.N = N;
+  a.pro = kProRow, a.epi = kEpiF32;
+  return static_cast<int>(launch_gemv(a, sm_count, static_cast<cudaStream_t>(stream)));
+}
+
+// One decode step over all L layers.  `table` (host memory) holds, per
+// layer, 10 device pointers: anorm, fnorm (E bf16), then (int8 codes,
+// f32 column scales) of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and
+// w2 (F, E).  xres (B, E) bf16 is updated in place; every layer's K/V row
+// is written into cache row lengths[b].  Scratch: qkv (B, (Hq+2H)D) f32,
+// ctx (B, HqD) bf16, hglu (B, F) bf16; ws, counters and amax (L*2*B) are
+// zero on entry (ws and counters are left zero).  attn_part holds
+// B * H * 16 * (Hq / H) * (D + 2) floats; attn_counters (B * H int32) is
+// zero on entry and is left zero.
+int ift_fused_decode_step(const void* const* table, int L, void* xres, const void* lengths,
+                          const void* cos, const void* sin, void* k_cache, void* v_cache,
+                          void* k_scale, void* v_scale, void* qkv_buf, void* ctx_buf,
+                          void* hglu_buf, void* ws, void* counters, void* amax,
+                          void* attn_part, void* attn_counters, int B, int E,
+                          int Hq, int H, int D, int S, int blk, int F, int order, int act,
+                          float eps, float scale, int sm_count, void* stream_ptr) {
+  if (B < 1 || B > 8 || H <= 0 || Hq % H || Hq / H > kMaxRows || D > kMaxD || D % 16 ||
+      blk <= 0 || D % blk || D / blk > kMaxBlk || (order != 1 && order != 2) || S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int qdim = Hq * D, nqkv = (Hq + 2 * H) * D;
+  // split the cache walk so that B * H * nsplit CTAs cover the card
+  int nsplit = std::min(kMaxSplit, std::max(1, S / kMinSplitRows));
+  const int chunk = ((S + nsplit - 1) / nsplit + kKeyTile - 1) / kKeyTile * kKeyTile;
+  nsplit = (S + chunk - 1) / chunk;
+  auto* x = static_cast<__nv_bfloat16*>(xres);
+  auto* amax_u = static_cast<unsigned*>(amax);
+  for (int l = 0; l < L; ++l) {
+    const void* const* p = table + (size_t)l * 10;
+    unsigned* ctx_amax = amax_u + (size_t)(2 * l) * B;
+    unsigned* glu_amax = amax_u + (size_t)(2 * l + 1) * B;
+    GemvArgs g{};
+    g.ws = static_cast<int*>(ws);
+    g.counters = static_cast<int*>(counters);
+    g.M = B;
+    g.eps = eps;
+    g.act = act;
+
+    // qkv = i8mm(rmsnorm(xres) * anorm)
+    g.x = x, g.norm_w = static_cast<const __nv_bfloat16*>(p[0]);
+    g.w = static_cast<const int8_t*>(p[2]), g.w_scale = static_cast<const float*>(p[3]);
+    g.out_f32 = static_cast<float*>(qkv_buf);
+    g.K = E, g.N = nqkv, g.pro = kProNorm, g.epi = kEpiF32;
+    cudaError_t err = launch_gemv(g, sm_count, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+
+    AttnArgs at{};
+    at.qkv = static_cast<const float*>(qkv_buf);
+    at.cos = static_cast<const float*>(cos), at.sin = static_cast<const float*>(sin);
+    at.lengths = static_cast<const int*>(lengths);
+    at.k_cache = static_cast<int8_t*>(k_cache), at.v_cache = static_cast<int8_t*>(v_cache);
+    at.k_scale = static_cast<__half*>(k_scale), at.v_scale = static_cast<__half*>(v_scale);
+    at.ctx = static_cast<__nv_bfloat16*>(ctx_buf), at.ctx_amax = ctx_amax;
+    at.layer = l, at.B = B, at.H = H, at.S = S, at.D = D, at.blk = blk, at.g = Hq / H;
+    at.order = order, at.batched = B > 1, at.scale = scale;
+    at.part = static_cast<float*>(attn_part);
+    at.counters = static_cast<int*>(attn_counters);
+    at.nsplit = nsplit, at.chunk = chunk;
+    step_attention<<<dim3(B, H, nsplit), kAttnThreads, 0, stream>>>(at);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+
+    // xres += bf16(i8mm(ctx, wo))
+    g.x = static_cast<const __nv_bfloat16*>(ctx_buf), g.amax_in = ctx_amax;
+    g.w = static_cast<const int8_t*>(p[4]), g.w_scale = static_cast<const float*>(p[5]);
+    g.out_bf16 = x;
+    g.K = qdim, g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
+    if ((err = launch_gemv(g, sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+
+    // hglu = bf16(act(a) * g), (a | g) = i8mm(rmsnorm(xres) * fnorm, w1n3)
+    g.x = x, g.norm_w = static_cast<const __nv_bfloat16*>(p[1]);
+    g.w = static_cast<const int8_t*>(p[6]), g.w_scale = static_cast<const float*>(p[7]);
+    g.out_bf16 = static_cast<__nv_bfloat16*>(hglu_buf), g.amax_out = glu_amax;
+    g.K = E, g.N = 2 * F, g.pro = kProNorm, g.epi = kEpiGlu;
+    if ((err = launch_gemv(g, sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+
+    // xres += bf16(i8mm(hglu, w2))
+    g.x = static_cast<const __nv_bfloat16*>(hglu_buf), g.amax_in = glu_amax;
+    g.w = static_cast<const int8_t*>(p[8]), g.w_scale = static_cast<const float*>(p[9]);
+    g.out_bf16 = x;
+    g.K = F, g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
+    if ((err = launch_gemv(g, sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,563 @@
+"""Whole-model fused decode step (kernel B4) and the i8mm int8 product.
+
+Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
+`fused_step_preferred`, `fused_decode_step`) for the i8mm weight mode
+(Int8MXUTensor weights: int8 codes with one f32 scale per column) and a Q8
+KV cache in the logical layout, with both attention modes of the TPU
+kernel: per-slot (B = 1, float32 throughout) and batched (B > 1: q, and
+p * vscale, rounded to bf16 before the cache dots).
+
+On CUDA tensors the wrappers launch the hand-written kernels of
+``csrc/decode_step.cu`` or raise: the step is one C call that walks a
+per-layer pointer table and issues five launches per layer (three kinds
+of int8 GEMV and the step attention), and writes each layer's new K/V row
+straight into the cache.  On CPU tensors they run the plain versions
+below, which follow the TPU kernel's arithmetic (outputs, then
+``append_rows_all_layers``) and which ``chip_smoke.py`` also holds the
+kernels against on the card.
+
+Not ported (``fused_step_supported`` raises NotImplementedError where the
+TPU package would fuse them): the i4/i4x8 and byte-per-code block weight
+modes, per-matmul output biases, Q3H pair8, a paged cache and routed MoE.
+There is no fallback switch: if the kernel fails to build or launch, the
+step raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..quant.codec_torch import (Int8MXUTensor, QuantizedTensor,
+                                 int8_rowwise_activations)
+from ..quant.formats import get_format
+from ..runtime.kv_cache import KVCache, append_rows_all_layers
+from . import _build
+
+KERNEL = "fused_decode_step"
+GEMV_KERNEL = "i8mm_gemv"
+NEG_INF = -1e30
+# float32 sums of int8 x int8 products are exact integers while they stay
+# below 2**24: 127 * 127 * 1024 < 2**24
+_EXACT_K_CHUNK = 1024
+_INT_MM_MIN_ROWS = 17  # torch._int_mm takes more than 16 rows
+_MAX_GEMV_ROWS = 8
+_WBUF_BUDGET = 6 * 1024 * 1024  # the TPU kernel's weight tile budget
+_ACTS = {"silu": 0, "gelu": 1, "relu": 2}
+_MAX_ROWS, _MAX_D = 16, 128  # query heads per kv head, head_dim (csrc)
+_TILE_COLS = 128  # GEMV columns per CTA segment (csrc kTileCols)
+_MAX_SPLIT = 16  # cache-walk splits per (slot, kv head) (csrc kMaxSplit)
+
+
+# ------------------------------------------------------------ i8mm product
+def int8_matmul_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (K, N) int8 -> (M, N) int64, exact: float32 products
+    over K chunks of at most 1024 rows (every partial sum an integer below
+    2**24, in any summation order), the chunks summed in int64."""
+    acc = None
+    for k0 in range(0, xq.shape[-1], _EXACT_K_CHUNK):
+        part = torch.matmul(xq[..., k0:k0 + _EXACT_K_CHUNK].float(),
+                            wq[k0:k0 + _EXACT_K_CHUNK].float())
+        part = part.to(torch.int64)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _i8mm_f32(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
+    """float32 (float(acc) * row scale) * column scale, in that order."""
+    xq, xs = int8_rowwise_activations(x)
+    return int8_matmul_exact(xq, w.data).float() * xs * w.scale
+
+
+def i8mm_matmul_plain(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
+    """The plain i8mm product (codec_jax.int8_rowwise_activations, an int32
+    dot, row x column scales), cast to x's dtype.  x: (..., K)."""
+    return _i8mm_f32(x, w).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(t: torch.Tensor) -> int:
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
+
+
+def _lib():
+    lib = _build.load("decode_step")
+    if not getattr(lib, "_ift_typed", False):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ift_i8mm_gemv.argtypes = [vp] * 6 + [i] * 4 + [vp]
+        lib.ift_i8mm_gemv.restype = ctypes.c_int
+        lib.ift_fused_decode_step.argtypes = (
+            [ctypes.POINTER(vp), i] + [vp] * 16 + [i] * 10 + [f, f, i, vp])
+        lib.ift_fused_decode_step.restype = ctypes.c_int
+        lib._ift_typed = True
+    return lib
+
+
+def _check_i8(w: Int8MXUTensor, name: str, k: int, n: int) -> None:
+    _build.check_operand(w.data, f"{name}.data", torch.int8, (k, n), align=4)
+    _build.check_operand(w.scale, f"{name}.scale", torch.float32, (n,),
+                         align=4)
+
+
+def i8mm_gemv_cuda(x2: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
+    """Launch the int8 GEMV on (M <= 8, K) bf16 rows; returns (M, N)
+    float32 (row quantization and scales applied)."""
+    _build.require_hopper(x2)
+    m, k = x2.shape
+    n = int(w.shape[-1])
+    if not 1 <= m <= _MAX_GEMV_ROWS:
+        raise ValueError(f"i8mm_gemv takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
+    if k % 4 or n % 4:
+        raise ValueError(f"i8mm_gemv needs K and N multiples of 4, "
+                         f"got K={k} N={n}")
+    _build.check_operand(x2, "x", torch.bfloat16, (m, k))
+    _check_i8(w, "w", k, n)
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    tiles = -(-n // _TILE_COLS)
+    work = torch.zeros(m * n + tiles, dtype=torch.int32, device=x2.device)
+    lib = _lib()
+    rc = lib.ift_i8mm_gemv(_build.ptr(x2), _build.ptr(w.data),
+                           _build.ptr(w.scale), _build.ptr(out),
+                           _build.ptr(work), _build.ptr(work[m * n:]),
+                           m, k, n, _sms(x2), _build.stream_of(x2))
+    _build.check(lib, rc, GEMV_KERNEL)
+    _build.launch_counts[GEMV_KERNEL] += 1
+    return out
+
+
+def i8mm_matmul(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
+    """y = x @ w for an Int8MXUTensor (ops/linear.py's i8mm branch); x:
+    (..., K).  CPU tensors take the plain version.  On the card up to 8
+    rows take the int8 GEMV kernel; more rows (prefill) take one
+    torch._int_mm over rows quantized as the plain version quantizes them
+    (the JAX package leaves this product to XLA), padded to the rows it
+    accepts."""
+    if x.device.type == "cpu":
+        return i8mm_matmul_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"i8mm_matmul: unsupported device {x.device}")
+    k, n = int(w.shape[-2]), int(w.shape[-1])
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    if m <= _MAX_GEMV_ROWS:
+        if x2.dtype != torch.bfloat16:
+            raise ValueError(f"i8mm_gemv takes bf16 rows, got {x2.dtype}")
+        y = i8mm_gemv_cuda(x2.contiguous(), w)
+    else:
+        xq, xs = int8_rowwise_activations(x2)
+        rows = max(_INT_MM_MIN_ROWS, m)
+        rows = -(-rows // 8) * 8
+        acc = torch._int_mm(F.pad(xq, (0, 0, 0, rows - m)), w.data)[:m]
+        y = acc.float() * xs * w.scale
+    return y.reshape(lead + (n,)).to(x.dtype)
+
+
+# ----------------------------------------------------------- eligibility
+def _pick_tn(kp: int, n: int) -> int:
+    for tn in (512, 256, 128):
+        if n % tn == 0 and 2 * kp * tn <= _WBUF_BUDGET:
+            return tn
+    return 0
+
+
+def _mm_mode(w) -> Optional[str]:
+    """How the TPU kernel would stream weight w (its `_mm_cfg`): 'i8mm';
+    'byte' (one code per byte: the Q8 block formats); 'wire' (sub-byte
+    single-plane wire formats, which it routes to the per-layer path); or
+    None (not fusable)."""
+    if isinstance(w, Int8MXUTensor):
+        kp, n = (int(s) for s in w.data.shape)
+        return "i8mm" if kp % 8 == 0 and _pick_tn(kp, n) else None
+    if not isinstance(w, QuantizedTensor):
+        return None
+    fmt = get_format(w.format)
+    if (fmt.pair_base11 or len(fmt.planes) != 1
+            or fmt.planes[0].layout != "consecutive" or fmt.meta != "f16"
+            or "data" not in w.planes):
+        return None
+    pk = 8 // fmt.planes[0].bits
+    kp, n = (int(s) for s in w.planes["data"].shape)
+    k_s = kp * pk
+    if k_s % fmt.block or k_s % (pk * 8) or not _pick_tn(kp, n):
+        return None
+    return "byte" if pk == 1 else "wire"
+
+
+def _stored_k(w) -> int:
+    if isinstance(w, Int8MXUTensor):
+        return int(w.data.shape[0])
+    return w.storage_k
+
+
+def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
+    """The weight modes of a configuration the TPU kernel fuses, else
+    None.  Raises NotImplementedError for one it would fuse in a mode this
+    package has not ported."""
+    if not isinstance(cache, KVCache) or not isinstance(layers, list) \
+            or not layers:
+        return None
+    hp = spec.hyper_params
+    if spec.norm_alg != "rms" or spec.pos_embedding_alg != "rope":
+        return None
+    if spec.is_parallel_attn or not spec.is_attn_post_as_residual:
+        return None
+    if not spec.use_self_attn_pre_norm:
+        return None
+    if spec.attn_out_scale != 1.0 or spec.ffn_out_scale != 1.0:
+        return None
+    if spec.effective_rope_dim() not in (-1, 0, None, hp.head_dim):
+        return None
+    if spec.activation_fn not in _ACTS:
+        return None
+    if bsz > 8 or not cache.quantized:
+        return None
+    d = cache.head_dim
+    if not (d == 128 or (d < 128 and 128 % d == 0)):
+        return None
+    if spec.qkv_format != 1:
+        return None
+    modes, biased = set(), False
+    for lp in layers:
+        attn, ffn = lp.get("attn", {}), lp.get("ffn")
+        if ffn is None or "pre_norm" not in attn or "pre_norm" not in ffn:
+            return None
+        if "post_norm" in attn or "post_norm" in ffn:
+            return None
+        for grp, kk in ((attn, "qkv"), (attn, "wo"), (ffn, "w1n3"),
+                        (ffn, "w2")):
+            mode = _mm_mode(grp.get(kk))
+            if mode is None:
+                return None
+            modes.add(mode)
+            biased |= grp.get(f"{kk}_b") is not None
+        e_dim = int(attn["pre_norm"].shape[-1])
+        for w, want in ((attn["qkv"], e_dim),
+                        (attn["wo"], hp.decoder_heads * hp.head_dim),
+                        (ffn["w1n3"], e_dim)):
+            if _stored_k(w) != want:
+                return None
+        f_dim = int(ffn["w2"].shape[-2])
+        if int(ffn["w1n3"].shape[-1]) != 2 * f_dim or f_dim % 128:
+            return None
+    if "byte" in modes:
+        raise NotImplementedError(
+            "the fused decode step's byte-per-code weight mode (Q8 block "
+            "formats) is not ported")
+    if biased:
+        raise NotImplementedError(
+            "the fused decode step's per-matmul output biases are not "
+            "ported")
+    return modes
+
+
+def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
+    """Static eligibility for the whole-model fused decode step (the TPU
+    package's rule over this package's per-layer lists and logical cache;
+    its TPU lane-tile rule for the cache does not apply).  Raises
+    NotImplementedError for a configuration the TPU package fuses in a
+    mode that is not ported here."""
+    return _fusion_modes(spec, layers, cache, bsz) is not None
+
+
+def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
+    """Routing on top of fused_step_supported, as the TPU package routes:
+    sub-byte wire planes keep the per-layer path (kernels B1, B2); the
+    i8mm layout takes the fused step."""
+    modes = _fusion_modes(spec, layers, cache, bsz)
+    return modes is not None and "wire" not in modes
+
+
+# ------------------------------------------------------ the plain version
+def _expand_cos_sin(positions: torch.Tensor, d: int, order: int,
+                    base: float):
+    """(B,) positions -> cos, sin (B, D) float32 with rope(x) = x * cos +
+    rot(x) * sin elementwise."""
+    pos = positions.reshape(-1).float()
+    half = d // 2
+    freq = torch.arange(half, dtype=torch.float32, device=pos.device)
+    inv = torch.pow(float(base), -2.0 * freq / d)  # no host-to-device copy
+    theta = pos[:, None] * inv[None, :]
+    c, s = torch.cos(theta), torch.sin(theta)
+    if order == 1:
+        return c.repeat_interleave(2, dim=-1), s.repeat_interleave(2, dim=-1)
+    return torch.cat([c, c], dim=-1), torch.cat([s, s], dim=-1)
+
+
+def _rot(x: torch.Tensor, order: int) -> torch.Tensor:
+    """The pair rotation: rope(x) = x * cos + _rot(x) * sin."""
+    d = x.shape[-1]
+    if order == 2:
+        return torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
+    pairs = x.reshape(x.shape[:-1] + (d // 2, 2))
+    return torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(
+        x.shape)
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(torch.bfloat16)
+
+
+def _qdq(rows: torch.Tensor, blk: int) -> torch.Tensor:
+    """The KV codec's quantize -> dequantize of the step's own rows, with
+    the float32 scale (the self term; the cache keeps the f16 one)."""
+    shape = rows.shape
+    xb = rows.reshape(shape[:-1] + (shape[-1] // blk, blk))
+    sc = xb.abs().amax(dim=-1, keepdim=True) / 127.0
+    inv = torch.where(sc >= 1e-5,
+                      1.0 / torch.where(sc == 0, torch.ones_like(sc), sc),
+                      torch.zeros_like(sc))
+    q = torch.round(xb * inv).clamp(-128, 127)
+    return (q * sc).reshape(shape)
+
+
+def _glu(a: torch.Tensor, g: torch.Tensor, act: str) -> torch.Tensor:
+    """bf16(act(a) * g) in float32 arithmetic."""
+    if act == "silu":
+        av = a * torch.sigmoid(a)
+    elif act == "gelu":
+        av = F.gelu(a, approximate="tanh")
+    else:
+        av = torch.relu(a)
+    return (av * g).to(torch.bfloat16)
+
+
+def _cache_walk(s: int, d: int) -> tuple:
+    """(positions per tile, parities) of the TPU kernel's cache walk: its
+    packed cache holds pf = 128/D consecutive rows per storage row, and
+    each tile of ts storage rows is taken in pf online-softmax steps, one
+    per position parity (t % pf)."""
+    pf = 128 // d if d < 128 and 128 % d == 0 else 1
+    ts = next((t for t in (512, 256, 128) if (s // pf) % t == 0), s // pf)
+    return ts * pf, pf
+
+
+def _attend_plain(q, k_self, v_self, cache: KVCache, layer: int,
+                  lengths: torch.Tensor, scale: float, batched: bool):
+    """q (B, Hq, D) float32 (roped); k_self/v_self (B, H, D) the step's
+    quantize-dequantized rows.  Online softmax over cache rows
+    [0, lengths[b]) of `layer`, in the TPU kernel's walk order (so that
+    the batched mode's bf16 roundings of p * vscale, relative to the
+    running maximum, fall where they fall there), then the self row.
+    Returns ctx (B, Hq * D) bf16."""
+    bsz, hq, d = q.shape
+    hk = cache.kv_heads
+    g = hq // hk
+    blk = cache.block
+    nblk = d // blk
+    qh = q.reshape(bsz, hk, g, d)
+    s_self = (qh * k_self[:, :, None, :]).sum(-1) * scale  # (B, H, g)
+    # the batched mode's cache dots take bf16 q and bf16 p * vscale
+    qc = qh.to(torch.bfloat16).float() if batched else qh
+    lengths = lengths.to(device=q.device, dtype=torch.long)
+    s = cache.max_len
+    m = torch.full((bsz, hk, g), NEG_INF, device=q.device)
+    l = torch.zeros((bsz, hk, g), device=q.device)
+    acc = torch.zeros((bsz, hk, g, d), device=q.device)
+    span, pf = _cache_walk(s, d)
+    # every tile: a tile past a slot's length adds exactly nothing (p = 0,
+    # alpha = 1), and the walk needs no device-to-host read of the lengths
+    pos_all = torch.arange(s, device=q.device)
+    for t0 in range(0, s, span):
+        for par in range(pf):
+            rows = slice(t0 + par, min(t0 + span, s), pf)
+            kc = cache.k[layer][:, :, rows].float()  # (B, H, T, D) codes
+            vc = cache.v[layer][:, :, rows].float()
+            ks = cache.k_scale[layer][:, :, rows].float()  # (B, H, T, C)
+            vs = cache.v_scale[layer][:, :, rows].float()
+            scores = None
+            for c in range(nblk):
+                sl = slice(c * blk, (c + 1) * blk)
+                part = torch.matmul(qc[..., sl], kc[..., sl].transpose(-1, -2)) \
+                    * ks[..., c][:, :, None, :]
+                scores = part if scores is None else scores + part
+            scores = scores * scale
+            valid = pos_all[rows][None, :] < lengths[:, None]  # (B, T)
+            scores = torch.where(valid[:, None, None, :], scores,
+                                 torch.full_like(scores, NEG_INF))
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = alpha * l + p.sum(dim=-1)
+            parts = []
+            for c in range(nblk):
+                pc = p * vs[..., c][:, :, None, :]
+                if batched:
+                    pc = pc.to(torch.bfloat16).float()
+                parts.append(alpha[..., None] * acc[..., c * blk:(c + 1) * blk]
+                             + torch.matmul(pc, vc[..., c * blk:(c + 1) * blk]))
+            acc = torch.cat(parts, dim=-1)
+            m = m_new
+    m_new = torch.maximum(m, s_self)
+    alpha = torch.exp(m - m_new)
+    p_self = torch.exp(s_self - m_new)
+    l = alpha * l + p_self
+    ctx = (alpha[..., None] * acc + p_self[..., None] * v_self[:, :, None, :]) \
+        / torch.clamp(l, min=1e-30)[..., None]
+    return ctx.to(torch.bfloat16).reshape(bsz, hq * d)
+
+
+def _add_bf16(xres: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (xres.float() + y.to(torch.bfloat16).float()).to(torch.bfloat16)
+
+
+def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
+                            positions: torch.Tensor, cache: KVCache):
+    """The plain version: the TPU kernel's phases layer by layer, then
+    append_rows_all_layers.  Returns (x (B, 1, E) bf16, cache)."""
+    hp = spec.hyper_params
+    hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
+    bsz = x.shape[0]
+    qdim, kvdim = hq * d, hk * d
+    xres = x[:, 0].to(torch.bfloat16)
+    cos, sin = _expand_cos_sin(positions[:, 0], d, spec.rope_order,
+                               spec.rope_theta)
+    cos, sin = cos[:, None, :], sin[:, None, :]
+    scale = (1.0 / (d ** 0.5)) * spec.kq_scale
+    order, blk, batched = spec.rope_order, cache.block, bsz > 1
+    k_new, v_new = [], []
+    for layer, lp in enumerate(layers):
+        attn, ffn = lp["attn"], lp["ffn"]
+        qkv = _i8mm_f32(_rmsnorm(xres, attn["pre_norm"], spec.norm_eps),
+                        attn["qkv"])
+        q = qkv[:, :qdim].reshape(bsz, hq, d)
+        k = qkv[:, qdim:qdim + kvdim].reshape(bsz, hk, d)
+        v = qkv[:, qdim + kvdim:].reshape(bsz, hk, d)
+        q = q * cos + _rot(q, order) * sin
+        k = k * cos + _rot(k, order) * sin
+        k_new.append(k)
+        v_new.append(v)
+        ctx = _attend_plain(q, _qdq(k, blk), _qdq(v, blk), cache, layer,
+                            cache.length, scale, batched)
+        xres = _add_bf16(xres, _i8mm_f32(ctx, attn["wo"]))
+        h2 = _i8mm_f32(_rmsnorm(xres, ffn["pre_norm"], spec.norm_eps),
+                       ffn["w1n3"])
+        f_dim = h2.shape[-1] // 2
+        hglu = _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn)
+        xres = _add_bf16(xres, _i8mm_f32(hglu, ffn["w2"]))
+    append_rows_all_layers(cache, torch.stack(k_new), torch.stack(v_new),
+                           cache.length)
+    return xres[:, None], cache
+
+
+# ------------------------------------------------------------ the kernel
+# per-layer pointer tables, built once per layer list (a strong reference
+# keeps the list, and so its id, alive while its table is cached)
+_TABLES: "collections.OrderedDict" = collections.OrderedDict()
+_TABLE_CACHE_SIZE = 4
+
+
+def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
+    hit = _TABLES.get(id(layers))
+    if hit is not None and hit[0] is layers:
+        return hit[1]
+    ptrs = []
+    for lp in layers:
+        attn, ffn = lp["attn"], lp["ffn"]
+        for name, t in (("attn.pre_norm", attn["pre_norm"]),
+                        ("ffn.pre_norm", ffn["pre_norm"])):
+            _build.check_operand(t, name, torch.bfloat16, (e,))
+            ptrs.append(t.data_ptr())
+        for name, w, k, n in (("qkv", attn["qkv"], e, nqkv),
+                              ("wo", attn["wo"], qdim, e),
+                              ("w1n3", ffn["w1n3"], e, 2 * f),
+                              ("w2", ffn["w2"], f, e)):
+            _check_i8(w, name, k, n)
+            ptrs += [w.data.data_ptr(), w.scale.data_ptr()]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    _TABLES[id(layers)] = (layers, table)
+    while len(_TABLES) > _TABLE_CACHE_SIZE:
+        _TABLES.popitem(last=False)
+    return table
+
+
+def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
+                           positions: torch.Tensor, cache: KVCache):
+    """Launch kernel B4: one C call for the whole step."""
+    _build.require_hopper(x)
+    hp = spec.hyper_params
+    hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
+    bsz, e = x.shape[0], x.shape[-1]
+    num_layers, cb, h, s, cd = cache.k.shape
+    f = int(layers[0]["ffn"]["w2"].shape[-2])
+    if hq // hk > _MAX_ROWS or d > _MAX_D or d % 16:
+        raise NotImplementedError(
+            f"the fused step kernel takes at most {_MAX_ROWS} query heads "
+            f"per kv head and head_dim a multiple of 16 up to {_MAX_D}")
+    if (cb, h, cd) != (bsz, hk, d) or num_layers != len(layers):
+        raise ValueError(f"cache {tuple(cache.k.shape)} does not match "
+                         f"{len(layers)} layers, B={bsz}, H={hk}, D={d}")
+    nqkv = (hq + 2 * hk) * d
+    table = _layer_table(layers, e, hq * d, nqkv, f)
+    shape = tuple(cache.k.shape)
+    sshape = tuple(cache.k_scale.shape)
+    for name, t, dt, shp in (("k", cache.k, torch.int8, shape),
+                             ("v", cache.v, torch.int8, shape),
+                             ("k_scale", cache.k_scale, torch.float16, sshape),
+                             ("v_scale", cache.v_scale, torch.float16, sshape)):
+        _build.check_operand(t, name, dt, shp)
+    dev = x.device
+    xres = x.reshape(bsz, e).to(torch.bfloat16).contiguous().clone()
+    lengths = cache.length.to(device=dev, dtype=torch.int32).contiguous()
+    cos, sin = _expand_cos_sin(positions.reshape(-1), d, spec.rope_order,
+                               spec.rope_theta)
+    cos, sin = cos.contiguous(), sin.contiguous()
+    # one zeroed buffer: split-K workspace, tile counters, per-layer row
+    # maxima of ctx and hglu, the attention's split counters
+    n_ws = bsz * max(nqkv, e, 2 * f)
+    tiles = -(-max(nqkv, e, f) // _TILE_COLS)
+    n_amax = 2 * num_layers * bsz
+    work = torch.zeros(n_ws + tiles + n_amax + bsz * hk, dtype=torch.int32,
+                       device=dev)
+    part = torch.empty(bsz * hk * _MAX_SPLIT * (hq // hk) * (d + 2),
+                       dtype=torch.float32, device=dev)
+    qkv = torch.empty((bsz, nqkv), dtype=torch.float32, device=dev)
+    ctx = torch.empty((bsz, hq * d), dtype=torch.bfloat16, device=dev)
+    hglu = torch.empty((bsz, f), dtype=torch.bfloat16, device=dev)
+    lib = _lib()
+    rc = lib.ift_fused_decode_step(
+        table, num_layers, _build.ptr(xres), _build.ptr(lengths),
+        _build.ptr(cos), _build.ptr(sin), _build.ptr(cache.k),
+        _build.ptr(cache.v), _build.ptr(cache.k_scale),
+        _build.ptr(cache.v_scale), _build.ptr(qkv), _build.ptr(ctx),
+        _build.ptr(hglu), _build.ptr(work), _build.ptr(work[n_ws:]),
+        _build.ptr(work[n_ws + tiles:]), _build.ptr(part),
+        _build.ptr(work[n_ws + tiles + n_amax:]), bsz, e, hq, hk, d, s,
+        cache.block,
+        f, spec.rope_order, _ACTS[spec.activation_fn], spec.norm_eps,
+        (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
+    _build.check(lib, rc, KERNEL)
+    _build.launch_counts[KERNEL] += 1
+    return xres[:, None], cache
+
+
+def fused_decode_step(spec, layers: list, x: torch.Tensor,
+                      positions: torch.Tensor, cache: KVCache):
+    """One decode step over all layers (inferflow_tpu signature).
+
+    x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
+    cache lengths; cache: a Q8 KVCache.  Returns (x (B, 1, E), cache) with
+    the step's K/V rows written at each slot's length; cache.length is not
+    advanced."""
+    modes = _fusion_modes(spec, layers, cache, x.shape[0])
+    if modes != {"i8mm"}:
+        raise NotImplementedError(
+            "fused_decode_step serves i8mm weights and a Q8 cache; this "
+            f"configuration has weight modes {sorted(modes or [])}")
+    if x.device.type == "cpu":
+        return fused_decode_step_plain(spec, layers, x, positions, cache)
+    if x.device.type == "cuda":
+        return fused_decode_step_cuda(spec, layers, x, positions, cache)
+    raise ValueError(f"fused_decode_step: unsupported device {x.device}")

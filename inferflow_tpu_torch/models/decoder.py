@@ -14,9 +14,14 @@ Attention routes by phase, as on the TPU:
     (kernel B2) over the whole stacked cache;
   - chunked prefill: append the chunk to its slot, then ``chunk_attention``
     (kernel B3) over rows [0, start + T).
-Every quantized linear goes through ``quantized_matmul`` (kernel B1).
-Not ported: MoE, ALiBi/sinusoidal positions, parallel attention,
-ring/tensor-parallel paths and the whole-model fused decode step.
+Every quantized linear goes through ``quantized_matmul`` (kernel B1) for
+wire planes, or the i8mm product (ops/linear.py) for Int8MXUTensors.
+A decode step (T == 1 with a cache) whose weights and cache the
+whole-model fused step takes (``fused_step_preferred``: i8mm weights, a Q8
+cache, B <= 8) runs ``fused_decode_step`` (kernel B4) for all layers at
+once instead of the per-layer loop.
+Not ported: MoE, ALiBi/sinusoidal positions, parallel attention and the
+ring/tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -26,12 +31,14 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.attention import chunk_attention, decode_attention
+from ..kernels.decode_step import fused_decode_step, fused_step_preferred
 from ..ops.activations import activate
 from ..ops.attention import mha
 from ..ops.linear import linear
 from ..ops.norms import apply_norm, linear_norm
 from ..ops.rope import rope
-from ..quant.codec_torch import QuantizedTensor, concat_quantized
+from ..quant.codec_torch import (Int8MXUTensor, QuantizedTensor,
+                                 concat_quantized)
 from ..runtime.kv_cache import KVCache
 from .spec import ModelSpec
 
@@ -48,10 +55,10 @@ def check_supported(spec: ModelSpec) -> None:
         raise NotImplementedError("parallel attention is not ported")
     if spec.w1n3_ranks > 1:
         raise NotImplementedError("rank-major w1n3 layouts are not ported")
-    if spec.device_layout not in ("", "auto", "packed"):
+    if spec.device_layout not in ("", "auto", "packed", "i8mm"):
         raise NotImplementedError(
             f"device layout {spec.device_layout!r} is not ported; this "
-            "package serves the packed wire layout")
+            "package serves the packed wire layout and i8mm")
 
 
 def _norm(spec: ModelSpec, x, params: dict, prefix: str, base: float = 0.0):
@@ -224,8 +231,14 @@ def layer_cache_fused(cache: KVCache, layer: int) -> dict:
 
 def decoder_layers_unrolled(spec: ModelSpec, layers: list, x, positions,
                             cache: Optional[KVCache] = None):
-    """The per-layer loop of the decode step (the JAX loop minus its
-    whole-model fused-step branch).  Does NOT advance cache.length."""
+    """The layer loop of the decode step.  A single-token step that the
+    whole-model fused step takes (fused_step_preferred) runs it: kernel B4
+    on the card, its plain version on the CPU, the same route on both.
+    Everything else runs the per-layer loop.  Does NOT advance
+    cache.length."""
+    if cache is not None and x.shape[1] == 1 and fused_step_preferred(
+            spec, layers, cache, x.shape[0]):
+        return fused_decode_step(spec, layers, x, positions, cache)
     for i, lp in enumerate(layers):
         lc = None if cache is None else layer_cache_fused(cache, i)
         x, _ = decoder_layer(spec, lp, x, positions, lc)
@@ -253,6 +266,14 @@ def _concat_weights(parts):
                    and p.storage_k == first.storage_k for p in parts):
             return None
         return concat_quantized(parts)
+    if isinstance(first, Int8MXUTensor):
+        if not all(isinstance(p, Int8MXUTensor)
+                   and p.shape[0] == first.shape[0] for p in parts):
+            return None
+        return Int8MXUTensor(
+            (first.shape[0], sum(int(p.shape[-1]) for p in parts)),
+            torch.cat([p.data for p in parts], dim=-1),
+            torch.cat([p.scale for p in parts], dim=-1))
     if not all(isinstance(p, torch.Tensor) and p.shape[0] == first.shape[0]
                for p in parts):
         return None

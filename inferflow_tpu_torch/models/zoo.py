@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..quant.codec_torch import quantize
+from ..quant.codec_torch import (layout_for_leaf, quantize,
+                                 requantize_i8_colwise, resolve_auto_layout)
 from ..quant.formats import get_format
 from .decoder import check_supported, fuse_layer_weights
 from .spec import HyperParams, ModelSpec
@@ -61,22 +62,36 @@ def make_spec(name: str, **overrides) -> ModelSpec:
     return ModelSpec(sid=name, hyper_params=hp, **kw)
 
 
-def _maybe_quant(w: torch.Tensor, weight_format: Optional[str]):
+def _maybe_quant(w: torch.Tensor, weight_format: Optional[str],
+                 device_layout: str = "", leaf: str = ""):
     if weight_format in (None, "F16", "BF16", "F32"):
         return w.to(torch.bfloat16)
     if w.shape[0] % get_format(weight_format).block:
         return w.to(torch.bfloat16)  # K not a block multiple: stays dense
-    return quantize(w, weight_format)
+    qt = quantize(w, weight_format)
+    if layout_for_leaf(device_layout, leaf) == "i8mm":
+        return requantize_i8_colwise(qt)
+    return qt
 
 
 def make_synthetic_params(spec: ModelSpec,
                           weight_format: Optional[str] = None, seed: int = 0,
-                          device="cuda") -> dict:
+                          device="cuda", device_layout: str = "") -> dict:
     """Random params (normal, std 0.5/sqrt(K) for (K, N) weights, 0.02 for
     embeddings), generated and quantized on `device` layer by layer, with
-    qkv and w1|w3 fused; sets spec.qkv_format = 1 for the fused qkv."""
+    qkv and w1|w3 fused; sets spec.qkv_format = 1 for the fused qkv.
+
+    device_layout '' or 'auto' resolves on `device` (resolve_auto_layout:
+    'i8mm' on the card for every model that fits, nothing on the CPU); under
+    'i8mm' every quantized weight, the lm_head included, is requantized
+    into the per-column int8 container."""
     check_supported(spec)
     dev = resolve_device(device)
+    if device_layout in ("", "auto") and weight_format:
+        device_layout = resolve_auto_layout(spec, weight_format, dev)
+    if device_layout not in ("", "packed", "i8mm"):
+        raise NotImplementedError(
+            f"device layout {device_layout!r} is not ported")
     hp = spec.hyper_params
     e, inter, vocab = hp.embd_dims, hp.decoder_intermediate_size, hp.vocab_size
     q_dim = hp.decoder_heads * hp.head_dim
@@ -89,20 +104,23 @@ def make_synthetic_params(spec: ModelSpec,
         return torch.randn((k, n), generator=gen, device=dev,
                            dtype=torch.float32) * std
 
-    def weight(k, n):
-        return _maybe_quant(rand(k, n), weight_format)
+    def weight(k, n, leaf):
+        return _maybe_quant(rand(k, n), weight_format, device_layout, leaf)
 
     layers = []
     for _ in range(hp.decoder_layers):
         layers.append({
             "attn": {"pre_norm": torch.ones(e, dtype=torch.bfloat16,
                                             device=dev),
-                     "wq": weight(e, q_dim), "wk": weight(e, kv_dim),
-                     "wv": weight(e, kv_dim), "wo": weight(q_dim, e)},
+                     "wq": weight(e, q_dim, "wq"),
+                     "wk": weight(e, kv_dim, "wk"),
+                     "wv": weight(e, kv_dim, "wv"),
+                     "wo": weight(q_dim, e, "wo")},
             "ffn": {"pre_norm": torch.ones(e, dtype=torch.bfloat16,
                                            device=dev),
-                    "w1": weight(e, inter), "w2": weight(inter, e),
-                    "w3": weight(e, inter)},
+                    "w1": weight(e, inter, "w1"),
+                    "w2": weight(inter, e, "w2"),
+                    "w3": weight(e, inter, "w3")},
         })
         layers[-1:] = fuse_layer_weights(layers[-1:])
     if all("qkv" in lp["attn"] for lp in layers):
@@ -110,6 +128,6 @@ def make_synthetic_params(spec: ModelSpec,
     return {
         "dec_embeddings": rand(vocab, e, std=0.02).to(torch.bfloat16),
         "dec_output_norm": torch.ones(e, dtype=torch.bfloat16, device=dev),
-        "lm_head": weight(e, vocab),
+        "lm_head": weight(e, vocab, "lm_head"),
         "layers": layers,
     }

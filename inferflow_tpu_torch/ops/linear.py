@@ -1,10 +1,14 @@
-"""Linear layer dispatch over dense or block-quantized weights.
+"""Linear layer dispatch over dense or quantized weights.
 
-Port of inferflow_tpu/ops/linear.py for the dense and QuantizedTensor
-cases: a QuantizedTensor goes to the dequant-matmul kernel wrapper
-(kernels/dequant_matmul.py; the plain version on CPU tensors), a dense
-weight to a float32-accumulated matmul.  The i8mm, global-quant and delta
-weight types are not ported.
+Port of inferflow_tpu/ops/linear.py for the dense, QuantizedTensor and
+Int8MXUTensor cases:
+  - a QuantizedTensor goes to the dequant-matmul kernel wrapper
+    (kernels/dequant_matmul.py; the plain version on CPU tensors);
+  - an Int8MXUTensor (device layout 'i8mm') to the int8 x int8 product
+    with per-row activation and per-column weight scales
+    (kernels/decode_step.i8mm_matmul);
+  - a dense weight to a float32-accumulated matmul.
+The global-quant and delta weight types are not ported.
 """
 
 from __future__ import annotations
@@ -13,16 +17,19 @@ from typing import Optional, Union
 
 import torch
 
+from ..kernels.decode_step import i8mm_matmul
 from ..kernels.dequant_matmul import quantized_matmul
-from ..quant.codec_torch import QuantizedTensor
+from ..quant.codec_torch import Int8MXUTensor, QuantizedTensor
 
-Weight = Union[torch.Tensor, QuantizedTensor]
+Weight = Union[torch.Tensor, QuantizedTensor, Int8MXUTensor]
 
 
 def linear(x: torch.Tensor, w: Weight,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w (+ bias); x: (..., K), w: (K, N)."""
-    if isinstance(w, QuantizedTensor):
+    if isinstance(w, Int8MXUTensor):
+        y = i8mm_matmul(x, w)
+    elif isinstance(w, QuantizedTensor):
         y = quantized_matmul(x, w)
     elif isinstance(w, torch.Tensor):
         y = torch.matmul(x.float(), w.float()).to(x.dtype)

@@ -4,9 +4,11 @@ Port of inferflow_tpu/quant/codec_jax.py: the same arithmetic in float32 on
 any torch device, so ``quantize`` gives the same bytes as the JAX codec.
 
 Covered: every format whose bit-planes use the consecutive layout (value k
-in byte k//p at bit (k%p)*bits), i.e. the Q8/Q6/Q5_B64/Q4/Q3/Q2 families.
-The split-nibble Q5_B32T1, the base-11 pair formats (Q3H) and the device
-re-layouts (i8mm, i4, q8c, pair8) raise NotImplementedError.
+in byte k//p at bit (k%p)*bits), i.e. the Q8/Q6/Q5_B64/Q4/Q3/Q2 families,
+and the ``i8mm`` device layout (``Int8MXUTensor``: per-column int8 codes
+for int8 x int8 products).  The split-nibble Q5_B32T1, the base-11 pair
+formats (Q3H) and the other device re-layouts (i4, q8c, mixed, pair8)
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .formats import QuantFormat, get_format
+from .formats import GLOBAL_TYPES, QuantFormat, get_format
 
 _DEVICE_LAYOUT_PLANES = ("data_i4p", "pair8")
 
@@ -243,3 +245,122 @@ def dequantize_q8_sym(codes: torch.Tensor, scale: torch.Tensor,
     nb = shape[-1] // block
     q = codes.float().reshape(shape[:-1] + (nb, block))
     return (q * scale.float()[..., None]).reshape(shape).to(dtype)
+
+
+@dataclasses.dataclass
+class Int8MXUTensor:
+    """Per-COLUMN symmetric int8 weight (device_layout 'i8mm'), for int8 x
+    int8 products: activations are quantized per row, and the row scale
+    times the column scale covers the whole K reduction.
+
+    data: (K, N) int8 codes; scale: (N,) float32 column scales.
+    """
+
+    shape: tuple
+    data: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.numel() + self.scale.numel() * 4
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return (self.data.float() * self.scale[None, :]).to(dtype)
+
+    def to(self, device) -> "Int8MXUTensor":
+        return Int8MXUTensor(self.shape, self.data.to(device),
+                             self.scale.to(device))
+
+    @classmethod
+    def from_np(cls, t: dict, device="cuda") -> "Int8MXUTensor":
+        """From a ``{"shape", "data", "scale"}`` dict of numpy arrays (the
+        JAX package's Int8MXUTensor fields), on `device`."""
+        device = resolve_device(device)
+        return cls(tuple(int(s) for s in t["shape"]),
+                   _numpy_to_torch(t["data"]).to(device),
+                   _numpy_to_torch(t["scale"]).to(device))
+
+
+def requantize_i8_colwise(qt) -> Int8MXUTensor:
+    """Re-encode a weight (QuantizedTensor or dense (K, N) tensor) into the
+    per-column int8 container.  Bytes equal to codec_jax's."""
+    if isinstance(qt, QuantizedTensor):
+        wd = dequantize(qt, torch.float32)
+    else:
+        wd = qt.float()
+    amax = wd.abs().amax(dim=0)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.round(wd / scale[None, :]).clamp(-127, 127)  # half to even
+    return Int8MXUTensor(tuple(wd.shape), q.to(torch.int8), scale)
+
+
+def int8_rowwise_activations(x: torch.Tensor):
+    """Per-row symmetric int8 quantization: (int8 codes, (…, 1) float32
+    row scales), rounding half to even as jnp.round does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _device_memory_bytes(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def resolve_auto_layout(spec, weight_format, device="cuda") -> str:
+    """The device layout for device_layout in ('', 'auto').
+
+    Capacity rule: sub-byte wire formats take the int8 container ('i8mm')
+    when it fits in 75% of the card's memory (the rest is left to the KV
+    cache and activations); else 4-bit single-plane unsigned formats take
+    'i4' and the rest keep the wire planes ('packed').  Byte formats, dense
+    and whole-tensor types keep ''.  Explicit layouts pass through.  On the
+    CPU nothing is resolved (''), as the JAX package resolves nothing off
+    its accelerator."""
+    if getattr(spec, "device_layout", "") not in ("", "auto"):
+        return spec.device_layout
+    dev = torch.device(device)
+    if not weight_format or dev.type != "cuda":
+        return ""
+    if weight_format.upper() in GLOBAL_TYPES:
+        return ""
+    try:
+        fmt = get_format(weight_format)
+    except KeyError:
+        return ""
+    if not (fmt.pair_base11 or any(p.bits < 8 for p in fmt.planes)):
+        return ""
+    hp = spec.hyper_params
+    e, d = hp.embd_dims, hp.head_dim
+    hq, hk = hp.decoder_heads, hp.kv_heads
+    f = hp.decoder_intermediate_size or 4 * e
+    n_exp = max(hp.experts, 1)
+    attn_params = hp.decoder_layers * (e * (hq + 2 * hk) * d + hq * d * e)
+    ffn_params = hp.decoder_layers * n_exp * 3 * e * f
+    # the embeddings stay dense bf16 in every layout; only the lm_head
+    # takes the container
+    emb_bytes = 2 * hp.vocab_size * e
+    head_params = hp.vocab_size * e
+    # 1 byte per weight + one f32 scale per column (~8.03 bits)
+    i8mm_bytes = (attn_params + ffn_params + head_params) * 65 // 64 \
+        + emb_bytes
+    if i8mm_bytes <= 0.75 * _device_memory_bytes(dev):
+        return "i8mm"
+    if (len(fmt.planes) == 1 and fmt.planes[0].bits == 4
+            and fmt.planes[0].layout == "consecutive" and not fmt.signed):
+        return "i4"
+    return "packed"
+
+
+# FFN leaves that take the q8c container under the 'mixed' layout
+MIXED_CONTAINER_LEAVES = frozenset({"w1", "w2", "w3", "w1n3"})
+
+
+def layout_for_leaf(layout: str, leaf: str) -> str:
+    """Per-tensor device layout under a whole-model decision: 'mixed' is
+    q8c for the FFN leaves and the wire planes elsewhere; every other
+    layout is uniform."""
+    if layout != "mixed":
+        return layout
+    return "q8c" if leaf in MIXED_CONTAINER_LEAVES else "packed"

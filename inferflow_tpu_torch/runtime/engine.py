@@ -11,12 +11,14 @@ Same step loop as the JAX engine, run eagerly on one CUDA device:
     the decode steps of other slots write their throw-away row for it
     there and not over the chunk's rows;
   - one batched decode step over every slot (B = max_concurrent_queries,
-    inactive slots included, each with at least one visible key), kernels
-    B1 and B2;
+    inactive slots included): the whole-model fused step (kernel B4) for
+    i8mm weights and B <= 8, else the per-layer loop (kernels B1 and B2);
   - sampling on the host (sampling/strategies.py), saturation as an
     implicit end of the query.
 Not ported here: host offload, paged KV, speculative decoding, meshes,
-ring and pipelined prefill (their options raise), and CUDA graphs.
+ring and pipelined prefill (their options raise), CUDA graphs, and the JAX
+engine's fused-step probe: if kernel B4 fails to build or launch, the
+step raises.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..models.decoder import (check_supported, decoder_forward,
                               decoder_layers_chunk, decoder_layers_unrolled,
                               embed_tokens, fuse_layer_weights, output_logits)
 from ..models.spec import ModelSpec
-from ..quant.codec_torch import QuantizedTensor
+from ..quant.codec_torch import Int8MXUTensor, QuantizedTensor
 from ..quant.formats import is_quantized
 from ..sampling.strategies import DecodingStrategies, SamplingOptions
 from .kv_cache import KVCache
@@ -60,7 +62,7 @@ def _bucket(n: int, lo: int = 16, hi: int = 4096) -> int:
 
 
 def _to_device(node, dev):
-    if isinstance(node, QuantizedTensor):
+    if isinstance(node, (QuantizedTensor, Int8MXUTensor)):
         return node.to(dev)
     if isinstance(node, dict):
         return {k: _to_device(v, dev) for k, v in node.items()}

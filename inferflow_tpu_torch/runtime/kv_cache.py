@@ -146,3 +146,24 @@ class KVCache:
             self.k_scale[:, slot, :, :t] = tmp.k_scale[:, 0]
             self.v_scale[:, slot, :, :t] = tmp.v_scale[:, 0]
         self.length[slot] = length
+
+
+def append_rows_all_layers(cache: KVCache, k_new: torch.Tensor,
+                           v_new: torch.Tensor,
+                           start: torch.Tensor) -> KVCache:
+    """Write ONE row per slot for ALL layers: k_new/v_new (L, B, H, D)
+    float rows (the fused decode step's per-layer K/V) at per-slot offsets
+    start (B,), clamped to S - 1 as the JAX dynamic_update_slice clamps.
+    Quantized caches take quantize_q8_sym codes and f16 scales."""
+    b = k_new.shape[1]
+    pos = start.to(device=cache.k.device, dtype=torch.long).clamp(
+        0, cache.max_len - 1)
+    slots = torch.arange(b, device=cache.k.device)
+    for arr, sarr, new in ((cache.k, cache.k_scale, k_new),
+                           (cache.v, cache.v_scale, v_new)):
+        codes, scales = cache._encode(new)
+        # advanced indices (slots, pos) around a slice: (B, L, H, D)
+        arr[:, slots, :, pos, :] = codes.transpose(0, 1)
+        if scales is not None:
+            sarr[:, slots, :, pos, :] = scales.transpose(0, 1)
+    return cache

@@ -1,10 +1,11 @@
 """Moving params from the JAX package into this one, through numpy.
 
 ``params_from_numpy`` takes the JAX package's param tree with every leaf
-already converted to numpy: dense arrays as arrays (bfloat16 included) and
-each QuantizedTensor as its ``to_np()`` dict.  Layer-stacked trees (a
-leading L axis on every ``layers`` leaf) are split into the per-layer list
-this package uses.  Tests use it to give both packages identical weights.
+already converted to numpy: dense arrays as arrays (bfloat16 included),
+each QuantizedTensor as its ``to_np()`` dict and each Int8MXUTensor as a
+``{"shape", "data", "scale"}`` dict.  Layer-stacked trees (a leading L axis
+on every ``layers`` leaf) are split into the per-layer list this package
+uses.  Tests use it to give both packages identical weights.
 """
 
 from __future__ import annotations
@@ -13,18 +14,25 @@ import numpy as np
 
 from .device import resolve_device
 from .models.spec import ModelSpec
-from .quant.codec_torch import QuantizedTensor, _numpy_to_torch
+from .quant.codec_torch import Int8MXUTensor, QuantizedTensor, _numpy_to_torch
 
 _QT_KEYS = {"format", "shape", "planes", "scale", "base"}
+_I8_KEYS = {"shape", "data", "scale"}
 
 
 def _is_qt(node) -> bool:
     return isinstance(node, dict) and set(node) == _QT_KEYS
 
 
+def _is_i8(node) -> bool:
+    return isinstance(node, dict) and set(node) == _I8_KEYS
+
+
 def _convert(node, device):
     if _is_qt(node):
         return QuantizedTensor.from_np(node, device)
+    if _is_i8(node):
+        return Int8MXUTensor.from_np(node, device)
     if isinstance(node, dict):
         return {k: _convert(v, device) for k, v in node.items()}
     if isinstance(node, list):
@@ -33,7 +41,7 @@ def _convert(node, device):
 
 
 def _layer_count(node) -> int:
-    if _is_qt(node):
+    if _is_qt(node) or _is_i8(node):
         return int(np.asarray(node["scale"]).shape[0])
     if isinstance(node, dict):
         return next(_layer_count(v) for v in node.values())
@@ -46,6 +54,9 @@ def _select_layer(node, i: int):
                 "planes": {k: v[i] for k, v in node["planes"].items()},
                 "scale": node["scale"][i],
                 "base": None if node["base"] is None else node["base"][i]}
+    if _is_i8(node):
+        return {"shape": tuple(node["shape"])[1:], "data": node["data"][i],
+                "scale": node["scale"][i]}
     if isinstance(node, dict):
         return {k: _select_layer(v, i) for k, v in node.items()}
     return np.asarray(node)[i]

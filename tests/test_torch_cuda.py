@@ -7,8 +7,10 @@ Tolerances: kernel and plain version compute the same float32 arithmetic
 (the same bf16-rounded weights for B1, float32 dequantized K/V for B2/B3)
 and differ only in summation order, so outputs may differ by about one
 bf16 rounding step: |kernel - plain| <= 8e-3 * max|plain| (two bf16 ulps
-at the largest output).
+at the largest output).  The i8mm product and B4 state their own.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -43,8 +45,12 @@ def _close(got, ref):
     assert err <= REL_TOL * scale + 1e-6, (err, scale)
 
 
-@pytest.mark.parametrize("k,n", [(512, 256), (2048, 2560), (5632, 2048)])
-def test_dequant_matmul_kernel(dev, k, n):
+def test_dequant_matmul_kernel(dev):
+    for k, n in ((512, 256), (2048, 2560), (5632, 2048)):
+        _dequant_matmul_case(dev, k, n)
+
+
+def _dequant_matmul_case(dev, k, n):
     """Each M of the decode (GEMV) and prefill (tiled) paths against the
     plain version; a decode plan that would overflow the x staging buffer
     or leave K uncovered is refused by the C entry."""
@@ -112,6 +118,84 @@ def test_chunk_attention_kernel(dev):
             torch.cuda.synchronize()
             _close(got[0], chunk_attention_plain(q[0], cache, 1, 2, start,
                                                  0.9))
+
+
+def test_i8mm_linear_kernel(dev):
+    """The i8mm product on the card: M = 4 (the int8 GEMV kernel) and
+    M = 256 (torch._int_mm over the same int8 rows) against the plain
+    version; both take the same codes and an exact integer product, so the
+    outputs agree to one bf16 step."""
+    from inferflow_tpu_torch.kernels.decode_step import (i8mm_matmul,
+                                                         i8mm_matmul_plain)
+    from inferflow_tpu_torch.ops.linear import linear
+    from inferflow_tpu_torch.quant.codec_torch import requantize_i8_colwise
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for k, n in ((2048, 2560), (5632, 2048), (256, 512)):
+        w = requantize_i8_colwise(quantize(
+            torch.randn((k, n), generator=gen, device=dev) * (0.5 / k ** 0.5),
+            "Q4_B64T1"))
+        for m in (4, 256):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            before = _build.launch_counts["i8mm_gemv"]
+            got = linear(x, w)
+            ref = i8mm_matmul_plain(x, w)
+            torch.cuda.synchronize()
+            assert _build.launch_counts["i8mm_gemv"] == before + (m <= 8)
+            step = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+            assert torch.all((got.float() - ref.float()).abs() <= step), (k, m)
+            assert torch.equal(i8mm_matmul(x, w), got)
+
+
+def test_fused_decode_step_kernel(dev):
+    """Kernel B4 against its plain version on the same inputs (the plain
+    version run on the card too), at test-llama width (3 layers) and at
+    tinyllama-1.1b width (2 layers), B = 1 and B = 4 (one slot at length
+    0, one at the last cache row).  Tolerance 5e-2 absolute on the hidden
+    state (magnitude ~1): the kernel's softmax walk, its sums and its
+    rsqrt differ from the plain version's in order and ulps, which can
+    move a bf16 rounding and an int8 activation code; the appended rows
+    within one Q8 step of the plain version's plus that tolerance."""
+    from inferflow_tpu_torch.kernels.decode_step import (
+        fused_decode_step, fused_decode_step_plain)
+    from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params
+    fused_tol = 5e-2
+    for name, layers, s in (("test-llama", 3, 512), ("tinyllama-1.1b", 2, 1024)):
+        spec = make_spec(name, layers=layers)
+        params = make_synthetic_params(spec, "Q4_B64T1", seed=0, device=dev)
+        assert type(params["lm_head"]).__name__ == "Int8MXUTensor"
+        hp = spec.hyper_params
+        for lengths in ([s // 2 + 3], [s - 1, 0, 300, 17]):
+            b = len(lengths)
+            cache, gen = _filled_cache(dev, True, layers=layers, b=b,
+                                       h=hp.kv_heads, s=s, d=hp.head_dim)
+            cache.with_length(torch.tensor(lengths, device=dev))
+            twin = dataclasses.replace(
+                cache, k=cache.k.clone(), v=cache.v.clone(),
+                k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone())
+            x = (torch.randn((b, 1, hp.embd_dims), generator=gen, device=dev)
+                 * 0.5).to(torch.bfloat16)
+            pos = cache.length[:, None]
+            before = _build.launch_counts["fused_decode_step"]
+            got, _ = fused_decode_step(spec, params["layers"], x, pos, cache)
+            ref, _ = fused_decode_step_plain(spec, params["layers"], x, pos,
+                                             twin)
+            torch.cuda.synchronize()
+            assert _build.launch_counts["fused_decode_step"] == before + 1
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= fused_tol, (name, lengths, err)
+            for layer in range(layers):
+                for a, r in zip(cache.read_layer(layer, torch.float32),
+                                twin.read_layer(layer, torch.float32)):
+                    for slot, n in enumerate(lengths):
+                        row = min(n, s - 1)
+                        row_a, row_r = a[slot, row], r[slot, row]
+                        step = row_r.abs().amax(dim=-1) / 127.0
+                        assert torch.all((row_a - row_r).abs().amax(dim=-1)
+                                         <= step + fused_tol), (name, layer)
+                    # every other row untouched
+                    assert torch.equal(a[0, :min(lengths[0], s - 1)],
+                                       r[0, :min(lengths[0], s - 1)])
 
 
 def test_engine_on_card_matches_cpu(dev):

@@ -22,6 +22,7 @@ import torch
 
 from inferflow_tpu.models import decoder as jdec
 from inferflow_tpu.models import zoo as jzoo
+from inferflow_tpu.quant.codec_jax import Int8MXUTensor as JI8
 from inferflow_tpu.quant.codec_jax import QuantizedTensor as JQT
 from inferflow_tpu.runtime.kv_cache import KVCache as JKVCache
 from inferflow_tpu_torch.models import decoder as tdec
@@ -34,9 +35,13 @@ TINY = dict(kv_heads=2, vocab=128)
 
 
 def jax_params_to_numpy(tree):
-    """JAX param tree -> numpy leaves and QuantizedTensor.to_np() dicts."""
+    """JAX param tree -> numpy leaves, QuantizedTensor.to_np() dicts and
+    Int8MXUTensor {"shape", "data", "scale"} dicts."""
     if isinstance(tree, JQT):
         return tree.to_np()
+    if isinstance(tree, JI8):
+        return {"shape": tuple(tree.shape), "data": np.asarray(tree.data),
+                "scale": np.asarray(tree.scale)}
     if isinstance(tree, dict):
         return {k: jax_params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -174,9 +179,10 @@ def test_chunk_loop_matches_jax(models):
 
 
 def test_unported_configurations_raise():
-    spec = tzoo.make_spec("test-tiny", device_layout="i8mm")
-    with pytest.raises(NotImplementedError):
-        tzoo.make_synthetic_params(spec, "Q4_B64T1", device="cpu")
+    for layout in ("i4", "q8c", "mixed"):
+        spec = tzoo.make_spec("test-tiny", device_layout=layout)
+        with pytest.raises(NotImplementedError, match=layout):
+            tzoo.make_synthetic_params(spec, "Q4_B64T1", device="cpu")
     with pytest.raises(NotImplementedError):
         tzoo.make_synthetic_params(tzoo.make_spec("test-moe"), "Q4_B64T1",
                                    device="cpu")

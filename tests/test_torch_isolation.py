@@ -4,8 +4,9 @@
   leaves ``jax`` and ``inferflow_tpu`` out of ``sys.modules``; no module of
   it, and nothing in ``chip_smoke.py``, names them in an import.
 - Entry points default to the card and raise where there is none; the
-  kernel wrappers raise for a tensor that is neither on the CPU nor on a
-  card, and the kernel build raises without a CUDA compiler.
+  kernel wrappers (B1-B3, the i8mm product and the fused decode step B4)
+  raise for a tensor that is neither on the CPU nor on a card, and the
+  kernel build raises without a CUDA compiler.
 """
 
 import ast
@@ -89,6 +90,7 @@ def test_wrappers_refuse_other_devices():
     from inferflow_tpu_torch.kernels.attention import (chunk_attention,
                                                        decode_attention)
     from inferflow_tpu_torch.kernels.dequant_matmul import quantized_matmul
+    from inferflow_tpu_torch.quant import codec_torch
     from inferflow_tpu_torch.quant.codec_torch import quantize
     from inferflow_tpu_torch.runtime.kv_cache import KVCache
 
@@ -101,6 +103,25 @@ def test_wrappers_refuse_other_devices():
         decode_attention(q, cache, 0, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         chunk_attention(q, cache, 0, 0, 0)
+
+    # the i8mm product and the whole-model fused decode step (kernel B4)
+    from inferflow_tpu_torch.kernels.decode_step import (fused_decode_step,
+                                                         i8mm_matmul)
+    from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params
+    w = codec_torch.requantize_i8_colwise(torch.randn(128, 64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        i8mm_matmul(torch.empty((2, 128), device="meta"), w)
+    spec = make_spec("test-llama", layers=1)
+    params = make_synthetic_params(spec, "Q4_B64T1", device="cpu",
+                                   device_layout="i8mm")
+    hp = spec.hyper_params
+    cache = KVCache.create(1, 2, 16, hp.kv_heads, hp.head_dim,
+                           quantized=True, device="cpu")
+    x = torch.empty((2, 1, hp.embd_dims), dtype=torch.bfloat16,
+                    device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_decode_step(spec, params["layers"], x,
+                          torch.zeros((2, 1), dtype=torch.int32), cache)
 
 
 def test_kernel_build_needs_nvcc():
