@@ -21,6 +21,15 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
      B = 4 (lengths 1023, 700, 301, 17) and B = 1; and its int8 GEMV alone
      at the four layer shapes and the lm_head, M in {1, 4} (library:
      torch._int_mm on the same int8 rows, padded to the 24 rows it takes);
+   - B7 paged decode attention at B = 16 (lengths B7_LENGTHS, 0 to 32767,
+     on shuffled pages of a 1024-page one-layer pool) at llama2-7b width
+     (H = 32, g = 1, D = 128, 128-token pages) and tinyllama-1.1b width
+     (H = 4, g = 8, D = 64, 256-token pages), Q8 and bf16 pools (library:
+     scaled_dot_product_attention over the same rows already gathered into
+     a dense bf16 tensor; the gather is not timed);
+   - B4's paged mode (f) at tinyllama-1.1b width and depth, B = 4 and 1,
+     the cache rows of the B4 phase copied into shuffled pages: against its
+     plain version and against dense B4 on the same rows;
 3. serves four greedy queries (prompts of 7, 60, 200 and 300 tokens, 16
    new tokens each; the 300-token prompt takes the chunked path, kernel
    B3) with the engine at full tinyllama-1.1b width, a Q8 KV cache, 4
@@ -30,11 +39,28 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        must not launch;
    (b) slice 1's packed Q4_B64T1 wire layout at ENGINE_B_LAYERS layers
        (per-layer decode, kernels B1 and B2);
+   (d) (a) with paging on (default pool), cut to ENGINE_D_LAYERS layers:
+       the 300-token prompt is prefilled whole; every decode step runs
+       B4's paged mode; B7 and B3 must not launch;
    each run counts the kernels' launches (reset just before it), reads the
    device memory, profiles three decode steps of one more query (device
    busy and idle share, device time by kernel), and holds every served
    logits row against the same engine on the CPU (plain versions), run in
-   the same interleaving and fed the tokens the card served.
+   the same interleaving and fed the tokens the card served;
+4. serves configs/inferflow_service.paged.ini, read with the package's own
+   load_engine_config: llama2-7b at full width (make_spec; the model dir
+   has no config.json) from seed-0 Q4_B64T1, resolved to i8mm on the card,
+   16 slots, a 32768-token context and a 131072-token Q8 page pool:
+   (c) at full depth, 24 greedy queries (ENGINE_C_PROMPTS, 7 to 1024
+       tokens, 16 new tokens each; more queries than slots, so 8 reuse a
+       slot and released pages): every decode step takes the per-layer
+       loop (B = 16) with B7 in each layer; B4, B2 and B3 must not launch;
+       every sampled row is held against a dense-cache engine on the card
+       (same weights, 16 slots, a 2048-token context, whole-prompt
+       prefill), served first and freed before the paged one is built,
+       whose tokens the paged engine is fed;
+   (c-cpu) the same configuration at ENGINE_CCPU_LAYERS layers and
+       prompts of at most 300 tokens, held against the CPU engine.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -88,6 +114,26 @@ FUSED_LENGTHS = (1023, 700, 301, 17)
 FUSED_TOL = 0.12
 ONE_LAYER_TOL = 0.03
 
+# B7 against its plain version: both compute in float32 and round once to
+# bf16; they differ in summation order only
+B7_LENGTHS = (32767, 16384, 8191, 4097, 2048, 1023, 700, 301, 128, 127, 64,
+              17, 5, 1, 1, 0)
+B7_POOL_PAGES = 1024
+ENGINE_D_LAYERS = 6  # depth of the paged tinyllama run (d)
+PAGED_INI = "configs/inferflow_service.paged.ini"
+PAGED_MODEL = "llama2-7b"
+ENGINE_C_PROMPTS = (7, 1024, 13, 600, 33, 300, 64, 900, 100, 17, 256, 512,
+                    129, 700, 45, 1000, 8, 384, 200, 77, 1023, 150, 60, 450)
+ENGINE_C_DENSE_CONTEXT = 2048
+ENGINE_CCPU_LAYERS = 2
+ENGINE_CCPU_PROMPTS = (7, 300, 13, 150, 33, 250, 64, 100, 17, 200, 129, 45,
+                       8, 77, 60, 290, 21, 128)
+# the paged engine (c) against the dense engine on the card: the same
+# prefill; decode differs in the attention kernel (B7 against B2), whose
+# float32 sums run in another order, and each moved bf16 rounding grows
+# through 32 random-weight layers
+ENGINE_C_TOL = 0.12
+
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
                        "inferflow_tpu/kernels/dequant_matmul.py:146"),
@@ -101,6 +147,8 @@ KERNEL_SOURCES = {
     # i8mm lm_head at decode
     "i8mm_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
                   "inferflow_tpu/kernels/decode_step.py:502"),
+    "paged_decode_attention": ("inferflow_tpu_torch/kernels/csrc/attention.cu",
+                               "inferflow_tpu/kernels/attention.py:283"),
 }
 
 
@@ -462,11 +510,221 @@ def phase_b4(timer, dev, spec, params) -> list:
     return rows
 
 
+def _shuffled_tables(lengths, pt, maxp, pages, seed) -> list:
+    """Page-table rows for slots of `lengths` over pool pages 1..pages-1 in
+    a seeded random order (page 0 stays the sentinel)."""
+    order = [int(p) + 1 for p in np.random.default_rng(seed).permutation(
+        pages - 1)]
+    rows = []
+    for n in lengths:
+        need = -(-n // pt)
+        rows.append(order[:need] + [0] * (maxp - need))
+        order = order[need:]
+    return rows
+
+
+def phase_b7(timer, dev) -> list:
+    """Kernel B7 against its plain version at B = 16 on a one-layer pool,
+    at llama2-7b and tinyllama-1.1b widths, Q8 and bf16.  The plain
+    version runs slot by slot (all 16 slots at once would gather 32k rows
+    of every slot in float32, about 35 GB at llama2-7b width)."""
+    import dataclasses
+    import torch.nn.functional as F
+    from inferflow_tpu_torch.kernels.attention import (
+        decode_attention, paged_decode_attention_plain)
+    from inferflow_tpu_torch.models.zoo import make_spec
+    from inferflow_tpu_torch.runtime.paged_kv import (PagedKVCache,
+                                                      page_tokens_for)
+    b = len(B7_LENGTHS)
+    lengths = torch.tensor(B7_LENGTHS, dtype=torch.int32, device=dev)
+    live = sum(B7_LENGTHS)
+    rows = []
+    for model in (PAGED_MODEL, MODEL):
+        hp = make_spec(model).hyper_params
+        h, d, hq = hp.kv_heads, hp.head_dim, hp.decoder_heads
+        pt = page_tokens_for(d)
+        for quantized in (True, False):
+            cache = PagedKVCache.create(1, b, 32768, h, d,
+                                        pool_tokens=B7_POOL_PAGES * pt,
+                                        quantized=quantized, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            if quantized:
+                for t in (cache.k, cache.v):
+                    t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                          device=dev, dtype=torch.int8))
+                for t in (cache.k_scale, cache.v_scale):
+                    t.copy_(torch.rand(t.shape, generator=gen, device=dev)
+                            * 0.05 + 1e-3)
+            else:
+                for t in (cache.k, cache.v):
+                    t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+            tables = _shuffled_tables(B7_LENGTHS, pt,
+                                      cache.max_pages_per_slot,
+                                      cache.num_pages, seed=8)
+            for slot, row in enumerate(tables):
+                cache.with_page_row(slot, row)
+            q = (torch.randn((b, 1, hq, d), generator=gen, device=dev)
+                 * 0.3).to(torch.bfloat16)
+            one = [dataclasses.replace(cache,
+                                       page_table=cache.page_table[i:i + 1])
+                   for i in range(b)]
+
+            def plain():
+                return torch.cat([paged_decode_attention_plain(
+                    q[i:i + 1, 0], one[i], 0, lengths[i:i + 1])
+                    for i in range(b)])
+
+            got, _ = decode_attention(q, cache, 0, lengths)
+            ref = plain()
+            torch.cuda.synchronize()
+            res = compare(got[:, 0], ref)
+            res["empty_slot_zero"] = not got[B7_LENGTHS.index(0)].any().item()
+            res["ok"] = res["ok"] and res["empty_slot_zero"]
+            # the yardstick: the same rows, gathered once into a dense bf16
+            # (B, Hq, S, D) tensor (not timed), under a length mask
+            s_max = max(B7_LENGTHS)
+            kd = torch.zeros((b, hq, s_max, d), dtype=torch.bfloat16,
+                             device=dev)
+            vd = torch.zeros_like(kd)
+            for i, n in enumerate(B7_LENGTHS):
+                if n:
+                    k1, v1 = one[i].read_layer(0, torch.bfloat16,
+                                               -(-n // pt))
+                    kd[i, :, :n] = _expand_heads(k1[:, :n].transpose(1, 2),
+                                                 hq // h)[0]
+                    vd[i, :, :n] = _expand_heads(v1[:, :n].transpose(1, 2),
+                                                 hq // h)[0]
+            mask = (torch.arange(s_max, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            qs = q.transpose(1, 2)  # (B, Hq, 1, D)
+            row_bytes = d + 2 * (d // 32) if quantized else 2 * d
+            bytes_moved = 2 * live * h * row_bytes + 2 * 2 * q.numel() \
+                + 4 * b + 4 * cache.page_table.numel()
+            b_ms, b_by = bound(bytes_moved, 4 * live * hq * d)
+            row = {"phase": "kernel", "kernel": "paged_decode_attention",
+                   "shape": f"{model} B={b} Hq={hq} H={h} D={d} PT={pt} "
+                            f"pages={cache.num_pages} "
+                            f"{'Q8' if quantized else 'bf16'} "
+                            f"lengths={list(B7_LENGTHS)}",
+                   **res,
+                   "ms": timer(lambda: decode_attention(q, cache, 0,
+                                                        lengths)),
+                   "plain_ms": timer(plain, "paged_decode_attention_plain "
+                                     "(slot by slot)"),
+                   "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                       qs, kd, vd, attn_mask=mask)),
+                   "library": "scaled_dot_product_attention on the rows "
+                              "pre-gathered into dense bf16 (gather not "
+                              "timed)",
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes_bound": bytes_moved}
+            emit(row)
+            rows.append(row)
+            del cache, one, kd, vd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _paged_twin(dense, pool_tokens, seed):
+    """A page pool holding the rows of a dense cache, slot by slot on
+    shuffled pages, with the same lengths."""
+    from inferflow_tpu_torch.runtime.paged_kv import PagedKVCache
+    num_layers, b, h, s, d = dense.k.shape
+    pc = PagedKVCache.create(num_layers, b, s, h, d,
+                             pool_tokens=pool_tokens, quantized=True,
+                             device=dense.k.device)
+    pt, maxp = pc.page_tokens, pc.max_pages_per_slot
+    tables = _shuffled_tables([s] * b, pt, maxp, pc.num_pages, seed)
+    for slot, row in enumerate(tables):
+        pc.with_page_row(slot, row)
+        for j, pid in enumerate(row):
+            for src, dst in ((dense.k, pc.k), (dense.v, pc.v),
+                             (dense.k_scale, pc.k_scale),
+                             (dense.v_scale, pc.v_scale)):
+                dst[:, pid] = src[:, slot, :, j * pt:(j + 1) * pt]
+    pc.with_length(dense.length.clone())
+    return pc
+
+
+def phase_b4_paged(timer, dev, spec, params) -> list:
+    """B4's paged mode (f) against its plain version (both on the card, on
+    twin pools) and against dense B4 on the same cache rows: the hidden
+    state and every layer's appended row."""
+    import dataclasses
+    from inferflow_tpu_torch.kernels import decode_step
+    hp = spec.hyper_params
+    n_layers = hp.decoder_layers
+    rows = []
+    for lengths in (FUSED_LENGTHS, (700,)):
+        b = len(lengths)
+        dense, gen = _filled_cache(dev, spec, b, CONTEXT, seed=5)
+        dense.with_length(torch.tensor(lengths, device=dev))
+        paged = _paged_twin(dense, (4 * b + 3) * 256, seed=9)
+        pt = paged.page_tokens
+        twin = dataclasses.replace(
+            paged, k=paged.k.clone(), v=paged.v.clone(),
+            k_scale=paged.k_scale.clone(), v_scale=paged.v_scale.clone(),
+            length=paged.length.clone())
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = params["dec_embeddings"][tokens]
+        pos = dense.length[:, None].clone()
+        layers = params["layers"]
+        got, _ = decode_step.fused_decode_step(spec, layers, x, pos, paged)
+        got_d, _ = decode_step.fused_decode_step(spec, layers, x, pos, dense)
+        ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos,
+                                                     twin)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        vs_dense = (got.float() - got_d.float()).abs().max().item()
+        rows_vs_dense = 0.0
+        for layer in range(n_layers):
+            for a, r in zip(paged.read_layer(layer, torch.float32),
+                            dense.read_layer(layer, torch.float32)):
+                for slot, n in enumerate(lengths):
+                    rows_vs_dense = max(rows_vs_dense, (
+                        a[slot, n] - r[slot, n]).abs().max().item())
+        ok = bool(np.isfinite(err) and err <= FUSED_TOL * scale)
+        timed = {"ms": timer(lambda: decode_step.fused_decode_step(
+                     spec, layers, x, pos, paged), f"fused_decode_step paged "
+                     f"B={b}"),
+                 "dense_ms": timer(lambda: decode_step.fused_decode_step(
+                     spec, layers, x, pos, dense), f"fused_decode_step B={b}"),
+                 "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
+                     spec, layers, x, pos, twin),
+                     f"fused_decode_step_plain paged B={b}")}
+        live = sum(min(n, CONTEXT) for n in lengths)
+        nblk = hp.head_dim // 32
+        kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
+                                                        + 2 * nblk)
+        new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim + 2 * nblk)
+        bytes_moved = _weight_bytes(params) + kv_bytes + new_rows \
+            + 2 * 2 * b * hp.embd_dims + 4 * paged.page_table.numel()
+        ops = 2 * b * sum(lp[g][w].data.numel() for lp in layers
+                          for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                       ("ffn", "w1n3"), ("ffn", "w2")))
+        b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
+        row = {"phase": "kernel", "kernel": "fused_decode_step_paged",
+               "shape": f"{MODEL} L={n_layers} B={b} lengths={list(lengths)} "
+                        f"PT={pt} MAXP={paged.max_pages_per_slot} "
+                        f"pages={paged.num_pages} (shuffled)",
+               "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
+               "tolerance": f"max_abs_err <= {FUSED_TOL} * max|plain|",
+               "max_abs_diff_vs_dense_b4": vs_dense,
+               "appended_rows_max_abs_diff_vs_dense_b4": rows_vs_dense,
+               "ok": ok, **timed, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by, "bytes_bound": bytes_moved}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def _record_rows(eng, forced=None) -> dict:
     """Keep every logits row the engine samples from, per query id.  With
     `forced` ({query id: tokens}) the i-th sample of a query returns
     forced[qid][i] in place of the sampler's choice: a reference engine fed
-    the tokens another engine served."""
+    the tokens another engine served (queries not in `forced` sample)."""
     rows = {}
     choose = eng.strategies.choose_token
 
@@ -474,19 +732,29 @@ def _record_rows(eng, forced=None) -> dict:
         seen = rows.setdefault(qid, [])
         seen.append(np.asarray(logits, np.float32).copy())
         tok = choose(qid, logits, prev)
-        return tok if forced is None else forced[qid][len(seen) - 1]
+        if forced is None or qid not in forced:
+            return tok
+        return forced[qid][len(seen) - 1]
 
     eng.strategies.choose_token = recording
     return rows
 
 
 def _serve(eng, prompts, max_new) -> tuple:
+    """Serve `prompts` in order, each admitted as soon as a slot is free
+    (more queries than slots: later ones reuse finished slots)."""
     from inferflow_tpu_torch.sampling.strategies import SamplingOptions
-    qids = [eng.add_query(p, SamplingOptions(strategy="greedy"), max_new)
-            for p in prompts]
-    assert all(q > 0 for q in qids), qids
+    queue, qids = list(prompts), []
     prefill_ms, decode_ms, steps = [], [], 0
-    while eng.has_work():
+    while queue or eng.has_work():
+        while queue:
+            qid = eng.add_query(queue[0], SamplingOptions(strategy="greedy"),
+                                max_new)
+            if qid == -1:
+                break
+            assert qid > 0, qid
+            qids.append(qid)
+            queue.pop(0)
         eng.perf_stat.clear()
         eng.commit_inference_result(eng.infer())
         steps += 1
@@ -494,7 +762,7 @@ def _serve(eng, prompts, max_new) -> tuple:
             prefill_ms.append(eng.perf_stat["prefill_ms"])
         if "decode_ms" in eng.perf_stat:
             decode_ms.append(eng.perf_stat["decode_ms"])
-        assert steps < 200, "engine did not finish"
+        assert steps < 400, "engine did not finish"
     return qids, prefill_ms, decode_ms, steps
 
 
@@ -539,17 +807,17 @@ def profile_decode(eng, prompt, label: str, steps: int = 3) -> None:
                              for e in top]})
 
 
-def build_params(dev, spec) -> tuple:
-    """Seed-0 synthetic Q4_B64T1 params on the card in the spec's layout
-    ('' resolves on the card), with the device memory they take: resident
-    weights and the peak while building them (float32 draws, quantizer
-    temporaries), above what was allocated before."""
+def build_params(dev, spec, weight_format="Q4_B64T1") -> tuple:
+    """Seed-0 synthetic params on the card in the spec's layout ('' resolves
+    on the card), with the device memory they take: resident weights and
+    the peak while building them (float32 draws, quantizer temporaries),
+    above what was allocated before."""
     from inferflow_tpu_torch.models.zoo import make_synthetic_params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     mem_before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
-    params = make_synthetic_params(spec, "Q4_B64T1", seed=0, device=dev)
+    params = make_synthetic_params(spec, weight_format, seed=0, device=dev)
     torch.cuda.synchronize()
     memory = {"before": mem_before,
               "weights": torch.cuda.memory_allocated(dev) - mem_before,
@@ -559,9 +827,11 @@ def build_params(dev, spec) -> tuple:
 
 
 def phase_engine(dev, spec, params, memory, label, must_launch,
-                 must_not_launch, tol) -> dict:
+                 must_not_launch, tol, engine_kw=None) -> dict:
     """Serve the four queries; the kernels' launches counted from 0 for
-    this run only."""
+    this run only.  engine_kw: extra InferenceEngine arguments (paging),
+    for the card's engine and the CPU's alike."""
+    engine_kw = engine_kw or {}
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
 
@@ -572,7 +842,7 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
                                              n)] for n in PROMPT_LENS]
     eng = InferenceEngine(spec, params, max_concurrent_queries=SLOTS,
                           max_context_len=CONTEXT, kv_cache_quantized=True,
-                          device=dev)
+                          device=dev, **engine_kw)
     rows = _record_rows(eng)
     _build.launch_counts.clear()
     t0 = time.perf_counter()
@@ -594,7 +864,7 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
           "layers": spec.hyper_params.decoder_layers,
           "device_layout": spec.device_layout or "auto",
           "layout_type": type(params["lm_head"]).__name__,
-          "slots": SLOTS, "context": CONTEXT,
+          "slots": SLOTS, "context": CONTEXT, **engine_kw,
           "prompt_lens": list(PROMPT_LENS),
           "tokens_served": served, "engine_steps": steps,
           "decode_steps": len(decode_ms), "wall_s": wall_s,
@@ -613,34 +883,45 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
             "a decode step did not take the fused step"
     profile_decode(eng, prompts[1], label)
 
-    check_against_cpu(spec, params, prompts, qids, rows, outputs, label, tol)
+    check_against_cpu(spec, params, prompts, qids, rows, outputs, label, tol,
+                      dict(max_concurrent_queries=SLOTS,
+                           max_context_len=CONTEXT, kv_cache_quantized=True,
+                           **engine_kw))
     return launches
 
 
 def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
-                      tol) -> None:
+                      tol, engine_kw) -> None:
     """The same model and queries served on the CPU (the plain versions),
     in the same interleaving and fed the tokens the card served: every
     sampled row (each prefill and each decode step of every query) is held
     against the card's within `tol`."""
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     t0 = time.perf_counter()
-    cpu = InferenceEngine(spec, params, max_concurrent_queries=SLOTS,
-                          max_context_len=CONTEXT, kv_cache_quantized=True,
-                          device="cpu")
+    cpu = InferenceEngine(spec, params, device="cpu", **engine_kw)
     cpu_rows = _record_rows(cpu, forced=dict(zip(qids, outputs)))
     ref_qids, _, _, _ = _serve(cpu, prompts, MAX_NEW)
     assert ref_qids == qids, (ref_qids, qids)
     report = {"phase": f"engine_{label}_vs_cpu",
               "cpu_reference_s": time.perf_counter() - t0,
               "tolerance": f"every sampled row: max_abs_err <= {tol}"}
-    ok = True
-    for q, n, served in zip(qids, PROMPT_LENS, outputs):
-        card, ref = rows[q], cpu_rows[q]
+    report.update(_row_errors(qids, prompts, outputs, rows, cpu_rows, tol))
+    emit(report)
+    assert report["ok"], \
+        f"run {label}: served logits disagree with the CPU reference"
+
+
+def _row_errors(qids, prompts, outputs, rows, ref_rows, tol) -> dict:
+    """Per query: the worst |card - reference| over its sampled rows, and
+    how many argmaxes agree; ok when every row is within `tol`."""
+    report, ok = {}, True
+    for q, prompt, served in zip(qids, prompts, outputs):
+        n = len(prompt)
+        card, ref = rows[q], ref_rows[q]
         assert len(card) == len(ref) == len(served) == MAX_NEW, q
         assert [int(r.argmax()) for r in card] == served, "not greedy"
         errs = [float(np.abs(a - b).max()) for a, b in zip(card, ref)]
-        report[f"prompt_{n}"] = {
+        report[f"q{q}_prompt_{n}"] = {
             "rows": len(errs), "max_abs_err": max(errs),
             "worst_row": int(np.argmax(errs)), "first_row_err": errs[0],
             "row_errs": errs,
@@ -648,8 +929,160 @@ def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
             "argmax_equal": sum(int(a.argmax()) == int(b.argmax())
                                 for a, b in zip(card, ref))}
         ok &= max(errs) <= tol
+    report["max_abs_err"] = max(v["max_abs_err"] for v in report.values())
+    report["ok"] = bool(ok)
+    return report
+
+
+def paged_config(**overrides) -> tuple:
+    """configs/inferflow_service.paged.ini through the package's own
+    loader: (engine config, llama2-7b spec with the ini's context and KV
+    type, weight format name).  The model dir holds no config.json, so the
+    hyper-parameters come from make_spec (`overrides`: a cut depth)."""
+    from inferflow_tpu_torch.config import load_engine_config
+    from inferflow_tpu_torch.models.zoo import make_spec
+    from inferflow_tpu_torch.quant.formats import get_format
+    cfg = load_engine_config(str(Path(__file__).resolve().parent / PAGED_INI))
+    model = cfg.model
+    spec = make_spec(PAGED_MODEL, **overrides)
+    spec.max_context_len = model.max_context_len
+    spec.device_kv_cache_data_type = model.device_kv_cache_data_type
+    spec.device_weight_data_type = model.device_weight_data_type
+    return cfg, spec, get_format(model.device_weight_data_type).name
+
+
+def _paged_engine(spec, params, cfg, device):
+    """InferenceEngine built from the ini as the JAX package's from_config
+    builds it."""
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    return InferenceEngine(spec, params,
+                           max_concurrent_queries=cfg.max_concurrent_queries,
+                           max_context_len=spec.max_context_len,
+                           device=device,
+                           kv_cache_paging=cfg.kv_cache_paging,
+                           kv_pool_tokens=cfg.kv_pool_tokens)
+
+
+def _pool_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (cache.k, cache.v, cache.k_scale, cache.v_scale)
+               if t is not None)
+
+
+def phase_engine_c(dev, cfg, spec, params, memory) -> dict:
+    """Run (c): the dense reference engine on the card first (freed after),
+    then the paged engine of the ini, fed the reference's tokens; every
+    sampled row held against the reference's."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    vocab = spec.hyper_params.vocab_size
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, vocab, n)]
+               for n in ENGINE_C_PROMPTS]
+    t0 = time.perf_counter()
+    ref = InferenceEngine(spec, params,
+                          max_concurrent_queries=cfg.max_concurrent_queries,
+                          max_context_len=ENGINE_C_DENSE_CONTEXT, device=dev)
+    ref.prefill_chunk = ENGINE_C_DENSE_CONTEXT  # whole prompts, as paged
+    dense_cache_bytes = _pool_bytes(ref.cache)
+    ref_rows = _record_rows(ref)
+    ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+    ref_out = [ref.query_tokens(q) for q in ref_qids]
+    dense_s = time.perf_counter() - t0
+    del ref
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = _paged_engine(spec, params, cfg, dev)
+    assert eng.cache.num_pages * eng.cache.page_tokens == cfg.kv_pool_tokens
+    rows = _record_rows(eng, forced=dict(zip(ref_qids, ref_out)))
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    assert qids == ref_qids, (qids, ref_qids)
+    assert eng._slot_pages == {} and \
+        len(eng._free_pages) == eng.cache.num_pages - 1
+    reused = len(prompts) - cfg.max_concurrent_queries
+    memory = dict(memory, pool=_pool_bytes(eng.cache),
+                  dense_reference_cache=dense_cache_bytes,
+                  serving_peak=torch.cuda.max_memory_allocated(dev)
+                  - memory["before"])
+    hp = spec.hyper_params
+    emit({"phase": "engine_c", "config": PAGED_INI, "model": PAGED_MODEL,
+          "layers": hp.decoder_layers, "embd": hp.embd_dims,
+          "heads": hp.decoder_heads, "kv_heads": hp.kv_heads,
+          "layout_type": type(params["lm_head"]).__name__,
+          "slots": cfg.max_concurrent_queries,
+          "context": spec.max_context_len,
+          "pool_tokens": cfg.kv_pool_tokens, "pages": eng.cache.num_pages,
+          "page_tokens": eng.cache.page_tokens, "queries": len(prompts),
+          "queries_reusing_a_slot": reused,
+          "prompt_lens": list(ENGINE_C_PROMPTS),
+          "tokens_served": sum(len(eng.query_tokens(q)) for q in qids),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "wall_s": wall_s, "device_bytes": memory,
+          "prefill_ms_per_step": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step": decode_ms,
+          "dense_reference_s": dense_s,
+          "dense_reference_decode_ms_median": float(np.median(
+              ref_decode_ms)),
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    assert launches.get("paged_decode_attention", 0) \
+        == hp.decoder_layers * len(decode_ms), "a decode step missed B7"
+    for k in ("fused_decode_step", "decode_attention", "chunk_attention"):
+        assert launches.get(k, 0) == 0, f"{k} launched in run c"
+    report = {"phase": "engine_c_vs_dense_card",
+              "tolerance": f"every sampled row: max_abs_err <= "
+                           f"{ENGINE_C_TOL}"}
+    report.update(_row_errors(qids, prompts, ref_out, ref_rows, rows,
+                              ENGINE_C_TOL))
     emit(report)
-    assert ok, f"run {label}: served logits disagree with the CPU reference"
+    assert report["ok"], "run c: paged rows disagree with the dense engine"
+    profile_decode(eng, prompts[0], "c")
+    return launches
+
+
+def phase_engine_ccpu(dev, cfg, spec, params) -> dict:
+    """Run (c-cpu): the ini's paged engine at ENGINE_CCPU_LAYERS layers on
+    the card, held against the same engine on the CPU."""
+    from inferflow_tpu_torch.kernels import _build
+    vocab = spec.hyper_params.vocab_size
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(1, vocab, n)]
+               for n in ENGINE_CCPU_PROMPTS]
+    eng = _paged_engine(spec, params, cfg, dev)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    qids, _, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    emit({"phase": "engine_c_cpu", "config": PAGED_INI, "model": PAGED_MODEL,
+          "layers": spec.hyper_params.decoder_layers,
+          "slots": cfg.max_concurrent_queries,
+          "context": spec.max_context_len, "pool_tokens": cfg.kv_pool_tokens,
+          "prompt_lens": list(ENGINE_CCPU_PROMPTS), "engine_steps": steps,
+          "decode_steps": len(decode_ms),
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    assert launches.get("paged_decode_attention", 0) > 0
+    assert launches.get("fused_decode_step", 0) == 0
+    del eng
+    torch.cuda.empty_cache()
+    check_against_cpu(spec, params, prompts, qids, rows, outputs, "c_cpu",
+                      ENGINE_C_TOL,
+                      dict(max_concurrent_queries=cfg.max_concurrent_queries,
+                           max_context_len=spec.max_context_len,
+                           kv_cache_paging=cfg.kv_cache_paging,
+                           kv_pool_tokens=cfg.kv_pool_tokens))
+    return launches
 
 
 def _run(results, failed, pname, fn) -> None:
@@ -699,6 +1132,8 @@ def main() -> int:
          lambda: phase_b2(timer, dev, packed))
     _run(results, failed, "chunk_attention",
          lambda: phase_b3(timer, dev, packed))
+    _run(results, failed, "paged_decode_attention",
+         lambda: phase_b7(timer, dev))
 
     # (a) the default layout: resolves to i8mm on the card
     spec_a = make_spec(MODEL)
@@ -713,11 +1148,23 @@ def main() -> int:
          lambda: phase_i8mm_gemv(timer, dev, params_a))
     _run(results, failed, "fused_decode_step",
          lambda: phase_b4(timer, dev, spec_a, params_a))
+    _run(results, failed, "fused_decode_step_paged",
+         lambda: phase_b4_paged(timer, dev, spec_a, params_a))
     _run(results, failed, "engine_a", lambda: phase_engine(
         dev, spec_a, params_a, memory_a, "a",
         ("fused_decode_step", "chunk_attention", "i8mm_gemv"),
         ("decode_attention", "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL))
-    del params_a
+    # (d) paging on, the first ENGINE_D_LAYERS layers of (a)'s weights
+    spec_d = make_spec(MODEL, layers=ENGINE_D_LAYERS)
+    spec_d.qkv_format = spec_a.qkv_format  # the weights' fused qkv
+    params_d = dict(params_a, layers=params_a["layers"][:ENGINE_D_LAYERS])
+    _run(results, failed, "engine_d", lambda: phase_engine(
+        dev, spec_d, params_d, dict(memory_a), "d",
+        ("fused_decode_step", "i8mm_gemv"),
+        ("paged_decode_attention", "chunk_attention", "decode_attention",
+         "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL,
+        engine_kw={"kv_cache_paging": True}))
+    del params_a, params_d
     torch.cuda.empty_cache()
 
     # (b) slice 1's packed wire layout, per-layer decode
@@ -727,9 +1174,30 @@ def main() -> int:
         dev, spec_b, params_b, memory_b, "b",
         ("dequant_matmul", "decode_attention", "chunk_attention"),
         ("fused_decode_step",), ENGINE_LOGIT_TOL))
+    del params_b
+    torch.cuda.empty_cache()
+
+    # (c) the paged configuration the repo ships, llama2-7b
+    cfg, spec_c, fmt_c = paged_config()
+    layout_c = resolve_auto_layout(spec_c, fmt_c, dev)
+    emit({"phase": "layout", "model": PAGED_MODEL, "weight_format": fmt_c,
+          "resolved": layout_c})
+    if layout_c != "i8mm":
+        failed.append("layout_c")
+    params_c, memory_c = build_params(dev, spec_c, fmt_c)
+    _run(results, failed, "engine_c", lambda: phase_engine_c(
+        dev, cfg, spec_c, params_c, memory_c))
+    spec_cc = paged_config(layers=ENGINE_CCPU_LAYERS)[1]
+    spec_cc.qkv_format = spec_c.qkv_format  # the weights' fused qkv
+    params_cc = dict(params_c, layers=params_c["layers"][:ENGINE_CCPU_LAYERS])
+    _run(results, failed, "engine_c_cpu", lambda: phase_engine_ccpu(
+        dev, cfg, spec_cc, params_cc))
+    del params_c, params_cc
+    torch.cuda.empty_cache()
 
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
-                  "i8mm_gemv", "fused_decode_step"):
+                  "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
+                  "paged_decode_attention"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -742,14 +1210,17 @@ def main() -> int:
                 "decode_attention": results["engine_b"]["decode_attention"],
                 "chunk_attention": results["engine_a"]["chunk_attention"],
                 "fused_decode_step": results["engine_a"]["fused_decode_step"],
-                "i8mm_gemv": results["engine_a"]["i8mm_gemv"]}
+                "i8mm_gemv": results["engine_a"]["i8mm_gemv"],
+                "paged_decode_attention":
+                    results["engine_c"]["paged_decode_attention"]}
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
              "chunk_attention": results["chunk_attention"][0],
              "fused_decode_step": results["fused_decode_step"][0],
              "i8mm_gemv": next(r for r in results["i8mm_gemv"]
-                               if r["shape"].startswith("lm_head M=4 "))}
+                               if r["shape"].startswith("lm_head M=4 ")),
+             "paged_decode_attention": results["paged_decode_attention"][0]}
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

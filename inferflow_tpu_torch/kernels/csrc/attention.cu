@@ -1,5 +1,6 @@
 // Attention over the stacked KV cache: single-token decode (B2) and the
-// chunked-prefill flash attention of one slot's query chunk (B3).
+// chunked-prefill flash attention of one slot's query chunk (B3); and
+// single-token decode over the paged pool (B7, below the first two).
 //
 // Replaces inferflow_tpu/kernels/attention.py `_make_kernel` (pallas_call at
 // :259, public entry `decode_attention` at :473) and `_make_chunk_kernel`
@@ -291,12 +292,376 @@ void launch(dim3 grid, bool quantized, const void* q, const void* k, const void*
         qb, k, ksh, v, vsh, len, ob, layer, B, H, S, D, blk, g, slot, start, C, scale);
 }
 
+// ------------------------------------------------------ paged decode (B7)
+//
+// Replaces inferflow_tpu/kernels/attention.py `_make_paged_kernel` (its
+// pallas_call at :449, public entry `decode_attention` at :473 on a
+// PagedKVCache): one-token attention of one layer over the page pool.
+//
+// Pool layout (runtime/paged_kv.py): k/v (L, P, H, PT, D) int8 codes or
+// bf16, scales (L, P, H, PT, D/32) f16; row t of slot b lives in page
+// page_table[b, t / PT] at row t % PT.  A page of one (layer, kv head) is
+// one contiguous (PT, D) block.
+//
+// What bounds it: every live row of every (slot, kv head) is read once for
+// ~4*D flops per query row, so it is bound by the pool bytes it reads.
+//
+// What the design does about it:
+//   - the walk of each (slot, kv head) is split by length into up to
+//     `nsplit` CTAs of whole pages (flash-decoding): a 32k-row slot is 16
+//     CTAs of 16 pages, not one CTA walking 256 pages; CTAs a short slot
+//     does not need return at once.  The last CTA of a (slot, head) to
+//     finish (a counter) merges the partial softmax states;
+//   - inside a CTA (8 warps, 4 for g > 8) each warp walks its own tiles
+//     of 32 rows with its own
+//     online-softmax state for the head's g query rows: lane j scores row
+//     j from its own 16-byte loads of the K row, lane l accumulates output
+//     dims [l*D/32, (l+1)*D/32) from one coalesced load per V row, and p
+//     moves between the two by warp shuffles; no shared-memory staging of
+//     K or V and no block-wide barrier in the walk.  Every load of a tile
+//     (the K row, 32 V words, the scales) is issued before its math, so a
+//     tile costs one memory latency, not one per V row; the warps' states
+//     are merged in shared memory into one partial state per CTA;
+//   - int8 codes become floats by the 2^23 magic-number trick (a byte
+//     permute and one add) instead of the slower integer converts.
+
+// warps per CTA: 8 while the merge buffer of the warps' states fits the
+// 48 KB of static shared memory (g <= 8), else 4
+template <int RM>
+__host__ __device__ constexpr int paged_warps() { return RM <= 8 ? 8 : 4; }
+
+struct PagedArgs {
+  const __nv_bfloat16* q;   // (B, Hq, D)
+  const void* k;            // (L, P, H, PT, D) int8 or bf16
+  const void* v;
+  const __half* k_scale;    // (L, P, H, PT, D / 32) f16 (quantized pools)
+  const __half* v_scale;
+  const int* page_table;    // (B, MAXP)
+  const int* lengths;       // (B,)
+  float* part;              // (B, H, nsplit, g, D + 2) per-CTA m, l, acc
+  int* counters;            // (B, H), zero on entry and on exit
+  __nv_bfloat16* out;       // (B, Hq, D)
+  int layer, B, H, P, PT, MAXP, g, nsplit;
+  float scale;
+};
+
+// byte i of w (a signed int8) as a float, exactly: 2^23 + (byte ^ 0x80)
+// read as a float, minus 2^23 + 128
+__device__ __forceinline__ float i8_byte(uint32_t w, int i) {
+  const uint32_t sel = 0x7650u | static_cast<uint32_t>(i);
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
+}
+
+__device__ __forceinline__ float bf16_half(uint32_t w, int hi) {
+  return __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16));
+}
+
+__device__ __forceinline__ uint32_t chunk_word(const uint4& c, int i) {
+  return i == 0 ? c.x : i == 1 ? c.y : i == 2 ? c.z : c.w;
+}
+
+// element e of a 16-byte chunk: 16 int8 codes or 8 bf16 values
+template <bool QUANT>
+__device__ __forceinline__ float chunk_elem(const uint4& c, int e) {
+  if (QUANT) return i8_byte(chunk_word(c, e / 4), e % 4);
+  return bf16_half(chunk_word(c, e / 2), e % 2);
+}
+
+// The BYTES of one row that a lane accumulates (D/32 elements), as one load.
+template <int BYTES> struct LaneWord;
+template <> struct LaneWord<8> { using T = uint2; };
+template <> struct LaneWord<4> { using T = unsigned int; };
+template <> struct LaneWord<2> { using T = unsigned short; };
+template <> struct LaneWord<1> { using T = unsigned char; };
+
+// element i of a lane word: an int8 code or a bf16 value
+template <bool QUANT, typename W>
+__device__ __forceinline__ float word_elem(const W& w, int i) {
+  uint32_t x;
+  if constexpr (sizeof(W) == 8)
+    x = i < 2 ? w.x : w.y;  // bf16 only: two values per 32-bit half
+  else
+    x = static_cast<uint32_t>(w);
+  if constexpr (QUANT)
+    return i8_byte(x, i % 4);
+  else
+    return bf16_half(x, i % 2);
+}
+
+// grid (B, H, nsplit).  RM >= g query rows per kv head.
+template <bool QUANT, int D, int RM>
+__global__ void __launch_bounds__(paged_warps<RM>() * 32)
+    paged_attention_kernel(const PagedArgs a) {
+  constexpr int kPagedWarps = paged_warps<RM>();
+  constexpr int kPagedThreads = kPagedWarps * 32;
+  constexpr int DL = D / 32;            // output dims per lane
+  constexpr int NBLK = D / 32;          // scale blocks per row (blk = 32)
+  constexpr int EB = QUANT ? 1 : 2;     // bytes per element
+  constexpr int EPC = 16 / EB;          // elements per 16-byte chunk
+  constexpr int CH = D / EPC;           // 16-byte chunks per row
+  using W = typename LaneWord<DL * EB>::T;
+  __shared__ __align__(16) float q_s[RM][D];
+  __shared__ float vsc_s[kPagedWarps][kTile][NBLK];
+  __shared__ float acc_s[kPagedWarps][RM][D];
+  __shared__ float ml_s[kPagedWarps][RM][2];
+  __shared__ int last_s;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
+  const int g = a.g, hq = a.H * g;
+  const int len = min(max(a.lengths[b], 0), a.MAXP * a.PT);
+  const int npages = (len + a.PT - 1) / a.PT;
+  // whole pages per CTA; a slot uses only the CTAs that get pages (one
+  // for an empty slot, so that its output is written)
+  const int want = min(a.nsplit, max(npages, 1));
+  const int per = max(1, (npages + want - 1) / want);
+  const int nsplit = max(1, (npages + per - 1) / per);
+  if (z >= nsplit) return;
+  const int r0 = z * per * a.PT;
+  const int r1 = min(len, (z + 1) * per * a.PT);
+
+  for (int i = tid; i < g * D; i += kPagedThreads)
+    q_s[i / D][i % D] = __bfloat162float(a.q[((size_t)b * hq + (size_t)h * g) * D + i]);
+  __syncthreads();
+
+  float m_r[RM], l_r[RM], acc[RM][DL];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m_r[r] = kNegInf;
+    l_r[r] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DL; ++dd) acc[r][dd] = 0.f;
+  }
+
+  const uint8_t* kbase = static_cast<const uint8_t*>(a.k);
+  const uint8_t* vbase = static_cast<const uint8_t*>(a.v);
+  const int cblk = lane * DL / 32;  // the scale block of this lane's dims
+  for (int t0 = r0 + warp * kTile; t0 < r1; t0 += kPagedWarps * kTile) {
+    const int nt = min(kTile, r1 - t0);  // >= 1
+    const int pid = a.page_table[b * a.MAXP + t0 / a.PT];
+    // the tile's 32 rows are contiguous and inside one page (t0 % 32 == 0,
+    // PT % 32 == 0), so every lane may read its row even past nt
+    const size_t row0 = (((size_t)a.layer * a.P + pid) * a.H + h) * a.PT + t0 % a.PT;
+
+    // every load of the tile before any math: lane j's K row and scales,
+    // this lane's dims of all 32 V rows, lane j's V scales
+    uint4 kc[CH];
+    const uint4* krow = reinterpret_cast<const uint4*>(kbase + (row0 + lane) * D * EB);
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) kc[ch] = __ldg(krow + ch);
+    W vw[kTile];
+    const uint8_t* vcol = vbase + row0 * D * EB + lane * DL * EB;
+#pragma unroll
+    for (int j = 0; j < kTile; ++j)
+      vw[j] = __ldg(reinterpret_cast<const W*>(vcol + (size_t)j * D * EB));
+    float ksc[NBLK];
+#pragma unroll
+    for (int c = 0; c < NBLK; ++c) {
+      ksc[c] = 1.f;
+      if (QUANT) {
+        ksc[c] = __half2float(a.k_scale[(row0 + lane) * NBLK + c]);
+        vsc_s[warp][lane][c] = __half2float(a.v_scale[(row0 + lane) * NBLK + c]);
+      }
+    }
+    __syncwarp();
+
+    // scores: lane j <-> row t0 + j
+    // sum over scale blocks of (q . codes) * scale; q from shared memory
+    // four floats at a time (broadcast)
+    float s[RM], part[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) s[r] = part[r] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+#pragma unroll
+      for (int e4 = 0; e4 < EPC; e4 += 4) {
+        float kv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kv[e] = chunk_elem<QUANT>(kc[ch], e4 + e);
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (r < g) {
+            const float4 qv = *reinterpret_cast<const float4*>(&q_s[r][ch * EPC + e4]);
+            part[r] = fmaf(qv.x, kv[0], part[r]);
+            part[r] = fmaf(qv.y, kv[1], part[r]);
+            part[r] = fmaf(qv.z, kv[2], part[r]);
+            part[r] = fmaf(qv.w, kv[3], part[r]);
+          }
+        }
+      }
+      if ((ch + 1) * EPC % 32 == 0) {  // the end of scale block c
+        const int c = ch * EPC / 32;
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          s[r] = fmaf(part[r], ksc[c], s[r]);
+          part[r] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) s[r] = lane < nt ? s[r] * a.scale : kNegInf;
+
+    // online softmax per query row; p stays in lane j's register
+    float p[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r < g) {
+        const float m_new = fmaxf(m_r[r], warp_max(s[r]));
+        const float alpha = expf(m_r[r] - m_new);
+        p[r] = expf(s[r] - m_new);  // 0 past nt: lane 0 is always valid
+        l_r[r] = l_r[r] * alpha + warp_sum(p[r]);
+        m_r[r] = m_new;
+#pragma unroll
+        for (int dd = 0; dd < DL; ++dd) acc[r][dd] *= alpha;
+      } else {
+        p[r] = 0.f;
+      }
+    }
+
+    // acc += p_j * vscale_j * v_j over the tile's rows
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      if (j < nt) {  // warp-uniform
+        const float vs = QUANT ? vsc_s[warp][j][cblk] : 1.f;
+        float vf[DL];
+#pragma unroll
+        for (int dd = 0; dd < DL; ++dd) vf[dd] = word_elem<QUANT>(vw[j], dd);
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (r < g) {
+            const float pj = __shfl_sync(0xffffffffu, p[r], j) * vs;
+#pragma unroll
+            for (int dd = 0; dd < DL; ++dd) acc[r][dd] = fmaf(pj, vf[dd], acc[r][dd]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // vsc_s is rewritten by the next tile
+  }
+
+  // merge the warps' states in shared memory into this CTA's partial state
+  // part[(b, h), z]
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    if (r < g) {
+      if (lane == 0) {
+        ml_s[warp][r][0] = m_r[r];
+        ml_s[warp][r][1] = l_r[r];
+      }
+#pragma unroll
+      for (int dd = 0; dd < DL; ++dd) acc_s[warp][r][lane * DL + dd] = acc[r][dd];
+    }
+  }
+  __syncthreads();
+  const int stride = D + 2;
+  const size_t bh = (size_t)b * a.H + h;
+  float* pz = a.part + ((bh * a.nsplit + z) * g) * (size_t)stride;
+  for (int i = tid; i < g * D; i += kPagedThreads) {
+    const int r = i / D, d = i - r * D;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kPagedWarps; ++w) m = fmaxf(m, ml_s[w][r][0]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPagedWarps; ++w) {
+      const float wt = expf(ml_s[w][r][0] - m);
+      l += wt * ml_s[w][r][1];
+      o += wt * acc_s[w][r][d];
+    }
+    pz[r * stride + 2 + d] = o;
+    if (d == 0) {
+      pz[r * stride] = m;
+      pz[r * stride + 1] = l;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(&a.counters[bh], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  // the last CTA: merge the nsplit partial states of every row
+  const float* pb = a.part + bh * a.nsplit * (size_t)g * stride;
+  for (int i = tid; i < g * D; i += kPagedThreads) {
+    const int r = i / D, d = i - r * D;
+    float m = kNegInf;
+    for (int zz = 0; zz < nsplit; ++zz) m = fmaxf(m, __ldcg(pb + ((size_t)zz * g + r) * stride));
+    float l = 0.f, o = 0.f;
+    for (int zz = 0; zz < nsplit; ++zz) {
+      const float* pr = pb + ((size_t)zz * g + r) * stride;
+      const float wt = expf(__ldcg(pr) - m);
+      l += wt * __ldcg(pr + 1);
+      o += wt * __ldcg(pr + 2 + d);
+    }
+    a.out[((size_t)b * hq + (size_t)h * g + r) * D + d] =
+        __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+  }
+  if (tid == 0) a.counters[bh] = 0;
+}
+
+template <bool QUANT, int D, int RM>
+void launch_paged_rm(const PagedArgs& a, dim3 grid, cudaStream_t stream) {
+  paged_attention_kernel<QUANT, D, RM><<<grid, paged_warps<RM>() * 32, 0, stream>>>(a);
+}
+
+template <bool QUANT, int D>
+cudaError_t launch_paged_d(const PagedArgs& a, dim3 grid, cudaStream_t stream) {
+  if (a.g <= 1)
+    launch_paged_rm<QUANT, D, 1>(a, grid, stream);
+  else if (a.g <= 8)
+    launch_paged_rm<QUANT, D, 8>(a, grid, stream);
+  else
+    launch_paged_rm<QUANT, D, 16>(a, grid, stream);
+  return cudaGetLastError();
+}
+
+template <bool QUANT>
+cudaError_t launch_paged(const PagedArgs& a, int D, dim3 grid, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_paged_d<QUANT, 32>(a, grid, stream);
+    case 64: return launch_paged_d<QUANT, 64>(a, grid, stream);
+    case 128: return launch_paged_d<QUANT, 128>(a, grid, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// q (B, Hq, D) bf16 -> out (B, Hq, D) bf16 over the page pool; page_table
+// (B, MAXP) and lengths (B,) int32 on the device.  part holds
+// B * H * nsplit * g * (D + 2) floats; counters (B * H int32) is zero on
+// entry and is left zero.
+int ift_paged_decode_attention(const void* q, const void* k, const void* ks, const void* v,
+                               const void* vs, const void* page_table, const void* lengths,
+                               void* part, void* counters, void* out, int layer, int B, int H,
+                               int P, int PT, int MAXP, int D, int g, int nsplit,
+                               int quantized, float scale, void* stream) {
+  if (B < 1 || H < 1 || P < 1 || MAXP < 1 || PT < kTile || PT % kTile || g < 1 ||
+      g > kMaxRows || nsplit < 1 || nsplit > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PagedArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = k, a.v = v;
+  a.k_scale = static_cast<const __half*>(ks), a.v_scale = static_cast<const __half*>(vs);
+  a.page_table = static_cast<const int*>(page_table);
+  a.lengths = static_cast<const int*>(lengths);
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.layer = layer, a.B = B, a.H = H, a.P = P, a.PT = PT, a.MAXP = MAXP, a.g = g;
+  a.nsplit = nsplit, a.scale = scale;
+  const dim3 grid(B, H, nsplit);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = quantized ? launch_paged<true>(a, D, grid, st)
+                                    : launch_paged<false>(a, D, grid, st);
+  return static_cast<int>(err);
 }
 
 // q (B, Hq, D) bf16 -> out (B, Hq, D) bf16; lengths (B,) int32 on device.

@@ -4,7 +4,9 @@
 // Replaces inferflow_tpu/kernels/decode_step.py `_make_kernel` (its
 // pallas_call at :1373, public entry `fused_decode_step` at :1574) in its
 // i8mm weight mode (`_MM.percol`), with both attention modes: per-slot for
-// B = 1 and batched (bf16-rounded q and p*vscale) for B > 1.
+// B = 1 and batched (bf16-rounded q and p*vscale) for B > 1; over the
+// dense cache or, in its paged mode (f), over the page pool of
+// runtime/paged_kv.py through the page table.
 //
 // Per layer l the step computes (the TPU kernel's phases 1-8):
 //   xn   = bf16(rmsnorm(xres) * anorm)        x quantized per row to int8
@@ -51,8 +53,11 @@
 //     serves the head's g query rows from one read of each cache tile
 //     (B2's tile walk); the last split to finish merges the splits'
 //     running max, sum and accumulator (flash-decoding), so up to B * H * 16
-//     CTAs
-//     walk a long cache instead of B * H.
+//     CTAs walk a long cache instead of B * H.  Each slot sizes its splits
+//     on its own length, not on the cache's capacity (a 32k-row pool
+//     would otherwise cut a short slot's rows into mostly empty splits);
+//     a tile of 32 rows is contiguous in the dense cache and in a page, so
+//     the paged mode only looks up each tile's page.
 // Row quantization and the output scaling use __fdiv_rn / __fmul_rn /
 // __fadd_rn (no contraction into FMA), so they equal the plain version's
 // float32 arithmetic bit for bit.
@@ -385,23 +390,41 @@ struct AttnArgs {
   const float* cos;      // (B, D)
   const float* sin;      // (B, D)
   const int* lengths;    // (B,) cache rows per slot before this step
-  int8_t* k_cache;       // (L, B, H, S, D)
+  int8_t* k_cache;       // (L, B, H, S, D), or the pool (L, P, H, PT, D)
   int8_t* v_cache;
-  __half* k_scale;       // (L, B, H, S, D / blk)
+  __half* k_scale;       // (L, B, H, S, D / blk), or (L, P, H, PT, D / blk)
   __half* v_scale;
+  const int* page_table; // (B, MAXP) for the pool, null for the dense cache
   __nv_bfloat16* ctx;    // (B, Hq * D)
   unsigned* ctx_amax;    // (B,) row max |ctx| as float bits
   float* part;           // (B, H, nsplit, g, D + 2) per-split m, l, acc
   int* counters;         // (B, H), zero on entry and on exit
-  int layer, B, H, S, D, blk, g, order, batched, nsplit, chunk;
+  int layer, B, H, S, D, blk, g, order, batched, nsplit;
+  int pt, maxp, pages;   // the pool: tokens per page, table width, pages
   float scale;
 };
 
-// grid (B, H, nsplit): slot b, kv head h, its g query rows, cache rows
-// [z * chunk, (z + 1) * chunk) of split z.  Each split leaves its running
-// max, sum and accumulator in `part`; the last split of (b, h) to finish
-// (a counter) merges them, adds the self row and writes ctx and the
-// step's K/V row.
+// Index (in rows of D elements) of cache row t of (slot b, kv head h) in
+// this layer: the dense cache's (layer, b, h, t), or the pool's (layer,
+// page_table[b, t / PT], h, t % PT).  Rows t..t+31 with t % 32 == 0 are
+// contiguous in both (PT % 32 == 0).
+__device__ __forceinline__ size_t cache_row(const AttnArgs& a, int b, int h, int t) {
+  if (a.page_table != nullptr) {
+    const int pid = a.page_table[b * a.maxp + t / a.pt];
+    return (((size_t)a.layer * a.pages + pid) * a.H + h) * a.pt + t % a.pt;
+  }
+  return (((size_t)a.layer * a.B + b) * a.H + h) * a.S + t;
+}
+
+// grid (B, H, nsplit): slot b, kv head h, its g query rows.  The walk of
+// the slot's cache rows is cut by its own length into splits of `chunk`
+// rows (a multiple of 32, at least kMinSplitRows), at most nsplit of them;
+// split z walks rows [z * chunk, (z + 1) * chunk) and CTAs past the last
+// split return at once.  Each split leaves its running max, sum and
+// accumulator in `part`; the last split of (b, h) to finish (a counter)
+// merges them, adds the self row and writes ctx and the step's K/V row.
+// The splits depend on the length alone, so a dense and a paged cache
+// holding the same rows give the same result bit for bit.
 __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a) {
   __shared__ float q_s[kMaxRows][kMaxD];
   __shared__ float kc_s[kKeyTile][kMaxD + 1];  // codes (scratch before the walk)
@@ -421,6 +444,10 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
   const int half = D / 2;
   const int len = a.lengths[b];
   const int n_keys = min(max(len, 0), a.S);
+  const int want = (n_keys + a.nsplit - 1) / a.nsplit;
+  const int chunk = (max(want, kMinSplitRows) + kKeyTile - 1) / kKeyTile * kKeyTile;
+  const int nsplit = max(1, (n_keys + chunk - 1) / chunk);
+  if (z >= nsplit) return;
   const size_t row_q = (size_t)b * (hq + 2 * H) * D;
   const float* cs = a.cos + (size_t)b * D;
   const float* sn = a.sin + (size_t)b * D;
@@ -494,22 +521,21 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
     for (int dd = 0; dd < kDPerLane; ++dd) acc[rr][dd] = 0.f;
   }
 
-  const size_t head_row = (((size_t)a.layer * a.B + b) * H + h) * a.S;
-  const int8_t* k_rows = a.k_cache + head_row * D;
-  const int8_t* v_rows = a.v_cache + head_row * D;
-  const __half* k_sc = a.k_scale + head_row * nblk;
-  const __half* v_sc = a.v_scale + head_row * nblk;
-
-  const int k_end = min(n_keys, (z + 1) * a.chunk);
-  for (int t0 = z * a.chunk; t0 < k_end; t0 += kKeyTile) {
+  const int k_end = min(n_keys, (z + 1) * chunk);
+  for (int t0 = z * chunk; t0 < k_end; t0 += kKeyTile) {
     const int nt = min(kKeyTile, k_end - t0);
+    const size_t row0 = cache_row(a, b, h, t0);
+    const int8_t* k_rows = a.k_cache + row0 * D;
+    const int8_t* v_rows = a.v_cache + row0 * D;
+    const __half* k_sc = a.k_scale + row0 * nblk;
+    const __half* v_sc = a.v_scale + row0 * nblk;
     __syncthreads();  // the previous tile (or the scratch) is consumed
     for (int ch = tid; ch < kKeyTile * D / 16; ch += kAttnThreads) {
       const int e0 = ch * 16, j = e0 / D, d0 = e0 - j * D;
       uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
       if (j < nt) {
-        kw = __ldg(reinterpret_cast<const uint4*>(k_rows + (size_t)(t0 + j) * D + d0));
-        vw = __ldg(reinterpret_cast<const uint4*>(v_rows + (size_t)(t0 + j) * D + d0));
+        kw = __ldg(reinterpret_cast<const uint4*>(k_rows + (size_t)j * D + d0));
+        vw = __ldg(reinterpret_cast<const uint4*>(v_rows + (size_t)j * D + d0));
       }
       const int8_t* kq = reinterpret_cast<const int8_t*>(&kw);
       const int8_t* vq = reinterpret_cast<const int8_t*>(&vw);
@@ -522,8 +548,8 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
     for (int i = tid; i < kKeyTile * nblk; i += kAttnThreads) {
       const int j = i / nblk, c = i - j * nblk;
       const bool ok = j < nt;
-      ksc_s[j][c] = ok ? __half2float(k_sc[(size_t)(t0 + j) * nblk + c]) : 0.f;
-      vsc_s[j][c] = ok ? __half2float(v_sc[(size_t)(t0 + j) * nblk + c]) : 0.f;
+      ksc_s[j][c] = ok ? __half2float(k_sc[(size_t)j * nblk + c]) : 0.f;
+      vsc_s[j][c] = ok ? __half2float(v_sc[(size_t)j * nblk + c]) : 0.f;
     }
     __syncthreads();
 
@@ -590,7 +616,7 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
   __threadfence();
   __syncthreads();
   __shared__ int last_s;
-  if (tid == 0) last_s = atomicAdd(&a.counters[b * H + h], 1) == a.nsplit - 1;
+  if (tid == 0) last_s = atomicAdd(&a.counters[b * H + h], 1) == nsplit - 1;
   __syncthreads();
   if (!last_s) return;
   __threadfence();
@@ -603,12 +629,12 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
     const int i = warp + rr * kAttnWarps;
     if (i < g) {
       float m = kNegInf;
-      for (int zz = 0; zz < a.nsplit; ++zz)
+      for (int zz = 0; zz < nsplit; ++zz)
         m = fmaxf(m, __ldcg(a.part + ((part_row + zz) * g + i) * stride));
       float l = 0.f, o[kDPerLane];
 #pragma unroll
       for (int dd = 0; dd < kDPerLane; ++dd) o[dd] = 0.f;
-      for (int zz = 0; zz < a.nsplit; ++zz) {
+      for (int zz = 0; zz < nsplit; ++zz) {
         const float* pr = a.part + ((part_row + zz) * g + i) * stride;
         const float w = expf(__ldcg(pr) - m);
         l += w * __ldcg(pr + 1);
@@ -640,16 +666,17 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
   if (tid == 0) a.counters[b * H + h] = 0;
 
   // the step's K/V row into cache row `length` of this layer (clamped to
-  // S - 1); written after every split's walk, which never reads it when
-  // length < S
-  const int pos = min(max(len, 0), a.S - 1);
+  // S - 1; through the page table for the pool, where an inactive slot's
+  // zeroed row sends it to the page-0 sentinel); written after every
+  // split's walk, which never reads it when length < S
+  const size_t row = cache_row(a, b, h, min(max(len, 0), a.S - 1));
   for (int j = tid; j < D; j += kAttnThreads) {
-    a.k_cache[(head_row + pos) * D + j] = kcode_s[j];
-    a.v_cache[(head_row + pos) * D + j] = vcode_s[j];
+    a.k_cache[row * D + j] = kcode_s[j];
+    a.v_cache[row * D + j] = vcode_s[j];
   }
   for (int c = tid; c < nblk; c += kAttnThreads) {
-    a.k_scale[(head_row + pos) * nblk + c] = __float2half_rn(bsc_s[0][c]);
-    a.v_scale[(head_row + pos) * nblk + c] = __float2half_rn(bsc_s[1][c]);
+    a.k_scale[row * nblk + c] = __float2half_rn(bsc_s[0][c]);
+    a.v_scale[row * nblk + c] = __float2half_rn(bsc_s[1][c]);
   }
 }
 
@@ -683,27 +710,32 @@ int ift_i8mm_gemv(const void* x, const void* w, const void* w_scale, void* out,
 // layer, 10 device pointers: anorm, fnorm (E bf16), then (int8 codes,
 // f32 column scales) of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and
 // w2 (F, E).  xres (B, E) bf16 is updated in place; every layer's K/V row
-// is written into cache row lengths[b].  Scratch: qkv (B, (Hq+2H)D) f32,
-// ctx (B, HqD) bf16, hglu (B, F) bf16; ws, counters and amax (L*2*B) are
-// zero on entry (ws and counters are left zero).  attn_part holds
-// B * H * 16 * (Hq / H) * (D + 2) floats; attn_counters (B * H int32) is
-// zero on entry and is left zero.
+// is written into cache row lengths[b].  The cache is the dense
+// (L, B, H, S, D) one when page_table is null, else the pool
+// (L, pages, H, PT, D) with page_table (B, MAXP) on the device and
+// S = MAXP * PT.  Scratch: qkv (B, (Hq+2H)D) f32, ctx (B, HqD) bf16, hglu
+// (B, F) bf16; ws, counters and amax (L*2*B) are zero on entry (ws and
+// counters are left zero).  attn_part holds B * H * 16 * (Hq / H) * (D + 2)
+// floats; attn_counters (B * H int32) is zero on entry and is left zero.
 int ift_fused_decode_step(const void* const* table, int L, void* xres, const void* lengths,
                           const void* cos, const void* sin, void* k_cache, void* v_cache,
-                          void* k_scale, void* v_scale, void* qkv_buf, void* ctx_buf,
-                          void* hglu_buf, void* ws, void* counters, void* amax,
-                          void* attn_part, void* attn_counters, int B, int E,
+                          void* k_scale, void* v_scale, const void* page_table, void* qkv_buf,
+                          void* ctx_buf, void* hglu_buf, void* ws, void* counters,
+                          void* amax, void* attn_part, void* attn_counters, int B, int E,
                           int Hq, int H, int D, int S, int blk, int F, int order, int act,
-                          float eps, float scale, int sm_count, void* stream_ptr) {
+                          int PT, int MAXP, int pages, float eps, float scale, int sm_count,
+                          void* stream_ptr) {
   if (B < 1 || B > 8 || H <= 0 || Hq % H || Hq / H > kMaxRows || D > kMaxD || D % 16 ||
       blk <= 0 || D % blk || D / blk > kMaxBlk || (order != 1 && order != 2) || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (page_table != nullptr &&
+      (PT < kKeyTile || PT % kKeyTile || MAXP < 1 || pages < 1 || S != MAXP * PT))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int qdim = Hq * D, nqkv = (Hq + 2 * H) * D;
-  // split the cache walk so that B * H * nsplit CTAs cover the card
-  int nsplit = std::min(kMaxSplit, std::max(1, S / kMinSplitRows));
-  const int chunk = ((S + nsplit - 1) / nsplit + kKeyTile - 1) / kKeyTile * kKeyTile;
-  nsplit = (S + chunk - 1) / chunk;
+  // at most this many splits of the cache walk per (slot, kv head); each
+  // slot takes as many of them as its own length needs (step_attention)
+  const int nsplit = std::min(kMaxSplit, std::max(1, S / kMinSplitRows));
   auto* x = static_cast<__nv_bfloat16*>(xres);
   auto* amax_u = static_cast<unsigned*>(amax);
   for (int l = 0; l < L; ++l) {
@@ -731,12 +763,14 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
     at.lengths = static_cast<const int*>(lengths);
     at.k_cache = static_cast<int8_t*>(k_cache), at.v_cache = static_cast<int8_t*>(v_cache);
     at.k_scale = static_cast<__half*>(k_scale), at.v_scale = static_cast<__half*>(v_scale);
+    at.page_table = static_cast<const int*>(page_table);
+    at.pt = PT, at.maxp = MAXP, at.pages = pages;
     at.ctx = static_cast<__nv_bfloat16*>(ctx_buf), at.ctx_amax = ctx_amax;
     at.layer = l, at.B = B, at.H = H, at.S = S, at.D = D, at.blk = blk, at.g = Hq / H;
     at.order = order, at.batched = B > 1, at.scale = scale;
     at.part = static_cast<float*>(attn_part);
     at.counters = static_cast<int*>(attn_counters);
-    at.nsplit = nsplit, at.chunk = chunk;
+    at.nsplit = nsplit;
     step_attention<<<dim3(B, H, nsplit), kAttnThreads, 0, stream>>>(at);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -3,7 +3,9 @@
 Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
 `fused_step_preferred`, `fused_decode_step`) for the i8mm weight mode
 (Int8MXUTensor weights: int8 codes with one f32 scale per column) and a Q8
-KV cache in the logical layout, with both attention modes of the TPU
+KV cache in the logical layout, dense (runtime/kv_cache.py) or paged
+(runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the step's
+K/V rows go through the page table), with both attention modes of the TPU
 kernel: per-slot (B = 1, float32 throughout) and batched (B > 1: q, and
 p * vscale, rounded to bf16 before the cache dots).
 
@@ -13,14 +15,15 @@ per-layer pointer table and issues five launches per layer (three kinds
 of int8 GEMV and the step attention), and writes each layer's new K/V row
 straight into the cache.  On CPU tensors they run the plain versions
 below, which follow the TPU kernel's arithmetic (outputs, then
-``append_rows_all_layers``) and which ``chip_smoke.py`` also holds the
-kernels against on the card.
+``append_rows_all_layers`` or ``append_rows_all_layers_paged``) and which
+``chip_smoke.py`` also holds the kernels against on the card.
 
 Not ported (``fused_step_supported`` raises NotImplementedError where the
-TPU package would fuse them): the i4/i4x8 and byte-per-code block weight
-modes, per-matmul output biases, Q3H pair8, a paged cache and routed MoE.
-There is no fallback switch: if the kernel fails to build or launch, the
-step raises.
+TPU package would fuse them): the byte-per-code block weight modes and
+per-matmul output biases.  The i4/i4x8 and Q3H pair8 layouts and routed
+MoE are refused earlier, by ``models.decoder.check_supported``.  There is
+no fallback switch: if the kernel fails to build or launch, the step
+raises.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from ..quant.codec_torch import (Int8MXUTensor, QuantizedTensor,
                                  int8_rowwise_activations)
 from ..quant.formats import get_format
 from ..runtime.kv_cache import KVCache, append_rows_all_layers
+from ..runtime.paged_kv import (PagedKVCache, append_rows_all_layers_paged,
+                                kv_pack_for)
 from . import _build
 
 KERNEL = "fused_decode_step"
@@ -97,7 +102,7 @@ def _lib():
         lib.ift_i8mm_gemv.argtypes = [vp] * 6 + [i] * 4 + [vp]
         lib.ift_i8mm_gemv.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
-            [ctypes.POINTER(vp), i] + [vp] * 16 + [i] * 10 + [f, f, i, vp])
+            [ctypes.POINTER(vp), i] + [vp] * 17 + [i] * 13 + [f, f, i, vp])
         lib.ift_fused_decode_step.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
@@ -203,9 +208,11 @@ def _stored_k(w) -> int:
 def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
     """The weight modes of a configuration the TPU kernel fuses, else
     None.  Raises NotImplementedError for one it would fuse in a mode this
-    package has not ported."""
-    if not isinstance(cache, KVCache) or not isinstance(layers, list) \
-            or not layers:
+    package has not ported.  Dense and paged caches both qualify: the TPU
+    rule takes a pool whose pages are one lane tile, which every pool of
+    runtime/paged_kv.py is."""
+    if not isinstance(cache, (KVCache, PagedKVCache)) \
+            or not isinstance(layers, list) or not layers:
         return None
     hp = spec.hyper_params
     if spec.norm_alg != "rms" or spec.pos_embedding_alg != "rope":
@@ -263,10 +270,10 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
 
 def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
     """Static eligibility for the whole-model fused decode step (the TPU
-    package's rule over this package's per-layer lists and logical cache;
-    its TPU lane-tile rule for the cache does not apply).  Raises
-    NotImplementedError for a configuration the TPU package fuses in a
-    mode that is not ported here."""
+    package's rule over this package's per-layer lists and logical caches,
+    dense or paged; its TPU lane-tile rule for the cache does not apply).
+    Raises NotImplementedError for a configuration the TPU package fuses
+    in a mode that is not ported here."""
     return _fusion_modes(spec, layers, cache, bsz) is not None
 
 
@@ -344,7 +351,28 @@ def _cache_walk(s: int, d: int) -> tuple:
     return ts * pf, pf
 
 
-def _attend_plain(q, k_self, v_self, cache: KVCache, layer: int,
+def _walk_rows(cache, layer: int, lengths: torch.Tensor):
+    """The rows the TPU kernel walks for `layer`: codes and scales as
+    (B, H, S, ·) tensors, and the walk's (positions per tile, parities).
+    Dense: the whole cache, in tiles of ts x pf positions (_cache_walk);
+    every tile, since a tile past a slot's length adds exactly nothing
+    (p = 0, alpha = 1) and the walk then needs no device-to-host read of
+    the lengths.  Paged: one page per tile, as the TPU kernel's page walk
+    takes it, over the pages that cover the longest slot, gathered through
+    the page table."""
+    if isinstance(cache, PagedKVCache):
+        longest = int(lengths.max()) if lengths.numel() else 0
+        n = min(max(-(-longest // cache.page_tokens), 1),
+                cache.max_pages_per_slot)
+        src = tuple(cache._gather(a, layer, n) for a in
+                    (cache.k, cache.v, cache.k_scale, cache.v_scale))
+        return src, cache.page_tokens, kv_pack_for(cache.head_dim)
+    src = (cache.k[layer], cache.v[layer], cache.k_scale[layer],
+           cache.v_scale[layer])
+    return (src,) + _cache_walk(cache.max_len, cache.head_dim)
+
+
+def _attend_plain(q, k_self, v_self, cache, layer: int,
                   lengths: torch.Tensor, scale: float, batched: bool):
     """q (B, Hq, D) float32 (roped); k_self/v_self (B, H, D) the step's
     quantize-dequantized rows.  Online softmax over cache rows
@@ -362,21 +390,20 @@ def _attend_plain(q, k_self, v_self, cache: KVCache, layer: int,
     # the batched mode's cache dots take bf16 q and bf16 p * vscale
     qc = qh.to(torch.bfloat16).float() if batched else qh
     lengths = lengths.to(device=q.device, dtype=torch.long)
-    s = cache.max_len
     m = torch.full((bsz, hk, g), NEG_INF, device=q.device)
     l = torch.zeros((bsz, hk, g), device=q.device)
     acc = torch.zeros((bsz, hk, g, d), device=q.device)
-    span, pf = _cache_walk(s, d)
-    # every tile: a tile past a slot's length adds exactly nothing (p = 0,
-    # alpha = 1), and the walk needs no device-to-host read of the lengths
+    (k_all, v_all, ks_all, vs_all), span, pf = _walk_rows(cache, layer,
+                                                          lengths)
+    s = k_all.shape[2]
     pos_all = torch.arange(s, device=q.device)
     for t0 in range(0, s, span):
         for par in range(pf):
             rows = slice(t0 + par, min(t0 + span, s), pf)
-            kc = cache.k[layer][:, :, rows].float()  # (B, H, T, D) codes
-            vc = cache.v[layer][:, :, rows].float()
-            ks = cache.k_scale[layer][:, :, rows].float()  # (B, H, T, C)
-            vs = cache.v_scale[layer][:, :, rows].float()
+            kc = k_all[:, :, rows].float()  # (B, H, T, D) codes
+            vc = v_all[:, :, rows].float()
+            ks = ks_all[:, :, rows].float()  # (B, H, T, C)
+            vs = vs_all[:, :, rows].float()
             scores = None
             for c in range(nblk):
                 sl = slice(c * blk, (c + 1) * blk)
@@ -414,9 +441,10 @@ def _add_bf16(xres: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
-                            positions: torch.Tensor, cache: KVCache):
+                            positions: torch.Tensor, cache):
     """The plain version: the TPU kernel's phases layer by layer, then
-    append_rows_all_layers.  Returns (x (B, 1, E) bf16, cache)."""
+    append_rows_all_layers (append_rows_all_layers_paged for a paged
+    cache).  Returns (x (B, 1, E) bf16, cache)."""
     hp = spec.hyper_params
     hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
     bsz = x.shape[0]
@@ -447,8 +475,9 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
         f_dim = h2.shape[-1] // 2
         hglu = _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn)
         xres = _add_bf16(xres, _i8mm_f32(hglu, ffn["w2"]))
-    append_rows_all_layers(cache, torch.stack(k_new), torch.stack(v_new),
-                           cache.length)
+    append = append_rows_all_layers_paged \
+        if isinstance(cache, PagedKVCache) else append_rows_all_layers
+    append(cache, torch.stack(k_new), torch.stack(v_new), cache.length)
     return xres[:, None], cache
 
 
@@ -484,13 +513,25 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
 
 
 def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
-                           positions: torch.Tensor, cache: KVCache):
-    """Launch kernel B4: one C call for the whole step."""
+                           positions: torch.Tensor, cache):
+    """Launch kernel B4: one C call for the whole step, over a dense cache
+    or (mode (f)) a page pool."""
     _build.require_hopper(x)
     hp = spec.hyper_params
     hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
     bsz, e = x.shape[0], x.shape[-1]
-    num_layers, cb, h, s, cd = cache.k.shape
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        num_layers, pages, h, pt, cd = cache.k.shape
+        cb, maxp = cache.page_table.shape
+        s = maxp * pt
+        _build.check_operand(cache.page_table, "page_table", torch.int32,
+                             (cb, maxp), align=4)
+        table_ptr = _build.ptr(cache.page_table)
+    else:
+        num_layers, cb, h, s, cd = cache.k.shape
+        pages = pt = maxp = 0
+        table_ptr = ctypes.c_void_p(0)
     f = int(layers[0]["ffn"]["w2"].shape[-2])
     if hq // hk > _MAX_ROWS or d > _MAX_D or d % 16:
         raise NotImplementedError(
@@ -531,12 +572,12 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         table, num_layers, _build.ptr(xres), _build.ptr(lengths),
         _build.ptr(cos), _build.ptr(sin), _build.ptr(cache.k),
         _build.ptr(cache.v), _build.ptr(cache.k_scale),
-        _build.ptr(cache.v_scale), _build.ptr(qkv), _build.ptr(ctx),
-        _build.ptr(hglu), _build.ptr(work), _build.ptr(work[n_ws:]),
-        _build.ptr(work[n_ws + tiles:]), _build.ptr(part),
-        _build.ptr(work[n_ws + tiles + n_amax:]), bsz, e, hq, hk, d, s,
-        cache.block,
-        f, spec.rope_order, _ACTS[spec.activation_fn], spec.norm_eps,
+        _build.ptr(cache.v_scale), table_ptr, _build.ptr(qkv),
+        _build.ptr(ctx), _build.ptr(hglu), _build.ptr(work),
+        _build.ptr(work[n_ws:]), _build.ptr(work[n_ws + tiles:]),
+        _build.ptr(part), _build.ptr(work[n_ws + tiles + n_amax:]), bsz, e,
+        hq, hk, d, s, cache.block, f, spec.rope_order,
+        _ACTS[spec.activation_fn], pt, maxp, pages, spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
     _build.check(lib, rc, KERNEL)
     _build.launch_counts[KERNEL] += 1
@@ -548,8 +589,9 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
     """One decode step over all layers (inferflow_tpu signature).
 
     x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
-    cache lengths; cache: a Q8 KVCache.  Returns (x (B, 1, E), cache) with
-    the step's K/V rows written at each slot's length; cache.length is not
+    cache lengths; cache: a Q8 KVCache or PagedKVCache.  Returns (x (B, 1,
+    E), cache) with the step's K/V rows written at each slot's length
+    (through the page table for a paged cache); cache.length is not
     advanced."""
     modes = _fusion_modes(spec, layers, cache, x.shape[0])
     if modes != {"i8mm"}:

@@ -11,15 +11,16 @@ Attention routes by phase, as on the TPU:
   - prefill (T > 1, a fresh cache): append K/V, then ``mha`` over the
     dequantized cache rows (plain PyTorch);
   - decode (T == 1): append one row per slot, then ``decode_attention``
-    (kernel B2) over the whole stacked cache;
+    over the whole stacked cache: kernel B2 for a KVCache, kernel B7 for a
+    PagedKVCache (the row goes through the page table);
   - chunked prefill: append the chunk to its slot, then ``chunk_attention``
     (kernel B3) over rows [0, start + T).
 Every quantized linear goes through ``quantized_matmul`` (kernel B1) for
 wire planes, or the i8mm product (ops/linear.py) for Int8MXUTensors.
 A decode step (T == 1 with a cache) whose weights and cache the
 whole-model fused step takes (``fused_step_preferred``: i8mm weights, a Q8
-cache, B <= 8) runs ``fused_decode_step`` (kernel B4) for all layers at
-once instead of the per-layer loop.
+cache, dense or paged, B <= 8) runs ``fused_decode_step`` (kernel B4) for
+all layers at once instead of the per-layer loop.
 Not ported: MoE, ALiBi/sinusoidal positions, parallel attention and the
 ring/tensor-parallel paths.
 """
@@ -223,18 +224,20 @@ def decoder_forward(spec: ModelSpec, params: dict, tokens, positions,
     return logits, cache
 
 
-def layer_cache_fused(cache: KVCache, layer: int) -> dict:
-    """Layer view: the whole stacked cache plus a layer index (the kernels
-    index the stacked buffers; no per-layer slice is copied)."""
+def layer_cache_fused(cache, layer: int) -> dict:
+    """Layer view: the whole stacked cache (dense or paged) plus a layer
+    index (the kernels index the stacked buffers; no per-layer slice is
+    copied)."""
     return {"cache": cache, "layer": layer, "start": cache.length}
 
 
 def decoder_layers_unrolled(spec: ModelSpec, layers: list, x, positions,
-                            cache: Optional[KVCache] = None):
-    """The layer loop of the decode step.  A single-token step that the
-    whole-model fused step takes (fused_step_preferred) runs it: kernel B4
-    on the card, its plain version on the CPU, the same route on both.
-    Everything else runs the per-layer loop.  Does NOT advance
+                            cache=None):
+    """The layer loop of the decode step over a KVCache or PagedKVCache.
+    A single-token step that the whole-model fused step takes
+    (fused_step_preferred) runs it: kernel B4 on the card, its plain
+    version on the CPU, the same route on both.  Everything else runs the
+    per-layer loop (B7 for a paged cache).  Does NOT advance
     cache.length."""
     if cache is not None and x.shape[1] == 1 and fused_step_preferred(
             spec, layers, cache, x.shape[0]):

@@ -15,10 +15,18 @@ Same step loop as the JAX engine, run eagerly on one CUDA device:
     i8mm weights and B <= 8, else the per-layer loop (kernels B1 and B2);
   - sampling on the host (sampling/strategies.py), saturation as an
     implicit end of the query.
-Not ported here: host offload, paged KV, speculative decoding, meshes,
-ring and pipelined prefill (their options raise), CUDA graphs, and the JAX
-engine's fused-step probe: if kernel B4 fails to build or launch, the
-step raises.
+With ``kv_cache_paging`` the cache is a page pool (runtime/paged_kv.py) of
+``kv_pool_tokens`` tokens: a query reserves the pages covering
+min(prompt + max_new + 1, max_context_len) before its prefill and stays
+prefill-pending while the pool cannot give them; its prompt is prefilled
+whole (no chunks) and scattered into its pages; decode runs B4's paged
+mode for i8mm weights and B <= 8, else the per-layer loop with kernel B7.
+A finished query's pages go back to the pool and its table row is zeroed
+(page 0), so its slot's throw-away rows never land in a page that a live
+query owns.
+Not ported here: host offload, speculative decoding, meshes, ring and
+pipelined prefill (their options raise), CUDA graphs, and the JAX engine's
+fused-step probe: if kernel B4 fails to build or launch, the step raises.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from ..quant.codec_torch import Int8MXUTensor, QuantizedTensor
 from ..quant.formats import is_quantized
 from ..sampling.strategies import DecodingStrategies, SamplingOptions
 from .kv_cache import KVCache
+from .paged_kv import PagedKVCache, scatter_prefill_pages
 from .query_state import DECODING, FINISHED, QueryState, QueryStateTable
 
 
@@ -85,11 +94,18 @@ class InferenceEngine:
                  sequence_parallel: int = 0,
                  pipeline_prefill: bool = False,
                  draft: Optional[tuple] = None,
-                 kv_cache_paging: bool = False):
+                 kv_cache_paging: bool = False,
+                 kv_pool_tokens: int = 0):
+        if kv_cache_paging and (
+                mesh is not None or sequence_parallel > 1
+                or cpu_layer_count > 0 or spec.host_kv_cache_percent > 0
+                or spec.decoder_cpu_layer_count > 0 or draft is not None):
+            raise ValueError("kv_cache_paging composes with the plain "
+                             "single-device engine (no device groups, "
+                             "ring prefill, host offload or draft)")
         unported = {"cpu_layer_count": cpu_layer_count, "mesh": mesh,
                     "sequence_parallel": sequence_parallel,
                     "pipeline_prefill": pipeline_prefill, "draft": draft,
-                    "kv_cache_paging": kv_cache_paging,
                     "host_kv_cache_percent": spec.host_kv_cache_percent,
                     "decoder_cpu_layer_count":
                         max(spec.decoder_cpu_layer_count, 0)}
@@ -116,10 +132,22 @@ class InferenceEngine:
             self.max_context_len = 2048
         if kv_cache_quantized is None:
             kv_cache_quantized = is_quantized(spec.device_kv_cache_data_type)
-        self.cache = KVCache.create(hp.decoder_layers, self.max_slots,
-                                    self.max_context_len, hp.kv_heads,
-                                    hp.head_dim, quantized=kv_cache_quantized,
-                                    device=self.device)
+        # paged: page 0 is never handed out (unassigned table entries and
+        # inactive slots point at it)
+        self._paging = bool(kv_cache_paging)
+        self._free_pages: List[int] = []
+        self._slot_pages: Dict[int, List[int]] = {}
+        if self._paging:
+            self.cache = PagedKVCache.create(
+                hp.decoder_layers, self.max_slots, self.max_context_len,
+                hp.kv_heads, hp.head_dim, pool_tokens=kv_pool_tokens,
+                quantized=kv_cache_quantized, device=self.device)
+            self._free_pages = list(range(1, self.cache.num_pages))
+        else:
+            self.cache = KVCache.create(
+                hp.decoder_layers, self.max_slots, self.max_context_len,
+                hp.kv_heads, hp.head_dim, quantized=kv_cache_quantized,
+                device=self.device)
         self.table = QueryStateTable(self.max_slots)
         eos_ids = set()
         if vocab is not None and getattr(vocab, "eos_id", -1) >= 0:
@@ -176,6 +204,41 @@ class InferenceEngine:
         cache.with_length(cache.length + self._tensor(active))
         return logits[:, -1]
 
+    # -- paged-pool bookkeeping (kv_cache_paging) -------------------------
+    def _reserve_pages(self, qs: QueryState) -> bool:
+        """Reserve the pages covering min(prompt + max_new + 1,
+        max_context_len) for a pending query.  False: the pool cannot give
+        them now, and the query stays prefill-pending (reserving up front
+        means decode never stalls mid-stream).  Raises RuntimeError for a
+        query larger than the whole pool."""
+        if qs.slot in self._slot_pages:
+            return True  # reserved on an earlier (deferred) attempt
+        pt = self.cache.page_tokens
+        want = min(len(qs.prompt_tokens) + qs.max_new_tokens + 1,
+                   self.max_context_len)
+        need = min(-(-want // pt), self.cache.max_pages_per_slot)
+        if need > self.cache.num_pages - 1:
+            raise RuntimeError(
+                f"query needs {need} pages but the pool only has "
+                f"{self.cache.num_pages - 1}; raise kv_pool_tokens")
+        if need > len(self._free_pages):
+            return False
+        pids = [self._free_pages.pop() for _ in range(need)]
+        self._slot_pages[qs.slot] = pids
+        self.cache.with_page_row(qs.slot, pids)
+        return True
+
+    def _release_pages(self, slot: int) -> None:
+        """Return a finished slot's pages to the pool and zero its table
+        row (page 0, the sentinel) and its length.  The JAX engine leaves
+        the row pointing at the released pages, where the idle slot's
+        throw-away rows would land in a page another query may own."""
+        pids = self._slot_pages.pop(slot, None)
+        if pids:
+            self._free_pages.extend(pids)
+        self.cache.with_page_row(slot, [])
+        self.cache.length[slot] = 0
+
     # -- public API -------------------------------------------------------
     def add_query(self, prompt: Sequence[int] | str,
                   sampling: Optional[SamplingOptions] = None,
@@ -203,10 +266,13 @@ class InferenceEngine:
         results: List[InferenceResult] = []
         with self._lock:
             pending = self.table.prefill_pending()
+        if pending and self._paging and not self._reserve_pages(pending[0]):
+            pending = []  # pool exhausted; retry when queries release pages
         if pending:
             qs = pending[0]
             tokens = qs.prompt_tokens
-            if len(tokens) > self.prefill_chunk:
+            # paged: the whole prompt into a dense temp cache, then pages
+            if len(tokens) > self.prefill_chunk and not self._paging:
                 c = self.prefill_chunk
                 start = qs.prefill_pos
                 if start == 0:
@@ -227,7 +293,14 @@ class InferenceEngine:
                 padded[0, :len(tokens)] = tokens
                 last_logits, tmp = self._prefill_step(padded, len(tokens),
                                                       bucket)
-                self.cache.scatter_slot(tmp, qs.slot, len(tokens))
+                if self._paging:
+                    pids = self._slot_pages[qs.slot]
+                    n_copy = min(-(-len(tokens) // self.cache.page_tokens),
+                                 len(pids))
+                    scatter_prefill_pages(self.cache, tmp, pids[:n_copy],
+                                          len(tokens), qs.slot)
+                else:
+                    self.cache.scatter_slot(tmp, qs.slot, len(tokens))
                 self._finish_prefill(qs, last_logits.cpu().numpy(), results)
             self.perf_stat["prefill_ms"] = (time.perf_counter() - t0) * 1e3
 
@@ -280,6 +353,8 @@ class InferenceEngine:
                     if t not in self.eos_ids:
                         qs.generated.append(t)
                 if r.is_end:
+                    if self._paging:
+                        self._release_pages(qs.slot)
                     self.table.finish(r.query_id, r.finish_reason)
                     self.strategies.end_query(r.query_id)
 

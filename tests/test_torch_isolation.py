@@ -1,12 +1,13 @@
 """The PyTorch package stands alone, and nothing in it falls back silently.
 
-- Importing every module of ``inferflow_tpu_torch`` (in a fresh process)
-  leaves ``jax`` and ``inferflow_tpu`` out of ``sys.modules``; no module of
-  it, and nothing in ``chip_smoke.py``, names them in an import.
+- Importing every module of ``inferflow_tpu_torch`` (in a fresh process;
+  ``config/`` and ``runtime/paged_kv.py`` among them) leaves ``jax`` and
+  ``inferflow_tpu`` out of ``sys.modules``; no module of it, and nothing in
+  ``chip_smoke.py``, names them in an import.
 - Entry points default to the card and raise where there is none; the
-  kernel wrappers (B1-B3, the i8mm product and the fused decode step B4)
-  raise for a tensor that is neither on the CPU nor on a card, and the
-  kernel build raises without a CUDA compiler.
+  kernel wrappers (B1-B3, B7, the i8mm product and the fused decode step
+  B4, dense and paged) raise for a tensor that is neither on the CPU nor on
+  a card, and the kernel build raises without a CUDA compiler.
 """
 
 import ast
@@ -31,7 +32,12 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "inferflow_tpu"
              or m.startswith("inferflow_tpu."))
-print(len(names), bad)
+missing = [n for n in ("inferflow_tpu_torch.config.ini",
+                       "inferflow_tpu_torch.config.model_spec",
+                       "inferflow_tpu_torch.config.engine_config",
+                       "inferflow_tpu_torch.runtime.paged_kv")
+           if n not in names]
+print(len(names), bad + missing)
 """
 
 
@@ -41,7 +47,7 @@ def test_import_all_modules_without_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 19
     assert bad == "[]"
 
 
@@ -70,6 +76,7 @@ def test_entry_points_refuse_a_missing_card():
     from inferflow_tpu_torch.quant.codec_torch import QuantizedTensor
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     from inferflow_tpu_torch.runtime.kv_cache import KVCache
+    from inferflow_tpu_torch.runtime.paged_kv import PagedKVCache
     from inferflow_tpu_torch.weights import params_from_numpy
     spec = make_spec("test-tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -79,6 +86,8 @@ def test_entry_points_refuse_a_missing_card():
         InferenceEngine(spec, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KVCache.create(1, 1, 16, 2, 32, quantized=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache.create(1, 1, 512, 2, 32, quantized=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         QuantizedTensor.from_np(params["lm_head"].to_np())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -93,6 +102,7 @@ def test_wrappers_refuse_other_devices():
     from inferflow_tpu_torch.quant import codec_torch
     from inferflow_tpu_torch.quant.codec_torch import quantize
     from inferflow_tpu_torch.runtime.kv_cache import KVCache
+    from inferflow_tpu_torch.runtime.paged_kv import PagedKVCache
 
     qt = quantize(torch.randn(128, 64), "Q4_B64T1")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -103,6 +113,10 @@ def test_wrappers_refuse_other_devices():
         decode_attention(q, cache, 0, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         chunk_attention(q, cache, 0, 0, 0)
+    paged = PagedKVCache.create(1, 1, 512, 2, 32, quantized=True,
+                                device="cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention(q, paged, 0, torch.ones(1, dtype=torch.int32))
 
     # the i8mm product and the whole-model fused decode step (kernel B4)
     from inferflow_tpu_torch.kernels.decode_step import (fused_decode_step,
@@ -119,9 +133,11 @@ def test_wrappers_refuse_other_devices():
                            quantized=True, device="cpu")
     x = torch.empty((2, 1, hp.embd_dims), dtype=torch.bfloat16,
                     device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_decode_step(spec, params["layers"], x,
-                          torch.zeros((2, 1), dtype=torch.int32), cache)
+    for c in (cache, PagedKVCache.create(1, 2, 512, hp.kv_heads, hp.head_dim,
+                                         quantized=True, device="cpu")):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fused_decode_step(spec, params["layers"], x,
+                              torch.zeros((2, 1), dtype=torch.int32), c)
 
 
 def test_kernel_build_needs_nvcc():
