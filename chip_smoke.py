@@ -60,7 +60,25 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        prefill), served first and freed before the paged one is built,
        whose tokens the paged engine is fed;
    (c-cpu) the same configuration at ENGINE_CCPU_LAYERS layers and
-       prompts of at most 300 tokens, held against the CPU engine.
+       prompts of at most 300 tokens, held against the CPU engine;
+5. reads configs/inferflow_service.i4.ini the same way: llama2-7b from
+   seed-0 Q4_B64T1 in the i4 layout (the ini's device_layout), 8 slots, a
+   4096-token context, and
+   - holds B5 (i4_matmul) at the five products' shapes (w2 also stored
+     K-padded to 11264), M in {1, 8, 12, 256}, and B4 mode (b)'s i4x8 GEMV
+     alone (M in {1, 8}) against their plain versions; times them (B5's
+     library: torch.matmul on the pre-dequantized bf16 weight);
+   - holds B4 mode (b) at 32 layers, B = 8 (I4_FUSED_LENGTHS) and B = 1,
+     against its plain version (one layer and the stack; B4 (a) on (c)'s
+     i8mm weights as a control) and times it beside B4 (a);
+   (e) serves ENGINE_E_PROMPTS (7 to 2000 tokens) at full depth: every
+       decode step B4 (b), B5 and B3 launch, B1, B2, B7, B4 (a) and the
+       int8 GEMV do not; every sampled row is held against a packed engine
+       on the card (B1/B2) built from the same Q4_B64T1 values and fed (e)'s
+       tokens; reports the resident weight bytes against (c)'s i8mm ones;
+   (e-cpu) the same at ENGINE_ECPU_LAYERS layers, against the CPU engine;
+   (f) ENGINE_F_LAYERS layers at ENGINE_F_SLOTS slots (B > 8: the per-layer
+       loop, B5 and B2), against the CPU engine.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -99,7 +117,7 @@ ENGINE_LOGIT_TOL = 0.08
 # rounding, and with it a row's int8 activation scale, that the plain
 # version does not
 ENGINE_I8MM_LOGIT_TOL = 0.12  # measured 0.053-0.062 (H100, 700 W)
-ENGINE_B_LAYERS = 6  # depth of the packed run (b)
+ENGINE_B_LAYERS = 4  # depth of the packed run (b)
 FUSED_LENGTHS = (1023, 700, 301, 17)
 # B4 against its plain version.  One layer (the same inputs on both
 # sides): ONE_LAYER_TOL x max|plain|; at B = 1 (float32 throughout) the
@@ -122,6 +140,7 @@ B7_POOL_PAGES = 1024
 ENGINE_D_LAYERS = 6  # depth of the paged tinyllama run (d)
 PAGED_INI = "configs/inferflow_service.paged.ini"
 PAGED_MODEL = "llama2-7b"
+I4_MODEL_NAME = "llama2-7b"
 ENGINE_C_PROMPTS = (7, 1024, 13, 600, 33, 300, 64, 900, 100, 17, 256, 512,
                     129, 700, 45, 1000, 8, 384, 200, 77, 1023, 150, 60, 450)
 ENGINE_C_DENSE_CONTEXT = 2048
@@ -133,6 +152,47 @@ ENGINE_CCPU_PROMPTS = (7, 300, 13, 150, 33, 250, 64, 100, 17, 200, 129, 45,
 # float32 sums run in another order, and each moved bf16 rounding grows
 # through 32 random-weight layers
 ENGINE_C_TOL = 0.12
+
+# the i4 layout: configs/inferflow_service.i4.ini, llama2-7b
+I4_INI = "configs/inferflow_service.i4.ini"
+I4_CONTEXT = 4096
+# B4 (b) at B = 8 (lengths spread up to the last cache row) and B = 1
+I4_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
+# B4 (b) against its plain version: one layer ONE_LAYER_TOL x max|plain|;
+# all 32 layers I4_FUSED_TOL x max|plain|.  The i4x8 products sum their
+# block terms in float32 in another order than the plain version (whose
+# order is the TPU kernel's), so unlike B4 (a) the two differ by float
+# ulps even at B = 1, and each moved bf16 rounding moves an int8
+# activation code of the next product; 32 random-weight layers amplify
+# it: measured 1.3% (B = 1) and 2.1% (B = 8) for one layer, 15.3% and
+# 10.6% for the stack (H100, 700 W), against B4 (a)'s 4.2% and 6.9% over
+# tinyllama's 22 layers
+I4_FUSED_TOL = 0.25
+# the plain step takes about a second at this size: timed over fewer calls
+I4_PLAIN_ITERS = 3
+# run (e): 12 queries of 7 to 2000 tokens; those over 256 take the chunked
+# prefill (B3)
+ENGINE_E_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+# run (e) against the packed engine on the card (B1/B2, bf16 activations)
+# fed (e)'s tokens: prefill rows differ by B5's fold rounding (n*sc +
+# (8*sc + base) against q*sc + base: an ulp of some bf16 weights) and sum
+# orders; decode rows also by i4x8's int8 activations
+# (measured: every prefill row 0.0, decode rows at most 0.0547, 184 of 192
+# argmax equal; H100, 700 W): the gates are about two bf16 ulps of a logit
+# below 4 for the prefill rows and twice the measured worst for decode
+ENGINE_E_PREFILL_TOL = 0.04
+ENGINE_E_DECODE_TOL = 0.12
+# (e-cpu) and (f) against the CPU engine, whose plain versions dequantize
+# every weight on each call (a decode step takes seconds on the host at
+# llama2-7b width): few queries of ENGINE_I4_CPU_NEW tokens each
+ENGINE_I4_CPU_NEW = 8
+ENGINE_ECPU_LAYERS = 2
+ENGINE_ECPU_PROMPTS = (7, 300, 13)
+# run (f): B > 8, the per-layer loop with B5 and B2
+ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT = 4, 12, 1024
+ENGINE_F_PROMPTS = (7, 13, 33, 64, 100)
+# measured 0.0703 for (e-cpu) (H100, 700 W)
+ENGINE_I4_CPU_TOL = 0.12
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -149,11 +209,24 @@ KERNEL_SOURCES = {
                   "inferflow_tpu/kernels/decode_step.py:502"),
     "paged_decode_attention": ("inferflow_tpu_torch/kernels/csrc/attention.cu",
                                "inferflow_tpu/kernels/attention.py:283"),
+    "i4_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
+                  "inferflow_tpu/kernels/dequant_matmul.py:313"),
+    # B4 in its mode (b), i4x8 (the TPU kernel's i4x8 tile at :537)
+    "fused_decode_step_i4": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+                             "inferflow_tpu/kernels/decode_step.py:255"),
+    # mode (b)'s GEMV alone (timed alone; on the path inside B4 (b))
+    "i4x8_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+                  "inferflow_tpu/kernels/decode_step.py:537"),
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, stamped with the seconds since the script started."""
+    print(json.dumps(dict(obj, elapsed_s=time.perf_counter() - T0)),
+          flush=True)
 
 
 class Timer:
@@ -194,11 +267,11 @@ class Timer:
         torch.cuda.synchronize()
         return start.elapsed_time(end), host_ahead
 
-    def __call__(self, fn, label: str = "") -> float:
+    def __call__(self, fn, label: str = "", iters: int = TIMED_ITERS) -> float:
         fn()  # warm up
         torch.cuda.synchronize()
         times = []
-        for _ in range(TIMED_ITERS):
+        for _ in range(iters):
             for attempt in range(3):
                 ms, ahead = self._once(fn, self.SLEEP_CYCLES * 4 ** attempt)
                 if ahead:
@@ -206,11 +279,11 @@ class Timer:
                     break
             else:
                 break
-        if len(times) == TIMED_ITERS:
+        if len(times) == iters:
             return float(np.median(times))
         emit({"phase": "timer", "ungated": label})
         return float(np.median([self._once(fn, 0)[0]
-                                for _ in range(TIMED_ITERS)]))
+                                for _ in range(iters)]))
 
 
 def bound(bytes_moved: float, flops: float,
@@ -268,10 +341,10 @@ def phase_b1(timer, dev, spec) -> list:
     return rows
 
 
-def _filled_cache(dev, spec, batch, rows, seed):
+def _filled_cache(dev, spec, batch, rows, seed, context=CONTEXT):
     from inferflow_tpu_torch.runtime.kv_cache import KVCache
     hp = spec.hyper_params
-    cache = KVCache.create(hp.decoder_layers, batch, CONTEXT, hp.kv_heads,
+    cache = KVCache.create(hp.decoder_layers, batch, context, hp.kv_heads,
                            hp.head_dim, quantized=True, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for layer in range(hp.decoder_layers):
@@ -414,15 +487,10 @@ def phase_i8mm_gemv(timer, dev, params) -> list:
 
 
 def _weight_bytes(params) -> int:
-    total = 0
-    for lp in params["layers"]:
-        for grp in (lp["attn"], lp["ffn"]):
-            for t in grp.values():
-                if hasattr(t, "data") and hasattr(t, "scale"):
-                    total += t.nbytes
-                else:
-                    total += t.numel() * t.element_size()
-    return total
+    """The bytes of every layer's weights and norms (tensors and both
+    quantized containers report nbytes)."""
+    return sum(t.nbytes for lp in params["layers"]
+               for grp in (lp["attn"], lp["ffn"]) for t in grp.values())
 
 
 def phase_b4(timer, dev, spec, params) -> list:
@@ -891,7 +959,7 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
 
 
 def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
-                      tol, engine_kw) -> None:
+                      tol, engine_kw, max_new=MAX_NEW) -> None:
     """The same model and queries served on the CPU (the plain versions),
     in the same interleaving and fed the tokens the card served: every
     sampled row (each prefill and each decode step of every query) is held
@@ -900,25 +968,27 @@ def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
     t0 = time.perf_counter()
     cpu = InferenceEngine(spec, params, device="cpu", **engine_kw)
     cpu_rows = _record_rows(cpu, forced=dict(zip(qids, outputs)))
-    ref_qids, _, _, _ = _serve(cpu, prompts, MAX_NEW)
+    ref_qids, _, _, _ = _serve(cpu, prompts, max_new)
     assert ref_qids == qids, (ref_qids, qids)
     report = {"phase": f"engine_{label}_vs_cpu",
               "cpu_reference_s": time.perf_counter() - t0,
               "tolerance": f"every sampled row: max_abs_err <= {tol}"}
-    report.update(_row_errors(qids, prompts, outputs, rows, cpu_rows, tol))
+    report.update(_row_errors(qids, prompts, outputs, rows, cpu_rows, tol,
+                              max_new))
     emit(report)
     assert report["ok"], \
         f"run {label}: served logits disagree with the CPU reference"
 
 
-def _row_errors(qids, prompts, outputs, rows, ref_rows, tol) -> dict:
+def _row_errors(qids, prompts, outputs, rows, ref_rows, tol,
+                max_new=MAX_NEW) -> dict:
     """Per query: the worst |card - reference| over its sampled rows, and
     how many argmaxes agree; ok when every row is within `tol`."""
     report, ok = {}, True
     for q, prompt, served in zip(qids, prompts, outputs):
         n = len(prompt)
         card, ref = rows[q], ref_rows[q]
-        assert len(card) == len(ref) == len(served) == MAX_NEW, q
+        assert len(card) == len(ref) == len(served) == max_new, q
         assert [int(r.argmax()) for r in card] == served, "not greedy"
         errs = [float(np.abs(a - b).max()) for a, b in zip(card, ref)]
         report[f"q{q}_prompt_{n}"] = {
@@ -1085,6 +1155,396 @@ def phase_engine_ccpu(dev, cfg, spec, params) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the i4 layout
+def _pad_k(qt, k_s):
+    """qt stored with K = k_s: zero-scale, zero-base blocks whose nibbles
+    are -8 (the wire code 0), as the JAX zoo pads llama2-7b's w2 (K
+    11008 stored as 11264) before it repacks."""
+    import torch.nn.functional as F
+    from inferflow_tpu_torch.quant.codec_torch import QuantizedTensor
+    pad = k_s - qt.storage_k
+    plane = F.pad(qt.planes["data_i4p"], (0, 0, 0, pad // 2), value=0x88)
+    meta = [F.pad(t, (0, 0, 0, pad // 64)) for t in (qt.scale, qt.base)]
+    return QuantizedTensor(qt.format, qt.shape, {"data_i4p": plane}, *meta)
+
+
+def _i4_weights(params) -> dict:
+    """The five products of llama2-7b in the i4 layout (layer 0 and the
+    lm_head) and w2 stored K-padded to 11264."""
+    lp = params["layers"][0]
+    w2 = lp["ffn"]["w2"]
+    return {"qkv": lp["attn"]["qkv"], "wo": lp["attn"]["wo"],
+            "w1n3": lp["ffn"]["w1n3"], "w2": w2,
+            "w2_ks11264": _pad_k(w2, -(-w2.storage_k // 512) * 512),
+            "lm_head": params["lm_head"]}
+
+
+def phase_b5(timer, dev, params) -> list:
+    """Kernel B5 at llama2-7b's product shapes, M in {1, 8, 12, 256}
+    (decode at B <= 8 and B > 8, prefill chunks), against its plain
+    version; library: torch.matmul on the pre-dequantized bf16 weight."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (
+        i4_matmul, i4_matmul_plain, i4_weight)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for name, qt in _i4_weights(params).items():
+        k, n = (int(v) for v in qt.shape)
+        k_s = qt.storage_k
+        w_bf16 = i4_weight(qt)
+        for m in (1, 8, 12, 256):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = i4_matmul(x, qt)
+            ref = i4_matmul_plain(x, qt)
+            again = i4_matmul(x, qt)
+            torch.cuda.synchronize()
+            res = compare(got, ref)
+            res["same_bits_twice"] = bool(torch.equal(got, again))
+            res["ok"] = res["ok"] and res["same_bits_twice"]
+            bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
+            b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
+            row = {"phase": "kernel", "kernel": "i4_matmul",
+                   "shape": f"{name} M={m} K={k} K_s={k_s} N={n}", **res,
+                   "ms": timer(lambda: i4_matmul(x, qt)),
+                   "plain_ms": timer(lambda: i4_matmul_plain(x, qt)),
+                   "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+                   "library": "torch.matmul on the pre-dequantized bf16 "
+                              "weight",
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes_bound": bytes_moved}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def phase_i4x8_gemv(timer, dev, params) -> list:
+    """B4 mode (b)'s i4x8 GEMV alone at the four layer shapes (w2 also
+    stored K-padded), M in {1, 8}, against its plain version.  No PyTorch
+    call computes the i4x8 product; the yardstick is torch.matmul on the
+    pre-dequantized bf16 weight (another function, same bytes to read if
+    the weight were 4-bit)."""
+    from inferflow_tpu_torch.kernels.decode_step import (i4x8_gemv_cuda,
+                                                         i4x8_matmul_plain)
+    from inferflow_tpu_torch.kernels.dequant_matmul import i4_weight
+    gen = torch.Generator(device=dev).manual_seed(32)
+    rows = []
+    weights = _i4_weights(params)
+    weights.pop("lm_head")
+    for name, qt in weights.items():
+        k, n = (int(v) for v in qt.shape)
+        k_s = qt.storage_k
+        w_bf16 = torch.nn.functional.pad(i4_weight(qt), (0, 0, 0, k_s - k))
+        for m in (1, 8):
+            x = torch.randn((m, k_s), generator=gen, device=dev).to(
+                torch.bfloat16)
+            x[:, k:] = 0
+            got = i4x8_gemv_cuda(x, qt)
+            ref = i4x8_matmul_plain(x, qt)
+            again = i4x8_gemv_cuda(x, qt)
+            torch.cuda.synchronize()
+            res = compare(got.to(torch.bfloat16), ref)
+            res["same_bits_twice"] = bool(torch.equal(got, again))
+            res["ok"] = res["ok"] and res["same_bits_twice"]
+            bytes_moved = 2 * m * k_s + qt.nbytes + 4 * m * n
+            b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n, H100_INT8_OPS)
+            row = {"phase": "kernel", "kernel": "i4x8_gemv",
+                   "shape": f"{name} M={m} K={k} K_s={k_s} N={n}", **res,
+                   "ms": timer(lambda: i4x8_gemv_cuda(x, qt)),
+                   "plain_ms": timer(lambda: i4x8_matmul_plain(x, qt),
+                                     f"i4x8_matmul_plain {name} M={m}"),
+                   "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+                   "library": "torch.matmul on the pre-dequantized bf16 "
+                              "weight (not the i4x8 function)",
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes_bound": bytes_moved}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def phase_b4_i4(timer, dev, spec, params, spec_i8, params_i8) -> list:
+    """B4 mode (b) at full llama2-7b width and depth against its plain
+    version (both on the card, on twin caches of I4_CONTEXT rows): one
+    layer alone and the whole stack, at B = 8 and B = 1; B4 (a) on
+    llama2-7b i8mm weights (run (c)'s) timed on the same cache rows."""
+    import dataclasses
+    from inferflow_tpu_torch.kernels import decode_step
+    hp = spec.hyper_params
+    n_layers = hp.decoder_layers
+    rows = []
+    for lengths in (I4_FUSED_LENGTHS, (I4_CONTEXT // 2,)):
+        b = len(lengths)
+        cache, gen = _filled_cache(dev, spec, b, I4_CONTEXT, seed=33,
+                                   context=I4_CONTEXT)
+        cache.with_length(torch.tensor(lengths, device=dev))
+        twin = dataclasses.replace(
+            cache, k=cache.k.clone(), v=cache.v.clone(),
+            k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
+            length=cache.length.clone())
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = params["dec_embeddings"][tokens]
+        pos = cache.length[:, None].clone()
+        one = [dataclasses.replace(c, k=c.k[:1], v=c.v[:1],
+                                   k_scale=c.k_scale[:1],
+                                   v_scale=c.v_scale[:1])
+               for c in (cache, twin)]
+        got1, _ = decode_step.fused_decode_step(spec, params["layers"][:1],
+                                                x, pos, one[0])
+        ref1, _ = decode_step.fused_decode_step_plain(
+            spec, params["layers"][:1], x, pos, one[1])
+        one_layer = compare(got1, ref1, ONE_LAYER_TOL)
+        got, _ = decode_step.fused_decode_step(spec, params["layers"], x,
+                                               pos, cache)
+        again, _ = decode_step.fused_decode_step(spec, params["layers"], x,
+                                                 pos, cache)
+        ref, _ = decode_step.fused_decode_step_plain(spec, params["layers"],
+                                                     x, pos, twin)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        steps = []
+        for layer in range(n_layers):
+            worst = 0.0
+            for a, r in zip(cache.read_layer(layer, torch.float32),
+                            twin.read_layer(layer, torch.float32)):
+                for slot, n in enumerate(lengths):
+                    row = min(n, I4_CONTEXT - 1)
+                    q8 = r[slot, row].abs().amax(dim=-1) / 127.0
+                    diff = (a[slot, row] - r[slot, row]).abs().amax(dim=-1)
+                    worst = max(worst, (diff / q8.clamp(min=1e-12)).max()
+                                .item())
+            steps.append(worst)
+        live = sum(min(n, I4_CONTEXT) for n in lengths)
+        nblk = hp.head_dim // 32
+        kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
+                                                        + 2 * nblk)
+        new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim + 2 * nblk)
+        bytes_moved = _weight_bytes(params) + kv_bytes + new_rows \
+            + 2 * 2 * b * hp.embd_dims
+        ops = 2 * b * sum(lp[g][w].storage_k * lp[g][w].shape[-1]
+                          for lp in params["layers"]
+                          for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                       ("ffn", "w1n3"), ("ffn", "w2")))
+        b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
+        ok = bool(np.isfinite(err) and err <= I4_FUSED_TOL * scale
+                  and steps[0] <= 1.0 + 1e-3 and one_layer["ok"]
+                  and torch.equal(got, again))
+        # the control: B4 (a) on i8mm weights against its plain version on
+        # the same inputs (the new rows the steps write are never read)
+        got_i8, _ = decode_step.fused_decode_step(
+            spec_i8, params_i8["layers"], x, pos, cache)
+        ref_i8, _ = decode_step.fused_decode_step_plain(
+            spec_i8, params_i8["layers"], x, pos, twin)
+        torch.cuda.synchronize()
+        i8_rel = ((got_i8.float() - ref_i8.float()).abs().max().item()
+                  / max(ref_i8.float().abs().max().item(), 1e-30))
+        row = {"phase": "kernel", "kernel": "fused_decode_step_i4",
+               "shape": f"{I4_MODEL_NAME} i4 L={n_layers} B={b} "
+                        f"lengths={list(lengths)} S={I4_CONTEXT}",
+               "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
+               "tolerance": f"max_abs_err <= {I4_FUSED_TOL} * max|plain|; "
+                            f"layer-0 rows within one Q8 step; one layer "
+                            f"alone: {one_layer['tolerance']}; the same "
+                            f"bits on a second run",
+               "one_layer": one_layer,
+               "i8mm_b4_rel_err_vs_plain": i8_rel,
+               "same_bits_twice": bool(torch.equal(got, again)),
+               "appended_row_q8_steps_by_layer": steps, "ok": ok,
+               "ms": timer(lambda: decode_step.fused_decode_step(
+                   spec, params["layers"], x, pos, cache),
+                   f"fused_decode_step i4 B={b}"),
+               "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
+                   spec, params["layers"], x, pos, twin),
+                   f"fused_decode_step_plain i4 B={b}", I4_PLAIN_ITERS),
+               "i8mm_ms": timer(lambda: decode_step.fused_decode_step(
+                   spec_i8, params_i8["layers"], x, pos, cache),
+                   f"fused_decode_step i8mm B={b}"),
+               "i8mm_weight_bytes": _weight_bytes(params_i8),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound": bytes_moved}
+        emit(row)
+        rows.append(row)
+        del cache, twin, one
+        torch.cuda.empty_cache()
+    return rows
+
+
+def i4_config(**overrides) -> tuple:
+    """configs/inferflow_service.i4.ini through the package's own loader:
+    (engine config, llama2-7b spec with the ini's context, KV type and
+    device layout, weight format name); the hyper-parameters from
+    make_spec, as paged_config takes them."""
+    from inferflow_tpu_torch.config import load_engine_config
+    from inferflow_tpu_torch.models.zoo import make_spec
+    from inferflow_tpu_torch.quant.formats import get_format
+    cfg = load_engine_config(str(Path(__file__).resolve().parent / I4_INI))
+    model = cfg.model
+    spec = make_spec(I4_MODEL_NAME, **overrides)
+    spec.max_context_len = model.max_context_len
+    spec.device_kv_cache_data_type = model.device_kv_cache_data_type
+    spec.device_weight_data_type = model.device_weight_data_type
+    spec.device_layout = model.device_layout
+    return cfg, spec, get_format(model.device_weight_data_type).name
+
+
+def _packed_twin(params):
+    """The same Q4_B64T1 values in the packed wire layout: data_i4p is
+    the wire plane XOR 0x88 (codec_torch.repack_i4)."""
+    from inferflow_tpu_torch.quant.codec_torch import QuantizedTensor
+
+    def conv(node):
+        if isinstance(node, QuantizedTensor):
+            return QuantizedTensor(node.format, node.shape,
+                                   {"data": node.planes["data_i4p"] ^ 0x88},
+                                   node.scale, node.base)
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        return node
+    return conv(params)
+
+
+def _split_row_errors(report: dict) -> dict:
+    """The worst prefill row (each query's first sampled row) and the
+    worst decode row over the queries of a _row_errors report."""
+    per_q = [v for k, v in report.items() if k.startswith("q")]
+    return {"prefill_max_abs_err": max(v["row_errs"][0] for v in per_q),
+            "decode_max_abs_err": max(max(v["row_errs"][1:]) for v in per_q),
+            "argmax_equal": sum(v["argmax_equal"] for v in per_q),
+            "rows": sum(v["rows"] for v in per_q)}
+
+
+def phase_engine_e(dev, cfg, spec, params, memory, i8mm_weight_bytes) -> dict:
+    """Run (e): the ini's engine at full depth on the card, then a packed
+    engine on the card (B1/B2, per-layer) built from the same Q4_B64T1
+    values, fed (e)'s tokens; every sampled row held against it."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.models.zoo import make_spec
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    hp = spec.hyper_params
+    vocab = hp.vocab_size
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(1, vocab, n)]
+               for n in ENGINE_E_PROMPTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = InferenceEngine(spec, params,
+                          max_concurrent_queries=cfg.max_concurrent_queries,
+                          max_context_len=spec.max_context_len, device=dev)
+    cache_bytes = _pool_bytes(eng.cache)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    memory = dict(memory, cache=cache_bytes,
+                  serving_peak=torch.cuda.max_memory_allocated(dev)
+                  - memory["before"])
+    emit({"phase": "engine_e", "config": I4_INI, "model": I4_MODEL_NAME,
+          "layers": hp.decoder_layers, "device_layout": spec.device_layout,
+          "layout_type": type(params["lm_head"]).__name__,
+          "lm_head_planes": sorted(params["lm_head"].planes),
+          "slots": cfg.max_concurrent_queries,
+          "context": spec.max_context_len, "queries": len(prompts),
+          "prompt_lens": list(ENGINE_E_PROMPTS),
+          "tokens_served": sum(len(o) for o in outputs),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "wall_s": wall_s, "device_bytes": memory,
+          "i8mm_weight_bytes_run_c": i8mm_weight_bytes,
+          "prefill_ms_per_step": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step": decode_ms,
+          "first_tokens": [o[:4] for o in outputs],
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    assert launches.get("fused_decode_step_i4", 0) == len(decode_ms), \
+        "a decode step did not take B4 (b)"
+    for k in ("i4_matmul", "chunk_attention"):
+        assert launches.get(k, 0) > 0, f"{k} never launched in run e"
+    for k in ("fused_decode_step", "i8mm_gemv", "dequant_matmul",
+              "decode_attention", "paged_decode_attention"):
+        assert launches.get(k, 0) == 0, f"{k} launched in run e"
+    profile_decode(eng, prompts[0], "e")
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spec_p = make_spec(I4_MODEL_NAME, layers=hp.decoder_layers,
+                       device_layout="packed")
+    spec_p.qkv_format = spec.qkv_format
+    ref = InferenceEngine(spec_p, _packed_twin(params),
+                          max_concurrent_queries=cfg.max_concurrent_queries,
+                          max_context_len=spec.max_context_len, device=dev)
+    ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+    _build.launch_counts.clear()
+    ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+    ref_launches = dict(_build.launch_counts)
+    assert ref_qids == qids, (ref_qids, qids)
+    assert ref_launches.get("dequant_matmul", 0) > 0
+    assert ref_launches.get("i4_matmul", 0) == 0
+    del ref
+    torch.cuda.empty_cache()
+    report = {"phase": "engine_e_vs_packed_card",
+              "reference_s": time.perf_counter() - t0,
+              "reference_decode_ms_median": float(np.median(ref_decode_ms)),
+              "tolerance": f"prefill rows max_abs_err <= "
+                           f"{ENGINE_E_PREFILL_TOL}, decode rows <= "
+                           f"{ENGINE_E_DECODE_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
+                              ENGINE_E_DECODE_TOL))
+    report.update(_split_row_errors(report))
+    report["ok"] = bool(report["ok"] and report["prefill_max_abs_err"]
+                        <= ENGINE_E_PREFILL_TOL)
+    emit(report)
+    assert report["ok"], "run e: rows disagree with the packed engine"
+    return launches
+
+
+def phase_engine_i4_cpu(dev, cfg, spec, params, label, prompts_lens, slots,
+                        context, must_launch, must_not_launch) -> dict:
+    """Runs (e-cpu) and (f): the i4 engine at a cut depth on the card,
+    held against the same engine on the CPU (plain versions)."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    vocab = spec.hyper_params.vocab_size
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(1, vocab, n)]
+               for n in prompts_lens]
+    eng = InferenceEngine(spec, params, max_concurrent_queries=slots,
+                          max_context_len=context, device=dev)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    qids, _, decode_ms, steps = _serve(eng, prompts, ENGINE_I4_CPU_NEW)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    emit({"phase": f"engine_{label}", "config": I4_INI,
+          "model": I4_MODEL_NAME, "layers": spec.hyper_params.decoder_layers,
+          "device_layout": spec.device_layout, "slots": slots,
+          "context": context, "prompt_lens": list(prompts_lens),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    for k in must_launch:
+        assert launches.get(k, 0) > 0, f"{k} never launched in run {label}"
+    for k in must_not_launch:
+        assert launches.get(k, 0) == 0, f"{k} launched in run {label}"
+    del eng
+    torch.cuda.empty_cache()
+    check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
+                      ENGINE_I4_CPU_TOL,
+                      dict(max_concurrent_queries=slots,
+                           max_context_len=context), ENGINE_I4_CPU_NEW)
+    return launches
+
+
+
 def _run(results, failed, pname, fn) -> None:
     try:
         results[pname] = fn()
@@ -1192,12 +1652,56 @@ def main() -> int:
     params_cc = dict(params_c, layers=params_c["layers"][:ENGINE_CCPU_LAYERS])
     _run(results, failed, "engine_c_cpu", lambda: phase_engine_ccpu(
         dev, cfg, spec_cc, params_cc))
-    del params_c, params_cc
+    del params_cc
+
+    # the i4 layout: configs/inferflow_service.i4.ini, llama2-7b
+    cfg_e, spec_e, fmt_e = i4_config()
+    layout_e = resolve_auto_layout(spec_e, fmt_e, dev)
+    emit({"phase": "layout", "model": I4_MODEL_NAME, "config": I4_INI,
+          "weight_format": fmt_e, "resolved": layout_e})
+    if layout_e != "i4":
+        failed.append("layout_e")
+    params_e, memory_e = build_params(dev, spec_e, fmt_e)
+    emit({"phase": "weights", "model": I4_MODEL_NAME,
+          "i4_device_bytes": memory_e, "i4_weight_bytes": sum(
+              t.nbytes for t in (params_e["lm_head"],
+                                 params_e["dec_embeddings"]))
+          + _weight_bytes(params_e),
+          "i8mm_device_bytes_run_c": memory_c})
+    _run(results, failed, "i4_matmul", lambda: phase_b5(timer, dev, params_e))
+    _run(results, failed, "i4x8_gemv",
+         lambda: phase_i4x8_gemv(timer, dev, params_e))
+    _run(results, failed, "fused_decode_step_i4", lambda: phase_b4_i4(
+        timer, dev, spec_e, params_e, spec_c, params_c))
+    i8mm_bytes = memory_c["weights"]
+    del params_c
+    torch.cuda.empty_cache()
+    _run(results, failed, "engine_e", lambda: phase_engine_e(
+        dev, cfg_e, spec_e, params_e, memory_e, i8mm_bytes))
+    for label, layers, slots, context, prompts, must, must_not in (
+            ("e_cpu", ENGINE_ECPU_LAYERS, cfg_e.max_concurrent_queries,
+             spec_e.max_context_len, ENGINE_ECPU_PROMPTS,
+             ("fused_decode_step_i4", "i4_matmul", "chunk_attention"),
+             ("fused_decode_step", "dequant_matmul", "decode_attention",
+              "i8mm_gemv")),
+            ("f", ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT,
+             ENGINE_F_PROMPTS, ("i4_matmul", "decode_attention"),
+             ("fused_decode_step_i4", "fused_decode_step", "dequant_matmul",
+              "i8mm_gemv"))):
+        spec_cut = i4_config(layers=layers)[1]
+        spec_cut.qkv_format = spec_e.qkv_format  # the weights' fused qkv
+        params_cut = dict(params_e, layers=params_e["layers"][:layers])
+        _run(results, failed, f"engine_{label}",
+             lambda: phase_engine_i4_cpu(
+                 dev, cfg_e, spec_cut, params_cut, label, prompts, slots,
+                 context, must, must_not))
+    del params_e, params_cut
     torch.cuda.empty_cache()
 
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
-                  "paged_decode_attention"):
+                  "paged_decode_attention", "i4_matmul", "i4x8_gemv",
+                  "fused_decode_step_i4"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -1212,7 +1716,10 @@ def main() -> int:
                 "fused_decode_step": results["engine_a"]["fused_decode_step"],
                 "i8mm_gemv": results["engine_a"]["i8mm_gemv"],
                 "paged_decode_attention":
-                    results["engine_c"]["paged_decode_attention"]}
+                    results["engine_c"]["paged_decode_attention"],
+                "i4_matmul": results["engine_e"]["i4_matmul"],
+                "fused_decode_step_i4":
+                    results["engine_e"]["fused_decode_step_i4"]}
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -1220,7 +1727,10 @@ def main() -> int:
              "fused_decode_step": results["fused_decode_step"][0],
              "i8mm_gemv": next(r for r in results["i8mm_gemv"]
                                if r["shape"].startswith("lm_head M=4 ")),
-             "paged_decode_attention": results["paged_decode_attention"][0]}
+             "paged_decode_attention": results["paged_decode_attention"][0],
+             "i4_matmul": next(r for r in results["i4_matmul"]
+                               if r["shape"].startswith("lm_head M=8 ")),
+             "fused_decode_step_i4": results["fused_decode_step_i4"][0]}
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

@@ -1,36 +1,42 @@
 // Whole-model fused decode step (B4) for int8 per-column ("i8mm") weights
-// and a Q8 KV cache, plus the int8 GEMV it is built from.
+// and for the i4 layout's packed nibbles ("i4x8"), with a Q8 KV cache,
+// plus the two GEMVs it is built from.
 //
 // Replaces inferflow_tpu/kernels/decode_step.py `_make_kernel` (its
 // pallas_call at :1373, public entry `fused_decode_step` at :1574) in its
-// i8mm weight mode (`_MM.percol`), with both attention modes: per-slot for
+// weight modes (a) i8mm (`_MM.percol`) and (b) i4x8 (`_MM.i4x8`, the
+// default under INFERFLOW_I4_DOT), with both attention modes: per-slot for
 // B = 1 and batched (bf16-rounded q and p*vscale) for B > 1; over the
 // dense cache or, in its paged mode (f), over the page pool of
-// runtime/paged_kv.py through the page table.
+// runtime/paged_kv.py through the page table.  Each product takes its own
+// weight mode from the per-layer table.
 //
 // Per layer l the step computes (the TPU kernel's phases 1-8):
 //   xn   = bf16(rmsnorm(xres) * anorm)        x quantized per row to int8
-//   qkv  = f32((acc_i32 * xs_row) * wscale_col)
+//   qkv  = W(xn): i8mm f32((acc_i32 * xs_row) * wscale_col), or i4x8
+//          sum over 64-row blocks r of bf16(sum_r xn) * bf16(8*sc + base)
+//          + f32(acc_i32 over r) * (xs_row * sc)
 //   q, k = rope(q), rope(k); the step's K/V row quantized to Q8 (f32 scale
 //          for the self term, f16 scale and the codes into cache row
 //          `length` of layer l)
 //   ctx  = bf16(softmax over cache rows [0, length) and the self row)
-//   xres += bf16(i8mm(ctx, wo))
-//   xn    = bf16(rmsnorm(xres) * fnorm); h2 = i8mm(xn, w1n3) (f32)
+//   xres += bf16(W(ctx, wo))
+//   xn    = bf16(rmsnorm(xres) * fnorm); h2 = W(xn, w1n3) (f32)
 //   hglu  = bf16(act(a) * g)
-//   xres += bf16(i8mm(hglu, w2))
+//   xres += bf16(W(hglu, w2))
 // as five launches per layer, issued by one C call per step that walks a
 // per-layer pointer table (no Python between the launches):
-//   i8mm_gemv<norm prologue, f32 out>          qkv
-//   step_attention                              rope, self row, cache walk
-//   i8mm_gemv<amax prologue, residual add>      wo
-//   i8mm_gemv<norm prologue, GLU epilogue>      w1n3 (a and g columns paired)
-//   i8mm_gemv<amax prologue, residual add>      w2
+//   gemv<norm prologue, f32 out>          qkv
+//   step_attention                        rope, self row, cache walk
+//   gemv<amax prologue, residual add>     wo
+//   gemv<norm prologue, GLU epilogue>     w1n3 (a and g columns paired)
+//   gemv<amax prologue, residual add>     w2
 //
-// What bounds it on the H100: a decode step streams every int8 weight once
-// (about 1 GB at tinyllama-1.1b) for B <= 8 rows, about 2*B int8 operations
-// per weight byte, far below the card's operations per byte: it is bound by
-// the weight bytes (and the live KV rows).
+// What bounds it on the H100: a decode step streams every weight once
+// (i8mm: about 1 GB at tinyllama-1.1b, 6.9 GB at llama2-7b; i4x8: 4.5 bits
+// per weight, 3.7 GB at llama2-7b) for B <= 8 rows, at most 2*B int8
+// operations per weight, far below the card's operations per byte: it is
+// bound by the weight bytes (and the live KV rows).
 //
 // What the design does about it:
 //   - i8mm_gemv: each thread owns 4 adjacent columns and loads one 32-bit
@@ -43,6 +49,16 @@
 //     zeroed int32 workspace, and the last CTA of each column tile (a
 //     counter per tile) applies the scales and the epilogue and zeroes the
 //     workspace again.  The result does not depend on the order;
+//   - the i4x8 GEMV: one 32-bit load of a (K/2, N) nibble-pair row gives 4
+//     columns x 2 K rows; two rows' nibbles, sign-extended in place to
+//     int8 (sext_nibbles), are 4 K rows of 4 columns, which transpose4 and
+//     __dp4a take as in the i8mm GEMV.  Each warp takes whole 64-row quant
+//     blocks (all 32 byte rows of a block in flight before their math) and
+//     scales each block's int32 dot into a float32 sum; the block scale
+//     makes the partials floats, which do not add in any order to the same
+//     bits, so the warps' sums are added in warp order and the K splits'
+//     partials go to a float workspace that the last CTA of the column
+//     tile adds in split order: the same bits on every run;
 //   - prologues: every CTA recomputes the row norm and the row max of its
 //     <= 8 rows from L2 (rmsnorm), or reads the row max that the previous
 //     launch accumulated with atomicMax on the float bits (ctx, hglu), then
@@ -73,29 +89,34 @@
 
 namespace {
 
-// ------------------------------------------------------------ int8 GEMV
+// ---------------------------------------------------------- the GEMVs
 constexpr int kGemvWarps = 8;
 constexpr int kGemvThreads = kGemvWarps * 32;
 constexpr int kTileCols = 128;  // columns per segment: 32 lanes x 4
 constexpr int kMaxKc = 1024;    // K rows per CTA (shared x staging)
 constexpr int kMinKc = 64;
-constexpr int kUnroll = 4;      // 4-row groups in flight per warp
+constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
+constexpr int kQBlock = 64;     // i4x8: K rows per quant block
+constexpr int kQRows = kQBlock / 2;  // i4x8: nibble-pair byte rows per block
 
 enum Prologue { kProNorm = 0, kProRow = 1, kProAmax = 2 };
 enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
+enum WeightMode { kModeI8mm = 0, kModeI4x8 = 1 };
 
 struct GemvArgs {
   const __nv_bfloat16* x;      // (M, K) bf16 activations
   const __nv_bfloat16* norm_w; // (K,) rmsnorm weight (kProNorm)
   const unsigned* amax_in;     // (M,) row max |x| as float bits (kProAmax)
-  const int8_t* w;             // (K, N) int8 codes
-  const float* w_scale;        // (N,) column scales
+  const void* w;               // i8mm: (K, N) int8; i4x8: (K/2, N) uint8 nibble pairs
+  const void* w_scale;         // i8mm: (N,) f32 column scales; i4x8: (K/64, N) f16
+  const __half* w_base;        // i4x8: (K/64, N) f16 block bases, or null
   float* out_f32;              // (M, N) (kEpiF32)
-  __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, N/2) hglu (kEpiGlu)
+  __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, ld_out) hglu (kEpiGlu)
   unsigned* amax_out;          // (M,) row max |hglu| (kEpiGlu)
-  int* ws;                     // (M, N) int32, zero on entry and on exit
+  int* ws;                     // i8mm: (M, N) int32, zero on entry and on exit
+  float* part;                 // i4x8: (ksplit, M, N) float split partials
   int* counters;               // (column tiles,), zero on entry and on exit
-  int M, K, N, kc, ksplit;
+  int M, K, N, kc, ksplit, ld_out;
   int pro, epi, act;           // act: 0 silu, 1 gelu (tanh form), 2 relu
   float eps;
 };
@@ -149,12 +170,32 @@ __device__ __forceinline__ void transpose4(const uint32_t r[4], int col[4]) {
   col[3] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
 }
 
+// Four bytes that each hold a nibble in 0..15 -> the nibbles read as
+// signed 4-bit values, sign-extended to int8 in place: a byte whose bit 3
+// is set gets 0xF0 or-ed in (8 * 0x1E = 0xF0; no carry between bytes).
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
+  return v | ((v & 0x08080808u) * 0x1Eu);
+}
+
+// The int8 GEMV (I4 false: i8mm weights) and the i4x8 GEMV (I4 true: the
+// i4 layout's nibble pairs), with the same prologues and epilogues.
 // grid (column tiles, ksplit).  NSEG = 2 (GLU): segment 1 is column
 // tile*128 + c + N/2, the gate column paired with column tile*128 + c.
-template <int M, int NSEG>
-__global__ void __launch_bounds__(kGemvThreads) i8mm_gemv(const GemvArgs a) {
+//
+// i8mm: y = (float(sum_k xq*wq) * xs_row) * scale_col; the int32 partials
+// of the warps and the splits are added with atomics (order-free).
+// i4x8 (the TPU kernel's i4x8 tile, decode_step.py:537-572): per 64-row
+// quant block r, y += bf16(sum_{k in r} x_k) * bf16(8*sc + base)
+//                     + float(int32 sum_{k in r} xq_k * n_k) * (xs_row * sc),
+// with n the signed nibble; every warp takes whole blocks of the CTA's K
+// slice, the warps' float sums are added in warp order and the splits'
+// in split order (by the last CTA of the column tile), so the result is
+// the same bits on every run.
+template <int M, int NSEG, bool I4>
+__global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   __shared__ int xq_s[M][kMaxKc / 4];
-  __shared__ int red_s[M][kTileCols * NSEG];
+  __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float (i4x8) sums
+  __shared__ float xsum_s[M][kMaxKc / kQBlock];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
   __shared__ int last_s;
@@ -165,6 +206,8 @@ __global__ void __launch_bounds__(kGemvThreads) i8mm_gemv(const GemvArgs a) {
   const int klen = min(a.kc, a.K - k0);
   const int ncols = a.N / NSEG;  // columns of one segment
   const int seg_stride = NSEG == 2 ? ncols : 0;
+  constexpr int kCols = kTileCols * NSEG;
+  float* redf = reinterpret_cast<float*>(&red_s[0][0]);
 
   // prologue 1: per-row norm factor and row scale, one warp per row; a
   // row of K % 8 == 0 is read as 16-byte chunks, 4 in flight per lane
@@ -222,78 +265,175 @@ __global__ void __launch_bounds__(kGemvThreads) i8mm_gemv(const GemvArgs a) {
       xs_s[m] = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
     }
   }
-  for (int i = tid; i < M * kTileCols * NSEG; i += kGemvThreads) (&red_s[0][0])[i] = 0;
+  for (int i = tid; i < M * kCols; i += kGemvThreads) (&red_s[0][0])[i] = 0;
   __syncthreads();
 
-  // prologue 2: this CTA's K slice of the rows, as int8 codes
+  // prologue 2: this CTA's K slice of the rows, as int8 codes (and, for
+  // i4x8, each quant block's bf16 sum of the activations, one warp each)
   for (int i = tid; i < M * klen; i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
     const float q = rintf(__fdiv_rn(activation(a, m, k0 + kk, inv_s[m]), xs_s[m]));
     reinterpret_cast<int8_t*>(xq_s[m])[kk] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
   }
+  const int nblk = klen / kQBlock;  // i4x8: klen % 64 == 0 (the plan)
+  if constexpr (I4) {
+    for (int p = warp; p < M * nblk; p += kGemvWarps) {
+      const int m = p / nblk, lb = p - m * nblk;
+      const int kb0 = k0 + lb * kQBlock;
+      const float v = warp_sum(__fadd_rn(activation(a, m, kb0 + lane, inv_s[m]),
+                                         activation(a, m, kb0 + 32 + lane, inv_s[m])));
+      if (lane == 0) xsum_s[m][lb] = round_bf16(v);
+    }
+  }
   __syncthreads();
 
-  // int8 x int8 -> int32 over the slice
   const int col0 = tile * kTileCols + lane * 4;
   const bool col_ok = col0 < ncols;  // N/NSEG % 4 == 0: all 4 columns valid
-  int acc[M][4 * NSEG];
+  if constexpr (!I4) {
+    // int8 x int8 -> int32 over the slice
+    const int8_t* w8 = static_cast<const int8_t*>(a.w);
+    int acc[M][4 * NSEG];
 #pragma unroll
-  for (int m = 0; m < M; ++m)
+    for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0;
+      for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0;
 
-  const int ngroups = klen / 4;
-  if (col_ok) {
-    for (int g0 = warp; g0 < ngroups; g0 += kGemvWarps * kUnroll) {
-      uint32_t words[kUnroll][NSEG][4];
+    const int ngroups = klen / 4;
+    if (col_ok) {
+      for (int g0 = warp; g0 < ngroups; g0 += kGemvWarps * kUnroll) {
+        uint32_t words[kUnroll][NSEG][4];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int gi = g0 + u * kGemvWarps;
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gi = g0 + u * kGemvWarps;
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              words[u][s][r] = gi < ngroups
+                  ? __ldg(reinterpret_cast<const uint32_t*>(
+                        w8 + (size_t)(k0 + 4 * gi + r) * a.N + col0 + s * seg_stride))
+                  : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int gi = g0 + u * kGemvWarps;
+          if (gi < ngroups) {
+#pragma unroll
+            for (int s = 0; s < NSEG; ++s) {
+              int col[4];
+              transpose4(words[u][s], col);
+#pragma unroll
+              for (int m = 0; m < M; ++m) {
+                const int xw = xq_s[m][gi];
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[m][s * 4 + c] = __dp4a(col[c], xw, acc[m][s * 4 + c]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m)
 #pragma unroll
         for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            words[u][s][r] = gi < ngroups
-                ? __ldg(reinterpret_cast<const uint32_t*>(
-                      a.w + (size_t)(k0 + 4 * gi + r) * a.N + col0 + s * seg_stride))
-                : 0u;
-      }
+          for (int c = 0; c < 4; ++c)
+            atomicAdd(&red_s[m][s * kTileCols + lane * 4 + c], acc[m][s * 4 + c]);
+    }
+    __syncthreads();
+  } else {
+    // per quant block: the int32 dot of the block, scaled, plus its fold
+    // term, in float32; each warp walks whole blocks of the slice
+    const uint8_t* w4 = static_cast<const uint8_t*>(a.w);
+    const __half* wsc = static_cast<const __half*>(a.w_scale);
+    float acc[M][4 * NSEG];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int gi = g0 + u * kGemvWarps;
-        if (gi < ngroups) {
+    for (int m = 0; m < M; ++m)
 #pragma unroll
-          for (int s = 0; s < NSEG; ++s) {
-            int col[4];
-            transpose4(words[u][s], col);
+      for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0.f;
+
+    if (col_ok) {
+      for (int lb = warp; lb < nblk; lb += kGemvWarps) {
+        const int kb = k0 / kQBlock + lb;
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s) {
+          const int col = col0 + s * seg_stride;
+          // all 32 byte rows of the block in flight at once
+          uint32_t words[kQRows];
+#pragma unroll
+          for (int r = 0; r < kQRows; ++r)
+            words[r] = __ldg(reinterpret_cast<const uint32_t*>(
+                w4 + ((size_t)kb * kQRows + r) * a.N + col));
+          const uint2 sc_bits = __ldg(reinterpret_cast<const uint2*>(wsc + (size_t)kb * a.N + col));
+          uint2 bs_bits = make_uint2(0, 0);
+          if (a.w_base != nullptr)
+            bs_bits = __ldg(reinterpret_cast<const uint2*>(a.w_base + (size_t)kb * a.N + col));
+          const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
+          const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
+          int dot[M][4];
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dot[m][c] = 0;
+#pragma unroll
+          for (int g = 0; g < kQBlock / 4; ++g) {
+            // K rows 4g..4g+3 of the block: low and high nibbles of byte
+            // rows 2g and 2g+1
+            const uint32_t rows[4] = {sext_nibbles(words[2 * g] & 0x0F0F0F0Fu),
+                                      sext_nibbles((words[2 * g] >> 4) & 0x0F0F0F0Fu),
+                                      sext_nibbles(words[2 * g + 1] & 0x0F0F0F0Fu),
+                                      sext_nibbles((words[2 * g + 1] >> 4) & 0x0F0F0F0Fu)};
+            int colv[4];
+            transpose4(rows, colv);
 #pragma unroll
             for (int m = 0; m < M; ++m) {
-              const int xw = xq_s[m][gi];
+              const int xw = xq_s[m][lb * (kQBlock / 4) + g];
 #pragma unroll
-              for (int c = 0; c < 4; ++c) acc[m][s * 4 + c] = __dp4a(col[c], xw, acc[m][s * 4 + c]);
+              for (int c = 0; c < 4; ++c) dot[m][c] = __dp4a(colv[c], xw, dot[m][c]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float sc = __half2float(sch[c]);
+            const float fold = round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), __half2float(bsh[c])));
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const float t = __fadd_rn(__fmul_rn(xsum_s[m][lb], fold),
+                                        __fmul_rn((float)dot[m][c], __fmul_rn(xs_s[m], sc)));
+              acc[m][s * 4 + c] = __fadd_rn(acc[m][s * 4 + c], t);
             }
           }
         }
       }
     }
+    // the warps' sums, added in warp order
+    for (int w = 0; w < kGemvWarps; ++w) {
+      if (warp == w && col_ok) {
 #pragma unroll
-    for (int m = 0; m < M; ++m)
+        for (int m = 0; m < M; ++m)
 #pragma unroll
-      for (int s = 0; s < NSEG; ++s)
+          for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          atomicAdd(&red_s[m][s * kTileCols + lane * 4 + c], acc[m][s * 4 + c]);
+            for (int c = 0; c < 4; ++c) {
+              float* r = &redf[m * kCols + s * kTileCols + lane * 4 + c];
+              *r = __fadd_rn(*r, acc[m][s * 4 + c]);
+            }
+      }
+      __syncthreads();
+    }
   }
-  __syncthreads();
 
-  // split-K: add the partial into the workspace; the last CTA of the tile
-  // takes the totals (and leaves zeros behind)
-  constexpr int kCols = kTileCols * NSEG;
+  // split-K: the last CTA of the tile takes the totals
   if (a.ksplit > 1) {
     for (int i = tid; i < M * kCols; i += kGemvThreads) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
-      if (c < ncols) atomicAdd(&a.ws[(size_t)m * a.N + c + (j / kTileCols) * seg_stride], red_s[m][j]);
+      if (c >= ncols) continue;
+      const size_t o = (size_t)m * a.N + c + (j / kTileCols) * seg_stride;
+      if constexpr (I4)
+        a.part[(size_t)blockIdx.y * a.M * a.N + o] = redf[i];
+      else
+        atomicAdd(&a.ws[o], red_s[m][j]);
     }
     __threadfence();
     __syncthreads();
@@ -304,71 +444,99 @@ __global__ void __launch_bounds__(kGemvThreads) i8mm_gemv(const GemvArgs a) {
     for (int i = tid; i < M * kCols; i += kGemvThreads) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
-      if (c < ncols)
-        red_s[m][j] = atomicExch(&a.ws[(size_t)m * a.N + c + (j / kTileCols) * seg_stride], 0);
+      if (c >= ncols) continue;
+      const size_t o = (size_t)m * a.N + c + (j / kTileCols) * seg_stride;
+      if constexpr (I4) {
+        float t = 0.f;  // the splits in split order
+        for (int z = 0; z < a.ksplit; ++z) t = __fadd_rn(t, __ldcg(a.part + (size_t)z * a.M * a.N + o));
+        redf[i] = t;
+      } else {
+        red_s[m][j] = atomicExch(&a.ws[o], 0);  // and leave zeros behind
+      }
     }
     if (tid == 0) a.counters[tile] = 0;
     __syncthreads();
   }
 
-  // epilogue: y = (float(acc) * xs_row) * scale_col
+  // epilogue: i8mm y = (float(acc) * xs_row) * scale_col; i4x8 y = the sum
   for (int i = tid; i < M * kTileCols; i += kGemvThreads) {
     const int m = i / kTileCols, j = i - m * kTileCols;
     const int c = tile * kTileCols + j;
     if (c >= ncols) continue;
-    const float y = __fmul_rn(__fmul_rn((float)red_s[m][j], xs_s[m]), a.w_scale[c]);
+    float y, gt = 0.f;
+    if constexpr (I4) {
+      y = redf[m * kCols + j];
+      if (NSEG == 2) gt = redf[m * kCols + kTileCols + j];
+    } else {
+      const float* wsc = static_cast<const float*>(a.w_scale);
+      y = __fmul_rn(__fmul_rn((float)red_s[m][j], xs_s[m]), wsc[c]);
+      if (NSEG == 2)
+        gt = __fmul_rn(__fmul_rn((float)red_s[m][kTileCols + j], xs_s[m]), wsc[c + seg_stride]);
+    }
     if (a.epi == kEpiF32) {
       a.out_f32[(size_t)m * a.N + c] = y;
     } else if (a.epi == kEpiResid) {
       __nv_bfloat16* r = a.out_bf16 + (size_t)m * a.N + c;
       *r = __float2bfloat16_rn(__fadd_rn(bf(*r), round_bf16(y)));
     } else {
-      const float gt = __fmul_rn(__fmul_rn((float)red_s[m][kTileCols + j], xs_s[m]),
-                                 a.w_scale[c + seg_stride]);
       const __nv_bfloat16 h = __float2bfloat16_rn(__fmul_rn(glu_act(y, a.act), gt));
-      a.out_bf16[(size_t)m * ncols + c] = h;
+      a.out_bf16[(size_t)m * a.ld_out + c] = h;
       atomicMax(&a.amax_out[m], __float_as_uint(fabsf(bf(h))));
     }
   }
 }
 
-// CTAs for about two per SM, K rows per CTA a multiple of 32 (whole 4-row
-// groups per warp) and at most kMaxKc.
-void gemv_plan(int K, int tiles, int sm_count, int* kc, int* ksplit) {
+// CTAs for about two per SM, K rows per CTA a multiple of `unit` (32:
+// whole 4-row groups per warp; 64 for i4x8: whole quant blocks) and at
+// most kMaxKc.
+void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   const int want = std::max(1, (2 * sm_count + tiles - 1) / tiles);
   int rows = (K + want - 1) / want;
-  rows = (rows + 31) / 32 * 32;
+  rows = (rows + unit - 1) / unit * unit;
   rows = std::min(std::max(rows, kMinKc), kMaxKc);
   *kc = rows;
   *ksplit = (K + rows - 1) / rows;
 }
 
-template <int NSEG>
+template <int NSEG, bool I4>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
   switch (a.M) {
-    case 1: i8mm_gemv<1, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 2: i8mm_gemv<2, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 3: i8mm_gemv<3, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 4: i8mm_gemv<4, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 5: i8mm_gemv<5, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 6: i8mm_gemv<6, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 7: i8mm_gemv<7, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    default: i8mm_gemv<8, NSEG><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 1: gemv<1, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 2: gemv<2, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 3: gemv<3, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 4: gemv<4, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 5: gemv<5, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 6: gemv<6, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 7: gemv<7, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    default: gemv<8, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
   }
 }
 
-cudaError_t launch_gemv(GemvArgs a, int sm_count, cudaStream_t stream) {
+// The column tiles and the plan of a GEMV, or false for a shape it does
+// not take.
+bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, int* ksplit) {
   const int nseg = a.epi == kEpiGlu ? 2 : 1;
-  if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % 4 || a.N <= 0 || a.N % (4 * nseg) ||
-      sm_count <= 0)
+  const int unit = mode == kModeI4x8 ? kQBlock : 32;
+  if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % (mode == kModeI4x8 ? kQBlock : 4) ||
+      a.N <= 0 || a.N % (4 * nseg) || sm_count <= 0 || (mode != kModeI8mm && mode != kModeI4x8))
+    return false;
+  *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
+  gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
+  return true;
+}
+
+cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream) {
+  int tiles = 0;
+  if (!gemv_shape(a, mode, sm_count, &tiles, &a.kc, &a.ksplit) ||
+      (mode == kModeI4x8 && a.ksplit > 1 && a.part == nullptr))
     return cudaErrorInvalidValue;
-  const int tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
-  gemv_plan(a.K, tiles, sm_count, &a.kc, &a.ksplit);
   const dim3 grid(tiles, a.ksplit);
-  if (nseg == 2)
-    launch_gemv_m<2>(a, grid, stream);
-  else
-    launch_gemv_m<1>(a, grid, stream);
+  const bool glu = a.epi == kEpiGlu;
+  if (mode == kModeI4x8) {
+    if (glu) launch_gemv_m<2, true>(a, grid, stream); else launch_gemv_m<1, true>(a, grid, stream);
+  } else {
+    if (glu) launch_gemv_m<2, false>(a, grid, stream); else launch_gemv_m<1, false>(a, grid, stream);
+  }
   return cudaGetLastError();
 }
 
@@ -688,6 +856,17 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The K splits of a GEMV of (K, N) weights (N the w1n3 width when glu is
+// set) in weight mode `mode` (0 i8mm, 1 i4x8) on a card of `sm_count`
+// SMs, or -1 for a shape it does not take: the i4x8 GEMV's float split
+// partials take ksplit * M * N floats.
+int ift_gemv_splits(int K, int N, int glu, int mode, int sm_count) {
+  GemvArgs a{};
+  a.M = 1, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
+  int tiles = 0, kc = 0, ksplit = 0;
+  return gemv_shape(a, mode, sm_count, &tiles, &kc, &ksplit) ? ksplit : -1;
+}
+
 // y (M, N) f32 = (int8 rows of x (M, K) bf16) x (K, N) int8, scaled by the
 // row and column scales.  ws (M*N int32) and counters (ceil(N/128) int32)
 // are zero on entry and are left zero.
@@ -696,35 +875,66 @@ int ift_i8mm_gemv(const void* x, const void* w, const void* w_scale, void* out,
                   void* stream) {
   GemvArgs a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = static_cast<const int8_t*>(w);
-  a.w_scale = static_cast<const float*>(w_scale);
+  a.w = w;
+  a.w_scale = w_scale;
   a.out_f32 = static_cast<float*>(out);
   a.ws = static_cast<int*>(ws);
   a.counters = static_cast<int*>(counters);
   a.M = M, a.K = K, a.N = N;
   a.pro = kProRow, a.epi = kEpiF32;
-  return static_cast<int>(launch_gemv(a, sm_count, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      launch_gemv(a, kModeI8mm, sm_count, static_cast<cudaStream_t>(stream)));
+}
+
+// y (M, N) f32 = the i4x8 product of x (M, K) bf16 with the i4 layout's
+// data_i4p (K/2, N) uint8 and its f16 block scale and base (K/64, N; base
+// may be null).  part holds ift_gemv_splits(K, N, 0, 1, sm_count) * M * N
+// floats; counters (ceil(N/128) int32) are zero on entry and left zero.
+int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
+                  void* out, void* part, void* counters, int M, int K, int N, int sm_count,
+                  void* stream) {
+  GemvArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = w;
+  a.w_scale = w_scale;
+  a.w_base = static_cast<const __half*>(w_base);
+  a.out_f32 = static_cast<float*>(out);
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.M = M, a.K = K, a.N = N;
+  a.pro = kProRow, a.epi = kEpiF32;
+  return static_cast<int>(
+      launch_gemv(a, kModeI4x8, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
 // One decode step over all L layers.  `table` (host memory) holds, per
-// layer, 10 device pointers: anorm, fnorm (E bf16), then (int8 codes,
-// f32 column scales) of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and
-// w2 (F, E).  xres (B, E) bf16 is updated in place; every layer's K/V row
-// is written into cache row lengths[b].  The cache is the dense
-// (L, B, H, S, D) one when page_table is null, else the pool
-// (L, pages, H, PT, D) with page_table (B, MAXP) on the device and
-// S = MAXP * PT.  Scratch: qkv (B, (Hq+2H)D) f32, ctx (B, HqD) bf16, hglu
-// (B, F) bf16; ws, counters and amax (L*2*B) are zero on entry (ws and
-// counters are left zero).  attn_part holds B * H * 16 * (Hq / H) * (D + 2)
-// floats; attn_counters (B * H int32) is zero on entry and is left zero.
+// layer, kTableStride entries: anorm, fnorm (E bf16 device pointers), then
+// for each of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and w2 (F, E)
+// five entries: its weight mode (0 i8mm, 1 i4x8) and its stored K as
+// integers, then three device pointers, (int8 codes, f32 column scales,
+// null) for i8mm or (data_i4p nibble pairs, f16 block scales, f16 block
+// bases or null) for i4x8.  The stored K of qkv and w1n3 is E, of wo HqD;
+// w2's may exceed F (zero-scale pad blocks) and is hglu's row length.
+// xres (B, E) bf16 is updated in place; every layer's K/V row is written
+// into cache row lengths[b].  The cache is the dense (L, B, H, S, D) one
+// when page_table is null, else the pool (L, pages, H, PT, D) with
+// page_table (B, MAXP) on the device and S = MAXP * PT.  Scratch: qkv
+// (B, (Hq+2H)D) f32, ctx (B, HqD) bf16, hglu (B, w2's stored K) bf16 whose
+// columns past F are zero; ws, counters and amax (L*2*B) are zero on entry
+// (ws and counters are left zero); gemv_part holds the i4x8 GEMVs' split
+// partials (the most ift_gemv_splits(...) * B * N of the step's i4x8
+// products).  attn_part holds B * H * 16 * (Hq / H) * (D + 2) floats;
+// attn_counters (B * H int32) is zero on entry and is left zero.
+constexpr int kTableStride = 22;
+
 int ift_fused_decode_step(const void* const* table, int L, void* xres, const void* lengths,
                           const void* cos, const void* sin, void* k_cache, void* v_cache,
                           void* k_scale, void* v_scale, const void* page_table, void* qkv_buf,
-                          void* ctx_buf, void* hglu_buf, void* ws, void* counters,
-                          void* amax, void* attn_part, void* attn_counters, int B, int E,
-                          int Hq, int H, int D, int S, int blk, int F, int order, int act,
-                          int PT, int MAXP, int pages, float eps, float scale, int sm_count,
-                          void* stream_ptr) {
+                          void* ctx_buf, void* hglu_buf, void* ws, void* gemv_part,
+                          void* counters, void* amax, void* attn_part, void* attn_counters,
+                          int B, int E, int Hq, int H, int D, int S, int blk, int F, int order,
+                          int act, int PT, int MAXP, int pages, float eps, float scale,
+                          int sm_count, void* stream_ptr) {
   if (B < 1 || B > 8 || H <= 0 || Hq % H || Hq / H > kMaxRows || D > kMaxD || D % 16 ||
       blk <= 0 || D % blk || D / blk > kMaxBlk || (order != 1 && order != 2) || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -739,22 +949,35 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
   auto* x = static_cast<__nv_bfloat16*>(xres);
   auto* amax_u = static_cast<unsigned*>(amax);
   for (int l = 0; l < L; ++l) {
-    const void* const* p = table + (size_t)l * 10;
+    const void* const* p = table + (size_t)l * kTableStride;
     unsigned* ctx_amax = amax_u + (size_t)(2 * l) * B;
     unsigned* glu_amax = amax_u + (size_t)(2 * l + 1) * B;
     GemvArgs g{};
     g.ws = static_cast<int*>(ws);
+    g.part = static_cast<float*>(gemv_part);
     g.counters = static_cast<int*>(counters);
     g.M = B;
     g.eps = eps;
     g.act = act;
+    int mode[4], ks[4];
+    for (int i = 0; i < 4; ++i) {
+      mode[i] = static_cast<int>(reinterpret_cast<intptr_t>(p[2 + 5 * i]));
+      ks[i] = static_cast<int>(reinterpret_cast<intptr_t>(p[3 + 5 * i]));
+    }
+    if (ks[0] != E || ks[1] != qdim || ks[2] != E || ks[3] < F)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto use = [&](int i) {
+      g.K = ks[i];
+      g.w = p[4 + 5 * i], g.w_scale = p[5 + 5 * i];
+      g.w_base = static_cast<const __half*>(p[6 + 5 * i]);
+    };
 
-    // qkv = i8mm(rmsnorm(xres) * anorm)
+    // qkv = W(rmsnorm(xres) * anorm)
+    use(0);
     g.x = x, g.norm_w = static_cast<const __nv_bfloat16*>(p[0]);
-    g.w = static_cast<const int8_t*>(p[2]), g.w_scale = static_cast<const float*>(p[3]);
     g.out_f32 = static_cast<float*>(qkv_buf);
-    g.K = E, g.N = nqkv, g.pro = kProNorm, g.epi = kEpiF32;
-    cudaError_t err = launch_gemv(g, sm_count, stream);
+    g.N = nqkv, g.pro = kProNorm, g.epi = kEpiF32;
+    cudaError_t err = launch_gemv(g, mode[0], sm_count, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
 
     AttnArgs at{};
@@ -775,26 +998,27 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
 
-    // xres += bf16(i8mm(ctx, wo))
+    // xres += bf16(W(ctx, wo))
+    use(1);
     g.x = static_cast<const __nv_bfloat16*>(ctx_buf), g.amax_in = ctx_amax;
-    g.w = static_cast<const int8_t*>(p[4]), g.w_scale = static_cast<const float*>(p[5]);
     g.out_bf16 = x;
-    g.K = qdim, g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
-    if ((err = launch_gemv(g, sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+    g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
+    if ((err = launch_gemv(g, mode[1], sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
 
-    // hglu = bf16(act(a) * g), (a | g) = i8mm(rmsnorm(xres) * fnorm, w1n3)
+    // hglu = bf16(act(a) * g), (a | g) = W(rmsnorm(xres) * fnorm, w1n3);
+    // rows of w2's stored K
+    use(2);
     g.x = x, g.norm_w = static_cast<const __nv_bfloat16*>(p[1]);
-    g.w = static_cast<const int8_t*>(p[6]), g.w_scale = static_cast<const float*>(p[7]);
     g.out_bf16 = static_cast<__nv_bfloat16*>(hglu_buf), g.amax_out = glu_amax;
-    g.K = E, g.N = 2 * F, g.pro = kProNorm, g.epi = kEpiGlu;
-    if ((err = launch_gemv(g, sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+    g.N = 2 * F, g.ld_out = ks[3], g.pro = kProNorm, g.epi = kEpiGlu;
+    if ((err = launch_gemv(g, mode[2], sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
 
-    // xres += bf16(i8mm(hglu, w2))
+    // xres += bf16(W(hglu, w2)); the zero tail of hglu meets w2's pad rows
+    use(3);
     g.x = static_cast<const __nv_bfloat16*>(hglu_buf), g.amax_in = glu_amax;
-    g.w = static_cast<const int8_t*>(p[8]), g.w_scale = static_cast<const float*>(p[9]);
     g.out_bf16 = x;
-    g.K = F, g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
-    if ((err = launch_gemv(g, sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+    g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
+    if ((err = launch_gemv(g, mode[3], sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }

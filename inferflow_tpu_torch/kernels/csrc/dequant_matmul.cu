@@ -1,17 +1,28 @@
-// Dequantize-matmul for Q4_B64T1 wire planes: y = x @ dequant(W).
+// Dequantize-matmul for 4-bit block weights: y = x @ dequant(W), for two
+// byte layouts of the same nibbles.
 //
-// Replaces inferflow_tpu/kernels/dequant_matmul.py `_make_fast_kernel`
-// (its pallas_call at :505, public entry `quantized_matmul` at :643) for the
-// Q4_B64T1 format in the packed wire layout.
+// Kernel B1 replaces inferflow_tpu/kernels/dequant_matmul.py
+// `_make_fast_kernel` (its pallas_call at :505, public entry
+// `quantized_matmul` at :643) for the Q4_B64T1 format in the packed wire
+// layout.  Kernel B5 replaces `_make_i4_kernel` (:313, its pallas_call at
+// :452) for the `i4` device layout (codec_jax.repack_i4).
 //
 // Operands (row-major):
 //   x     (M, K)   bf16 activations
-//   data  (K/2, N) uint8: byte r holds code k=2r in its low nibble and
-//                  k=2r+1 in its high nibble (the consecutive layout)
+//   data  (K/2, N) uint8: byte r holds K row 2r in its low nibble and row
+//                  2r+1 in its high nibble, in both layouts
 //   scale (K/64, N), base (K/64, N) f16 per-block metadata
 //   out   (M, N)   bf16
-// Each weight is w = q*scale + base in float32, rounded to bf16, and the
-// products accumulate in float32 (the XLA dequantize + matmul numerics).
+// The two layouts differ only in how a nibble decodes (the `Decode`
+// policies below), so both run the same two kernels:
+//   B1, wire planes: the nibble is the code q in 0..15, and the weight is
+//       w = bf16(q*scale + base);
+//   B5, i4 layout: the nibble is (q - 8) & 0xF (the wire byte XOR 0x88),
+//       read as a signed n in -8..7, and the weight is
+//       w = bf16(n*scale + fold) with fold = 8*scale + base in float32, as
+//       the TPU kernel folds the +8 into the block's additive term.
+// Each weight is two rounded float32 operations (no fused multiply-add),
+// rounded to bf16, and the products accumulate in float32.
 //
 // What bounds it on the H100: at decode (M <= 8) every weight byte is used
 // by M rows only, so the kernel is bound by the bytes of the weight planes
@@ -29,10 +40,11 @@
 //     the x slice of the CTA staged once in shared memory and one float32
 //     accumulator per (row, column) in registers; the split-K partial sums
 //     are added in a fixed order by a second small kernel (deterministic).
-//   - prefill (`q4_gemm`): 64x64 output tiles; per 64-deep K step the CTA
-//     stages the x tile and dequantizes the W tile into shared memory as
-//     bf16, then runs bf16 WMMA 16x16x16 products with float32 accumulators.
-//     No copy pipelining yet (later work: TMA + wgmma).
+//   - prefill (`q4_gemm`, also every M > 8): 64x64 output tiles; per
+//     64-deep K step the CTA stages the x tile and dequantizes the W tile
+//     into shared memory as bf16, then runs bf16 WMMA 16x16x16 products
+//     with float32 accumulators.  No copy pipelining yet (later work: TMA +
+//     wgmma).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,10 +63,25 @@ __device__ __forceinline__ float round_bf16(float w) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-// q*scale + base as two rounded float32 operations (no fused multiply-add),
-// so the weights equal the plain version's bit for bit before bf16 rounding
-__device__ __forceinline__ float dequant(uint32_t q, float scale, float base) {
-  return __fadd_rn(__fmul_rn(float(q), scale), base);
+// How a nibble decodes.  offset(): the block's additive term from its
+// scale and base; value(): the nibble's multiplier.  The weight is
+// value*scale + offset as two rounded float32 operations (no fused
+// multiply-add), so it equals the plain version's bit for bit before the
+// bf16 rounding.
+struct WireQ4 {  // B1: Q4_B64T1 wire planes, w = q*scale + base
+  __device__ static float offset(float scale, float base) { return base; }
+  __device__ static float value(uint32_t nib) { return float(nib); }
+};
+struct PackedI4 {  // B5: i4 layout, w = n*scale + (8*scale + base)
+  __device__ static float offset(float scale, float base) {
+    return __fadd_rn(__fmul_rn(scale, 8.f), base);
+  }
+  __device__ static float value(uint32_t nib) { return float(int(nib ^ 8u) - 8); }
+};
+
+template <class Decode>
+__device__ __forceinline__ float dequant(uint32_t nib, float scale, float offset) {
+  return __fadd_rn(__fmul_rn(Decode::value(nib), scale), offset);
 }
 
 // ---------------------------------------------------------------- decode
@@ -62,7 +89,7 @@ constexpr int kGemvWarps = 4;
 constexpr int kGemvCols = 128;  // 32 lanes x 4 columns
 constexpr int kGemvMaxKBlocks = 8;  // quant blocks per CTA (x staging)
 
-template <int M>
+template <class Decode, int M>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         const __half* __restrict__ scale, const __half* __restrict__ base,
@@ -101,11 +128,11 @@ q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
           *reinterpret_cast<const uint2*>(base + (size_t)kb * N + col0);
       const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
       const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
-      float sc[4], bs[4];
+      float sc[4], off[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         sc[j] = __half2float(sch[j]);
-        bs[j] = __half2float(bsh[j]);
+        off[j] = Decode::offset(sc[j], __half2float(bsh[j]));
       }
       const uint8_t* rowp = data + (size_t)kb * kBlockRows * N + col0;
       const int kk0 = (kb - kb_begin) * kBlock;
@@ -120,8 +147,8 @@ q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const uint32_t b = (bytes >> (8 * j)) & 0xFFu;
-          const float w0 = round_bf16(dequant(b & 0xFu, sc[j], bs[j]));
-          const float w1 = round_bf16(dequant(b >> 4, sc[j], bs[j]));
+          const float w0 = round_bf16(dequant<Decode>(b & 0xFu, sc[j], off[j]));
+          const float w1 = round_bf16(dequant<Decode>(b >> 4, sc[j], off[j]));
 #pragma unroll
           for (int m = 0; m < M; ++m) {
             acc[m][j] = fmaf(xs[m][kk0 + 2 * r], w0, acc[m][j]);
@@ -173,13 +200,14 @@ constexpr int kTileBytes = (kBM * kLdx + kBK * kLdw) * 2;
 constexpr int kOutBytes = kBM * kLdc * 4;
 constexpr int kSmemBytes = kTileBytes > kOutBytes ? kTileBytes : kOutBytes;
 
+template <class Decode>
 __global__ void __launch_bounds__(kGemmThreads)
 q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         const __half* __restrict__ scale, const __half* __restrict__ base,
         __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   using namespace nvcuda;
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __shared__ float sc_s[kBN], bs_s[kBN];
+  __shared__ float sc_s[kBN], off_s[kBN];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ws = xs + kBM * kLdx;
   float* cs = reinterpret_cast<float*>(smem);
@@ -200,8 +228,9 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
     const int kb = k0 / kBlock;
     if (tid < kBN) {
       const int col = n0 + tid;
-      sc_s[tid] = col < N ? __half2float(scale[(size_t)kb * N + col]) : 0.f;
-      bs_s[tid] = col < N ? __half2float(base[(size_t)kb * N + col]) : 0.f;
+      const float sc = col < N ? __half2float(scale[(size_t)kb * N + col]) : 0.f;
+      sc_s[tid] = sc;
+      off_s[tid] = Decode::offset(sc, col < N ? __half2float(base[(size_t)kb * N + col]) : 0.f);
     }
     // x tile: 64 rows x 64 bf16, 16-byte chunks (rows past M are zeros)
     for (int c = tid; c < kBM * (kBK / 8); c += kGemmThreads) {
@@ -213,7 +242,7 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + ch * 8);
       *reinterpret_cast<uint4*>(xs + row * kLdx + ch * 8) = v;
     }
-    __syncthreads();  // sc_s / bs_s visible
+    __syncthreads();  // sc_s / off_s visible
     {
       // W tile: 32 byte rows x 64 columns; each thread one 16-byte run
       const int r = tid / 4;
@@ -226,10 +255,10 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
       const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const float s = sc_s[c0 + i], o = bs_s[c0 + i];
-        ws[(2 * r) * kLdw + c0 + i] = __float2bfloat16_rn(dequant(b[i] & 0xFu, s, o));
+        const float s = sc_s[c0 + i], o = off_s[c0 + i];
+        ws[(2 * r) * kLdw + c0 + i] = __float2bfloat16_rn(dequant<Decode>(b[i] & 0xFu, s, o));
         ws[(2 * r + 1) * kLdw + c0 + i] =
-            __float2bfloat16_rn(dequant(b[i] >> 4, s, o));
+            __float2bfloat16_rn(dequant<Decode>(b[i] >> 4, s, o));
       }
     }
     __syncthreads();
@@ -269,14 +298,59 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
   }
 }
 
-template <int M>
+template <class Decode, int M>
 void launch_gemv(const __nv_bfloat16* x, const uint8_t* data,
                  const __half* scale, const __half* base, float* partial,
                  __nv_bfloat16* out, int K, int N, int kb_per_split,
                  int ksplit, cudaStream_t stream) {
   dim3 grid((N + kGemvCols - 1) / kGemvCols, ksplit);
-  q4_gemv<M><<<grid, kGemvWarps * 32, 0, stream>>>(
+  q4_gemv<Decode, M><<<grid, kGemvWarps * 32, 0, stream>>>(
       x, data, scale, base, partial, out, K, N, kb_per_split, ksplit);
+}
+
+// y = x @ dequant(W) with a plan from ift_q4_matmul_plan; a decode plan
+// that does not cover K exactly once, or that overflows the x staging
+// buffer, is refused with cudaErrorInvalidValue.
+template <class Decode>
+int run_matmul(const void* x, const void* data, const void* scale,
+               const void* base, void* out, void* workspace, int M, int K,
+               int N, int kb_per_split, int ksplit, void* stream_ptr) {
+  if (M <= 0 || K <= 0 || K % kBlock || N <= 0 || N % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 8) {
+    const int nkb = K / kBlock;
+    if (kb_per_split < 1 || kb_per_split > kGemvMaxKBlocks || ksplit < 1 ||
+        kb_per_split * ksplit < nkb || kb_per_split * (ksplit - 1) >= nkb ||
+        (ksplit > 1 && workspace == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* db = static_cast<const uint8_t*>(data);
+  auto* sc = static_cast<const __half*>(scale);
+  auto* bs = static_cast<const __half*>(base);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* ws = static_cast<float*>(workspace);
+  if (M <= 8) {
+    switch (M) {
+      case 1: launch_gemv<Decode, 1>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 2: launch_gemv<Decode, 2>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 3: launch_gemv<Decode, 3>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 4: launch_gemv<Decode, 4>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 5: launch_gemv<Decode, 5>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 6: launch_gemv<Decode, 6>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 7: launch_gemv<Decode, 7>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      default: launch_gemv<Decode, 8>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || ksplit == 1) return static_cast<int>(err);
+    const int mn = M * N;
+    splitk_reduce<<<(mn + 255) / 256, 256, 0, stream>>>(ws, ob, mn, ksplit);
+    return static_cast<int>(cudaGetLastError());
+  }
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  q4_gemm<Decode><<<grid, kGemmThreads, 0, stream>>>(xb, db, sc, bs, ob, M, K, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -292,7 +366,8 @@ const char* ift_error_string(int code) {
 // *kb_per_split (at most kGemvMaxKBlocks) quant blocks, enough CTAs for
 // about two per SM; larger M the tiled tensor-core path (*kb_per_split 0,
 // *ksplit 1).  The caller allocates ksplit*M*N floats of workspace when
-// *ksplit > 1 and passes the plan to ift_q4_matmul unchanged.
+// *ksplit > 1 and passes the plan to ift_q4_matmul / ift_i4_matmul
+// unchanged.
 int ift_q4_matmul_plan(int M, int K, int N, int sm_count, int* kb_per_split,
                        int* ksplit) {
   if (M <= 0 || K <= 0 || N <= 0 || K % kBlock || sm_count <= 0)
@@ -314,46 +389,20 @@ int ift_q4_matmul_plan(int M, int K, int N, int sm_count, int* kb_per_split,
   return 0;
 }
 
-// y = x @ dequant(W) with a plan from ift_q4_matmul_plan; a decode plan
-// that does not cover K exactly once, or that overflows the x staging
-// buffer, is refused with cudaErrorInvalidValue.
+// B1: Q4_B64T1 wire planes.
 int ift_q4_matmul(const void* x, const void* data, const void* scale,
                   const void* base, void* out, void* workspace, int M, int K,
                   int N, int kb_per_split, int ksplit, void* stream_ptr) {
-  if (M <= 8) {
-    const int nkb = K / kBlock;
-    if (kb_per_split < 1 || kb_per_split > kGemvMaxKBlocks || ksplit < 1 ||
-        kb_per_split * ksplit < nkb || kb_per_split * (ksplit - 1) >= nkb ||
-        (ksplit > 1 && workspace == nullptr))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* db = static_cast<const uint8_t*>(data);
-  auto* sc = static_cast<const __half*>(scale);
-  auto* bs = static_cast<const __half*>(base);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  auto* ws = static_cast<float*>(workspace);
-  if (M <= 8) {
-    switch (M) {
-      case 1: launch_gemv<1>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 2: launch_gemv<2>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 3: launch_gemv<3>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 4: launch_gemv<4>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 5: launch_gemv<5>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 6: launch_gemv<6>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 7: launch_gemv<7>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      default: launch_gemv<8>(xb, db, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || ksplit == 1) return static_cast<int>(err);
-    const int mn = M * N;
-    splitk_reduce<<<(mn + 255) / 256, 256, 0, stream>>>(ws, ob, mn, ksplit);
-    return static_cast<int>(cudaGetLastError());
-  }
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  q4_gemm<<<grid, kGemmThreads, 0, stream>>>(xb, db, sc, bs, ob, M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  return run_matmul<WireQ4>(x, data, scale, base, out, workspace, M, K, N,
+                            kb_per_split, ksplit, stream_ptr);
+}
+
+// B5: the i4 layout's data_i4p plane (signed code-8 nibbles).
+int ift_i4_matmul(const void* x, const void* data, const void* scale,
+                  const void* base, void* out, void* workspace, int M, int K,
+                  int N, int kb_per_split, int ksplit, void* stream_ptr) {
+  return run_matmul<PackedI4>(x, data, scale, base, out, workspace, M, K, N,
+                              kb_per_split, ksplit, stream_ptr);
 }
 
 }  // extern "C"

@@ -1,29 +1,36 @@
-"""Whole-model fused decode step (kernel B4) and the i8mm int8 product.
+"""Whole-model fused decode step (kernel B4), the i8mm int8 product and the
+i4x8 product.
 
 Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
-`fused_step_preferred`, `fused_decode_step`) for the i8mm weight mode
-(Int8MXUTensor weights: int8 codes with one f32 scale per column) and a Q8
-KV cache in the logical layout, dense (runtime/kv_cache.py) or paged
-(runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the step's
-K/V rows go through the page table), with both attention modes of the TPU
-kernel: per-slot (B = 1, float32 throughout) and batched (B > 1: q, and
-p * vscale, rounded to bf16 before the cache dots).
+`fused_step_preferred`, `fused_decode_step`) for two weight modes: (a)
+i8mm (Int8MXUTensor weights: int8 codes with one f32 scale per column) and
+(b) i4x8 (the i4 layout's ``data_i4p`` nibbles with f16 block scales and
+bases: int8 row-quantized activations, one int32 dot per 64-row block,
+the TPU kernel's default for that layout), each product in its own mode;
+and a Q8 KV cache in the logical layout, dense (runtime/kv_cache.py) or
+paged (runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the
+step's K/V rows go through the page table), with both attention modes of
+the TPU kernel: per-slot (B = 1, float32 throughout) and batched (B > 1:
+q, and p * vscale, rounded to bf16 before the cache dots).
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/decode_step.cu`` or raise: the step is one C call that walks a
-per-layer pointer table and issues five launches per layer (three kinds
-of int8 GEMV and the step attention), and writes each layer's new K/V row
-straight into the cache.  On CPU tensors they run the plain versions
-below, which follow the TPU kernel's arithmetic (outputs, then
-``append_rows_all_layers`` or ``append_rows_all_layers_paged``) and which
-``chip_smoke.py`` also holds the kernels against on the card.
+per-layer pointer table (a weight mode per product) and issues five
+launches per layer (three kinds of GEMV and the step attention), and
+writes each layer's new K/V row straight into the cache.  On CPU tensors
+they run the plain versions below, which follow the TPU kernel's
+arithmetic (outputs, then ``append_rows_all_layers`` or
+``append_rows_all_layers_paged``) and which ``chip_smoke.py`` also holds
+the kernels against on the card.
 
 Not ported (``fused_step_supported`` raises NotImplementedError where the
-TPU package would fuse them): the byte-per-code block weight modes and
-per-matmul output biases.  The i4/i4x8 and Q3H pair8 layouts and routed
-MoE are refused earlier, by ``models.decoder.check_supported``.  There is
-no fallback switch: if the kernel fails to build or launch, the step
-raises.
+TPU package would fuse them): the byte-per-code block weight modes, the
+i4 layout of other blocks than 64 with f16 scale and base, and per-matmul
+output biases; the i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT=bf16 in
+the TPU package, a measurement switch) is not ported either.  The Q3H
+pair8 layout and routed MoE are refused earlier, by
+``models.decoder.check_supported``.  There is no fallback switch: if the
+kernel fails to build or launch, the step raises.
 """
 
 from __future__ import annotations
@@ -36,16 +43,18 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..quant.codec_torch import (Int8MXUTensor, QuantizedTensor,
-                                 int8_rowwise_activations)
+from ..quant.codec_torch import (I4_PLANE, Int8MXUTensor, QuantizedTensor,
+                                 i4_nibbles, int8_rowwise_activations)
 from ..quant.formats import get_format
 from ..runtime.kv_cache import KVCache, append_rows_all_layers
 from ..runtime.paged_kv import (PagedKVCache, append_rows_all_layers_paged,
                                 kv_pack_for)
 from . import _build
 
-KERNEL = "fused_decode_step"
+KERNEL = "fused_decode_step"  # a step whose products are all i8mm
+I4_KERNEL = "fused_decode_step_i4"  # a step with an i4x8 product
 GEMV_KERNEL = "i8mm_gemv"
+I4_GEMV_KERNEL = "i4x8_gemv"
 NEG_INF = -1e30
 # float32 sums of int8 x int8 products are exact integers while they stay
 # below 2**24: 127 * 127 * 1024 < 2**24
@@ -57,6 +66,7 @@ _ACTS = {"silu": 0, "gelu": 1, "relu": 2}
 _MAX_ROWS, _MAX_D = 16, 128  # query heads per kv head, head_dim (csrc)
 _TILE_COLS = 128  # GEMV columns per CTA segment (csrc kTileCols)
 _MAX_SPLIT = 16  # cache-walk splits per (slot, kv head) (csrc kMaxSplit)
+_MODES = {"i8mm": 0, "i4": 1}  # csrc WeightMode
 
 
 # ------------------------------------------------------------ i8mm product
@@ -85,6 +95,41 @@ def i8mm_matmul_plain(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
     return _i8mm_f32(x, w).to(x.dtype)
 
 
+# ------------------------------------------------------------ i4x8 product
+def i4x8_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """B4 mode (b)'s product, the TPU kernel's i4x8 tile (stream_mm), in
+    float32.  x: (M, K) bf16 with K the logical or the stored K of w (the
+    stored K's tail takes zeros).  With xq, xs the per-row int8 codes and
+    scale of x over the whole row, n the signed nibbles, per 64-row block
+    r: acc = sum_r bf16(sum_{k in r} x_k) * bf16(8*sc_r + base_r), then
+    acc += f32(sum_{k in r} xq_k * n_k) * (xs * sc_r) block by block, in
+    the TPU kernel's order.  Returns (M, N) float32."""
+    blk = get_format(w.format).block
+    k_s, n = w.storage_k, int(w.shape[-1])
+    x = F.pad(x, (0, k_s - x.shape[-1]))
+    m, nb = x.shape[0], k_s // blk
+    xq, xs = int8_rowwise_activations(x)
+    xsum = x.float().reshape(m, nb, blk).sum(-1).to(torch.bfloat16).float()
+    sc = w.scale.float()
+    fold = sc * 8.0
+    if w.base is not None:
+        fold = fold + w.base.float()
+    acc = torch.matmul(xsum, fold.to(torch.bfloat16).float())
+    # exact int32 dots as float32: |sum| <= 64 * 127 * 8 < 2**24
+    q = i4_nibbles(w.planes[I4_PLANE]).float().reshape(nb, blk, n)
+    dots = torch.bmm(xq.float().reshape(m, nb, blk).transpose(0, 1), q)
+    for r in range(nb):
+        acc = acc + dots[r] * (xs * sc[r])
+    return acc
+
+
+def _product_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """One product of the fused step in its weight's mode, float32."""
+    if isinstance(w, Int8MXUTensor):
+        return _i8mm_f32(x, w)
+    return i4x8_matmul_plain(x, w)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -101,8 +146,12 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ift_i8mm_gemv.argtypes = [vp] * 6 + [i] * 4 + [vp]
         lib.ift_i8mm_gemv.restype = ctypes.c_int
+        lib.ift_i4x8_gemv.argtypes = [vp] * 7 + [i] * 4 + [vp]
+        lib.ift_i4x8_gemv.restype = ctypes.c_int
+        lib.ift_gemv_splits.argtypes = [i] * 5
+        lib.ift_gemv_splits.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
-            [ctypes.POINTER(vp), i] + [vp] * 17 + [i] * 13 + [f, f, i, vp])
+            [ctypes.POINTER(vp), i] + [vp] * 18 + [i] * 13 + [f, f, i, vp])
         lib.ift_fused_decode_step.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
@@ -137,6 +186,54 @@ def i8mm_gemv_cuda(x2: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
                            m, k, n, _sms(x2), _build.stream_of(x2))
     _build.check(lib, rc, GEMV_KERNEL)
     _build.launch_counts[GEMV_KERNEL] += 1
+    return out
+
+
+def _check_i4(w: QuantizedTensor, name: str, k: int, n: int) -> None:
+    """An i4x8 operand: data_i4p (K/2, N) uint8, f16 block scale and base
+    (K/64, N)."""
+    _build.check_operand(w.planes[I4_PLANE], f"{name}.{I4_PLANE}",
+                         torch.uint8, (k // 2, n))
+    for part, t in (("scale", w.scale), ("base", w.base)):
+        _build.check_operand(t, f"{name}.{part}", torch.float16,
+                             (k // 64, n))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_splits(k: int, n: int, glu: bool, sms: int) -> int:
+    """The K splits the i4x8 GEMV takes for (K, N) weights."""
+    splits = _lib().ift_gemv_splits(k, n, int(glu), _MODES["i4"], sms)
+    if splits < 1:
+        raise ValueError(f"the i4x8 GEMV does not take K={k} N={n}")
+    return splits
+
+
+def i4x8_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Launch the i4x8 GEMV alone on (M <= 8, K_s) bf16 rows; returns (M, N)
+    float32 (B4 mode (b)'s product, i4x8_matmul_plain's arithmetic)."""
+    _build.require_hopper(x2)
+    m, k = x2.shape
+    n = int(w.shape[-1])
+    if not 1 <= m <= _MAX_GEMV_ROWS:
+        raise ValueError(f"i4x8_gemv takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
+    if k != w.storage_k or k % 64 or n % 4:
+        raise ValueError(f"i4x8_gemv needs the stored K (a multiple of 64) "
+                         f"and N a multiple of 4, got K={k} N={n}")
+    _build.check_operand(x2, "x", torch.bfloat16, (m, k))
+    _check_i4(w, "w", k, n)
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    part = torch.empty(_gemv_splits(k, n, False, _sms(x2)) * m * n,
+                       dtype=torch.float32, device=x2.device)
+    counters = torch.zeros(-(-n // _TILE_COLS), dtype=torch.int32,
+                           device=x2.device)
+    lib = _lib()
+    rc = lib.ift_i4x8_gemv(_build.ptr(x2), _build.ptr(w.planes[I4_PLANE]),
+                           _build.ptr(w.scale), _build.ptr(w.base),
+                           _build.ptr(out), _build.ptr(part),
+                           _build.ptr(counters), m, k, n, _sms(x2),
+                           _build.stream_of(x2))
+    _build.check(lib, rc, I4_GEMV_KERNEL)
+    _build.launch_counts[I4_GEMV_KERNEL] += 1
     return out
 
 
@@ -178,15 +275,21 @@ def _pick_tn(kp: int, n: int) -> int:
 
 def _mm_mode(w) -> Optional[str]:
     """How the TPU kernel would stream weight w (its `_mm_cfg`): 'i8mm';
-    'byte' (one code per byte: the Q8 block formats); 'wire' (sub-byte
-    single-plane wire formats, which it routes to the per-layer path); or
-    None (not fusable)."""
+    'i4' (the i4 layout's data_i4p nibbles, streamed i4x8); 'byte' (one
+    code per byte: the Q8 block formats); 'wire' (sub-byte single-plane
+    wire formats, which it routes to the per-layer path); or None (not
+    fusable)."""
     if isinstance(w, Int8MXUTensor):
         kp, n = (int(s) for s in w.data.shape)
         return "i8mm" if kp % 8 == 0 and _pick_tn(kp, n) else None
     if not isinstance(w, QuantizedTensor):
         return None
     fmt = get_format(w.format)
+    if I4_PLANE in w.planes:
+        kp, n = (int(s) for s in w.planes[I4_PLANE].shape)
+        if (2 * kp) % fmt.block or kp % 8 or not _pick_tn(kp, n):
+            return None
+        return "i4"
     if (fmt.pair_base11 or len(fmt.planes) != 1
             or fmt.planes[0].layout != "consecutive" or fmt.meta != "f16"
             or "data" not in w.planes):
@@ -246,6 +349,10 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
             mode = _mm_mode(grp.get(kk))
             if mode is None:
                 return None
+            if mode == "i4" and not _i4_kernel_format(grp[kk]):
+                raise NotImplementedError(
+                    "the fused decode step's i4 mode serves 64-row blocks "
+                    "with f16 scale and base (Q4_B64T1)")
             modes.add(mode)
             biased |= grp.get(f"{kk}_b") is not None
         e_dim = int(attn["pre_norm"].shape[-1])
@@ -268,6 +375,11 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
     return modes
 
 
+def _i4_kernel_format(w: QuantizedTensor) -> bool:
+    return (get_format(w.format).block == 64 and w.base is not None
+            and w.scale.dtype == w.base.dtype == torch.float16)
+
+
 def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
     """Static eligibility for the whole-model fused decode step (the TPU
     package's rule over this package's per-layer lists and logical caches,
@@ -280,7 +392,7 @@ def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
 def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
     """Routing on top of fused_step_supported, as the TPU package routes:
     sub-byte wire planes keep the per-layer path (kernels B1, B2); the
-    i8mm layout takes the fused step."""
+    i8mm and i4 layouts take the fused step."""
     modes = _fusion_modes(spec, layers, cache, bsz)
     return modes is not None and "wire" not in modes
 
@@ -353,23 +465,25 @@ def _cache_walk(s: int, d: int) -> tuple:
 
 def _walk_rows(cache, layer: int, lengths: torch.Tensor):
     """The rows the TPU kernel walks for `layer`: codes and scales as
-    (B, H, S, ·) tensors, and the walk's (positions per tile, parities).
-    Dense: the whole cache, in tiles of ts x pf positions (_cache_walk);
-    every tile, since a tile past a slot's length adds exactly nothing
-    (p = 0, alpha = 1) and the walk then needs no device-to-host read of
-    the lengths.  Paged: one page per tile, as the TPU kernel's page walk
-    takes it, over the pages that cover the longest slot, gathered through
-    the page table."""
+    (B, H, S, ·) tensors, and the walk's (positions per tile, parities),
+    over the tiles that cover the longest slot.  A tile past a slot's
+    length adds exactly nothing (p = 0 and alpha = 1; for an empty slot
+    the self row's alpha = 0 discards whatever the walk summed), so the
+    TPU kernel's walk over every tile gives the same result.  Dense: tiles
+    of ts x pf positions (_cache_walk).  Paged: one page per tile, as the
+    TPU kernel's page walk takes it, gathered through the page table."""
+    longest = int(lengths.max()) if lengths.numel() else 0
     if isinstance(cache, PagedKVCache):
-        longest = int(lengths.max()) if lengths.numel() else 0
         n = min(max(-(-longest // cache.page_tokens), 1),
                 cache.max_pages_per_slot)
         src = tuple(cache._gather(a, layer, n) for a in
                     (cache.k, cache.v, cache.k_scale, cache.v_scale))
         return src, cache.page_tokens, kv_pack_for(cache.head_dim)
-    src = (cache.k[layer], cache.v[layer], cache.k_scale[layer],
-           cache.v_scale[layer])
-    return (src,) + _cache_walk(cache.max_len, cache.head_dim)
+    span, pf = _cache_walk(cache.max_len, cache.head_dim)
+    rows = min(max(-(-longest // span), 1) * span, cache.max_len)
+    src = tuple(a[layer, :, :, :rows] for a in
+                (cache.k, cache.v, cache.k_scale, cache.v_scale))
+    return src, span, pf
 
 
 def _attend_plain(q, k_self, v_self, cache, layer: int,
@@ -442,9 +556,10 @@ def _add_bf16(xres: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
                             positions: torch.Tensor, cache):
-    """The plain version: the TPU kernel's phases layer by layer, then
-    append_rows_all_layers (append_rows_all_layers_paged for a paged
-    cache).  Returns (x (B, 1, E) bf16, cache)."""
+    """The plain version: the TPU kernel's phases layer by layer, each
+    product in its weight's mode (a K-padded w2 takes hglu with a zero
+    tail), then append_rows_all_layers (append_rows_all_layers_paged for a
+    paged cache).  Returns (x (B, 1, E) bf16, cache)."""
     hp = spec.hyper_params
     hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
     bsz = x.shape[0]
@@ -458,8 +573,8 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
     k_new, v_new = [], []
     for layer, lp in enumerate(layers):
         attn, ffn = lp["attn"], lp["ffn"]
-        qkv = _i8mm_f32(_rmsnorm(xres, attn["pre_norm"], spec.norm_eps),
-                        attn["qkv"])
+        qkv = _product_f32(_rmsnorm(xres, attn["pre_norm"], spec.norm_eps),
+                           attn["qkv"])
         q = qkv[:, :qdim].reshape(bsz, hq, d)
         k = qkv[:, qdim:qdim + kvdim].reshape(bsz, hk, d)
         v = qkv[:, qdim + kvdim:].reshape(bsz, hk, d)
@@ -469,12 +584,12 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
         v_new.append(v)
         ctx = _attend_plain(q, _qdq(k, blk), _qdq(v, blk), cache, layer,
                             cache.length, scale, batched)
-        xres = _add_bf16(xres, _i8mm_f32(ctx, attn["wo"]))
-        h2 = _i8mm_f32(_rmsnorm(xres, ffn["pre_norm"], spec.norm_eps),
-                       ffn["w1n3"])
+        xres = _add_bf16(xres, _product_f32(ctx, attn["wo"]))
+        h2 = _product_f32(_rmsnorm(xres, ffn["pre_norm"], spec.norm_eps),
+                          ffn["w1n3"])
         f_dim = h2.shape[-1] // 2
         hglu = _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn)
-        xres = _add_bf16(xres, _i8mm_f32(hglu, ffn["w2"]))
+        xres = _add_bf16(xres, _product_f32(hglu, ffn["w2"]))
     append = append_rows_all_layers_paged \
         if isinstance(cache, PagedKVCache) else append_rows_all_layers
     append(cache, torch.stack(k_new), torch.stack(v_new), cache.length)
@@ -488,28 +603,48 @@ _TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _TABLE_CACHE_SIZE = 4
 
 
+def _products(lp: dict) -> tuple:
+    """A layer's four products: (name, weight, whether its GEMV pairs GLU
+    columns)."""
+    return (("qkv", lp["attn"]["qkv"], False), ("wo", lp["attn"]["wo"], False),
+            ("w1n3", lp["ffn"]["w1n3"], True), ("w2", lp["ffn"]["w2"], False))
+
+
 def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
+    """The C step's per-layer table (anorm, fnorm, then per product its
+    mode, stored K and (data, scale, base) pointers: csrc kTableStride),
+    w2's stored K (hglu's row length, one for all layers) and the (K, N,
+    GLU) shapes of the i4x8 products, built once per layer list."""
     hit = _TABLES.get(id(layers))
     if hit is not None and hit[0] is layers:
         return hit[1]
-    ptrs = []
+    ptrs, i4_shapes = [], set()
+    f_s = _stored_k(layers[0]["ffn"]["w2"])
     for lp in layers:
-        attn, ffn = lp["attn"], lp["ffn"]
-        for name, t in (("attn.pre_norm", attn["pre_norm"]),
-                        ("ffn.pre_norm", ffn["pre_norm"])):
+        for name, t in (("attn.pre_norm", lp["attn"]["pre_norm"]),
+                        ("ffn.pre_norm", lp["ffn"]["pre_norm"])):
             _build.check_operand(t, name, torch.bfloat16, (e,))
             ptrs.append(t.data_ptr())
-        for name, w, k, n in (("qkv", attn["qkv"], e, nqkv),
-                              ("wo", attn["wo"], qdim, e),
-                              ("w1n3", ffn["w1n3"], e, 2 * f),
-                              ("w2", ffn["w2"], f, e)):
-            _check_i8(w, name, k, n)
-            ptrs += [w.data.data_ptr(), w.scale.data_ptr()]
-    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    _TABLES[id(layers)] = (layers, table)
+        if _stored_k(lp["ffn"]["w2"]) != f_s:
+            raise ValueError("the fused step takes one stored K of w2 "
+                             "across its layers")
+        for (name, w, glu), k, n in zip(_products(lp), (e, qdim, e, f_s),
+                                        (nqkv, e, 2 * f, e)):
+            mode = _mm_mode(w)
+            if mode == "i8mm":
+                _check_i8(w, name, k, n)
+                ptrs += [_MODES[mode], k, w.data.data_ptr(),
+                         w.scale.data_ptr(), 0]
+            else:
+                _check_i4(w, name, k, n)
+                i4_shapes.add((k, n, glu))
+                ptrs += [_MODES[mode], k, w.planes[I4_PLANE].data_ptr(),
+                         w.scale.data_ptr(), w.base.data_ptr()]
+    entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s, frozenset(i4_shapes))
+    _TABLES[id(layers)] = (layers, entry)
     while len(_TABLES) > _TABLE_CACHE_SIZE:
         _TABLES.popitem(last=False)
-    return table
+    return entry
 
 
 def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
@@ -541,7 +676,7 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         raise ValueError(f"cache {tuple(cache.k.shape)} does not match "
                          f"{len(layers)} layers, B={bsz}, H={hk}, D={d}")
     nqkv = (hq + 2 * hk) * d
-    table = _layer_table(layers, e, hq * d, nqkv, f)
+    table, f_s, i4_shapes = _layer_table(layers, e, hq * d, nqkv, f)
     shape = tuple(cache.k.shape)
     sshape = tuple(cache.k_scale.shape)
     for name, t, dt, shp in (("k", cache.k, torch.int8, shape),
@@ -555,10 +690,15 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
     cos, sin = _expand_cos_sin(positions.reshape(-1), d, spec.rope_order,
                                spec.rope_theta)
     cos, sin = cos.contiguous(), sin.contiguous()
-    # one zeroed buffer: split-K workspace, tile counters, per-layer row
-    # maxima of ctx and hglu, the attention's split counters
+    # one zeroed buffer: the i8mm split-K workspace, tile counters,
+    # per-layer row maxima of ctx and hglu, the attention's split counters
     n_ws = bsz * max(nqkv, e, 2 * f)
     tiles = -(-max(nqkv, e, f) // _TILE_COLS)
+    # the i4x8 GEMVs' float split partials: the most any one of them needs
+    # (they run one after another)
+    n_part = max((_gemv_splits(k, n, glu, _sms(x)) * bsz * n
+                  for k, n, glu in i4_shapes), default=1)
+    gemv_part = torch.empty(n_part, dtype=torch.float32, device=dev)
     n_amax = 2 * num_layers * bsz
     work = torch.zeros(n_ws + tiles + n_amax + bsz * hk, dtype=torch.int32,
                        device=dev)
@@ -566,7 +706,9 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
                        dtype=torch.float32, device=dev)
     qkv = torch.empty((bsz, nqkv), dtype=torch.float32, device=dev)
     ctx = torch.empty((bsz, hq * d), dtype=torch.bfloat16, device=dev)
-    hglu = torch.empty((bsz, f), dtype=torch.bfloat16, device=dev)
+    # w2's stored K wide: the tail past F stays zero (K-padded w2)
+    hglu = (torch.zeros if f_s != f else torch.empty)(
+        (bsz, f_s), dtype=torch.bfloat16, device=dev)
     lib = _lib()
     rc = lib.ift_fused_decode_step(
         table, num_layers, _build.ptr(xres), _build.ptr(lengths),
@@ -574,19 +716,22 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         _build.ptr(cache.v), _build.ptr(cache.k_scale),
         _build.ptr(cache.v_scale), table_ptr, _build.ptr(qkv),
         _build.ptr(ctx), _build.ptr(hglu), _build.ptr(work),
-        _build.ptr(work[n_ws:]), _build.ptr(work[n_ws + tiles:]),
+        _build.ptr(gemv_part), _build.ptr(work[n_ws:]),
+        _build.ptr(work[n_ws + tiles:]),
         _build.ptr(part), _build.ptr(work[n_ws + tiles + n_amax:]), bsz, e,
         hq, hk, d, s, cache.block, f, spec.rope_order,
         _ACTS[spec.activation_fn], pt, maxp, pages, spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
-    _build.check(lib, rc, KERNEL)
-    _build.launch_counts[KERNEL] += 1
+    name = I4_KERNEL if i4_shapes else KERNEL
+    _build.check(lib, rc, name)
+    _build.launch_counts[name] += 1
     return xres[:, None], cache
 
 
 def fused_decode_step(spec, layers: list, x: torch.Tensor,
                       positions: torch.Tensor, cache: KVCache):
-    """One decode step over all layers (inferflow_tpu signature).
+    """One decode step over all layers (inferflow_tpu signature), each
+    product in its weight's mode (i8mm or i4x8).
 
     x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
     cache lengths; cache: a Q8 KVCache or PagedKVCache.  Returns (x (B, 1,
@@ -594,10 +739,10 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
     (through the page table for a paged cache); cache.length is not
     advanced."""
     modes = _fusion_modes(spec, layers, cache, x.shape[0])
-    if modes != {"i8mm"}:
+    if not modes or not modes <= set(_MODES):
         raise NotImplementedError(
-            "fused_decode_step serves i8mm weights and a Q8 cache; this "
-            f"configuration has weight modes {sorted(modes or [])}")
+            "fused_decode_step serves i8mm and i4 weights and a Q8 cache; "
+            f"this configuration has weight modes {sorted(modes or [])}")
     if x.device.type == "cpu":
         return fused_decode_step_plain(spec, layers, x, positions, cache)
     if x.device.type == "cuda":

@@ -1,10 +1,12 @@
-"""Dequantize-matmul (kernel B1): y = x @ dequant(W) for block-quantized W.
+"""Dequantize-matmul: y = x @ dequant(W) for block-quantized W.
 
-Port of inferflow_tpu/kernels/dequant_matmul.py (`quantized_matmul`, whose
-fast Pallas kernel is `_make_fast_kernel`).  On a CUDA tensor the wrapper
-launches the hand-written kernel of ``csrc/dequant_matmul.cu`` (Q4_B64T1
-wire planes) or raises; on a CPU tensor it runs the plain version, which is
-also what ``chip_smoke.py`` holds the kernel against on the card.
+Port of inferflow_tpu/kernels/dequant_matmul.py: kernel B1
+(`quantized_matmul`, whose fast Pallas kernel is `_make_fast_kernel`) for
+Q4_B64T1 wire planes, and kernel B5 (`_make_i4_kernel`) for the i4 device
+layout's ``data_i4p`` plane (``i4_matmul``).  On a CUDA tensor each wrapper
+launches its hand-written kernel of ``csrc/dequant_matmul.cu`` or raises;
+on a CPU tensor it runs the plain version, which is also what
+``chip_smoke.py`` holds the kernel against on the card.
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ import ctypes
 
 import torch
 
-from ..quant.codec_torch import QuantizedTensor, dequantize
+from ..quant.codec_torch import (I4_PLANE, QuantizedTensor, dequantize,
+                                 i4_nibbles)
 from ..quant.formats import get_format
 from . import _build
 
 KERNEL = "dequant_matmul"
+I4_KERNEL = "i4_matmul"
 
 
 def quantized_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -34,6 +38,8 @@ def _lib():
         lib.ift_q4_matmul.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                                       vp]
         lib.ift_q4_matmul.restype = ctypes.c_int
+        lib.ift_i4_matmul.argtypes = lib.ift_q4_matmul.argtypes
+        lib.ift_i4_matmul.restype = ctypes.c_int
         lib.ift_q4_matmul_plan.argtypes = [i, i, i, i,
                                            ctypes.POINTER(i),
                                            ctypes.POINTER(i)]
@@ -54,61 +60,93 @@ def matmul_plan(lib, m: int, k: int, n: int, device) -> tuple:
     return per.value, ksplit.value
 
 
-def _check_kernel_format(qt: QuantizedTensor) -> None:
+def _check_kernel_format(qt: QuantizedTensor, plane: str) -> None:
     fmt = get_format(qt.format)
-    if (fmt.name != "Q4_B64T1" or set(qt.planes) != {"data"}
+    if (fmt.name != "Q4_B64T1" or set(qt.planes) != {plane}
             or qt.scale.dtype != torch.float16 or qt.base is None):
         raise NotImplementedError(
-            f"the CUDA dequant-matmul kernel serves Q4_B64T1 wire planes; "
+            f"the CUDA dequant-matmul kernels serve Q4_B64T1 ({plane}); "
             f"got {fmt.name} with planes {sorted(qt.planes)}")
 
 
-def quantized_matmul_cuda(x2: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Launch the kernel on (M, K_s) bf16 activations; returns (M, N) bf16."""
-    _check_kernel_format(qt)
-    _build.require_hopper(x2)
-    m, k = x2.shape
-    n = int(qt.shape[-1])
-    if n % 16:
-        raise ValueError(f"N={n} must be a multiple of 16")
-    data = qt.planes["data"]
-    _build.check_operand(x2, "x", torch.bfloat16, (m, k))
-    _build.check_operand(data, "data", torch.uint8, (k // 2, n))
-    _build.check_operand(qt.scale, "scale", torch.float16, (k // 64, n))
-    _build.check_operand(qt.base, "base", torch.float16, (k // 64, n))
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    lib = _lib()
-    per, ksplit = matmul_plan(lib, m, k, n, x2.device)
-    work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
-            if ksplit > 1 else out)
-    rc = lib.ift_q4_matmul(_build.ptr(x2), _build.ptr(data),
-                           _build.ptr(qt.scale), _build.ptr(qt.base),
-                           _build.ptr(out), _build.ptr(work), m, k, n, per,
-                           ksplit, _build.stream_of(x2))
-    _build.check(lib, rc, "dequant_matmul")
-    _build.launch_counts[KERNEL] += 1
-    return out
-
-
-def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """y = x @ dequant(qt); x: (..., K) with K the logical K of qt.
-
-    CUDA tensors run the kernel (or raise); CPU tensors the plain version.
-    Storage K beyond the logical K (zero-scale pad blocks) takes
-    zero-padded activations, as the JAX wrapper does."""
-    if x.device.type == "cpu":
-        return quantized_matmul_plain(x, qt)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantized_matmul: unsupported device {x.device}")
+def _launch(entry: str, kernel: str, x: torch.Tensor, qt: QuantizedTensor,
+            plane: str) -> torch.Tensor:
+    """y = x @ W through kernel B1 or B5 on the card; x: (..., K) with K
+    the logical K of qt.  The kernels take (M, K_s) contiguous bf16 rows,
+    16-byte aligned: a stored K beyond the logical K (zero-scale,
+    zero-base pad blocks) takes zero-padded activations, as the JAX
+    wrapper does."""
+    _check_kernel_format(qt, plane)
+    _build.require_hopper(x)
     k, n = int(qt.shape[-2]), int(qt.shape[-1])
     k_s = qt.storage_k
-    lead = x.shape[:-1]
+    if n % 16:
+        raise ValueError(f"N={n} must be a multiple of 16")
     x2 = x.reshape(-1, k).to(torch.bfloat16)
     if k_s != k:
         x2 = torch.nn.functional.pad(x2, (0, k_s - k))
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:
         x2 = x2.clone()
-    out = quantized_matmul_cuda(x2, qt)
-    return out.reshape(lead + (n,)).to(x.dtype)
+    m = x2.shape[0]
+    data = qt.planes[plane]
+    _build.check_operand(data, plane, torch.uint8, (k_s // 2, n))
+    _build.check_operand(qt.scale, "scale", torch.float16, (k_s // 64, n))
+    _build.check_operand(qt.base, "base", torch.float16, (k_s // 64, n))
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    lib = _lib()
+    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device)
+    work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
+            if ksplit > 1 else out)
+    rc = getattr(lib, entry)(_build.ptr(x2), _build.ptr(data),
+                             _build.ptr(qt.scale), _build.ptr(qt.base),
+                             _build.ptr(out), _build.ptr(work), m, k_s, n,
+                             per, ksplit, _build.stream_of(x2))
+    _build.check(lib, rc, kernel)
+    _build.launch_counts[kernel] += 1
+    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
 
+
+def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ dequant(qt); x: (..., K) with K the logical K of qt.
+    CUDA tensors run kernel B1 (or raise); CPU tensors the plain version."""
+    if x.device.type == "cpu":
+        return quantized_matmul_plain(x, qt)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantized_matmul: unsupported device {x.device}")
+    return _launch("ift_q4_matmul", KERNEL, x, qt, "data")
+
+
+# ------------------------------------------------------------ kernel B5
+def i4_weight(qt: QuantizedTensor) -> torch.Tensor:
+    """The (K, N) bf16 weights B5 multiplies by: bf16(n*sc + fold), with n
+    the signed nibble and fold = 8*sc + base in float32 (the TPU kernel's
+    arithmetic; codec_torch.dequantize computes (n + 8)*sc + base, whose
+    one rounding can differ from these two by an ulp)."""
+    blk = get_format(qt.format).block
+    k_s, n = qt.storage_k, int(qt.shape[-1])
+    sc = qt.scale.float()
+    fold = sc * 8.0
+    if qt.base is not None:
+        fold = fold + qt.base.float()
+    w = i4_nibbles(qt.planes[I4_PLANE]).float().view(k_s // blk, blk, n)
+    w = (w * sc[:, None, :] + fold[:, None, :]).to(torch.bfloat16)
+    return w.reshape(k_s, n)[:int(qt.shape[-2])]
+
+
+def i4_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The plain version of B5: i4_weight's bf16 weights and a float32
+    matmul, cast back to x's dtype.  x: (..., K)."""
+    return torch.matmul(x.float(), i4_weight(qt).float()).to(x.dtype)
+
+
+def i4_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ W for a QuantizedTensor in the i4 layout (ops/linear.py's
+    route for ``data_i4p``); x: (..., K) with K the logical K.  CUDA
+    tensors run kernel B5 (M <= 8: the split-K GEMV; more rows: the tiled
+    tensor-core kernel) or raise; CPU tensors the plain version."""
+    if x.device.type == "cpu":
+        return i4_matmul_plain(x, qt)
+    if x.device.type != "cuda":
+        raise ValueError(f"i4_matmul: unsupported device {x.device}")
+    return _launch("ift_i4_matmul", I4_KERNEL, x, qt, I4_PLANE)

@@ -15,12 +15,13 @@ Attention routes by phase, as on the TPU:
     PagedKVCache (the row goes through the page table);
   - chunked prefill: append the chunk to its slot, then ``chunk_attention``
     (kernel B3) over rows [0, start + T).
-Every quantized linear goes through ``quantized_matmul`` (kernel B1) for
-wire planes, or the i8mm product (ops/linear.py) for Int8MXUTensors.
+Every quantized linear goes through ops/linear.py: ``quantized_matmul``
+(kernel B1) for wire planes, ``i4_matmul`` (kernel B5) for the i4 layout's
+packed nibbles, the i8mm product for Int8MXUTensors.
 A decode step (T == 1 with a cache) whose weights and cache the
-whole-model fused step takes (``fused_step_preferred``: i8mm weights, a Q8
-cache, dense or paged, B <= 8) runs ``fused_decode_step`` (kernel B4) for
-all layers at once instead of the per-layer loop.
+whole-model fused step takes (``fused_step_preferred``: i8mm or i4
+weights, a Q8 cache, dense or paged, B <= 8) runs ``fused_decode_step``
+(kernel B4) for all layers at once instead of the per-layer loop.
 Not ported: MoE, ALiBi/sinusoidal positions, parallel attention and the
 ring/tensor-parallel paths.
 """
@@ -56,10 +57,10 @@ def check_supported(spec: ModelSpec) -> None:
         raise NotImplementedError("parallel attention is not ported")
     if spec.w1n3_ranks > 1:
         raise NotImplementedError("rank-major w1n3 layouts are not ported")
-    if spec.device_layout not in ("", "auto", "packed", "i8mm"):
+    if spec.device_layout not in ("", "auto", "packed", "i8mm", "i4"):
         raise NotImplementedError(
             f"device layout {spec.device_layout!r} is not ported; this "
-            "package serves the packed wire layout and i8mm")
+            "package serves the packed wire layout, i8mm and i4")
 
 
 def _norm(spec: ModelSpec, x, params: dict, prefix: str, base: float = 0.0):

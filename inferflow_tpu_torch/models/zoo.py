@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..quant.codec_torch import (layout_for_leaf, quantize,
+from ..quant.codec_torch import (layout_for_leaf, quantize, repack_i4,
                                  requantize_i8_colwise, resolve_auto_layout)
 from ..quant.formats import get_format
 from .decoder import check_supported, fuse_layer_weights
@@ -69,8 +69,13 @@ def _maybe_quant(w: torch.Tensor, weight_format: Optional[str],
     if w.shape[0] % get_format(weight_format).block:
         return w.to(torch.bfloat16)  # K not a block multiple: stays dense
     qt = quantize(w, weight_format)
-    if layout_for_leaf(device_layout, leaf) == "i8mm":
+    layout = layout_for_leaf(device_layout, leaf)
+    if layout == "i8mm":
         return requantize_i8_colwise(qt)
+    if layout == "i4":
+        # no K padding: the JAX zoo pads K to its TPU tile unit first;
+        # every consumer here takes a stored K >= the logical K either way
+        return repack_i4(qt)
     return qt
 
 
@@ -84,12 +89,14 @@ def make_synthetic_params(spec: ModelSpec,
     device_layout '' or 'auto' resolves on `device` (resolve_auto_layout:
     'i8mm' on the card for every model that fits, nothing on the CPU); under
     'i8mm' every quantized weight, the lm_head included, is requantized
-    into the per-column int8 container."""
+    into the per-column int8 container, and under 'i4' every weight of a
+    4-bit single-plane format is re-stored as packed signed nibbles
+    (repack_i4)."""
     check_supported(spec)
     dev = resolve_device(device)
     if device_layout in ("", "auto") and weight_format:
         device_layout = resolve_auto_layout(spec, weight_format, dev)
-    if device_layout not in ("", "packed", "i8mm"):
+    if device_layout not in ("", "packed", "i8mm", "i4"):
         raise NotImplementedError(
             f"device layout {device_layout!r} is not ported")
     hp = spec.hyper_params

@@ -4,11 +4,12 @@ Port of inferflow_tpu/quant/codec_jax.py: the same arithmetic in float32 on
 any torch device, so ``quantize`` gives the same bytes as the JAX codec.
 
 Covered: every format whose bit-planes use the consecutive layout (value k
-in byte k//p at bit (k%p)*bits), i.e. the Q8/Q6/Q5_B64/Q4/Q3/Q2 families,
-and the ``i8mm`` device layout (``Int8MXUTensor``: per-column int8 codes
-for int8 x int8 products).  The split-nibble Q5_B32T1, the base-11 pair
-formats (Q3H) and the other device re-layouts (i4, q8c, mixed, pair8)
-raise NotImplementedError.
+in byte k//p at bit (k%p)*bits), i.e. the Q8/Q6/Q5_B64/Q4/Q3/Q2 families;
+the ``i8mm`` device layout (``Int8MXUTensor``: per-column int8 codes for
+int8 x int8 products); and the ``i4`` device layout (``repack_i4``: the
+``data_i4p`` plane of signed code-8 nibbles).  The split-nibble Q5_B32T1,
+the base-11 pair formats (Q3H) and the other device re-layouts (q8c,
+mixed, pair8) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 from ..device import resolve_device
 from .formats import GLOBAL_TYPES, QuantFormat, get_format
 
-_DEVICE_LAYOUT_PLANES = ("data_i4p", "pair8")
+_UNPORTED_PLANES = ("pair8",)
+I4_PLANE = "data_i4p"
 
 
 def _check_format(fmt: QuantFormat) -> None:
@@ -61,6 +63,14 @@ class QuantizedTensor:
         """Stored K rows (>= logical K when the tensor was padded)."""
         return int(self.scale.shape[-2]) * get_format(self.format).block
 
+    @property
+    def nbytes(self) -> int:
+        n = sum(p.numel() for p in self.planes.values())
+        n += self.scale.numel() * self.scale.element_size()
+        if self.base is not None:
+            n += self.base.numel() * self.base.element_size()
+        return n
+
     def to(self, device) -> "QuantizedTensor":
         return QuantizedTensor(
             self.format, self.shape,
@@ -73,7 +83,7 @@ class QuantizedTensor:
         """From the JAX package's ``QuantizedTensor.to_np()`` dict, on
         `device` (the card unless the caller asks for the CPU)."""
         device = resolve_device(device)
-        if any(n in qt["planes"] for n in _DEVICE_LAYOUT_PLANES):
+        if any(n in qt["planes"] for n in _UNPORTED_PLANES):
             raise NotImplementedError(
                 f"device layout planes {sorted(qt['planes'])} are not ported")
         _check_format(get_format(qt["format"]))
@@ -114,23 +124,61 @@ def _codes(qt: QuantizedTensor, fmt: QuantFormat) -> torch.Tensor:
     return codes
 
 
+def _i4_format(fmt: QuantFormat) -> bool:
+    """Whether the i4 layout takes the format: one unsigned 4-bit plane in
+    the consecutive layout."""
+    return (len(fmt.planes) == 1 and fmt.planes[0].bits == 4
+            and fmt.planes[0].layout == "consecutive" and not fmt.signed)
+
+
+def repack_i4(qt: QuantizedTensor) -> QuantizedTensor:
+    """Device layout 'i4' (codec_jax.repack_i4): the codes re-stored as
+    signed code-8 nibbles in ``data_i4p`` (uint8 (K_s/2, N)), byte row r
+    holding value 2r in its low nibble and 2r+1 in its high nibble.  The
+    wire plane already holds the codes in that order, and (q - 8) & 0xF is
+    q ^ 8 for a 4-bit q, so the plane is the wire plane XOR 0x88 (any
+    leading layer axis included).  No-op for ineligible formats."""
+    if not _i4_format(get_format(qt.format)) or "data" not in qt.planes:
+        return qt
+    return QuantizedTensor(qt.format, qt.shape,
+                           {I4_PLANE: qt.planes["data"] ^ 0x88}, qt.scale,
+                           qt.base)
+
+
+def i4_nibbles(plane: torch.Tensor) -> torch.Tensor:
+    """(K_s/2, N) ``data_i4p`` bytes -> (K_s, N) int8 signed nibbles in
+    -8..7, row 2r from the low nibble of byte row r."""
+    lo = ((plane & 0xF) ^ 8).view(torch.int8) - 8
+    hi = ((plane >> 4) ^ 8).view(torch.int8) - 8
+    rows, n = plane.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * rows, n)
+
+
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Full-tensor dequantize to (K, N): w = q*scale + base in float32,
-    rounded once to ``dtype``.  Mirrors codec_jax.dequantize."""
-    if any(n in qt.planes for n in _DEVICE_LAYOUT_PLANES):
+    rounded once to ``dtype``.  Mirrors codec_jax.dequantize, whose i4
+    branch computes (n + 8)*scale + base from the signed nibble n."""
+    if any(n in qt.planes for n in _UNPORTED_PLANES):
         raise NotImplementedError("device layout planes are not ported")
     fmt = get_format(qt.format)
     _check_format(fmt)
-    k = qt.shape[-2]
+    k, n = qt.shape[-2], qt.shape[-1]
     k_s = qt.storage_k
-    sc = torch.repeat_interleave(qt.scale.float(), fmt.block, dim=0)
-    q = _codes(qt, fmt)
-    if fmt.base_kind == "zero":
-        q = torch.where(q >= 128, q - 256, q)
-        w = (q.float() * sc).to(dtype)
+    # per-block metadata broadcast over the block's rows: (K_s/blk, 1, N)
+    sc = qt.scale.float()[:, None, :]
+    bs = None if qt.base is None else qt.base.float()[:, None, :]
+    if I4_PLANE in qt.planes:
+        q = i4_nibbles(qt.planes[I4_PLANE]).float() + 8.0
     else:
-        bs = torch.repeat_interleave(qt.base.float(), fmt.block, dim=0)
-        w = (q.float() * sc + bs).to(dtype)
+        q = _codes(qt, fmt)
+        if fmt.base_kind == "zero":
+            q = torch.where(q >= 128, q - 256, q)
+            bs = None
+        q = q.float()
+    w = q.view(k_s // fmt.block, fmt.block, n) * sc
+    if bs is not None:
+        w = w + bs
+    w = w.reshape(k_s, n).to(dtype)
     return w[:k] if k_s != k else w
 
 
@@ -347,10 +395,7 @@ def resolve_auto_layout(spec, weight_format, device="cuda") -> str:
         + emb_bytes
     if i8mm_bytes <= 0.75 * _device_memory_bytes(dev):
         return "i8mm"
-    if (len(fmt.planes) == 1 and fmt.planes[0].bits == 4
-            and fmt.planes[0].layout == "consecutive" and not fmt.signed):
-        return "i4"
-    return "packed"
+    return "i4" if _i4_format(fmt) else "packed"
 
 
 # FFN leaves that take the q8c container under the 'mixed' layout

@@ -12,7 +12,8 @@ Same step loop as the JAX engine, run eagerly on one CUDA device:
     there and not over the chunk's rows;
   - one batched decode step over every slot (B = max_concurrent_queries,
     inactive slots included): the whole-model fused step (kernel B4) for
-    i8mm weights and B <= 8, else the per-layer loop (kernels B1 and B2);
+    i8mm or i4 weights and B <= 8, else the per-layer loop (kernel B1, B5
+    or the i8mm product for the weights, B2 for attention);
   - sampling on the host (sampling/strategies.py), saturation as an
     implicit end of the query.
 With ``kv_cache_paging`` the cache is a page pool (runtime/paged_kv.py) of

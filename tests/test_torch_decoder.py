@@ -179,7 +179,7 @@ def test_chunk_loop_matches_jax(models):
 
 
 def test_unported_configurations_raise():
-    for layout in ("i4", "q8c", "mixed"):
+    for layout in ("q8c", "mixed"):
         spec = tzoo.make_spec("test-tiny", device_layout=layout)
         with pytest.raises(NotImplementedError, match=layout):
             tzoo.make_synthetic_params(spec, "Q4_B64T1", device="cpu")

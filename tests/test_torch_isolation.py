@@ -5,9 +5,10 @@
   ``inferflow_tpu`` out of ``sys.modules``; no module of it, and nothing in
   ``chip_smoke.py``, names them in an import.
 - Entry points default to the card and raise where there is none; the
-  kernel wrappers (B1-B3, B7, the i8mm product and the fused decode step
-  B4, dense and paged) raise for a tensor that is neither on the CPU nor on
-  a card, and the kernel build raises without a CUDA compiler.
+  kernel wrappers (B1-B3, B5, B7, the i8mm product and the fused decode
+  step B4, dense and paged, i8mm and i4) raise for a tensor that is
+  neither on the CPU nor on a card, and the kernel build raises without a
+  CUDA compiler.
 """
 
 import ast
@@ -133,11 +134,21 @@ def test_wrappers_refuse_other_devices():
                            quantized=True, device="cpu")
     x = torch.empty((2, 1, hp.embd_dims), dtype=torch.bfloat16,
                     device="meta")
+    i4 = make_synthetic_params(spec, "Q4_B64T1", device="cpu",
+                               device_layout="i4")
     for c in (cache, PagedKVCache.create(1, 2, 512, hp.kv_heads, hp.head_dim,
                                          quantized=True, device="cpu")):
+        for p in (params, i4):
+            with pytest.raises(ValueError, match="unsupported device"):
+                fused_decode_step(spec, p["layers"], x,
+                                  torch.zeros((2, 1), dtype=torch.int32), c)
+
+    # kernel B5 (the i4 layout's products)
+    from inferflow_tpu_torch.kernels.dequant_matmul import i4_matmul
+    from inferflow_tpu_torch.ops.linear import linear
+    for fn in (i4_matmul, linear):
         with pytest.raises(ValueError, match="unsupported device"):
-            fused_decode_step(spec, params["layers"], x,
-                              torch.zeros((2, 1), dtype=torch.int32), c)
+            fn(torch.empty((2, hp.embd_dims), device="meta"), i4["lm_head"])
 
 
 def test_kernel_build_needs_nvcc():

@@ -84,7 +84,7 @@ def test_engine_config_matches_jax():
     specs, field by field (the pipeline ini's inline comment after
     `devices` is refused by both loaders alike)."""
     paths = sorted((ROOT / "configs").glob("*.ini"))
-    assert len(paths) == 4
+    assert len(paths) == 5
     refused = 0
     for path in paths:
         ref, got = _load(jload, path), _load(tload, path)
@@ -105,6 +105,11 @@ def test_engine_config_matches_jax():
     assert (paged.max_concurrent_queries, paged.kv_cache_paging,
             paged.kv_pool_tokens) == (16, True, 131072)
     assert paged.model.max_context_len == 32768
+    i4 = tload(str(ROOT / "configs" / "inferflow_service.i4.ini"))
+    assert (i4.max_concurrent_queries, i4.kv_cache_paging) == (8, False)
+    assert (i4.model.device_layout, i4.model.device_weight_data_type,
+            i4.model.device_kv_cache_data_type, i4.model.max_context_len) \
+        == ("i4", "Q4", "Q8", 4096)
 
 
 def _jax_pool_to_logical(jc):
