@@ -78,7 +78,25 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        tokens; reports the resident weight bytes against (c)'s i8mm ones;
    (e-cpu) the same at ENGINE_ECPU_LAYERS layers, against the CPU engine;
    (f) ENGINE_F_LAYERS layers at ENGINE_F_SLOTS slots (B > 8: the per-layer
-       loop, B5 and B2), against the CPU engine.
+       loop, B5 and B2), against the CPU engine;
+6. reads configs/inferflow_service.q3h.ini the same way: llama2-13b from
+   seed-0 Q3H_B64T1 kept as pair8 (the ini's device_layout = packed; the
+   auto rule would pick i8mm), 8 slots, a 4096-token context, and
+   - holds B6 (q3h_matmul) at the five products' shapes, M in {1, 8, 12,
+     256}, against its plain version and times it (library: torch.matmul
+     on the pre-dequantized bf16 weight);
+   - holds B2 and B3 at llama2-13b width (H = 40, D = 128) against their
+     plain versions: B2 at (g)'s 8 slots (G_ATTN_LENGTHS) over a
+     4096-row cache, B3 a 256-row chunk at row G_CHUNK_START;
+   (g) serves ENGINE_G_PROMPTS (7 to 2000 tokens) at full depth: every
+       product B6, every decode step the per-layer loop with B2, chunks
+       B3; no fused step, B1, B5 or int8 GEMV; every sampled row is held
+       against a dense twin on the card (the same values dequantized to
+       bf16, linear's dense branch) fed (g)'s tokens, built after (g)'s
+       engine and cache are freed; reports the model's bytes against the
+       i8mm bytes the auto rule would have placed;
+   (g-cpu) the same at ENGINE_GCPU_LAYERS layers (a 300-token prompt: B3
+       at this width too), against the CPU engine.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -182,17 +200,39 @@ ENGINE_E_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
 # below 4 for the prefill rows and twice the measured worst for decode
 ENGINE_E_PREFILL_TOL = 0.04
 ENGINE_E_DECODE_TOL = 0.12
-# (e-cpu) and (f) against the CPU engine, whose plain versions dequantize
-# every weight on each call (a decode step takes seconds on the host at
-# llama2-7b width): few queries of ENGINE_I4_CPU_NEW tokens each
-ENGINE_I4_CPU_NEW = 8
+# (e-cpu), (f) and (g-cpu) against the CPU engine, whose plain versions
+# dequantize every weight on each call (a decode step takes seconds on the
+# host at llama2-7b width): few queries of ENGINE_CUT_CPU_NEW tokens each
+ENGINE_CUT_CPU_NEW = 8
 ENGINE_ECPU_LAYERS = 2
 ENGINE_ECPU_PROMPTS = (7, 300, 13)
 # run (f): B > 8, the per-layer loop with B5 and B2
 ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT = 4, 12, 1024
 ENGINE_F_PROMPTS = (7, 13, 33, 64, 100)
 # measured 0.0703 for (e-cpu) (H100, 700 W)
-ENGINE_I4_CPU_TOL = 0.12
+ENGINE_CUT_CPU_TOL = 0.12
+
+# Q3H: configs/inferflow_service.q3h.ini, llama2-13b, pair8 weights
+Q3H_INI = "configs/inferflow_service.q3h.ini"
+Q3H_MODEL_NAME = "llama2-13b"
+# run (g): 12 queries of 7 to 2000 tokens at full depth; those over 256
+# take the chunked prefill (B3)
+ENGINE_G_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+# run (g) against a dense twin on the card (the same bf16 weights, the
+# float32 matmul of linear's dense branch) fed (g)'s tokens: B6 multiplies
+# the same bf16 weights and differs in float32 summation order only, which
+# 40 random-weight layers amplify as they did for run (c)'s 32 (measured
+# 0.057 there): about twice that
+ENGINE_G_TOL = 0.12
+# B2 and B3 at (g)'s width: its 8 slots at the lengths its eight longest
+# queries reach (prompt + MAX_NEW), and a whole chunk deep in its
+# 2000-token prompt
+G_ATTN_LENGTHS = (2016, 1216, 916, 616, 316, 272, 116, 80)
+G_CHUNK_START = 1536
+# (g-cpu): 2 layers; the 300-token prompt takes a chunk (B3) at
+# llama2-13b width
+ENGINE_GCPU_LAYERS = 2
+ENGINE_GCPU_PROMPTS = (7, 300, 13)
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -217,6 +257,9 @@ KERNEL_SOURCES = {
     # mode (b)'s GEMV alone (timed alone; on the path inside B4 (b))
     "i4x8_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
                   "inferflow_tpu/kernels/decode_step.py:537"),
+    # B6 in its pair8 mode (Q3H weights)
+    "q3h_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
+                   "inferflow_tpu/kernels/dequant_matmul.py:244"),
 }
 
 
@@ -368,16 +411,19 @@ def _expand_heads(t, g):
     return t.repeat_interleave(g, dim=1)
 
 
-def phase_b2(timer, dev, spec) -> list:
+def phase_b2(timer, dev, spec, lengths=(CONTEXT, 700, 301, 17),
+             context=CONTEXT) -> list:
+    """B2 on one slot per length, over a `context`-row Q8 cache whose rows
+    are filled up to the longest length (the spec's last layer)."""
     import torch.nn.functional as F
     from inferflow_tpu_torch.kernels.attention import (
         decode_attention, decode_attention_plain)
     hp = spec.hyper_params
-    b, layer, d = SLOTS, hp.decoder_layers - 1, hp.head_dim
+    b, layer, d = len(lengths), hp.decoder_layers - 1, hp.head_dim
     g = hp.decoder_heads // hp.kv_heads
-    cache, gen = _filled_cache(dev, spec, b, CONTEXT, seed=2)
-    lengths = torch.tensor([CONTEXT, 700, 301, 17], dtype=torch.int32,
-                           device=dev)
+    cache, gen = _filled_cache(dev, spec, b, max(lengths), seed=2,
+                               context=context)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q = (torch.randn((b, 1, hp.decoder_heads, d), generator=gen, device=dev)
          * 0.3).to(torch.bfloat16)
     got, _ = decode_attention(q, cache, layer, lengths)
@@ -387,7 +433,7 @@ def phase_b2(timer, dev, spec) -> list:
     k, v = cache.read_layer(layer, torch.bfloat16)  # (B, S, H, D)
     k = _expand_heads(k.transpose(1, 2), g)
     v = _expand_heads(v.transpose(1, 2), g)
-    mask = (torch.arange(CONTEXT, device=dev)[None, :]
+    mask = (torch.arange(context, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
     qs = q.transpose(1, 2)  # (B, Hq, 1, D)
     live = int(lengths.sum().item())
@@ -396,7 +442,7 @@ def phase_b2(timer, dev, spec) -> list:
     b_ms, b_by = bound(bytes_moved, flops)
     row = {"phase": "kernel", "kernel": "decode_attention",
            "shape": f"B={b} Hq={hp.decoder_heads} H={hp.kv_heads} D={d} "
-                    f"S={CONTEXT} lengths={lengths.tolist()} layer={layer}",
+                    f"S={context} lengths={lengths.tolist()} layer={layer}",
            **res,
            "ms": timer(lambda: decode_attention(q, cache, layer, lengths)),
            "plain_ms": timer(lambda: decode_attention_plain(
@@ -408,15 +454,17 @@ def phase_b2(timer, dev, spec) -> list:
     return [row]
 
 
-def phase_b3(timer, dev, spec) -> list:
+def phase_b3(timer, dev, spec, start=256) -> list:
+    """B3: a 256-row chunk of slot 1 at row `start` (the spec's last
+    layer)."""
     import torch.nn.functional as F
     from inferflow_tpu_torch.kernels.attention import (
         chunk_attention, chunk_attention_plain)
     hp = spec.hyper_params
-    c, start, slot, layer, d = 256, 256, 1, hp.decoder_layers - 1, \
-        hp.head_dim
+    c, slot, layer, d = 256, 1, hp.decoder_layers - 1, hp.head_dim
     g = hp.decoder_heads // hp.kv_heads
-    cache, gen = _filled_cache(dev, spec, 2, start + c, seed=3)
+    cache, gen = _filled_cache(dev, spec, 2, start + c, seed=3,
+                               context=max(CONTEXT, start + c))
     q = (torch.randn((1, c, hp.decoder_heads, d), generator=gen, device=dev)
          * 0.3).to(torch.bfloat16)
     got, _ = chunk_attention(q, cache, layer, slot, start)
@@ -982,42 +1030,53 @@ def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
 
 def _row_errors(qids, prompts, outputs, rows, ref_rows, tol,
                 max_new=MAX_NEW) -> dict:
-    """Per query: the worst |card - reference| over its sampled rows, and
-    how many argmaxes agree; ok when every row is within `tol`."""
-    report, ok = {}, True
+    """Per query: the worst |card - reference| over its sampled rows, how
+    many argmaxes agree, and the scale the errors compare with: the
+    largest |logit| and the gap between the two largest logits of each
+    reference row (median and least); ok when every row is within `tol`."""
+    report, ok, gaps = {}, True, []
     for q, prompt, served in zip(qids, prompts, outputs):
         n = len(prompt)
         card, ref = rows[q], ref_rows[q]
         assert len(card) == len(ref) == len(served) == max_new, q
         assert [int(r.argmax()) for r in card] == served, "not greedy"
         errs = [float(np.abs(a - b).max()) for a, b in zip(card, ref)]
+        top2 = [np.partition(b, -2)[-2:] for b in ref]
+        q_gaps = [float(t[1] - t[0]) for t in top2]
+        gaps += q_gaps
         report[f"q{q}_prompt_{n}"] = {
             "rows": len(errs), "max_abs_err": max(errs),
             "worst_row": int(np.argmax(errs)), "first_row_err": errs[0],
             "row_errs": errs,
             "max_abs_logit": float(max(np.abs(b).max() for b in ref)),
+            "top2_gap_median": float(np.median(q_gaps)),
             "argmax_equal": sum(int(a.argmax()) == int(b.argmax())
                                 for a, b in zip(card, ref))}
         ok &= max(errs) <= tol
-    report["max_abs_err"] = max(v["max_abs_err"] for v in report.values())
+    per_q = list(report.values())
+    report["max_abs_err"] = max(v["max_abs_err"] for v in per_q)
+    report["max_abs_logit"] = max(v["max_abs_logit"] for v in per_q)
+    report["top2_gap_median"] = float(np.median(gaps))
+    report["top2_gap_min"] = float(min(gaps))
     report["ok"] = bool(ok)
     return report
 
 
-def paged_config(**overrides) -> tuple:
-    """configs/inferflow_service.paged.ini through the package's own
-    loader: (engine config, llama2-7b spec with the ini's context and KV
-    type, weight format name).  The model dir holds no config.json, so the
-    hyper-parameters come from make_spec (`overrides`: a cut depth)."""
+def ini_config(ini: str, model_name: str, **overrides) -> tuple:
+    """One of the repo's inis through the package's own loader: (engine
+    config, spec with the ini's context, KV type, weight type and device
+    layout, weight format name).  The model dirs hold no config.json, so
+    the hyper-parameters come from make_spec (`overrides`: a cut depth)."""
     from inferflow_tpu_torch.config import load_engine_config
     from inferflow_tpu_torch.models.zoo import make_spec
     from inferflow_tpu_torch.quant.formats import get_format
-    cfg = load_engine_config(str(Path(__file__).resolve().parent / PAGED_INI))
+    cfg = load_engine_config(str(Path(__file__).resolve().parent / ini))
     model = cfg.model
-    spec = make_spec(PAGED_MODEL, **overrides)
+    spec = make_spec(model_name, **overrides)
     spec.max_context_len = model.max_context_len
     spec.device_kv_cache_data_type = model.device_kv_cache_data_type
     spec.device_weight_data_type = model.device_weight_data_type
+    spec.device_layout = model.device_layout
     return cfg, spec, get_format(model.device_weight_data_type).name
 
 
@@ -1184,7 +1243,7 @@ def phase_b5(timer, dev, params) -> list:
     (decode at B <= 8 and B > 8, prefill chunks), against its plain
     version; library: torch.matmul on the pre-dequantized bf16 weight."""
     from inferflow_tpu_torch.kernels.dequant_matmul import (
-        i4_matmul, i4_matmul_plain, i4_weight)
+        i4_matmul_plain, i4_weight, quantized_matmul)
     gen = torch.Generator(device=dev).manual_seed(31)
     rows = []
     for name, qt in _i4_weights(params).items():
@@ -1194,9 +1253,9 @@ def phase_b5(timer, dev, params) -> list:
         for m in (1, 8, 12, 256):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
-            got = i4_matmul(x, qt)
+            got = quantized_matmul(x, qt)
             ref = i4_matmul_plain(x, qt)
-            again = i4_matmul(x, qt)
+            again = quantized_matmul(x, qt)
             torch.cuda.synchronize()
             res = compare(got, ref)
             res["same_bits_twice"] = bool(torch.equal(got, again))
@@ -1205,7 +1264,7 @@ def phase_b5(timer, dev, params) -> list:
             b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
             row = {"phase": "kernel", "kernel": "i4_matmul",
                    "shape": f"{name} M={m} K={k} K_s={k_s} N={n}", **res,
-                   "ms": timer(lambda: i4_matmul(x, qt)),
+                   "ms": timer(lambda: quantized_matmul(x, qt)),
                    "plain_ms": timer(lambda: i4_matmul_plain(x, qt)),
                    "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
                    "library": "torch.matmul on the pre-dequantized bf16 "
@@ -1370,24 +1429,6 @@ def phase_b4_i4(timer, dev, spec, params, spec_i8, params_i8) -> list:
     return rows
 
 
-def i4_config(**overrides) -> tuple:
-    """configs/inferflow_service.i4.ini through the package's own loader:
-    (engine config, llama2-7b spec with the ini's context, KV type and
-    device layout, weight format name); the hyper-parameters from
-    make_spec, as paged_config takes them."""
-    from inferflow_tpu_torch.config import load_engine_config
-    from inferflow_tpu_torch.models.zoo import make_spec
-    from inferflow_tpu_torch.quant.formats import get_format
-    cfg = load_engine_config(str(Path(__file__).resolve().parent / I4_INI))
-    model = cfg.model
-    spec = make_spec(I4_MODEL_NAME, **overrides)
-    spec.max_context_len = model.max_context_len
-    spec.device_kv_cache_data_type = model.device_kv_cache_data_type
-    spec.device_weight_data_type = model.device_weight_data_type
-    spec.device_layout = model.device_layout
-    return cfg, spec, get_format(model.device_weight_data_type).name
-
-
 def _packed_twin(params):
     """The same Q4_B64T1 values in the packed wire layout: data_i4p is
     the wire plane XOR 0x88 (codec_torch.repack_i4)."""
@@ -1505,10 +1546,11 @@ def phase_engine_e(dev, cfg, spec, params, memory, i8mm_weight_bytes) -> dict:
     return launches
 
 
-def phase_engine_i4_cpu(dev, cfg, spec, params, label, prompts_lens, slots,
-                        context, must_launch, must_not_launch) -> dict:
-    """Runs (e-cpu) and (f): the i4 engine at a cut depth on the card,
-    held against the same engine on the CPU (plain versions)."""
+def phase_engine_cut_cpu(dev, cfg, spec, params, label, ini, model,
+                         prompts_lens, slots, context, must_launch,
+                         must_not_launch) -> dict:
+    """Runs (e-cpu), (f) and (g-cpu): an ini's engine at a cut depth on the
+    card, held against the same engine on the CPU (plain versions)."""
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     vocab = spec.hyper_params.vocab_size
@@ -1519,12 +1561,12 @@ def phase_engine_i4_cpu(dev, cfg, spec, params, label, prompts_lens, slots,
                           max_context_len=context, device=dev)
     rows = _record_rows(eng)
     _build.launch_counts.clear()
-    qids, _, decode_ms, steps = _serve(eng, prompts, ENGINE_I4_CPU_NEW)
+    qids, _, decode_ms, steps = _serve(eng, prompts, ENGINE_CUT_CPU_NEW)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     outputs = [eng.query_tokens(q) for q in qids]
-    emit({"phase": f"engine_{label}", "config": I4_INI,
-          "model": I4_MODEL_NAME, "layers": spec.hyper_params.decoder_layers,
+    emit({"phase": f"engine_{label}", "config": ini,
+          "model": model, "layers": spec.hyper_params.decoder_layers,
           "device_layout": spec.device_layout, "slots": slots,
           "context": context, "prompt_lens": list(prompts_lens),
           "engine_steps": steps, "decode_steps": len(decode_ms),
@@ -1538,11 +1580,185 @@ def phase_engine_i4_cpu(dev, cfg, spec, params, label, prompts_lens, slots,
     del eng
     torch.cuda.empty_cache()
     check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
-                      ENGINE_I4_CPU_TOL,
+                      ENGINE_CUT_CPU_TOL,
                       dict(max_concurrent_queries=slots,
-                           max_context_len=context), ENGINE_I4_CPU_NEW)
+                           max_context_len=context), ENGINE_CUT_CPU_NEW)
     return launches
 
+
+# ------------------------------------------------------------- Q3H (pair8)
+def _q3h_weights(params) -> dict:
+    """The five products of llama2-13b in Q3H pair8 (layer 0, the
+    lm_head)."""
+    lp = params["layers"][0]
+    return {"qkv": lp["attn"]["qkv"], "wo": lp["attn"]["wo"],
+            "w1n3": lp["ffn"]["w1n3"], "w2": lp["ffn"]["w2"],
+            "lm_head": params["lm_head"]}
+
+
+def _i8mm_bytes(params) -> int:
+    """The device bytes the same model takes under i8mm, the layout the
+    auto rule picks on this card: each quantized (K, N) weight as K*N int8
+    codes and N float32 column scales (Int8MXUTensor.nbytes), everything
+    else as it is."""
+    from inferflow_tpu_torch.quant.codec_torch import QuantizedTensor
+
+    def size(t):
+        if isinstance(t, QuantizedTensor):
+            k, n = (int(v) for v in t.shape)
+            return k * n + 4 * n
+        return t.nbytes
+    return sum(size(t) for lp in params["layers"]
+               for grp in (lp["attn"], lp["ffn"]) for t in grp.values()) \
+        + size(params["lm_head"]) + params["dec_embeddings"].nbytes
+
+
+def _model_bytes(params) -> int:
+    return _weight_bytes(params) + params["lm_head"].nbytes \
+        + params["dec_embeddings"].nbytes
+
+
+def phase_b6(timer, dev, params) -> list:
+    """Kernel B6 (pair8) at llama2-13b's product shapes, M in {1, 8, 12,
+    256} (decode at B <= 8 and B > 8, prefill chunks), against its plain
+    version; library: torch.matmul on the pre-dequantized bf16 weight."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (
+        quantized_matmul, quantized_matmul_plain)
+    from inferflow_tpu_torch.quant.codec_torch import dequantize
+    gen = torch.Generator(device=dev).manual_seed(51)
+    rows = []
+    for name, qt in _q3h_weights(params).items():
+        k, n = (int(v) for v in qt.shape)
+        k_s = qt.storage_k
+        w_bf16 = dequantize(qt, torch.bfloat16)
+        for m in (1, 8, 12, 256):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = quantized_matmul(x, qt)
+            ref = quantized_matmul_plain(x, qt)
+            again = quantized_matmul(x, qt)
+            torch.cuda.synchronize()
+            res = compare(got, ref)
+            res["same_bits_twice"] = bool(torch.equal(got, again))
+            res["ok"] = res["ok"] and res["same_bits_twice"]
+            bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
+            b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
+            row = {"phase": "kernel", "kernel": "q3h_matmul",
+                   "shape": f"{name} M={m} K={k} K_s={k_s} N={n}", **res,
+                   "ms": timer(lambda: quantized_matmul(x, qt)),
+                   "plain_ms": timer(lambda: quantized_matmul_plain(x, qt)),
+                   "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+                   "library": "torch.matmul on the pre-dequantized bf16 "
+                              "weight",
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes_bound": bytes_moved}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def _dense_twin(params):
+    """The same Q3H values dequantized to bf16 (codec_torch.dequantize,
+    the weights B6 multiplies by): linear's dense branch serves them."""
+    from inferflow_tpu_torch.quant.codec_torch import (QuantizedTensor,
+                                                       dequantize)
+
+    def conv(node):
+        if isinstance(node, QuantizedTensor):
+            return dequantize(node, torch.bfloat16)
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        return node
+    return conv(params)
+
+
+def phase_engine_g(dev, cfg, spec, params, memory) -> dict:
+    """Run (g): the ini's engine at full depth on the card (every product
+    B6, decode the per-layer loop with B2, chunks B3), then, with (g)'s
+    engine and cache freed, a dense twin on the card fed (g)'s tokens;
+    every sampled row held against the twin's."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    hp = spec.hyper_params
+    rng = np.random.default_rng(6)
+    prompts = [[int(t) for t in rng.integers(1, hp.vocab_size, n)]
+               for n in ENGINE_G_PROMPTS]
+    engine_kw = dict(max_concurrent_queries=cfg.max_concurrent_queries,
+                     max_context_len=spec.max_context_len, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = InferenceEngine(spec, params, **engine_kw)
+    cache_bytes = _pool_bytes(eng.cache)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    memory = dict(memory, cache=cache_bytes,
+                  serving_peak=torch.cuda.max_memory_allocated(dev)
+                  - memory["before"])
+    emit({"phase": "engine_g", "config": Q3H_INI, "model": Q3H_MODEL_NAME,
+          "layers": hp.decoder_layers, "embd": hp.embd_dims,
+          "heads": hp.decoder_heads, "kv_heads": hp.kv_heads,
+          "device_layout": spec.device_layout,
+          "lm_head_planes": sorted(params["lm_head"].planes),
+          "slots": cfg.max_concurrent_queries,
+          "context": spec.max_context_len, "queries": len(prompts),
+          "prompt_lens": list(ENGINE_G_PROMPTS),
+          "tokens_served": sum(len(o) for o in outputs),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "wall_s": wall_s, "device_bytes": memory,
+          "q3h_model_bytes": _model_bytes(params),
+          "i8mm_model_bytes_auto_rule": _i8mm_bytes(params),
+          "prefill_ms_per_step": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step": decode_ms,
+          "first_tokens": [o[:4] for o in outputs],
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    for k in ("q3h_matmul", "decode_attention", "chunk_attention"):
+        assert launches.get(k, 0) > 0, f"{k} never launched in run g"
+    for k in ("fused_decode_step", "fused_decode_step_i4", "dequant_matmul",
+              "i4_matmul", "i8mm_gemv", "paged_decode_attention"):
+        assert launches.get(k, 0) == 0, f"{k} launched in run g"
+    assert launches["decode_attention"] \
+        == hp.decoder_layers * len(decode_ms), "a decode step missed B2"
+    profile_decode(eng, prompts[0], "g")
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    twin = _dense_twin(params)
+    ref = InferenceEngine(spec, twin, **engine_kw)
+    ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+    _build.launch_counts.clear()
+    ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    ref_launches = dict(_build.launch_counts)
+    assert ref_qids == qids, (ref_qids, qids)
+    assert ref_launches.get("q3h_matmul", 0) == 0
+    assert ref_launches.get("decode_attention", 0) > 0
+    twin_peak = torch.cuda.max_memory_allocated(dev) - memory["before"]
+    del ref, twin
+    torch.cuda.empty_cache()
+    report = {"phase": "engine_g_vs_dense_twin_card",
+              "reference_s": time.perf_counter() - t0,
+              "reference_decode_ms_median": float(np.median(ref_decode_ms)),
+              "reference_peak_bytes": twin_peak,
+              "tolerance": f"every sampled row: max_abs_err <= "
+                           f"{ENGINE_G_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
+                              ENGINE_G_TOL))
+    report.update(_split_row_errors(report))
+    emit(report)
+    assert report["ok"], "run g: rows disagree with the dense twin"
+    return launches
 
 
 def _run(results, failed, pname, fn) -> None:
@@ -1638,7 +1854,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (c) the paged configuration the repo ships, llama2-7b
-    cfg, spec_c, fmt_c = paged_config()
+    cfg, spec_c, fmt_c = ini_config(PAGED_INI, PAGED_MODEL)
     layout_c = resolve_auto_layout(spec_c, fmt_c, dev)
     emit({"phase": "layout", "model": PAGED_MODEL, "weight_format": fmt_c,
           "resolved": layout_c})
@@ -1647,7 +1863,8 @@ def main() -> int:
     params_c, memory_c = build_params(dev, spec_c, fmt_c)
     _run(results, failed, "engine_c", lambda: phase_engine_c(
         dev, cfg, spec_c, params_c, memory_c))
-    spec_cc = paged_config(layers=ENGINE_CCPU_LAYERS)[1]
+    spec_cc = ini_config(PAGED_INI, PAGED_MODEL,
+                         layers=ENGINE_CCPU_LAYERS)[1]
     spec_cc.qkv_format = spec_c.qkv_format  # the weights' fused qkv
     params_cc = dict(params_c, layers=params_c["layers"][:ENGINE_CCPU_LAYERS])
     _run(results, failed, "engine_c_cpu", lambda: phase_engine_ccpu(
@@ -1655,7 +1872,7 @@ def main() -> int:
     del params_cc
 
     # the i4 layout: configs/inferflow_service.i4.ini, llama2-7b
-    cfg_e, spec_e, fmt_e = i4_config()
+    cfg_e, spec_e, fmt_e = ini_config(I4_INI, I4_MODEL_NAME)
     layout_e = resolve_auto_layout(spec_e, fmt_e, dev)
     emit({"phase": "layout", "model": I4_MODEL_NAME, "config": I4_INI,
           "weight_format": fmt_e, "resolved": layout_e})
@@ -1688,20 +1905,57 @@ def main() -> int:
              ENGINE_F_PROMPTS, ("i4_matmul", "decode_attention"),
              ("fused_decode_step_i4", "fused_decode_step", "dequant_matmul",
               "i8mm_gemv"))):
-        spec_cut = i4_config(layers=layers)[1]
+        spec_cut = ini_config(I4_INI, I4_MODEL_NAME, layers=layers)[1]
         spec_cut.qkv_format = spec_e.qkv_format  # the weights' fused qkv
         params_cut = dict(params_e, layers=params_e["layers"][:layers])
         _run(results, failed, f"engine_{label}",
-             lambda: phase_engine_i4_cpu(
-                 dev, cfg_e, spec_cut, params_cut, label, prompts, slots,
-                 context, must, must_not))
+             lambda: phase_engine_cut_cpu(
+                 dev, cfg_e, spec_cut, params_cut, label, I4_INI,
+                 I4_MODEL_NAME, prompts, slots, context, must, must_not))
     del params_e, params_cut
+    torch.cuda.empty_cache()
+
+    # Q3H pair8: configs/inferflow_service.q3h.ini, llama2-13b
+    cfg_g, spec_g, fmt_g = ini_config(Q3H_INI, Q3H_MODEL_NAME)
+    layout_g = resolve_auto_layout(spec_g, fmt_g, dev)
+    auto_g = resolve_auto_layout(make_spec(Q3H_MODEL_NAME), fmt_g, dev)
+    emit({"phase": "layout", "model": Q3H_MODEL_NAME, "config": Q3H_INI,
+          "weight_format": fmt_g, "resolved": layout_g,
+          "auto_rule_would_pick": auto_g})
+    if layout_g != "packed" or auto_g != "i8mm":
+        failed.append("layout_g")
+    params_g, memory_g = build_params(dev, spec_g, fmt_g)
+    emit({"phase": "weights", "model": Q3H_MODEL_NAME,
+          "q3h_device_bytes": memory_g,
+          "q3h_model_bytes": _model_bytes(params_g),
+          "i8mm_model_bytes_auto_rule": _i8mm_bytes(params_g)})
+    _run(results, failed, "q3h_matmul", lambda: phase_b6(timer, dev, params_g))
+    spec_g1 = ini_config(Q3H_INI, Q3H_MODEL_NAME, layers=1)[1]
+    _run(results, failed, "decode_attention_g", lambda: phase_b2(
+        timer, dev, spec_g1, G_ATTN_LENGTHS, spec_g.max_context_len))
+    _run(results, failed, "chunk_attention_g",
+         lambda: phase_b3(timer, dev, spec_g1, G_CHUNK_START))
+    _run(results, failed, "engine_g", lambda: phase_engine_g(
+        dev, cfg_g, spec_g, params_g, memory_g))
+    spec_cut = ini_config(Q3H_INI, Q3H_MODEL_NAME,
+                          layers=ENGINE_GCPU_LAYERS)[1]
+    spec_cut.qkv_format = spec_g.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_g, layers=params_g["layers"][:ENGINE_GCPU_LAYERS])
+    _run(results, failed, "engine_g_cpu", lambda: phase_engine_cut_cpu(
+        dev, cfg_g, spec_cut, params_cut, "g_cpu", Q3H_INI, Q3H_MODEL_NAME,
+        ENGINE_GCPU_PROMPTS, cfg_g.max_concurrent_queries,
+        spec_g.max_context_len,
+        ("q3h_matmul", "decode_attention", "chunk_attention"),
+        ("fused_decode_step", "fused_decode_step_i4", "dequant_matmul",
+         "i4_matmul", "i8mm_gemv")))
+    del params_g, params_cut
     torch.cuda.empty_cache()
 
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
                   "paged_decode_attention", "i4_matmul", "i4x8_gemv",
-                  "fused_decode_step_i4"):
+                  "fused_decode_step_i4", "q3h_matmul", "decode_attention_g",
+                  "chunk_attention_g"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -1719,7 +1973,8 @@ def main() -> int:
                     results["engine_c"]["paged_decode_attention"],
                 "i4_matmul": results["engine_e"]["i4_matmul"],
                 "fused_decode_step_i4":
-                    results["engine_e"]["fused_decode_step_i4"]}
+                    results["engine_e"]["fused_decode_step_i4"],
+                "q3h_matmul": results["engine_g"]["q3h_matmul"]}
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -1730,7 +1985,9 @@ def main() -> int:
              "paged_decode_attention": results["paged_decode_attention"][0],
              "i4_matmul": next(r for r in results["i4_matmul"]
                                if r["shape"].startswith("lm_head M=8 ")),
-             "fused_decode_step_i4": results["fused_decode_step_i4"][0]}
+             "fused_decode_step_i4": results["fused_decode_step_i4"][0],
+             "q3h_matmul": next(r for r in results["q3h_matmul"]
+                                if r["shape"].startswith("w1n3 M=8 "))}
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

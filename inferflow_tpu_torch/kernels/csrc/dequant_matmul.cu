@@ -1,33 +1,46 @@
-// Dequantize-matmul for 4-bit block weights: y = x @ dequant(W), for two
-// byte layouts of the same nibbles.
+// Dequantize-matmul for block weights stored one byte per pair of K rows:
+// y = x @ dequant(W), for three byte layouts.
 //
 // Kernel B1 replaces inferflow_tpu/kernels/dequant_matmul.py
 // `_make_fast_kernel` (its pallas_call at :505, public entry
 // `quantized_matmul` at :643) for the Q4_B64T1 format in the packed wire
 // layout.  Kernel B5 replaces `_make_i4_kernel` (:313, its pallas_call at
-// :452) for the `i4` device layout (codec_jax.repack_i4).
+// :452) for the `i4` device layout (codec_jax.repack_i4).  Kernel B6
+// replaces `_make_kernel` (:244, its pallas_call at :573) in its pair8 mode:
+// Q3H_B64T1 weights in the `pair8` device layout (codec_torch.quantize and
+// QuantizedTensor.from_np give Q3H in it).
 //
 // Operands (row-major):
 //   x     (M, K)   bf16 activations
-//   data  (K/2, N) uint8: byte r holds K row 2r in its low nibble and row
-//                  2r+1 in its high nibble, in both layouts
+//   data  (K/2, N) uint8: byte r holds K rows 2r and 2r+1 of its column,
+//                  in all three layouts
 //   scale (K/64, N), base (K/64, N) f16 per-block metadata
 //   out   (M, N)   bf16
-// The two layouts differ only in how a nibble decodes (the `Decode`
-// policies below), so both run the same two kernels:
-//   B1, wire planes: the nibble is the code q in 0..15, and the weight is
-//       w = bf16(q*scale + base);
-//   B5, i4 layout: the nibble is (q - 8) & 0xF (the wire byte XOR 0x88),
+// The layouts differ only in how a byte decodes into the values of its
+// two rows and in the block's additive term (the `Decode` policies below),
+// so all three run the same two kernels:
+//   B1, wire planes: the low nibble is row 2r's code q in 0..15, the high
+//       nibble row 2r+1's, and the weight is w = bf16(q*scale + base);
+//   B5, i4 layout: each nibble is (q - 8) & 0xF (the wire byte XOR 0x88),
 //       read as a signed n in -8..7, and the weight is
 //       w = bf16(n*scale + fold) with fold = 8*scale + base in float32, as
-//       the TPU kernel folds the +8 into the block's additive term.
+//       the TPU kernel folds the +8 into the block's additive term;
+//   B6, pair8: the byte is the base-11 pair code b = v0 + 11*v1, row 2r
+//       takes v0 = b - 11*(b / 11) and row 2r+1 v1 = b / 11 (the TPU
+//       kernel's floor((b + 0.5) / 11), exact for every byte value), and
+//       the weight is w = bf16(v*scale + base), codec_torch.dequantize's
+//       weight bit for bit.
 // Each weight is two rounded float32 operations (no fused multiply-add),
-// rounded to bf16, and the products accumulate in float32.
+// rounded to bf16, and the products accumulate in float32.  Pad blocks of
+// a K-padded tensor have scale 0 and base 0 and add exact zeros.
 //
 // What bounds it on the H100: at decode (M <= 8) every weight byte is used
 // by M rows only, so the kernel is bound by the bytes of the weight planes
-// (4.5 bits per weight with the metadata).  At prefill (M in the hundreds)
-// the same bytes feed M rows and the bf16 tensor-core work dominates.
+// (4.5 bits per weight with the metadata, in all three layouts).  At
+// prefill (M in the hundreds) the same bytes feed M rows and the bf16
+// tensor-core work dominates.  B6's decode per byte is an integer division
+// by a constant (a multiply-high and a shift) where B1 and B5 take two
+// shifts; at M <= 8 that is integer work beside the same bytes.
 //
 // What the design does about it:
 //   - decode (`q4_gemv`): neighbouring threads own neighbouring 4-column
@@ -63,25 +76,35 @@ __device__ __forceinline__ float round_bf16(float w) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-// How a nibble decodes.  offset(): the block's additive term from its
-// scale and base; value(): the nibble's multiplier.  The weight is
-// value*scale + offset as two rounded float32 operations (no fused
-// multiply-add), so it equals the plain version's bit for bit before the
-// bf16 rounding.
+// How a byte decodes.  offset(): the block's additive term from its
+// scale and base; values(): the multipliers of the byte's two K rows (2r,
+// 2r+1).  The weight is value*scale + offset as two rounded float32
+// operations (no fused multiply-add), so it equals the plain version's bit
+// for bit before the bf16 rounding.
 struct WireQ4 {  // B1: Q4_B64T1 wire planes, w = q*scale + base
   __device__ static float offset(float scale, float base) { return base; }
-  __device__ static float value(uint32_t nib) { return float(nib); }
+  __device__ static float2 values(uint32_t b) {
+    return make_float2(float(b & 0xFu), float(b >> 4));
+  }
 };
 struct PackedI4 {  // B5: i4 layout, w = n*scale + (8*scale + base)
   __device__ static float offset(float scale, float base) {
     return __fadd_rn(__fmul_rn(scale, 8.f), base);
   }
-  __device__ static float value(uint32_t nib) { return float(int(nib ^ 8u) - 8); }
+  __device__ static float2 values(uint32_t b) {
+    return make_float2(float(int((b & 0xFu) ^ 8u) - 8), float(int((b >> 4) ^ 8u) - 8));
+  }
+};
+struct Pair8 {  // B6: Q3H pair8, b = v0 + 11*v1, w = v*scale + base
+  __device__ static float offset(float scale, float base) { return base; }
+  __device__ static float2 values(uint32_t b) {
+    const uint32_t v1 = b / 11u;
+    return make_float2(float(b - 11u * v1), float(v1));
+  }
 };
 
-template <class Decode>
-__device__ __forceinline__ float dequant(uint32_t nib, float scale, float offset) {
-  return __fadd_rn(__fmul_rn(Decode::value(nib), scale), offset);
+__device__ __forceinline__ float dequant(float value, float scale, float offset) {
+  return __fadd_rn(__fmul_rn(value, scale), offset);
 }
 
 // ---------------------------------------------------------------- decode
@@ -146,9 +169,9 @@ q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         const uint32_t bytes = words[r];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const uint32_t b = (bytes >> (8 * j)) & 0xFFu;
-          const float w0 = round_bf16(dequant<Decode>(b & 0xFu, sc[j], off[j]));
-          const float w1 = round_bf16(dequant<Decode>(b >> 4, sc[j], off[j]));
+          const float2 v = Decode::values((bytes >> (8 * j)) & 0xFFu);
+          const float w0 = round_bf16(dequant(v.x, sc[j], off[j]));
+          const float w1 = round_bf16(dequant(v.y, sc[j], off[j]));
 #pragma unroll
           for (int m = 0; m < M; ++m) {
             acc[m][j] = fmaf(xs[m][kk0 + 2 * r], w0, acc[m][j]);
@@ -256,9 +279,9 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const float s = sc_s[c0 + i], o = off_s[c0 + i];
-        ws[(2 * r) * kLdw + c0 + i] = __float2bfloat16_rn(dequant<Decode>(b[i] & 0xFu, s, o));
-        ws[(2 * r + 1) * kLdw + c0 + i] =
-            __float2bfloat16_rn(dequant<Decode>(b[i] >> 4, s, o));
+        const float2 v = Decode::values(b[i]);
+        ws[(2 * r) * kLdw + c0 + i] = __float2bfloat16_rn(dequant(v.x, s, o));
+        ws[(2 * r + 1) * kLdw + c0 + i] = __float2bfloat16_rn(dequant(v.y, s, o));
       }
     }
     __syncthreads();
@@ -366,8 +389,8 @@ const char* ift_error_string(int code) {
 // *kb_per_split (at most kGemvMaxKBlocks) quant blocks, enough CTAs for
 // about two per SM; larger M the tiled tensor-core path (*kb_per_split 0,
 // *ksplit 1).  The caller allocates ksplit*M*N floats of workspace when
-// *ksplit > 1 and passes the plan to ift_q4_matmul / ift_i4_matmul
-// unchanged.
+// *ksplit > 1 and passes the plan to ift_q4_matmul / ift_i4_matmul /
+// ift_q3h_matmul unchanged.
 int ift_q4_matmul_plan(int M, int K, int N, int sm_count, int* kb_per_split,
                        int* ksplit) {
   if (M <= 0 || K <= 0 || N <= 0 || K % kBlock || sm_count <= 0)
@@ -403,6 +426,14 @@ int ift_i4_matmul(const void* x, const void* data, const void* scale,
                   int N, int kb_per_split, int ksplit, void* stream_ptr) {
   return run_matmul<PackedI4>(x, data, scale, base, out, workspace, M, K, N,
                               kb_per_split, ksplit, stream_ptr);
+}
+
+// B6: Q3H_B64T1 in the pair8 layout (one base-11 pair code per byte).
+int ift_q3h_matmul(const void* x, const void* data, const void* scale,
+                   const void* base, void* out, void* workspace, int M, int K,
+                   int N, int kb_per_split, int ksplit, void* stream_ptr) {
+  return run_matmul<Pair8>(x, data, scale, base, out, workspace, M, K, N,
+                           kb_per_split, ksplit, stream_ptr);
 }
 
 }  // extern "C"

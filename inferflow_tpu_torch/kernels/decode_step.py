@@ -27,10 +27,14 @@ Not ported (``fused_step_supported`` raises NotImplementedError where the
 TPU package would fuse them): the byte-per-code block weight modes, the
 i4 layout of other blocks than 64 with f16 scale and base, and per-matmul
 output biases; the i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT=bf16 in
-the TPU package, a measurement switch) is not ported either.  The Q3H
-pair8 layout and routed MoE are refused earlier, by
-``models.decoder.check_supported``.  There is no fallback switch: if the
-kernel fails to build or launch, the step raises.
+the TPU package, a measurement switch) is not ported either.  Neither is
+mode (h), Q3H weights in the pair8 layout: the TPU package supports it
+but does not prefer it (its measured unpack cost loses to the per-layer
+path), so ``fused_step_preferred`` routes pair8 to the per-layer loop
+(kernel B6 in every product) as there, and ``fused_step_supported``
+raises NotImplementedError naming mode (h).  Routed MoE is refused
+earlier, by ``models.decoder.check_supported``.  There is no fallback
+switch: if the kernel fails to build or launch, the step raises.
 """
 
 from __future__ import annotations
@@ -38,13 +42,15 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import weakref
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..quant.codec_torch import (I4_PLANE, Int8MXUTensor, QuantizedTensor,
-                                 i4_nibbles, int8_rowwise_activations)
+from ..quant.codec_torch import (I4_PLANE, PAIR8_PLANE, Int8MXUTensor,
+                                 QuantizedTensor, i4_nibbles,
+                                 int8_rowwise_activations)
 from ..quant.formats import get_format
 from ..runtime.kv_cache import KVCache, append_rows_all_layers
 from ..runtime.paged_kv import (PagedKVCache, append_rows_all_layers_paged,
@@ -275,10 +281,11 @@ def _pick_tn(kp: int, n: int) -> int:
 
 def _mm_mode(w) -> Optional[str]:
     """How the TPU kernel would stream weight w (its `_mm_cfg`): 'i8mm';
-    'i4' (the i4 layout's data_i4p nibbles, streamed i4x8); 'byte' (one
-    code per byte: the Q8 block formats); 'wire' (sub-byte single-plane
-    wire formats, which it routes to the per-layer path); or None (not
-    fusable)."""
+    'i4' (the i4 layout's data_i4p nibbles, streamed i4x8); 'pair8' (Q3H's
+    byte-per-pair plane, mode (h), which it routes to the per-layer path);
+    'byte' (one code per byte: the Q8 block formats); 'wire' (sub-byte
+    single-plane wire formats, also routed to the per-layer path); or None
+    (not fusable)."""
     if isinstance(w, Int8MXUTensor):
         kp, n = (int(s) for s in w.data.shape)
         return "i8mm" if kp % 8 == 0 and _pick_tn(kp, n) else None
@@ -290,7 +297,15 @@ def _mm_mode(w) -> Optional[str]:
         if (2 * kp) % fmt.block or kp % 8 or not _pick_tn(kp, n):
             return None
         return "i4"
-    if (fmt.pair_base11 or len(fmt.planes) != 1
+    if fmt.pair_base11:
+        plane = w.planes.get(PAIR8_PLANE)
+        if plane is None or fmt.meta != "f16":
+            return None
+        kp, n = (int(s) for s in plane.shape)
+        if (2 * kp) % fmt.block or kp % 8 or not _pick_tn(kp, n):
+            return None
+        return "pair8"
+    if (len(fmt.planes) != 1
             or fmt.planes[0].layout != "consecutive" or fmt.meta != "f16"
             or "data" not in w.planes):
         return None
@@ -375,6 +390,10 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
     return modes
 
 
+_MODE_H_UNPORTED = ("the fused decode step's mode (h), Q3H weights in the "
+                    "pair8 layout, is not ported")
+
+
 def _i4_kernel_format(w: QuantizedTensor) -> bool:
     return (get_format(w.format).block == 64 and w.base is not None
             and w.scale.dtype == w.base.dtype == torch.float16)
@@ -385,16 +404,19 @@ def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
     package's rule over this package's per-layer lists and logical caches,
     dense or paged; its TPU lane-tile rule for the cache does not apply).
     Raises NotImplementedError for a configuration the TPU package fuses
-    in a mode that is not ported here."""
-    return _fusion_modes(spec, layers, cache, bsz) is not None
+    in a mode that is not ported here, Q3H pair8 (mode (h)) among them."""
+    modes = _fusion_modes(spec, layers, cache, bsz)
+    if modes is not None and "pair8" in modes:
+        raise NotImplementedError(_MODE_H_UNPORTED)
+    return modes is not None
 
 
 def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
     """Routing on top of fused_step_supported, as the TPU package routes:
-    sub-byte wire planes keep the per-layer path (kernels B1, B2); the
-    i8mm and i4 layouts take the fused step."""
+    sub-byte wire planes and Q3H pair8 keep the per-layer path (kernels
+    B1 or B6, and B2); the i8mm and i4 layouts take the fused step."""
     modes = _fusion_modes(spec, layers, cache, bsz)
-    return modes is not None and "wire" not in modes
+    return modes is not None and not modes & {"wire", "pair8"}
 
 
 # ------------------------------------------------------ the plain version
@@ -597,10 +619,39 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
 
 
 # ------------------------------------------------------------ the kernel
-# per-layer pointer tables, built once per layer list (a strong reference
-# keeps the list, and so its id, alive while its table is cached)
+# per-layer pointer tables, built once per layer list and keyed by its id.
+# An entry holds weak references only (a list cannot be weakly referenced:
+# its tensors are), so freeing an engine frees its weights.  A hit must
+# find the same list length, the same first and last norm tensors (an id
+# can be reused by a later list) and every tensor of the table alive (its
+# pointers then point into live weights).
 _TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _TABLE_CACHE_SIZE = 4
+
+
+def _table_tensors(layers: list) -> list:
+    """Every tensor whose pointer the step's table holds."""
+    out = []
+    for lp in layers:
+        out += [lp["attn"]["pre_norm"], lp["ffn"]["pre_norm"]]
+        for _, w, _ in _products(lp):
+            if isinstance(w, Int8MXUTensor):
+                out += [w.data, w.scale]
+            else:
+                out += [w.planes[I4_PLANE], w.scale, w.base]
+    return out
+
+
+def _cached_table(layers: list):
+    hit = _TABLES.get(id(layers))
+    if hit is None:
+        return None
+    n, first, last, refs, entry = hit
+    if (n == len(layers) and first() is layers[0]["attn"]["pre_norm"]
+            and last() is layers[-1]["ffn"]["pre_norm"]
+            and all(r() is not None for r in refs)):
+        return entry
+    return None
 
 
 def _products(lp: dict) -> tuple:
@@ -615,9 +666,9 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
     mode, stored K and (data, scale, base) pointers: csrc kTableStride),
     w2's stored K (hglu's row length, one for all layers) and the (K, N,
     GLU) shapes of the i4x8 products, built once per layer list."""
-    hit = _TABLES.get(id(layers))
-    if hit is not None and hit[0] is layers:
-        return hit[1]
+    entry = _cached_table(layers)
+    if entry is not None:
+        return entry
     ptrs, i4_shapes = [], set()
     f_s = _stored_k(layers[0]["ffn"]["w2"])
     for lp in layers:
@@ -641,7 +692,11 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
                 ptrs += [_MODES[mode], k, w.planes[I4_PLANE].data_ptr(),
                          w.scale.data_ptr(), w.base.data_ptr()]
     entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s, frozenset(i4_shapes))
-    _TABLES[id(layers)] = (layers, entry)
+    _TABLES[id(layers)] = (
+        len(layers), weakref.ref(layers[0]["attn"]["pre_norm"]),
+        weakref.ref(layers[-1]["ffn"]["pre_norm"]),
+        [weakref.ref(t) for t in _table_tensors(layers)], entry)
+    _TABLES.move_to_end(id(layers))
     while len(_TABLES) > _TABLE_CACHE_SIZE:
         _TABLES.popitem(last=False)
     return entry
@@ -739,6 +794,8 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
     (through the page table for a paged cache); cache.length is not
     advanced."""
     modes = _fusion_modes(spec, layers, cache, x.shape[0])
+    if modes and "pair8" in modes:
+        raise NotImplementedError(_MODE_H_UNPORTED)
     if not modes or not modes <= set(_MODES):
         raise NotImplementedError(
             "fused_decode_step serves i8mm and i4 weights and a Q8 cache; "

@@ -1,12 +1,17 @@
 """Dequantize-matmul: y = x @ dequant(W) for block-quantized W.
 
-Port of inferflow_tpu/kernels/dequant_matmul.py: kernel B1
-(`quantized_matmul`, whose fast Pallas kernel is `_make_fast_kernel`) for
-Q4_B64T1 wire planes, and kernel B5 (`_make_i4_kernel`) for the i4 device
-layout's ``data_i4p`` plane (``i4_matmul``).  On a CUDA tensor each wrapper
-launches its hand-written kernel of ``csrc/dequant_matmul.cu`` or raises;
-on a CPU tensor it runs the plain version, which is also what
-``chip_smoke.py`` holds the kernel against on the card.
+Port of inferflow_tpu/kernels/dequant_matmul.py.  One entry point,
+``quantized_matmul``, picks the kernel from the weight's plane: kernel B1
+(the fast Pallas kernel `_make_fast_kernel`) for Q4_B64T1 wire planes,
+kernel B5 (`_make_i4_kernel`) for the i4 device layout's ``data_i4p``
+plane, and kernel B6 (`_make_kernel`) in its pair8 mode for Q3H_B64T1's
+``pair8`` plane; their launch counts are ``dequant_matmul``,
+``i4_matmul`` and ``q3h_matmul``.  On a CUDA tensor it launches the
+hand-written kernel of ``csrc/dequant_matmul.cu`` or raises; on a CPU
+tensor it runs the plain version, which is also what ``chip_smoke.py``
+holds the kernel against on the card.  B6's Q3H wire-plane mode and its
+non-pair generic branch are not ported (no serving route reaches them:
+``from_np`` and ``quantize`` give Q3H as pair8).
 """
 
 from __future__ import annotations
@@ -15,13 +20,14 @@ import ctypes
 
 import torch
 
-from ..quant.codec_torch import (I4_PLANE, QuantizedTensor, dequantize,
-                                 i4_nibbles)
+from ..quant.codec_torch import (I4_PLANE, PAIR8_PLANE, QuantizedTensor,
+                                 dequantize, i4_nibbles)
 from ..quant.formats import get_format
 from . import _build
 
 KERNEL = "dequant_matmul"
 I4_KERNEL = "i4_matmul"
+Q3H_KERNEL = "q3h_matmul"
 
 
 def quantized_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -38,8 +44,9 @@ def _lib():
         lib.ift_q4_matmul.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                                       vp]
         lib.ift_q4_matmul.restype = ctypes.c_int
-        lib.ift_i4_matmul.argtypes = lib.ift_q4_matmul.argtypes
-        lib.ift_i4_matmul.restype = ctypes.c_int
+        for fn in (lib.ift_i4_matmul, lib.ift_q3h_matmul):
+            fn.argtypes = lib.ift_q4_matmul.argtypes
+            fn.restype = ctypes.c_int
         lib.ift_q4_matmul_plan.argtypes = [i, i, i, i,
                                            ctypes.POINTER(i),
                                            ctypes.POINTER(i)]
@@ -60,23 +67,28 @@ def matmul_plan(lib, m: int, k: int, n: int, device) -> tuple:
     return per.value, ksplit.value
 
 
-def _check_kernel_format(qt: QuantizedTensor, plane: str) -> None:
-    fmt = get_format(qt.format)
-    if (fmt.name != "Q4_B64T1" or set(qt.planes) != {plane}
-            or qt.scale.dtype != torch.float16 or qt.base is None):
-        raise NotImplementedError(
-            f"the CUDA dequant-matmul kernels serve Q4_B64T1 ({plane}); "
-            f"got {fmt.name} with planes {sorted(qt.planes)}")
+# the plane each kernel reads -> (kernel, its C entry, the one format it
+# serves: 64-row blocks, f16 scale and base)
+_KERNELS = {"data": (KERNEL, "ift_q4_matmul", "Q4_B64T1"),
+            I4_PLANE: (I4_KERNEL, "ift_i4_matmul", "Q4_B64T1"),
+            PAIR8_PLANE: (Q3H_KERNEL, "ift_q3h_matmul", "Q3H_B64T1")}
 
 
-def _launch(entry: str, kernel: str, x: torch.Tensor, qt: QuantizedTensor,
-            plane: str) -> torch.Tensor:
-    """y = x @ W through kernel B1 or B5 on the card; x: (..., K) with K
+def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ W through kernel B1, B5 or B6 on the card; x: (..., K) with K
     the logical K of qt.  The kernels take (M, K_s) contiguous bf16 rows,
     16-byte aligned: a stored K beyond the logical K (zero-scale,
     zero-base pad blocks) takes zero-padded activations, as the JAX
     wrapper does."""
-    _check_kernel_format(qt, plane)
+    fmt = get_format(qt.format)
+    plane = next((p for p in (I4_PLANE, PAIR8_PLANE) if p in qt.planes),
+                 "data")
+    kernel, entry, want = _KERNELS[plane]
+    if (fmt.name != want or set(qt.planes) != {plane}
+            or qt.scale.dtype != torch.float16 or qt.base is None):
+        raise NotImplementedError(
+            f"the CUDA kernel {kernel} serves {want} ({plane}); "
+            f"got {fmt.name} with planes {sorted(qt.planes)}")
     _build.require_hopper(x)
     k, n = int(qt.shape[-2]), int(qt.shape[-1])
     k_s = qt.storage_k
@@ -108,13 +120,20 @@ def _launch(entry: str, kernel: str, x: torch.Tensor, qt: QuantizedTensor,
 
 
 def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """y = x @ dequant(qt); x: (..., K) with K the logical K of qt.
-    CUDA tensors run kernel B1 (or raise); CPU tensors the plain version."""
+    """y = x @ dequant(qt); x: (..., K) with K the logical K of qt; every
+    quantized product of ops/linear.py.  CUDA tensors run the kernel of
+    qt's plane (_KERNELS: B5 for ``data_i4p``, B6 for ``pair8``, else B1;
+    M <= 8 the split-K GEMV, more rows the tiled tensor-core kernel) or
+    raise; CPU tensors its plain
+    version (i4_matmul_plain for B5, quantized_matmul_plain for B1 and
+    B6, whose weights are the codec's bit for bit)."""
     if x.device.type == "cpu":
+        if I4_PLANE in qt.planes:
+            return i4_matmul_plain(x, qt)
         return quantized_matmul_plain(x, qt)
     if x.device.type != "cuda":
         raise ValueError(f"quantized_matmul: unsupported device {x.device}")
-    return _launch("ift_q4_matmul", KERNEL, x, qt, "data")
+    return _launch(x, qt)
 
 
 # ------------------------------------------------------------ kernel B5
@@ -138,15 +157,3 @@ def i4_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """The plain version of B5: i4_weight's bf16 weights and a float32
     matmul, cast back to x's dtype.  x: (..., K)."""
     return torch.matmul(x.float(), i4_weight(qt).float()).to(x.dtype)
-
-
-def i4_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """y = x @ W for a QuantizedTensor in the i4 layout (ops/linear.py's
-    route for ``data_i4p``); x: (..., K) with K the logical K.  CUDA
-    tensors run kernel B5 (M <= 8: the split-K GEMV; more rows: the tiled
-    tensor-core kernel) or raise; CPU tensors the plain version."""
-    if x.device.type == "cpu":
-        return i4_matmul_plain(x, qt)
-    if x.device.type != "cuda":
-        raise ValueError(f"i4_matmul: unsupported device {x.device}")
-    return _launch("ift_i4_matmul", I4_KERNEL, x, qt, I4_PLANE)

@@ -16,8 +16,8 @@ Attention routes by phase, as on the TPU:
   - chunked prefill: append the chunk to its slot, then ``chunk_attention``
     (kernel B3) over rows [0, start + T).
 Every quantized linear goes through ops/linear.py: ``quantized_matmul``
-(kernel B1) for wire planes, ``i4_matmul`` (kernel B5) for the i4 layout's
-packed nibbles, the i8mm product for Int8MXUTensors.
+(kernel B1 for wire planes, B5 for the i4 layout's packed nibbles, B6 for
+Q3H's pair8 plane), the i8mm product for Int8MXUTensors.
 A decode step (T == 1 with a cache) whose weights and cache the
 whole-model fused step takes (``fused_step_preferred``: i8mm or i4
 weights, a Q8 cache, dense or paged, B <= 8) runs ``fused_decode_step``

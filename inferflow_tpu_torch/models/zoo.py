@@ -72,11 +72,11 @@ def _maybe_quant(w: torch.Tensor, weight_format: Optional[str],
     layout = layout_for_leaf(device_layout, leaf)
     if layout == "i8mm":
         return requantize_i8_colwise(qt)
+    # no K padding: the JAX zoo pads K to its TPU tile unit first; every
+    # consumer here takes a stored K >= the logical K either way
     if layout == "i4":
-        # no K padding: the JAX zoo pads K to its TPU tile unit first;
-        # every consumer here takes a stored K >= the logical K either way
         return repack_i4(qt)
-    return qt
+    return qt  # Q3H comes out of quantize as pair8
 
 
 def make_synthetic_params(spec: ModelSpec,
@@ -91,7 +91,9 @@ def make_synthetic_params(spec: ModelSpec,
     'i8mm' every quantized weight, the lm_head included, is requantized
     into the per-column int8 container, and under 'i4' every weight of a
     4-bit single-plane format is re-stored as packed signed nibbles
-    (repack_i4)."""
+    (repack_i4).  Under '' (on the CPU) and 'packed', Q3H weights are kept
+    as the pair8 plane quantize emits (one byte per base-11 pair code),
+    the layout kernel B6 reads."""
     check_supported(spec)
     dev = resolve_device(device)
     if device_layout in ("", "auto") and weight_format:

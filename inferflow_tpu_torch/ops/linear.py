@@ -2,10 +2,10 @@
 
 Port of inferflow_tpu/ops/linear.py for the dense, QuantizedTensor and
 Int8MXUTensor cases:
-  - a QuantizedTensor goes to a dequant-matmul kernel wrapper
-    (kernels/dequant_matmul.py; the plain versions on CPU tensors): kernel
-    B5 (``i4_matmul``) for the i4 layout's ``data_i4p`` plane, kernel B1
-    (``quantized_matmul``) for wire planes;
+  - a QuantizedTensor goes to kernels/dequant_matmul.quantized_matmul,
+    which picks the kernel from the weight's plane (B1 for wire planes, B5
+    for the i4 layout's ``data_i4p``, B6 for Q3H's ``pair8``; the plain
+    versions on CPU tensors);
   - an Int8MXUTensor (device layout 'i8mm') to the int8 x int8 product
     with per-row activation and per-column weight scales
     (kernels/decode_step.i8mm_matmul);
@@ -20,8 +20,8 @@ from typing import Optional, Union
 import torch
 
 from ..kernels.decode_step import i8mm_matmul
-from ..kernels.dequant_matmul import i4_matmul, quantized_matmul
-from ..quant.codec_torch import I4_PLANE, Int8MXUTensor, QuantizedTensor
+from ..kernels.dequant_matmul import quantized_matmul
+from ..quant.codec_torch import Int8MXUTensor, QuantizedTensor
 
 Weight = Union[torch.Tensor, QuantizedTensor, Int8MXUTensor]
 
@@ -32,7 +32,7 @@ def linear(x: torch.Tensor, w: Weight,
     if isinstance(w, Int8MXUTensor):
         y = i8mm_matmul(x, w)
     elif isinstance(w, QuantizedTensor):
-        y = i4_matmul(x, w) if I4_PLANE in w.planes else quantized_matmul(x, w)
+        y = quantized_matmul(x, w)
     elif isinstance(w, torch.Tensor):
         y = torch.matmul(x.float(), w.float()).to(x.dtype)
     else:

@@ -4,12 +4,14 @@ Port of inferflow_tpu/quant/codec_jax.py: the same arithmetic in float32 on
 any torch device, so ``quantize`` gives the same bytes as the JAX codec.
 
 Covered: every format whose bit-planes use the consecutive layout (value k
-in byte k//p at bit (k%p)*bits), i.e. the Q8/Q6/Q5_B64/Q4/Q3/Q2 families;
-the ``i8mm`` device layout (``Int8MXUTensor``: per-column int8 codes for
-int8 x int8 products); and the ``i4`` device layout (``repack_i4``: the
-``data_i4p`` plane of signed code-8 nibbles).  The split-nibble Q5_B32T1,
-the base-11 pair formats (Q3H) and the other device re-layouts (q8c,
-mixed, pair8) raise NotImplementedError.
+in byte k//p at bit (k%p)*bits), i.e. the Q8/Q6/Q5_B64/Q4/Q3/Q2 families
+and Q3H; the ``i8mm`` device layout (``Int8MXUTensor``: per-column int8
+codes for int8 x int8 products); the ``i4`` device layout (``repack_i4``:
+the ``data_i4p`` plane of signed code-8 nibbles); and Q3H's ``pair8``
+plane (one byte per base-11 pair code, the plane kernel B6 reads), which
+``quantize`` emits directly and ``from_np`` re-packs wire planes into, as
+the JAX codec does.  The split-nibble Q5_B32T1 and the q8c and mixed
+device layouts raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,12 +25,12 @@ import torch
 from ..device import resolve_device
 from .formats import GLOBAL_TYPES, QuantFormat, get_format
 
-_UNPORTED_PLANES = ("pair8",)
 I4_PLANE = "data_i4p"
+PAIR8_PLANE = "pair8"
 
 
 def _check_format(fmt: QuantFormat) -> None:
-    if fmt.pair_base11 or any(p.layout != "consecutive" for p in fmt.planes):
+    if any(p.layout != "consecutive" for p in fmt.planes):
         raise NotImplementedError(
             f"{fmt.name}: only consecutive-plane block formats are ported")
 
@@ -81,15 +83,18 @@ class QuantizedTensor:
     @classmethod
     def from_np(cls, qt: dict, device="cuda") -> "QuantizedTensor":
         """From the JAX package's ``QuantizedTensor.to_np()`` dict, on
-        `device` (the card unless the caller asks for the CPU)."""
+        `device` (the card unless the caller asks for the CPU).  Q3H wire
+        planes (4 + 2 + 1 bits of each base-11 pair code) are re-packed to
+        ``pair8``, one byte per pair code, as the JAX package's from_np
+        does by default (codec_np.repack_pair8): the codes are unchanged."""
         device = resolve_device(device)
-        if any(n in qt["planes"] for n in _UNPORTED_PLANES):
-            raise NotImplementedError(
-                f"device layout planes {sorted(qt['planes'])} are not ported")
-        _check_format(get_format(qt["format"]))
+        fmt = get_format(qt["format"])
+        _check_format(fmt)
+        planes = {k: _numpy_to_torch(v) for k, v in qt["planes"].items()}
+        if fmt.pair_base11 and PAIR8_PLANE not in planes:
+            planes = {PAIR8_PLANE: _codes(planes, fmt).to(torch.uint8)}
         return cls(qt["format"], tuple(int(s) for s in qt["shape"]),
-                   {k: _numpy_to_torch(v).to(device)
-                    for k, v in qt["planes"].items()},
+                   {k: v.to(device) for k, v in planes.items()},
                    _numpy_to_torch(qt["scale"]).to(device),
                    None if qt["base"] is None
                    else _numpy_to_torch(qt["base"]).to(device))
@@ -114,11 +119,11 @@ def _unpack_plane(packed: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.stack(parts, dim=1).reshape(rows * p, n)
 
 
-def _codes(qt: QuantizedTensor, fmt: QuantFormat) -> torch.Tensor:
+def _codes(planes: dict, fmt: QuantFormat) -> torch.Tensor:
     codes = None
     shift = 0
     for pl in fmt.planes:
-        part = _unpack_plane(qt.planes[pl.name], pl.bits) << shift
+        part = _unpack_plane(planes[pl.name], pl.bits) << shift
         codes = part if codes is None else codes | part
         shift += pl.bits
     return codes
@@ -154,12 +159,22 @@ def i4_nibbles(plane: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape(2 * rows, n)
 
 
+def pair8_values(pair: torch.Tensor) -> torch.Tensor:
+    """(K_s/2, N) uint8 base-11 pair codes -> (K_s, N) uint8 values, row
+    2j = b % 11 and row 2j+1 = b // 11 (any byte, not only the codes
+    0..120).  In uint8 arithmetic (11 * (b // 11) <= 253): several times
+    faster on the CPU than int32 division."""
+    v1 = pair // 11
+    rows, n = pair.shape
+    return torch.stack([pair - 11 * v1, v1], dim=1).reshape(2 * rows, n)
+
+
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Full-tensor dequantize to (K, N): w = q*scale + base in float32,
     rounded once to ``dtype``.  Mirrors codec_jax.dequantize, whose i4
-    branch computes (n + 8)*scale + base from the signed nibble n."""
-    if any(n in qt.planes for n in _UNPORTED_PLANES):
-        raise NotImplementedError("device layout planes are not ported")
+    branch computes (n + 8)*scale + base from the signed nibble n, and
+    whose Q3H branch splits each base-11 pair code b into row 2j = b % 11
+    and row 2j+1 = b // 11."""
     fmt = get_format(qt.format)
     _check_format(fmt)
     k, n = qt.shape[-2], qt.shape[-1]
@@ -169,8 +184,10 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     bs = None if qt.base is None else qt.base.float()[:, None, :]
     if I4_PLANE in qt.planes:
         q = i4_nibbles(qt.planes[I4_PLANE]).float() + 8.0
+    elif fmt.pair_base11:
+        q = pair8_values(qt.planes[PAIR8_PLANE]).float()
     else:
-        q = _codes(qt, fmt)
+        q = _codes(qt.planes, fmt)
         if fmt.base_kind == "zero":
             q = torch.where(q >= 128, q - 256, q)
             bs = None
@@ -191,7 +208,8 @@ def _safe_inverse(scale: torch.Tensor) -> torch.Tensor:
 
 def quantize(x: torch.Tensor, fmt_name: str) -> QuantizedTensor:
     """Quantize a (K, N) tensor on its device.  Byte-identical to
-    codec_jax.quantize for the ported formats."""
+    codec_jax.quantize for the ported formats; Q3H comes out as the
+    ``pair8`` plane, as there."""
     fmt = get_format(fmt_name)
     _check_format(fmt)
     k, n = x.shape
@@ -236,10 +254,17 @@ def quantize(x: torch.Tensor, fmt_name: str) -> QuantizedTensor:
         q = torch.trunc(qf + 0.0001)
     else:
         q = torch.trunc(qf + torch.copysign(torch.full_like(qf, 0.5), qf))
-    # mirror the reference's uint32-cast-then-clamp (see codec_np)
-    q = torch.where(q < 0, torch.full_like(q, fmt.max_code),
-                    q.clamp(max=fmt.max_code))
-    planes = _pack_planes(q.to(torch.int32).reshape(k, n), fmt)
+    if fmt.pair_base11:
+        # negatives clip to 0; the device layout directly: one byte per
+        # base-11 pair code
+        q = q.clamp(0, fmt.max_code).to(torch.int32).reshape(k, n)
+        planes = {PAIR8_PLANE: (q[0::2] + 11 * q[1::2]).to(torch.uint8)}
+    else:
+        # mirror the reference's uint32-cast-then-clamp: a negative offset
+        # wraps and clamps to max_code (JAX codec_np.quantize_np)
+        q = torch.where(q < 0, torch.full_like(q, fmt.max_code),
+                        q.clamp(max=fmt.max_code))
+        planes = _pack_planes(q.to(torch.int32).reshape(k, n), fmt)
     return QuantizedTensor(fmt.name, (k, n), planes, scale_stored,
                            base_stored)
 

@@ -2,10 +2,12 @@
 
 ``params_from_numpy`` takes the JAX package's param tree with every leaf
 already converted to numpy: dense arrays as arrays (bfloat16 included),
-each QuantizedTensor as its ``to_np()`` dict and each Int8MXUTensor as a
-``{"shape", "data", "scale"}`` dict.  Layer-stacked trees (a leading L axis
-on every ``layers`` leaf) are split into the per-layer list this package
-uses.  Tests use it to give both packages identical weights.
+each QuantizedTensor as its ``to_np()`` dict (any plane set: wire planes,
+``data_i4p`` or Q3H's ``pair8``, K-padded storage included) and each
+Int8MXUTensor as a ``{"shape", "data", "scale"}`` dict.  Layer-stacked
+trees (a leading L axis on every ``layers`` leaf) are split into the
+per-layer list this package uses.  Tests use it to give both packages
+identical weights.
 """
 
 from __future__ import annotations

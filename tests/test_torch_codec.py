@@ -93,7 +93,11 @@ def test_q8_sym_matches_jax(block):
 
 
 def test_unported_formats_raise():
+    """The split-nibble Q5_B32T1 stays refused; Q3H (ported) quantizes to
+    its pair8 plane."""
     w = torch.from_numpy(_weights(5))
-    for fmt in ("Q3H_B64T1", "Q5_B32T1"):
-        with pytest.raises(NotImplementedError):
-            codec_torch.quantize(w, fmt)
+    with pytest.raises(NotImplementedError):
+        codec_torch.quantize(w, "Q5_B32T1")
+    qt = codec_torch.quantize(w, "Q3H_B64T1")
+    assert set(qt.planes) == {"pair8"}
+    assert tuple(qt.planes["pair8"].shape) == (w.shape[0] // 2, w.shape[1])

@@ -67,8 +67,8 @@ def _close(got, ref, tol=REL_TOL):
 def test_i4_matmul_kernel(dev):
     """B5: the decode GEMV (M <= 8) and the tiled kernel (M > 8, the B > 8
     decode and prefill), a K-padded weight among them."""
-    from inferflow_tpu_torch.kernels.dequant_matmul import (i4_matmul,
-                                                            i4_matmul_plain)
+    from inferflow_tpu_torch.kernels.dequant_matmul import (
+        i4_matmul_plain, quantized_matmul)
     from inferflow_tpu_torch.ops.linear import linear
     gen = torch.Generator(device=dev).manual_seed(21)
     for k, n, k_s in ((256, 512, None), (2048, 5632, None), (8448, 1024, 8704),
@@ -84,7 +84,7 @@ def test_i4_matmul_kernel(dev):
             assert _build.launch_counts["i4_matmul"] == before + 1
             assert got.shape == (m, n) and got.dtype == torch.bfloat16
             assert _close(got, ref), (k, n, m)
-            assert torch.equal(i4_matmul(x, qt), got)
+            assert torch.equal(quantized_matmul(x, qt), got)
 
 
 def test_i4x8_gemv_kernel(dev):

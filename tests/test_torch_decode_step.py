@@ -343,3 +343,40 @@ def test_engine_fused_path_matches_jax(llama, jax_fused_interpret,
                 assert top2[1] - top2[0] <= 2 * ENGINE_LOGIT_TOL, (i, q)
                 break
         assert len(got[q]) == len(ref[q])
+
+
+def test_layer_table_cache_holds_no_weights(monkeypatch):
+    """B4's per-layer pointer tables, cached by layer list, hold no
+    reference to the weights: a live list hits its table; once the list
+    and its params are dropped (as with a freed engine) its tensors are
+    freed, and a later list that reuses its id is not served the stale
+    table."""
+    import gc
+    import weakref
+    monkeypatch.setattr(tds._build, "check_operand", lambda *a, **k: None)
+    spec = tzoo.make_spec("test-llama", device_layout="i8mm")
+    hp = spec.hyper_params
+    dims = (hp.embd_dims, hp.decoder_heads * hp.head_dim,
+            (hp.decoder_heads + 2 * hp.kv_heads) * hp.head_dim,
+            hp.decoder_intermediate_size)
+
+    def layers(seed):
+        return tzoo.make_synthetic_params(spec, "Q4_B64T1", seed=seed,
+                                          device="cpu",
+                                          device_layout="i8mm")["layers"]
+
+    first = layers(0)
+    table = tds._layer_table(first, *dims)
+    assert tds._layer_table(first, *dims) is table
+    w2 = weakref.ref(first[-1]["ffn"]["w2"].data)
+    stale = tds._TABLES[id(first)]
+    del first
+    gc.collect()
+    assert w2() is None
+    later = layers(1)
+    monkeypatch.setitem(tds._TABLES, id(later), stale)
+    fresh = tds._layer_table(later, *dims)
+    assert fresh is not table
+    # the table: per layer two norms, then per product (mode, stored K,
+    # data, scale, base)
+    assert fresh[0][4] == later[0]["attn"]["qkv"].data.data_ptr()

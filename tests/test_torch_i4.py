@@ -2,7 +2,8 @@
 
 The layout (``device_layout="i4"``, codec_jax.repack_i4) re-stores a 4-bit
 single-plane format's codes as signed code-8 nibbles (``data_i4p``).  It
-runs kernel B5 (``kernels/dequant_matmul.i4_matmul``) for every product
+runs kernel B5 (``kernels/dequant_matmul.quantized_matmul``'s route for
+``data_i4p``) for every product
 outside the fused step and B4's mode (b), i4x8, on every decode step of at
 most 8 slots.  Weights: the JAX zoo's test-llama params from Q4_B64T1
 in the i4 layout, moved over with ``weights.params_from_numpy``; a
@@ -136,8 +137,10 @@ def test_repack_and_dequantize_match_jax():
              "planes": {"pair8": np.zeros((64, 64), np.uint8)},
              "scale": np.zeros((2, 64), np.float16),
              "base": np.zeros((2, 64), np.float16)}
-    with pytest.raises(NotImplementedError):
-        codec_torch.QuantizedTensor.from_np(pair8, device="cpu")
+    # Q3H's pair8 plane is taken as it is (and is no i4 format)
+    qt = codec_torch.QuantizedTensor.from_np(pair8, device="cpu")
+    assert set(qt.planes) == {"pair8"} and qt.storage_k == 128
+    assert codec_torch.repack_i4(qt) is qt
 
 
 def test_params_from_jax_stacked_and_padded(llama, llama_pad):
@@ -193,7 +196,8 @@ def test_b5_plain_matches_interpret(llama, llama_pad):
             ref = np.asarray(quantized_matmul_interpret(
                 jnp.asarray(x).astype(jnp.bfloat16), w_j), np.float32)
             xt = torch.from_numpy(x).to(torch.bfloat16)
-            for got in (tdm.i4_matmul(xt, w_t), tlinear.linear(xt, w_t)):
+            for got in (tdm.quantized_matmul(xt, w_t),
+                        tlinear.linear(xt, w_t)):
                 got = got.float().numpy()
                 assert got.shape == ref.shape
                 assert np.all(np.abs(got - ref) <= _bf16_step(ref)), (k, m)

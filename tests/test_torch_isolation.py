@@ -5,8 +5,8 @@
   ``inferflow_tpu`` out of ``sys.modules``; no module of it, and nothing in
   ``chip_smoke.py``, names them in an import.
 - Entry points default to the card and raise where there is none; the
-  kernel wrappers (B1-B3, B5, B7, the i8mm product and the fused decode
-  step B4, dense and paged, i8mm and i4) raise for a tensor that is
+  kernel wrappers (B1-B3, B5, B6, B7, the i8mm product and the fused
+  decode step B4, dense and paged, i8mm and i4) raise for a tensor that is
   neither on the CPU nor on a card, and the kernel build raises without a
   CUDA compiler.
 """
@@ -91,6 +91,10 @@ def test_entry_points_refuse_a_missing_card():
         PagedKVCache.create(1, 1, 512, 2, 32, quantized=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         QuantizedTensor.from_np(params["lm_head"].to_np())
+    q3h = make_synthetic_params(spec, "Q3H_B64T1", device="cpu",
+                                device_layout="packed")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QuantizedTensor.from_np(q3h["lm_head"].to_np())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"layers": [],
                            "lm_head": params["lm_head"].to_np()})
@@ -143,12 +147,19 @@ def test_wrappers_refuse_other_devices():
                 fused_decode_step(spec, p["layers"], x,
                                   torch.zeros((2, 1), dtype=torch.int32), c)
 
-    # kernel B5 (the i4 layout's products)
-    from inferflow_tpu_torch.kernels.dequant_matmul import i4_matmul
+    # kernel B5 (the i4 layout's products) and kernel B6 (Q3H pair8)
     from inferflow_tpu_torch.ops.linear import linear
-    for fn in (i4_matmul, linear):
-        with pytest.raises(ValueError, match="unsupported device"):
-            fn(torch.empty((2, hp.embd_dims), device="meta"), i4["lm_head"])
+    q3h = make_synthetic_params(spec, "Q3H_B64T1", device="cpu",
+                                device_layout="packed")
+    assert set(q3h["lm_head"].planes) == {"pair8"}
+    for w in (i4["lm_head"], q3h["lm_head"]):
+        for fn in (quantized_matmul, linear):
+            with pytest.raises(ValueError, match="unsupported device"):
+                fn(torch.empty((2, hp.embd_dims), device="meta"), w)
+    # the fused step has no pair8 mode: it raises whatever the device
+    with pytest.raises(NotImplementedError, match=r"mode \(h\)"):
+        fused_decode_step(spec, q3h["layers"], x,
+                          torch.zeros((2, 1), dtype=torch.int32), cache)
 
 
 def test_kernel_build_needs_nvcc():

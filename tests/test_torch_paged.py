@@ -84,7 +84,7 @@ def test_engine_config_matches_jax():
     specs, field by field (the pipeline ini's inline comment after
     `devices` is refused by both loaders alike)."""
     paths = sorted((ROOT / "configs").glob("*.ini"))
-    assert len(paths) == 5
+    assert len(paths) == 6
     refused = 0
     for path in paths:
         ref, got = _load(jload, path), _load(tload, path)
@@ -110,6 +110,13 @@ def test_engine_config_matches_jax():
     assert (i4.model.device_layout, i4.model.device_weight_data_type,
             i4.model.device_kv_cache_data_type, i4.model.max_context_len) \
         == ("i4", "Q4", "Q8", 4096)
+    q3h = tload(str(ROOT / "configs" / "inferflow_service.q3h.ini"))
+    assert (q3h.max_concurrent_queries, q3h.kv_cache_paging) == (8, False)
+    assert (q3h.model.sid, q3h.model.device_layout,
+            q3h.model.device_weight_data_type,
+            q3h.model.device_kv_cache_data_type,
+            q3h.model.max_context_len) \
+        == ("llama2_13b", "packed", "Q3H", "Q8", 4096)
 
 
 def _jax_pool_to_logical(jc):
