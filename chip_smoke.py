@@ -96,7 +96,34 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        engine and cache are freed; reports the model's bytes against the
        i8mm bytes the auto rule would have placed;
    (g-cpu) the same at ENGINE_GCPU_LAYERS layers (a 300-token prompt: B3
-       at this width too), against the CPU engine.
+       at this width too), against the CPU engine;
+7. reads configs/inferflow_service.q8.ini the same way: llama2-7b from
+   seed-0 Q8_B32T2 (the ini's `Q8`; no device_layout: the auto rule keeps
+   byte formats as they are), 8 slots, a 4096-token context, and
+   - holds B1's Q8 case (q8_matmul) at the five products' shapes (w2 also
+     stored K-padded to 11264), M in {1, 8, 12, 256}, in Q8_B32T2 and
+     Q8_B32T1, against its plain version, the same bits twice, and times
+     it (library: torch.matmul on the pre-dequantized bf16 weight);
+   - holds B4 mode (c) (fused_decode_step_byte) at 32 layers, B = 8
+     (Q8_FUSED_LENGTHS) and B = 1, against its plain version (one layer in
+     both Q8 formats, and the stack), the same bits twice, and times it;
+   (h) serves ENGINE_H_PROMPTS (7 to 2000 tokens) at full depth: every
+       decode step B4 (c), prefill and the lm_head B1-Q8, chunks B3; no
+       B1-Q4, B2, B5, B6, B7, B4 (a) or (b) or int8 GEMV; every sampled
+       row is held against a dense bf16 twin on the card (the codec's
+       weights, linear's dense branch) fed (h)'s tokens, built after (h)'s
+       engine is freed; reports the weight bytes against run (c)'s i8mm
+       ones;
+   (h-cpu) the same at ENGINE_HCPU_LAYERS layers (a 300-token prompt: B3),
+       against the CPU engine;
+   then, at tinyllama-1.1b width with PROMPT_LENS and 4 slots, each against
+   the CPU engine:
+   (i) device_layout = q8c from seed-0 Q4_B64T1 at full depth: every
+       weight re-encoded as Q8_B32T2, every decode step B4 (c);
+       ENGINE_CUT_CPU_NEW new tokens per query;
+   (j) device_layout = mixed at ENGINE_J_LAYERS layers: q8c FFN weights
+       (B1-Q8), Q4 wire attention and lm_head (B1-Q4), the per-layer
+       decode with B2, chunks B3.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -135,7 +162,9 @@ ENGINE_LOGIT_TOL = 0.08
 # rounding, and with it a row's int8 activation scale, that the plain
 # version does not
 ENGINE_I8MM_LOGIT_TOL = 0.12  # measured 0.053-0.062 (H100, 700 W)
-ENGINE_B_LAYERS = 4  # depth of the packed run (b)
+# depth of the packed run (b): 2 layers, to keep the whole script near
+# half its time limit on a slow host; its CPU reference dominates
+ENGINE_B_LAYERS = 2
 FUSED_LENGTHS = (1023, 700, 301, 17)
 # B4 against its plain version.  One layer (the same inputs on both
 # sides): ONE_LAYER_TOL x max|plain|; at B = 1 (float32 throughout) the
@@ -207,7 +236,8 @@ ENGINE_CUT_CPU_NEW = 8
 ENGINE_ECPU_LAYERS = 2
 ENGINE_ECPU_PROMPTS = (7, 300, 13)
 # run (f): B > 8, the per-layer loop with B5 and B2
-ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT = 4, 12, 1024
+# (f) at 2 layers, as (b)
+ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT = 2, 12, 1024
 ENGINE_F_PROMPTS = (7, 13, 33, 64, 100)
 # measured 0.0703 for (e-cpu) (H100, 700 W)
 ENGINE_CUT_CPU_TOL = 0.12
@@ -233,6 +263,44 @@ G_CHUNK_START = 1536
 # llama2-13b width
 ENGINE_GCPU_LAYERS = 2
 ENGINE_GCPU_PROMPTS = (7, 300, 13)
+
+# Q8 block weights: configs/inferflow_service.q8.ini, llama2-7b in Q8_B32T2
+Q8_INI = "configs/inferflow_service.q8.ini"
+Q8_MODEL_NAME = "llama2-7b"
+Q8_CONTEXT = 4096
+# B4 (c) at B = 8 (lengths spread up to the last cache row) and B = 1
+Q8_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
+# B4 (c) against its plain version: one layer ONE_LAYER_TOL x max|plain|;
+# all 32 layers Q8_FUSED_TOL x max|plain|.  Both take the same bf16
+# weights and bf16 activations and differ in float32 summation order
+# (and, at B > 1, in the batched attention's bf16 roundings relative to
+# other running maxima); 32 random-weight layers amplify each moved bf16
+# rounding of the residual, xn and hglu, but no int8 activation code
+# moves with it, as in B4 (a) and (b): measured 0-0.7% for one layer and
+# 2.6% (B = 1) and 1.9% (B = 8) for the stack (H100, 700 W), against B4
+# (b)'s 10.6-15.3%: about three times the measured stack
+Q8_FUSED_TOL = 0.08
+# run (h): 12 queries of 7 to 2000 tokens; those over 256 take the chunked
+# prefill (B3)
+ENGINE_H_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+# run (h) against a dense bf16 twin on the card (the codec's weights under
+# linear's dense branch; the per-layer loop with B2) fed (h)'s tokens.
+# Prefill rows: B1-Q8 multiplies the twin's weights bit for bit and
+# differs in float32 summation order only, which 32 random layers amplify
+# (run (g) measured 0.043 over 40 layers, (h) 0.039): four bf16 steps of
+# a logit between 2 and 4.  Decode rows also differ by B4 (c)'s weights,
+# bf16(q * bf16(sc)) where the twin has bf16(q * sc) (the TPU kernel's
+# rounded scale): the gate of earlier decode rows (measured 0.043; H100,
+# 700 W)
+ENGINE_H_PREFILL_TOL = 0.0625
+ENGINE_H_DECODE_TOL = 0.12
+# (h-cpu): 2 layers; the 300-token prompt takes a chunk (B3); measured
+# 0.0156 against the CPU engine, and (i) 0.039, (j) 0.0195 (H100, 700 W)
+ENGINE_HCPU_LAYERS = 2
+ENGINE_HCPU_PROMPTS = (7, 300, 13)
+# run (j): the mixed layout (q8c FFN, Q4 wire attention and lm_head) at
+# tinyllama-1.1b width, per-layer decode
+ENGINE_J_LAYERS = 4
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -260,6 +328,14 @@ KERNEL_SOURCES = {
     # B6 in its pair8 mode (Q3H weights)
     "q3h_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
                    "inferflow_tpu/kernels/dequant_matmul.py:244"),
+    # B1 for the Q8 block formats (Q8_B32T2, Q8_B32T1)
+    "q8_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
+                  "inferflow_tpu/kernels/dequant_matmul.py:146"),
+    # B4 in its byte mode (c) (the TPU kernel's single-plane tile, pk = 1,
+    # stream_mm :583-606)
+    "fused_decode_step_byte": (
+        "inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+        "inferflow_tpu/kernels/decode_step.py:255"),
 }
 
 
@@ -943,10 +1019,12 @@ def build_params(dev, spec, weight_format="Q4_B64T1") -> tuple:
 
 
 def phase_engine(dev, spec, params, memory, label, must_launch,
-                 must_not_launch, tol, engine_kw=None) -> dict:
-    """Serve the four queries; the kernels' launches counted from 0 for
-    this run only.  engine_kw: extra InferenceEngine arguments (paging),
-    for the card's engine and the CPU's alike."""
+                 must_not_launch, tol, engine_kw=None,
+                 max_new=MAX_NEW) -> dict:
+    """Serve the four queries, `max_new` new tokens each; the kernels'
+    launches counted from 0 for this run only.  engine_kw: extra
+    InferenceEngine arguments (paging), for the card's engine and the
+    CPU's alike."""
     engine_kw = engine_kw or {}
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
@@ -962,7 +1040,7 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
     rows = _record_rows(eng)
     _build.launch_counts.clear()
     t0 = time.perf_counter()
-    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, max_new)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
@@ -972,7 +1050,7 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
     served = sum(len(o) for o in outputs)
     vocab = spec.hyper_params.vocab_size
     for o in outputs:
-        assert len(o) == MAX_NEW and all(0 <= t < vocab for t in o), o
+        assert len(o) == max_new and all(0 <= t < vocab for t in o), o
     for q in qids:
         assert all(np.isfinite(r).all() and r.shape == (vocab,)
                    for r in rows[q])
@@ -994,15 +1072,16 @@ def phase_engine(dev, spec, params, memory, label, must_launch,
         assert launches.get(k, 0) > 0, f"{k} never launched in run {label}"
     for k in must_not_launch:
         assert launches.get(k, 0) == 0, f"{k} launched in run {label}"
-    if "fused_decode_step" in must_launch:
-        assert launches["fused_decode_step"] == len(decode_ms), \
-            "a decode step did not take the fused step"
+    for k in must_launch:
+        if k.startswith("fused_decode_step"):
+            assert launches[k] == len(decode_ms), \
+                f"a decode step did not take the fused step {k}"
     profile_decode(eng, prompts[1], label)
 
     check_against_cpu(spec, params, prompts, qids, rows, outputs, label, tol,
                       dict(max_concurrent_queries=SLOTS,
                            max_context_len=CONTEXT, kv_cache_quantized=True,
-                           **engine_kw))
+                           **engine_kw), max_new)
     return launches
 
 
@@ -1658,8 +1737,9 @@ def phase_b6(timer, dev, params) -> list:
 
 
 def _dense_twin(params):
-    """The same Q3H values dequantized to bf16 (codec_torch.dequantize,
-    the weights B6 multiplies by): linear's dense branch serves them."""
+    """The same quantized values dequantized to bf16
+    (codec_torch.dequantize, the weights B6 and B1 multiply by): linear's
+    dense branch serves them."""
     from inferflow_tpu_torch.quant.codec_torch import (QuantizedTensor,
                                                        dequantize)
 
@@ -1758,6 +1838,297 @@ def phase_engine_g(dev, cfg, spec, params, memory) -> dict:
     report.update(_split_row_errors(report))
     emit(report)
     assert report["ok"], "run g: rows disagree with the dense twin"
+    return launches
+
+
+# ------------------------------------------------------- Q8 block weights
+def _q8_weights(params) -> dict:
+    """The five products of llama2-7b in Q8_B32T2 (layer 0, the lm_head)
+    and w2 stored K-padded to 11264 (zero-scale blocks, as the JAX zoo
+    pads it)."""
+    import torch.nn.functional as F
+    from inferflow_tpu_torch.quant.codec_torch import QuantizedTensor
+    lp = params["layers"][0]
+    w2 = lp["ffn"]["w2"]
+    pad = -(-w2.storage_k // 512) * 512 - w2.storage_k
+    w2_pad = QuantizedTensor(w2.format, w2.shape,
+                             {"data": F.pad(w2.planes["data"], (0, 0, 0, pad))},
+                             F.pad(w2.scale, (0, 0, 0, pad // 32)), None)
+    return {"qkv": lp["attn"]["qkv"], "wo": lp["attn"]["wo"],
+            "w1n3": lp["ffn"]["w1n3"], "w2": w2, "w2_ks11264": w2_pad,
+            "lm_head": params["lm_head"]}
+
+
+def _as_format(qt, fmt):
+    """qt's values quantized again in `fmt` (the Q8_B32T1 twin of a
+    Q8_B32T2 weight; K-pad blocks stay zero)."""
+    from inferflow_tpu_torch.quant.codec_torch import (QuantizedTensor,
+                                                       dequantize, quantize)
+    full = QuantizedTensor(qt.format, (qt.storage_k, int(qt.shape[-1])),
+                           qt.planes, qt.scale, qt.base)
+    out = quantize(dequantize(full, torch.float32), fmt)
+    return QuantizedTensor(fmt, qt.shape, out.planes, out.scale, out.base)
+
+
+def phase_b1_q8(timer, dev, params) -> list:
+    """Kernel B1's Q8 case at llama2-7b's product shapes (w2 also
+    K-padded), M in {1, 8, 12, 256} (decode at B <= 8 and B > 8, prefill
+    chunks), in Q8_B32T2 and Q8_B32T1, against its plain version; the same
+    bits on a second launch; library: torch.matmul on the pre-dequantized
+    bf16 weight, a yardstick only."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (
+        quantized_matmul, quantized_matmul_plain)
+    from inferflow_tpu_torch.quant.codec_torch import dequantize
+    gen = torch.Generator(device=dev).manual_seed(71)
+    rows = []
+    for name, qt2 in _q8_weights(params).items():
+        for fmt in ("Q8_B32T2", "Q8_B32T1"):
+            qt = qt2 if fmt == qt2.format else _as_format(qt2, fmt)
+            k, n = (int(v) for v in qt.shape)
+            k_s = qt.storage_k
+            w_bf16 = dequantize(qt, torch.bfloat16)
+            for m in (1, 8, 12, 256):
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                got = quantized_matmul(x, qt)
+                ref = quantized_matmul_plain(x, qt)
+                again = quantized_matmul(x, qt)
+                torch.cuda.synchronize()
+                res = compare(got, ref)
+                res["same_bits_twice"] = bool(torch.equal(got, again))
+                res["ok"] = res["ok"] and res["same_bits_twice"]
+                bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
+                b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
+                row = {"phase": "kernel", "kernel": "q8_matmul",
+                       "shape": f"{name} {fmt} M={m} K={k} K_s={k_s} N={n}",
+                       **res,
+                       "ms": timer(lambda: quantized_matmul(x, qt)),
+                       "plain_ms": timer(
+                           lambda: quantized_matmul_plain(x, qt)),
+                       "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+                       "library": "torch.matmul on the pre-dequantized "
+                                  "bf16 weight",
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes_bound": bytes_moved}
+                emit(row)
+                rows.append(row)
+            del w_bf16
+    return rows
+
+
+def _step_vs_plain(spec, layers, x, pos, cache, twin):
+    """One fused step on the card against its plain version on a twin
+    cache (the same rows): (kernel out, plain out, the kernel's out of a
+    second step on a third twin)."""
+    import dataclasses
+    from inferflow_tpu_torch.kernels import decode_step
+    third = dataclasses.replace(
+        cache, k=cache.k.clone(), v=cache.v.clone(),
+        k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
+        length=cache.length.clone())
+    got, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
+    again, _ = decode_step.fused_decode_step(spec, layers, x, pos, third)
+    ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos, twin)
+    torch.cuda.synchronize()
+    return got, ref, again
+
+
+def phase_b4_byte(timer, dev, spec, params) -> list:
+    """B4 mode (c) at full llama2-7b width and depth against its plain
+    version (both on the card, on twin caches of Q8_CONTEXT rows): one
+    layer alone (in Q8_B32T2 and in Q8_B32T1, whose base the step adds
+    through the blocks' activation sums) and the whole stack, at B = 8 and
+    B = 1, the same bits on a second run; timed beside its byte bound."""
+    import dataclasses
+    from inferflow_tpu_torch.kernels import decode_step
+    hp = spec.hyper_params
+    n_layers = hp.decoder_layers
+    lp0 = params["layers"][0]
+    t1_layer = [{"attn": dict(lp0["attn"], qkv=_as_format(lp0["attn"]["qkv"],
+                                                          "Q8_B32T1"),
+                              wo=_as_format(lp0["attn"]["wo"], "Q8_B32T1")),
+                 "ffn": dict(lp0["ffn"],
+                             w1n3=_as_format(lp0["ffn"]["w1n3"], "Q8_B32T1"),
+                             w2=_as_format(lp0["ffn"]["w2"], "Q8_B32T1"))}]
+    rows = []
+    for lengths in (Q8_FUSED_LENGTHS, (Q8_CONTEXT // 2,)):
+        b = len(lengths)
+        cache, gen = _filled_cache(dev, spec, b, Q8_CONTEXT, seed=73,
+                                   context=Q8_CONTEXT)
+        cache.with_length(torch.tensor(lengths, device=dev))
+        twin = dataclasses.replace(
+            cache, k=cache.k.clone(), v=cache.v.clone(),
+            k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
+            length=cache.length.clone())
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = params["dec_embeddings"][tokens]
+        pos = cache.length[:, None].clone()
+        one = [dataclasses.replace(c, k=c.k[:1], v=c.v[:1],
+                                   k_scale=c.k_scale[:1],
+                                   v_scale=c.v_scale[:1])
+               for c in (cache, twin)]
+        one_layer = {}
+        for fmt, layer in (("Q8_B32T2", params["layers"][:1]),
+                           ("Q8_B32T1", t1_layer)):
+            got1, ref1, again1 = _step_vs_plain(
+                spec, layer, x, pos,
+                *(dataclasses.replace(c, k=c.k.clone(), v=c.v.clone(),
+                                      k_scale=c.k_scale.clone(),
+                                      v_scale=c.v_scale.clone())
+                  for c in one))
+            one_layer[fmt] = compare(got1, ref1, ONE_LAYER_TOL)
+            one_layer[fmt]["same_bits_twice"] = bool(torch.equal(got1,
+                                                                 again1))
+        got, ref, again = _step_vs_plain(spec, params["layers"], x, pos,
+                                         cache, twin)
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        steps = []
+        for layer in range(n_layers):
+            worst = 0.0
+            for a, r in zip(cache.read_layer(layer, torch.float32),
+                            twin.read_layer(layer, torch.float32)):
+                for slot, n in enumerate(lengths):
+                    row = min(n, Q8_CONTEXT - 1)
+                    q8 = r[slot, row].abs().amax(dim=-1) / 127.0
+                    diff = (a[slot, row] - r[slot, row]).abs().amax(dim=-1)
+                    worst = max(worst, (diff / q8.clamp(min=1e-12)).max()
+                                .item())
+            steps.append(worst)
+        live = sum(min(n, Q8_CONTEXT) for n in lengths)
+        nblk = hp.head_dim // 32
+        kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
+                                                        + 2 * nblk)
+        new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim + 2 * nblk)
+        bytes_moved = _weight_bytes(params) + kv_bytes + new_rows \
+            + 2 * 2 * b * hp.embd_dims
+        ops = 2 * b * sum(lp[g][w].storage_k * lp[g][w].shape[-1]
+                          for lp in params["layers"]
+                          for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                       ("ffn", "w1n3"), ("ffn", "w2")))
+        b_ms, b_by = bound(bytes_moved, ops)
+        ok = bool(np.isfinite(err) and err <= Q8_FUSED_TOL * scale
+                  and steps[0] <= 1.0 + 1e-3 and torch.equal(got, again)
+                  and all(r["ok"] and r["same_bits_twice"]
+                          for r in one_layer.values()))
+        row = {"phase": "kernel", "kernel": "fused_decode_step_byte",
+               "shape": f"{Q8_MODEL_NAME} Q8_B32T2 L={n_layers} B={b} "
+                        f"lengths={list(lengths)} S={Q8_CONTEXT}",
+               "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
+               "tolerance": f"max_abs_err <= {Q8_FUSED_TOL} * max|plain|; "
+                            f"layer-0 rows within one Q8 step; one layer "
+                            f"alone (Q8_B32T2 and Q8_B32T1): max_abs_err <= "
+                            f"{ONE_LAYER_TOL} * max|plain|; the same bits "
+                            f"on a second run",
+               "one_layer": one_layer,
+               "same_bits_twice": bool(torch.equal(got, again)),
+               "appended_row_q8_steps_by_layer": steps, "ok": ok,
+               "ms": timer(lambda: decode_step.fused_decode_step(
+                   spec, params["layers"], x, pos, cache),
+                   f"fused_decode_step byte B={b}"),
+               "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
+                   spec, params["layers"], x, pos, twin),
+                   f"fused_decode_step_plain byte B={b}", I4_PLAIN_ITERS),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound": bytes_moved}
+        emit(row)
+        rows.append(row)
+        del cache, twin, one
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_engine_h(dev, cfg, spec, params, memory, i8mm_weight_bytes) -> dict:
+    """Run (h): the q8 ini's engine at full depth on the card (every decode
+    step B4 (c), prefill and the lm_head B1-Q8, chunks B3), then, with
+    (h)'s engine and cache freed, a dense bf16 twin on the card fed (h)'s
+    tokens; every sampled row held against the twin's."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    hp = spec.hyper_params
+    rng = np.random.default_rng(8)
+    prompts = [[int(t) for t in rng.integers(1, hp.vocab_size, n)]
+               for n in ENGINE_H_PROMPTS]
+    engine_kw = dict(max_concurrent_queries=cfg.max_concurrent_queries,
+                     max_context_len=spec.max_context_len, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = InferenceEngine(spec, params, **engine_kw)
+    cache_bytes = _pool_bytes(eng.cache)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    memory = dict(memory, cache=cache_bytes,
+                  serving_peak=torch.cuda.max_memory_allocated(dev)
+                  - memory["before"])
+    emit({"phase": "engine_h", "config": Q8_INI, "model": Q8_MODEL_NAME,
+          "layers": hp.decoder_layers, "embd": hp.embd_dims,
+          "device_layout": spec.device_layout or "auto",
+          "weight_format": params["lm_head"].format,
+          "slots": cfg.max_concurrent_queries,
+          "context": spec.max_context_len, "queries": len(prompts),
+          "prompt_lens": list(ENGINE_H_PROMPTS),
+          "tokens_served": sum(len(o) for o in outputs),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "wall_s": wall_s, "device_bytes": memory,
+          "q8_model_bytes": _model_bytes(params),
+          "q8_weight_bytes": _weight_bytes(params)
+          + params["lm_head"].nbytes,
+          "i8mm_weight_bytes_run_c": i8mm_weight_bytes,
+          "prefill_ms_per_step": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step": decode_ms,
+          "first_tokens": [o[:4] for o in outputs],
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    assert launches.get("fused_decode_step_byte", 0) == len(decode_ms), \
+        "a decode step did not take B4 (c)"
+    for k in ("q8_matmul", "chunk_attention"):
+        assert launches.get(k, 0) > 0, f"{k} never launched in run h"
+    for k in ("dequant_matmul", "decode_attention", "i4_matmul",
+              "q3h_matmul", "paged_decode_attention", "fused_decode_step",
+              "fused_decode_step_i4", "i8mm_gemv", "i4x8_gemv"):
+        assert launches.get(k, 0) == 0, f"{k} launched in run h"
+    profile_decode(eng, prompts[0], "h")
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    twin = _dense_twin(params)
+    ref = InferenceEngine(spec, twin, **engine_kw)
+    ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+    _build.launch_counts.clear()
+    ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    ref_launches = dict(_build.launch_counts)
+    assert ref_qids == qids, (ref_qids, qids)
+    assert ref_launches.get("q8_matmul", 0) == 0
+    assert ref_launches.get("fused_decode_step_byte", 0) == 0
+    assert ref_launches.get("decode_attention", 0) > 0
+    twin_peak = torch.cuda.max_memory_allocated(dev) - memory["before"]
+    del ref, twin
+    torch.cuda.empty_cache()
+    report = {"phase": "engine_h_vs_dense_twin_card",
+              "reference_s": time.perf_counter() - t0,
+              "reference_decode_ms_median": float(np.median(ref_decode_ms)),
+              "reference_peak_bytes": twin_peak,
+              "tolerance": f"prefill rows max_abs_err <= "
+                           f"{ENGINE_H_PREFILL_TOL}, decode rows <= "
+                           f"{ENGINE_H_DECODE_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
+                              ENGINE_H_DECODE_TOL))
+    report.update(_split_row_errors(report))
+    report["ok"] = bool(report["ok"] and report["prefill_max_abs_err"]
+                        <= ENGINE_H_PREFILL_TOL)
+    emit(report)
+    assert report["ok"], "run h: rows disagree with the dense twin"
     return launches
 
 
@@ -1951,11 +2322,71 @@ def main() -> int:
     del params_g, params_cut
     torch.cuda.empty_cache()
 
+    # Q8 block weights: configs/inferflow_service.q8.ini, llama2-7b
+    cfg_h, spec_h, fmt_h = ini_config(Q8_INI, Q8_MODEL_NAME)
+    layout_h = resolve_auto_layout(spec_h, fmt_h, dev)
+    emit({"phase": "layout", "model": Q8_MODEL_NAME, "config": Q8_INI,
+          "weight_format": fmt_h, "resolved": layout_h})
+    if fmt_h != "Q8_B32T2" or layout_h != "":
+        failed.append("layout_h")
+    params_h, memory_h = build_params(dev, spec_h, fmt_h)
+    emit({"phase": "weights", "model": Q8_MODEL_NAME,
+          "q8_device_bytes": memory_h,
+          "q8_model_bytes": _model_bytes(params_h),
+          "i8mm_device_bytes_run_c": memory_c})
+    _run(results, failed, "q8_matmul",
+         lambda: phase_b1_q8(timer, dev, params_h))
+    _run(results, failed, "fused_decode_step_byte",
+         lambda: phase_b4_byte(timer, dev, spec_h, params_h))
+    _run(results, failed, "engine_h", lambda: phase_engine_h(
+        dev, cfg_h, spec_h, params_h, memory_h, memory_c["weights"]))
+    spec_cut = ini_config(Q8_INI, Q8_MODEL_NAME,
+                          layers=ENGINE_HCPU_LAYERS)[1]
+    spec_cut.qkv_format = spec_h.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_h, layers=params_h["layers"][:ENGINE_HCPU_LAYERS])
+    _run(results, failed, "engine_h_cpu", lambda: phase_engine_cut_cpu(
+        dev, cfg_h, spec_cut, params_cut, "h_cpu", Q8_INI, Q8_MODEL_NAME,
+        ENGINE_HCPU_PROMPTS, cfg_h.max_concurrent_queries,
+        spec_h.max_context_len,
+        ("fused_decode_step_byte", "q8_matmul", "chunk_attention"),
+        ("fused_decode_step", "fused_decode_step_i4", "dequant_matmul",
+         "decode_attention", "i4_matmul", "q3h_matmul", "i8mm_gemv")))
+    del params_h, params_cut
+    torch.cuda.empty_cache()
+
+    # (i) the q8c layout: every weight of tinyllama-1.1b's seed-0 Q4_B64T1
+    # re-encoded as Q8_B32T2
+    spec_i = make_spec(MODEL, device_layout="q8c")
+    params_i, memory_i = build_params(dev, spec_i)
+    # at 22 layers the plain byte step takes seconds per decode step on
+    # the host: ENGINE_CUT_CPU_NEW new tokens per query
+    _run(results, failed, "engine_i", lambda: phase_engine(
+        dev, spec_i, params_i, memory_i, "i",
+        ("fused_decode_step_byte", "q8_matmul", "chunk_attention"),
+        ("fused_decode_step", "fused_decode_step_i4", "dequant_matmul",
+         "decode_attention", "i8mm_gemv"), ENGINE_CUT_CPU_TOL,
+        max_new=ENGINE_CUT_CPU_NEW))
+    del params_i
+    torch.cuda.empty_cache()
+    # (j) the mixed layout: q8c FFN weights, Q4 wire attention and lm_head
+    spec_j = make_spec(MODEL, device_layout="mixed", layers=ENGINE_J_LAYERS)
+    params_j, memory_j = build_params(dev, spec_j)
+    _run(results, failed, "engine_j", lambda: phase_engine(
+        dev, spec_j, params_j, memory_j, "j",
+        ("dequant_matmul", "q8_matmul", "decode_attention",
+         "chunk_attention"),
+        ("fused_decode_step", "fused_decode_step_i4",
+         "fused_decode_step_byte", "i8mm_gemv", "i4_matmul"),
+        ENGINE_LOGIT_TOL))
+    del params_j
+    torch.cuda.empty_cache()
+
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
                   "paged_decode_attention", "i4_matmul", "i4x8_gemv",
                   "fused_decode_step_i4", "q3h_matmul", "decode_attention_g",
-                  "chunk_attention_g"):
+                  "chunk_attention_g", "q8_matmul",
+                  "fused_decode_step_byte"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -1974,7 +2405,10 @@ def main() -> int:
                 "i4_matmul": results["engine_e"]["i4_matmul"],
                 "fused_decode_step_i4":
                     results["engine_e"]["fused_decode_step_i4"],
-                "q3h_matmul": results["engine_g"]["q3h_matmul"]}
+                "q3h_matmul": results["engine_g"]["q3h_matmul"],
+                "q8_matmul": results["engine_h"]["q8_matmul"],
+                "fused_decode_step_byte":
+                    results["engine_h"]["fused_decode_step_byte"]}
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -1987,7 +2421,11 @@ def main() -> int:
                                if r["shape"].startswith("lm_head M=8 ")),
              "fused_decode_step_i4": results["fused_decode_step_i4"][0],
              "q3h_matmul": next(r for r in results["q3h_matmul"]
-                                if r["shape"].startswith("w1n3 M=8 "))}
+                                if r["shape"].startswith("w1n3 M=8 ")),
+             "q8_matmul": next(r for r in results["q8_matmul"]
+                               if r["shape"].startswith(
+                                   "w1n3 Q8_B32T2 M=8 ")),
+             "fused_decode_step_byte": results["fused_decode_step_byte"][0]}
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

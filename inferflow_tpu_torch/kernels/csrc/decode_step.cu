@@ -1,11 +1,13 @@
-// Whole-model fused decode step (B4) for int8 per-column ("i8mm") weights
-// and for the i4 layout's packed nibbles ("i4x8"), with a Q8 KV cache,
-// plus the two GEMVs it is built from.
+// Whole-model fused decode step (B4) for int8 per-column ("i8mm") weights,
+// for the i4 layout's packed nibbles ("i4x8") and for the Q8 block formats
+// ("byte"), with a Q8 KV cache, plus the GEMVs it is built from.
 //
 // Replaces inferflow_tpu/kernels/decode_step.py `_make_kernel` (its
 // pallas_call at :1373, public entry `fused_decode_step` at :1574) in its
-// weight modes (a) i8mm (`_MM.percol`) and (b) i4x8 (`_MM.i4x8`, the
-// default under INFERFLOW_I4_DOT), with both attention modes: per-slot for
+// weight modes (a) i8mm (`_MM.percol`), (b) i4x8 (`_MM.i4x8`, the
+// default under INFERFLOW_I4_DOT) and (c) byte-per-code (`_mm_cfg` with
+// pk = 1, `stream_mm`'s single-plane branch :583-606: Q8_B32T2 and
+// Q8_B32T1), with both attention modes: per-slot for
 // B = 1 and batched (bf16-rounded q and p*vscale) for B > 1; over the
 // dense cache or, in its paged mode (f), over the page pool of
 // runtime/paged_kv.py through the page table.  Each product takes its own
@@ -15,7 +17,9 @@
 //   xn   = bf16(rmsnorm(xres) * anorm)        x quantized per row to int8
 //   qkv  = W(xn): i8mm f32((acc_i32 * xs_row) * wscale_col), or i4x8
 //          sum over 64-row blocks r of bf16(sum_r xn) * bf16(8*sc + base)
-//          + f32(acc_i32 over r) * (xs_row * sc)
+//          + f32(acc_i32 over r) * (xs_row * sc), or byte: sum over
+//          32-row blocks r of sum_{k in r} xn_k * bf16(q_k * bf16(sc))
+//          (+ bf16(sum_r xn) * bf16(base) for Q8_B32T1), xn in bf16
 //   q, k = rope(q), rope(k); the step's K/V row quantized to Q8 (f32 scale
 //          for the self term, f16 scale and the codes into cache row
 //          `length` of layer l)
@@ -34,9 +38,10 @@
 //
 // What bounds it on the H100: a decode step streams every weight once
 // (i8mm: about 1 GB at tinyllama-1.1b, 6.9 GB at llama2-7b; i4x8: 4.5 bits
-// per weight, 3.7 GB at llama2-7b) for B <= 8 rows, at most 2*B int8
-// operations per weight, far below the card's operations per byte: it is
-// bound by the weight bytes (and the live KV rows).
+// per weight, 3.7 GB at llama2-7b; byte: 8.5 bits, 6.9 GB at llama2-7b)
+// for B <= 8 rows, at most 2*B operations per weight, far below the card's
+// operations per byte: it is bound by the weight bytes (and the live KV
+// rows).
 //
 // What the design does about it:
 //   - i8mm_gemv: each thread owns 4 adjacent columns and loads one 32-bit
@@ -59,6 +64,15 @@
 //     bits, so the warps' sums are added in warp order and the K splits'
 //     partials go to a float workspace that the last CTA of the column
 //     tile adds in split order: the same bits on every run;
+//   - the byte GEMV: one 32-bit load of a (K, N) code row gives 4 columns
+//     of one K row, a 32-row quant block is 32 loads in flight per thread
+//     (64 for the GLU's two column segments);
+//     the activations stay bf16 (no row quantization: the CTA stages its
+//     bf16 K slice in shared memory) and every weight is
+//     bf16(q * bf16(scale)), multiplied by its activation into a float32
+//     sum; Q8_B32T1's base enters once per block through the block's
+//     bf16 activation sum.  Its float sums take the i4x8 GEMV's order
+//     (warps, then splits): the same bits on every run;
 //   - prologues: every CTA recomputes the row norm and the row max of its
 //     <= 8 rows from L2 (rmsnorm), or reads the row max that the previous
 //     launch accumulated with atomicMax on the float bits (ctx, hglu), then
@@ -98,26 +112,32 @@ constexpr int kMinKc = 64;
 constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
 constexpr int kQBlock = 64;     // i4x8: K rows per quant block
 constexpr int kQRows = kQBlock / 2;  // i4x8: nibble-pair byte rows per block
+constexpr int kByteBlock = 32;  // byte mode: K rows (= byte rows) per quant block
 
 enum Prologue { kProNorm = 0, kProRow = 1, kProAmax = 2 };
 enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
-enum WeightMode { kModeI8mm = 0, kModeI4x8 = 1 };
+// kModeByte: Q8_B32T2 (signed codes, no base); kModeByteU: Q8_B32T1
+// (codes 0..255 and a base); both run the byte GEMV
+enum WeightMode { kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3 };
 
 struct GemvArgs {
   const __nv_bfloat16* x;      // (M, K) bf16 activations
   const __nv_bfloat16* norm_w; // (K,) rmsnorm weight (kProNorm)
   const unsigned* amax_in;     // (M,) row max |x| as float bits (kProAmax)
-  const void* w;               // i8mm: (K, N) int8; i4x8: (K/2, N) uint8 nibble pairs
-  const void* w_scale;         // i8mm: (N,) f32 column scales; i4x8: (K/64, N) f16
-  const __half* w_base;        // i4x8: (K/64, N) f16 block bases, or null
+  const void* w;               // i8mm: (K, N) int8; i4x8: (K/2, N) uint8 nibble pairs;
+                               // byte: (K, N) uint8 codes
+  const void* w_scale;         // i8mm: (N,) f32 column scales; i4x8: (K/64, N) f16;
+                               // byte: (K/32, N) f16
+  const __half* w_base;        // i4x8, byte: f16 block bases, or null
   float* out_f32;              // (M, N) (kEpiF32)
   __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, ld_out) hglu (kEpiGlu)
   unsigned* amax_out;          // (M,) row max |hglu| (kEpiGlu)
   int* ws;                     // i8mm: (M, N) int32, zero on entry and on exit
-  float* part;                 // i4x8: (ksplit, M, N) float split partials
+  float* part;                 // i4x8, byte: (ksplit, M, N) float split partials
   int* counters;               // (column tiles,), zero on entry and on exit
   int M, K, N, kc, ksplit, ld_out;
   int pro, epi, act;           // act: 0 silu, 1 gelu (tanh form), 2 relu
+  int byte_signed;             // byte: Q8_B32T2's signed codes (else 0..255)
   float eps;
 };
 
@@ -177,25 +197,35 @@ __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
   return v | ((v & 0x08080808u) * 0x1Eu);
 }
 
-// The int8 GEMV (I4 false: i8mm weights) and the i4x8 GEMV (I4 true: the
-// i4 layout's nibble pairs), with the same prologues and epilogues.
-// grid (column tiles, ksplit).  NSEG = 2 (GLU): segment 1 is column
-// tile*128 + c + N/2, the gate column paired with column tile*128 + c.
+// The int8 GEMV (MODE kModeI8mm: i8mm weights), the i4x8 GEMV (kModeI4x8:
+// the i4 layout's nibble pairs) and the byte GEMV (kModeByte: Q8 block
+// codes, signed or not by a.byte_signed), with the same prologues and
+// epilogues.  grid (column tiles, ksplit).  NSEG = 2 (GLU): segment 1 is
+// column tile*128 + c + N/2, the gate column paired with column
+// tile*128 + c.
 //
 // i8mm: y = (float(sum_k xq*wq) * xs_row) * scale_col; the int32 partials
 // of the warps and the splits are added with atomics (order-free).
 // i4x8 (the TPU kernel's i4x8 tile, decode_step.py:537-572): per 64-row
 // quant block r, y += bf16(sum_{k in r} x_k) * bf16(8*sc + base)
 //                     + float(int32 sum_{k in r} xq_k * n_k) * (xs_row * sc),
-// with n the signed nibble; every warp takes whole blocks of the CTA's K
-// slice, the warps' float sums are added in warp order and the splits'
-// in split order (by the last CTA of the column tile), so the result is
-// the same bits on every run.
-template <int M, int NSEG, bool I4>
+// with n the signed nibble.
+// byte (the TPU kernel's single-plane tile with pk = 1, :583-606): per
+// 32-row quant block r, y += sum_{k in r} x_k * bf16(q_k * bf16(sc))
+//                          (+ bf16(sum_{k in r} x_k) * bf16(base)),
+// with x the bf16 activations (no row quantization) and q the code.
+// i4x8 and byte: every warp takes whole blocks of the CTA's K slice, the
+// warps' float sums are added in warp order and the splits' in split
+// order (by the last CTA of the column tile), so the result is the same
+// bits on every run.
+template <int M, int NSEG, int MODE>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
-  __shared__ int xq_s[M][kMaxKc / 4];
-  __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float (i4x8) sums
-  __shared__ float xsum_s[M][kMaxKc / kQBlock];
+  constexpr bool I4 = MODE == kModeI4x8, BYTE = MODE == kModeByte;
+  constexpr int kBlk = BYTE ? kByteBlock : kQBlock;  // float modes' quant block
+  // the CTA's K slice: int8 codes (i8mm, i4x8) or bf16 activations (byte)
+  __shared__ __align__(16) unsigned char x_s[M][kMaxKc * (BYTE ? 2 : 1)];
+  __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float sums
+  __shared__ float xsum_s[M][kMaxKc / kByteBlock];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
   __shared__ int last_s;
@@ -237,7 +267,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       inv = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)a.K), a.eps));
     }
     float amax = 0.f;
-    if (a.pro == kProAmax) {
+    if (BYTE) {
+      // no row quantization: the activations stay bf16
+    } else if (a.pro == kProAmax) {
       amax = __uint_as_float(a.amax_in[m]);
     } else if (vec) {
 #pragma unroll 4
@@ -268,20 +300,27 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   for (int i = tid; i < M * kCols; i += kGemvThreads) (&red_s[0][0])[i] = 0;
   __syncthreads();
 
-  // prologue 2: this CTA's K slice of the rows, as int8 codes (and, for
-  // i4x8, each quant block's bf16 sum of the activations, one warp each)
+  // prologue 2: this CTA's K slice of the rows, as int8 codes or (byte)
+  // bf16 activations; for i4x8, and for byte weights with a base, each
+  // quant block's bf16 sum of the activations, one warp each
   for (int i = tid; i < M * klen; i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
-    const float q = rintf(__fdiv_rn(activation(a, m, k0 + kk, inv_s[m]), xs_s[m]));
-    reinterpret_cast<int8_t*>(xq_s[m])[kk] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+    const float v = activation(a, m, k0 + kk, inv_s[m]);
+    if constexpr (BYTE) {
+      reinterpret_cast<__nv_bfloat16*>(x_s[m])[kk] = __float2bfloat16_rn(v);  // exact
+    } else {
+      const float q = rintf(__fdiv_rn(v, xs_s[m]));
+      reinterpret_cast<int8_t*>(x_s[m])[kk] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+    }
   }
-  const int nblk = klen / kQBlock;  // i4x8: klen % 64 == 0 (the plan)
-  if constexpr (I4) {
+  const int nblk = klen / kBlk;  // float modes: klen % kBlk == 0 (the plan)
+  if (I4 || (BYTE && a.w_base != nullptr)) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
-      const int kb0 = k0 + lb * kQBlock;
-      const float v = warp_sum(__fadd_rn(activation(a, m, kb0 + lane, inv_s[m]),
-                                         activation(a, m, kb0 + 32 + lane, inv_s[m])));
+      const int kb0 = k0 + lb * kBlk;
+      float v = activation(a, m, kb0 + lane, inv_s[m]);
+      if (kBlk == 64) v = __fadd_rn(v, activation(a, m, kb0 + 32 + lane, inv_s[m]));
+      v = warp_sum(v);
       if (lane == 0) xsum_s[m][lb] = round_bf16(v);
     }
   }
@@ -289,7 +328,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 
   const int col0 = tile * kTileCols + lane * 4;
   const bool col_ok = col0 < ncols;  // N/NSEG % 4 == 0: all 4 columns valid
-  if constexpr (!I4) {
+  if constexpr (MODE == kModeI8mm) {
     // int8 x int8 -> int32 over the slice
     const int8_t* w8 = static_cast<const int8_t*>(a.w);
     int acc[M][4 * NSEG];
@@ -324,7 +363,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
               transpose4(words[u][s], col);
 #pragma unroll
               for (int m = 0; m < M; ++m) {
-                const int xw = xq_s[m][gi];
+                const int xw = reinterpret_cast<const int*>(x_s[m])[gi];
 #pragma unroll
                 for (int c = 0; c < 4; ++c) acc[m][s * 4 + c] = __dp4a(col[c], xw, acc[m][s * 4 + c]);
               }
@@ -342,8 +381,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     }
     __syncthreads();
   } else {
-    // per quant block: the int32 dot of the block, scaled, plus its fold
-    // term, in float32; each warp walks whole blocks of the slice
+    // per quant block, in float32: i4x8 the int32 dot of the block, scaled,
+    // plus its fold term; byte the block's products and its base term;
+    // each warp walks whole blocks of the slice
     const uint8_t* w4 = static_cast<const uint8_t*>(a.w);
     const __half* wsc = static_cast<const __half*>(a.w_scale);
     float acc[M][4 * NSEG];
@@ -352,7 +392,61 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 #pragma unroll
       for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0.f;
 
-    if (col_ok) {
+    if (BYTE && col_ok) {
+      // q = code read as signed (Q8_B32T2) or not (Q8_B32T1), exact
+      const uint32_t flip = a.byte_signed ? 0x80u : 0u;
+      const float sub = a.byte_signed ? 128.f : 0.f;
+      for (int lb = warp; lb < nblk; lb += kGemvWarps) {
+        const int kb = k0 / kByteBlock + lb;
+        // all 32 code rows of the block, of every segment, in flight at once
+        uint32_t words[NSEG][kByteBlock];
+        float sc[NSEG][4];
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s) {
+          const int col = col0 + s * seg_stride;
+#pragma unroll
+          for (int r = 0; r < kByteBlock; ++r)
+            words[s][r] = __ldg(reinterpret_cast<const uint32_t*>(
+                w4 + ((size_t)kb * kByteBlock + r) * a.N + col));
+          const uint2 sc_bits = __ldg(reinterpret_cast<const uint2*>(wsc + (size_t)kb * a.N + col));
+          const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sc[s][c] = round_bf16(__half2float(sch[c]));
+        }
+#pragma unroll
+        for (int r = 0; r < kByteBlock; ++r) {
+          float xr[M];
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+            xr[m] = bf(reinterpret_cast<const __nv_bfloat16*>(x_s[m])[lb * kByteBlock + r]);
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float q = float(((words[s][r] >> (8 * c)) & 0xFFu) ^ flip) - sub;
+              const float w = round_bf16(__fmul_rn(q, sc[s][c]));
+#pragma unroll
+              for (int m = 0; m < M; ++m) acc[m][s * 4 + c] = fmaf(xr[m], w, acc[m][s * 4 + c]);
+            }
+        }
+        if (a.w_base != nullptr) {
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s) {
+            const uint2 bs_bits = __ldg(reinterpret_cast<const uint2*>(
+                a.w_base + (size_t)kb * a.N + col0 + s * seg_stride));
+            const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float bs = round_bf16(__half2float(bsh[c]));
+#pragma unroll
+              for (int m = 0; m < M; ++m)
+                acc[m][s * 4 + c] = __fadd_rn(acc[m][s * 4 + c], __fmul_rn(xsum_s[m][lb], bs));
+            }
+          }
+        }
+      }
+    }
+    if (I4 && col_ok) {
       for (int lb = warp; lb < nblk; lb += kGemvWarps) {
         const int kb = k0 / kQBlock + lb;
 #pragma unroll
@@ -387,7 +481,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
             transpose4(rows, colv);
 #pragma unroll
             for (int m = 0; m < M; ++m) {
-              const int xw = xq_s[m][lb * (kQBlock / 4) + g];
+              const int xw = reinterpret_cast<const int*>(x_s[m])[lb * (kQBlock / 4) + g];
 #pragma unroll
               for (int c = 0; c < 4; ++c) dot[m][c] = __dp4a(colv[c], xw, dot[m][c]);
             }
@@ -430,7 +524,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
       const size_t o = (size_t)m * a.N + c + (j / kTileCols) * seg_stride;
-      if constexpr (I4)
+      if constexpr (MODE != kModeI8mm)
         a.part[(size_t)blockIdx.y * a.M * a.N + o] = redf[i];
       else
         atomicAdd(&a.ws[o], red_s[m][j]);
@@ -446,7 +540,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
       const size_t o = (size_t)m * a.N + c + (j / kTileCols) * seg_stride;
-      if constexpr (I4) {
+      if constexpr (MODE != kModeI8mm) {
         float t = 0.f;  // the splits in split order
         for (int z = 0; z < a.ksplit; ++z) t = __fadd_rn(t, __ldcg(a.part + (size_t)z * a.M * a.N + o));
         redf[i] = t;
@@ -458,13 +552,14 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     __syncthreads();
   }
 
-  // epilogue: i8mm y = (float(acc) * xs_row) * scale_col; i4x8 y = the sum
+  // epilogue: i8mm y = (float(acc) * xs_row) * scale_col; i4x8 and byte
+  // y = the sum
   for (int i = tid; i < M * kTileCols; i += kGemvThreads) {
     const int m = i / kTileCols, j = i - m * kTileCols;
     const int c = tile * kTileCols + j;
     if (c >= ncols) continue;
     float y, gt = 0.f;
-    if constexpr (I4) {
+    if constexpr (MODE != kModeI8mm) {
       y = redf[m * kCols + j];
       if (NSEG == 2) gt = redf[m * kCols + kTileCols + j];
     } else {
@@ -487,8 +582,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 }
 
 // CTAs for about two per SM, K rows per CTA a multiple of `unit` (32:
-// whole 4-row groups per warp; 64 for i4x8: whole quant blocks) and at
-// most kMaxKc.
+// whole 4-row groups per warp, or whole byte-mode quant blocks; 64 for
+// i4x8: whole quant blocks) and at most kMaxKc.
 void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   const int want = std::max(1, (2 * sm_count + tiles - 1) / tiles);
   int rows = (K + want - 1) / want;
@@ -498,18 +593,26 @@ void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   *ksplit = (K + rows - 1) / rows;
 }
 
-template <int NSEG, bool I4>
+template <int NSEG, int MODE>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
   switch (a.M) {
-    case 1: gemv<1, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 2: gemv<2, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 3: gemv<3, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 4: gemv<4, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 5: gemv<5, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 6: gemv<6, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 7: gemv<7, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    default: gemv<8, NSEG, I4><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 1: gemv<1, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 2: gemv<2, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 3: gemv<3, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 4: gemv<4, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 5: gemv<5, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 6: gemv<6, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 7: gemv<7, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    default: gemv<8, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
   }
+}
+
+template <int MODE>
+void launch_gemv_mode(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
+  if (a.epi == kEpiGlu)
+    launch_gemv_m<2, MODE>(a, grid, stream);
+  else
+    launch_gemv_m<1, MODE>(a, grid, stream);
 }
 
 // The column tiles and the plan of a GEMV, or false for a shape it does
@@ -517,8 +620,9 @@ void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
 bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, int* ksplit) {
   const int nseg = a.epi == kEpiGlu ? 2 : 1;
   const int unit = mode == kModeI4x8 ? kQBlock : 32;
-  if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % (mode == kModeI4x8 ? kQBlock : 4) ||
-      a.N <= 0 || a.N % (4 * nseg) || sm_count <= 0 || (mode != kModeI8mm && mode != kModeI4x8))
+  const int k_unit = mode == kModeI4x8 ? kQBlock : mode == kModeI8mm ? 4 : kByteBlock;
+  if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
+      sm_count <= 0 || mode < kModeI8mm || mode > kModeByteU)
     return false;
   *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
   gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
@@ -528,14 +632,17 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
 cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream) {
   int tiles = 0;
   if (!gemv_shape(a, mode, sm_count, &tiles, &a.kc, &a.ksplit) ||
-      (mode == kModeI4x8 && a.ksplit > 1 && a.part == nullptr))
+      (mode != kModeI8mm && a.ksplit > 1 && a.part == nullptr) ||
+      (mode == kModeByte && a.w_base != nullptr) || (mode == kModeByteU && a.w_base == nullptr))
     return cudaErrorInvalidValue;
   const dim3 grid(tiles, a.ksplit);
-  const bool glu = a.epi == kEpiGlu;
   if (mode == kModeI4x8) {
-    if (glu) launch_gemv_m<2, true>(a, grid, stream); else launch_gemv_m<1, true>(a, grid, stream);
+    launch_gemv_mode<kModeI4x8>(a, grid, stream);
+  } else if (mode == kModeI8mm) {
+    launch_gemv_mode<kModeI8mm>(a, grid, stream);
   } else {
-    if (glu) launch_gemv_m<2, false>(a, grid, stream); else launch_gemv_m<1, false>(a, grid, stream);
+    a.byte_signed = mode == kModeByte;
+    launch_gemv_mode<kModeByte>(a, grid, stream);
   }
   return cudaGetLastError();
 }
@@ -857,9 +964,10 @@ const char* ift_error_string(int code) {
 }
 
 // The K splits of a GEMV of (K, N) weights (N the w1n3 width when glu is
-// set) in weight mode `mode` (0 i8mm, 1 i4x8) on a card of `sm_count`
-// SMs, or -1 for a shape it does not take: the i4x8 GEMV's float split
-// partials take ksplit * M * N floats.
+// set) in weight mode `mode` (0 i8mm, 1 i4x8, 2 byte Q8_B32T2, 3 byte
+// Q8_B32T1) on a card of `sm_count` SMs, or -1 for a shape it does not
+// take: the i4x8 and byte GEMVs' float split partials take
+// ksplit * M * N floats.
 int ift_gemv_splits(int K, int N, int glu, int mode, int sm_count) {
   GemvArgs a{};
   a.M = 1, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
@@ -910,10 +1018,12 @@ int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void*
 // One decode step over all L layers.  `table` (host memory) holds, per
 // layer, kTableStride entries: anorm, fnorm (E bf16 device pointers), then
 // for each of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and w2 (F, E)
-// five entries: its weight mode (0 i8mm, 1 i4x8) and its stored K as
-// integers, then three device pointers, (int8 codes, f32 column scales,
-// null) for i8mm or (data_i4p nibble pairs, f16 block scales, f16 block
-// bases or null) for i4x8.  The stored K of qkv and w1n3 is E, of wo HqD;
+// five entries: its weight mode (0 i8mm, 1 i4x8, 2 byte Q8_B32T2, 3 byte
+// Q8_B32T1) and its stored K as integers, then three device pointers,
+// (int8 codes, f32 column scales, null) for i8mm, (data_i4p nibble pairs,
+// f16 block scales, f16 block bases or null) for i4x8, (uint8 codes,
+// f16 block scales, null) for Q8_B32T2 and (uint8 codes, f16 block
+// scales, f16 block bases) for Q8_B32T1.  The stored K of qkv and w1n3 is E, of wo HqD;
 // w2's may exceed F (zero-scale pad blocks) and is hglu's row length.
 // xres (B, E) bf16 is updated in place; every layer's K/V row is written
 // into cache row lengths[b].  The cache is the dense (L, B, H, S, D) one
@@ -921,9 +1031,9 @@ int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void*
 // page_table (B, MAXP) on the device and S = MAXP * PT.  Scratch: qkv
 // (B, (Hq+2H)D) f32, ctx (B, HqD) bf16, hglu (B, w2's stored K) bf16 whose
 // columns past F are zero; ws, counters and amax (L*2*B) are zero on entry
-// (ws and counters are left zero); gemv_part holds the i4x8 GEMVs' split
-// partials (the most ift_gemv_splits(...) * B * N of the step's i4x8
-// products).  attn_part holds B * H * 16 * (Hq / H) * (D + 2) floats;
+// (ws and counters are left zero); gemv_part holds the i4x8 and byte GEMVs'
+// split partials (the most ift_gemv_splits(...) * B * N of the step's
+// float-mode products).  attn_part holds B * H * 16 * (Hq / H) * (D + 2) floats;
 // attn_counters (B * H int32) is zero on entry and is left zero.
 constexpr int kTableStride = 22;
 

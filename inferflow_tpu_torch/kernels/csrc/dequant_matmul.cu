@@ -1,26 +1,34 @@
-// Dequantize-matmul for block weights stored one byte per pair of K rows:
-// y = x @ dequant(W), for three byte layouts.
+// Dequantize-matmul for block weights stored as bytes along K:
+// y = x @ dequant(W), for five byte layouts.
 //
 // Kernel B1 replaces inferflow_tpu/kernels/dequant_matmul.py
 // `_make_fast_kernel` (its pallas_call at :505, public entry
 // `quantized_matmul` at :643) for the Q4_B64T1 format in the packed wire
-// layout.  Kernel B5 replaces `_make_i4_kernel` (:313, its pallas_call at
-// :452) for the `i4` device layout (codec_jax.repack_i4).  Kernel B6
-// replaces `_make_kernel` (:244, its pallas_call at :573) in its pair8 mode:
-// Q3H_B64T1 weights in the `pair8` device layout (codec_torch.quantize and
-// QuantizedTensor.from_np give Q3H in it).
+// layout and for the two Q8 block formats, Q8_B32T2 (the `Q8` alias and
+// the q8c container) and Q8_B32T1.  Kernel B5 replaces `_make_i4_kernel`
+// (:313, its pallas_call at :452) for the `i4` device layout
+// (codec_jax.repack_i4).  Kernel B6 replaces `_make_kernel` (:244, its
+// pallas_call at :573) in its pair8 mode: Q3H_B64T1 weights in the `pair8`
+// device layout (codec_torch.quantize and QuantizedTensor.from_np give Q3H
+// in it).
 //
 // Operands (row-major):
 //   x     (M, K)   bf16 activations
-//   data  (K/2, N) uint8: byte r holds K rows 2r and 2r+1 of its column,
-//                  in all three layouts
-//   scale (K/64, N), base (K/64, N) f16 per-block metadata
+//   data  (K/R, N) uint8: byte r holds K rows R*r .. R*r+R-1 of its column,
+//                  R = 2 for the 4-bit and pair layouts, 1 for Q8
+//   scale (K/B, N) f16 per-block scales, B = 64 (4-bit, pair) or 32 (Q8)
+//   base  (K/B, N) f16 per-block bases; absent (null) for Q8_B32T2
 //   out   (M, N)   bf16
 // The layouts differ only in how a byte decodes into the values of its
-// two rows and in the block's additive term (the `Decode` policies below),
-// so all three run the same two kernels:
-//   B1, wire planes: the low nibble is row 2r's code q in 0..15, the high
-//       nibble row 2r+1's, and the weight is w = bf16(q*scale + base);
+// rows and in the block's additive term (the `Decode` policies below), so
+// all five run the same two kernels, templated on the policy, whose rows
+// per byte and block size set the geometry:
+//   B1, Q4 wire planes: the low nibble is row 2r's code q in 0..15, the
+//       high nibble row 2r+1's, and the weight is w = bf16(q*scale + base);
+//   B1, Q8_B32T2: the byte is row r's code, a signed q in -128..127, and
+//       w = bf16(q*scale) (zero base);
+//   B1, Q8_B32T1: the byte is row r's code q in 0..255, and
+//       w = bf16(q*scale + base);
 //   B5, i4 layout: each nibble is (q - 8) & 0xF (the wire byte XOR 0x88),
 //       read as a signed n in -8..7, and the weight is
 //       w = bf16(n*scale + fold) with fold = 8*scale + base in float32, as
@@ -31,33 +39,39 @@
 //       the weight is w = bf16(v*scale + base), codec_torch.dequantize's
 //       weight bit for bit.
 // Each weight is two rounded float32 operations (no fused multiply-add),
-// rounded to bf16, and the products accumulate in float32.  Pad blocks of
-// a K-padded tensor have scale 0 and base 0 and add exact zeros.
+// rounded to bf16, and the products accumulate in float32: the codec's
+// weights, so kernel and plain version differ in summation order only.
+// (The TPU kernel rounds the block scale to bf16 before the multiply; the
+// port follows the codec, a difference ROADMAP section C records.)  Pad
+// blocks of a K-padded tensor have scale 0 and base 0 and add exact zeros.
 //
 // What bounds it on the H100: at decode (M <= 8) every weight byte is used
 // by M rows only, so the kernel is bound by the bytes of the weight planes
-// (4.5 bits per weight with the metadata, in all three layouts).  At
-// prefill (M in the hundreds) the same bytes feed M rows and the bf16
-// tensor-core work dominates.  B6's decode per byte is an integer division
-// by a constant (a multiply-high and a shift) where B1 and B5 take two
-// shifts; at M <= 8 that is integer work beside the same bytes.
+// (4.5 bits per weight with the metadata for the 4-bit and pair layouts,
+// 8.5 for Q8_B32T2, 9 for Q8_B32T1).  At prefill (M in the hundreds) the
+// same bytes feed M rows and the bf16 tensor-core work dominates.  B6's
+// decode per byte is an integer division by a constant (a multiply-high
+// and a shift) where B1 and B5 take two shifts; at M <= 8 that is integer
+// work beside the same bytes.
 //
 // What the design does about it:
 //   - decode (`q4_gemv`): neighbouring threads own neighbouring 4-column
-//     groups, so each warp reads 128 contiguous bytes of a plane row and
-//     8 contiguous bytes of scale/base per quant block; K is split over
-//     the warps of a CTA and over CTAs (about two CTAs per SM, from the
-//     SM count the caller reads off the device: `ift_q4_matmul_plan`); a
-//     warp issues the loads of all 32 plane rows of its quant block before
-//     using any (memory-level parallelism), with
-//     the x slice of the CTA staged once in shared memory and one float32
-//     accumulator per (row, column) in registers; the split-K partial sums
-//     are added in a fixed order by a second small kernel (deterministic).
+//     groups, so each warp reads 128 contiguous bytes of a plane row (one
+//     32-bit load: 4 columns of R K rows) and 8 contiguous bytes of
+//     scale/base per quant block; every layout's quant block is 32 byte
+//     rows, whose loads a warp issues all at once before using any
+//     (memory-level parallelism); K is split over the warps of a CTA and
+//     over CTAs (about two CTAs per SM, from the SM count the caller reads
+//     off the device: `ift_matmul_plan`), with the x slice of the CTA (at
+//     most kGemvMaxKRows rows) staged once in shared memory and one
+//     float32 accumulator per (row, column) in registers; the split-K
+//     partial sums are added in a fixed order by a second small kernel
+//     (deterministic).
 //   - prefill (`q4_gemm`, also every M > 8): 64x64 output tiles; per
-//     64-deep K step the CTA stages the x tile and dequantizes the W tile
-//     into shared memory as bf16, then runs bf16 WMMA 16x16x16 products
-//     with float32 accumulators.  No copy pipelining yet (later work: TMA +
-//     wgmma).
+//     quant block of K (64 or 32 rows) the CTA stages the x tile and
+//     dequantizes the W tile into shared memory as bf16, then runs bf16
+//     WMMA 16x16x16 products with float32 accumulators.  No copy
+//     pipelining yet (later work: TMA + wgmma).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -69,48 +83,74 @@
 
 namespace {
 
-constexpr int kBlock = 64;  // quant block along K
-constexpr int kBlockRows = kBlock / 2;  // packed byte rows per quant block
-
 __device__ __forceinline__ float round_bf16(float w) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
-// How a byte decodes.  offset(): the block's additive term from its
-// scale and base; values(): the multipliers of the byte's two K rows (2r,
-// 2r+1).  The weight is value*scale + offset as two rounded float32
-// operations (no fused multiply-add), so it equals the plain version's bit
-// for bit before the bf16 rounding.
+// How a byte decodes.  kRows: K rows per byte; kBlock: K rows per quant
+// block (every policy's block is kBlockRows = 32 byte rows); kBase: whether
+// the format stores a base (read only then).  offset(): the block's
+// additive term from its scale and base; values(): the multipliers of the
+// byte's kRows K rows, in order.  The weight is value*scale + offset as two
+// rounded float32 operations (no fused multiply-add), so it equals the
+// plain version's bit for bit before the bf16 rounding.
+constexpr int kBlockRows = 32;  // byte rows per quant block, every layout
+
 struct WireQ4 {  // B1: Q4_B64T1 wire planes, w = q*scale + base
+  static constexpr int kRows = 2, kBlock = 64;
+  static constexpr bool kBase = true;
   __device__ static float offset(float scale, float base) { return base; }
-  __device__ static float2 values(uint32_t b) {
-    return make_float2(float(b & 0xFu), float(b >> 4));
+  __device__ static void values(uint32_t b, float v[kRows]) {
+    v[0] = float(b & 0xFu);
+    v[1] = float(b >> 4);
   }
 };
 struct PackedI4 {  // B5: i4 layout, w = n*scale + (8*scale + base)
+  static constexpr int kRows = 2, kBlock = 64;
+  static constexpr bool kBase = true;
   __device__ static float offset(float scale, float base) {
     return __fadd_rn(__fmul_rn(scale, 8.f), base);
   }
-  __device__ static float2 values(uint32_t b) {
-    return make_float2(float(int((b & 0xFu) ^ 8u) - 8), float(int((b >> 4) ^ 8u) - 8));
+  __device__ static void values(uint32_t b, float v[kRows]) {
+    v[0] = float(int((b & 0xFu) ^ 8u) - 8);
+    v[1] = float(int((b >> 4) ^ 8u) - 8);
   }
 };
 struct Pair8 {  // B6: Q3H pair8, b = v0 + 11*v1, w = v*scale + base
+  static constexpr int kRows = 2, kBlock = 64;
+  static constexpr bool kBase = true;
   __device__ static float offset(float scale, float base) { return base; }
-  __device__ static float2 values(uint32_t b) {
+  __device__ static void values(uint32_t b, float v[kRows]) {
     const uint32_t v1 = b / 11u;
-    return make_float2(float(b - 11u * v1), float(v1));
+    v[0] = float(b - 11u * v1);
+    v[1] = float(v1);
   }
 };
+struct Q8Signed {  // B1: Q8_B32T2, signed codes, w = q*scale (no base)
+  static constexpr int kRows = 1, kBlock = 32;
+  static constexpr bool kBase = false;
+  __device__ static float offset(float, float) { return 0.f; }
+  __device__ static void values(uint32_t b, float v[kRows]) {
+    v[0] = float(int(b ^ 0x80u) - 128);
+  }
+};
+struct Q8Unsigned {  // B1: Q8_B32T1, codes 0..255, w = q*scale + base
+  static constexpr int kRows = 1, kBlock = 32;
+  static constexpr bool kBase = true;
+  __device__ static float offset(float scale, float base) { return base; }
+  __device__ static void values(uint32_t b, float v[kRows]) { v[0] = float(b); }
+};
 
+template <class Decode>
 __device__ __forceinline__ float dequant(float value, float scale, float offset) {
+  if constexpr (!Decode::kBase) return __fmul_rn(value, scale);
   return __fadd_rn(__fmul_rn(value, scale), offset);
 }
 
 // ---------------------------------------------------------------- decode
 constexpr int kGemvWarps = 4;
 constexpr int kGemvCols = 128;  // 32 lanes x 4 columns
-constexpr int kGemvMaxKBlocks = 8;  // quant blocks per CTA (x staging)
+constexpr int kGemvMaxKRows = 512;  // K rows per CTA (x staging)
 
 template <class Decode, int M>
 __global__ void __launch_bounds__(kGemvWarps * 32)
@@ -118,7 +158,8 @@ q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         const __half* __restrict__ scale, const __half* __restrict__ base,
         float* __restrict__ partial, __nv_bfloat16* __restrict__ out, int K,
         int N, int kb_per_split, int ksplit) {
-  __shared__ float xs[M][kGemvMaxKBlocks * kBlock];
+  constexpr int R = Decode::kRows, kBlock = Decode::kBlock;
+  __shared__ float xs[M][kGemvMaxKRows];
   __shared__ float red[kGemvWarps][M][kGemvCols];
 
   const int warp = threadIdx.x / 32;
@@ -147,8 +188,9 @@ q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
     for (int kb = kb_begin + warp; kb < kb_end; kb += kGemvWarps) {
       const uint2 sc_bits =
           *reinterpret_cast<const uint2*>(scale + (size_t)kb * N + col0);
-      const uint2 bs_bits =
-          *reinterpret_cast<const uint2*>(base + (size_t)kb * N + col0);
+      uint2 bs_bits = make_uint2(0, 0);
+      if constexpr (Decode::kBase)
+        bs_bits = *reinterpret_cast<const uint2*>(base + (size_t)kb * N + col0);
       const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
       const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
       float sc[4], off[4];
@@ -169,13 +211,14 @@ q4_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         const uint32_t bytes = words[r];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float2 v = Decode::values((bytes >> (8 * j)) & 0xFFu);
-          const float w0 = round_bf16(dequant(v.x, sc[j], off[j]));
-          const float w1 = round_bf16(dequant(v.y, sc[j], off[j]));
+          float v[R];
+          Decode::values((bytes >> (8 * j)) & 0xFFu, v);
 #pragma unroll
-          for (int m = 0; m < M; ++m) {
-            acc[m][j] = fmaf(xs[m][kk0 + 2 * r], w0, acc[m][j]);
-            acc[m][j] = fmaf(xs[m][kk0 + 2 * r + 1], w1, acc[m][j]);
+          for (int i = 0; i < R; ++i) {
+            const float w = round_bf16(dequant<Decode>(v[i], sc[j], off[j]));
+#pragma unroll
+            for (int m = 0; m < M; ++m)
+              acc[m][j] = fmaf(xs[m][kk0 + R * r + i], w, acc[m][j]);
           }
         }
       }
@@ -214,14 +257,21 @@ __global__ void splitk_reduce(const float* __restrict__ partial,
 }
 
 // --------------------------------------------------------------- prefill
-constexpr int kBM = 64, kBN = 64, kBK = kBlock;
-constexpr int kLdx = kBK + 8;  // bf16 elements; rows stay 32-byte aligned
-constexpr int kLdw = kBN + 8;
+constexpr int kBM = 64, kBN = 64;
+constexpr int kLdw = kBN + 8;  // bf16 elements
 constexpr int kLdc = kBN + 4;  // float elements
 constexpr int kGemmThreads = 128;
-constexpr int kTileBytes = (kBM * kLdx + kBK * kLdw) * 2;
-constexpr int kOutBytes = kBM * kLdc * 4;
-constexpr int kSmemBytes = kTileBytes > kOutBytes ? kTileBytes : kOutBytes;
+
+// The K step of the tiled kernel is one quant block (kBK = 64 or 32 rows):
+// shared memory for the x tile and the dequantized W tile, reused for the
+// float output tile at the end.
+template <int kBK>
+struct GemmSmem {
+  static constexpr int kLdx = kBK + 8;  // bf16 elements; rows stay 32-byte aligned
+  static constexpr int kTileBytes = (kBM * kLdx + kBK * kLdw) * 2;
+  static constexpr int kOutBytes = kBM * kLdc * 4;
+  static constexpr int kBytes = kTileBytes > kOutBytes ? kTileBytes : kOutBytes;
+};
 
 template <class Decode>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -229,7 +279,9 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
         const __half* __restrict__ scale, const __half* __restrict__ base,
         __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
+  constexpr int R = Decode::kRows, kBK = Decode::kBlock;
+  constexpr int kLdx = GemmSmem<kBK>::kLdx;
+  __shared__ __align__(128) unsigned char smem[GemmSmem<kBK>::kBytes];
   __shared__ float sc_s[kBN], off_s[kBN];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ws = xs + kBM * kLdx;
@@ -248,14 +300,17 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
-    const int kb = k0 / kBlock;
+    const int kb = k0 / kBK;
     if (tid < kBN) {
       const int col = n0 + tid;
       const float sc = col < N ? __half2float(scale[(size_t)kb * N + col]) : 0.f;
+      float bs = 0.f;
+      if constexpr (Decode::kBase)
+        bs = col < N ? __half2float(base[(size_t)kb * N + col]) : 0.f;
       sc_s[tid] = sc;
-      off_s[tid] = Decode::offset(sc, col < N ? __half2float(base[(size_t)kb * N + col]) : 0.f);
+      off_s[tid] = Decode::offset(sc, bs);
     }
-    // x tile: 64 rows x 64 bf16, 16-byte chunks (rows past M are zeros)
+    // x tile: 64 rows x kBK bf16, 16-byte chunks (rows past M are zeros)
     for (int c = tid; c < kBM * (kBK / 8); c += kGemmThreads) {
       const int row = c / (kBK / 8);
       const int ch = c % (kBK / 8);
@@ -279,9 +334,12 @@ q4_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const float s = sc_s[c0 + i], o = off_s[c0 + i];
-        const float2 v = Decode::values(b[i]);
-        ws[(2 * r) * kLdw + c0 + i] = __float2bfloat16_rn(dequant(v.x, s, o));
-        ws[(2 * r + 1) * kLdw + c0 + i] = __float2bfloat16_rn(dequant(v.y, s, o));
+        float vals[R];
+        Decode::values(b[i], vals);
+#pragma unroll
+        for (int e = 0; e < R; ++e)
+          ws[(R * r + e) * kLdw + c0 + i] =
+              __float2bfloat16_rn(dequant<Decode>(vals[e], s, o));
       }
     }
     __syncthreads();
@@ -331,18 +389,21 @@ void launch_gemv(const __nv_bfloat16* x, const uint8_t* data,
       x, data, scale, base, partial, out, K, N, kb_per_split, ksplit);
 }
 
-// y = x @ dequant(W) with a plan from ift_q4_matmul_plan; a decode plan
-// that does not cover K exactly once, or that overflows the x staging
-// buffer, is refused with cudaErrorInvalidValue.
+// y = x @ dequant(W) with a plan from ift_matmul_plan; a decode plan that
+// does not cover K exactly once, or that overflows the x staging buffer,
+// is refused with cudaErrorInvalidValue, as is a missing base for a
+// format that has one.
 template <class Decode>
 int run_matmul(const void* x, const void* data, const void* scale,
                const void* base, void* out, void* workspace, int M, int K,
                int N, int kb_per_split, int ksplit, void* stream_ptr) {
-  if (M <= 0 || K <= 0 || K % kBlock || N <= 0 || N % 16)
+  constexpr int kBlock = Decode::kBlock;
+  if (M <= 0 || K <= 0 || K % kBlock || N <= 0 || N % 16 ||
+      (Decode::kBase && base == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 8) {
     const int nkb = K / kBlock;
-    if (kb_per_split < 1 || kb_per_split > kGemvMaxKBlocks || ksplit < 1 ||
+    if (kb_per_split < 1 || kb_per_split * kBlock > kGemvMaxKRows || ksplit < 1 ||
         kb_per_split * ksplit < nkb || kb_per_split * (ksplit - 1) >= nkb ||
         (ksplit > 1 && workspace == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -384,27 +445,30 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The launch plan of an (M, K) x (K, N) product on a card with `sm_count`
-// SMs: M <= 8 takes the decode path with *ksplit K splits of
-// *kb_per_split (at most kGemvMaxKBlocks) quant blocks, enough CTAs for
-// about two per SM; larger M the tiled tensor-core path (*kb_per_split 0,
-// *ksplit 1).  The caller allocates ksplit*M*N floats of workspace when
-// *ksplit > 1 and passes the plan to ift_q4_matmul / ift_i4_matmul /
+// The launch plan of an (M, K) x (K, N) product of `block`-row quant
+// blocks (64 or 32) on a card with `sm_count` SMs: M <= 8 takes the decode
+// path with *ksplit K splits of *kb_per_split quant blocks (at most
+// kGemvMaxKRows rows), enough CTAs for about two per SM; larger M the
+// tiled tensor-core path (*kb_per_split 0, *ksplit 1).  The caller
+// allocates ksplit*M*N floats of workspace when *ksplit > 1 and passes the
+// plan to ift_q4_matmul / ift_q8_matmul / ift_q8u_matmul / ift_i4_matmul /
 // ift_q3h_matmul unchanged.
-int ift_q4_matmul_plan(int M, int K, int N, int sm_count, int* kb_per_split,
-                       int* ksplit) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % kBlock || sm_count <= 0)
+int ift_matmul_plan(int M, int K, int N, int block, int sm_count,
+                    int* kb_per_split, int* ksplit) {
+  if (M <= 0 || K <= 0 || N <= 0 || (block != 64 && block != 32) ||
+      K % block || sm_count <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M > 8) {
     *kb_per_split = 0;
     *ksplit = 1;
     return 0;
   }
-  const int nkb = K / kBlock;
+  const int nkb = K / block;
+  const int max_per = kGemvMaxKRows / block;
   const int n_tiles = (N + kGemvCols - 1) / kGemvCols;
   const int want = (2 * sm_count + n_tiles - 1) / n_tiles;
   int split = std::min(want, std::max(nkb / 4, 1));
-  split = std::max(split, (nkb + kGemvMaxKBlocks - 1) / kGemvMaxKBlocks);
+  split = std::max(split, (nkb + max_per - 1) / max_per);
   split = std::min(split, nkb);
   const int per = (nkb + split - 1) / split;
   *kb_per_split = per;
@@ -418,6 +482,22 @@ int ift_q4_matmul(const void* x, const void* data, const void* scale,
                   int N, int kb_per_split, int ksplit, void* stream_ptr) {
   return run_matmul<WireQ4>(x, data, scale, base, out, workspace, M, K, N,
                             kb_per_split, ksplit, stream_ptr);
+}
+
+// B1: Q8_B32T2 (signed codes, no base: `base` is not read).
+int ift_q8_matmul(const void* x, const void* data, const void* scale,
+                  const void* base, void* out, void* workspace, int M, int K,
+                  int N, int kb_per_split, int ksplit, void* stream_ptr) {
+  return run_matmul<Q8Signed>(x, data, scale, base, out, workspace, M, K, N,
+                              kb_per_split, ksplit, stream_ptr);
+}
+
+// B1: Q8_B32T1 (codes 0..255, f16 scale and base).
+int ift_q8u_matmul(const void* x, const void* data, const void* scale,
+                   const void* base, void* out, void* workspace, int M, int K,
+                   int N, int kb_per_split, int ksplit, void* stream_ptr) {
+  return run_matmul<Q8Unsigned>(x, data, scale, base, out, workspace, M, K, N,
+                                kb_per_split, ksplit, stream_ptr);
 }
 
 // B5: the i4 layout's data_i4p plane (signed code-8 nibbles).

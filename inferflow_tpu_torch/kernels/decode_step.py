@@ -2,11 +2,14 @@
 i4x8 product.
 
 Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
-`fused_step_preferred`, `fused_decode_step`) for two weight modes: (a)
-i8mm (Int8MXUTensor weights: int8 codes with one f32 scale per column) and
+`fused_step_preferred`, `fused_decode_step`) for three weight modes: (a)
+i8mm (Int8MXUTensor weights: int8 codes with one f32 scale per column),
 (b) i4x8 (the i4 layout's ``data_i4p`` nibbles with f16 block scales and
 bases: int8 row-quantized activations, one int32 dot per 64-row block,
-the TPU kernel's default for that layout), each product in its own mode;
+the TPU kernel's default for that layout) and (c) byte (the Q8 block
+formats Q8_B32T2 and Q8_B32T1, one code per byte: bf16 activations, each
+weight bf16(q * bf16(scale)), Q8_B32T1's base through the blocks'
+activation sums), each product in its own mode;
 and a Q8 KV cache in the logical layout, dense (runtime/kv_cache.py) or
 paged (runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the
 step's K/V rows go through the page table), with both attention modes of
@@ -24,17 +27,17 @@ arithmetic (outputs, then ``append_rows_all_layers`` or
 the kernels against on the card.
 
 Not ported (``fused_step_supported`` raises NotImplementedError where the
-TPU package would fuse them): the byte-per-code block weight modes, the
-i4 layout of other blocks than 64 with f16 scale and base, and per-matmul
-output biases; the i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT=bf16 in
-the TPU package, a measurement switch) is not ported either.  Neither is
-mode (h), Q3H weights in the pair8 layout: the TPU package supports it
-but does not prefer it (its measured unpack cost loses to the per-layer
-path), so ``fused_step_preferred`` routes pair8 to the per-layer loop
-(kernel B6 in every product) as there, and ``fused_step_supported``
-raises NotImplementedError naming mode (h).  Routed MoE is refused
-earlier, by ``models.decoder.check_supported``.  There is no fallback
-switch: if the kernel fails to build or launch, the step raises.
+TPU package would fuse them, naming what is missing): the i4 layout of
+other blocks than 64 with f16 scale and base, per-matmul output biases,
+and two modes the TPU package supports but does not prefer, so that
+``fused_step_preferred`` routes them to the per-layer loop as there: the
+sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
+planes, kernel B1 in every product) and mode (h), Q3H weights in the
+pair8 layout (kernel B6; its measured unpack cost loses to the per-layer
+path).  The i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT=bf16 in the
+TPU package, a measurement switch) is not ported either.  Routed MoE is
+refused earlier, by ``models.decoder.check_supported``.  There is no
+fallback switch: if the kernel fails to build or launch, the step raises.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from . import _build
 
 KERNEL = "fused_decode_step"  # a step whose products are all i8mm
 I4_KERNEL = "fused_decode_step_i4"  # a step with an i4x8 product
+BYTE_KERNEL = "fused_decode_step_byte"  # a step with a byte-mode product
 GEMV_KERNEL = "i8mm_gemv"
 I4_GEMV_KERNEL = "i4x8_gemv"
 NEG_INF = -1e30
@@ -72,7 +76,8 @@ _ACTS = {"silu": 0, "gelu": 1, "relu": 2}
 _MAX_ROWS, _MAX_D = 16, 128  # query heads per kv head, head_dim (csrc)
 _TILE_COLS = 128  # GEMV columns per CTA segment (csrc kTileCols)
 _MAX_SPLIT = 16  # cache-walk splits per (slot, kv head) (csrc kMaxSplit)
-_MODES = {"i8mm": 0, "i4": 1}  # csrc WeightMode
+_MODES = {"i8mm": 0, "i4": 1, "byte": 2}  # csrc WeightMode (3: byte with a base)
+_BYTE_BLOCK = 32  # the byte mode's quant block (csrc kByteBlock)
 
 
 # ------------------------------------------------------------ i8mm product
@@ -129,11 +134,38 @@ def i4x8_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return acc
 
 
+# ------------------------------------------------------------ byte product
+def byte_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """B4 mode (c)'s product, the TPU kernel's single-plane tile with one
+    code per byte (stream_mm, decode_step.py:583-606), in float32.  x: (M,
+    K) bf16 with K the logical or the stored K of w (the stored K's tail
+    takes zeros).  Per 32-row block r the weights are
+    bf16(bf16(q) * bf16(sc_r)), q the code (signed for Q8_B32T2), and
+    acc = sum_k x_k * w_k in float32; a base enters once per block as
+    bf16(sum_{k in r} x_k) * bf16(base_r).  Returns (M, N) float32."""
+    fmt = get_format(w.format)
+    k_s, n = w.storage_k, int(w.shape[-1])
+    x = F.pad(x, (0, k_s - x.shape[-1])).float()
+    m, nb = x.shape[0], k_s // fmt.block
+    codes = w.planes["data"]
+    q = (codes.view(torch.int8) if fmt.signed else codes).float()
+    sc = w.scale.to(torch.bfloat16).float()
+    wq = (q.view(nb, fmt.block, n) * sc[:, None, :]).to(torch.bfloat16)
+    acc = torch.matmul(x, wq.float().reshape(k_s, n))
+    if w.base is not None:
+        xsum = x.reshape(m, nb, fmt.block).sum(-1).to(torch.bfloat16)
+        acc = torch.matmul(xsum.float(),
+                           w.base.to(torch.bfloat16).float()) + acc
+    return acc
+
+
 def _product_f32(x: torch.Tensor, w) -> torch.Tensor:
     """One product of the fused step in its weight's mode, float32."""
     if isinstance(w, Int8MXUTensor):
         return _i8mm_f32(x, w)
-    return i4x8_matmul_plain(x, w)
+    if I4_PLANE in w.planes:
+        return i4x8_matmul_plain(x, w)
+    return byte_matmul_plain(x, w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,11 +238,13 @@ def _check_i4(w: QuantizedTensor, name: str, k: int, n: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _gemv_splits(k: int, n: int, glu: bool, sms: int) -> int:
-    """The K splits the i4x8 GEMV takes for (K, N) weights."""
-    splits = _lib().ift_gemv_splits(k, n, int(glu), _MODES["i4"], sms)
+def _gemv_splits(k: int, n: int, glu: bool, sms: int, mode: int = 1) -> int:
+    """The K splits the GEMV of weight mode `mode` (csrc WeightMode; the
+    i4x8 GEMV by default) takes for (K, N) weights."""
+    splits = _lib().ift_gemv_splits(k, n, int(glu), mode, sms)
     if splits < 1:
-        raise ValueError(f"the i4x8 GEMV does not take K={k} N={n}")
+        raise ValueError(f"the GEMV of weight mode {mode} does not take "
+                         f"K={k} N={n}")
     return splits
 
 
@@ -379,10 +413,6 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
         f_dim = int(ffn["w2"].shape[-2])
         if int(ffn["w1n3"].shape[-1]) != 2 * f_dim or f_dim % 128:
             return None
-    if "byte" in modes:
-        raise NotImplementedError(
-            "the fused decode step's byte-per-code weight mode (Q8 block "
-            "formats) is not ported")
     if biased:
         raise NotImplementedError(
             "the fused decode step's per-matmul output biases are not "
@@ -390,8 +420,18 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
     return modes
 
 
-_MODE_H_UNPORTED = ("the fused decode step's mode (h), Q3H weights in the "
-                    "pair8 layout, is not ported")
+_UNPORTED_MODES = {
+    "pair8": "the fused decode step's mode (h), Q3H weights in the pair8 "
+             "layout, is not ported",
+    "wire": "the fused decode step's wire mode (sub-byte single-plane wire "
+            "planes, such as Q4_B64T1 under the packed layout) is not "
+            "ported"}
+
+
+def _refuse_unported(modes) -> None:
+    for mode, why in _UNPORTED_MODES.items():
+        if modes and mode in modes:
+            raise NotImplementedError(why)
 
 
 def _i4_kernel_format(w: QuantizedTensor) -> bool:
@@ -404,17 +444,20 @@ def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
     package's rule over this package's per-layer lists and logical caches,
     dense or paged; its TPU lane-tile rule for the cache does not apply).
     Raises NotImplementedError for a configuration the TPU package fuses
-    in a mode that is not ported here, Q3H pair8 (mode (h)) among them."""
+    in a mode that is not ported here: Q3H pair8 (mode (h)) and sub-byte
+    wire planes (the wire mode), which the TPU package fuses but does not
+    prefer."""
     modes = _fusion_modes(spec, layers, cache, bsz)
-    if modes is not None and "pair8" in modes:
-        raise NotImplementedError(_MODE_H_UNPORTED)
+    _refuse_unported(modes)
     return modes is not None
 
 
 def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
     """Routing on top of fused_step_supported, as the TPU package routes:
     sub-byte wire planes and Q3H pair8 keep the per-layer path (kernels
-    B1 or B6, and B2); the i8mm and i4 layouts take the fused step."""
+    B1 or B6, and B2); the i8mm and i4 layouts and the Q8 block formats
+    (byte mode: no product streams more than one code per byte) take the
+    fused step."""
     modes = _fusion_modes(spec, layers, cache, bsz)
     return modes is not None and not modes & {"wire", "pair8"}
 
@@ -638,7 +681,8 @@ def _table_tensors(layers: list) -> list:
             if isinstance(w, Int8MXUTensor):
                 out += [w.data, w.scale]
             else:
-                out += [w.planes[I4_PLANE], w.scale, w.base]
+                out += [*w.planes.values(), w.scale]
+                out += [] if w.base is None else [w.base]
     return out
 
 
@@ -661,15 +705,27 @@ def _products(lp: dict) -> tuple:
             ("w1n3", lp["ffn"]["w1n3"], True), ("w2", lp["ffn"]["w2"], False))
 
 
+def _check_byte(w: QuantizedTensor, name: str, k: int, n: int) -> None:
+    """A byte-mode operand: codes (K, N) uint8, f16 block scales (K/32, N)
+    and, for Q8_B32T1, f16 block bases."""
+    _build.check_operand(w.planes["data"], f"{name}.data", torch.uint8,
+                         (k, n))
+    for part, t in (("scale", w.scale), ("base", w.base)):
+        if t is not None:
+            _build.check_operand(t, f"{name}.{part}", torch.float16,
+                                 (k // _BYTE_BLOCK, n))
+
+
 def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
     """The C step's per-layer table (anorm, fnorm, then per product its
     mode, stored K and (data, scale, base) pointers: csrc kTableStride),
     w2's stored K (hglu's row length, one for all layers) and the (K, N,
-    GLU) shapes of the i4x8 products, built once per layer list."""
+    GLU, mode) shapes of the float-mode (i4x8 and byte) products, built
+    once per layer list."""
     entry = _cached_table(layers)
     if entry is not None:
         return entry
-    ptrs, i4_shapes = [], set()
+    ptrs, float_shapes = [], set()
     f_s = _stored_k(layers[0]["ffn"]["w2"])
     for lp in layers:
         for name, t in (("attn.pre_norm", lp["attn"]["pre_norm"]),
@@ -686,12 +742,19 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
                 _check_i8(w, name, k, n)
                 ptrs += [_MODES[mode], k, w.data.data_ptr(),
                          w.scale.data_ptr(), 0]
-            else:
+                continue
+            if mode == "i4":
                 _check_i4(w, name, k, n)
-                i4_shapes.add((k, n, glu))
-                ptrs += [_MODES[mode], k, w.planes[I4_PLANE].data_ptr(),
-                         w.scale.data_ptr(), w.base.data_ptr()]
-    entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s, frozenset(i4_shapes))
+                code, plane = _MODES[mode], w.planes[I4_PLANE]
+            else:
+                _check_byte(w, name, k, n)
+                code = _MODES[mode] + (w.base is not None)
+                plane = w.planes["data"]
+            float_shapes.add((k, n, glu, code))
+            ptrs += [code, k, plane.data_ptr(), w.scale.data_ptr(),
+                     0 if w.base is None else w.base.data_ptr()]
+    entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s,
+             frozenset(float_shapes))
     _TABLES[id(layers)] = (
         len(layers), weakref.ref(layers[0]["attn"]["pre_norm"]),
         weakref.ref(layers[-1]["ffn"]["pre_norm"]),
@@ -731,7 +794,7 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         raise ValueError(f"cache {tuple(cache.k.shape)} does not match "
                          f"{len(layers)} layers, B={bsz}, H={hk}, D={d}")
     nqkv = (hq + 2 * hk) * d
-    table, f_s, i4_shapes = _layer_table(layers, e, hq * d, nqkv, f)
+    table, f_s, float_shapes = _layer_table(layers, e, hq * d, nqkv, f)
     shape = tuple(cache.k.shape)
     sshape = tuple(cache.k_scale.shape)
     for name, t, dt, shp in (("k", cache.k, torch.int8, shape),
@@ -749,10 +812,10 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
     # per-layer row maxima of ctx and hglu, the attention's split counters
     n_ws = bsz * max(nqkv, e, 2 * f)
     tiles = -(-max(nqkv, e, f) // _TILE_COLS)
-    # the i4x8 GEMVs' float split partials: the most any one of them needs
-    # (they run one after another)
-    n_part = max((_gemv_splits(k, n, glu, _sms(x)) * bsz * n
-                  for k, n, glu in i4_shapes), default=1)
+    # the i4x8 and byte GEMVs' float split partials: the most any one of
+    # them needs (they run one after another)
+    n_part = max((_gemv_splits(k, n, glu, _sms(x), mode) * bsz * n
+                  for k, n, glu, mode in float_shapes), default=1)
     gemv_part = torch.empty(n_part, dtype=torch.float32, device=dev)
     n_amax = 2 * num_layers * bsz
     work = torch.zeros(n_ws + tiles + n_amax + bsz * hk, dtype=torch.int32,
@@ -777,7 +840,9 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         hq, hk, d, s, cache.block, f, spec.rope_order,
         _ACTS[spec.activation_fn], pt, maxp, pages, spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
-    name = I4_KERNEL if i4_shapes else KERNEL
+    codes = {mode for *_, mode in float_shapes}
+    name = (BYTE_KERNEL if codes - {_MODES["i4"]}
+            else I4_KERNEL if codes else KERNEL)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1
     return xres[:, None], cache
@@ -786,7 +851,7 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
 def fused_decode_step(spec, layers: list, x: torch.Tensor,
                       positions: torch.Tensor, cache: KVCache):
     """One decode step over all layers (inferflow_tpu signature), each
-    product in its weight's mode (i8mm or i4x8).
+    product in its weight's mode (i8mm, i4x8 or byte).
 
     x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
     cache lengths; cache: a Q8 KVCache or PagedKVCache.  Returns (x (B, 1,
@@ -794,12 +859,12 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
     (through the page table for a paged cache); cache.length is not
     advanced."""
     modes = _fusion_modes(spec, layers, cache, x.shape[0])
-    if modes and "pair8" in modes:
-        raise NotImplementedError(_MODE_H_UNPORTED)
+    _refuse_unported(modes)
     if not modes or not modes <= set(_MODES):
         raise NotImplementedError(
-            "fused_decode_step serves i8mm and i4 weights and a Q8 cache; "
-            f"this configuration has weight modes {sorted(modes or [])}")
+            "fused_decode_step serves i8mm, i4 and Q8 block weights and a "
+            f"Q8 cache; this configuration has weight modes "
+            f"{sorted(modes or [])}")
     if x.device.type == "cpu":
         return fused_decode_step_plain(spec, layers, x, positions, cache)
     if x.device.type == "cuda":

@@ -1,12 +1,14 @@
 """Dequantize-matmul: y = x @ dequant(W) for block-quantized W.
 
 Port of inferflow_tpu/kernels/dequant_matmul.py.  One entry point,
-``quantized_matmul``, picks the kernel from the weight's plane: kernel B1
-(the fast Pallas kernel `_make_fast_kernel`) for Q4_B64T1 wire planes,
-kernel B5 (`_make_i4_kernel`) for the i4 device layout's ``data_i4p``
-plane, and kernel B6 (`_make_kernel`) in its pair8 mode for Q3H_B64T1's
-``pair8`` plane; their launch counts are ``dequant_matmul``,
-``i4_matmul`` and ``q3h_matmul``.  On a CUDA tensor it launches the
+``quantized_matmul``, picks the kernel from the weight's plane and format:
+kernel B1 (the fast Pallas kernel `_make_fast_kernel`) for Q4_B64T1 wire
+planes and for the Q8 block formats Q8_B32T2 (the ``Q8`` alias and the
+q8c container) and Q8_B32T1, kernel B5 (`_make_i4_kernel`) for the i4
+device layout's ``data_i4p`` plane, and kernel B6 (`_make_kernel`) in its
+pair8 mode for Q3H_B64T1's ``pair8`` plane; their launch counts are
+``dequant_matmul`` (B1-Q4), ``q8_matmul`` (B1-Q8), ``i4_matmul`` and
+``q3h_matmul``.  On a CUDA tensor it launches the
 hand-written kernel of ``csrc/dequant_matmul.cu`` or raises; on a CPU
 tensor it runs the plain version, which is also what ``chip_smoke.py``
 holds the kernel against on the card.  B6's Q3H wire-plane mode and its
@@ -26,6 +28,7 @@ from ..quant.formats import get_format
 from . import _build
 
 KERNEL = "dequant_matmul"
+Q8_KERNEL = "q8_matmul"
 I4_KERNEL = "i4_matmul"
 Q3H_KERNEL = "q3h_matmul"
 
@@ -44,34 +47,39 @@ def _lib():
         lib.ift_q4_matmul.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                                       vp]
         lib.ift_q4_matmul.restype = ctypes.c_int
-        for fn in (lib.ift_i4_matmul, lib.ift_q3h_matmul):
+        for fn in (lib.ift_q8_matmul, lib.ift_q8u_matmul, lib.ift_i4_matmul,
+                   lib.ift_q3h_matmul):
             fn.argtypes = lib.ift_q4_matmul.argtypes
             fn.restype = ctypes.c_int
-        lib.ift_q4_matmul_plan.argtypes = [i, i, i, i,
-                                           ctypes.POINTER(i),
-                                           ctypes.POINTER(i)]
-        lib.ift_q4_matmul_plan.restype = ctypes.c_int
+        lib.ift_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
+                                        ctypes.POINTER(i)]
+        lib.ift_matmul_plan.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
 
 
-def matmul_plan(lib, m: int, k: int, n: int, device) -> tuple:
+def matmul_plan(lib, m: int, k: int, n: int, device, block: int = 64
+                ) -> tuple:
     """(quant blocks per K split, number of splits) that the kernel's C
-    side picks for this product on this card's SM count; (0, 1) for the
-    tiled (prefill) path."""
+    side picks for this product of `block`-row quant blocks on this card's
+    SM count; (0, 1) for the tiled (prefill) path."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per, ksplit = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib, lib.ift_q4_matmul_plan(m, k, n, sms, ctypes.byref(per),
-                                             ctypes.byref(ksplit)),
+    _build.check(lib, lib.ift_matmul_plan(m, k, n, block, sms,
+                                          ctypes.byref(per),
+                                          ctypes.byref(ksplit)),
                  "dequant_matmul plan")
     return per.value, ksplit.value
 
 
-# the plane each kernel reads -> (kernel, its C entry, the one format it
-# serves: 64-row blocks, f16 scale and base)
-_KERNELS = {"data": (KERNEL, "ift_q4_matmul", "Q4_B64T1"),
-            I4_PLANE: (I4_KERNEL, "ift_i4_matmul", "Q4_B64T1"),
-            PAIR8_PLANE: (Q3H_KERNEL, "ift_q3h_matmul", "Q3H_B64T1")}
+# (plane, format) -> (kernel, its C entry).  Every format here has f16
+# scales (and f16 bases where it has a base); a byte of the ``data`` plane
+# holds 8 // bits K rows, of the i4 and pair8 planes two.
+_KERNELS = {("data", "Q4_B64T1"): (KERNEL, "ift_q4_matmul"),
+            ("data", "Q8_B32T2"): (Q8_KERNEL, "ift_q8_matmul"),
+            ("data", "Q8_B32T1"): (Q8_KERNEL, "ift_q8u_matmul"),
+            (I4_PLANE, "Q4_B64T1"): (I4_KERNEL, "ift_i4_matmul"),
+            (PAIR8_PLANE, "Q3H_B64T1"): (Q3H_KERNEL, "ift_q3h_matmul")}
 
 
 def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -83,12 +91,13 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     fmt = get_format(qt.format)
     plane = next((p for p in (I4_PLANE, PAIR8_PLANE) if p in qt.planes),
                  "data")
-    kernel, entry, want = _KERNELS[plane]
-    if (fmt.name != want or set(qt.planes) != {plane}
-            or qt.scale.dtype != torch.float16 or qt.base is None):
+    if (plane, fmt.name) not in _KERNELS or set(qt.planes) != {plane}:
         raise NotImplementedError(
-            f"the CUDA kernel {kernel} serves {want} ({plane}); "
-            f"got {fmt.name} with planes {sorted(qt.planes)}")
+            f"no CUDA kernel serves {fmt.name} with planes "
+            f"{sorted(qt.planes)}; ported: "
+            + ", ".join(f"{f} ({p})" for p, f in _KERNELS))
+    kernel, entry = _KERNELS[plane, fmt.name]
+    has_base = fmt.base_kind != "zero"
     _build.require_hopper(x)
     k, n = int(qt.shape[-2]), int(qt.shape[-1])
     k_s = qt.storage_k
@@ -102,16 +111,20 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         x2 = x2.clone()
     m = x2.shape[0]
     data = qt.planes[plane]
-    _build.check_operand(data, plane, torch.uint8, (k_s // 2, n))
-    _build.check_operand(qt.scale, "scale", torch.float16, (k_s // 64, n))
-    _build.check_operand(qt.base, "base", torch.float16, (k_s // 64, n))
+    blk = fmt.block
+    per_byte = 8 // fmt.planes[0].bits if plane == "data" else 2
+    _build.check_operand(data, plane, torch.uint8, (k_s // per_byte, n))
+    _build.check_operand(qt.scale, "scale", torch.float16, (k_s // blk, n))
+    if has_base:
+        _build.check_operand(qt.base, "base", torch.float16, (k_s // blk, n))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     lib = _lib()
-    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device)
+    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, blk)
     work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
             if ksplit > 1 else out)
+    base = _build.ptr(qt.base) if has_base else ctypes.c_void_p(0)
     rc = getattr(lib, entry)(_build.ptr(x2), _build.ptr(data),
-                             _build.ptr(qt.scale), _build.ptr(qt.base),
+                             _build.ptr(qt.scale), base,
                              _build.ptr(out), _build.ptr(work), m, k_s, n,
                              per, ksplit, _build.stream_of(x2))
     _build.check(lib, rc, kernel)
@@ -122,11 +135,12 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ dequant(qt); x: (..., K) with K the logical K of qt; every
     quantized product of ops/linear.py.  CUDA tensors run the kernel of
-    qt's plane (_KERNELS: B5 for ``data_i4p``, B6 for ``pair8``, else B1;
-    M <= 8 the split-K GEMV, more rows the tiled tensor-core kernel) or
-    raise; CPU tensors its plain
-    version (i4_matmul_plain for B5, quantized_matmul_plain for B1 and
-    B6, whose weights are the codec's bit for bit)."""
+    qt's plane and format (_KERNELS: B5 for ``data_i4p``, B6 for
+    ``pair8``, B1 for Q4_B64T1, Q8_B32T2 and Q8_B32T1 planes; M <= 8 the
+    split-K GEMV, more rows the tiled tensor-core kernel) or raise; CPU
+    tensors its plain version (i4_matmul_plain for B5,
+    quantized_matmul_plain for B1 and B6, whose weights are the codec's
+    bit for bit)."""
     if x.device.type == "cpu":
         if I4_PLANE in qt.planes:
             return i4_matmul_plain(x, qt)

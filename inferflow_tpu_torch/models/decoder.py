@@ -16,12 +16,14 @@ Attention routes by phase, as on the TPU:
   - chunked prefill: append the chunk to its slot, then ``chunk_attention``
     (kernel B3) over rows [0, start + T).
 Every quantized linear goes through ops/linear.py: ``quantized_matmul``
-(kernel B1 for wire planes, B5 for the i4 layout's packed nibbles, B6 for
-Q3H's pair8 plane), the i8mm product for Int8MXUTensors.
+(kernel B1 for Q4 wire planes and the Q8 block formats, B5 for the i4
+layout's packed nibbles, B6 for Q3H's pair8 plane), the i8mm product for
+Int8MXUTensors.
 A decode step (T == 1 with a cache) whose weights and cache the
-whole-model fused step takes (``fused_step_preferred``: i8mm or i4
-weights, a Q8 cache, dense or paged, B <= 8) runs ``fused_decode_step``
-(kernel B4) for all layers at once instead of the per-layer loop.
+whole-model fused step takes (``fused_step_preferred``: i8mm, i4 or Q8
+block weights, the last under the q8c layout too, a Q8 cache, dense or
+paged, B <= 8) runs ``fused_decode_step`` (kernel B4) for all layers at
+once instead of the per-layer loop.
 Not ported: MoE, ALiBi/sinusoidal positions, parallel attention and the
 ring/tensor-parallel paths.
 """
@@ -45,6 +47,11 @@ from ..runtime.kv_cache import KVCache
 from .spec import ModelSpec
 
 
+# the device layouts this package serves ('' and 'auto' resolve on the
+# device: quant/codec_torch.resolve_auto_layout)
+DEVICE_LAYOUTS = ("", "auto", "packed", "i8mm", "i4", "q8c", "mixed")
+
+
 def check_supported(spec: ModelSpec) -> None:
     """Refuse the configurations this port does not serve yet."""
     hp = spec.hyper_params
@@ -57,10 +64,11 @@ def check_supported(spec: ModelSpec) -> None:
         raise NotImplementedError("parallel attention is not ported")
     if spec.w1n3_ranks > 1:
         raise NotImplementedError("rank-major w1n3 layouts are not ported")
-    if spec.device_layout not in ("", "auto", "packed", "i8mm", "i4"):
+    if spec.device_layout not in DEVICE_LAYOUTS:
         raise NotImplementedError(
             f"device layout {spec.device_layout!r} is not ported; this "
-            "package serves the packed wire layout, i8mm and i4")
+            "package serves the packed wire layout, i8mm, i4, q8c and "
+            "mixed")
 
 
 def _norm(spec: ModelSpec, x, params: dict, prefix: str, base: float = 0.0):

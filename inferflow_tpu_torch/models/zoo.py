@@ -16,9 +16,10 @@ import torch
 
 from ..device import resolve_device
 from ..quant.codec_torch import (layout_for_leaf, quantize, repack_i4,
-                                 requantize_i8_colwise, resolve_auto_layout)
+                                 requantize_i8_colwise,
+                                 requantize_q8_container, resolve_auto_layout)
 from ..quant.formats import get_format
-from .decoder import check_supported, fuse_layer_weights
+from .decoder import DEVICE_LAYOUTS, check_supported, fuse_layer_weights
 from .spec import HyperParams, ModelSpec
 
 CONFIGS = {
@@ -76,6 +77,8 @@ def _maybe_quant(w: torch.Tensor, weight_format: Optional[str],
     # consumer here takes a stored K >= the logical K either way
     if layout == "i4":
         return repack_i4(qt)
+    if layout == "q8c":
+        return requantize_q8_container(qt)
     return qt  # Q3H comes out of quantize as pair8
 
 
@@ -91,14 +94,17 @@ def make_synthetic_params(spec: ModelSpec,
     'i8mm' every quantized weight, the lm_head included, is requantized
     into the per-column int8 container, and under 'i4' every weight of a
     4-bit single-plane format is re-stored as packed signed nibbles
-    (repack_i4).  Under '' (on the CPU) and 'packed', Q3H weights are kept
-    as the pair8 plane quantize emits (one byte per base-11 pair code),
-    the layout kernel B6 reads."""
+    (repack_i4).  Under 'q8c' every quantized weight is re-encoded as
+    Q8_B32T2 (requantize_q8_container), under 'mixed' only the FFN weights
+    (w1, w2, w3; layout_for_leaf), the rest keeping the wire planes.  Under
+    '' (on the CPU) and 'packed', Q3H weights are kept as the pair8 plane
+    quantize emits (one byte per base-11 pair code), the layout kernel B6
+    reads."""
     check_supported(spec)
     dev = resolve_device(device)
     if device_layout in ("", "auto") and weight_format:
         device_layout = resolve_auto_layout(spec, weight_format, dev)
-    if device_layout not in ("", "packed", "i8mm", "i4"):
+    if device_layout not in DEVICE_LAYOUTS:
         raise NotImplementedError(
             f"device layout {device_layout!r} is not ported")
     hp = spec.hyper_params

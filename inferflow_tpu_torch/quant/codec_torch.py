@@ -10,8 +10,10 @@ codes for int8 x int8 products); the ``i4`` device layout (``repack_i4``:
 the ``data_i4p`` plane of signed code-8 nibbles); and Q3H's ``pair8``
 plane (one byte per base-11 pair code, the plane kernel B6 reads), which
 ``quantize`` emits directly and ``from_np`` re-packs wire planes into, as
-the JAX codec does.  The split-nibble Q5_B32T1 and the q8c and mixed
-device layouts raise NotImplementedError.
+the JAX codec does; and the q8c container (``requantize_q8_container``:
+any block tensor re-encoded as Q8_B32T2), which the ``q8c`` layout applies
+to every weight and the ``mixed`` layout to the FFN weights.  The
+split-nibble Q5_B32T1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -434,3 +436,14 @@ def layout_for_leaf(layout: str, leaf: str) -> str:
     if layout != "mixed":
         return layout
     return "q8c" if leaf in MIXED_CONTAINER_LEAVES else "packed"
+
+
+def requantize_q8_container(qt: QuantizedTensor) -> QuantizedTensor:
+    """Device layout 'q8c' (codec_jax.requantize_q8_container): the tensor
+    dequantized to float32 and quantized again as Q8_B32T2 (signed int8
+    codes, an f16 scale per 32 rows, no base), one byte per weight read by
+    kernel B1's Q8 case and B4's byte mode.  Bytes equal to the JAX
+    codec's; a Q8_B32T2 tensor passes through unchanged."""
+    if qt.format == "Q8_B32T2":
+        return qt
+    return quantize(dequantize(qt, torch.float32), "Q8_B32T2")

@@ -247,8 +247,10 @@ def test_fused_decode_step_matches_jax(llama, monkeypatch):
 
 
 def test_routing_and_unported_modes(llama, monkeypatch):
-    """B <= 8 takes the fused step and B = 9 the per-layer loop; a
-    configuration the TPU package fuses in an unported mode raises."""
+    """B <= 8 takes the fused step and B = 9 the per-layer loop; the byte
+    mode (Q8 block weights) is supported and preferred, as the TPU package
+    routes it; a configuration the TPU package fuses in an unported mode
+    raises, in fused_step_supported as in fused_decode_step."""
     _, _, spec_t, params_t = llama
     hp = spec_t.hyper_params
     calls = []
@@ -272,7 +274,7 @@ def test_routing_and_unported_modes(llama, monkeypatch):
                             hp.head_dim, quantized=False, device="cpu")
     assert not tds.fused_step_supported(spec_t, params_t["layers"], cache, 2)
 
-    # byte-per-code weights (Q8_B32T2) and output biases: fused on the TPU
+    # byte-per-code weights (Q8_B32T2): fused and preferred, as on the TPU
     spec_q8 = tzoo.make_spec("test-llama", device_layout="packed")
     q8 = tzoo.make_synthetic_params(spec_q8, "Q8_B32T2", seed=0,
                                     device="cpu")
@@ -280,19 +282,25 @@ def test_routing_and_unported_modes(llama, monkeypatch):
                             hp.head_dim, quantized=True, device="cpu")
     x = torch.zeros((2, 1, hp.embd_dims), dtype=torch.bfloat16)
     pos = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="byte-per-code"):
-        tdec.decoder_layers_unrolled(spec_q8, q8["layers"], x, pos, cache)
+    assert tds.fused_step_supported(spec_q8, q8["layers"], cache, 2)
+    assert tds.fused_step_preferred(spec_q8, q8["layers"], cache, 2)
+    calls.clear()
+    y, _ = tdec.decoder_layers_unrolled(spec_q8, q8["layers"], x, pos, cache)
+    assert calls == [2] and torch.isfinite(y.float()).all()
+    # output biases: fused on the TPU, not ported
     biased = [dict(lp, attn=dict(lp["attn"], qkv_b=torch.zeros(
         lp["attn"]["qkv"].shape[-1]))) for lp in params_t["layers"]]
     with pytest.raises(NotImplementedError, match="biases"):
         tdec.decoder_layers_unrolled(spec_t, biased, x, pos, cache)
-    # Q4 wire planes: fusable on the TPU, routed to the per-layer path
+    # Q4 wire planes: fusable on the TPU in its wire mode (not ported),
+    # routed to the per-layer path; supported and the step both raise
     spec_q4 = tzoo.make_spec("test-llama", device_layout="packed")
     q4 = tzoo.make_synthetic_params(spec_q4, "Q4_B64T1", seed=0,
                                     device="cpu")
-    assert tds.fused_step_supported(spec_q4, q4["layers"], cache, 2)
+    with pytest.raises(NotImplementedError, match="wire mode"):
+        tds.fused_step_supported(spec_q4, q4["layers"], cache, 2)
     assert not tds.fused_step_preferred(spec_q4, q4["layers"], cache, 2)
-    with pytest.raises(NotImplementedError, match="i8mm"):
+    with pytest.raises(NotImplementedError, match="wire mode"):
         tds.fused_decode_step(spec_q4, q4["layers"], x, pos, cache)
 
 

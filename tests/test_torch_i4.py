@@ -319,8 +319,9 @@ def test_engine_i4_matches_jax(llama, jax_fused_interpret, monkeypatch):
 
 def test_routing_and_layouts(llama, monkeypatch):
     """i4 weights take the fused step at B <= 8 and B5 elsewhere; q8c and
-    mixed still raise; resolve_auto_layout takes i4 for llama2-13b on a
-    16 GB card and i8mm on 80 GB."""
+    mixed build and serve (Q8_B32T2 containers for every weight, or for
+    the FFN weights only); resolve_auto_layout takes i4 for llama2-13b on
+    a 16 GB card and i8mm on 80 GB."""
     _, _, spec_t, params_t = llama
     hp = spec_t.hyper_params
     for b in (1, 8, 9):
@@ -332,11 +333,14 @@ def test_routing_and_layouts(llama, monkeypatch):
                                         b) == (b <= 8)
     for layout in ("q8c", "mixed"):
         spec = tzoo.make_spec("test-llama", device_layout=layout)
-        with pytest.raises(NotImplementedError):
-            tzoo.make_synthetic_params(spec, "Q4_B64T1", device="cpu",
-                                       device_layout=layout)
-        with pytest.raises(NotImplementedError):
-            TEngine(spec, params_t, device="cpu")
+        params = tzoo.make_synthetic_params(spec, "Q4_B64T1", device="cpu",
+                                            device_layout=layout)
+        assert params["layers"][0]["ffn"]["w2"].format == "Q8_B32T2"
+        assert params["layers"][0]["attn"]["wo"].format == (
+            "Q8_B32T2" if layout == "q8c" else "Q4_B64T1")
+        eng = TEngine(spec, params, max_concurrent_queries=2,
+                      max_context_len=64, device="cpu")
+        assert len(eng.generate([1, 2, 3], TOpts(strategy="greedy"), 2)) == 2
     got = {}
     for gb in (80, 16):
         monkeypatch.setattr(codec_torch, "_device_memory_bytes",

@@ -2,13 +2,14 @@
 
 - Importing every module of ``inferflow_tpu_torch`` (in a fresh process;
   ``config/`` and ``runtime/paged_kv.py`` among them) leaves ``jax`` and
-  ``inferflow_tpu`` out of ``sys.modules``; no module of it, and nothing in
-  ``chip_smoke.py``, names them in an import.
+  ``inferflow_tpu`` out of ``sys.modules``; no module of it, nothing in
+  ``chip_smoke.py`` and no card test (``tests/test_torch_cuda*.py``) names
+  them in an import.
 - Entry points default to the card and raise where there is none; the
-  kernel wrappers (B1-B3, B5, B6, B7, the i8mm product and the fused
-  decode step B4, dense and paged, i8mm and i4) raise for a tensor that is
-  neither on the CPU nor on a card, and the kernel build raises without a
-  CUDA compiler.
+  kernel wrappers (B1 for Q4 and Q8 weights, B2, B3, B5, B6, B7, the i8mm
+  product and the fused decode step B4, dense and paged, i8mm, i4 and
+  byte) raise for a tensor that is neither on the CPU nor on a card, and
+  the kernel build raises without a CUDA compiler.
 """
 
 import ast
@@ -62,8 +63,10 @@ def _imported_names(path):
 
 
 def test_no_jax_or_reference_imports():
-    paths = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(paths) >= 15
+    cards = sorted((ROOT / "tests").glob("test_torch_cuda*.py"))
+    assert len(cards) >= 5
+    paths = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + cards
+    assert len(paths) >= 20
     for path in paths:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -160,6 +163,21 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(NotImplementedError, match=r"mode \(h\)"):
         fused_decode_step(spec, q3h["layers"], x,
                           torch.zeros((2, 1), dtype=torch.int32), cache)
+
+    # B1's Q8 case and the fused step's byte mode (Q8_B32T2, the q8c
+    # container, and Q8_B32T1)
+    for fmt, layout in (("Q8_B32T2", ""), ("Q4_B64T1", "q8c"),
+                        ("Q8_B32T1", "")):
+        q8 = make_synthetic_params(spec, fmt, device="cpu",
+                                   device_layout=layout)
+        assert q8["lm_head"].format.startswith("Q8_")
+        for fn in (quantized_matmul, linear):
+            with pytest.raises(ValueError, match="unsupported device"):
+                fn(torch.empty((2, hp.embd_dims), device="meta"),
+                   q8["lm_head"])
+        with pytest.raises(ValueError, match="unsupported device"):
+            fused_decode_step(spec, q8["layers"], x,
+                              torch.zeros((2, 1), dtype=torch.int32), cache)
 
 
 def test_kernel_build_needs_nvcc():

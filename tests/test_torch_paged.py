@@ -84,7 +84,7 @@ def test_engine_config_matches_jax():
     specs, field by field (the pipeline ini's inline comment after
     `devices` is refused by both loaders alike)."""
     paths = sorted((ROOT / "configs").glob("*.ini"))
-    assert len(paths) == 6
+    assert len(paths) == 7
     refused = 0
     for path in paths:
         ref, got = _load(jload, path), _load(tload, path)
@@ -117,6 +117,13 @@ def test_engine_config_matches_jax():
             q3h.model.device_kv_cache_data_type,
             q3h.model.max_context_len) \
         == ("llama2_13b", "packed", "Q3H", "Q8", 4096)
+    q8 = tload(str(ROOT / "configs" / "inferflow_service.q8.ini"))
+    assert (q8.max_concurrent_queries, q8.kv_cache_paging) == (8, False)
+    assert (q8.model.sid, q8.model.device_layout,
+            q8.model.device_weight_data_type,
+            q8.model.device_kv_cache_data_type,
+            q8.model.max_context_len) \
+        == ("llama2_7b", "", "Q8", "Q8", 4096)
 
 
 def _jax_pool_to_logical(jc):
