@@ -118,12 +118,30 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        against the CPU engine;
    then, at tinyllama-1.1b width with PROMPT_LENS and 4 slots, each against
    the CPU engine:
-   (i) device_layout = q8c from seed-0 Q4_B64T1 at full depth: every
-       weight re-encoded as Q8_B32T2, every decode step B4 (c);
-       ENGINE_CUT_CPU_NEW new tokens per query;
+   (i) device_layout = q8c from seed-0 Q4_B64T1 at ENGINE_I_LAYERS
+       layers: every weight re-encoded as Q8_B32T2, every decode step B4
+       (c); ENGINE_CUT_CPU_NEW new tokens per query;
    (j) device_layout = mixed at ENGINE_J_LAYERS layers: q8c FFN weights
        (B1-Q8), Q4 wire attention and lm_head (B1-Q4), the per-layer
-       decode with B2, chunks B3.
+       decode with B2, chunks B3;
+8. reads configs/inferflow_service.moe.ini the same way: mixtral-8x7b at
+   full width (8 experts, top-2) from seed-0 Q4_B64T1, resolved to i8mm on
+   the card (about 47 GB), 8 slots, a 4096-token context; prints the
+   weights' bytes against the count and the KV cache's, and
+   - holds B4's routed-expert mode (g) (fused_decode_step_moe) at 32
+     layers, B = 8 (MOE_FUSED_LENGTHS) and B = 1, against its plain
+     version: each layer alone on the plain stack's input to it (routes
+     and outputs), then the stack, the same bits twice, with the share of
+     routing decisions that agree; times it against the bytes of the
+     experts its routing chose; the same for one layer with Q8_B32T2
+     experts (mode (c) products);
+   (k) serves ENGINE_K_PROMPTS (7 to 2000 tokens) at full depth: every
+       decode step B4 (g), chunks B3, the decode lm_head the int8 GEMV; no
+       B1, B2, B5, B6, B7 or other B4 mode; every sampled row is held
+       against a twin on the card (the same weights and engine fed (k)'s
+       tokens, its decode steps B4 (g)'s plain version);
+   (k-cpu) the same at ENGINE_KCPU_LAYERS layers with short prompts,
+       against the CPU engine.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -191,7 +209,11 @@ I4_MODEL_NAME = "llama2-7b"
 ENGINE_C_PROMPTS = (7, 1024, 13, 600, 33, 300, 64, 900, 100, 17, 256, 512,
                     129, 700, 45, 1000, 8, 384, 200, 77, 1023, 150, 60, 450)
 ENGINE_C_DENSE_CONTEXT = 2048
-ENGINE_CCPU_LAYERS = 2
+# the runs against the CPU engine at llama2-7b and llama2-13b width, (c-cpu),
+# (e-cpu), (f), (g-cpu) and (h-cpu), take one layer (two before the MoE
+# runs were added): their CPU references are most of the script's time,
+# and with the MoE runs a slow host would otherwise pass 900 s
+ENGINE_CCPU_LAYERS = 1
 ENGINE_CCPU_PROMPTS = (7, 300, 13, 150, 33, 250, 64, 100, 17, 200, 129, 45,
                        8, 77, 60, 290, 21, 128)
 # the paged engine (c) against the dense engine on the card: the same
@@ -233,11 +255,10 @@ ENGINE_E_DECODE_TOL = 0.12
 # dequantize every weight on each call (a decode step takes seconds on the
 # host at llama2-7b width): few queries of ENGINE_CUT_CPU_NEW tokens each
 ENGINE_CUT_CPU_NEW = 8
-ENGINE_ECPU_LAYERS = 2
+ENGINE_ECPU_LAYERS = 1
 ENGINE_ECPU_PROMPTS = (7, 300, 13)
 # run (f): B > 8, the per-layer loop with B5 and B2
-# (f) at 2 layers, as (b)
-ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT = 2, 12, 1024
+ENGINE_F_LAYERS, ENGINE_F_SLOTS, ENGINE_F_CONTEXT = 1, 12, 1024
 ENGINE_F_PROMPTS = (7, 13, 33, 64, 100)
 # measured 0.0703 for (e-cpu) (H100, 700 W)
 ENGINE_CUT_CPU_TOL = 0.12
@@ -259,9 +280,8 @@ ENGINE_G_TOL = 0.12
 # 2000-token prompt
 G_ATTN_LENGTHS = (2016, 1216, 916, 616, 316, 272, 116, 80)
 G_CHUNK_START = 1536
-# (g-cpu): 2 layers; the 300-token prompt takes a chunk (B3) at
-# llama2-13b width
-ENGINE_GCPU_LAYERS = 2
+# (g-cpu): the 300-token prompt takes a chunk (B3) at llama2-13b width
+ENGINE_GCPU_LAYERS = 1
 ENGINE_GCPU_PROMPTS = (7, 300, 13)
 
 # Q8 block weights: configs/inferflow_service.q8.ini, llama2-7b in Q8_B32T2
@@ -294,13 +314,59 @@ ENGINE_H_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
 # 700 W)
 ENGINE_H_PREFILL_TOL = 0.0625
 ENGINE_H_DECODE_TOL = 0.12
-# (h-cpu): 2 layers; the 300-token prompt takes a chunk (B3); measured
-# 0.0156 against the CPU engine, and (i) 0.039, (j) 0.0195 (H100, 700 W)
-ENGINE_HCPU_LAYERS = 2
+# (h-cpu): the 300-token prompt takes a chunk (B3); measured 0.0156
+# against the CPU engine at 2 layers, and (i) 0.039 at 22, (j) 0.0195 at 4
+# (H100, 700 W)
+ENGINE_HCPU_LAYERS = 1
 ENGINE_HCPU_PROMPTS = (7, 300, 13)
-# run (j): the mixed layout (q8c FFN, Q4 wire attention and lm_head) at
-# tinyllama-1.1b width, per-layer decode
-ENGINE_J_LAYERS = 4
+# runs (i) and (j) at tinyllama-1.1b width against the CPU engine, cut in
+# depth (from 22 and 4 layers) so that the whole script, with the MoE
+# runs, stays near 900 s on a slow host: (i) the q8c layout, (j) the
+# mixed layout (q8c FFN, Q4 wire attention and lm_head), per-layer decode
+ENGINE_I_LAYERS = 6
+ENGINE_J_LAYERS = 2
+
+# routed MoE: configs/inferflow_service.moe.ini, mixtral-8x7b (8 experts,
+# top-2) from seed-0 Q4_B64T1, resolved to i8mm on the card
+MOE_INI = "configs/inferflow_service.moe.ini"
+MOE_MODEL_NAME = "mixtral-8x7b"
+MOE_CONTEXT = 4096
+# B4 (g) at B = 8 (lengths spread up to the last cache row) and B = 1
+MOE_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
+# B4 (g) against its plain version, first layer by layer, each layer fed
+# the plain stack's input to it.  A route is held only where the plain
+# version's k-th and (k+1)-th probabilities differ by more than
+# MOE_GAP_EPS: the kernel's gate dot sums the same float32 products in
+# another order (~1e-7 of a probability), and its xn can differ from the
+# plain rmsnorm by one bf16 step, which moves a probability by ~1e-3 at
+# most (gate columns of norm ~0.5); where routes agree, one layer is held
+# to ONE_LAYER_TOL x max|plain| as B4's other modes are.  The whole stack
+# routes each layer on its own drifting input, so a route can flip where
+# two probabilities are within that drift, and the slot's later layers
+# then see another hidden state: its rows are held to MOE_FUSED_TOL x
+# max|plain| over the slots whose routes agree in every layer (the
+# drift of B4's other modes over 32 random layers, up to 15%: I4_FUSED_TOL),
+# and the share of routing decisions that agree is reported.  Measured
+# (H100 80GB HBM3, 700 W): one layer 1.25% (B = 8) and 0.82% (B = 1) with
+# 99.6% and 100% of routes equal, every clear one; the stack 56% and 88%
+# of routes equal, 3.1% over the one slot routed alike throughout
+MOE_GAP_EPS = 2e-3
+MOE_FUSED_TOL = 0.25
+# run (k): 12 queries of 7 to 2000 tokens at full depth; those over 256
+# take the chunked prefill (B3)
+ENGINE_K_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+# run (k) against its twin on the card (the same weights and engine, fed
+# (k)'s tokens, its decode steps B4 (g)'s plain version): the prefill runs
+# the same kernels on both (measured 0.0); decode rows differ as the stack
+# does, where a route that flips in one of 32 layers moves a row further
+# (measured 0.198 at most, 187 of 192 argmax equal, largest |logit| 2.45;
+# H100 80GB HBM3, 700 W): the gate is one and a half times that
+ENGINE_K_PREFILL_TOL = 1e-6
+ENGINE_K_DECODE_TOL = 0.3
+# (k-cpu): one layer against the CPU engine (its dense combine runs all 8
+# experts on every prompt row on the host): short prompts
+ENGINE_KCPU_LAYERS = 1
+ENGINE_KCPU_PROMPTS = (7, 128, 13)
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -336,6 +402,11 @@ KERNEL_SOURCES = {
     "fused_decode_step_byte": (
         "inferflow_tpu_torch/kernels/csrc/decode_step.cu",
         "inferflow_tpu/kernels/decode_step.py:255"),
+    # B4 in its routed-expert mode (g) (moe_slot :1124: in-kernel gate,
+    # softmax, top-k and per-expert weight streaming)
+    "fused_decode_step_moe": (
+        "inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+        "inferflow_tpu/kernels/decode_step.py:1124"),
 }
 
 
@@ -476,6 +547,15 @@ def _filled_cache(dev, spec, batch, rows, seed, context=CONTEXT):
     return cache, gen
 
 
+def _twin(cache):
+    """A copy of a dense cache: its codes, scales and lengths."""
+    import dataclasses
+    return dataclasses.replace(
+        cache, k=cache.k.clone(), v=cache.v.clone(),
+        k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
+        length=cache.length.clone())
+
+
 def _kv_bytes(rows: int, spec) -> int:
     """Q8 K and V rows with their f16 scales (one per 32 elements)."""
     hp = spec.hyper_params
@@ -612,9 +692,15 @@ def phase_i8mm_gemv(timer, dev, params) -> list:
 
 def _weight_bytes(params) -> int:
     """The bytes of every layer's weights and norms (tensors and both
-    quantized containers report nbytes)."""
-    return sum(t.nbytes for lp in params["layers"]
-               for grp in (lp["attn"], lp["ffn"]) for t in grp.values())
+    quantized containers report nbytes), a MoE layer's gate and expert
+    stacks included."""
+    def groups(lp):
+        if "moe" not in lp:
+            return (lp["attn"], lp["ffn"])
+        moe = dict(lp["moe"])
+        return (lp["attn"], moe.pop("experts_stacked"), moe)
+    return sum(t.nbytes for lp in params["layers"] for grp in groups(lp)
+               for t in grp.values())
 
 
 def phase_b4(timer, dev, spec, params) -> list:
@@ -630,10 +716,7 @@ def phase_b4(timer, dev, spec, params) -> list:
         b = len(lengths)
         cache, gen = _filled_cache(dev, spec, b, CONTEXT, seed=5)
         cache.with_length(torch.tensor(lengths, device=dev))
-        twin = dataclasses.replace(
-            cache, k=cache.k.clone(), v=cache.v.clone(),
-            k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
-            length=cache.length.clone())
+        twin = _twin(cache)
         tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
                                device=dev)
         x = params["dec_embeddings"][tokens]
@@ -1415,10 +1498,7 @@ def phase_b4_i4(timer, dev, spec, params, spec_i8, params_i8) -> list:
         cache, gen = _filled_cache(dev, spec, b, I4_CONTEXT, seed=33,
                                    context=I4_CONTEXT)
         cache.with_length(torch.tensor(lengths, device=dev))
-        twin = dataclasses.replace(
-            cache, k=cache.k.clone(), v=cache.v.clone(),
-            k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
-            length=cache.length.clone())
+        twin = _twin(cache)
         tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
                                device=dev)
         x = params["dec_embeddings"][tokens]
@@ -1920,12 +2000,8 @@ def _step_vs_plain(spec, layers, x, pos, cache, twin):
     """One fused step on the card against its plain version on a twin
     cache (the same rows): (kernel out, plain out, the kernel's out of a
     second step on a third twin)."""
-    import dataclasses
     from inferflow_tpu_torch.kernels import decode_step
-    third = dataclasses.replace(
-        cache, k=cache.k.clone(), v=cache.v.clone(),
-        k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
-        length=cache.length.clone())
+    third = _twin(cache)
     got, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
     again, _ = decode_step.fused_decode_step(spec, layers, x, pos, third)
     ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos, twin)
@@ -1956,10 +2032,7 @@ def phase_b4_byte(timer, dev, spec, params) -> list:
         cache, gen = _filled_cache(dev, spec, b, Q8_CONTEXT, seed=73,
                                    context=Q8_CONTEXT)
         cache.with_length(torch.tensor(lengths, device=dev))
-        twin = dataclasses.replace(
-            cache, k=cache.k.clone(), v=cache.v.clone(),
-            k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone(),
-            length=cache.length.clone())
+        twin = _twin(cache)
         tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
                                device=dev)
         x = params["dec_embeddings"][tokens]
@@ -2129,6 +2202,257 @@ def phase_engine_h(dev, cfg, spec, params, memory, i8mm_weight_bytes) -> dict:
                         <= ENGINE_H_PREFILL_TOL)
     emit(report)
     assert report["ok"], "run h: rows disagree with the dense twin"
+    return launches
+
+
+# ------------------------------------------------------------ routed MoE
+def _layer_view(cache, layer):
+    import dataclasses
+    return dataclasses.replace(
+        cache, k=cache.k[layer:layer + 1], v=cache.v[layer:layer + 1],
+        k_scale=cache.k_scale[layer:layer + 1],
+        v_scale=cache.v_scale[layer:layer + 1])
+
+
+def _clear_gaps(probs, top_k):
+    """Whether each of the top_k choices of a row is separated from the
+    next probability by more than MOE_GAP_EPS."""
+    s = torch.sort(probs, dim=-1, descending=True).values
+    return ((s[..., :top_k] - s[..., 1:top_k + 1]) > MOE_GAP_EPS).all(dim=-1)
+
+
+def _moe_step_row(timer, spec, layers, x, pos, cache, label, lengths,
+                  plain_iters=I4_PLAIN_ITERS) -> dict:
+    """B4 (g) over `layers` against its plain version on a twin cache:
+    every layer alone, fed the plain stack's input to it (routes held where
+    the plain gap is clear, the output where the routes agree), then the
+    whole stack (the same bits on a second run); times both and bounds the
+    kernel by the bytes of the experts its routing chose."""
+    from inferflow_tpu_torch.kernels import decode_step
+    hp = spec.hyper_params
+    top_k = hp.moe_top_k
+    twin, third = _twin(cache), _twin(cache)
+    routes_k, routes_p, routes_again = [], [], []
+    got, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache,
+                                           routes=routes_k)
+    again, _ = decode_step.fused_decode_step(spec, layers, x, pos, third,
+                                             routes=routes_again)
+    ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos, twin,
+                                                 routes=routes_p)
+    torch.cuda.synchronize()
+    del third
+    sel_k, sel_p = routes_k[0]["experts"], routes_p[0]["experts"]
+    # each layer alone on the plain stack's input to it
+    one_worst, one_agree, clear_ok, clear_n = 0.0, 0, True, 0
+    for layer in range(len(layers)):
+        xin = routes_p[0]["inputs"][layer][:, None]
+        r1 = []
+        g1, _ = decode_step.fused_decode_step(
+            spec, layers[layer:layer + 1], xin, pos,
+            _layer_view(cache, layer), routes=r1)
+        p1, _ = decode_step.fused_decode_step_plain(
+            spec, layers[layer:layer + 1], xin, pos,
+            _layer_view(twin, layer))
+        s1 = r1[0]["experts"][0]
+        agree = (s1 == sel_p[layer]).all(dim=-1)
+        clear = _clear_gaps(routes_p[0]["probs"][layer], top_k)
+        clear_n += int(clear.sum())
+        clear_ok &= bool(torch.equal(s1[clear], sel_p[layer][clear]))
+        one_agree += int(agree.sum())
+        if agree.any():
+            err = (g1[agree].float() - p1[agree].float()).abs().max().item()
+            one_worst = max(one_worst,
+                            err / p1[agree].float().abs().max().item())
+    n_dec = sel_p.shape[0] * sel_p.shape[1]
+    stack_agree = (sel_k == sel_p).all(dim=-1)  # (L, B)
+    slots_ok = stack_agree.all(dim=0)
+    err = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    err_all = err.max().item()
+    err_ok = err[slots_ok].max().item() if slots_ok.any() else 0.0
+    # the bound: every weight the step must read once (attention, gates,
+    # norms, each chosen expert once), the live KV rows and the new ones
+    distinct = [len(set(sel_k[layer].flatten().tolist()))
+                for layer in range(len(layers))]
+    stack = layers[0]["moe"]["experts_stacked"]
+    n_exp = int(layers[0]["moe"]["gate"].shape[-1])
+    expert_bytes = sum(w.nbytes for w in stack.values()) // n_exp
+    shared_bytes = sum(t.nbytes for lp in layers for grp in (
+        lp["attn"], {k: v for k, v in lp["moe"].items()
+                     if k != "experts_stacked"}) for t in grp.values())
+    b = x.shape[0]
+    live = sum(min(n, cache.max_len) for n in lengths)
+    nblk = hp.head_dim // 32
+    kv_bytes = 2 * len(layers) * (live + b) * hp.kv_heads * (hp.head_dim
+                                                            + 2 * nblk)
+    bytes_moved = shared_bytes + sum(distinct) * expert_bytes + kv_bytes \
+        + 2 * 2 * b * hp.embd_dims
+    kn = {k: int(w.shape[-2]) * int(w.shape[-1]) for k, w in stack.items()}
+    attn_kn = sum(int(lp["attn"][k].shape[-2]) * int(lp["attn"][k].shape[-1])
+                  for lp in layers for k in ("qkv", "wo"))
+    ops = 2 * b * attn_kn + 2 * b * top_k * len(layers) * sum(kn.values())
+    b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
+    same = bool(torch.equal(got, again)) and bool(torch.equal(
+        routes_again[0]["experts"], sel_k))
+    ok = bool(np.isfinite(err_all) and one_worst <= ONE_LAYER_TOL and clear_ok
+              and err_ok <= MOE_FUSED_TOL * scale and same)
+    row = {"phase": "kernel", "kernel": "fused_decode_step_moe",
+           "shape": f"{label} L={len(layers)} B={b} lengths={list(lengths)} "
+                    f"S={cache.max_len}",
+           "max_abs_err": err_all, "rel_err": err_all / max(scale, 1e-30),
+           "rel_err_slots_routed_alike": err_ok / max(scale, 1e-30),
+           "tolerance": f"one layer on the plain input: routes equal where "
+                        f"the plain gap > {MOE_GAP_EPS}, max_abs_err <= "
+                        f"{ONE_LAYER_TOL} * max|plain| where they agree; the "
+                        f"stack: max_abs_err <= {MOE_FUSED_TOL} * max|plain| "
+                        f"over the slots routed alike in every layer; the "
+                        f"same bits on a second run",
+           "one_layer_rel_err": one_worst,
+           "one_layer_route_agreement": one_agree / n_dec,
+           "one_layer_clear_routes": clear_n,
+           "stack_route_agreement": float(stack_agree.float().mean()),
+           "slots_routed_alike": int(slots_ok.sum()),
+           "same_bits_twice": same, "ok": ok,
+           "distinct_experts_per_layer": distinct,
+           "distinct_experts": sum(distinct),
+           "ms": timer(lambda: decode_step.fused_decode_step(
+               spec, layers, x, pos, cache), f"fused_decode_step_moe {label}"),
+           "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
+               spec, layers, x, pos, twin), f"plain moe {label}",
+               plain_iters),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes_bound": bytes_moved}
+    emit(row)
+    return row
+
+
+def phase_b4_moe(timer, dev, spec, params) -> list:
+    """B4 (g) at full mixtral-8x7b width and depth (i8mm experts) at B = 8
+    and B = 1, then one layer with Q8_B32T2 experts (mode (c) products)."""
+    from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params
+    hp = spec.hyper_params
+    rows = []
+    for lengths in (MOE_FUSED_LENGTHS, (MOE_CONTEXT // 2,)):
+        b = len(lengths)
+        cache, gen = _filled_cache(dev, spec, b, MOE_CONTEXT, seed=83,
+                                   context=MOE_CONTEXT)
+        cache.with_length(torch.tensor(lengths, device=dev))
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = params["dec_embeddings"][tokens]
+        pos = cache.length[:, None].clone()
+        rows.append(_moe_step_row(timer, spec, params["layers"], x, pos,
+                                  cache, f"{MOE_MODEL_NAME} i8mm", lengths))
+        del cache
+        torch.cuda.empty_cache()
+    spec1 = make_spec(MOE_MODEL_NAME, layers=1)
+    q8 = make_synthetic_params(spec1, "Q8_B32T2", seed=0, device=dev)
+    assert q8["layers"][0]["moe"]["experts_stacked"]["w1n3"].format \
+        == "Q8_B32T2"
+    for lengths in (MOE_FUSED_LENGTHS, (MOE_CONTEXT // 2,)):
+        b = len(lengths)
+        cache, gen = _filled_cache(dev, spec1, b, MOE_CONTEXT, seed=89,
+                                   context=MOE_CONTEXT)
+        cache.with_length(torch.tensor(lengths, device=dev))
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = q8["dec_embeddings"][tokens]
+        pos = cache.length[:, None].clone()
+        rows.append(_moe_step_row(timer, spec1, q8["layers"], x, pos, cache,
+                                  f"{MOE_MODEL_NAME} Q8_B32T2", lengths))
+        del cache
+    del q8
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_engine_k(dev, cfg, spec, params, memory) -> dict:
+    """Run (k): the moe ini's engine at full depth on the card (every decode
+    step B4 (g), prefill chunks B3, the decode lm_head the int8 GEMV), then
+    a twin on the card, the same weights and engine fed (k)'s tokens, whose
+    decode steps run B4 (g)'s plain version (set here for the twin only);
+    every sampled row held against the twin's."""
+    from inferflow_tpu_torch.kernels import _build, decode_step
+    from inferflow_tpu_torch.models import decoder as decoder_mod
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    hp = spec.hyper_params
+    rng = np.random.default_rng(9)
+    prompts = [[int(t) for t in rng.integers(1, hp.vocab_size, n)]
+               for n in ENGINE_K_PROMPTS]
+    engine_kw = dict(max_concurrent_queries=cfg.max_concurrent_queries,
+                     max_context_len=spec.max_context_len, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = InferenceEngine(spec, params, **engine_kw)
+    cache_bytes = _pool_bytes(eng.cache)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    memory = dict(memory, cache=cache_bytes,
+                  serving_peak=torch.cuda.max_memory_allocated(dev)
+                  - memory["before"])
+    emit({"phase": "engine_k", "config": MOE_INI, "model": MOE_MODEL_NAME,
+          "layers": hp.decoder_layers, "embd": hp.embd_dims,
+          "experts": hp.experts, "top_k": hp.moe_top_k,
+          "device_layout": spec.device_layout or "auto",
+          "slots": cfg.max_concurrent_queries,
+          "context": spec.max_context_len, "queries": len(prompts),
+          "prompt_lens": list(ENGINE_K_PROMPTS),
+          "tokens_served": sum(len(o) for o in outputs),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "wall_s": wall_s, "device_bytes": memory,
+          "prefill_ms_per_step": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step": decode_ms,
+          "first_tokens": [o[:4] for o in outputs],
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    assert launches.get("fused_decode_step_moe", 0) == len(decode_ms), \
+        "a decode step did not take B4 (g)"
+    for k in ("chunk_attention", "i8mm_gemv"):
+        assert launches.get(k, 0) > 0, f"{k} never launched in run k"
+    for k in ("dequant_matmul", "q8_matmul", "decode_attention", "i4_matmul",
+              "q3h_matmul", "paged_decode_attention", "fused_decode_step",
+              "fused_decode_step_i4", "fused_decode_step_byte", "i4x8_gemv"):
+        assert launches.get(k, 0) == 0, f"{k} launched in run k"
+    profile_decode(eng, prompts[0], "k")
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    real = decoder_mod.fused_decode_step
+    decoder_mod.fused_decode_step = decode_step.fused_decode_step_plain
+    try:
+        ref = InferenceEngine(spec, params, **engine_kw)
+        ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+        _build.launch_counts.clear()
+        ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+        torch.cuda.synchronize()
+    finally:
+        decoder_mod.fused_decode_step = real
+    ref_launches = dict(_build.launch_counts)
+    assert ref_qids == qids, (ref_qids, qids)
+    assert ref_launches.get("fused_decode_step_moe", 0) == 0
+    del ref
+    torch.cuda.empty_cache()
+    report = {"phase": "engine_k_vs_plain_step_twin_card",
+              "reference_s": time.perf_counter() - t0,
+              "reference_decode_ms_median": float(np.median(ref_decode_ms)),
+              "tolerance": f"prefill rows max_abs_err <= "
+                           f"{ENGINE_K_PREFILL_TOL}, decode rows <= "
+                           f"{ENGINE_K_DECODE_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
+                              ENGINE_K_DECODE_TOL))
+    report.update(_split_row_errors(report))
+    report["ok"] = bool(report["ok"] and report["prefill_max_abs_err"]
+                        <= ENGINE_K_PREFILL_TOL)
+    emit(report)
+    assert report["ok"], "run k: rows disagree with the plain-step twin"
     return launches
 
 
@@ -2356,10 +2680,10 @@ def main() -> int:
 
     # (i) the q8c layout: every weight of tinyllama-1.1b's seed-0 Q4_B64T1
     # re-encoded as Q8_B32T2
-    spec_i = make_spec(MODEL, device_layout="q8c")
+    spec_i = make_spec(MODEL, device_layout="q8c", layers=ENGINE_I_LAYERS)
     params_i, memory_i = build_params(dev, spec_i)
-    # at 22 layers the plain byte step takes seconds per decode step on
-    # the host: ENGINE_CUT_CPU_NEW new tokens per query
+    # the plain byte step takes about a second per decode step on the
+    # host: ENGINE_CUT_CPU_NEW new tokens per query
     _run(results, failed, "engine_i", lambda: phase_engine(
         dev, spec_i, params_i, memory_i, "i",
         ("fused_decode_step_byte", "q8_matmul", "chunk_attention"),
@@ -2381,12 +2705,47 @@ def main() -> int:
     del params_j
     torch.cuda.empty_cache()
 
+    # routed MoE: configs/inferflow_service.moe.ini, mixtral-8x7b
+    cfg_k, spec_k, fmt_k = ini_config(MOE_INI, MOE_MODEL_NAME)
+    layout_k = resolve_auto_layout(spec_k, fmt_k, dev)
+    emit({"phase": "layout", "model": MOE_MODEL_NAME, "config": MOE_INI,
+          "weight_format": fmt_k, "resolved": layout_k})
+    if layout_k != "i8mm":
+        failed.append("layout_k")
+    params_k, memory_k = build_params(dev, spec_k, fmt_k)
+    hp_k = spec_k.hyper_params
+    emit({"phase": "weights", "model": MOE_MODEL_NAME,
+          "moe_device_bytes": memory_k,
+          "layer_and_head_weight_bytes": _weight_bytes(params_k)
+          + params_k["lm_head"].nbytes,
+          "embedding_bytes": params_k["dec_embeddings"].nbytes,
+          "kv_cache_bytes": 2 * hp_k.decoder_layers
+          * cfg_k.max_concurrent_queries * spec_k.max_context_len
+          * hp_k.kv_heads * (hp_k.head_dim + 2 * hp_k.head_dim // 32)})
+    _run(results, failed, "fused_decode_step_moe",
+         lambda: phase_b4_moe(timer, dev, spec_k, params_k))
+    _run(results, failed, "engine_k", lambda: phase_engine_k(
+        dev, cfg_k, spec_k, params_k, memory_k))
+    spec_cut = ini_config(MOE_INI, MOE_MODEL_NAME,
+                          layers=ENGINE_KCPU_LAYERS)[1]
+    spec_cut.qkv_format = spec_k.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_k, layers=params_k["layers"][:ENGINE_KCPU_LAYERS])
+    _run(results, failed, "engine_k_cpu", lambda: phase_engine_cut_cpu(
+        dev, cfg_k, spec_cut, params_cut, "k_cpu", MOE_INI, MOE_MODEL_NAME,
+        ENGINE_KCPU_PROMPTS, cfg_k.max_concurrent_queries,
+        spec_k.max_context_len, ("fused_decode_step_moe", "i8mm_gemv"),
+        ("fused_decode_step", "fused_decode_step_i4", "fused_decode_step_byte",
+         "dequant_matmul", "q8_matmul", "decode_attention", "i4_matmul",
+         "q3h_matmul")))
+    del params_k, params_cut
+    torch.cuda.empty_cache()
+
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
                   "paged_decode_attention", "i4_matmul", "i4x8_gemv",
                   "fused_decode_step_i4", "q3h_matmul", "decode_attention_g",
                   "chunk_attention_g", "q8_matmul",
-                  "fused_decode_step_byte"):
+                  "fused_decode_step_byte", "fused_decode_step_moe"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -2408,7 +2767,9 @@ def main() -> int:
                 "q3h_matmul": results["engine_g"]["q3h_matmul"],
                 "q8_matmul": results["engine_h"]["q8_matmul"],
                 "fused_decode_step_byte":
-                    results["engine_h"]["fused_decode_step_byte"]}
+                    results["engine_h"]["fused_decode_step_byte"],
+                "fused_decode_step_moe":
+                    results["engine_k"]["fused_decode_step_moe"]}
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -2425,7 +2786,8 @@ def main() -> int:
              "q8_matmul": next(r for r in results["q8_matmul"]
                                if r["shape"].startswith(
                                    "w1n3 Q8_B32T2 M=8 ")),
-             "fused_decode_step_byte": results["fused_decode_step_byte"][0]}
+             "fused_decode_step_byte": results["fused_decode_step_byte"][0],
+             "fused_decode_step_moe": results["fused_decode_step_moe"][0]}
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

@@ -7,7 +7,8 @@
 // weight modes (a) i8mm (`_MM.percol`), (b) i4x8 (`_MM.i4x8`, the
 // default under INFERFLOW_I4_DOT) and (c) byte-per-code (`_mm_cfg` with
 // pk = 1, `stream_mm`'s single-plane branch :583-606: Q8_B32T2 and
-// Q8_B32T1), with both attention modes: per-slot for
+// Q8_B32T1), and its routed-expert mode (g) (`moe_slot` :1105-1151) for
+// MoE layers, with both attention modes: per-slot for
 // B = 1 and batched (bf16-rounded q and p*vscale) for B > 1; over the
 // dense cache or, in its paged mode (f), over the page pool of
 // runtime/paged_kv.py through the page table.  Each product takes its own
@@ -35,6 +36,16 @@
 //   gemv<amax prologue, residual add>     wo
 //   gemv<norm prologue, GLU epilogue>     w1n3 (a and g columns paired)
 //   gemv<amax prologue, residual add>     w2
+// A MoE layer (mode (g)) replaces the last two by
+//   moe_route                             xn, gate dot, softmax, top-k
+//   gemv<row prologue, GLU epilogue> x B  w1n3 of each chosen expert
+//   gemv<amax prologue, f32 out> x B      w2 of each chosen expert
+//   moe_combine                           xres += bf16(y * v_j), j in order
+// where the B launches of a GEMV are one per row count m = 1..B, grid.z
+// over the experts: a CTA whose expert holds m rows runs an m-row GEMV
+// over them, the others exit at once.  Each chosen expert is read once
+// per step for all the slots that chose it (the TPU kernel streams it
+// once per (slot, expert)), and no routing crosses to the host.
 //
 // What bounds it on the H100: a decode step streams every weight once
 // (i8mm: about 1 GB at tinyllama-1.1b, 6.9 GB at llama2-7b; i4x8: 4.5 bits
@@ -113,6 +124,8 @@ constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
 constexpr int kQBlock = 64;     // i4x8: K rows per quant block
 constexpr int kQRows = kQBlock / 2;  // i4x8: nibble-pair byte rows per block
 constexpr int kByteBlock = 32;  // byte mode: K rows (= byte rows) per quant block
+constexpr int kMaxSlots = 8;    // rows of a GEMV, slots of a step
+constexpr int kMaxExperts = 64; // mode (g): experts per MoE layer
 
 enum Prologue { kProNorm = 0, kProRow = 1, kProAmax = 2 };
 enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
@@ -139,6 +152,14 @@ struct GemvArgs {
   int pro, epi, act;           // act: 0 silu, 1 gelu (tanh form), 2 relu
   int byte_signed;             // byte: Q8_B32T2's signed codes (else 0..255)
   float eps;
+  // mode (g), routed experts: grid.z runs over the experts, and the CTAs of
+  // expert z work only when exactly M row ids chose z (one launch per M);
+  // null moe_sel: the dense GEMV, rows 0..M-1
+  const int* moe_sel;          // (moe_ids,) the expert of row id r = slot * top_k + j
+  int moe_ids;                 // B * top_k
+  int x_div;                   // the activation row of row id r: r / x_div
+  int out_rows;                // rows of out, ws and part (M for the dense GEMV)
+  long long w_estride, sc_estride, base_estride;  // bytes from expert z to z + 1
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -160,9 +181,9 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 // The activation the GEMV quantizes: the bf16 rmsnorm output
-// bf16((x * inv) * w), or x itself.
-__device__ __forceinline__ float activation(const GemvArgs& a, int m, int k, float inv) {
-  const float v = bf(a.x[(size_t)m * a.K + k]);
+// bf16((x * inv) * w), or x itself, of activation row xr.
+__device__ __forceinline__ float activation(const GemvArgs& a, int xr, int k, float inv) {
+  const float v = bf(a.x[(size_t)xr * a.K + k]);
   if (a.pro != kProNorm) return v;
   return round_bf16(__fmul_rn(__fmul_rn(v, inv), bf(a.norm_w[k])));
 }
@@ -218,7 +239,7 @@ __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
 // warps' float sums are added in warp order and the splits' in split
 // order (by the last CTA of the column tile), so the result is the same
 // bits on every run.
-template <int M, int NSEG, int MODE>
+template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   constexpr bool I4 = MODE == kModeI4x8, BYTE = MODE == kModeByte;
   constexpr int kBlk = BYTE ? kByteBlock : kQBlock;  // float modes' quant block
@@ -228,10 +249,45 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   __shared__ float xsum_s[M][kMaxKc / kByteBlock];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
-  __shared__ int last_s;
+  __shared__ int xrow_s[M], orow_s[M];  // activation and output row of row m
+  __shared__ int last_s, nrows_s;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tile = blockIdx.x;
+  // ROUTED (mode (g)): expert z's slice of the weight stack (offsets of
+  // its codes, scales and bases; 0 for the dense GEMV, folded away), its
+  // set of tile counters, and row m's activation and output rows (row m
+  // for both in the dense GEMV)
+  const long long w_off = ROUTED ? blockIdx.z * a.w_estride : 0;
+  const long long sc_off = ROUTED ? blockIdx.z * a.sc_estride : 0;
+  const long long base_off = ROUTED ? blockIdx.z * a.base_estride / 2 : 0;  // halves
+  int* counters = a.counters + (ROUTED ? (size_t)blockIdx.z * gridDim.x : 0);
+  auto xrow = [&](int m) -> int {
+    if constexpr (ROUTED) return xrow_s[m];
+    return m;
+  };
+  auto orow = [&](int m) -> int {
+    if constexpr (ROUTED) return orow_s[m];
+    return m;
+  };
+  if constexpr (ROUTED) {
+    // this expert's row ids, ascending (by slot, then choice)
+    const int z = blockIdx.z;
+    if (tid == 0) {
+      int n = 0;
+      for (int r = 0; r < a.moe_ids; ++r)
+        if (a.moe_sel[r] == z) {
+          if (n < M) {
+            xrow_s[n] = r / a.x_div;
+            orow_s[n] = r;
+          }
+          ++n;
+        }
+      nrows_s = n;
+    }
+    __syncthreads();
+    if (nrows_s != M) return;  // the whole CTA
+  }
   const int k0 = blockIdx.y * a.kc;
   const int klen = min(a.kc, a.K - k0);
   const int ncols = a.N / NSEG;  // columns of one segment
@@ -242,9 +298,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   // prologue 1: per-row norm factor and row scale, one warp per row; a
   // row of K % 8 == 0 is read as 16-byte chunks, 4 in flight per lane
   if (warp < M) {
-    const int m = warp;
+    const int m = warp, xm = xrow(m);
     const bool vec = a.K % 8 == 0;
-    const uint4* xr = reinterpret_cast<const uint4*>(a.x + (size_t)m * a.K);
+    const uint4* xr = reinterpret_cast<const uint4*>(a.x + (size_t)xm * a.K);
     const uint4* wr = reinterpret_cast<const uint4*>(a.norm_w);
     float inv = 1.f;
     if (a.pro == kProNorm) {
@@ -259,7 +315,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
         }
       } else {
         for (int k = lane; k < a.K; k += 32) {
-          const float v = bf(a.x[(size_t)m * a.K + k]);
+          const float v = bf(a.x[(size_t)xm * a.K + k]);
           ss += v * v;
         }
       }
@@ -270,7 +326,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     if (BYTE) {
       // no row quantization: the activations stay bf16
     } else if (a.pro == kProAmax) {
-      amax = __uint_as_float(a.amax_in[m]);
+      amax = __uint_as_float(a.amax_in[xm]);
     } else if (vec) {
 #pragma unroll 4
       for (int c = lane; c < a.K / 8; c += 32) {
@@ -289,7 +345,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       }
       amax = warp_max(amax);
     } else {
-      for (int k = lane; k < a.K; k += 32) amax = fmaxf(amax, fabsf(activation(a, m, k, inv)));
+      for (int k = lane; k < a.K; k += 32) amax = fmaxf(amax, fabsf(activation(a, xm, k, inv)));
       amax = warp_max(amax);
     }
     if (lane == 0) {
@@ -305,7 +361,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   // quant block's bf16 sum of the activations, one warp each
   for (int i = tid; i < M * klen; i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
-    const float v = activation(a, m, k0 + kk, inv_s[m]);
+    const float v = activation(a, xrow(m), k0 + kk, inv_s[m]);
     if constexpr (BYTE) {
       reinterpret_cast<__nv_bfloat16*>(x_s[m])[kk] = __float2bfloat16_rn(v);  // exact
     } else {
@@ -318,8 +374,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
       const int kb0 = k0 + lb * kBlk;
-      float v = activation(a, m, kb0 + lane, inv_s[m]);
-      if (kBlk == 64) v = __fadd_rn(v, activation(a, m, kb0 + 32 + lane, inv_s[m]));
+      float v = activation(a, xrow(m), kb0 + lane, inv_s[m]);
+      if (kBlk == 64) v = __fadd_rn(v, activation(a, xrow(m), kb0 + 32 + lane, inv_s[m]));
       v = warp_sum(v);
       if (lane == 0) xsum_s[m][lb] = round_bf16(v);
     }
@@ -330,7 +386,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   const bool col_ok = col0 < ncols;  // N/NSEG % 4 == 0: all 4 columns valid
   if constexpr (MODE == kModeI8mm) {
     // int8 x int8 -> int32 over the slice
-    const int8_t* w8 = static_cast<const int8_t*>(a.w);
+    const int8_t* w8 = static_cast<const int8_t*>(a.w) + w_off;
     int acc[M][4 * NSEG];
 #pragma unroll
     for (int m = 0; m < M; ++m)
@@ -384,8 +440,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     // per quant block, in float32: i4x8 the int32 dot of the block, scaled,
     // plus its fold term; byte the block's products and its base term;
     // each warp walks whole blocks of the slice
-    const uint8_t* w4 = static_cast<const uint8_t*>(a.w);
-    const __half* wsc = static_cast<const __half*>(a.w_scale);
+    const uint8_t* w4 = static_cast<const uint8_t*>(a.w) + w_off;
+    const __half* wsc = static_cast<const __half*>(a.w_scale) + sc_off / 2;
     float acc[M][4 * NSEG];
 #pragma unroll
     for (int m = 0; m < M; ++m)
@@ -433,7 +489,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 #pragma unroll
           for (int s = 0; s < NSEG; ++s) {
             const uint2 bs_bits = __ldg(reinterpret_cast<const uint2*>(
-                a.w_base + (size_t)kb * a.N + col0 + s * seg_stride));
+                a.w_base + base_off + (size_t)kb * a.N + col0 + s * seg_stride));
             const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
@@ -461,7 +517,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
           const uint2 sc_bits = __ldg(reinterpret_cast<const uint2*>(wsc + (size_t)kb * a.N + col));
           uint2 bs_bits = make_uint2(0, 0);
           if (a.w_base != nullptr)
-            bs_bits = __ldg(reinterpret_cast<const uint2*>(a.w_base + (size_t)kb * a.N + col));
+            bs_bits = __ldg(reinterpret_cast<const uint2*>(a.w_base + base_off + (size_t)kb * a.N +
+                                                           col));
           const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
           const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
           int dot[M][4];
@@ -523,15 +580,15 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
-      const size_t o = (size_t)m * a.N + c + (j / kTileCols) * seg_stride;
+      const size_t o = (size_t)orow(m) * a.N + c + (j / kTileCols) * seg_stride;
       if constexpr (MODE != kModeI8mm)
-        a.part[(size_t)blockIdx.y * a.M * a.N + o] = redf[i];
+        a.part[(size_t)blockIdx.y * a.out_rows * a.N + o] = redf[i];
       else
         atomicAdd(&a.ws[o], red_s[m][j]);
     }
     __threadfence();
     __syncthreads();
-    if (tid == 0) last_s = atomicAdd(&a.counters[tile], 1) == a.ksplit - 1;
+    if (tid == 0) last_s = atomicAdd(&counters[tile], 1) == a.ksplit - 1;
     __syncthreads();
     if (!last_s) return;
     __threadfence();
@@ -539,16 +596,17 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
-      const size_t o = (size_t)m * a.N + c + (j / kTileCols) * seg_stride;
+      const size_t o = (size_t)orow(m) * a.N + c + (j / kTileCols) * seg_stride;
       if constexpr (MODE != kModeI8mm) {
         float t = 0.f;  // the splits in split order
-        for (int z = 0; z < a.ksplit; ++z) t = __fadd_rn(t, __ldcg(a.part + (size_t)z * a.M * a.N + o));
+        for (int z = 0; z < a.ksplit; ++z)
+          t = __fadd_rn(t, __ldcg(a.part + (size_t)z * a.out_rows * a.N + o));
         redf[i] = t;
       } else {
         red_s[m][j] = atomicExch(&a.ws[o], 0);  // and leave zeros behind
       }
     }
-    if (tid == 0) a.counters[tile] = 0;
+    if (tid == 0) counters[tile] = 0;
     __syncthreads();
   }
 
@@ -563,20 +621,21 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       y = redf[m * kCols + j];
       if (NSEG == 2) gt = redf[m * kCols + kTileCols + j];
     } else {
-      const float* wsc = static_cast<const float*>(a.w_scale);
+      const float* wsc = static_cast<const float*>(a.w_scale) + sc_off / 4;
       y = __fmul_rn(__fmul_rn((float)red_s[m][j], xs_s[m]), wsc[c]);
       if (NSEG == 2)
         gt = __fmul_rn(__fmul_rn((float)red_s[m][kTileCols + j], xs_s[m]), wsc[c + seg_stride]);
     }
+    const int om = orow(m);
     if (a.epi == kEpiF32) {
-      a.out_f32[(size_t)m * a.N + c] = y;
+      a.out_f32[(size_t)om * a.N + c] = y;
     } else if (a.epi == kEpiResid) {
-      __nv_bfloat16* r = a.out_bf16 + (size_t)m * a.N + c;
+      __nv_bfloat16* r = a.out_bf16 + (size_t)om * a.N + c;
       *r = __float2bfloat16_rn(__fadd_rn(bf(*r), round_bf16(y)));
     } else {
       const __nv_bfloat16 h = __float2bfloat16_rn(__fmul_rn(glu_act(y, a.act), gt));
-      a.out_bf16[(size_t)m * a.ld_out + c] = h;
-      atomicMax(&a.amax_out[m], __float_as_uint(fabsf(bf(h))));
+      a.out_bf16[(size_t)om * a.ld_out + c] = h;
+      atomicMax(&a.amax_out[om], __float_as_uint(fabsf(bf(h))));
     }
   }
 }
@@ -593,26 +652,34 @@ void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   *ksplit = (K + rows - 1) / rows;
 }
 
-template <int NSEG, int MODE>
+template <int NSEG, int MODE, bool ROUTED>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
   switch (a.M) {
-    case 1: gemv<1, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 2: gemv<2, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 3: gemv<3, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 4: gemv<4, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 5: gemv<5, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 6: gemv<6, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 7: gemv<7, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    default: gemv<8, NSEG, MODE><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 1: gemv<1, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 2: gemv<2, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 3: gemv<3, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 4: gemv<4, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 5: gemv<5, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 6: gemv<6, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    case 7: gemv<7, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+    default: gemv<8, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
   }
 }
 
+// mode (g)'s routed GEMVs take w1n3 with the GLU epilogue and w2 with a
+// float32 output; the dense ones every prologue and epilogue
 template <int MODE>
 void launch_gemv_mode(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
-  if (a.epi == kEpiGlu)
-    launch_gemv_m<2, MODE>(a, grid, stream);
-  else
-    launch_gemv_m<1, MODE>(a, grid, stream);
+  if (a.moe_sel != nullptr) {
+    if (a.epi == kEpiGlu)
+      launch_gemv_m<2, MODE, true>(a, grid, stream);
+    else
+      launch_gemv_m<1, MODE, true>(a, grid, stream);
+  } else if (a.epi == kEpiGlu) {
+    launch_gemv_m<2, MODE, false>(a, grid, stream);
+  } else {
+    launch_gemv_m<1, MODE, false>(a, grid, stream);
+  }
 }
 
 // The column tiles and the plan of a GEMV, or false for a shape it does
@@ -629,13 +696,17 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
   return true;
 }
 
-cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream) {
+// experts > 1: mode (g)'s routed GEMV over an expert stack (a.moe_sel set)
+cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream,
+                        int experts = 1) {
   int tiles = 0;
+  if (a.out_rows == 0) a.out_rows = a.M;
   if (!gemv_shape(a, mode, sm_count, &tiles, &a.kc, &a.ksplit) ||
       (mode != kModeI8mm && a.ksplit > 1 && a.part == nullptr) ||
-      (mode == kModeByte && a.w_base != nullptr) || (mode == kModeByteU && a.w_base == nullptr))
+      (mode == kModeByte && a.w_base != nullptr) || (mode == kModeByteU && a.w_base == nullptr) ||
+      experts < 1 || (experts > 1 && a.moe_sel == nullptr) || a.out_rows < a.M)
     return cudaErrorInvalidValue;
-  const dim3 grid(tiles, a.ksplit);
+  const dim3 grid(tiles, a.ksplit, experts);
   if (mode == kModeI4x8) {
     launch_gemv_mode<kModeI4x8>(a, grid, stream);
   } else if (mode == kModeI8mm) {
@@ -645,6 +716,122 @@ cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream)
     launch_gemv_mode<kModeByte>(a, grid, stream);
   }
   return cudaGetLastError();
+}
+
+// ------------------------------------------------ mode (g): the routing
+struct RouteArgs {
+  const __nv_bfloat16* x;       // (B, E) the residual stream
+  const __nv_bfloat16* norm_w;  // (E,) the MoE block's pre-norm weight
+  const __nv_bfloat16* gate;    // (E, n_exp) bf16
+  __nv_bfloat16* xn;            // (B, E) out: bf16(rmsnorm(x) * norm_w)
+  int* sel;                     // (B * top_k) out: the expert of row id r = b * top_k + j
+  float* weight;                // (B * top_k) out: v_j of row id r
+  int B, E, n_exp, top_k, norm_topk;
+  float eps;
+};
+
+// The CTA's sum of one float per thread: each warp's lanes, then the warps
+// in order (the same bits on every run).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  v = warp_sum(v);
+  __syncthreads();  // red is free
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < kGemvWarps; ++w) t += red[w];
+  return t;
+}
+
+// grid (B): CTA b routes slot b (the TPU kernel's moe_slot,
+// decode_step.py:1105-1151): xn_b = bf16(rmsnorm(x_b) * norm_w), logits =
+// f32(xn_b) . f32(gate) (thread t sums the K rows of its 8-row chunks t,
+// t + 256, ..., then the CTA adds the threads' sums), softmax, top_k by
+// repeated argmax (a strictly larger probability wins: ties go to the
+// lower expert), v_j = p_j / (p_0 + ... + p_{k-1}) when norm_topk.  The
+// expert GEMVs find their rows in sel; nothing goes through the host.
+__global__ void __launch_bounds__(kGemvThreads) moe_route(const RouteArgs a) {
+  __shared__ float red_s[kGemvWarps];
+  __shared__ float logit_s[kMaxExperts];
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const __nv_bfloat16* xr = a.x + (size_t)b * a.E;
+  const bool vec = a.E % 8 == 0;
+  const int nchunk = vec ? a.E / 8 : a.E;  // 8 K rows per chunk, or 1
+  const int per = vec ? 8 : 1;
+  float ss = 0.f;
+  for (int c = tid; c < nchunk; c += kGemvThreads)
+    for (int e = 0; e < per; ++e) {
+      const float v = bf(xr[c * per + e]);
+      ss += v * v;
+    }
+  ss = block_sum(ss, red_s);
+  const float inv = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)a.E), a.eps));
+  for (int e0 = 0; e0 < a.n_exp; e0 += 8) {
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    for (int c = tid; c < nchunk; c += kGemvThreads)
+      for (int i = 0; i < per; ++i) {
+        const int k = c * per + i;
+        const float v = round_bf16(__fmul_rn(__fmul_rn(bf(xr[k]), inv), bf(a.norm_w[k])));
+        if (e0 == 0) a.xn[(size_t)b * a.E + k] = __float2bfloat16_rn(v);
+        const __nv_bfloat16* g = a.gate + (size_t)k * a.n_exp + e0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e0 + e < a.n_exp) acc[e] = fmaf(v, bf(g[e]), acc[e]);
+      }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float t = block_sum(acc[e], red_s);
+      if (tid == 0 && e0 + e < a.n_exp) logit_s[e0 + e] = t;
+    }
+  }
+  if (tid != 0) return;
+  float* p = logit_s;
+  float mx = p[0];
+  for (int e = 1; e < a.n_exp; ++e) mx = fmaxf(mx, p[e]);
+  float sum = 0.f;
+  for (int e = 0; e < a.n_exp; ++e) {
+    p[e] = expf(__fadd_rn(p[e], -mx));
+    sum = __fadd_rn(sum, p[e]);
+  }
+  for (int e = 0; e < a.n_exp; ++e) p[e] = __fdiv_rn(p[e], sum);
+  unsigned long long used = 0ull;
+  float val[4], tot = 0.f;
+  int idx[4];
+  for (int j = 0; j < a.top_k; ++j) {
+    int best = -1;
+    for (int e = 0; e < a.n_exp; ++e)
+      if (!((used >> e) & 1ull) && (best < 0 || p[e] > p[best])) best = e;
+    used |= 1ull << best;
+    idx[j] = best;
+    val[j] = p[best];
+    tot = __fadd_rn(tot, val[j]);
+  }
+  for (int j = 0; j < a.top_k; ++j) {
+    a.sel[b * a.top_k + j] = idx[j];
+    a.weight[b * a.top_k + j] = a.norm_topk ? __fdiv_rn(val[j], tot) : val[j];
+  }
+}
+
+// xres_b = bf16(xres_b + bf16(y_r * v_r)) for r = b * top_k + j, j in
+// order: the TPU kernel's per-expert residual add, in top-k order.
+__global__ void __launch_bounds__(kGemvThreads) moe_combine(__nv_bfloat16* xres, const float* y,
+                                                            const float* weight, int E, int top_k) {
+  const int b = blockIdx.x;
+  for (int c = blockIdx.y * kGemvThreads + threadIdx.x; c < E; c += gridDim.y * kGemvThreads) {
+    float v = bf(xres[(size_t)b * E + c]);
+    for (int j = 0; j < top_k; ++j) {
+      const int r = b * top_k + j;
+      v = round_bf16(__fadd_rn(v, round_bf16(__fmul_rn(y[(size_t)r * E + c], weight[r]))));
+    }
+    xres[(size_t)b * E + c] = __float2bfloat16_rn(v);
+  }
+}
+
+bool route_ok(int B, int E, int n_exp, int top_k) {
+  return B >= 1 && B <= kMaxSlots && E > 0 && n_exp >= 1 && n_exp <= kMaxExperts && top_k >= 1 &&
+         top_k <= 4 && top_k <= n_exp;
 }
 
 // ------------------------------------------------------- step attention
@@ -1015,6 +1202,25 @@ int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void*
       launch_gemv(a, kModeI4x8, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
+// Mode (g)'s routing launch alone: xn (B, E) bf16, then per slot its
+// experts sel (B, top_k) int32 and weights (B, top_k) f32.
+int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn, void* sel,
+                  void* weight, int B, int E, int n_exp, int top_k, int norm_topk, float eps,
+                  void* stream) {
+  if (!route_ok(B, E, n_exp, top_k)) return static_cast<int>(cudaErrorInvalidValue);
+  RouteArgs ra{};
+  ra.x = static_cast<const __nv_bfloat16*>(x);
+  ra.norm_w = static_cast<const __nv_bfloat16*>(norm_w);
+  ra.gate = static_cast<const __nv_bfloat16*>(gate);
+  ra.xn = static_cast<__nv_bfloat16*>(xn);
+  ra.sel = static_cast<int*>(sel);
+  ra.weight = static_cast<float*>(weight);
+  ra.B = B, ra.E = E, ra.n_exp = n_exp, ra.top_k = top_k, ra.norm_topk = norm_topk;
+  ra.eps = eps;
+  moe_route<<<B, kGemvThreads, 0, static_cast<cudaStream_t>(stream)>>>(ra);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One decode step over all L layers.  `table` (host memory) holds, per
 // layer, kTableStride entries: anorm, fnorm (E bf16 device pointers), then
 // for each of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and w2 (F, E)
@@ -1023,8 +1229,18 @@ int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void*
 // (int8 codes, f32 column scales, null) for i8mm, (data_i4p nibble pairs,
 // f16 block scales, f16 block bases or null) for i4x8, (uint8 codes,
 // f16 block scales, null) for Q8_B32T2 and (uint8 codes, f16 block
-// scales, f16 block bases) for Q8_B32T1.  The stored K of qkv and w1n3 is E, of wo HqD;
+// scales, f16 block bases) for Q8_B32T1; then the MoE gate (E, n_exp)
+// bf16 or null, and the bytes from one expert to the next of w1n3's codes,
+// scales and bases and of w2's (a MoE layer's w1n3 and w2 point at expert
+// 0 of (n_exp, K, N) stacks).  The stored K of qkv and w1n3 is E, of wo HqD;
 // w2's may exceed F (zero-scale pad blocks) and is hglu's row length.
+// A layer with a gate runs mode (g): the routing launch, then per row
+// count m = 1..B the w1n3 and the w2 GEMV over the experts holding m rows
+// (grid.z = n_exp), then the combine; the FFN rows are the B * top_k
+// (slot, choice) pairs: hglu holds that many rows; moe_f32 holds each
+// layer's weights (L, B * top_k) and then the expert outputs (B * top_k,
+// E); route holds each layer's experts (L, B * top_k) int32 (they stay
+// there after the step); amax holds L * (2B + B * top_k) row maxima.
 // xres (B, E) bf16 is updated in place; every layer's K/V row is written
 // into cache row lengths[b].  The cache is the dense (L, B, H, S, D) one
 // when page_table is null, else the pool (L, pages, H, PT, D) with
@@ -1034,20 +1250,26 @@ int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void*
 // (ws and counters are left zero); gemv_part holds the i4x8 and byte GEMVs'
 // split partials (the most ift_gemv_splits(...) * B * N of the step's
 // float-mode products).  attn_part holds B * H * 16 * (Hq / H) * (D + 2) floats;
-// attn_counters (B * H int32) is zero on entry and is left zero.
-constexpr int kTableStride = 22;
+// attn_counters (B * H int32) is zero on entry and is left zero.  counters
+// hold a set of column tiles per expert in mode (g).
+constexpr int kTableStride = 29;
 
 int ift_fused_decode_step(const void* const* table, int L, void* xres, const void* lengths,
                           const void* cos, const void* sin, void* k_cache, void* v_cache,
                           void* k_scale, void* v_scale, const void* page_table, void* qkv_buf,
                           void* ctx_buf, void* hglu_buf, void* ws, void* gemv_part,
                           void* counters, void* amax, void* attn_part, void* attn_counters,
-                          int B, int E, int Hq, int H, int D, int S, int blk, int F, int order,
-                          int act, int PT, int MAXP, int pages, float eps, float scale,
-                          int sm_count, void* stream_ptr) {
+                          void* moe_xn, void* moe_route_buf, void* moe_f32, int B, int E, int Hq,
+                          int H, int D, int S, int blk, int F, int order, int act, int PT,
+                          int MAXP, int pages, int n_exp, int top_k, int norm_topk, float eps,
+                          float scale, int sm_count, void* stream_ptr) {
   if (B < 1 || B > 8 || H <= 0 || Hq % H || Hq / H > kMaxRows || D > kMaxD || D % 16 ||
       blk <= 0 || D % blk || D / blk > kMaxBlk || (order != 1 && order != 2) || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_exp != 0 && !route_ok(B, E, n_exp, top_k)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rk = B * top_k;  // mode (g): FFN rows, one per (slot, choice)
+  int* route_i = static_cast<int*>(moe_route_buf);
+  float* moe_w = static_cast<float*>(moe_f32);
   if (page_table != nullptr &&
       (PT < kKeyTile || PT % kKeyTile || MAXP < 1 || pages < 1 || S != MAXP * PT))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1062,6 +1284,8 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
     const void* const* p = table + (size_t)l * kTableStride;
     unsigned* ctx_amax = amax_u + (size_t)(2 * l) * B;
     unsigned* glu_amax = amax_u + (size_t)(2 * l + 1) * B;
+    const void* gate = p[22];
+    if ((gate != nullptr) != (n_exp != 0)) return static_cast<int>(cudaErrorInvalidValue);
     GemvArgs g{};
     g.ws = static_cast<int*>(ws);
     g.part = static_cast<float*>(gemv_part);
@@ -1114,6 +1338,55 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
     g.out_bf16 = x;
     g.N = E, g.pro = kProAmax, g.epi = kEpiResid;
     if ((err = launch_gemv(g, mode[1], sm_count, stream)) != cudaSuccess) return static_cast<int>(err);
+
+    if (gate != nullptr) {
+      // mode (g): route, the experts' w1n3 + GLU and w2 over their rows,
+      // then the residual adds in top-k order
+      RouteArgs ra{};
+      ra.x = x, ra.norm_w = static_cast<const __nv_bfloat16*>(p[1]);
+      ra.gate = static_cast<const __nv_bfloat16*>(gate);
+      ra.xn = static_cast<__nv_bfloat16*>(moe_xn);
+      ra.sel = route_i + (size_t)l * rk;
+      ra.weight = moe_w + (size_t)l * rk;
+      float* y_moe = moe_w + (size_t)L * rk;
+      ra.B = B, ra.E = E, ra.n_exp = n_exp, ra.top_k = top_k, ra.norm_topk = norm_topk;
+      ra.eps = eps;
+      moe_route<<<B, kGemvThreads, 0, stream>>>(ra);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      unsigned* moe_amax = amax_u + (size_t)2 * L * B + (size_t)l * rk;
+      g.moe_sel = ra.sel, g.moe_ids = rk, g.out_rows = rk;
+      auto strides = [&](int i) {
+        g.w_estride = reinterpret_cast<intptr_t>(p[23 + 3 * i]);
+        g.sc_estride = reinterpret_cast<intptr_t>(p[24 + 3 * i]);
+        g.base_estride = reinterpret_cast<intptr_t>(p[25 + 3 * i]);
+      };
+      // hglu rows r = bf16(act(a) * g), (a | g) = W_e(xn_{r / top_k}, w1n3)
+      use(2);
+      strides(0);
+      g.x = ra.xn, g.x_div = top_k;
+      g.out_bf16 = static_cast<__nv_bfloat16*>(hglu_buf), g.amax_out = moe_amax;
+      g.N = 2 * F, g.ld_out = ks[3], g.pro = kProRow, g.epi = kEpiGlu;
+      for (int m = 1; m <= B; ++m) {
+        g.M = m;
+        if ((err = launch_gemv(g, mode[2], sm_count, stream, n_exp)) != cudaSuccess)
+          return static_cast<int>(err);
+      }
+      // y rows r = W_e(hglu_r, w2), float32
+      use(3);
+      strides(1);
+      g.x = static_cast<const __nv_bfloat16*>(hglu_buf), g.amax_in = moe_amax, g.x_div = 1;
+      g.out_f32 = y_moe;
+      g.N = E, g.pro = kProAmax, g.epi = kEpiF32;
+      for (int m = 1; m <= B; ++m) {
+        g.M = m;
+        if ((err = launch_gemv(g, mode[3], sm_count, stream, n_exp)) != cudaSuccess)
+          return static_cast<int>(err);
+      }
+      moe_combine<<<dim3(B, (E + 4 * kGemvThreads - 1) / (4 * kGemvThreads)), kGemvThreads, 0,
+                    stream>>>(x, y_moe, ra.weight, E, top_k);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      continue;
+    }
 
     // hglu = bf16(act(a) * g), (a | g) = W(rmsnorm(xres) * fnorm, w1n3);
     // rows of w2's stored K

@@ -9,7 +9,11 @@ bases: int8 row-quantized activations, one int32 dot per 64-row block,
 the TPU kernel's default for that layout) and (c) byte (the Q8 block
 formats Q8_B32T2 and Q8_B32T1, one code per byte: bf16 activations, each
 weight bf16(q * bf16(scale)), Q8_B32T1's base through the blocks'
-activation sums), each product in its own mode;
+activation sums), each product in its own mode; MoE layers in the TPU
+kernel's routed-expert mode (g) (moe_slot: an f32 gate dot, softmax,
+per-slot top-k, then each chosen expert's w1n3 and w2, the residual
+rounded to bf16 after each expert in top-k order), with experts in any
+of the three modes;
 and a Q8 KV cache in the logical layout, dense (runtime/kv_cache.py) or
 paged (runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the
 step's K/V rows go through the page table), with both attention modes of
@@ -20,7 +24,10 @@ On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/decode_step.cu`` or raise: the step is one C call that walks a
 per-layer pointer table (a weight mode per product) and issues five
 launches per layer (three kinds of GEMV and the step attention), and
-writes each layer's new K/V row straight into the cache.  On CPU tensors
+writes each layer's new K/V row straight into the cache; a MoE layer's
+FFN takes a routing launch, the experts' GEMVs (each chosen expert read
+once for all the slots that chose it, one launch per row count) and a
+combine.  On CPU tensors
 they run the plain versions below, which follow the TPU kernel's
 arithmetic (outputs, then ``append_rows_all_layers`` or
 ``append_rows_all_layers_paged``) and which ``chip_smoke.py`` also holds
@@ -35,9 +42,9 @@ sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
 planes, kernel B1 in every product) and mode (h), Q3H weights in the
 pair8 layout (kernel B6; its measured unpack cost loses to the per-layer
 path).  The i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT=bf16 in the
-TPU package, a measurement switch) is not ported either.  Routed MoE is
-refused earlier, by ``models.decoder.check_supported``.  There is no
-fallback switch: if the kernel fails to build or launch, the step raises.
+TPU package, a measurement switch) is not ported either, nor MoE layers
+of more than 64 experts.  There is no fallback switch: if the kernel
+fails to build or launch, the step raises.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ from . import _build
 KERNEL = "fused_decode_step"  # a step whose products are all i8mm
 I4_KERNEL = "fused_decode_step_i4"  # a step with an i4x8 product
 BYTE_KERNEL = "fused_decode_step_byte"  # a step with a byte-mode product
+MOE_KERNEL = "fused_decode_step_moe"  # a step over routed MoE layers (g)
+ROUTE_KERNEL = "moe_route"  # mode (g)'s routing launch alone
 GEMV_KERNEL = "i8mm_gemv"
 I4_GEMV_KERNEL = "i4x8_gemv"
 NEG_INF = -1e30
@@ -77,6 +86,7 @@ _MAX_ROWS, _MAX_D = 16, 128  # query heads per kv head, head_dim (csrc)
 _TILE_COLS = 128  # GEMV columns per CTA segment (csrc kTileCols)
 _MAX_SPLIT = 16  # cache-walk splits per (slot, kv head) (csrc kMaxSplit)
 _MODES = {"i8mm": 0, "i4": 1, "byte": 2}  # csrc WeightMode (3: byte with a base)
+_MAX_EXPERTS = 64  # mode (g): experts per MoE layer (csrc kMaxExperts)
 _BYTE_BLOCK = 32  # the byte mode's quant block (csrc kByteBlock)
 
 
@@ -189,16 +199,20 @@ def _lib():
         lib.ift_gemv_splits.argtypes = [i] * 5
         lib.ift_gemv_splits.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
-            [ctypes.POINTER(vp), i] + [vp] * 18 + [i] * 13 + [f, f, i, vp])
+            [ctypes.POINTER(vp), i] + [vp] * 21 + [i] * 16 + [f, f, i, vp])
         lib.ift_fused_decode_step.restype = ctypes.c_int
+        lib.ift_moe_route.argtypes = [vp] * 6 + [i] * 5 + [f, vp]
+        lib.ift_moe_route.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
 
 
-def _check_i8(w: Int8MXUTensor, name: str, k: int, n: int) -> None:
-    _build.check_operand(w.data, f"{name}.data", torch.int8, (k, n), align=4)
-    _build.check_operand(w.scale, f"{name}.scale", torch.float32, (n,),
+def _check_i8(w: Int8MXUTensor, name: str, k: int, n: int,
+              lead: tuple = ()) -> None:
+    _build.check_operand(w.data, f"{name}.data", torch.int8, lead + (k, n),
                          align=4)
+    _build.check_operand(w.scale, f"{name}.scale", torch.float32,
+                         lead + (n,), align=4)
 
 
 def i8mm_gemv_cuda(x2: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
@@ -227,14 +241,15 @@ def i8mm_gemv_cuda(x2: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
     return out
 
 
-def _check_i4(w: QuantizedTensor, name: str, k: int, n: int) -> None:
+def _check_i4(w: QuantizedTensor, name: str, k: int, n: int,
+              lead: tuple = ()) -> None:
     """An i4x8 operand: data_i4p (K/2, N) uint8, f16 block scale and base
-    (K/64, N)."""
+    (K/64, N), each with the leading axes `lead` (an expert stack's)."""
     _build.check_operand(w.planes[I4_PLANE], f"{name}.{I4_PLANE}",
-                         torch.uint8, (k // 2, n))
+                         torch.uint8, lead + (k // 2, n))
     for part, t in (("scale", w.scale), ("base", w.base)):
         _build.check_operand(t, f"{name}.{part}", torch.float16,
-                             (k // 64, n))
+                             lead + (k // 64, n))
 
 
 @functools.lru_cache(maxsize=None)
@@ -321,13 +336,13 @@ def _mm_mode(w) -> Optional[str]:
     single-plane wire formats, also routed to the per-layer path); or None
     (not fusable)."""
     if isinstance(w, Int8MXUTensor):
-        kp, n = (int(s) for s in w.data.shape)
+        kp, n = (int(s) for s in w.data.shape[-2:])
         return "i8mm" if kp % 8 == 0 and _pick_tn(kp, n) else None
     if not isinstance(w, QuantizedTensor):
         return None
     fmt = get_format(w.format)
     if I4_PLANE in w.planes:
-        kp, n = (int(s) for s in w.planes[I4_PLANE].shape)
+        kp, n = (int(s) for s in w.planes[I4_PLANE].shape[-2:])
         if (2 * kp) % fmt.block or kp % 8 or not _pick_tn(kp, n):
             return None
         return "i4"
@@ -335,7 +350,7 @@ def _mm_mode(w) -> Optional[str]:
         plane = w.planes.get(PAIR8_PLANE)
         if plane is None or fmt.meta != "f16":
             return None
-        kp, n = (int(s) for s in plane.shape)
+        kp, n = (int(s) for s in plane.shape[-2:])
         if (2 * kp) % fmt.block or kp % 8 or not _pick_tn(kp, n):
             return None
         return "pair8"
@@ -344,7 +359,7 @@ def _mm_mode(w) -> Optional[str]:
             or "data" not in w.planes):
         return None
     pk = 8 // fmt.planes[0].bits
-    kp, n = (int(s) for s in w.planes["data"].shape)
+    kp, n = (int(s) for s in w.planes["data"].shape[-2:])
     k_s = kp * pk
     if k_s % fmt.block or k_s % (pk * 8) or not _pick_tn(kp, n):
         return None
@@ -353,8 +368,38 @@ def _mm_mode(w) -> Optional[str]:
 
 def _stored_k(w) -> int:
     if isinstance(w, Int8MXUTensor):
-        return int(w.data.shape[0])
+        return int(w.data.shape[-2])
     return w.storage_k
+
+
+def _ffn_group(lp: dict):
+    """A layer's FFN weights for the fused step: the dense ``ffn`` dict, a
+    MoE layer's ``experts_stacked`` (w1n3 and w2 with a leading expert
+    axis), or None."""
+    moe = lp.get("moe")
+    return lp.get("ffn") if moe is None else moe.get("experts_stacked")
+
+
+def _moe_shape(spec, lp: dict) -> Optional[tuple]:
+    """(n_exp, top_k) of a MoE layer the TPU kernel routes in its mode (g)
+    (decode_step.py:1474-1493: a homogeneous expert stack, a dense 2-D gate
+    without bias, no shared expert, 1 <= top_k <= min(4, n_exp)); None for
+    a layer it does not take."""
+    moe = lp["moe"]
+    stacked = moe.get("experts_stacked")
+    gate = moe.get("gate")
+    if "ffn" in lp or moe.get("shared") or stacked is None \
+            or "gate_b" in moe or "pre_norm" not in moe \
+            or not isinstance(gate, torch.Tensor) or gate.dim() != 2:
+        return None
+    n_exp = int(gate.shape[-1])
+    top_k = spec.hyper_params.moe_top_k or 2
+    if not 1 <= top_k <= min(4, n_exp):
+        return None
+    if any(int(stacked[k].shape[0]) != n_exp for k in ("w1n3", "w2")
+           if k in stacked):
+        return None
+    return n_exp, top_k
 
 
 def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
@@ -387,11 +432,23 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
     if spec.qkv_format != 1:
         return None
     modes, biased = set(), False
+    moe_shapes = {_moe_shape(spec, lp) if "moe" in lp else None
+                  for lp in layers}
+    if len(moe_shapes) != 1:
+        return None  # MoE and dense layers, or differing expert counts
+    moe_shape = moe_shapes.pop()
+    if moe_shape is None and any("moe" in lp for lp in layers):
+        return None
+    if moe_shape is not None and moe_shape[0] > _MAX_EXPERTS:
+        raise NotImplementedError(
+            f"the fused decode step's mode (g) routes at most {_MAX_EXPERTS} "
+            "experts")
     for lp in layers:
-        attn, ffn = lp.get("attn", {}), lp.get("ffn")
-        if ffn is None or "pre_norm" not in attn or "pre_norm" not in ffn:
+        attn, ffn = lp.get("attn", {}), _ffn_group(lp)
+        fnorm = lp.get("moe", ffn or {})
+        if ffn is None or "pre_norm" not in attn or "pre_norm" not in fnorm:
             return None
-        if "post_norm" in attn or "post_norm" in ffn:
+        if "post_norm" in attn or "post_norm" in fnorm:
             return None
         for grp, kk in ((attn, "qkv"), (attn, "wo"), (ffn, "w1n3"),
                         (ffn, "w2")):
@@ -417,6 +474,8 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
         raise NotImplementedError(
             "the fused decode step's per-matmul output biases are not "
             "ported")
+    if moe_shape is not None:
+        modes.add("moe")
     return modes
 
 
@@ -619,12 +678,115 @@ def _add_bf16(xres: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (xres.float() + y.to(torch.bfloat16).float()).to(torch.bfloat16)
 
 
+def moe_route_plain(xn: torch.Tensor, gate: torch.Tensor, top_k: int,
+                    norm_topk: bool):
+    """Mode (g)'s routing (the TPU kernel's moe_slot,
+    decode_step.py:1105-1151): logits = f32(xn) @ f32(gate), softmax, top_k
+    by repeated argmax (ties to the lower expert), each chosen probability
+    divided by their sum (added in order) when norm_topk.  xn: (B, E) bf16;
+    gate: (E, n_exp).  Returns (experts (B, top_k) int32, weights (B,
+    top_k) float32)."""
+    logits = torch.matmul(xn.float(), gate.float())
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    masked = probs.clone()
+    rows = torch.arange(probs.shape[0], device=probs.device)
+    sel, vals = [], []
+    for _ in range(top_k):
+        e = torch.argmax(masked, dim=-1)  # the first of equal maxima
+        sel.append(e)
+        vals.append(masked[rows, e])
+        masked[rows, e] = float("-inf")
+    tot = vals[0]
+    for v in vals[1:]:
+        tot = tot + v
+    if norm_topk:
+        vals = [v / tot for v in vals]
+    return (torch.stack(sel, dim=-1).to(torch.int32),
+            torch.stack(vals, dim=-1))
+
+
+def moe_route(xres: torch.Tensor, norm_w: torch.Tensor, gate: torch.Tensor,
+              top_k: int, norm_topk: bool, eps: float):
+    """Mode (g)'s routing launch alone: xn = bf16(rmsnorm(xres) * norm_w),
+    then moe_route_plain's function.  xres (B <= 8, E) bf16, norm_w (E,)
+    bf16, gate (E, n_exp) bf16.  Returns (xn, experts (B, top_k) int32,
+    weights (B, top_k) float32).  CPU tensors take the plain version."""
+    if xres.device.type == "cpu":
+        xn = _rmsnorm(xres, norm_w, eps)
+        return (xn,) + moe_route_plain(xn, gate, top_k, norm_topk)
+    if xres.device.type != "cuda":
+        raise ValueError(f"moe_route: unsupported device {xres.device}")
+    _build.require_hopper(xres)
+    bsz, e = xres.shape
+    n_exp = int(gate.shape[-1])
+    if not 1 <= bsz <= _MAX_GEMV_ROWS or not 1 <= top_k <= min(4, n_exp) \
+            or n_exp > _MAX_EXPERTS:
+        raise ValueError(f"moe_route takes 1..{_MAX_GEMV_ROWS} rows, "
+                         f"1..{_MAX_EXPERTS} experts and top_k <= 4, got "
+                         f"B={bsz} experts={n_exp} top_k={top_k}")
+    _build.check_operand(xres, "xres", torch.bfloat16, (bsz, e))
+    _build.check_operand(norm_w, "norm_w", torch.bfloat16, (e,))
+    _build.check_operand(gate, "gate", torch.bfloat16, (e, n_exp))
+    dev = xres.device
+    xn = torch.empty((bsz, e), dtype=torch.bfloat16, device=dev)
+    sel = torch.empty((bsz, top_k), dtype=torch.int32, device=dev)
+    weights = torch.empty((bsz, top_k), dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.ift_moe_route(_build.ptr(xres), _build.ptr(norm_w),
+                           _build.ptr(gate), _build.ptr(xn),
+                           _build.ptr(sel), _build.ptr(weights), bsz, e,
+                           n_exp, top_k, int(norm_topk), eps,
+                           _build.stream_of(xres))
+    _build.check(lib, rc, ROUTE_KERNEL)
+    _build.launch_counts[ROUTE_KERNEL] += 1
+    return xn, sel, weights
+
+
+def _moe_ffn_plain(spec, moe: dict, xres: torch.Tensor,
+                   record: Optional[dict] = None) -> torch.Tensor:
+    """Mode (g)'s FFN: route every slot, then per slot b and choice j in
+    order, y = W2_e(GLU(W1n3_e(xn_b))) and xres_b = bf16(xres_b + bf16(y *
+    v_j)), each product in the experts' weight mode.  Each chosen expert
+    runs once on the slots that chose it (its rows do not depend on one
+    another).  record: a dict of lists that receives the routing (experts,
+    weights, the probabilities)."""
+    hp = spec.hyper_params
+    stacked = moe["experts_stacked"]
+    top_k = hp.moe_top_k or 2
+    xn = _rmsnorm(xres, moe["pre_norm"], spec.norm_eps)
+    sel, vals = moe_route_plain(xn, moe["gate"], top_k,
+                                bool(hp.moe_norm_top_k_prob))
+    if record is not None:
+        record["experts"].append(sel)
+        record["weights"].append(vals)
+        record["probs"].append(torch.softmax(
+            torch.matmul(xn.float(), moe["gate"].float()), dim=-1))
+    ys = torch.empty(sel.shape + (xres.shape[-1],), dtype=torch.float32,
+                     device=xres.device)
+    for e in sorted(set(sel.flatten().tolist())):
+        slots, js = (sel == e).nonzero(as_tuple=True)
+        w1n3, w2 = (stacked[k].select(e) for k in ("w1n3", "w2"))
+        h2 = _product_f32(xn[slots], w1n3)
+        f_dim = h2.shape[-1] // 2
+        ys[slots, js] = _product_f32(
+            _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn), w2)
+    for j in range(top_k):
+        xres = _add_bf16(xres, ys[:, j] * vals[:, j:j + 1])
+    return xres
+
+
 def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
-                            positions: torch.Tensor, cache):
+                            positions: torch.Tensor, cache,
+                            routes: Optional[list] = None):
     """The plain version: the TPU kernel's phases layer by layer, each
     product in its weight's mode (a K-padded w2 takes hglu with a zero
-    tail), then append_rows_all_layers (append_rows_all_layers_paged for a
-    paged cache).  Returns (x (B, 1, E) bf16, cache)."""
+    tail; a MoE layer's FFN routed as mode (g), _moe_ffn_plain), then
+    append_rows_all_layers (append_rows_all_layers_paged for a
+    paged cache).  routes: see fused_decode_step; the plain version also
+    records each layer's input ("inputs", (L, B, E)) and routing
+    probabilities ("probs", (L, B, n_exp)).  Returns (x (B, 1, E) bf16,
+    cache)."""
     hp = spec.hyper_params
     hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
     bsz = x.shape[0]
@@ -636,8 +798,12 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
     scale = (1.0 / (d ** 0.5)) * spec.kq_scale
     order, blk, batched = spec.rope_order, cache.block, bsz > 1
     k_new, v_new = [], []
+    record = None if routes is None or "moe" not in layers[0] else \
+        {"experts": [], "weights": [], "inputs": [], "probs": []}
     for layer, lp in enumerate(layers):
-        attn, ffn = lp["attn"], lp["ffn"]
+        attn, ffn = lp["attn"], lp.get("ffn")
+        if record is not None:
+            record["inputs"].append(xres)
         qkv = _product_f32(_rmsnorm(xres, attn["pre_norm"], spec.norm_eps),
                            attn["qkv"])
         q = qkv[:, :qdim].reshape(bsz, hq, d)
@@ -650,6 +816,9 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
         ctx = _attend_plain(q, _qdq(k, blk), _qdq(v, blk), cache, layer,
                             cache.length, scale, batched)
         xres = _add_bf16(xres, _product_f32(ctx, attn["wo"]))
+        if "moe" in lp:
+            xres = _moe_ffn_plain(spec, lp["moe"], xres, record)
+            continue
         h2 = _product_f32(_rmsnorm(xres, ffn["pre_norm"], spec.norm_eps),
                           ffn["w1n3"])
         f_dim = h2.shape[-1] // 2
@@ -658,6 +827,8 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
     append = append_rows_all_layers_paged \
         if isinstance(cache, PagedKVCache) else append_rows_all_layers
     append(cache, torch.stack(k_new), torch.stack(v_new), cache.length)
+    if record is not None:
+        routes.append({k: torch.stack(v) for k, v in record.items()})
     return xres[:, None], cache
 
 
@@ -672,11 +843,18 @@ _TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _TABLE_CACHE_SIZE = 4
 
 
+def _fnorm(lp: dict) -> torch.Tensor:
+    """The layer's FFN pre-norm (the MoE block's for a MoE layer)."""
+    return (lp.get("moe") or lp["ffn"])["pre_norm"]
+
+
 def _table_tensors(layers: list) -> list:
     """Every tensor whose pointer the step's table holds."""
     out = []
     for lp in layers:
-        out += [lp["attn"]["pre_norm"], lp["ffn"]["pre_norm"]]
+        out += [lp["attn"]["pre_norm"], _fnorm(lp)]
+        if "moe" in lp:
+            out.append(lp["moe"]["gate"])
         for _, w, _ in _products(lp):
             if isinstance(w, Int8MXUTensor):
                 out += [w.data, w.scale]
@@ -692,7 +870,7 @@ def _cached_table(layers: list):
         return None
     n, first, last, refs, entry = hit
     if (n == len(layers) and first() is layers[0]["attn"]["pre_norm"]
-            and last() is layers[-1]["ffn"]["pre_norm"]
+            and last() is _fnorm(layers[-1])
             and all(r() is not None for r in refs)):
         return entry
     return None
@@ -700,64 +878,90 @@ def _cached_table(layers: list):
 
 def _products(lp: dict) -> tuple:
     """A layer's four products: (name, weight, whether its GEMV pairs GLU
-    columns)."""
+    columns); a MoE layer's w1n3 and w2 are its expert stacks."""
+    ffn = _ffn_group(lp)
     return (("qkv", lp["attn"]["qkv"], False), ("wo", lp["attn"]["wo"], False),
-            ("w1n3", lp["ffn"]["w1n3"], True), ("w2", lp["ffn"]["w2"], False))
+            ("w1n3", ffn["w1n3"], True), ("w2", ffn["w2"], False))
 
 
-def _check_byte(w: QuantizedTensor, name: str, k: int, n: int) -> None:
+def _check_byte(w: QuantizedTensor, name: str, k: int, n: int,
+                lead: tuple = ()) -> None:
     """A byte-mode operand: codes (K, N) uint8, f16 block scales (K/32, N)
-    and, for Q8_B32T1, f16 block bases."""
+    and, for Q8_B32T1, f16 block bases, each with the leading axes
+    `lead`."""
     _build.check_operand(w.planes["data"], f"{name}.data", torch.uint8,
-                         (k, n))
+                         lead + (k, n))
     for part, t in (("scale", w.scale), ("base", w.base)):
         if t is not None:
             _build.check_operand(t, f"{name}.{part}", torch.float16,
-                                 (k // _BYTE_BLOCK, n))
+                                 lead + (k // _BYTE_BLOCK, n))
+
+
+def _expert_strides(w) -> list:
+    """Bytes from one expert of a stack to the next: codes, scale, base."""
+    parts = ((w.data, w.scale, None) if isinstance(w, Int8MXUTensor) else
+             (w.planes[I4_PLANE if I4_PLANE in w.planes else "data"],
+              w.scale, w.base))
+    return [0 if t is None else t.stride(0) * t.element_size()
+            for t in parts]
 
 
 def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
     """The C step's per-layer table (anorm, fnorm, then per product its
-    mode, stored K and (data, scale, base) pointers: csrc kTableStride),
-    w2's stored K (hglu's row length, one for all layers) and the (K, N,
-    GLU, mode) shapes of the float-mode (i4x8 and byte) products, built
-    once per layer list."""
+    mode, stored K and (data, scale, base) pointers, then the gate of a
+    MoE layer (or null) and the byte strides between experts of w1n3 and
+    w2: csrc kTableStride), w2's stored K (hglu's row length, one for all
+    layers) and the (K, N, GLU, mode, routed) shapes of the float-mode
+    (i4x8 and byte) products, built once per layer list."""
     entry = _cached_table(layers)
     if entry is not None:
         return entry
     ptrs, float_shapes = [], set()
-    f_s = _stored_k(layers[0]["ffn"]["w2"])
+    f_s = _stored_k(_ffn_group(layers[0])["w2"])
     for lp in layers:
+        moe = lp.get("moe")
+        lead = () if moe is None else (int(moe["gate"].shape[-1]),)
         for name, t in (("attn.pre_norm", lp["attn"]["pre_norm"]),
-                        ("ffn.pre_norm", lp["ffn"]["pre_norm"])):
+                        ("ffn.pre_norm", _fnorm(lp))):
             _build.check_operand(t, name, torch.bfloat16, (e,))
             ptrs.append(t.data_ptr())
-        if _stored_k(lp["ffn"]["w2"]) != f_s:
+        if _stored_k(_ffn_group(lp)["w2"]) != f_s:
             raise ValueError("the fused step takes one stored K of w2 "
                              "across its layers")
         for (name, w, glu), k, n in zip(_products(lp), (e, qdim, e, f_s),
                                         (nqkv, e, 2 * f, e)):
+            routed = name in ("w1n3", "w2") and moe is not None
+            ld = lead if routed else ()
             mode = _mm_mode(w)
             if mode == "i8mm":
-                _check_i8(w, name, k, n)
+                _check_i8(w, name, k, n, ld)
                 ptrs += [_MODES[mode], k, w.data.data_ptr(),
                          w.scale.data_ptr(), 0]
                 continue
             if mode == "i4":
-                _check_i4(w, name, k, n)
+                _check_i4(w, name, k, n, ld)
                 code, plane = _MODES[mode], w.planes[I4_PLANE]
             else:
-                _check_byte(w, name, k, n)
+                _check_byte(w, name, k, n, ld)
                 code = _MODES[mode] + (w.base is not None)
                 plane = w.planes["data"]
-            float_shapes.add((k, n, glu, code))
+            float_shapes.add((k, n, glu, code, routed))
             ptrs += [code, k, plane.data_ptr(), w.scale.data_ptr(),
                      0 if w.base is None else w.base.data_ptr()]
+        if moe is None:
+            ptrs += [0] * 7
+        else:
+            _build.check_operand(moe["gate"], "moe.gate", torch.bfloat16,
+                                 (e, lead[0]))
+            stacked = moe["experts_stacked"]
+            ptrs += [moe["gate"].data_ptr(),
+                     *_expert_strides(stacked["w1n3"]),
+                     *_expert_strides(stacked["w2"])]
     entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s,
              frozenset(float_shapes))
     _TABLES[id(layers)] = (
         len(layers), weakref.ref(layers[0]["attn"]["pre_norm"]),
-        weakref.ref(layers[-1]["ffn"]["pre_norm"]),
+        weakref.ref(_fnorm(layers[-1])),
         [weakref.ref(t) for t in _table_tensors(layers)], entry)
     _TABLES.move_to_end(id(layers))
     while len(_TABLES) > _TABLE_CACHE_SIZE:
@@ -766,9 +970,11 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
 
 
 def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
-                           positions: torch.Tensor, cache):
+                           positions: torch.Tensor, cache,
+                           routes: Optional[list] = None):
     """Launch kernel B4: one C call for the whole step, over a dense cache
-    or (mode (f)) a page pool."""
+    or (mode (f)) a page pool; MoE layers in mode (g).  routes: see
+    fused_decode_step."""
     _build.require_hopper(x)
     hp = spec.hyper_params
     hq, hk, d = hp.decoder_heads, hp.kv_heads, hp.head_dim
@@ -785,7 +991,7 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         num_layers, cb, h, s, cd = cache.k.shape
         pages = pt = maxp = 0
         table_ptr = ctypes.c_void_p(0)
-    f = int(layers[0]["ffn"]["w2"].shape[-2])
+    f = int(_ffn_group(layers[0])["w2"].shape[-2])
     if hq // hk > _MAX_ROWS or d > _MAX_D or d % 16:
         raise NotImplementedError(
             f"the fused step kernel takes at most {_MAX_ROWS} query heads "
@@ -793,6 +999,9 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
     if (cb, h, cd) != (bsz, hk, d) or num_layers != len(layers):
         raise ValueError(f"cache {tuple(cache.k.shape)} does not match "
                          f"{len(layers)} layers, B={bsz}, H={hk}, D={d}")
+    moe = "moe" in layers[0]
+    n_exp = int(layers[0]["moe"]["gate"].shape[-1]) if moe else 0
+    top_k = (hp.moe_top_k or 2) if moe else 0
     nqkv = (hq + 2 * hk) * d
     table, f_s, float_shapes = _layer_table(layers, e, hq * d, nqkv, f)
     shape = tuple(cache.k.shape)
@@ -808,25 +1017,39 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
     cos, sin = _expand_cos_sin(positions.reshape(-1), d, spec.rope_order,
                                spec.rope_theta)
     cos, sin = cos.contiguous(), sin.contiguous()
-    # one zeroed buffer: the i8mm split-K workspace, tile counters,
-    # per-layer row maxima of ctx and hglu, the attention's split counters
-    n_ws = bsz * max(nqkv, e, 2 * f)
-    tiles = -(-max(nqkv, e, f) // _TILE_COLS)
+    # mode (g): the FFN's rows are the (slot, choice) pairs, B * top_k
+    rk = bsz * top_k
+    # one zeroed buffer: the i8mm split-K workspace, tile counters (one
+    # set per expert in mode (g)), per-layer row maxima of ctx and hglu
+    # (and of mode (g)'s hglu rows), the attention's split counters
+    n_ws = max(bsz * max(nqkv, e, 2 * f), rk * max(2 * f, e))
+    tiles = -(-max(nqkv, e, f) // _TILE_COLS) * max(n_exp, 1)
     # the i4x8 and byte GEMVs' float split partials: the most any one of
     # them needs (they run one after another)
-    n_part = max((_gemv_splits(k, n, glu, _sms(x), mode) * bsz * n
-                  for k, n, glu, mode in float_shapes), default=1)
+    n_part = max((_gemv_splits(k, n, glu, _sms(x), mode)
+                  * (rk if routed else bsz) * n
+                  for k, n, glu, mode, routed in float_shapes), default=1)
     gemv_part = torch.empty(n_part, dtype=torch.float32, device=dev)
-    n_amax = 2 * num_layers * bsz
+    n_amax = 2 * num_layers * bsz + num_layers * rk
     work = torch.zeros(n_ws + tiles + n_amax + bsz * hk, dtype=torch.int32,
                        device=dev)
     part = torch.empty(bsz * hk * _MAX_SPLIT * (hq // hk) * (d + 2),
                        dtype=torch.float32, device=dev)
     qkv = torch.empty((bsz, nqkv), dtype=torch.float32, device=dev)
     ctx = torch.empty((bsz, hq * d), dtype=torch.bfloat16, device=dev)
-    # w2's stored K wide: the tail past F stays zero (K-padded w2)
+    # w2's stored K wide: the tail past F stays zero (K-padded w2); mode
+    # (g) keeps one row per (slot, choice)
     hglu = (torch.zeros if f_s != f else torch.empty)(
-        (bsz, f_s), dtype=torch.bfloat16, device=dev)
+        (max(bsz, rk), f_s), dtype=torch.bfloat16, device=dev)
+    # mode (g): xn (B, E) bf16, each layer's routing (the expert of each
+    # of the B * top_k rows, int32) and choice weights (float32), and the
+    # expert outputs (B * top_k, E) float32
+    xn = torch.empty((bsz, e) if moe else (1,), dtype=torch.bfloat16,
+                     device=dev)
+    route = torch.empty(max(num_layers * rk, 1), dtype=torch.int32,
+                        device=dev)
+    moe_f32 = torch.empty(max(num_layers * rk + rk * e, 1),
+                          dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.ift_fused_decode_step(
         table, num_layers, _build.ptr(xres), _build.ptr(lengths),
@@ -836,37 +1059,50 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         _build.ptr(ctx), _build.ptr(hglu), _build.ptr(work),
         _build.ptr(gemv_part), _build.ptr(work[n_ws:]),
         _build.ptr(work[n_ws + tiles:]),
-        _build.ptr(part), _build.ptr(work[n_ws + tiles + n_amax:]), bsz, e,
+        _build.ptr(part), _build.ptr(work[n_ws + tiles + n_amax:]),
+        _build.ptr(xn), _build.ptr(route), _build.ptr(moe_f32), bsz, e,
         hq, hk, d, s, cache.block, f, spec.rope_order,
-        _ACTS[spec.activation_fn], pt, maxp, pages, spec.norm_eps,
+        _ACTS[spec.activation_fn], pt, maxp, pages, n_exp, top_k,
+        int(bool(hp.moe_norm_top_k_prob)), spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
-    codes = {mode for *_, mode in float_shapes}
-    name = (BYTE_KERNEL if codes - {_MODES["i4"]}
+    codes = {shape[3] for shape in float_shapes}
+    name = (MOE_KERNEL if moe else BYTE_KERNEL if codes - {_MODES["i4"]}
             else I4_KERNEL if codes else KERNEL)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1
+    if routes is not None and moe:
+        routes.append({
+            "experts": route.view(num_layers, bsz, top_k),
+            "weights": moe_f32[:num_layers * rk].view(num_layers, bsz,
+                                                      top_k)})
     return xres[:, None], cache
 
 
 def fused_decode_step(spec, layers: list, x: torch.Tensor,
-                      positions: torch.Tensor, cache: KVCache):
+                      positions: torch.Tensor, cache: KVCache,
+                      routes: Optional[list] = None):
     """One decode step over all layers (inferflow_tpu signature), each
-    product in its weight's mode (i8mm, i4x8 or byte).
+    product in its weight's mode (i8mm, i4x8 or byte), MoE layers routed
+    in mode (g).
 
     x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
     cache lengths; cache: a Q8 KVCache or PagedKVCache.  Returns (x (B, 1,
     E), cache) with the step's K/V rows written at each slot's length
     (through the page table for a paged cache); cache.length is not
-    advanced."""
+    advanced.  routes: for MoE layers, a list that receives a dict of
+    each layer's routing, "experts" (L, B, top_k) int32 and "weights" (L,
+    B, top_k) float32 (for inspection; nothing else changes)."""
     modes = _fusion_modes(spec, layers, cache, x.shape[0])
     _refuse_unported(modes)
-    if not modes or not modes <= set(_MODES):
+    if not modes or not modes - {"moe"} <= set(_MODES):
         raise NotImplementedError(
             "fused_decode_step serves i8mm, i4 and Q8 block weights and a "
             f"Q8 cache; this configuration has weight modes "
             f"{sorted(modes or [])}")
     if x.device.type == "cpu":
-        return fused_decode_step_plain(spec, layers, x, positions, cache)
+        return fused_decode_step_plain(spec, layers, x, positions, cache,
+                                       routes)
     if x.device.type == "cuda":
-        return fused_decode_step_cuda(spec, layers, x, positions, cache)
+        return fused_decode_step_cuda(spec, layers, x, positions, cache,
+                                      routes)
     raise ValueError(f"fused_decode_step: unsupported device {x.device}")

@@ -4,8 +4,12 @@ the subset the serving path uses).
 Params are plain dictionaries of tensors: ``dec_embeddings`` (V, E),
 ``dec_output_norm`` (E,), ``lm_head`` (E, V), and ``layers``, a list of
 per-layer dicts ``{"attn": {"pre_norm", "qkv" | "wq"/"wk"/"wv", "wo"},
-"ffn": {"pre_norm", "w1n3" | "w1"/"w3", "w2"}}``.  Weights are (K, N)
-tensors or QuantizedTensors; activations are (B, T, E); q/k/v (B, T, H, D).
+"ffn": {"pre_norm", "w1n3" | "w1"/"w3", "w2"}}``; a MoE layer holds
+``"moe": {"pre_norm", "gate" (E, n_exp) dense, "experts_stacked"}`` in
+place of ``ffn``, its experts' FFN weights stacked on a leading expert
+axis ((n_exp, K, N) leaves; ``stack_moe_experts``), or an ``experts``
+list before stacking.  Weights are (K, N) tensors, QuantizedTensors or
+Int8MXUTensors; activations are (B, T, E); q/k/v (B, T, H, D).
 
 Attention routes by phase, as on the TPU:
   - prefill (T > 1, a fresh cache): append K/V, then ``mha`` over the
@@ -24,8 +28,11 @@ whole-model fused step takes (``fused_step_preferred``: i8mm, i4 or Q8
 block weights, the last under the q8c layout too, a Q8 cache, dense or
 paged, B <= 8) runs ``fused_decode_step`` (kernel B4) for all layers at
 once instead of the per-layer loop.
-Not ported: MoE, ALiBi/sinusoidal positions, parallel attention and the
-ring/tensor-parallel paths.
+A MoE layer's FFN is ``moe_block`` (routed decode, or the dense one-hot
+combine); the fused step takes routed MoE stacks in its mode (g).
+Not ported: heterogeneous MoE stacks (dense first layers), ALiBi and
+sinusoidal positions, parallel attention and the ring/tensor-parallel
+paths.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.attention import chunk_attention, decode_attention
 from ..kernels.decode_step import fused_decode_step, fused_step_preferred
@@ -55,8 +63,11 @@ DEVICE_LAYOUTS = ("", "auto", "packed", "i8mm", "i4", "q8c", "mixed")
 def check_supported(spec: ModelSpec) -> None:
     """Refuse the configurations this port does not serve yet."""
     hp = spec.hyper_params
-    if hp.experts:
-        raise NotImplementedError("MoE models are not ported")
+    if hp.experts and (hp.moe_layer_start > 0 or hp.moe_layer_end not in (
+            -1, hp.decoder_layers - 1, hp.decoder_layers)):
+        raise NotImplementedError(
+            "heterogeneous MoE stacks (dense layers outside "
+            "moe_layer_start..moe_layer_end) are not ported")
     if spec.pos_embedding_alg not in ("rope", "empty", ""):
         raise NotImplementedError(
             f"position embedding {spec.pos_embedding_alg!r} is not ported")
@@ -166,9 +177,71 @@ def ffn_block(spec: ModelSpec, lp: dict, x):
     return out
 
 
+def top_k_lowest(probs: torch.Tensor, k: int):
+    """The k largest entries of the last axis and their indices, largest
+    first, ties to the lower index (as jax.lax.top_k and the TPU kernel's
+    argmax loop break them; torch.topk does not promise an order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def expert_count(stacked: dict) -> int:
+    """The expert axis of an experts_stacked dict."""
+    w = stacked.get("w1n3", stacked.get("w1"))
+    return int(w.shape[0])
+
+
+def index_expert(stacked: dict, e: int) -> dict:
+    """Expert e of an experts_stacked dict: its 2-D weights, as views
+    (the counterpart of the JAX package's _index_layer on the expert
+    axis)."""
+    return {k: v.select(e) if isinstance(v, (QuantizedTensor, Int8MXUTensor))
+            else v[e] for k, v in stacked.items()}
+
+
+def moe_block(spec: ModelSpec, lp: dict, x):
+    """Sparse-MoE FFN (the JAX package's moe_block): gate logits through
+    linear (bf16 for a dense bf16 gate) to float32, softmax, top-k (ties
+    to the lower expert), renormalised when moe_norm_top_k_prob.  Decode
+    with stacked experts and B * top_k < n_exp runs only the chosen
+    experts, slot by slot; otherwise every expert runs on every row and a
+    one-hot combine weighs them.  Expert outputs add in float32 (plus the
+    shared expert's), rounded to x's dtype once."""
+    hp = spec.hyper_params
+    top_k = hp.moe_top_k or 2
+    stacked = lp.get("experts_stacked")
+    n_exp = expert_count(stacked) if stacked is not None \
+        else len(lp["experts"])
+    logits = linear(x, lp["gate"], lp.get("gate_b")).float()
+    top_vals, top_idx = top_k_lowest(torch.softmax(logits, dim=-1), top_k)
+    if hp.moe_norm_top_k_prob:
+        top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+    b, t, _ = x.shape
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if stacked is not None and t == 1 and b * top_k < n_exp:
+        chosen = top_idx[:, 0].tolist()
+        for bi in range(b):
+            for j in range(top_k):
+                y = ffn_block(spec, index_expert(stacked, chosen[bi][j]),
+                              x[bi:bi + 1])
+                out[bi] += y[0].float() * top_vals[bi, 0, j]
+    else:
+        combine = torch.einsum(
+            "btke,btk->bte",
+            F.one_hot(top_idx, n_exp).to(torch.float32), top_vals)
+        for e in range(n_exp):
+            elp = (index_expert(stacked, e) if stacked is not None
+                   else lp["experts"][e])
+            out = out + ffn_block(spec, elp, x).float() * combine[..., e:e + 1]
+    if lp.get("shared"):
+        out = out + ffn_block(spec, lp["shared"], x).float()
+    return out.to(x.dtype)
+
+
 def decoder_layer(spec: ModelSpec, lp: dict, x, positions,
                   layer_cache: Optional[dict]):
-    """One pre-norm decoder layer (is_attn_post_as_residual honoured)."""
+    """One pre-norm decoder layer (is_attn_post_as_residual honoured); a
+    MoE layer runs moe_block in place of the dense FFN."""
     attn_p = lp["attn"]
     residual = x
     h = x
@@ -178,9 +251,14 @@ def decoder_layer(spec: ModelSpec, lp: dict, x, positions,
                                             layer_cache)
     attn_out = _norm(spec, attn_out, attn_p, "post_norm")
     x = residual + attn_out if spec.is_attn_post_as_residual else attn_out
-    fp = lp["ffn"]
-    h = _norm(spec, x, fp, "pre_norm", spec.ffn_pre_norm_base)
-    ffn_out = _norm(spec, ffn_block(spec, fp, h), fp, "post_norm")
+    if "moe" in lp:
+        mp = lp["moe"]
+        h = _norm(spec, x, mp, "pre_norm", spec.ffn_pre_norm_base)
+        ffn_out = _norm(spec, moe_block(spec, mp, h), mp, "post_norm")
+    else:
+        fp = lp["ffn"]
+        h = _norm(spec, x, fp, "pre_norm", spec.ffn_pre_norm_base)
+        ffn_out = _norm(spec, ffn_block(spec, fp, h), fp, "post_norm")
     return x + ffn_out, layer_cache
 
 
@@ -269,33 +347,47 @@ def decoder_layers_chunk(spec: ModelSpec, layers: list, x, positions,
 
 
 def _concat_weights(parts):
-    """Concatenate weights along N: dense tensors, or QuantizedTensors of
-    one format and K.  None when they cannot fuse."""
+    """Concatenate weights along N: dense tensors, QuantizedTensors of one
+    format and K, or Int8MXUTensors, 2-D or expert-stacked (every axis but
+    N equal).  None when they cannot fuse."""
     first = parts[0]
+    lead = tuple(first.shape[:-1])
     if isinstance(first, QuantizedTensor):
         if not all(isinstance(p, QuantizedTensor) and p.format == first.format
-                   and p.shape[0] == first.shape[0]
+                   and tuple(p.shape[:-1]) == lead
                    and p.storage_k == first.storage_k for p in parts):
             return None
         return concat_quantized(parts)
     if isinstance(first, Int8MXUTensor):
         if not all(isinstance(p, Int8MXUTensor)
-                   and p.shape[0] == first.shape[0] for p in parts):
+                   and tuple(p.shape[:-1]) == lead for p in parts):
             return None
         return Int8MXUTensor(
-            (first.shape[0], sum(int(p.shape[-1]) for p in parts)),
+            lead + (sum(int(p.shape[-1]) for p in parts),),
             torch.cat([p.data for p in parts], dim=-1),
             torch.cat([p.scale for p in parts], dim=-1))
-    if not all(isinstance(p, torch.Tensor) and p.shape[0] == first.shape[0]
+    if not all(isinstance(p, torch.Tensor) and tuple(p.shape[:-1]) == lead
                for p in parts):
         return None
     return torch.cat(parts, dim=-1)
 
 
+def _fuse_ffn(blk: dict) -> dict:
+    blk = dict(blk)
+    if "w1" in blk and "w3" in blk and "w1_b" not in blk \
+            and "w3_b" not in blk:
+        fused = _concat_weights([blk["w1"], blk["w3"]])
+        if fused is not None:
+            blk.pop("w1"), blk.pop("w3")
+            blk["w1n3"] = fused
+    return blk
+
+
 def fuse_layer_weights(layers: list) -> list:
     """Fuse wq|wk|wv -> qkv (qkv_format=1 order) and w1|w3 -> w1n3 per
-    layer; returns new layer dicts.  Callers set spec.qkv_format = 1 when
-    the attention fusion applies."""
+    layer, MoE experts (listed or stacked on their (E, K, N) leaves) and
+    the shared expert included; returns new layer dicts.  Callers set
+    spec.qkv_format = 1 when the attention fusion applies."""
     out = []
     for layer in layers:
         layer = dict(layer)
@@ -308,13 +400,64 @@ def fuse_layer_weights(layers: list) -> list:
                     attn.pop(k)
                 attn["qkv"] = fused
         layer["attn"] = attn
-        ffn = dict(layer.get("ffn", {}))
-        if "w1" in ffn and "w3" in ffn and "w1_b" not in ffn \
-                and "w3_b" not in ffn:
-            fused = _concat_weights([ffn["w1"], ffn["w3"]])
-            if fused is not None:
-                ffn.pop("w1"), ffn.pop("w3")
-                ffn["w1n3"] = fused
-        layer["ffn"] = ffn
+        if "ffn" in layer:
+            layer["ffn"] = _fuse_ffn(layer["ffn"])
+        if "moe" in layer:
+            moe = dict(layer["moe"])
+            if "experts" in moe:
+                moe["experts"] = [_fuse_ffn(e) for e in moe["experts"]]
+            if "experts_stacked" in moe:
+                moe["experts_stacked"] = _fuse_ffn(moe["experts_stacked"])
+            if moe.get("shared"):
+                moe["shared"] = _fuse_ffn(moe["shared"])
+            layer["moe"] = moe
         out.append(layer)
     return out
+
+
+def _stack(vals: list):
+    """Stack one leaf of every expert along a new leading axis."""
+    first = vals[0]
+    if isinstance(first, QuantizedTensor):
+        if any(not isinstance(v, QuantizedTensor) or v.format != first.format
+               or set(v.planes) != set(first.planes)
+               or (v.base is None) != (first.base is None) for v in vals):
+            raise ValueError("experts of different formats")
+        return QuantizedTensor(
+            first.format, (len(vals),) + tuple(first.shape),
+            {k: torch.stack([v.planes[k] for v in vals])
+             for k in first.planes},
+            torch.stack([v.scale for v in vals]),
+            None if first.base is None
+            else torch.stack([v.base for v in vals]))
+    if isinstance(first, Int8MXUTensor):
+        if any(not isinstance(v, Int8MXUTensor) for v in vals):
+            raise ValueError("experts of different formats")
+        return Int8MXUTensor((len(vals),) + tuple(first.shape),
+                             torch.stack([v.data for v in vals]),
+                             torch.stack([v.scale for v in vals]))
+    return torch.stack(vals)
+
+
+def stack_moe_experts(layers: list) -> list:
+    """Replace each MoE layer's ``experts`` list by ``experts_stacked``,
+    every leaf stacked on a leading expert axis (the JAX package's
+    stack_moe_experts), in place; a list whose experts differ in keys,
+    shapes or formats stays a list (the dense-combine path takes it).
+    Each leaf's experts are copied into one tensor: build the experts
+    stacked (models/zoo.py does) where a model's experts fill the card."""
+    for layer in layers:
+        moe = layer.get("moe")
+        if not moe or not moe.get("experts"):
+            continue
+        experts = moe["experts"]
+        keys = set(experts[0])
+        if any(set(e) != keys for e in experts):
+            continue
+        try:
+            stacked = {k: _stack([e[k] for e in experts]) for k in keys}
+        except (ValueError, RuntimeError):
+            continue  # heterogeneous formats or shapes: keep the list
+        moe["experts_stacked"] = stacked
+        del moe["experts"]
+    return layers

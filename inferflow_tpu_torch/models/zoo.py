@@ -19,7 +19,8 @@ from ..quant.codec_torch import (layout_for_leaf, quantize, repack_i4,
                                  requantize_i8_colwise,
                                  requantize_q8_container, resolve_auto_layout)
 from ..quant.formats import get_format
-from .decoder import DEVICE_LAYOUTS, check_supported, fuse_layer_weights
+from .decoder import (DEVICE_LAYOUTS, check_supported, fuse_layer_weights,
+                      stack_moe_experts)
 from .spec import HyperParams, ModelSpec
 
 CONFIGS = {
@@ -99,7 +100,14 @@ def make_synthetic_params(spec: ModelSpec,
     (w1, w2, w3; layout_for_leaf), the rest keeping the wire planes.  Under
     '' (on the CPU) and 'packed', Q3H weights are kept as the pair8 plane
     quantize emits (one byte per base-11 pair code), the layout kernel B6
-    reads."""
+    reads.
+
+    A MoE spec (hp.experts > 0) gets per layer ``moe = {"pre_norm",
+    "gate", "experts_stacked"}`` in place of ``ffn``: a dense bf16 gate
+    (E, n_exp) and each expert's w1, w2 and w3 under the chosen layout,
+    built one expert at a time (only one expert's float32 weights exist at
+    once) and fused to w1n3, then stacked on a leading expert axis
+    (decoder.stack_moe_experts)."""
     check_supported(spec)
     dev = resolve_device(device)
     if device_layout in ("", "auto") and weight_format:
@@ -122,22 +130,31 @@ def make_synthetic_params(spec: ModelSpec,
     def weight(k, n, leaf):
         return _maybe_quant(rand(k, n), weight_format, device_layout, leaf)
 
+    def ffn_weights():
+        return {"w1": weight(e, inter, "w1"), "w2": weight(inter, e, "w2"),
+                "w3": weight(e, inter, "w3")}
+
+    def norm():
+        return torch.ones(e, dtype=torch.bfloat16, device=dev)
+
     layers = []
     for _ in range(hp.decoder_layers):
-        layers.append({
-            "attn": {"pre_norm": torch.ones(e, dtype=torch.bfloat16,
-                                            device=dev),
-                     "wq": weight(e, q_dim, "wq"),
-                     "wk": weight(e, kv_dim, "wk"),
-                     "wv": weight(e, kv_dim, "wv"),
-                     "wo": weight(q_dim, e, "wo")},
-            "ffn": {"pre_norm": torch.ones(e, dtype=torch.bfloat16,
-                                           device=dev),
-                    "w1": weight(e, inter, "w1"),
-                    "w2": weight(inter, e, "w2"),
-                    "w3": weight(e, inter, "w3")},
-        })
-        layers[-1:] = fuse_layer_weights(layers[-1:])
+        layer = {"attn": {"pre_norm": norm(),
+                          "wq": weight(e, q_dim, "wq"),
+                          "wk": weight(e, kv_dim, "wk"),
+                          "wv": weight(e, kv_dim, "wv"),
+                          "wo": weight(q_dim, e, "wo")}}
+        if hp.experts:
+            gate = rand(e, hp.experts).to(torch.bfloat16)
+            experts = [fuse_layer_weights([{"ffn": ffn_weights()}])[0]["ffn"]
+                       for _ in range(hp.experts)]
+            layer["moe"] = {"pre_norm": norm(), "gate": gate,
+                            "experts": experts}
+            stack_moe_experts([layer])
+            del experts
+        else:
+            layer["ffn"] = dict(ffn_weights(), pre_norm=norm())
+        layers.extend(fuse_layer_weights([layer]))
     if all("qkv" in lp["attn"] for lp in layers):
         spec.qkv_format = 1
     return {

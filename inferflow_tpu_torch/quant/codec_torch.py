@@ -53,7 +53,10 @@ class QuantizedTensor:
     planes: packed uint8 tensors by plane name (see formats.py)
     scale/base: per-block metadata, shape (K_s/block, N); f16, or f32 for
     the u8-metadata formats.  The stored K_s may exceed the logical K of
-    ``shape`` (zero-scale pad blocks); see ``storage_k``.
+    ``shape`` (zero-scale pad blocks); see ``storage_k``.  An expert
+    stack (a MoE layer's ``experts_stacked``) has a leading axis on
+    ``shape`` and on every tensor: (E, K, N) codes, (E, K_s/block, N)
+    metadata; ``select`` takes one expert's 2-D weight.
     """
 
     format: str
@@ -74,6 +77,13 @@ class QuantizedTensor:
         if self.base is not None:
             n += self.base.numel() * self.base.element_size()
         return n
+
+    def select(self, i: int) -> "QuantizedTensor":
+        """Entry i of the leading axis (one expert of a stack), as views."""
+        return QuantizedTensor(
+            self.format, tuple(self.shape[1:]),
+            {k: v[i] for k, v in self.planes.items()}, self.scale[i],
+            None if self.base is None else self.base[i])
 
     def to(self, device) -> "QuantizedTensor":
         return QuantizedTensor(
@@ -289,7 +299,8 @@ def _pack_planes(codes: torch.Tensor, fmt: QuantFormat) -> dict:
 
 def concat_quantized(parts) -> QuantizedTensor:
     """Concatenate QuantizedTensors of one format and K along N (fused qkv
-    and w1|w3 weights; decoder.fuse_layer_weights)."""
+    and w1|w3 weights; decoder.fuse_layer_weights), 2-D or with leading
+    axes (an expert stack's (E, K, N): each expert's columns in turn)."""
     first = parts[0]
     planes = {k: torch.cat([p.planes[k] for p in parts], dim=-1)
               for k in first.planes}
@@ -297,8 +308,8 @@ def concat_quantized(parts) -> QuantizedTensor:
     base = (None if first.base is None
             else torch.cat([p.base for p in parts], dim=-1))
     n = sum(int(p.shape[-1]) for p in parts)
-    return QuantizedTensor(first.format, (first.shape[0], n), planes, scale,
-                           base)
+    return QuantizedTensor(first.format, tuple(first.shape[:-1]) + (n,),
+                           planes, scale, base)
 
 
 def quantize_q8_sym(x: torch.Tensor, block: int = 32):
@@ -328,7 +339,9 @@ class Int8MXUTensor:
     int8 products: activations are quantized per row, and the row scale
     times the column scale covers the whole K reduction.
 
-    data: (K, N) int8 codes; scale: (N,) float32 column scales.
+    data: (K, N) int8 codes; scale: (N,) float32 column scales.  An
+    expert stack has a leading axis on all three: (E, K, N) codes and (E,
+    N) scales; ``select`` takes one expert's 2-D weight.
     """
 
     shape: tuple
@@ -340,7 +353,12 @@ class Int8MXUTensor:
         return self.data.numel() + self.scale.numel() * 4
 
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
-        return (self.data.float() * self.scale[None, :]).to(dtype)
+        return (self.data.float() * self.scale[..., None, :]).to(dtype)
+
+    def select(self, i: int) -> "Int8MXUTensor":
+        """Entry i of the leading axis (one expert of a stack), as views."""
+        return Int8MXUTensor(tuple(self.shape[1:]), self.data[i],
+                             self.scale[i])
 
     def to(self, device) -> "Int8MXUTensor":
         return Int8MXUTensor(self.shape, self.data.to(device),

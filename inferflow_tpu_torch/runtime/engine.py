@@ -12,8 +12,9 @@ Same step loop as the JAX engine, run eagerly on one CUDA device:
     there and not over the chunk's rows;
   - one batched decode step over every slot (B = max_concurrent_queries,
     inactive slots included): the whole-model fused step (kernel B4) for
-    i8mm or i4 weights and B <= 8, else the per-layer loop (kernel B1, B5
-    or the i8mm product for the weights, B2 for attention);
+    i8mm, i4 or Q8 block weights and B <= 8 (a routed MoE stack in its
+    mode (g)), else the per-layer loop (kernel B1, B5 or the i8mm product
+    for the weights, B2 for attention, moe_block for a MoE layer);
   - sampling on the host (sampling/strategies.py), saturation as an
     implicit end of the query.
 With ``kv_cache_paging`` the cache is a page pool (runtime/paged_kv.py) of
@@ -43,7 +44,8 @@ import torch
 from ..device import resolve_device
 from ..models.decoder import (check_supported, decoder_forward,
                               decoder_layers_chunk, decoder_layers_unrolled,
-                              embed_tokens, fuse_layer_weights, output_logits)
+                              embed_tokens, fuse_layer_weights, output_logits,
+                              stack_moe_experts)
 from ..models.spec import ModelSpec
 from ..quant.codec_torch import Int8MXUTensor, QuantizedTensor
 from ..quant.formats import is_quantized
@@ -118,7 +120,9 @@ class InferenceEngine:
         hp = spec.hyper_params
         layers = params["layers"]
         had_separate = all("wq" in lp["attn"] for lp in layers)
-        layers = fuse_layer_weights(layers)
+        # E-leading expert stacks: the routed decode paths index them (a
+        # list of experts stays a list when its experts differ)
+        layers = stack_moe_experts(fuse_layer_weights(layers))
         if had_separate and all("qkv" in lp["attn"] for lp in layers):
             spec = dataclasses.replace(spec, qkv_format=1)
         self.spec = spec

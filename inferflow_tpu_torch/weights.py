@@ -6,8 +6,9 @@ each QuantizedTensor as its ``to_np()`` dict (any plane set: wire planes,
 ``data_i4p`` or Q3H's ``pair8``, K-padded storage included) and each
 Int8MXUTensor as a ``{"shape", "data", "scale"}`` dict.  Layer-stacked
 trees (a leading L axis on every ``layers`` leaf) are split into the
-per-layer list this package uses.  Tests use it to give both packages
-identical weights.
+per-layer list this package uses, only the L axis stripped: a MoE layer's
+``experts_stacked`` leaves, (L, E, K, N) there, arrive as (E, K, N)
+expert stacks.  Tests use it to give both packages identical weights.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ def _layer_count(node) -> int:
 
 
 def _select_layer(node, i: int):
+    """Layer i of a layer-stacked node: the leading axis only."""
     if _is_qt(node):
         return {"format": node["format"], "shape": tuple(node["shape"])[1:],
                 "planes": {k: v[i] for k, v in node["planes"].items()},

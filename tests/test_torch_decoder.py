@@ -179,15 +179,21 @@ def test_chunk_loop_matches_jax(models):
 
 
 def test_unported_configurations_raise():
-    """MoE and ALiBi raise; the q8c and mixed layouts, unported until the
-    Q8 block kernels, now build (their numbers: tests/test_torch_q8.py)."""
+    """Heterogeneous MoE stacks and ALiBi raise; the q8c and mixed layouts,
+    unported until the Q8 block kernels, now build (their numbers:
+    tests/test_torch_q8.py), and so do MoE models with every layer routed,
+    unported until routed MoE (their numbers: tests/test_torch_moe.py)."""
     for layout in ("q8c", "mixed"):
         spec = tzoo.make_spec("test-tiny", device_layout=layout)
         params = tzoo.make_synthetic_params(spec, "Q4_B64T1", device="cpu")
         assert params["layers"][0]["ffn"]["w1n3"].format == "Q8_B32T2"
-    with pytest.raises(NotImplementedError):
-        tzoo.make_synthetic_params(tzoo.make_spec("test-moe"), "Q4_B64T1",
-                                   device="cpu")
+    moe = tzoo.make_synthetic_params(tzoo.make_spec("test-moe"), "Q4_B64T1",
+                                     device="cpu")
+    assert "experts_stacked" in moe["layers"][0]["moe"]
+    dense_first = tzoo.make_spec("test-moe")
+    dense_first.hyper_params.moe_layer_start = 1
+    with pytest.raises(NotImplementedError, match="heterogeneous MoE"):
+        tzoo.make_synthetic_params(dense_first, "Q4_B64T1", device="cpu")
     alibi = tzoo.make_spec("test-tiny", pos_embedding_alg="alibi")
     with pytest.raises(NotImplementedError):
         tzoo.make_synthetic_params(alibi, device="cpu")

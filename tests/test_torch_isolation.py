@@ -8,7 +8,7 @@
 - Entry points default to the card and raise where there is none; the
   kernel wrappers (B1 for Q4 and Q8 weights, B2, B3, B5, B6, B7, the i8mm
   product and the fused decode step B4, dense and paged, i8mm, i4 and
-  byte) raise for a tensor that is neither on the CPU nor on a card, and
+  byte, and its routed-expert mode (g) with its routing launch) raise for a tensor that is neither on the CPU nor on a card, and
   the kernel build raises without a CUDA compiler.
 """
 
@@ -178,6 +178,26 @@ def test_wrappers_refuse_other_devices():
         with pytest.raises(ValueError, match="unsupported device"):
             fused_decode_step(spec, q8["layers"], x,
                               torch.zeros((2, 1), dtype=torch.int32), cache)
+
+    # the fused step's routed-expert mode (g) and its routing launch
+    from inferflow_tpu_torch.kernels.decode_step import moe_route
+    moe_spec = make_spec("test-moe", embd=128, inter=256, layers=1)
+    mhp = moe_spec.hyper_params
+    moe_cache = KVCache.create(1, 2, 16, mhp.kv_heads, mhp.head_dim,
+                               quantized=True, device="cpu")
+    xm = torch.empty((2, 1, 128), dtype=torch.bfloat16, device="meta")
+    for layout in ("i8mm", "q8c", "i4"):
+        moe = make_synthetic_params(moe_spec, "Q4_B64T1", device="cpu",
+                                    device_layout=layout)
+        assert "experts_stacked" in moe["layers"][0]["moe"]
+        with pytest.raises(ValueError, match="unsupported device"):
+            fused_decode_step(moe_spec, moe["layers"], xm,
+                              torch.zeros((2, 1), dtype=torch.int32),
+                              moe_cache)
+    gate = moe["layers"][0]["moe"]["gate"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        moe_route(xm[:, 0], torch.ones(128, dtype=torch.bfloat16), gate, 2,
+                  True, 1e-5)
 
 
 def test_kernel_build_needs_nvcc():
