@@ -141,7 +141,30 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        against a twin on the card (the same weights and engine fed (k)'s
        tokens, its decode steps B4 (g)'s plain version);
    (k-cpu) the same at ENGINE_KCPU_LAYERS layers with short prompts,
-       against the CPU engine.
+       against the CPU engine;
+9. reads configs/inferflow_service.q6.ini the same way: llama2-7b from
+   seed-0 Q6_B64T1 kept in its wire planes (the ini's device_layout =
+   packed; the auto rule would pick i8mm), 8 slots, a 4096-token context,
+   and
+   - holds B1's sub-byte case (subbyte_matmul) against its plain version,
+     the same bits twice, M in {1, 8, 12, 256}: Q6_B64T1 at the five
+     products' shapes (w2 also stored K-padded to 11264), and each other
+     sub-byte format (Q5_B64T1, Q5_B32T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16,
+     Q3_B32T1A/B, Q2_B32T1A/B; the Q6 weights' values quantized again) at
+     w1n3 and the K-padded w2; times it (library: torch.matmul on the
+     pre-dequantized bf16 weight, a yardstick only);
+   (l) serves ENGINE_L_PROMPTS (7 to 2000 tokens) at full depth: every
+       product B1's sub-byte case, every decode step the per-layer loop
+       with B2, chunks B3; no fused step, other B1 case, B5, B6, B7 or
+       int8 GEMV; every sampled row is held against a dense bf16 twin on
+       the card (the codec's weights, linear's dense branch) fed (l)'s
+       tokens, built after (l)'s engine is freed; reports the model's
+       bytes against the i8mm bytes the auto rule would have placed;
+   (l-cpu) the same at ENGINE_LCPU_LAYERS layers (a 300-token prompt:
+       B3), against the CPU engine;
+   (m) tinyllama-1.1b from seed-0 Q3_B32T1A (a 2-bit and a 1-bit plane,
+       32-row blocks), packed, at ENGINE_M_LAYERS layers with PROMPT_LENS
+       and 4 slots, against the CPU engine.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -368,6 +391,32 @@ ENGINE_K_DECODE_TOL = 0.3
 ENGINE_KCPU_LAYERS = 1
 ENGINE_KCPU_PROMPTS = (7, 128, 13)
 
+# the sub-byte wire formats: configs/inferflow_service.q6.ini, llama2-7b in
+# Q6_B64T1 under the packed layout
+Q6_INI = "configs/inferflow_service.q6.ini"
+Q6_MODEL_NAME = "llama2-7b"
+# B1's sub-byte case beside Q6_B64T1: each format at w1n3 (the widest
+# product of a layer) and w2 stored K-padded (K 11008 as 11264)
+SUBBYTE_FORMATS = ("Q5_B64T1", "Q5_B32T1", "Q4_B32T1A", "Q4_B32T1B",
+                   "Q4_B32T2", "Q4_B16", "Q3_B32T1A", "Q3_B32T1B",
+                   "Q2_B32T1A", "Q2_B32T1B")
+# run (l): 12 queries of 7 to 2000 tokens; those over 256 take the chunked
+# prefill (B3)
+ENGINE_L_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+# run (l) against a dense bf16 twin on the card (the codec's weights under
+# linear's dense branch) fed (l)'s tokens: B1 multiplies the twin's
+# weights bit for bit and differs in float32 summation order only, which
+# 32 random-weight layers amplify as in runs (c), (g) and (h) (measured
+# 0.057, 0.043 and 0.039 there): the gate of run (g), about twice that
+# (measured 0.040 for (l); H100 80GB HBM3, 700 W)
+ENGINE_L_TOL = 0.12
+# (l-cpu): the 300-token prompt takes a chunk (B3) at llama2-7b width;
+# measured 0.0156 against the CPU engine, and (m) 0.0156 (H100, 700 W)
+ENGINE_LCPU_LAYERS = 1
+ENGINE_LCPU_PROMPTS = (7, 300, 13)
+# run (m): tinyllama-1.1b in Q3_B32T1A, packed, at run (b)'s depth
+ENGINE_M_LAYERS = 2
+
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
                        "inferflow_tpu/kernels/dequant_matmul.py:146"),
@@ -407,6 +456,9 @@ KERNEL_SOURCES = {
     "fused_decode_step_moe": (
         "inferflow_tpu_torch/kernels/csrc/decode_step.cu",
         "inferflow_tpu/kernels/decode_step.py:1124"),
+    # B1 for the sub-byte wire formats (Q6 to Q2, one or two planes)
+    "subbyte_matmul": ("inferflow_tpu_torch/kernels/csrc/subbyte_matmul.cu",
+                       "inferflow_tpu/kernels/dequant_matmul.py:146"),
 }
 
 
@@ -1400,42 +1452,49 @@ def _i4_weights(params) -> dict:
             "lm_head": params["lm_head"]}
 
 
-def phase_b5(timer, dev, params) -> list:
-    """Kernel B5 at llama2-7b's product shapes, M in {1, 8, 12, 256}
-    (decode at B <= 8 and B > 8, prefill chunks), against its plain
-    version; library: torch.matmul on the pre-dequantized bf16 weight."""
-    from inferflow_tpu_torch.kernels.dequant_matmul import (
-        i4_matmul_plain, i4_weight, quantized_matmul)
-    gen = torch.Generator(device=dev).manual_seed(31)
+def _matmul_rows(timer, kernel, label, qt, w_bf16, gen, plain) -> list:
+    """One product's kernel rows, M in {1, 8, 12, 256} (decode at B <= 8
+    and B > 8, prefill chunks): quantized_matmul against `plain` on the
+    same inputs, the same bits on a second launch; timed beside the plain
+    version and torch.matmul on the pre-dequantized bf16 weight `w_bf16`
+    (a yardstick only)."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import quantized_matmul
+    k, n = (int(v) for v in qt.shape)
+    k_s = qt.storage_k
     rows = []
-    for name, qt in _i4_weights(params).items():
-        k, n = (int(v) for v in qt.shape)
-        k_s = qt.storage_k
-        w_bf16 = i4_weight(qt)
-        for m in (1, 8, 12, 256):
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            got = quantized_matmul(x, qt)
-            ref = i4_matmul_plain(x, qt)
-            again = quantized_matmul(x, qt)
-            torch.cuda.synchronize()
-            res = compare(got, ref)
-            res["same_bits_twice"] = bool(torch.equal(got, again))
-            res["ok"] = res["ok"] and res["same_bits_twice"]
-            bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
-            b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
-            row = {"phase": "kernel", "kernel": "i4_matmul",
-                   "shape": f"{name} M={m} K={k} K_s={k_s} N={n}", **res,
-                   "ms": timer(lambda: quantized_matmul(x, qt)),
-                   "plain_ms": timer(lambda: i4_matmul_plain(x, qt)),
-                   "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
-                   "library": "torch.matmul on the pre-dequantized bf16 "
-                              "weight",
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes_bound": bytes_moved}
-            emit(row)
-            rows.append(row)
+    for m in (1, 8, 12, 256):
+        x = torch.randn((m, k), generator=gen, device=w_bf16.device).to(
+            torch.bfloat16)
+        got = quantized_matmul(x, qt)
+        ref = plain(x, qt)
+        again = quantized_matmul(x, qt)
+        torch.cuda.synchronize()
+        res = compare(got, ref)
+        res["same_bits_twice"] = bool(torch.equal(got, again))
+        res["ok"] = res["ok"] and res["same_bits_twice"]
+        bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
+        b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
+        row = {"phase": "kernel", "kernel": kernel,
+               "shape": f"{label} M={m} K={k} K_s={k_s} N={n}", **res,
+               "ms": timer(lambda: quantized_matmul(x, qt)),
+               "plain_ms": timer(lambda: plain(x, qt)),
+               "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+               "library": "torch.matmul on the pre-dequantized bf16 weight",
+               "bound_ms": b_ms, "bound_by": b_by, "bytes_bound": bytes_moved}
+        emit(row)
+        rows.append(row)
     return rows
+
+
+def phase_b5(timer, dev, params) -> list:
+    """Kernel B5 at llama2-7b's product shapes (w2 also K-padded) against
+    its plain version (_matmul_rows)."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (i4_matmul_plain,
+                                                            i4_weight)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    return [row for name, qt in _i4_weights(params).items()
+            for row in _matmul_rows(timer, "i4_matmul", name, qt,
+                                    i4_weight(qt), gen, i4_matmul_plain)]
 
 
 def phase_i4x8_gemv(timer, dev, params) -> list:
@@ -1778,42 +1837,16 @@ def _model_bytes(params) -> int:
 
 
 def phase_b6(timer, dev, params) -> list:
-    """Kernel B6 (pair8) at llama2-13b's product shapes, M in {1, 8, 12,
-    256} (decode at B <= 8 and B > 8, prefill chunks), against its plain
-    version; library: torch.matmul on the pre-dequantized bf16 weight."""
+    """Kernel B6 (pair8) at llama2-13b's product shapes against its plain
+    version (_matmul_rows)."""
     from inferflow_tpu_torch.kernels.dequant_matmul import (
-        quantized_matmul, quantized_matmul_plain)
+        quantized_matmul_plain)
     from inferflow_tpu_torch.quant.codec_torch import dequantize
     gen = torch.Generator(device=dev).manual_seed(51)
-    rows = []
-    for name, qt in _q3h_weights(params).items():
-        k, n = (int(v) for v in qt.shape)
-        k_s = qt.storage_k
-        w_bf16 = dequantize(qt, torch.bfloat16)
-        for m in (1, 8, 12, 256):
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            got = quantized_matmul(x, qt)
-            ref = quantized_matmul_plain(x, qt)
-            again = quantized_matmul(x, qt)
-            torch.cuda.synchronize()
-            res = compare(got, ref)
-            res["same_bits_twice"] = bool(torch.equal(got, again))
-            res["ok"] = res["ok"] and res["same_bits_twice"]
-            bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
-            b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
-            row = {"phase": "kernel", "kernel": "q3h_matmul",
-                   "shape": f"{name} M={m} K={k} K_s={k_s} N={n}", **res,
-                   "ms": timer(lambda: quantized_matmul(x, qt)),
-                   "plain_ms": timer(lambda: quantized_matmul_plain(x, qt)),
-                   "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
-                   "library": "torch.matmul on the pre-dequantized bf16 "
-                              "weight",
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes_bound": bytes_moved}
-            emit(row)
-            rows.append(row)
-    return rows
+    return [row for name, qt in _q3h_weights(params).items()
+            for row in _matmul_rows(timer, "q3h_matmul", name, qt,
+                                    dequantize(qt, torch.bfloat16), gen,
+                                    quantized_matmul_plain)]
 
 
 def _dense_twin(params):
@@ -1834,17 +1867,18 @@ def _dense_twin(params):
     return conv(params)
 
 
-def phase_engine_g(dev, cfg, spec, params, memory) -> dict:
-    """Run (g): the ini's engine at full depth on the card (every product
-    B6, decode the per-layer loop with B2, chunks B3), then, with (g)'s
-    engine and cache freed, a dense twin on the card fed (g)'s tokens;
-    every sampled row held against the twin's."""
+def phase_engine_twin(dev, cfg, spec, params, memory, label, ini, model,
+                      kernel, prompt_lens, seed, tol) -> dict:
+    """Runs (g) and (l): the ini's engine at full depth on the card (every
+    product `kernel`, decode the per-layer loop with B2, chunks B3; no other
+    kernel), then, with its engine and cache freed, a dense twin on the
+    card fed its tokens; every sampled row held against the twin's."""
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     hp = spec.hyper_params
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(seed)
     prompts = [[int(t) for t in rng.integers(1, hp.vocab_size, n)]
-               for n in ENGINE_G_PROMPTS]
+               for n in prompt_lens]
     engine_kw = dict(max_concurrent_queries=cfg.max_concurrent_queries,
                      max_context_len=spec.max_context_len, device=dev)
     torch.cuda.synchronize()
@@ -1862,18 +1896,19 @@ def phase_engine_g(dev, cfg, spec, params, memory) -> dict:
     memory = dict(memory, cache=cache_bytes,
                   serving_peak=torch.cuda.max_memory_allocated(dev)
                   - memory["before"])
-    emit({"phase": "engine_g", "config": Q3H_INI, "model": Q3H_MODEL_NAME,
+    emit({"phase": f"engine_{label}", "config": ini, "model": model,
           "layers": hp.decoder_layers, "embd": hp.embd_dims,
           "heads": hp.decoder_heads, "kv_heads": hp.kv_heads,
           "device_layout": spec.device_layout,
+          "weight_format": params["lm_head"].format,
           "lm_head_planes": sorted(params["lm_head"].planes),
           "slots": cfg.max_concurrent_queries,
           "context": spec.max_context_len, "queries": len(prompts),
-          "prompt_lens": list(ENGINE_G_PROMPTS),
+          "prompt_lens": list(prompt_lens),
           "tokens_served": sum(len(o) for o in outputs),
           "engine_steps": steps, "decode_steps": len(decode_ms),
           "wall_s": wall_s, "device_bytes": memory,
-          "q3h_model_bytes": _model_bytes(params),
+          "model_bytes": _model_bytes(params),
           "i8mm_model_bytes_auto_rule": _i8mm_bytes(params),
           "prefill_ms_per_step": prefill_ms,
           "decode_ms_per_step_median": float(np.median(decode_ms)),
@@ -1881,14 +1916,15 @@ def phase_engine_g(dev, cfg, spec, params, memory) -> dict:
           "first_tokens": [o[:4] for o in outputs],
           "kernel_launches": {k: launches.get(k, 0)
                               for k in KERNEL_SOURCES}})
-    for k in ("q3h_matmul", "decode_attention", "chunk_attention"):
-        assert launches.get(k, 0) > 0, f"{k} never launched in run g"
-    for k in ("fused_decode_step", "fused_decode_step_i4", "dequant_matmul",
-              "i4_matmul", "i8mm_gemv", "paged_decode_attention"):
-        assert launches.get(k, 0) == 0, f"{k} launched in run g"
+    path = (kernel, "decode_attention", "chunk_attention")
+    for k in KERNEL_SOURCES:
+        if k in path:
+            assert launches.get(k, 0) > 0, f"{k} never launched in run {label}"
+        else:
+            assert launches.get(k, 0) == 0, f"{k} launched in run {label}"
     assert launches["decode_attention"] \
         == hp.decoder_layers * len(decode_ms), "a decode step missed B2"
-    profile_decode(eng, prompts[0], "g")
+    profile_decode(eng, prompts[0], label)
     del eng
     torch.cuda.empty_cache()
 
@@ -1902,40 +1938,48 @@ def phase_engine_g(dev, cfg, spec, params, memory) -> dict:
     torch.cuda.synchronize()
     ref_launches = dict(_build.launch_counts)
     assert ref_qids == qids, (ref_qids, qids)
-    assert ref_launches.get("q3h_matmul", 0) == 0
+    assert ref_launches.get(kernel, 0) == 0
     assert ref_launches.get("decode_attention", 0) > 0
     twin_peak = torch.cuda.max_memory_allocated(dev) - memory["before"]
     del ref, twin
     torch.cuda.empty_cache()
-    report = {"phase": "engine_g_vs_dense_twin_card",
+    report = {"phase": f"engine_{label}_vs_dense_twin_card",
               "reference_s": time.perf_counter() - t0,
               "reference_decode_ms_median": float(np.median(ref_decode_ms)),
               "reference_peak_bytes": twin_peak,
-              "tolerance": f"every sampled row: max_abs_err <= "
-                           f"{ENGINE_G_TOL}"}
-    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
-                              ENGINE_G_TOL))
+              "tolerance": f"every sampled row: max_abs_err <= {tol}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows, tol))
     report.update(_split_row_errors(report))
     emit(report)
-    assert report["ok"], "run g: rows disagree with the dense twin"
+    assert report["ok"], f"run {label}: rows disagree with the dense twin"
     return launches
 
 
 # ------------------------------------------------------- Q8 block weights
-def _q8_weights(params) -> dict:
-    """The five products of llama2-7b in Q8_B32T2 (layer 0, the lm_head)
-    and w2 stored K-padded to 11264 (zero-scale blocks, as the JAX zoo
-    pads it)."""
+def _pad_wire(qt, k_s):
+    """A wire-plane tensor stored with K = k_s: zero-scale, zero-base pad
+    blocks of code 0, as the JAX zoo pads llama2-7b's w2 (K 11008 stored as
+    11264)."""
     import torch.nn.functional as F
     from inferflow_tpu_torch.quant.codec_torch import QuantizedTensor
+    from inferflow_tpu_torch.quant.formats import get_format
+    fmt = get_format(qt.format)
+    pad = k_s - qt.storage_k
+    planes = {p.name: F.pad(qt.planes[p.name], (0, 0, 0, pad * p.bits // 8))
+              for p in fmt.planes}
+    meta = [None if t is None else F.pad(t, (0, 0, 0, pad // fmt.block))
+            for t in (qt.scale, qt.base)]
+    return QuantizedTensor(qt.format, qt.shape, planes, *meta)
+
+
+def _wire_weights(params) -> dict:
+    """The five products of llama2-7b in their wire planes (layer 0, the
+    lm_head) and w2 stored K-padded to 11264."""
     lp = params["layers"][0]
     w2 = lp["ffn"]["w2"]
-    pad = -(-w2.storage_k // 512) * 512 - w2.storage_k
-    w2_pad = QuantizedTensor(w2.format, w2.shape,
-                             {"data": F.pad(w2.planes["data"], (0, 0, 0, pad))},
-                             F.pad(w2.scale, (0, 0, 0, pad // 32)), None)
     return {"qkv": lp["attn"]["qkv"], "wo": lp["attn"]["wo"],
-            "w1n3": lp["ffn"]["w1n3"], "w2": w2, "w2_ks11264": w2_pad,
+            "w1n3": lp["ffn"]["w1n3"], "w2": w2,
+            "w2_ks11264": _pad_wire(w2, -(-w2.storage_k // 512) * 512),
             "lm_head": params["lm_head"]}
 
 
@@ -1952,47 +1996,19 @@ def _as_format(qt, fmt):
 
 def phase_b1_q8(timer, dev, params) -> list:
     """Kernel B1's Q8 case at llama2-7b's product shapes (w2 also
-    K-padded), M in {1, 8, 12, 256} (decode at B <= 8 and B > 8, prefill
-    chunks), in Q8_B32T2 and Q8_B32T1, against its plain version; the same
-    bits on a second launch; library: torch.matmul on the pre-dequantized
-    bf16 weight, a yardstick only."""
+    K-padded), in Q8_B32T2 and Q8_B32T1, against its plain version
+    (_matmul_rows)."""
     from inferflow_tpu_torch.kernels.dequant_matmul import (
-        quantized_matmul, quantized_matmul_plain)
+        quantized_matmul_plain)
     from inferflow_tpu_torch.quant.codec_torch import dequantize
     gen = torch.Generator(device=dev).manual_seed(71)
     rows = []
-    for name, qt2 in _q8_weights(params).items():
+    for name, qt2 in _wire_weights(params).items():
         for fmt in ("Q8_B32T2", "Q8_B32T1"):
             qt = qt2 if fmt == qt2.format else _as_format(qt2, fmt)
-            k, n = (int(v) for v in qt.shape)
-            k_s = qt.storage_k
-            w_bf16 = dequantize(qt, torch.bfloat16)
-            for m in (1, 8, 12, 256):
-                x = torch.randn((m, k), generator=gen, device=dev).to(
-                    torch.bfloat16)
-                got = quantized_matmul(x, qt)
-                ref = quantized_matmul_plain(x, qt)
-                again = quantized_matmul(x, qt)
-                torch.cuda.synchronize()
-                res = compare(got, ref)
-                res["same_bits_twice"] = bool(torch.equal(got, again))
-                res["ok"] = res["ok"] and res["same_bits_twice"]
-                bytes_moved = 2 * m * k_s + qt.nbytes + 2 * m * n
-                b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
-                row = {"phase": "kernel", "kernel": "q8_matmul",
-                       "shape": f"{name} {fmt} M={m} K={k} K_s={k_s} N={n}",
-                       **res,
-                       "ms": timer(lambda: quantized_matmul(x, qt)),
-                       "plain_ms": timer(
-                           lambda: quantized_matmul_plain(x, qt)),
-                       "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
-                       "library": "torch.matmul on the pre-dequantized "
-                                  "bf16 weight",
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "bytes_bound": bytes_moved}
-                emit(row)
-                rows.append(row)
-            del w_bf16
+            rows += _matmul_rows(timer, "q8_matmul", f"{name} {fmt}", qt,
+                                 dequantize(qt, torch.bfloat16), gen,
+                                 quantized_matmul_plain)
     return rows
 
 
@@ -2203,6 +2219,27 @@ def phase_engine_h(dev, cfg, spec, params, memory, i8mm_weight_bytes) -> dict:
     emit(report)
     assert report["ok"], "run h: rows disagree with the dense twin"
     return launches
+
+
+# ------------------------------------------------- sub-byte wire formats
+def phase_b1_subbyte(timer, dev, params) -> list:
+    """Kernel B1's sub-byte case against its plain version (_matmul_rows):
+    Q6_B64T1 at llama2-7b's product shapes (w2 also K-padded), every other
+    sub-byte format at w1n3 and the K-padded w2 (the Q6 weights' values
+    quantized again)."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (
+        quantized_matmul_plain)
+    from inferflow_tpu_torch.quant.codec_torch import dequantize
+    gen = torch.Generator(device=dev).manual_seed(91)
+    weights = _wire_weights(params)
+    cases = list(weights.items()) + [
+        (name, _as_format(weights[name], fmt)) for fmt in SUBBYTE_FORMATS
+        for name in ("w1n3", "w2_ks11264")]
+    return [row for name, qt in cases
+            for row in _matmul_rows(timer, "subbyte_matmul",
+                                    f"{name} {qt.format}", qt,
+                                    dequantize(qt, torch.bfloat16), gen,
+                                    quantized_matmul_plain)]
 
 
 # ------------------------------------------------------------ routed MoE
@@ -2630,8 +2667,9 @@ def main() -> int:
         timer, dev, spec_g1, G_ATTN_LENGTHS, spec_g.max_context_len))
     _run(results, failed, "chunk_attention_g",
          lambda: phase_b3(timer, dev, spec_g1, G_CHUNK_START))
-    _run(results, failed, "engine_g", lambda: phase_engine_g(
-        dev, cfg_g, spec_g, params_g, memory_g))
+    _run(results, failed, "engine_g", lambda: phase_engine_twin(
+        dev, cfg_g, spec_g, params_g, memory_g, "g", Q3H_INI, Q3H_MODEL_NAME,
+        "q3h_matmul", ENGINE_G_PROMPTS, 6, ENGINE_G_TOL))
     spec_cut = ini_config(Q3H_INI, Q3H_MODEL_NAME,
                           layers=ENGINE_GCPU_LAYERS)[1]
     spec_cut.qkv_format = spec_g.qkv_format  # the weights' fused qkv
@@ -2740,12 +2778,58 @@ def main() -> int:
     del params_k, params_cut
     torch.cuda.empty_cache()
 
+    # the sub-byte wire formats: configs/inferflow_service.q6.ini, llama2-7b
+    cfg_l, spec_l, fmt_l = ini_config(Q6_INI, Q6_MODEL_NAME)
+    layout_l = resolve_auto_layout(spec_l, fmt_l, dev)
+    auto_l = resolve_auto_layout(make_spec(Q6_MODEL_NAME), fmt_l, dev)
+    emit({"phase": "layout", "model": Q6_MODEL_NAME, "config": Q6_INI,
+          "weight_format": fmt_l, "resolved": layout_l,
+          "auto_rule_would_pick": auto_l})
+    if fmt_l != "Q6_B64T1" or layout_l != "packed" or auto_l != "i8mm":
+        failed.append("layout_l")
+    params_l, memory_l = build_params(dev, spec_l, fmt_l)
+    emit({"phase": "weights", "model": Q6_MODEL_NAME,
+          "q6_device_bytes": memory_l,
+          "q6_model_bytes": _model_bytes(params_l),
+          "i8mm_model_bytes_auto_rule": _i8mm_bytes(params_l)})
+    _run(results, failed, "subbyte_matmul",
+         lambda: phase_b1_subbyte(timer, dev, params_l))
+    _run(results, failed, "engine_l", lambda: phase_engine_twin(
+        dev, cfg_l, spec_l, params_l, memory_l, "l", Q6_INI, Q6_MODEL_NAME,
+        "subbyte_matmul", ENGINE_L_PROMPTS, 10, ENGINE_L_TOL))
+    spec_cut = ini_config(Q6_INI, Q6_MODEL_NAME,
+                          layers=ENGINE_LCPU_LAYERS)[1]
+    spec_cut.qkv_format = spec_l.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_l, layers=params_l["layers"][:ENGINE_LCPU_LAYERS])
+    _run(results, failed, "engine_l_cpu", lambda: phase_engine_cut_cpu(
+        dev, cfg_l, spec_cut, params_cut, "l_cpu", Q6_INI, Q6_MODEL_NAME,
+        ENGINE_LCPU_PROMPTS, cfg_l.max_concurrent_queries,
+        spec_l.max_context_len,
+        ("subbyte_matmul", "decode_attention", "chunk_attention"),
+        [k for k in KERNEL_SOURCES if k not in (
+            "subbyte_matmul", "decode_attention", "chunk_attention")]))
+    del params_l, params_cut
+    torch.cuda.empty_cache()
+    # (m) tinyllama-1.1b in Q3_B32T1A: a 2-bit and a 1-bit plane, 32-row
+    # blocks
+    spec_m = make_spec(MODEL, device_layout="packed", layers=ENGINE_M_LAYERS)
+    params_m, memory_m = build_params(dev, spec_m, "Q3_B32T1A")
+    _run(results, failed, "engine_m", lambda: phase_engine(
+        dev, spec_m, params_m, memory_m, "m",
+        ("subbyte_matmul", "decode_attention", "chunk_attention"),
+        [k for k in KERNEL_SOURCES if k not in (
+            "subbyte_matmul", "decode_attention", "chunk_attention")],
+        ENGINE_LOGIT_TOL))
+    del params_m
+    torch.cuda.empty_cache()
+
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
                   "paged_decode_attention", "i4_matmul", "i4x8_gemv",
                   "fused_decode_step_i4", "q3h_matmul", "decode_attention_g",
                   "chunk_attention_g", "q8_matmul",
-                  "fused_decode_step_byte", "fused_decode_step_moe"):
+                  "fused_decode_step_byte", "fused_decode_step_moe",
+                  "subbyte_matmul"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -2769,7 +2853,8 @@ def main() -> int:
                 "fused_decode_step_byte":
                     results["engine_h"]["fused_decode_step_byte"],
                 "fused_decode_step_moe":
-                    results["engine_k"]["fused_decode_step_moe"]}
+                    results["engine_k"]["fused_decode_step_moe"],
+                "subbyte_matmul": results["engine_l"]["subbyte_matmul"]}
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -2787,7 +2872,10 @@ def main() -> int:
                                if r["shape"].startswith(
                                    "w1n3 Q8_B32T2 M=8 ")),
              "fused_decode_step_byte": results["fused_decode_step_byte"][0],
-             "fused_decode_step_moe": results["fused_decode_step_moe"][0]}
+             "fused_decode_step_moe": results["fused_decode_step_moe"][0],
+             "subbyte_matmul": next(r for r in results["subbyte_matmul"]
+                                    if r["shape"].startswith(
+                                        "w1n3 Q6_B64T1 M=8 "))}
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

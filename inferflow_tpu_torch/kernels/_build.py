@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with ``ctypes``.
 Libraries are built at first use into ``build/inferflow_tpu_torch/`` at the
-root of the checkout, named after a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+root of the checkout, named after a hash of the source, the headers under
+``csrc/`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 
 Every pointer and the stream cross into C as ``ctypes.c_void_p``; each C
 entry returns the ``cudaGetLastError()`` of its launch and the wrapper
@@ -27,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "inferflow_tpu_torch"
-SOURCES = ("dequant_matmul", "attention", "decode_step")
+SOURCES = ("dequant_matmul", "subbyte_matmul", "attention", "decode_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

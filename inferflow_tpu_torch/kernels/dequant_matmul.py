@@ -2,18 +2,21 @@
 
 Port of inferflow_tpu/kernels/dequant_matmul.py.  One entry point,
 ``quantized_matmul``, picks the kernel from the weight's plane and format:
-kernel B1 (the fast Pallas kernel `_make_fast_kernel`) for Q4_B64T1 wire
-planes and for the Q8 block formats Q8_B32T2 (the ``Q8`` alias and the
-q8c container) and Q8_B32T1, kernel B5 (`_make_i4_kernel`) for the i4
-device layout's ``data_i4p`` plane, and kernel B6 (`_make_kernel`) in its
-pair8 mode for Q3H_B64T1's ``pair8`` plane; their launch counts are
-``dequant_matmul`` (B1-Q4), ``q8_matmul`` (B1-Q8), ``i4_matmul`` and
-``q3h_matmul``.  On a CUDA tensor it launches the
-hand-written kernel of ``csrc/dequant_matmul.cu`` or raises; on a CPU
-tensor it runs the plain version, which is also what ``chip_smoke.py``
-holds the kernel against on the card.  B6's Q3H wire-plane mode and its
-non-pair generic branch are not ported (no serving route reaches them:
-``from_np`` and ``quantize`` give Q3H as pair8).
+kernel B1 (the fast Pallas kernel `_make_fast_kernel`) for every block
+format in its wire planes -- Q4_B64T1 (launch count ``dequant_matmul``),
+the Q8 formats Q8_B32T2 (the ``Q8`` alias and the q8c container) and
+Q8_B32T1 (``q8_matmul``), and the sub-byte formats Q6_B64T1, Q5_B64T1,
+Q5_B32T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16, Q3_B32T1A/B and Q2_B32T1A/B
+(``subbyte_matmul``) --, kernel B5 (`_make_i4_kernel`) for the i4 device
+layout's ``data_i4p`` plane (``i4_matmul``), and kernel B6
+(`_make_kernel`) in its pair8 mode for Q3H_B64T1's ``pair8`` plane
+(``q3h_matmul``).  On a CUDA tensor it launches the hand-written kernel of
+``csrc/dequant_matmul.cu`` or ``csrc/subbyte_matmul.cu`` (both built on
+``csrc/dequant_matmul.cuh``) or raises; on a CPU tensor it runs the plain
+version, which is also what ``chip_smoke.py`` holds the kernel against on
+the card.  B6's Q3H wire-plane mode and its non-pair generic branch are
+not ported (no serving route reaches them: ``from_np`` and ``quantize``
+give Q3H as pair8).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ KERNEL = "dequant_matmul"
 Q8_KERNEL = "q8_matmul"
 I4_KERNEL = "i4_matmul"
 Q3H_KERNEL = "q3h_matmul"
+SUBBYTE_KERNEL = "subbyte_matmul"
 
 
 def quantized_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -40,17 +44,42 @@ def quantized_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor
     return torch.matmul(x.float(), wd).to(x.dtype)
 
 
-def _lib():
-    lib = _build.load(KERNEL)
+# (plane, format) -> (launch count, source under csrc/, C entry).  The
+# ``data`` plane stands for a format's wire planes (``data`` and, for the
+# two-plane formats, ``data_h``); the i4 and pair8 planes hold two K rows
+# per byte.
+_KERNELS = {
+    ("data", "Q4_B64T1"): (KERNEL, "dequant_matmul", "ift_q4_matmul"),
+    ("data", "Q8_B32T2"): (Q8_KERNEL, "dequant_matmul", "ift_q8_matmul"),
+    ("data", "Q8_B32T1"): (Q8_KERNEL, "dequant_matmul", "ift_q8u_matmul"),
+    (I4_PLANE, "Q4_B64T1"): (I4_KERNEL, "dequant_matmul", "ift_i4_matmul"),
+    (PAIR8_PLANE, "Q3H_B64T1"): (Q3H_KERNEL, "dequant_matmul",
+                                 "ift_q3h_matmul"),
+    **{("data", fmt): (SUBBYTE_KERNEL, "subbyte_matmul", entry)
+       for fmt, entry in (("Q6_B64T1", "ift_q6_matmul"),
+                          ("Q5_B64T1", "ift_q5_matmul"),
+                          ("Q5_B32T1", "ift_q5s_matmul"),
+                          ("Q4_B32T1A", "ift_q4b32_matmul"),
+                          ("Q4_B32T1B", "ift_q4b32_matmul"),
+                          ("Q4_B32T2", "ift_q4b32f_matmul"),
+                          ("Q4_B16", "ift_q4b16f_matmul"),
+                          ("Q3_B32T1A", "ift_q3_matmul"),
+                          ("Q3_B32T1B", "ift_q3_matmul"),
+                          ("Q2_B32T1A", "ift_q2_matmul"),
+                          ("Q2_B32T1B", "ift_q2_matmul"))},
+}
+
+
+def _lib(source: str = "dequant_matmul"):
+    """The loaded library of csrc/<source>.cu, its entries typed."""
+    lib = _build.load(source)
     if not getattr(lib, "_ift_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ift_q4_matmul.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                      vp]
-        lib.ift_q4_matmul.restype = ctypes.c_int
-        for fn in (lib.ift_q8_matmul, lib.ift_q8u_matmul, lib.ift_i4_matmul,
-                   lib.ift_q3h_matmul):
-            fn.argtypes = lib.ift_q4_matmul.argtypes
-            fn.restype = ctypes.c_int
+        for _, src, entry in _KERNELS.values():
+            if src == source:
+                fn = getattr(lib, entry)
+                fn.argtypes = [vp] * 7 + [i] * 5 + [vp]
+                fn.restype = ctypes.c_int
         lib.ift_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
         lib.ift_matmul_plan.restype = ctypes.c_int
@@ -61,8 +90,8 @@ def _lib():
 def matmul_plan(lib, m: int, k: int, n: int, device, block: int = 64
                 ) -> tuple:
     """(quant blocks per K split, number of splits) that the kernel's C
-    side picks for this product of `block`-row quant blocks on this card's
-    SM count; (0, 1) for the tiled (prefill) path."""
+    side picks for this product of `block`-row quant blocks (64, 32 or 16)
+    on this card's SM count; (0, 1) for the tiled (prefill) path."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per, ksplit = ctypes.c_int(), ctypes.c_int()
     _build.check(lib, lib.ift_matmul_plan(m, k, n, block, sms,
@@ -72,14 +101,12 @@ def matmul_plan(lib, m: int, k: int, n: int, device, block: int = 64
     return per.value, ksplit.value
 
 
-# (plane, format) -> (kernel, its C entry).  Every format here has f16
-# scales (and f16 bases where it has a base); a byte of the ``data`` plane
-# holds 8 // bits K rows, of the i4 and pair8 planes two.
-_KERNELS = {("data", "Q4_B64T1"): (KERNEL, "ift_q4_matmul"),
-            ("data", "Q8_B32T2"): (Q8_KERNEL, "ift_q8_matmul"),
-            ("data", "Q8_B32T1"): (Q8_KERNEL, "ift_q8u_matmul"),
-            (I4_PLANE, "Q4_B64T1"): (I4_KERNEL, "ift_i4_matmul"),
-            (PAIR8_PLANE, "Q3H_B64T1"): (Q3H_KERNEL, "ift_q3h_matmul")}
+def _plane_rows(qt: QuantizedTensor, plane: str) -> dict:
+    """{plane name: stored byte rows} the kernel of `plane` reads."""
+    fmt = get_format(qt.format)
+    if plane != "data":
+        return {plane: qt.storage_k // 2}
+    return {p.name: qt.storage_k * p.bits // 8 for p in fmt.planes}
 
 
 def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -91,13 +118,15 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     fmt = get_format(qt.format)
     plane = next((p for p in (I4_PLANE, PAIR8_PLANE) if p in qt.planes),
                  "data")
-    if (plane, fmt.name) not in _KERNELS or set(qt.planes) != {plane}:
+    rows = _plane_rows(qt, plane)
+    if (plane, fmt.name) not in _KERNELS or set(qt.planes) != set(rows):
         raise NotImplementedError(
             f"no CUDA kernel serves {fmt.name} with planes "
             f"{sorted(qt.planes)}; ported: "
             + ", ".join(f"{f} ({p})" for p, f in _KERNELS))
-    kernel, entry = _KERNELS[plane, fmt.name]
+    kernel, source, entry = _KERNELS[plane, fmt.name]
     has_base = fmt.base_kind != "zero"
+    meta = torch.float32 if fmt.meta == "u8" else torch.float16
     _build.require_hopper(x)
     k, n = int(qt.shape[-2]), int(qt.shape[-1])
     k_s = qt.storage_k
@@ -110,20 +139,22 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     if x2.data_ptr() % 16:
         x2 = x2.clone()
     m = x2.shape[0]
-    data = qt.planes[plane]
     blk = fmt.block
-    per_byte = 8 // fmt.planes[0].bits if plane == "data" else 2
-    _build.check_operand(data, plane, torch.uint8, (k_s // per_byte, n))
-    _build.check_operand(qt.scale, "scale", torch.float16, (k_s // blk, n))
+    for name, r in rows.items():
+        _build.check_operand(qt.planes[name], name, torch.uint8, (r, n))
+    _build.check_operand(qt.scale, "scale", meta, (k_s // blk, n))
     if has_base:
-        _build.check_operand(qt.base, "base", torch.float16, (k_s // blk, n))
+        _build.check_operand(qt.base, "base", meta, (k_s // blk, n))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    lib = _lib()
+    lib = _lib(source)
     per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, blk)
     work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
             if ksplit > 1 else out)
-    base = _build.ptr(qt.base) if has_base else ctypes.c_void_p(0)
-    rc = getattr(lib, entry)(_build.ptr(x2), _build.ptr(data),
+    planes = [_build.ptr(qt.planes[name]) for name in rows]
+    null = ctypes.c_void_p(0)
+    data_h = planes[1] if len(planes) > 1 else null
+    base = _build.ptr(qt.base) if has_base else null
+    rc = getattr(lib, entry)(_build.ptr(x2), planes[0], data_h,
                              _build.ptr(qt.scale), base,
                              _build.ptr(out), _build.ptr(work), m, k_s, n,
                              per, ksplit, _build.stream_of(x2))
@@ -136,9 +167,9 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ dequant(qt); x: (..., K) with K the logical K of qt; every
     quantized product of ops/linear.py.  CUDA tensors run the kernel of
     qt's plane and format (_KERNELS: B5 for ``data_i4p``, B6 for
-    ``pair8``, B1 for Q4_B64T1, Q8_B32T2 and Q8_B32T1 planes; M <= 8 the
-    split-K GEMV, more rows the tiled tensor-core kernel) or raise; CPU
-    tensors its plain version (i4_matmul_plain for B5,
+    ``pair8``, B1 for the wire planes of every other block format; M <= 8
+    the split-K GEMV, more rows the tiled tensor-core kernel) or raise;
+    CPU tensors its plain version (i4_matmul_plain for B5,
     quantized_matmul_plain for B1 and B6, whose weights are the codec's
     bit for bit)."""
     if x.device.type == "cpu":

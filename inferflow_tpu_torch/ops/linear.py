@@ -3,9 +3,10 @@
 Port of inferflow_tpu/ops/linear.py for the dense, QuantizedTensor and
 Int8MXUTensor cases:
   - a QuantizedTensor goes to kernels/dequant_matmul.quantized_matmul,
-    which picks the kernel from the weight's plane and format (B1 for Q4
-    wire planes and Q8 block codes, B5 for the i4 layout's ``data_i4p``,
-    B6 for Q3H's ``pair8``; the plain versions on CPU tensors);
+    which picks the kernel from the weight's plane and format (B1 for the
+    wire planes of every block format but Q3H, from Q2 to Q8, B5 for the
+    i4 layout's ``data_i4p``, B6 for Q3H's ``pair8``; the plain versions
+    on CPU tensors);
   - an Int8MXUTensor (device layout 'i8mm') to the int8 x int8 product
     with per-row activation and per-column weight scales
     (kernels/decode_step.i8mm_matmul);

@@ -13,10 +13,10 @@ import torch
 from inferflow_tpu.quant import codec_jax
 from inferflow_tpu_torch.quant import codec_torch
 
-# consecutive-plane formats: the ones the port covers
+# wire-plane formats (Q3H has its own file)
 PORTED = ["Q4_B64T1", "Q8_B32T1", "Q8_B32T2", "Q6_B64T1", "Q5_B64T1",
-          "Q4_B32T1A", "Q4_B32T1B", "Q4_B32T2", "Q4_B16", "Q3_B32T1A",
-          "Q2_B32T1B"]
+          "Q5_B32T1", "Q4_B32T1A", "Q4_B32T1B", "Q4_B32T2", "Q4_B16",
+          "Q3_B32T1A", "Q2_B32T1B"]
 
 
 def _weights(seed, k=256, n=96):
@@ -93,11 +93,14 @@ def test_q8_sym_matches_jax(block):
 
 
 def test_unported_formats_raise():
-    """The split-nibble Q5_B32T1 stays refused; Q3H (ported) quantizes to
-    its pair8 plane."""
+    """No block format is refused any more: the split-nibble Q5_B32T1
+    quantizes to its 4-bit low plane (two K rows per byte) and 1-bit high
+    plane, and Q3H to its pair8 plane."""
     w = torch.from_numpy(_weights(5))
-    with pytest.raises(NotImplementedError):
-        codec_torch.quantize(w, "Q5_B32T1")
+    qt = codec_torch.quantize(w, "Q5_B32T1")
+    assert {k: tuple(v.shape) for k, v in qt.planes.items()} == {
+        "data": (w.shape[0] // 2, w.shape[1]),
+        "data_h": (w.shape[0] // 8, w.shape[1])}
     qt = codec_torch.quantize(w, "Q3H_B64T1")
     assert set(qt.planes) == {"pair8"}
     assert tuple(qt.planes["pair8"].shape) == (w.shape[0] // 2, w.shape[1])

@@ -74,7 +74,7 @@ def _dequant_matmul_case(dev, k, n):
     work = torch.empty((k // 64, 4, n), dtype=torch.float32, device=dev)
     for bad_per, bad_split in ((9, -(-k // 64 // 9)), (1, k // 64 - 1)):
         rc = lib.ift_q4_matmul(
-            _build.ptr(x), _build.ptr(qt.planes["data"]),
+            _build.ptr(x), _build.ptr(qt.planes["data"]), None,
             _build.ptr(qt.scale), _build.ptr(qt.base), _build.ptr(out),
             _build.ptr(work), 4, k, n, bad_per, bad_split, _build.stream_of(x))
         assert rc != 0, (bad_per, bad_split)

@@ -6,7 +6,8 @@
   ``chip_smoke.py`` and no card test (``tests/test_torch_cuda*.py``) names
   them in an import.
 - Entry points default to the card and raise where there is none; the
-  kernel wrappers (B1 for Q4 and Q8 weights, B2, B3, B5, B6, B7, the i8mm
+  kernel wrappers (B1 for Q4, Q8 and the sub-byte weights, B2, B3, B5,
+  B6, B7, the i8mm
   product and the fused decode step B4, dense and paged, i8mm, i4 and
   byte, and its routed-expert mode (g) with its routing launch) raise for a tensor that is neither on the CPU nor on a card, and
   the kernel build raises without a CUDA compiler.
@@ -178,6 +179,13 @@ def test_wrappers_refuse_other_devices():
         with pytest.raises(ValueError, match="unsupported device"):
             fused_decode_step(spec, q8["layers"], x,
                               torch.zeros((2, 1), dtype=torch.int32), cache)
+
+    # B1's sub-byte case: two planes, split nibbles, f32 metadata, 2 bits
+    for fmt in ("Q6_B64T1", "Q5_B32T1", "Q4_B16", "Q2_B32T1A"):
+        w = quantize(torch.randn(128, 64), fmt)
+        for fn in (quantized_matmul, linear):
+            with pytest.raises(ValueError, match="unsupported device"):
+                fn(torch.empty((2, 128), device="meta"), w)
 
     # the fused step's routed-expert mode (g) and its routing launch
     from inferflow_tpu_torch.kernels.decode_step import moe_route

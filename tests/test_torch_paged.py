@@ -84,7 +84,7 @@ def test_engine_config_matches_jax():
     specs, field by field (the pipeline ini's inline comment after
     `devices` is refused by both loaders alike)."""
     paths = sorted((ROOT / "configs").glob("*.ini"))
-    assert len(paths) == 8
+    assert len(paths) == 9
     refused = 0
     for path in paths:
         ref, got = _load(jload, path), _load(tload, path)
