@@ -31,9 +31,10 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
      the cache rows of the B4 phase copied into shuffled pages: against its
      plain version and against dense B4 on the same rows;
 3. serves four greedy queries (prompts of 7, 60, 200 and 300 tokens, 16
-   new tokens each; the 300-token prompt takes the chunked path, kernel
-   B3) with the engine at full tinyllama-1.1b width, a Q8 KV cache, 4
-   slots and a 1024-token context, twice:
+   new tokens each in (a), ENGINE_CUT_CPU_NEW in (b) and (d); the
+   300-token prompt takes the chunked path, kernel B3) with the engine at
+   full tinyllama-1.1b width, a Q8 KV cache, 4 slots and a 1024-token
+   context, three times:
    (a) the default layout, which resolves to i8mm on the card: every
        decode step runs B4 (and the lm_head the int8 GEMV); B1 and B2
        must not launch;
@@ -59,8 +60,9 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        (same weights, 16 slots, a 2048-token context, whole-prompt
        prefill), served first and freed before the paged one is built,
        whose tokens the paged engine is fed;
-   (c-cpu) the same configuration at ENGINE_CCPU_LAYERS layers and
-       prompts of at most 300 tokens, held against the CPU engine;
+   (c-cpu) the same configuration at ENGINE_CCPU_LAYERS layers,
+       prompts of at most 300 tokens and ENGINE_CUT_CPU_NEW new tokens,
+       held against the CPU engine;
 5. reads configs/inferflow_service.i4.ini the same way: llama2-7b from
    seed-0 Q4_B64T1 in the i4 layout (the ini's device_layout), 8 slots, a
    4096-token context, and
@@ -164,7 +166,38 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        B3), against the CPU engine;
    (m) tinyllama-1.1b from seed-0 Q3_B32T1A (a 2-bit and a 1-bit plane,
        32-row blocks), packed, at ENGINE_M_LAYERS layers with PROMPT_LENS
-       and 4 slots, against the CPU engine.
+       and 4 slots, against the CPU engine;
+10. writes a llama2-7b checkpoint under CKPT_ROOT (gitignored; deleted at
+   the end) at full width and depth: seed-0 bf16 weights under the
+   Hugging Face names in safetensors shards of at most ~2 GB with their
+   index, Llama-2-7b's published config.json, a generated 32000-entry
+   byte-level BPE tokenizer.json and a copy of the model dir's
+   model_spec.json (it prints the free disk space first and fails when it
+   is short), and reads configs/inferflow_service.q4b32.ini with that tree
+   as its data root: llama2-7b in Q4_B32T1A (32-row blocks) under the i4
+   layout, 8 slots, a 4096-token context;
+   (n) builds the engine with make_engine (reading and quantizing timed)
+       and serves ENGINE_N_PROMPTS (7 to 2000 tokens) made from text
+       through the loaded tokenizer, 16 greedy tokens each: every decode
+       step B4 (b) in its 32-row instantiation, prefill B5's 32-row entry
+       and B3; no B1, B2, B4 (a), int8 GEMV or other i4 geometry; prints
+       the resident weight bytes beside run (e)'s, a three-step decode
+       profile and one output decoded to text;
+   - holds B5 and the i4x8 GEMV alone on Q4_B32T1A, Q4_B32T1B, Q4_B32T2
+     and Q4_B16 (the loaded weights' values quantized again for the other
+     three) at the five products' shapes, M in {1, 8, 12, 256} (the GEMV
+     {1, 8}), and B4 (b) at 32 layers on Q4_B32T1A, Q4_B32T2 and Q4_B16,
+     B = 8 (I4_FUSED_LENGTHS) and B = 1, each layer alone on the plain
+     stack's input and then the stack, against their plain versions, and
+     times them;
+   - holds every row (n) sampled against a twin: the same checkpoint and
+     ini with the packed layout (Q4_B32T1A wire planes: B1's sub-byte case
+     and B2), built after (n)'s engine is freed and fed (n)'s tokens;
+   (n-cpu) a one-layer checkpoint of the same width, the card engine
+       against the CPU engine, both from make_engine; (n-t2) and (n-b16)
+       the same checkpoint in Q4_B32T2 and Q4_B16, the i4 engine on the
+       card against its twin on the card whose decode steps run B4 (b)'s
+       plain version.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -261,7 +294,9 @@ I4_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
 # tinyllama's 22 layers
 I4_FUSED_TOL = 0.25
 # the plain step takes about a second at this size: timed over fewer calls
+# (one for the formats beside Q4_B64T1, whose plain stacks take 1.3-2.2 s)
 I4_PLAIN_ITERS = 3
+I4_FORMATS_PLAIN_ITERS = 1
 # run (e): 12 queries of 7 to 2000 tokens; those over 256 take the chunked
 # prefill (B3)
 ENGINE_E_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
@@ -274,10 +309,14 @@ ENGINE_E_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
 # below 4 for the prefill rows and twice the measured worst for decode
 ENGINE_E_PREFILL_TOL = 0.04
 ENGINE_E_DECODE_TOL = 0.12
-# (e-cpu), (f) and (g-cpu) against the CPU engine, whose plain versions
-# dequantize every weight on each call (a decode step takes seconds on the
-# host at llama2-7b width): few queries of ENGINE_CUT_CPU_NEW tokens each
-ENGINE_CUT_CPU_NEW = 8
+# the runs against the CPU engine at llama2-7b, llama2-13b and mixtral
+# width ((c-cpu), (e-cpu), (f), (g-cpu), (h-cpu), (k-cpu), (l-cpu),
+# (n-cpu)), whose plain versions dequantize every weight on each call (a
+# decode step takes seconds on the host), and the tinyllama runs (b),
+# (d), (i), (j), (m): ENGINE_CUT_CPU_NEW tokens per query (8 before the
+# checkpoint runs (n) were added, 16 for (c-cpu) and the tinyllama runs
+# but (i))
+ENGINE_CUT_CPU_NEW = 4
 ENGINE_ECPU_LAYERS = 1
 ENGINE_ECPU_PROMPTS = (7, 300, 13)
 # run (f): B > 8, the per-layer loop with B5 and B2
@@ -344,10 +383,11 @@ ENGINE_HCPU_LAYERS = 1
 ENGINE_HCPU_PROMPTS = (7, 300, 13)
 # runs (i) and (j) at tinyllama-1.1b width against the CPU engine, cut in
 # depth (from 22 and 4 layers) so that the whole script, with the MoE
-# runs, stays near 900 s on a slow host: (i) the q8c layout, (j) the
-# mixed layout (q8c FFN, Q4 wire attention and lm_head), per-layer decode
-ENGINE_I_LAYERS = 6
-ENGINE_J_LAYERS = 2
+# runs and the checkpoint runs (n), stays near 900 s on a slow host: (i)
+# the q8c layout, (j) the mixed layout (q8c FFN, Q4 wire attention and
+# lm_head), per-layer decode
+ENGINE_I_LAYERS = 2
+ENGINE_J_LAYERS = 1
 
 # routed MoE: configs/inferflow_service.moe.ini, mixtral-8x7b (8 experts,
 # top-2) from seed-0 Q4_B64T1, resolved to i8mm on the card
@@ -414,8 +454,48 @@ ENGINE_L_TOL = 0.12
 # measured 0.0156 against the CPU engine, and (m) 0.0156 (H100, 700 W)
 ENGINE_LCPU_LAYERS = 1
 ENGINE_LCPU_PROMPTS = (7, 300, 13)
-# run (m): tinyllama-1.1b in Q3_B32T1A, packed, at run (b)'s depth
-ENGINE_M_LAYERS = 2
+# run (m): tinyllama-1.1b in Q3_B32T1A, packed, one layer (cut from run
+# (b)'s two for the checkpoint runs (n))
+ENGINE_M_LAYERS = 1
+
+# checkpoints from disk: configs/inferflow_service.q4b32.ini, llama2-7b in
+# Q4_B32T1A under the i4 layout, loaded through make_engine from a
+# checkpoint this script writes under CKPT_ROOT (gitignored) and deletes
+Q4B32_INI = "configs/inferflow_service.q4b32.ini"
+Q4B32_MODEL = "llama2_7b"  # the ini's model: its dir under models/
+CKPT_ROOT = "build/checkpoints"
+CKPT_SHARD_BYTES = 2 * 10 ** 9  # safetensors shards of at most ~2 GB
+# Llama-2-7b's published hyperparameters (its config.json)
+LLAMA2_7B_CONFIG = dict(hidden_size=4096, intermediate_size=11008,
+                        layers=32, heads=32, kv_heads=32, vocab_size=32000,
+                        context=4096, eps=1e-5)
+# the four 4-bit formats of the i4 layout beside Q4_B64T1: (B5's launch
+# count, the i4x8 GEMV's alone, the fused step's with such products)
+I4_FORMATS = {
+    "Q4_B32T1A": ("i4_matmul_b32", "i4x8_gemv_b32", "fused_decode_step_i4_b32"),
+    "Q4_B32T1B": ("i4_matmul_b32", "i4x8_gemv_b32", "fused_decode_step_i4_b32"),
+    "Q4_B32T2": ("i4_matmul_b32f", "i4x8_gemv_b32f",
+                 "fused_decode_step_i4_b32f"),
+    "Q4_B16": ("i4_matmul_b16f", "i4x8_gemv_b16f", "fused_decode_step_i4_b16f")}
+# B4 (b) at 32 layers on these (Q4_B32T1B shares Q4_B32T1A's instantiation)
+I4_STEP_FORMATS = ("Q4_B32T1A", "Q4_B32T2", "Q4_B16")
+# run (n): run (e)'s 12 queries, made from text through the loaded
+# tokenizer; against a packed twin of the same checkpoint and ini on the
+# card (B1's sub-byte case and B2, bf16 activations, the codec's weights)
+# fed (n)'s tokens, at run (e)'s gates: the prefill rows differ by B5's
+# fold rounding and summation order, decode rows also by i4x8's int8
+# activations, as in (e)
+ENGINE_N_PROMPTS = ENGINE_E_PROMPTS
+ENGINE_N_PREFILL_TOL = ENGINE_E_PREFILL_TOL
+ENGINE_N_DECODE_TOL = ENGINE_E_DECODE_TOL
+# (n-cpu): a one-layer checkpoint written the same way, the card engine
+# against the CPU engine, both built by make_engine (each quantizes on its
+# own device); then the same checkpoint with Q4_B32T2 and Q4_B16 ((n-t2),
+# (n-b16)), the i4 engine on the card against its twin on the card whose
+# decode steps run B4 (b)'s plain version, at ENGINE_CUT_CPU_TOL: against
+# a packed twin their rows would also carry the i4x8 mode's int8
+# activations (ROADMAP C4), which the plain-step twin shares
+ENGINE_NCPU_PROMPTS = (7, 300, 13)
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -459,6 +539,19 @@ KERNEL_SOURCES = {
     # B1 for the sub-byte wire formats (Q6 to Q2, one or two planes)
     "subbyte_matmul": ("inferflow_tpu_torch/kernels/csrc/subbyte_matmul.cu",
                        "inferflow_tpu/kernels/dequant_matmul.py:146"),
+    # B5 and B4 (b) on the other 4-bit formats: Q4_B32T1A/B (32-row
+    # blocks, f16 metadata), Q4_B32T2 (32, f32) and Q4_B16 (16, f32), each
+    # its own instantiation, the GEMV alone beside the fused step
+    **{name: ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
+              "inferflow_tpu/kernels/dequant_matmul.py:313")
+       for name in ("i4_matmul_b32", "i4_matmul_b32f", "i4_matmul_b16f")},
+    **{name: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+              "inferflow_tpu/kernels/decode_step.py:255")
+       for name in ("fused_decode_step_i4_b32", "fused_decode_step_i4_b32f",
+                    "fused_decode_step_i4_b16f")},
+    **{name: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+              "inferflow_tpu/kernels/decode_step.py:537")
+       for name in ("i4x8_gemv_b32", "i4x8_gemv_b32f", "i4x8_gemv_b16f")},
 }
 
 
@@ -1402,7 +1495,7 @@ def phase_engine_ccpu(dev, cfg, spec, params) -> dict:
     eng = _paged_engine(spec, params, cfg, dev)
     rows = _record_rows(eng)
     _build.launch_counts.clear()
-    qids, _, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    qids, _, decode_ms, steps = _serve(eng, prompts, ENGINE_CUT_CPU_NEW)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     outputs = [eng.query_tokens(q) for q in qids]
@@ -1424,7 +1517,8 @@ def phase_engine_ccpu(dev, cfg, spec, params) -> dict:
                       dict(max_concurrent_queries=cfg.max_concurrent_queries,
                            max_context_len=spec.max_context_len,
                            kv_cache_paging=cfg.kv_cache_paging,
-                           kv_pool_tokens=cfg.kv_pool_tokens))
+                           kv_pool_tokens=cfg.kv_pool_tokens),
+                      ENGINE_CUT_CPU_NEW)
     return launches
 
 
@@ -2493,6 +2587,436 @@ def phase_engine_k(dev, cfg, spec, params, memory) -> dict:
     return launches
 
 
+# ------------------------------------------- checkpoints from disk (n)
+def write_checkpoint_tree(dev, root: str, layers: int) -> dict:
+    """A llama2-7b checkpoint tree under root/models/<Q4B32_MODEL>/ at full
+    width and `layers` layers: seed-0 bf16 weights under the Hugging Face
+    names in shards of at most CKPT_SHARD_BYTES with their index, the
+    published config.json, a generated 32000-entry byte-level BPE
+    tokenizer.json and a copy of the model dir's model_spec.json.  Fails
+    before writing when the disk has less room than the checkpoint."""
+    import shutil
+    from inferflow_tpu_torch.loaders.synthetic import (llama_config,
+                                                       llama_tensor_shapes,
+                                                       write_llama_checkpoint,
+                                                       write_tokenizer_json)
+    c = dict(LLAMA2_7B_CONFIG, layers=layers)
+    cfg = llama_config(c["hidden_size"], c["intermediate_size"], c["layers"],
+                       c["heads"], c["kv_heads"], c["vocab_size"],
+                       c["context"], c["eps"])
+    mdir = Path(root) / "models" / Q4B32_MODEL
+    mdir.mkdir(parents=True, exist_ok=True)
+    need = sum(2 * int(np.prod(shape))
+               for _, shape, _ in llama_tensor_shapes(cfg))
+    free = shutil.disk_usage(mdir).free
+    emit({"phase": "checkpoint_disk", "path": str(mdir), "free_bytes": free,
+          "checkpoint_bytes": need})
+    if free < need + 2 ** 30:
+        raise RuntimeError(f"{mdir}: {free} bytes free, the checkpoint "
+                           f"needs {need}")
+    t0 = time.perf_counter()
+    out = write_llama_checkpoint(str(mdir), cfg, seed=0,
+                                 shard_bytes=CKPT_SHARD_BYTES, device=dev)
+    write_tokenizer_json(str(mdir / "tokenizer.json"), c["vocab_size"],
+                         seed=0)
+    shutil.copy(Path(__file__).resolve().parent / "configs" / "models"
+                / Q4B32_MODEL / "model_spec.json", mdir)
+    stats = {"files": len(out["files"]), "bytes": out["bytes"],
+             "write_s": time.perf_counter() - t0,
+             "weights_write_s": out["seconds"]}
+    emit({"phase": "checkpoint_written", "layers": layers, **stats})
+    return stats
+
+
+def _ini_from_tree(root: str, **model_fields):
+    """The q4b32 ini through the package's loader with root as its data
+    root; `model_fields` override the model section's keys."""
+    from inferflow_tpu_torch.config import load_engine_config
+    cfg = load_engine_config(str(Path(__file__).resolve().parent
+                                 / Q4B32_INI), data_root_dir=root + "/")
+    for k, v in model_fields.items():
+        setattr(cfg.model, k, v)
+    return cfg
+
+
+def _text_prompts(tokenizer, lens, seed) -> list:
+    """Prompts of the given token counts, each the start of its own text
+    through the loaded tokenizer (begin-of-sequence first)."""
+    from inferflow_tpu_torch.loaders.synthetic import sample_text
+    prompts = []
+    for i, n in enumerate(lens):
+        ids = tokenizer.tokenize(sample_text(2 * n + 8, seed=seed + i),
+                                 add_bos=True)
+        assert len(ids) >= n, (len(ids), n)
+        prompts.append(ids[:n])
+    return prompts
+
+
+def _serve_and_count(eng, prompts, max_new):
+    """Serve `prompts` with every kernel count set to 0 just before and
+    read just after: (qids, rows, outputs, launches, prefill_ms,
+    decode_ms, steps, wall_s)."""
+    from inferflow_tpu_torch.kernels import _build
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, max_new)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    vocab = eng.spec.hyper_params.vocab_size
+    for q, o in zip(qids, outputs):
+        assert len(o) == max_new and all(0 <= t < vocab for t in o), o
+        assert all(np.isfinite(r).all() and r.shape == (vocab,)
+                   for r in rows[q])
+    return (qids, rows, outputs, launches, prefill_ms, decode_ms, steps,
+            wall_s)
+
+
+# run (n)'s launch set: the i4x8 step in its 32-row instantiation on every
+# decode step, B5's 32-row entry and B3; no B1, B2, B4 (a) or int8 GEMV,
+# and none of the other i4 geometries
+ENGINE_N_MUST = ("fused_decode_step_i4_b32", "i4_matmul_b32",
+                 "chunk_attention")
+
+
+def phase_engine_n(dev, root: str, ckpt: dict, i4_b64_bytes, ctx) -> dict:
+    """Run (n): make_engine on the q4b32 ini and the checkpoint under root
+    (load timed: reading and quantizing), ENGINE_N_PROMPTS from text, 16
+    greedy tokens each; the launch set; a three-step decode profile; one
+    output decoded to text.  Leaves the engine in ctx["eng"]."""
+    from inferflow_tpu_torch.runtime.factory import make_engine
+    cfg = _ini_from_tree(root)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    eng = make_engine(cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(dev) - before - _pool_bytes(
+        eng.cache)
+    ctx["eng"] = eng
+    spec = eng.spec
+    hp = spec.hyper_params
+    assert (hp.embd_dims, hp.decoder_layers, hp.vocab_size) == (
+        LLAMA2_7B_CONFIG["hidden_size"], LLAMA2_7B_CONFIG["layers"],
+        LLAMA2_7B_CONFIG["vocab_size"])
+    prompts = _text_prompts(eng.tokenizer, ENGINE_N_PROMPTS, seed=40)
+    (qids, rows, outputs, launches, prefill_ms, decode_ms, steps,
+     wall_s) = _serve_and_count(eng, prompts, MAX_NEW)
+    qkv = eng.params["layers"][0]["attn"]["qkv"]
+    report = {
+        "phase": "engine_n", "config": Q4B32_INI, "model": Q4B32_MODEL,
+        "checkpoint": ckpt, "load_s": load_s, "load_stats": eng.load_stats,
+        "layers": hp.decoder_layers, "device_layout": spec.device_layout,
+        "weight_format": qkv.format, "planes": sorted(qkv.planes),
+        "scale_dtype": str(qkv.scale.dtype),
+        "slots": eng.max_slots, "context": eng.max_context_len,
+        "queries": len(prompts), "prompt_lens": [len(p) for p in prompts],
+        "tokens_served": sum(len(o) for o in outputs),
+        "engine_steps": steps, "decode_steps": len(decode_ms),
+        "wall_s": wall_s,
+        "device_bytes": {"weights": weights, "model_bytes":
+                         _model_bytes(eng.params),
+                         "cache": _pool_bytes(eng.cache),
+                         "serving_peak": torch.cuda.max_memory_allocated(dev)
+                         - before},
+        "i4_q4_b64t1_device_bytes_run_e": i4_b64_bytes,
+        "prefill_ms_per_step": prefill_ms,
+        "decode_ms_per_step_median": float(np.median(decode_ms)),
+        "decode_ms_per_step": decode_ms,
+        "first_tokens": [o[:4] for o in outputs],
+        "q1_output_text": eng.tokenizer.decode(outputs[0]),
+        "kernel_launches": {k: launches.get(k, 0) for k in KERNEL_SOURCES}}
+    emit(report)
+    assert qkv.format == "Q4_B32T1A" and set(qkv.planes) == {"data_i4p"}
+    assert launches.get("fused_decode_step_i4_b32", 0) == len(decode_ms), \
+        "a decode step did not take B4 (b) in its 32-row instantiation"
+    for k in ENGINE_N_MUST:
+        assert launches.get(k, 0) > 0, f"{k} never launched in run n"
+    for k, v in launches.items():
+        assert k in ENGINE_N_MUST or v == 0, f"{k} launched in run n"
+    profile_decode(eng, prompts[0], "n")
+    ctx.update(qids=qids, rows=rows, outputs=outputs, prompts=prompts)
+    return launches
+
+
+def phase_engine_n_twin(dev, root: str, ctx) -> dict:
+    """(n)'s rows against the same checkpoint and ini with the packed
+    layout (Q4_B32T1A wire planes: B1's sub-byte case, B2), built after
+    (n)'s engine is freed and fed (n)'s tokens."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.factory import make_engine
+    t0 = time.perf_counter()
+    ref = make_engine(_ini_from_tree(root, device_layout="packed"))
+    load_s = time.perf_counter() - t0
+    assert set(ref.params["lm_head"].planes) == {"data"}
+    qids, prompts, outputs = ctx["qids"], ctx["prompts"], ctx["outputs"]
+    ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+    _build.launch_counts.clear()
+    ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+    ref_launches = dict(_build.launch_counts)
+    assert ref_qids == qids, (ref_qids, qids)
+    assert ref_launches.get("subbyte_matmul", 0) > 0
+    assert ref_launches.get("decode_attention", 0) > 0
+    assert ref_launches.get("i4_matmul_b32", 0) == 0
+    del ref
+    torch.cuda.empty_cache()
+    report = {"phase": "engine_n_vs_packed_card", "reference_load_s": load_s,
+              "reference_s": time.perf_counter() - t0,
+              "reference_decode_ms_median": float(np.median(ref_decode_ms)),
+              "tolerance": f"prefill rows max_abs_err <= "
+                           f"{ENGINE_N_PREFILL_TOL}, decode rows <= "
+                           f"{ENGINE_N_DECODE_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, ctx["rows"], ref_rows,
+                              ENGINE_N_DECODE_TOL))
+    report.update(_split_row_errors(report))
+    report["ok"] = bool(report["ok"] and report["prefill_max_abs_err"]
+                        <= ENGINE_N_PREFILL_TOL)
+    emit(report)
+    assert report["ok"], "run n: rows disagree with the packed engine"
+    return ref_launches
+
+
+def _i4_format_weights(params, fmt) -> dict:
+    """llama2-7b's five products (layer 0 and the lm_head) in `fmt` under
+    the i4 layout: the loaded Q4_B32T1A weights themselves, or their values
+    quantized again."""
+    from inferflow_tpu_torch.quant.codec_torch import repack_i4
+    lp = params["layers"][0]
+    weights = {"qkv": lp["attn"]["qkv"], "wo": lp["attn"]["wo"],
+               "w1n3": lp["ffn"]["w1n3"], "w2": lp["ffn"]["w2"],
+               "lm_head": params["lm_head"]}
+    if fmt == "Q4_B32T1A":
+        return weights
+    return {k: repack_i4(_as_format(qt, fmt)) for k, qt in weights.items()}
+
+
+def phase_b5_formats(timer, dev, params) -> list:
+    """Kernel B5 on the four formats at llama2-7b's five products, M in {1,
+    8, 12, 256}, against its plain version (_matmul_rows)."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (i4_matmul_plain,
+                                                            i4_weight)
+    gen = torch.Generator(device=dev).manual_seed(91)
+    rows = []
+    for fmt, (kernel, _, _) in I4_FORMATS.items():
+        for name, qt in _i4_format_weights(params, fmt).items():
+            rows += _matmul_rows(timer, kernel, f"{name} {fmt}", qt,
+                                 i4_weight(qt), gen, i4_matmul_plain)
+    return rows
+
+
+def phase_i4x8_formats(timer, dev, params) -> list:
+    """B4 (b)'s i4x8 GEMV alone on the four formats at the five products
+    (the lm_head too, which the engines give B5), M in {1, 8}, against its
+    plain version (library: torch.matmul on the pre-dequantized bf16
+    weight, another function)."""
+    from inferflow_tpu_torch.kernels.decode_step import (i4x8_gemv_cuda,
+                                                         i4x8_matmul_plain)
+    from inferflow_tpu_torch.kernels.dequant_matmul import i4_weight
+    gen = torch.Generator(device=dev).manual_seed(92)
+    rows = []
+    for fmt, (_, kernel, _) in I4_FORMATS.items():
+        for name, qt in _i4_format_weights(params, fmt).items():
+            k, n = (int(v) for v in qt.shape)
+            w_bf16 = i4_weight(qt)
+            for m in (1, 8):
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                got = i4x8_gemv_cuda(x, qt)
+                ref = i4x8_matmul_plain(x, qt)
+                again = i4x8_gemv_cuda(x, qt)
+                torch.cuda.synchronize()
+                res = compare(got.to(torch.bfloat16), ref)
+                res["same_bits_twice"] = bool(torch.equal(got, again))
+                res["ok"] = res["ok"] and res["same_bits_twice"]
+                bytes_moved = 2 * m * k + qt.nbytes + 4 * m * n
+                b_ms, b_by = bound(bytes_moved, 2 * m * k * n, H100_INT8_OPS)
+                row = {"phase": "kernel", "kernel": kernel,
+                       "shape": f"{name} {fmt} M={m} K={k} N={n}", **res,
+                       "ms": timer(lambda: i4x8_gemv_cuda(x, qt)),
+                       "plain_ms": timer(lambda: i4x8_matmul_plain(x, qt),
+                                         f"i4x8_matmul_plain {name} {fmt}"),
+                       "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+                       "library": "torch.matmul on the pre-dequantized bf16 "
+                                  "weight (not the i4x8 function)",
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes_bound": bytes_moved}
+                emit(row)
+                rows.append(row)
+    return rows
+
+
+def _i4_layers_as(layers, fmt):
+    """The fused step's layers with every i4 product in `fmt` (values
+    quantized again), norms shared."""
+    from inferflow_tpu_torch.quant.codec_torch import repack_i4
+    if fmt == "Q4_B32T1A":
+        return layers
+    out = []
+    for lp in layers:
+        attn = dict(lp["attn"], **{k: repack_i4(_as_format(lp["attn"][k],
+                                                           fmt))
+                                   for k in ("qkv", "wo")})
+        ffn = dict(lp["ffn"], **{k: repack_i4(_as_format(lp["ffn"][k], fmt))
+                                 for k in ("w1n3", "w2")})
+        out.append(dict(lp, attn=attn, ffn=ffn))
+    return out
+
+
+def phase_b4_i4_formats(timer, dev, spec, params) -> list:
+    """B4 mode (b) at full llama2-7b width and depth on I4_STEP_FORMATS,
+    B = 8 and B = 1, against its plain version on twin caches: first each
+    layer alone on the plain stack's input to it (ONE_LAYER_TOL x
+    max|plain| each), then the whole stack (I4_FUSED_TOL x max|plain|, the
+    same bits on a second run), as the Q4_B64T1 phase holds it."""
+    from inferflow_tpu_torch.kernels import decode_step
+    hp = spec.hyper_params
+    n_layers = hp.decoder_layers
+    rows = []
+    for fmt in I4_STEP_FORMATS:
+        layers = _i4_layers_as(params["layers"], fmt)
+        for lengths in (I4_FUSED_LENGTHS, (I4_CONTEXT // 2,)):
+            b = len(lengths)
+            cache, gen = _filled_cache(dev, spec, b, I4_CONTEXT, seed=93,
+                                       context=I4_CONTEXT)
+            cache.with_length(torch.tensor(lengths, device=dev))
+            twin = _twin(cache)
+            tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                                   device=dev)
+            x = params["dec_embeddings"][tokens]
+            pos = cache.length[:, None].clone()
+            # layer by layer, each on the plain stack's input to it
+            layer_rel, h = [], x
+            for i in range(n_layers):
+                views = [_twin(_layer_view(cache, i)) for _ in range(2)]
+                got1, _ = decode_step.fused_decode_step(
+                    spec, layers[i:i + 1], h, pos, views[0])
+                ref1, _ = decode_step.fused_decode_step_plain(
+                    spec, layers[i:i + 1], h, pos, views[1])
+                layer_rel.append(compare(got1, ref1, ONE_LAYER_TOL))
+                h = ref1
+                del views
+            got, _ = decode_step.fused_decode_step(spec, layers, x, pos,
+                                                   cache)
+            again, _ = decode_step.fused_decode_step(spec, layers, x, pos,
+                                                     cache)
+            ref, _ = decode_step.fused_decode_step_plain(spec, layers, x,
+                                                         pos, twin)
+            torch.cuda.synchronize()
+            stack = compare(got, ref, I4_FUSED_TOL)
+            live = sum(min(n, I4_CONTEXT) for n in lengths)
+            nblk = hp.head_dim // 32
+            kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
+                                                            + 2 * nblk)
+            new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim
+                                                         + 2 * nblk)
+            wbytes = sum(lp[g][w].nbytes for lp in layers
+                         for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                      ("ffn", "w1n3"), ("ffn", "w2")))
+            wbytes += sum(lp[g]["pre_norm"].nbytes for lp in layers
+                          for g in ("attn", "ffn"))
+            bytes_moved = wbytes + kv_bytes + new_rows + 2 * 2 * b \
+                * hp.embd_dims
+            ops = 2 * b * sum(lp[g][w].storage_k * lp[g][w].shape[-1]
+                              for lp in layers
+                              for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                           ("ffn", "w1n3"), ("ffn", "w2")))
+            b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
+            same = bool(torch.equal(got, again))
+            ok = bool(stack["ok"] and same
+                      and all(r["ok"] for r in layer_rel))
+            row = {"phase": "kernel", "kernel": I4_FORMATS[fmt][2],
+                   "shape": f"{I4_MODEL_NAME} i4 {fmt} L={n_layers} B={b} "
+                            f"lengths={list(lengths)} S={I4_CONTEXT}",
+                   "max_abs_err": stack["max_abs_err"],
+                   "rel_err": stack["rel_err"],
+                   "tolerance": f"stack: {stack['tolerance']}; each layer "
+                                f"alone on the plain stack's input: "
+                                f"max_abs_err <= {ONE_LAYER_TOL} * "
+                                f"max|plain|; the same bits on a second run",
+                   "layer_rel_errs": [r["rel_err"] for r in layer_rel],
+                   "worst_layer_rel_err": max(r["rel_err"]
+                                              for r in layer_rel),
+                   "same_bits_twice": same, "ok": ok,
+                   "ms": timer(lambda: decode_step.fused_decode_step(
+                       spec, layers, x, pos, cache),
+                       f"fused_decode_step i4 {fmt} B={b}"),
+                   "plain_ms": timer(
+                       lambda: decode_step.fused_decode_step_plain(
+                           spec, layers, x, pos, twin),
+                       f"fused_decode_step_plain i4 {fmt} B={b}",
+                       I4_FORMATS_PLAIN_ITERS),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes_bound": bytes_moved, "weight_bytes": wbytes}
+            emit(row)
+            rows.append(row)
+            del cache, twin
+            torch.cuda.empty_cache()
+        del layers
+    return rows
+
+
+def phase_engine_n_cut(dev, root: str, label: str, fmt: str,
+                       against: str) -> dict:
+    """(n-cpu), (n-t2), (n-b16): the one-layer checkpoint under root
+    through make_engine with the ini's layout and weight type `fmt`,
+    ENGINE_NCPU_PROMPTS from text, ENGINE_CUT_CPU_NEW tokens each, held
+    against make_engine's engine on the CPU (`against` "cpu") or against
+    its twin on the card whose decode steps run B4 (b)'s plain version
+    ("plain_step": the same prefill kernels, so the decode rows show the
+    kernel against its plain version, as run (k)'s twin does)."""
+    from inferflow_tpu_torch.kernels import decode_step
+    from inferflow_tpu_torch.models import decoder as decoder_mod
+    from inferflow_tpu_torch.runtime.factory import make_engine
+    fields = {"device_weight_data_type": fmt}
+    eng = make_engine(_ini_from_tree(root, **fields))
+    kernels = I4_FORMATS[fmt]
+    prompts = _text_prompts(eng.tokenizer, ENGINE_NCPU_PROMPTS, seed=60)
+    (qids, rows, outputs, launches, _, decode_ms, steps,
+     _) = _serve_and_count(eng, prompts, ENGINE_CUT_CPU_NEW)
+    emit({"phase": f"engine_{label}", "config": Q4B32_INI,
+          "weight_format": fmt, "layers": eng.spec.hyper_params.decoder_layers,
+          "load_stats": eng.load_stats, "prompt_lens": list(ENGINE_NCPU_PROMPTS),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "kernel_launches": {k: launches.get(k, 0) for k in KERNEL_SOURCES}})
+    assert launches.get(kernels[2], 0) == len(decode_ms), \
+        f"a decode step of run {label} did not take {kernels[2]}"
+    must = (kernels[0], kernels[2], "chunk_attention")
+    for k in must:
+        assert launches.get(k, 0) > 0, f"{k} never launched in run {label}"
+    for k, v in launches.items():
+        assert k in must or v == 0, f"{k} launched in run {label}"
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = make_engine(_ini_from_tree(root, **fields),
+                      device="cpu" if against == "cpu" else dev)
+    ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+    real = decoder_mod.fused_decode_step
+    if against == "plain_step":
+        decoder_mod.fused_decode_step = decode_step.fused_decode_step_plain
+    try:
+        ref_qids, _, _, _ = _serve(ref, prompts, ENGINE_CUT_CPU_NEW)
+    finally:
+        decoder_mod.fused_decode_step = real
+    assert ref_qids == qids, (ref_qids, qids)
+    del ref
+    torch.cuda.empty_cache()
+    report = {"phase": f"engine_{label}_vs_{against}",
+              "reference_s": time.perf_counter() - t0,
+              "tolerance": f"every sampled row: max_abs_err <= "
+                           f"{ENGINE_CUT_CPU_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
+                              ENGINE_CUT_CPU_TOL, ENGINE_CUT_CPU_NEW))
+    emit(report)
+    assert report["ok"], f"run {label}: rows disagree with the reference"
+    return launches
+
+
 def _run(results, failed, pname, fn) -> None:
     try:
         results[pname] = fn()
@@ -2571,7 +3095,7 @@ def main() -> int:
         ("fused_decode_step", "i8mm_gemv"),
         ("paged_decode_attention", "chunk_attention", "decode_attention",
          "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL,
-        engine_kw={"kv_cache_paging": True}))
+        engine_kw={"kv_cache_paging": True}, max_new=ENGINE_CUT_CPU_NEW))
     del params_a, params_d
     torch.cuda.empty_cache()
 
@@ -2581,7 +3105,7 @@ def main() -> int:
     _run(results, failed, "engine_b", lambda: phase_engine(
         dev, spec_b, params_b, memory_b, "b",
         ("dequant_matmul", "decode_attention", "chunk_attention"),
-        ("fused_decode_step",), ENGINE_LOGIT_TOL))
+        ("fused_decode_step",), ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
     del params_b
     torch.cuda.empty_cache()
 
@@ -2739,7 +3263,7 @@ def main() -> int:
          "chunk_attention"),
         ("fused_decode_step", "fused_decode_step_i4",
          "fused_decode_step_byte", "i8mm_gemv", "i4_matmul"),
-        ENGINE_LOGIT_TOL))
+        ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
     del params_j
     torch.cuda.empty_cache()
 
@@ -2819,9 +3343,49 @@ def main() -> int:
         ("subbyte_matmul", "decode_attention", "chunk_attention"),
         [k for k in KERNEL_SOURCES if k not in (
             "subbyte_matmul", "decode_attention", "chunk_attention")],
-        ENGINE_LOGIT_TOL))
+        ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
     del params_m
     torch.cuda.empty_cache()
+
+    # checkpoints from disk: configs/inferflow_service.q4b32.ini, llama2-7b
+    # in Q4_B32T1A under the i4 layout, through make_engine
+    import shutil
+    ckpt_root = Path(__file__).resolve().parent / CKPT_ROOT
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    root_n, ctx = str(ckpt_root / "q4b32"), {}
+    _run(results, failed, "checkpoint_n", lambda: write_checkpoint_tree(
+        dev, root_n, LLAMA2_7B_CONFIG["layers"]))
+    if "checkpoint_n" in results:
+        _run(results, failed, "engine_n", lambda: phase_engine_n(
+            dev, root_n, results["checkpoint_n"], memory_e["weights"], ctx))
+    eng_n = ctx.pop("eng", None)
+    if eng_n is not None:
+        spec_n, params_n = eng_n.spec, eng_n.params
+        del eng_n  # and its KV cache
+        torch.cuda.empty_cache()
+        _run(results, failed, "i4_matmul_formats",
+             lambda: phase_b5_formats(timer, dev, params_n))
+        _run(results, failed, "i4x8_gemv_formats",
+             lambda: phase_i4x8_formats(timer, dev, params_n))
+        _run(results, failed, "fused_decode_step_i4_formats",
+             lambda: phase_b4_i4_formats(timer, dev, spec_n, params_n))
+        del params_n
+        torch.cuda.empty_cache()
+    if "outputs" in ctx:
+        _run(results, failed, "engine_n_twin",
+             lambda: phase_engine_n_twin(dev, root_n, ctx))
+    shutil.rmtree(root_n, ignore_errors=True)
+    # (n-cpu), (n-t2), (n-b16): a one-layer checkpoint of the same shape
+    root_1 = str(ckpt_root / "q4b32_one_layer")
+    _run(results, failed, "checkpoint_n_one_layer",
+         lambda: write_checkpoint_tree(dev, root_1, 1))
+    if "checkpoint_n_one_layer" in results:
+        for label, fmt, against in (("n_cpu", "Q4_B32T1A", "cpu"),
+                                    ("n_t2", "Q4_B32T2", "plain_step"),
+                                    ("n_b16", "Q4_B16", "plain_step")):
+            _run(results, failed, f"engine_{label}",
+                 lambda: phase_engine_n_cut(dev, root_1, label, fmt, against))
+    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
@@ -2829,7 +3393,8 @@ def main() -> int:
                   "fused_decode_step_i4", "q3h_matmul", "decode_attention_g",
                   "chunk_attention_g", "q8_matmul",
                   "fused_decode_step_byte", "fused_decode_step_moe",
-                  "subbyte_matmul"):
+                  "subbyte_matmul", "i4_matmul_formats", "i4x8_gemv_formats",
+                  "fused_decode_step_i4_formats"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -2855,6 +3420,10 @@ def main() -> int:
                 "fused_decode_step_moe":
                     results["engine_k"]["fused_decode_step_moe"],
                 "subbyte_matmul": results["engine_l"]["subbyte_matmul"]}
+    for run, fmt in (("engine_n", "Q4_B32T1A"), ("engine_n_t2", "Q4_B32T2"),
+                     ("engine_n_b16", "Q4_B16")):
+        for kname in (I4_FORMATS[fmt][0], I4_FORMATS[fmt][2]):
+            launches[kname] = results[run][kname]
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -2876,6 +3445,12 @@ def main() -> int:
              "subbyte_matmul": next(r for r in results["subbyte_matmul"]
                                     if r["shape"].startswith(
                                         "w1n3 Q6_B64T1 M=8 "))}
+    for fmt in I4_STEP_FORMATS:
+        b5, _, step = I4_FORMATS[fmt]
+        picks[b5] = next(r for r in results["i4_matmul_formats"]
+                         if r["shape"].startswith(f"lm_head {fmt} M=8 "))
+        picks[step] = next(r for r in results["fused_decode_step_i4_formats"]
+                           if r["kernel"] == step and " B=8 " in r["shape"])
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

@@ -29,8 +29,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "inferflow_tpu_torch"
 SOURCES = ("dequant_matmul", "subbyte_matmul", "attention", "decode_step")
+# --split-compile=0: nvcc runs a source's optimization passes on every
+# core it finds, which shortens the longest build (decode_step.cu's)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
 
 # kernel name -> launches since the last clear()
 launch_counts: collections.Counter = collections.Counter()

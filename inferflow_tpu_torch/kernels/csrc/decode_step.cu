@@ -17,7 +17,8 @@
 // Per layer l the step computes (the TPU kernel's phases 1-8):
 //   xn   = bf16(rmsnorm(xres) * anorm)        x quantized per row to int8
 //   qkv  = W(xn): i8mm f32((acc_i32 * xs_row) * wscale_col), or i4x8
-//          sum over 64-row blocks r of bf16(sum_r xn) * bf16(8*sc + base)
+//          sum over quant blocks r (64, 32 or 16 rows) of
+//          bf16(sum_r xn) * bf16(8*sc + base)
 //          + f32(acc_i32 over r) * (xs_row * sc), or byte: sum over
 //          32-row blocks r of sum_{k in r} xn_k * bf16(q_k * bf16(sc))
 //          (+ bf16(sum_r xn) * bf16(base) for Q8_B32T1), xn in bf16
@@ -49,7 +50,8 @@
 //
 // What bounds it on the H100: a decode step streams every weight once
 // (i8mm: about 1 GB at tinyllama-1.1b, 6.9 GB at llama2-7b; i4x8: 4.5 bits
-// per weight, 3.7 GB at llama2-7b; byte: 8.5 bits, 6.9 GB at llama2-7b)
+// per weight in 64-row blocks, 3.7 GB at llama2-7b, 5 to 8 bits in 32- and
+// 16-row blocks; byte: 8.5 bits, 6.9 GB at llama2-7b)
 // for B <= 8 rows, at most 2*B operations per weight, far below the card's
 // operations per byte: it is bound by the weight bytes (and the live KV
 // rows).
@@ -68,13 +70,17 @@
 //   - the i4x8 GEMV: one 32-bit load of a (K/2, N) nibble-pair row gives 4
 //     columns x 2 K rows; two rows' nibbles, sign-extended in place to
 //     int8 (sext_nibbles), are 4 K rows of 4 columns, which transpose4 and
-//     __dp4a take as in the i8mm GEMV.  Each warp takes whole 64-row quant
-//     blocks (all 32 byte rows of a block in flight before their math) and
+//     __dp4a take as in the i8mm GEMV.  Each warp takes whole quant blocks
+//     (all 32, 16 or 8 byte rows of a block in flight before their math) and
 //     scales each block's int32 dot into a float32 sum; the block scale
 //     makes the partials floats, which do not add in any order to the same
 //     bits, so the warps' sums are added in warp order and the K splits'
 //     partials go to a float workspace that the last CTA of the column
-//     tile adds in split order: the same bits on every run;
+//     tile adds in split order: the same bits on every run.  The block's
+//     K rows (64, 32 or 16) and its metadata type (f16, or f32 for Q4_B32T2
+//     and Q4_B16) are template parameters, one instantiation per geometry
+//     (WeightMode), so each GEMV's loop is unrolled for its block: a row
+//     map read at run time slowed the dense GEMVs on the card;
 //   - the byte GEMV: one 32-bit load of a (K, N) code row gives 4 columns
 //     of one K row, a 32-row quant block is 32 loads in flight per thread
 //     (64 for the GLU's two column segments);
@@ -111,6 +117,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -121,8 +128,6 @@ constexpr int kTileCols = 128;  // columns per segment: 32 lanes x 4
 constexpr int kMaxKc = 1024;    // K rows per CTA (shared x staging)
 constexpr int kMinKc = 64;
 constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
-constexpr int kQBlock = 64;     // i4x8: K rows per quant block
-constexpr int kQRows = kQBlock / 2;  // i4x8: nibble-pair byte rows per block
 constexpr int kByteBlock = 32;  // byte mode: K rows (= byte rows) per quant block
 constexpr int kMaxSlots = 8;    // rows of a GEMV, slots of a step
 constexpr int kMaxExperts = 64; // mode (g): experts per MoE layer
@@ -130,8 +135,25 @@ constexpr int kMaxExperts = 64; // mode (g): experts per MoE layer
 enum Prologue { kProNorm = 0, kProRow = 1, kProAmax = 2 };
 enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
 // kModeByte: Q8_B32T2 (signed codes, no base); kModeByteU: Q8_B32T1
-// (codes 0..255 and a base); both run the byte GEMV
-enum WeightMode { kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3 };
+// (codes 0..255 and a base); both run the byte GEMV.  The i4x8 modes, one
+// per geometry of the i4 layout (its quant block's K rows and the type of
+// its scale and base), each its own instantiation of the i4x8 GEMV:
+// kModeI4x8 Q4_B64T1 (64, f16), kModeI4x8B32 Q4_B32T1A/B (32, f16),
+// kModeI4x8B32F Q4_B32T2 (32, f32), kModeI4x8B16F Q4_B16 (16, f32).
+enum WeightMode {
+  kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3,
+  kModeI4x8B32 = 4, kModeI4x8B32F = 5, kModeI4x8B16F = 6
+};
+__host__ __device__ constexpr bool is_i4(int mode) {
+  return mode == kModeI4x8 || mode >= kModeI4x8B32;
+}
+// an i4x8 mode's K rows per quant block (nibble-pair byte rows: half that)
+__host__ __device__ constexpr int i4_block(int mode) {
+  return mode == kModeI4x8 ? 64 : mode == kModeI4x8B16F ? 16 : 32;
+}
+__host__ __device__ constexpr bool i4_f32_meta(int mode) {
+  return mode == kModeI4x8B32F || mode == kModeI4x8B16F;
+}
 
 struct GemvArgs {
   const __nv_bfloat16* x;      // (M, K) bf16 activations
@@ -139,9 +161,9 @@ struct GemvArgs {
   const unsigned* amax_in;     // (M,) row max |x| as float bits (kProAmax)
   const void* w;               // i8mm: (K, N) int8; i4x8: (K/2, N) uint8 nibble pairs;
                                // byte: (K, N) uint8 codes
-  const void* w_scale;         // i8mm: (N,) f32 column scales; i4x8: (K/64, N) f16;
-                               // byte: (K/32, N) f16
-  const __half* w_base;        // i4x8, byte: f16 block bases, or null
+  const void* w_scale;         // i8mm: (N,) f32 column scales; i4x8: (K/block, N) f16
+                               // or f32 (the mode's); byte: (K/32, N) f16
+  const void* w_base;          // i4x8, byte: block bases of the scales' type, or null
   float* out_f32;              // (M, N) (kEpiF32)
   __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, ld_out) hglu (kEpiGlu)
   unsigned* amax_out;          // (M,) row max |hglu| (kEpiGlu)
@@ -218,6 +240,19 @@ __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
   return v | ((v & 0x08080808u) * 0x1Eu);
 }
 
+// The block metadata of 4 neighbouring columns (one 8- or 16-byte load),
+// as float32.
+__device__ __forceinline__ void load_meta4(const __half* p, float v[4]) {
+  const uint2 bits = __ldg(reinterpret_cast<const uint2*>(p));
+  const __half* h = reinterpret_cast<const __half*>(&bits);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = __half2float(h[c]);
+}
+__device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
+  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+
 // The int8 GEMV (MODE kModeI8mm: i8mm weights), the i4x8 GEMV (kModeI4x8:
 // the i4 layout's nibble pairs) and the byte GEMV (kModeByte: Q8 block
 // codes, signed or not by a.byte_signed), with the same prologues and
@@ -227,10 +262,12 @@ __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
 //
 // i8mm: y = (float(sum_k xq*wq) * xs_row) * scale_col; the int32 partials
 // of the warps and the splits are added with atomics (order-free).
-// i4x8 (the TPU kernel's i4x8 tile, decode_step.py:537-572): per 64-row
-// quant block r, y += bf16(sum_{k in r} x_k) * bf16(8*sc + base)
-//                     + float(int32 sum_{k in r} xq_k * n_k) * (xs_row * sc),
-// with n the signed nibble.
+// i4x8 (the TPU kernel's i4x8 tile, decode_step.py:537-572): per quant
+// block r (64, 32 or 16 K rows, the mode's),
+//   y += bf16(sum_{k in r} x_k) * bf16(8*sc + base)
+//        + float(int32 sum_{k in r} xq_k * n_k) * (xs_row * sc),
+// with n the signed nibble and sc, base the block's f16 or f32 metadata
+// as stored (the TPU kernel decodes f32 metadata as f16 bits: ROADMAP C7).
 // byte (the TPU kernel's single-plane tile with pk = 1, :583-606): per
 // 32-row quant block r, y += sum_{k in r} x_k * bf16(q_k * bf16(sc))
 //                          (+ bf16(sum_{k in r} x_k) * bf16(base)),
@@ -241,12 +278,14 @@ __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
 // bits on every run.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
-  constexpr bool I4 = MODE == kModeI4x8, BYTE = MODE == kModeByte;
-  constexpr int kBlk = BYTE ? kByteBlock : kQBlock;  // float modes' quant block
+  constexpr bool I4 = is_i4(MODE), BYTE = MODE == kModeByte;
+  // the float modes' quant block (i8mm: unused)
+  constexpr int kBlk = BYTE ? kByteBlock : I4 ? i4_block(MODE) : 64;
+  using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
   // the CTA's K slice: int8 codes (i8mm, i4x8) or bf16 activations (byte)
   __shared__ __align__(16) unsigned char x_s[M][kMaxKc * (BYTE ? 2 : 1)];
   __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float sums
-  __shared__ float xsum_s[M][kMaxKc / kByteBlock];
+  __shared__ float xsum_s[M][kMaxKc / (I4 ? kBlk : kByteBlock)];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
   __shared__ int xrow_s[M], orow_s[M];  // activation and output row of row m
@@ -260,7 +299,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   // for both in the dense GEMV)
   const long long w_off = ROUTED ? blockIdx.z * a.w_estride : 0;
   const long long sc_off = ROUTED ? blockIdx.z * a.sc_estride : 0;
-  const long long base_off = ROUTED ? blockIdx.z * a.base_estride / 2 : 0;  // halves
+  const long long base_off = ROUTED ? blockIdx.z * a.base_estride : 0;  // bytes
   int* counters = a.counters + (ROUTED ? (size_t)blockIdx.z * gridDim.x : 0);
   auto xrow = [&](int m) -> int {
     if constexpr (ROUTED) return xrow_s[m];
@@ -374,7 +413,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
       const int kb0 = k0 + lb * kBlk;
-      float v = activation(a, xrow(m), kb0 + lane, inv_s[m]);
+      float v = lane < kBlk ? activation(a, xrow(m), kb0 + lane, inv_s[m]) : 0.f;
       if (kBlk == 64) v = __fadd_rn(v, activation(a, xrow(m), kb0 + 32 + lane, inv_s[m]));
       v = warp_sum(v);
       if (lane == 0) xsum_s[m][lb] = round_bf16(v);
@@ -441,7 +480,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     // plus its fold term; byte the block's products and its base term;
     // each warp walks whole blocks of the slice
     const uint8_t* w4 = static_cast<const uint8_t*>(a.w) + w_off;
-    const __half* wsc = static_cast<const __half*>(a.w_scale) + sc_off / 2;
+    const char* wsc_b = static_cast<const char*>(a.w_scale) + sc_off;
+    const char* wbs_b = a.w_base == nullptr ? nullptr : static_cast<const char*>(a.w_base) + base_off;
+    const __half* wsc = reinterpret_cast<const __half*>(wsc_b);
     float acc[M][4 * NSEG];
 #pragma unroll
     for (int m = 0; m < M; ++m)
@@ -485,11 +526,11 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
               for (int m = 0; m < M; ++m) acc[m][s * 4 + c] = fmaf(xr[m], w, acc[m][s * 4 + c]);
             }
         }
-        if (a.w_base != nullptr) {
+        if (wbs_b != nullptr) {
 #pragma unroll
           for (int s = 0; s < NSEG; ++s) {
             const uint2 bs_bits = __ldg(reinterpret_cast<const uint2*>(
-                a.w_base + base_off + (size_t)kb * a.N + col0 + s * seg_stride));
+                reinterpret_cast<const __half*>(wbs_b) + (size_t)kb * a.N + col0 + s * seg_stride));
             const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
@@ -502,32 +543,31 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
         }
       }
     }
-    if (I4 && col_ok) {
-      for (int lb = warp; lb < nblk; lb += kGemvWarps) {
-        const int kb = k0 / kQBlock + lb;
+    if constexpr (I4) {
+      constexpr int kQRows = kBlk / 2;  // nibble-pair byte rows per block
+      const I4Meta* isc = reinterpret_cast<const I4Meta*>(wsc_b);
+      const I4Meta* ibs = reinterpret_cast<const I4Meta*>(wbs_b);
+      for (int lb = warp; col_ok && lb < nblk; lb += kGemvWarps) {
+        const int kb = k0 / kBlk + lb;
 #pragma unroll
         for (int s = 0; s < NSEG; ++s) {
           const int col = col0 + s * seg_stride;
-          // all 32 byte rows of the block in flight at once
+          // all byte rows of the block in flight at once
           uint32_t words[kQRows];
 #pragma unroll
           for (int r = 0; r < kQRows; ++r)
             words[r] = __ldg(reinterpret_cast<const uint32_t*>(
                 w4 + ((size_t)kb * kQRows + r) * a.N + col));
-          const uint2 sc_bits = __ldg(reinterpret_cast<const uint2*>(wsc + (size_t)kb * a.N + col));
-          uint2 bs_bits = make_uint2(0, 0);
-          if (a.w_base != nullptr)
-            bs_bits = __ldg(reinterpret_cast<const uint2*>(a.w_base + base_off + (size_t)kb * a.N +
-                                                           col));
-          const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
-          const __half* bsh = reinterpret_cast<const __half*>(&bs_bits);
+          float scv[4], bsv[4] = {0.f, 0.f, 0.f, 0.f};
+          load_meta4(isc + (size_t)kb * a.N + col, scv);
+          if (ibs != nullptr) load_meta4(ibs + (size_t)kb * a.N + col, bsv);
           int dot[M][4];
 #pragma unroll
           for (int m = 0; m < M; ++m)
 #pragma unroll
             for (int c = 0; c < 4; ++c) dot[m][c] = 0;
 #pragma unroll
-          for (int g = 0; g < kQBlock / 4; ++g) {
+          for (int g = 0; g < kBlk / 4; ++g) {
             // K rows 4g..4g+3 of the block: low and high nibbles of byte
             // rows 2g and 2g+1
             const uint32_t rows[4] = {sext_nibbles(words[2 * g] & 0x0F0F0F0Fu),
@@ -538,15 +578,15 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
             transpose4(rows, colv);
 #pragma unroll
             for (int m = 0; m < M; ++m) {
-              const int xw = reinterpret_cast<const int*>(x_s[m])[lb * (kQBlock / 4) + g];
+              const int xw = reinterpret_cast<const int*>(x_s[m])[lb * (kBlk / 4) + g];
 #pragma unroll
               for (int c = 0; c < 4; ++c) dot[m][c] = __dp4a(colv[c], xw, dot[m][c]);
             }
           }
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float sc = __half2float(sch[c]);
-            const float fold = round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), __half2float(bsh[c])));
+            const float sc = scv[c];
+            const float fold = round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), bsv[c]));
 #pragma unroll
             for (int m = 0; m < M; ++m) {
               const float t = __fadd_rn(__fmul_rn(xsum_s[m][lb], fold),
@@ -641,8 +681,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 }
 
 // CTAs for about two per SM, K rows per CTA a multiple of `unit` (32:
-// whole 4-row groups per warp, or whole byte-mode quant blocks; 64 for
-// i4x8: whole quant blocks) and at most kMaxKc.
+// whole 4-row groups per warp, or whole byte-mode quant blocks; for i4x8
+// the mode's quant block: whole blocks) and at most kMaxKc.
 void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   const int want = std::max(1, (2 * sm_count + tiles - 1) / tiles);
   int rows = (K + want - 1) / want;
@@ -686,10 +726,11 @@ void launch_gemv_mode(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
 // not take.
 bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, int* ksplit) {
   const int nseg = a.epi == kEpiGlu ? 2 : 1;
-  const int unit = mode == kModeI4x8 ? kQBlock : 32;
-  const int k_unit = mode == kModeI4x8 ? kQBlock : mode == kModeI8mm ? 4 : kByteBlock;
+  if (mode < kModeI8mm || mode > kModeI4x8B16F) return false;
+  const int unit = is_i4(mode) ? i4_block(mode) : 32;
+  const int k_unit = is_i4(mode) ? i4_block(mode) : mode == kModeI8mm ? 4 : kByteBlock;
   if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
-      sm_count <= 0 || mode < kModeI8mm || mode > kModeByteU)
+      sm_count <= 0)
     return false;
   *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
   gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
@@ -707,13 +748,15 @@ cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream,
       experts < 1 || (experts > 1 && a.moe_sel == nullptr) || a.out_rows < a.M)
     return cudaErrorInvalidValue;
   const dim3 grid(tiles, a.ksplit, experts);
-  if (mode == kModeI4x8) {
-    launch_gemv_mode<kModeI4x8>(a, grid, stream);
-  } else if (mode == kModeI8mm) {
-    launch_gemv_mode<kModeI8mm>(a, grid, stream);
-  } else {
-    a.byte_signed = mode == kModeByte;
-    launch_gemv_mode<kModeByte>(a, grid, stream);
+  switch (mode) {
+    case kModeI8mm: launch_gemv_mode<kModeI8mm>(a, grid, stream); break;
+    case kModeI4x8: launch_gemv_mode<kModeI4x8>(a, grid, stream); break;
+    case kModeI4x8B32: launch_gemv_mode<kModeI4x8B32>(a, grid, stream); break;
+    case kModeI4x8B32F: launch_gemv_mode<kModeI4x8B32F>(a, grid, stream); break;
+    case kModeI4x8B16F: launch_gemv_mode<kModeI4x8B16F>(a, grid, stream); break;
+    default:
+      a.byte_signed = mode == kModeByte;
+      launch_gemv_mode<kModeByte>(a, grid, stream);
   }
   return cudaGetLastError();
 }
@@ -1151,8 +1194,9 @@ const char* ift_error_string(int code) {
 }
 
 // The K splits of a GEMV of (K, N) weights (N the w1n3 width when glu is
-// set) in weight mode `mode` (0 i8mm, 1 i4x8, 2 byte Q8_B32T2, 3 byte
-// Q8_B32T1) on a card of `sm_count` SMs, or -1 for a shape it does not
+// set) in weight mode `mode` (WeightMode: 0 i8mm, 1 i4x8 Q4_B64T1, 2 byte
+// Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16) on a
+// card of `sm_count` SMs, or -1 for a shape it does not
 // take: the i4x8 and byte GEMVs' float split partials take
 // ksplit * M * N floats.
 int ift_gemv_splits(int K, int N, int glu, int mode, int sm_count) {
@@ -1182,24 +1226,27 @@ int ift_i8mm_gemv(const void* x, const void* w, const void* w_scale, void* out,
 }
 
 // y (M, N) f32 = the i4x8 product of x (M, K) bf16 with the i4 layout's
-// data_i4p (K/2, N) uint8 and its f16 block scale and base (K/64, N; base
-// may be null).  part holds ift_gemv_splits(K, N, 0, 1, sm_count) * M * N
-// floats; counters (ceil(N/128) int32) are zero on entry and left zero.
+// data_i4p (K/2, N) uint8 and its block scale and base (K/block, N; base
+// may be null) in i4x8 mode `mode` (1, 4, 5 or 6: the block and the
+// metadata type).  part holds ift_gemv_splits(K, N, 0, mode, sm_count) *
+// M * N floats; counters (ceil(N/128) int32) are zero on entry and left
+// zero.
 int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
-                  void* out, void* part, void* counters, int M, int K, int N, int sm_count,
-                  void* stream) {
+                  void* out, void* part, void* counters, int M, int K, int N, int mode,
+                  int sm_count, void* stream) {
+  if (!is_i4(mode)) return static_cast<int>(cudaErrorInvalidValue);
   GemvArgs a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = w;
   a.w_scale = w_scale;
-  a.w_base = static_cast<const __half*>(w_base);
+  a.w_base = w_base;
   a.out_f32 = static_cast<float*>(out);
   a.part = static_cast<float*>(part);
   a.counters = static_cast<int*>(counters);
   a.M = M, a.K = K, a.N = N;
   a.pro = kProRow, a.epi = kEpiF32;
   return static_cast<int>(
-      launch_gemv(a, kModeI4x8, sm_count, static_cast<cudaStream_t>(stream)));
+      launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
 // Mode (g)'s routing launch alone: xn (B, E) bf16, then per slot its
@@ -1224,10 +1271,11 @@ int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn,
 // One decode step over all L layers.  `table` (host memory) holds, per
 // layer, kTableStride entries: anorm, fnorm (E bf16 device pointers), then
 // for each of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and w2 (F, E)
-// five entries: its weight mode (0 i8mm, 1 i4x8, 2 byte Q8_B32T2, 3 byte
-// Q8_B32T1) and its stored K as integers, then three device pointers,
-// (int8 codes, f32 column scales, null) for i8mm, (data_i4p nibble pairs,
-// f16 block scales, f16 block bases or null) for i4x8, (uint8 codes,
+// five entries: its weight mode (WeightMode: 0 i8mm, 1 i4x8 Q4_B64T1, 2
+// byte Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16)
+// and its stored K as integers, then three device pointers, (int8 codes,
+// f32 column scales, null) for i8mm, (data_i4p nibble pairs, block scales
+// and block bases or null, f16 or f32 as the mode says) for i4x8, (uint8 codes,
 // f16 block scales, null) for Q8_B32T2 and (uint8 codes, f16 block
 // scales, f16 block bases) for Q8_B32T1; then the MoE gate (E, n_exp)
 // bf16 or null, and the bytes from one expert to the next of w1n3's codes,
@@ -1303,7 +1351,7 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
     auto use = [&](int i) {
       g.K = ks[i];
       g.w = p[4 + 5 * i], g.w_scale = p[5 + 5 * i];
-      g.w_base = static_cast<const __half*>(p[6 + 5 * i]);
+      g.w_base = p[6 + 5 * i];
     };
 
     // qkv = W(rmsnorm(xres) * anorm)

@@ -4,9 +4,12 @@ i4x8 product.
 Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
 `fused_step_preferred`, `fused_decode_step`) for three weight modes: (a)
 i8mm (Int8MXUTensor weights: int8 codes with one f32 scale per column),
-(b) i4x8 (the i4 layout's ``data_i4p`` nibbles with f16 block scales and
-bases: int8 row-quantized activations, one int32 dot per 64-row block,
-the TPU kernel's default for that layout) and (c) byte (the Q8 block
+(b) i4x8 (the i4 layout's ``data_i4p`` nibbles with their block scales
+and bases, for every 4-bit single-plane format: Q4_B64T1, Q4_B32T1A/B
+with f16 metadata, Q4_B32T2 and Q4_B16 with f32; int8 row-quantized
+activations, one int32 dot per quant block, the TPU kernel's default for
+that layout; the f32 metadata is read as stored, where the TPU kernel
+reads it as f16 bits, ROADMAP C7) and (c) byte (the Q8 block
 formats Q8_B32T2 and Q8_B32T1, one code per byte: bf16 activations, each
 weight bf16(q * bf16(scale)), Q8_B32T1's base through the blocks'
 activation sums), each product in its own mode; MoE layers in the TPU
@@ -34,9 +37,8 @@ arithmetic (outputs, then ``append_rows_all_layers`` or
 the kernels against on the card.
 
 Not ported (``fused_step_supported`` raises NotImplementedError where the
-TPU package would fuse them, naming what is missing): the i4 layout of
-other blocks than 64 with f16 scale and base, per-matmul output biases,
-and two modes the TPU package supports but does not prefer, so that
+TPU package would fuse them, naming what is missing): per-matmul output
+biases, and two modes the TPU package supports but does not prefer, so that
 ``fused_step_preferred`` routes them to the per-layer loop as there: the
 sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
 planes, kernel B1 in every product) and mode (h), Q3H weights in the
@@ -60,7 +62,7 @@ import torch.nn.functional as F
 
 from ..quant.codec_torch import (I4_PLANE, PAIR8_PLANE, Int8MXUTensor,
                                  QuantizedTensor, i4_nibbles,
-                                 int8_rowwise_activations)
+                                 int8_rowwise_activations, true_div)
 from ..quant.formats import get_format
 from ..runtime.kv_cache import KVCache, append_rows_all_layers
 from ..runtime.paged_kv import (PagedKVCache, append_rows_all_layers_paged,
@@ -68,12 +70,12 @@ from ..runtime.paged_kv import (PagedKVCache, append_rows_all_layers_paged,
 from . import _build
 
 KERNEL = "fused_decode_step"  # a step whose products are all i8mm
-I4_KERNEL = "fused_decode_step_i4"  # a step with an i4x8 product
+I4_KERNEL = "fused_decode_step_i4"  # a step with an i4x8 product (Q4_B64T1)
 BYTE_KERNEL = "fused_decode_step_byte"  # a step with a byte-mode product
 MOE_KERNEL = "fused_decode_step_moe"  # a step over routed MoE layers (g)
 ROUTE_KERNEL = "moe_route"  # mode (g)'s routing launch alone
 GEMV_KERNEL = "i8mm_gemv"
-I4_GEMV_KERNEL = "i4x8_gemv"
+I4_GEMV_KERNEL = "i4x8_gemv"  # the i4x8 GEMV alone (Q4_B64T1)
 NEG_INF = -1e30
 # float32 sums of int8 x int8 products are exact integers while they stay
 # below 2**24: 127 * 127 * 1024 < 2**24
@@ -86,6 +88,18 @@ _MAX_ROWS, _MAX_D = 16, 128  # query heads per kv head, head_dim (csrc)
 _TILE_COLS = 128  # GEMV columns per CTA segment (csrc kTileCols)
 _MAX_SPLIT = 16  # cache-walk splits per (slot, kv head) (csrc kMaxSplit)
 _MODES = {"i8mm": 0, "i4": 1, "byte": 2}  # csrc WeightMode (3: byte with a base)
+# the i4x8 modes by (block rows, metadata type): csrc WeightMode, and the
+# launch counts of a step whose i4x8 products take that geometry and of
+# the GEMV alone
+_I4_MODES = {
+    (64, torch.float16): (1, I4_KERNEL, I4_GEMV_KERNEL),  # Q4_B64T1
+    (32, torch.float16): (4, I4_KERNEL + "_b32",
+                          I4_GEMV_KERNEL + "_b32"),  # Q4_B32T1A / B
+    (32, torch.float32): (5, I4_KERNEL + "_b32f",
+                          I4_GEMV_KERNEL + "_b32f"),  # Q4_B32T2
+    (16, torch.float32): (6, I4_KERNEL + "_b16f",
+                          I4_GEMV_KERNEL + "_b16f"),  # Q4_B16
+}
 _MAX_EXPERTS = 64  # mode (g): experts per MoE layer (csrc kMaxExperts)
 _BYTE_BLOCK = 32  # the byte mode's quant block (csrc kByteBlock)
 
@@ -121,8 +135,11 @@ def i4x8_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """B4 mode (b)'s product, the TPU kernel's i4x8 tile (stream_mm), in
     float32.  x: (M, K) bf16 with K the logical or the stored K of w (the
     stored K's tail takes zeros).  With xq, xs the per-row int8 codes and
-    scale of x over the whole row, n the signed nibbles, per 64-row block
-    r: acc = sum_r bf16(sum_{k in r} x_k) * bf16(8*sc_r + base_r), then
+    scale of x over the whole row, n the signed nibbles, per quant block
+    r of the format (64, 32 or 16 rows; scale and base f16 or f32 as the
+    codec stores them, where the TPU kernel reads f32 metadata as f16
+    bits: ROADMAP C7):
+    acc = sum_r bf16(sum_{k in r} x_k) * bf16(8*sc_r + base_r), then
     acc += f32(sum_{k in r} xq_k * n_k) * (xs * sc_r) block by block, in
     the TPU kernel's order.  Returns (M, N) float32."""
     blk = get_format(w.format).block
@@ -194,7 +211,7 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ift_i8mm_gemv.argtypes = [vp] * 6 + [i] * 4 + [vp]
         lib.ift_i8mm_gemv.restype = ctypes.c_int
-        lib.ift_i4x8_gemv.argtypes = [vp] * 7 + [i] * 4 + [vp]
+        lib.ift_i4x8_gemv.argtypes = [vp] * 7 + [i] * 5 + [vp]
         lib.ift_i4x8_gemv.restype = ctypes.c_int
         lib.ift_gemv_splits.argtypes = [i] * 5
         lib.ift_gemv_splits.restype = ctypes.c_int
@@ -241,15 +258,33 @@ def i8mm_gemv_cuda(x2: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
     return out
 
 
+def _i4_geometry(w: QuantizedTensor) -> tuple:
+    """(csrc WeightMode, step launch count, GEMV launch count) of an i4
+    weight's geometry: its format's block and metadata type."""
+    key = (get_format(w.format).block, w.scale.dtype)
+    if key not in _I4_MODES:
+        raise NotImplementedError(
+            f"the i4x8 GEMV takes blocks of 64, 32 or 16 rows with f16 or "
+            f"f32 metadata as the 4-bit formats store them, not {key} "
+            f"({w.format})")
+    return _I4_MODES[key]
+
+
 def _check_i4(w: QuantizedTensor, name: str, k: int, n: int,
               lead: tuple = ()) -> None:
-    """An i4x8 operand: data_i4p (K/2, N) uint8, f16 block scale and base
-    (K/64, N), each with the leading axes `lead` (an expert stack's)."""
+    """An i4x8 operand: data_i4p (K/2, N) uint8, block scale and base
+    (K/block, N) of one type (f16, or f32 for Q4_B32T2 and Q4_B16), each
+    with the leading axes `lead` (an expert stack's)."""
+    blk = get_format(w.format).block
+    _i4_geometry(w)
+    if k % blk:
+        raise ValueError(f"{name}: K={k} is not a multiple of the block "
+                         f"{blk}")
     _build.check_operand(w.planes[I4_PLANE], f"{name}.{I4_PLANE}",
                          torch.uint8, lead + (k // 2, n))
     for part, t in (("scale", w.scale), ("base", w.base)):
-        _build.check_operand(t, f"{name}.{part}", torch.float16,
-                             lead + (k // 64, n))
+        _build.check_operand(t, f"{name}.{part}", w.scale.dtype,
+                             lead + (k // blk, n))
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,19 +300,25 @@ def _gemv_splits(k: int, n: int, glu: bool, sms: int, mode: int = 1) -> int:
 
 def i4x8_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """Launch the i4x8 GEMV alone on (M <= 8, K_s) bf16 rows; returns (M, N)
-    float32 (B4 mode (b)'s product, i4x8_matmul_plain's arithmetic)."""
+    float32 (B4 mode (b)'s product, i4x8_matmul_plain's arithmetic), in
+    the instantiation of w's geometry (launch count ``i4x8_gemv`` for
+    Q4_B64T1, ``i4x8_gemv_b32``, ``_b32f`` or ``_b16f`` for Q4_B32T1A/B,
+    Q4_B32T2 and Q4_B16)."""
     _build.require_hopper(x2)
     m, k = x2.shape
     n = int(w.shape[-1])
+    mode, _, counter = _i4_geometry(w)
+    blk = get_format(w.format).block
     if not 1 <= m <= _MAX_GEMV_ROWS:
         raise ValueError(f"i4x8_gemv takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
-    if k != w.storage_k or k % 64 or n % 4:
-        raise ValueError(f"i4x8_gemv needs the stored K (a multiple of 64) "
-                         f"and N a multiple of 4, got K={k} N={n}")
+    if k != w.storage_k or k % blk or n % 4:
+        raise ValueError(f"i4x8_gemv needs the stored K (a multiple of the "
+                         f"block, {blk}) and N a multiple of 4, got K={k} "
+                         f"N={n}")
     _build.check_operand(x2, "x", torch.bfloat16, (m, k))
     _check_i4(w, "w", k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    part = torch.empty(_gemv_splits(k, n, False, _sms(x2)) * m * n,
+    part = torch.empty(_gemv_splits(k, n, False, _sms(x2), mode) * m * n,
                        dtype=torch.float32, device=x2.device)
     counters = torch.zeros(-(-n // _TILE_COLS), dtype=torch.int32,
                            device=x2.device)
@@ -285,10 +326,10 @@ def i4x8_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     rc = lib.ift_i4x8_gemv(_build.ptr(x2), _build.ptr(w.planes[I4_PLANE]),
                            _build.ptr(w.scale), _build.ptr(w.base),
                            _build.ptr(out), _build.ptr(part),
-                           _build.ptr(counters), m, k, n, _sms(x2),
+                           _build.ptr(counters), m, k, n, mode, _sms(x2),
                            _build.stream_of(x2))
-    _build.check(lib, rc, I4_GEMV_KERNEL)
-    _build.launch_counts[I4_GEMV_KERNEL] += 1
+    _build.check(lib, rc, counter)
+    _build.launch_counts[counter] += 1
     return out
 
 
@@ -455,10 +496,6 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
             mode = _mm_mode(grp.get(kk))
             if mode is None:
                 return None
-            if mode == "i4" and not _i4_kernel_format(grp[kk]):
-                raise NotImplementedError(
-                    "the fused decode step's i4 mode serves 64-row blocks "
-                    "with f16 scale and base (Q4_B64T1)")
             modes.add(mode)
             biased |= grp.get(f"{kk}_b") is not None
         e_dim = int(attn["pre_norm"].shape[-1])
@@ -491,11 +528,6 @@ def _refuse_unported(modes) -> None:
     for mode, why in _UNPORTED_MODES.items():
         if modes and mode in modes:
             raise NotImplementedError(why)
-
-
-def _i4_kernel_format(w: QuantizedTensor) -> bool:
-    return (get_format(w.format).block == 64 and w.base is not None
-            and w.scale.dtype == w.base.dtype == torch.float16)
 
 
 def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
@@ -558,7 +590,7 @@ def _qdq(rows: torch.Tensor, blk: int) -> torch.Tensor:
     the float32 scale (the self term; the cache keeps the f16 one)."""
     shape = rows.shape
     xb = rows.reshape(shape[:-1] + (shape[-1] // blk, blk))
-    sc = xb.abs().amax(dim=-1, keepdim=True) / 127.0
+    sc = true_div(xb.abs().amax(dim=-1, keepdim=True), 127.0)
     inv = torch.where(sc >= 1e-5,
                       1.0 / torch.where(sc == 0, torch.ones_like(sc), sc),
                       torch.zeros_like(sc))
@@ -940,7 +972,7 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
                 continue
             if mode == "i4":
                 _check_i4(w, name, k, n, ld)
-                code, plane = _MODES[mode], w.planes[I4_PLANE]
+                code, plane = _i4_geometry(w)[0], w.planes[I4_PLANE]
             else:
                 _check_byte(w, name, k, n, ld)
                 code = _MODES[mode] + (w.base is not None)
@@ -1066,8 +1098,9 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         int(bool(hp.moe_norm_top_k_prob)), spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
     codes = {shape[3] for shape in float_shapes}
-    name = (MOE_KERNEL if moe else BYTE_KERNEL if codes - {_MODES["i4"]}
-            else I4_KERNEL if codes else KERNEL)
+    i4_names = {c: step for c, step, _ in _I4_MODES.values()}
+    name = (MOE_KERNEL if moe else BYTE_KERNEL if codes - set(i4_names)
+            else i4_names[min(codes)] if codes else KERNEL)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1
     if routes is not None and moe:

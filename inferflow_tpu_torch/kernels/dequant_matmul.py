@@ -8,7 +8,9 @@ the Q8 formats Q8_B32T2 (the ``Q8`` alias and the q8c container) and
 Q8_B32T1 (``q8_matmul``), and the sub-byte formats Q6_B64T1, Q5_B64T1,
 Q5_B32T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16, Q3_B32T1A/B and Q2_B32T1A/B
 (``subbyte_matmul``) --, kernel B5 (`_make_i4_kernel`) for the i4 device
-layout's ``data_i4p`` plane (``i4_matmul``), and kernel B6
+layout's ``data_i4p`` plane of the four 4-bit single-plane formats
+(Q4_B64T1: ``i4_matmul``; Q4_B32T1A/B: ``i4_matmul_b32``; Q4_B32T2:
+``i4_matmul_b32f``; Q4_B16: ``i4_matmul_b16f``), and kernel B6
 (`_make_kernel`) in its pair8 mode for Q3H_B64T1's ``pair8`` plane
 (``q3h_matmul``).  On a CUDA tensor it launches the hand-written kernel of
 ``csrc/dequant_matmul.cu`` or ``csrc/subbyte_matmul.cu`` (both built on
@@ -32,7 +34,10 @@ from . import _build
 
 KERNEL = "dequant_matmul"
 Q8_KERNEL = "q8_matmul"
-I4_KERNEL = "i4_matmul"
+I4_KERNEL = "i4_matmul"  # B5 on Q4_B64T1
+I4_B32_KERNEL = "i4_matmul_b32"  # B5 on Q4_B32T1A / B (32 rows, f16)
+I4_B32F_KERNEL = "i4_matmul_b32f"  # B5 on Q4_B32T2 (32 rows, f32)
+I4_B16F_KERNEL = "i4_matmul_b16f"  # B5 on Q4_B16 (16 rows, f32)
 Q3H_KERNEL = "q3h_matmul"
 SUBBYTE_KERNEL = "subbyte_matmul"
 
@@ -53,6 +58,14 @@ _KERNELS = {
     ("data", "Q8_B32T2"): (Q8_KERNEL, "dequant_matmul", "ift_q8_matmul"),
     ("data", "Q8_B32T1"): (Q8_KERNEL, "dequant_matmul", "ift_q8u_matmul"),
     (I4_PLANE, "Q4_B64T1"): (I4_KERNEL, "dequant_matmul", "ift_i4_matmul"),
+    (I4_PLANE, "Q4_B32T1A"): (I4_B32_KERNEL, "dequant_matmul",
+                              "ift_i4b32_matmul"),
+    (I4_PLANE, "Q4_B32T1B"): (I4_B32_KERNEL, "dequant_matmul",
+                              "ift_i4b32_matmul"),
+    (I4_PLANE, "Q4_B32T2"): (I4_B32F_KERNEL, "dequant_matmul",
+                             "ift_i4b32f_matmul"),
+    (I4_PLANE, "Q4_B16"): (I4_B16F_KERNEL, "dequant_matmul",
+                           "ift_i4b16f_matmul"),
     (PAIR8_PLANE, "Q3H_B64T1"): (Q3H_KERNEL, "dequant_matmul",
                                  "ift_q3h_matmul"),
     **{("data", fmt): (SUBBYTE_KERNEL, "subbyte_matmul", entry)
@@ -186,7 +199,10 @@ def i4_weight(qt: QuantizedTensor) -> torch.Tensor:
     """The (K, N) bf16 weights B5 multiplies by: bf16(n*sc + fold), with n
     the signed nibble and fold = 8*sc + base in float32 (the TPU kernel's
     arithmetic; codec_torch.dequantize computes (n + 8)*sc + base, whose
-    one rounding can differ from these two by an ulp)."""
+    one rounding can differ from these two by an ulp), per block of the
+    format (64, 32 or 16 rows).  Scale and base are taken as the codec
+    stores them, f16 or f32: for Q4_B32T2 and Q4_B16 the TPU kernel reads
+    their f32 values as f16 bits (ROADMAP C7), the port does not."""
     blk = get_format(qt.format).block
     k_s, n = qt.storage_k, int(qt.shape[-1])
     sc = qt.scale.float()

@@ -212,6 +212,14 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return w[:k] if k_s != k else w
 
 
+def true_div(a: torch.Tensor, s: float) -> torch.Tensor:
+    """a / s as IEEE division on every device.  PyTorch's CUDA kernels
+    multiply by the reciprocal when the divisor is a Python scalar, which
+    moves some quantized codes off the reference codec's (the CPU divides);
+    a 0-dim divisor on a's device takes the true division on both."""
+    return a / torch.full((), s, dtype=a.dtype, device=a.device)
+
+
 def _safe_inverse(scale: torch.Tensor) -> torch.Tensor:
     one = torch.ones_like(scale)
     return torch.where(scale >= 1e-5,
@@ -221,7 +229,8 @@ def _safe_inverse(scale: torch.Tensor) -> torch.Tensor:
 
 def quantize(x: torch.Tensor, fmt_name: str) -> QuantizedTensor:
     """Quantize a (K, N) tensor on its device.  Byte-identical to
-    codec_jax.quantize for the ported formats; Q3H comes out as the
+    codec_jax.quantize for the ported formats, on the card as on the CPU
+    (every division by a constant is true_div); Q3H comes out as the
     ``pair8`` plane, as there."""
     fmt = get_format(fmt_name)
     k, n = x.shape
@@ -233,7 +242,7 @@ def quantize(x: torch.Tensor, fmt_name: str) -> QuantizedTensor:
 
     if fmt.base_kind == "zero":
         m0 = torch.maximum(vmin.abs(), vmax.abs())
-        scale = m0 / fmt.scale_div
+        scale = true_div(m0, fmt.scale_div)
         qf0 = xb * _safe_inverse(scale)[:, None, :]
         # C round(): half away from zero
         q = torch.trunc(qf0 + torch.copysign(torch.full_like(qf0, 0.5), qf0))
@@ -245,16 +254,16 @@ def quantize(x: torch.Tensor, fmt_name: str) -> QuantizedTensor:
     base_q = vmin
     if fmt.adjust_base:
         u8 = torch.trunc(vmin * 100.0 + 100.01).to(torch.int32) & 0xFF
-        base_q = u8.float() / 100.0 - 1.0
-    scale = (vmax - base_q) / fmt.scale_div
+        base_q = true_div(u8.float(), 100.0) - 1.0
+    scale = true_div(vmax - base_q, fmt.scale_div)
     inv = _safe_inverse(scale)
     stored_base = base_q + 0.5 * scale if fmt.base_kind == "mid" else base_q
 
     if fmt.meta == "u8":
         su8 = torch.trunc(scale * 1000.0 + 0.5).clamp(0, 255)
-        scale_stored = su8 / 1000.0
+        scale_stored = true_div(su8, 1000.0)
         bu8 = torch.trunc(stored_base * 100.0 + 100.5).to(torch.int32) & 0xFF
-        base_stored = bu8.float() / 100.0 - 1.0
+        base_stored = true_div(bu8.float(), 100.0) - 1.0
     else:
         scale_stored = scale.to(torch.float16)
         base_stored = stored_base.to(torch.float16)
@@ -325,7 +334,7 @@ def quantize_q8_sym(x: torch.Tensor, block: int = 32):
     shape = x.shape
     nb = shape[-1] // block
     xb = x.float().reshape(shape[:-1] + (nb, block))
-    scale = xb.abs().amax(dim=-1) / 127.0
+    scale = true_div(xb.abs().amax(dim=-1), 127.0)
     q = torch.round(xb * _safe_inverse(scale)[..., None])  # half to even
     q = q.clamp(-128, 127).to(torch.int8).reshape(shape)
     return q, scale.to(torch.float16)
@@ -388,7 +397,7 @@ def requantize_i8_colwise(qt) -> Int8MXUTensor:
     else:
         wd = qt.float()
     amax = wd.abs().amax(dim=0)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = true_div(torch.clamp(amax, min=1e-12), 127.0)
     q = torch.round(wd / scale[None, :]).clamp(-127, 127)  # half to even
     return Int8MXUTensor(tuple(wd.shape), q.to(torch.int8), scale)
 
@@ -398,7 +407,7 @@ def int8_rowwise_activations(x: torch.Tensor):
     row scales), rounding half to even as jnp.round does."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = true_div(torch.clamp(amax, min=1e-12), 127.0)
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 

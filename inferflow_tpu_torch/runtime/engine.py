@@ -26,6 +26,9 @@ mode for i8mm weights and B <= 8, else the per-layer loop with kernel B7.
 A finished query's pages go back to the pool and its table row is zeroed
 (page 0), so its slot's throw-away rows never land in a page that a live
 query owns.
+``from_config`` builds the engine an EngineConfig describes, loading the
+checkpoint and tokenizer from the model dir (runtime/factory.make_engine
+calls it for decoder-only models).
 Not ported here: host offload, speculative decoding, meshes, ring and
 pipelined prefill (their options raise), CUDA graphs, and the JAX engine's
 fused-step probe: if kernel B4 fails to build or launch, the step raises.
@@ -50,6 +53,8 @@ from ..models.spec import ModelSpec
 from ..quant.codec_torch import Int8MXUTensor, QuantizedTensor
 from ..quant.formats import is_quantized
 from ..sampling.strategies import DecodingStrategies, SamplingOptions
+from ..utils.logging_util import log_memory_stat
+from ..utils.study import TAG_LOGITS, PerfStat, StudyMode, perf_key
 from .kv_cache import KVCache
 from .paged_kv import PagedKVCache, scatter_prefill_pages
 from .query_state import DECODING, FINISHED, QueryState, QueryStateTable
@@ -161,6 +166,12 @@ class InferenceEngine:
         self.eos_ids = eos_ids
         self._lock = threading.Lock()
         self.perf_stat: Dict[str, float] = {}
+        # study-mode logits dumps and per-phase perf statistics (off unless
+        # from_config turns them on)
+        self.study = StudyMode(enabled=False)
+        self.perf = PerfStat(enabled=False)
+        self.load_stats: Dict[str, float] = {}  # from_config's load times
+        log_memory_stat(self.params, self.cache)
         # chunked prefill: prompts longer than one chunk take prefill_chunk
         # tokens per engine step against the main cache
         self.prefill_chunk = 256
@@ -308,6 +319,7 @@ class InferenceEngine:
                     self.cache.scatter_slot(tmp, qs.slot, len(tokens))
                 self._finish_prefill(qs, last_logits.cpu().numpy(), results)
             self.perf_stat["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            self.perf.add(perf_key(-1, 1), self.perf_stat["prefill_ms"])
 
         with self._lock:
             # a query prefilled this step already produced its token
@@ -326,14 +338,62 @@ class InferenceEngine:
                 by_slot[qs.slot] = qs
             rows = self._decode_step(tokens, active).cpu().numpy()
             for slot, qs in by_slot.items():
+                self.study.dump(TAG_LOGITS, rows[slot],
+                                name=f"decode q{qs.query_id}")
                 tok = self.strategies.choose_token(
                     qs.query_id, rows[slot], qs.prompt_tokens + qs.generated)
                 results.append(self._make_result(qs, tok))
             self.perf_stat["decode_ms"] = (time.perf_counter() - t1) * 1e3
+            self.perf.add(perf_key(-1, 2), self.perf_stat["decode_ms"])
         return results
+
+    @classmethod
+    def from_config(cls, config, model_index: int = 0,
+                    device="cuda") -> "InferenceEngine":
+        """A loaded engine from an EngineConfig (the JAX package's
+        InferenceEngine.from_config; the Init facade,
+        inference_engine.cc:43-229), on `device`: the card unless the
+        caller passes "cpu".  Loads the model's checkpoint
+        (loaders/model_loader.load_model) and tokenizer
+        (tokenizer/loading.load_tokenizer), and wires the config's slots,
+        context, paging, prefill budget (max_batch_tokens -> prefill_chunk)
+        and the study and perf flags.  Device groups of more than one
+        device (meshes, ROADMAP A item 10) raise NotImplementedError, as
+        do the other options the engine has not ported."""
+        from ..loaders.model_loader import load_model
+        from ..tokenizer.loading import load_tokenizer
+
+        groups = config.device_groups or [[0]]
+        if len(groups) > 1 or any(len(g) > 1 for g in groups):
+            raise NotImplementedError(
+                f"device groups {groups}: serving over more than one device "
+                "is not ported (ROADMAP A item 10)")
+        spec = config.models[model_index]
+        load_stats: Dict[str, float] = {}
+        params = load_model(spec, device=device, stats=load_stats)
+        tok = load_tokenizer(spec)
+        eng = cls(spec, params,
+                  max_concurrent_queries=config.max_concurrent_queries,
+                  max_context_len=spec.max_context_len,
+                  tokenizer=tok, vocab=tok.vocab if tok else None,
+                  device=device,
+                  cpu_layer_count=max(config.decoder_cpu_layer_count, 0),
+                  sequence_parallel=config.sequence_parallel,
+                  pipeline_prefill=config.pipeline_prefill,
+                  kv_cache_paging=config.kv_cache_paging,
+                  kv_pool_tokens=config.kv_pool_tokens)
+        eng.load_stats = load_stats
+        eng.study = StudyMode(enabled=config.is_study_mode,
+                              show_tensors=config.show_tensors)
+        eng.perf = PerfStat(enabled=config.enable_perf_stat)
+        if config.max_batch_tokens > 0:
+            # the reference's max_token_num prefill budget per step
+            eng.prefill_chunk = config.max_batch_tokens
+        return eng
 
     def _finish_prefill(self, qs: QueryState, row: np.ndarray,
                         results: list) -> None:
+        self.study.dump(TAG_LOGITS, row, name=f"prefill q{qs.query_id}")
         tok = self.strategies.choose_token(qs.query_id, row,
                                            qs.prompt_tokens)
         results.append(self._make_result(qs, tok))

@@ -348,8 +348,9 @@ def test_routing_and_layouts(llama, monkeypatch):
         got[gb] = codec_torch.resolve_auto_layout(
             tzoo.make_spec("llama2-13b"), "Q4_B64T1", "cuda")
     assert got == {80: "i8mm", 16: "i4"}
-    # a block-32 4-bit format repacks too, but neither kernel serves it
-    qt = codec_torch.repack_i4(codec_torch.quantize(torch.randn(128, 256),
+    # a block-32 4-bit format repacks too, and the fused step takes it in
+    # its own i4x8 instantiation beside the 64-row products
+    qt = codec_torch.repack_i4(codec_torch.quantize(torch.randn(512, 256),
                                                     "Q4_B32T1A"))
     assert set(qt.planes) == {"data_i4p"}
     layers = [dict(lp, ffn=dict(lp["ffn"], w2=qt if i == 0 else
@@ -357,5 +358,5 @@ def test_routing_and_layouts(llama, monkeypatch):
               for i, lp in enumerate(params_t["layers"])]
     cache = TKVCache.create(hp.decoder_layers, 2, 64, hp.kv_heads,
                             hp.head_dim, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="64-row blocks"):
-        tds.fused_step_supported(spec_t, layers, cache, 2)
+    assert tds.fused_step_supported(spec_t, layers, cache, 2)
+    assert tds._i4_geometry(qt)[0] == 4

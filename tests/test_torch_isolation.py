@@ -1,16 +1,20 @@
 """The PyTorch package stands alone, and nothing in it falls back silently.
 
 - Importing every module of ``inferflow_tpu_torch`` (in a fresh process;
-  ``config/`` and ``runtime/paged_kv.py`` among them) leaves ``jax`` and
+  ``config/``, ``runtime/paged_kv.py``, the loaders, the tokenizer and
+  ``runtime/factory.py`` among them) leaves ``jax`` and
   ``inferflow_tpu`` out of ``sys.modules``; no module of it, nothing in
   ``chip_smoke.py`` and no card test (``tests/test_torch_cuda*.py``) names
   them in an import.
-- Entry points default to the card and raise where there is none; the
-  kernel wrappers (B1 for Q4, Q8 and the sub-byte weights, B2, B3, B5,
-  B6, B7, the i8mm
-  product and the fused decode step B4, dense and paged, i8mm, i4 and
-  byte, and its routed-expert mode (g) with its routing launch) raise for a tensor that is neither on the CPU nor on a card, and
-  the kernel build raises without a CUDA compiler.
+- Entry points (the zoo, the engine, ``InferenceEngine.from_config``,
+  ``make_engine``, ``load_model``, ``load_std``, the synthetic checkpoint
+  writer) default to the card and raise where there is none; the kernel
+  wrappers (B1 for Q4, Q8 and the sub-byte weights, B2, B3, B5 on every
+  4-bit format, B6, B7, the i8mm product and the fused decode step B4,
+  dense and paged, i8mm, i4 (every block geometry) and byte, and its
+  routed-expert mode (g) with its routing launch) raise for a tensor that
+  is neither on the CPU nor on a card, and the kernel build raises
+  without a CUDA compiler.
 """
 
 import ast
@@ -38,7 +42,14 @@ bad = sorted(m for m in sys.modules
 missing = [n for n in ("inferflow_tpu_torch.config.ini",
                        "inferflow_tpu_torch.config.model_spec",
                        "inferflow_tpu_torch.config.engine_config",
-                       "inferflow_tpu_torch.runtime.paged_kv")
+                       "inferflow_tpu_torch.runtime.paged_kv",
+                       "inferflow_tpu_torch.runtime.factory",
+                       "inferflow_tpu_torch.loaders.model_loader",
+                       "inferflow_tpu_torch.loaders.std_format",
+                       "inferflow_tpu_torch.loaders.synthetic",
+                       "inferflow_tpu_torch.tokenizer.loading",
+                       "inferflow_tpu_torch.utils.study",
+                       "inferflow_tpu_torch.models.network_structure")
            if n not in names]
 print(len(names), bad + missing)
 """
@@ -50,7 +61,7 @@ def test_import_all_modules_without_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 19
+    assert int(count) >= 35
     assert bad == "[]"
 
 
@@ -102,6 +113,20 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"layers": [],
                            "lm_head": params["lm_head"].to_np()})
+    # engine construction from config and checkpoints on disk
+    from inferflow_tpu_torch.config import EngineConfig
+    from inferflow_tpu_torch.loaders.model_loader import load_model
+    from inferflow_tpu_torch.loaders.std_format import load_std
+    from inferflow_tpu_torch.loaders.synthetic import write_llama_checkpoint
+    from inferflow_tpu_torch.runtime.factory import make_engine
+    config = EngineConfig(models=[make_spec("test-tiny")])
+    for build in (lambda: make_engine(config),
+                  lambda: InferenceEngine.from_config(config),
+                  lambda: load_model(make_spec("test-tiny"), "."),
+                  lambda: load_std("unused.safetensors"),
+                  lambda: write_llama_checkpoint("unused", {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 def test_wrappers_refuse_other_devices():
@@ -144,9 +169,12 @@ def test_wrappers_refuse_other_devices():
                     device="meta")
     i4 = make_synthetic_params(spec, "Q4_B64T1", device="cpu",
                                device_layout="i4")
+    i4_formats = [make_synthetic_params(spec, fmt, device="cpu",
+                                        device_layout="i4")
+                  for fmt in ("Q4_B32T1A", "Q4_B32T2", "Q4_B16")]
     for c in (cache, PagedKVCache.create(1, 2, 512, hp.kv_heads, hp.head_dim,
                                          quantized=True, device="cpu")):
-        for p in (params, i4):
+        for p in [params, i4] + i4_formats:
             with pytest.raises(ValueError, match="unsupported device"):
                 fused_decode_step(spec, p["layers"], x,
                                   torch.zeros((2, 1), dtype=torch.int32), c)
@@ -156,7 +184,8 @@ def test_wrappers_refuse_other_devices():
     q3h = make_synthetic_params(spec, "Q3H_B64T1", device="cpu",
                                 device_layout="packed")
     assert set(q3h["lm_head"].planes) == {"pair8"}
-    for w in (i4["lm_head"], q3h["lm_head"]):
+    for w in [i4["lm_head"], q3h["lm_head"]] + [p["lm_head"]
+                                                for p in i4_formats]:
         for fn in (quantized_matmul, linear):
             with pytest.raises(ValueError, match="unsupported device"):
                 fn(torch.empty((2, hp.embd_dims), device="meta"), w)

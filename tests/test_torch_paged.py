@@ -84,7 +84,7 @@ def test_engine_config_matches_jax():
     specs, field by field (the pipeline ini's inline comment after
     `devices` is refused by both loaders alike)."""
     paths = sorted((ROOT / "configs").glob("*.ini"))
-    assert len(paths) == 9
+    assert len(paths) == 10
     refused = 0
     for path in paths:
         ref, got = _load(jload, path), _load(tload, path)
@@ -124,6 +124,13 @@ def test_engine_config_matches_jax():
             q8.model.device_kv_cache_data_type,
             q8.model.max_context_len) \
         == ("llama2_7b", "", "Q8", "Q8", 4096)
+    q4b32 = tload(str(ROOT / "configs" / "inferflow_service.q4b32.ini"))
+    assert (q4b32.max_concurrent_queries, q4b32.kv_cache_paging) == (8, False)
+    assert (q4b32.model.sid, q4b32.model.device_layout,
+            q4b32.model.device_weight_data_type,
+            q4b32.model.device_kv_cache_data_type,
+            q4b32.model.max_context_len) \
+        == ("llama2_7b", "i4", "Q4_B32T1A", "Q8", 4096)
 
 
 def _jax_pool_to_logical(jc):
