@@ -193,6 +193,28 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    - holds every row (n) sampled against a twin: the same checkpoint and
      ini with the packed layout (Q4_B32T1A wire planes: B1's sub-byte case
      and B2), built after (n)'s engine is freed and fed (n)'s tokens;
+   - holds B4's mode (b') (the i4 layout with exact bf16 activations,
+     INFERFLOW_I4_DOT=bf16 for these phases only) against its plain
+     versions: its GEMV alone on Q4_B64T1, Q4_B32T1A, Q4_B32T2 and Q4_B16
+     at the five products, M in {1, 8}, timed beside mode (b)'s GEMV
+     (library: torch.matmul on the pre-dequantized bf16 weight); the
+     step at 32 layers on the loaded Q4_B32T1A weights, B = 8 and B = 1,
+     each layer alone and then the stack, timed beside mode (b);
+11. (o) serves the same checkpoint and ini over HTTP in mode (b'): the
+   engine from make_engine, warmed up, behind InferFlowService on
+   127.0.0.1 (an ephemeral port), driven with InferFlowClient and raw
+   requests under a socket timeout (O_TIMEOUT_S): health; one prompt of
+   text blocking and streamed (SSE), the two texts equal and equal to the
+   same engine's generate on that prompt alone; OpenAI
+   /v1/chat/completions blocking and streamed (ending in data: [DONE]);
+   12 concurrent greedy requests of (e)'s lengths made from text, each
+   ending with its MAX_NEW tokens (8 slots: a request answered 429 is
+   sent again); every decode step B4 (b') in its 32-row instantiation, no
+   mode (b) step, the loop thread alive until stopped and without an
+   error; prints time to first token and ms per token from the client's
+   clock, tokens per second over the 12 requests and the decode idle
+   share under torch.profiler while 8 requests decode; then its rows,
+   fed (n)'s tokens, against (n)'s packed twin at (n)'s gates;
    (n-cpu) a one-layer checkpoint of the same width, the card engine
        against the CPU engine, both from make_engine; (n-t2) and (n-b16)
        the same checkpoint in Q4_B32T2 and Q4_B16, the i4 engine on the
@@ -206,9 +228,12 @@ summary ``{"kernels": [...]}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -496,6 +521,43 @@ ENGINE_N_DECODE_TOL = ENGINE_E_DECODE_TOL
 # a packed twin their rows would also carry the i4x8 mode's int8
 # activations (ROADMAP C4), which the plain-step twin shares
 ENGINE_NCPU_PROMPTS = (7, 300, 13)
+# B4 mode (b'), the i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT set to
+# anything but i8; csrc WeightMode 7-10): per block geometry its GEMV's
+# launch count, mode (b)'s GEMV timed beside it, and its step's count.
+# The GEMV alone on the four geometries at llama2-7b's five products (run
+# (n)'s loaded Q4_B32T1A weights, their values quantized again for the
+# others); the step at 32 layers on the loaded weights, held at mode (b)'s
+# tolerances (ONE_LAYER_TOL per layer, I4_FUSED_TOL for the stack)
+I4BF16_FORMATS = {
+    "Q4_B64T1": ("i4bf16_gemv", "i4x8_gemv", "fused_decode_step_i4bf16"),
+    "Q4_B32T1A": ("i4bf16_gemv_b32", "i4x8_gemv_b32",
+                  "fused_decode_step_i4bf16_b32"),
+    "Q4_B32T2": ("i4bf16_gemv_b32f", "i4x8_gemv_b32f",
+                 "fused_decode_step_i4bf16_b32f"),
+    "Q4_B16": ("i4bf16_gemv_b16f", "i4x8_gemv_b16f",
+               "fused_decode_step_i4bf16_b16f")}
+# run (o): the HTTP/OpenAI service (serving/http_server.InferFlowService
+# on 127.0.0.1, an ephemeral port) over make_engine on run (n)'s
+# checkpoint and ini, with INFERFLOW_I4_DOT=bf16 for this run only, warmed
+# up before it binds; driven by serving/client.InferFlowClient under a
+# socket timeout of O_TIMEOUT_S: health, one prompt blocking and streamed
+# (O_PROMPT_WORDS words of text), OpenAI blocking and streamed, then run
+# (e)'s 12 prompt lengths made from text as 12 concurrent greedy requests
+# of MAX_NEW tokens (8 slots: the service answers 429 while every slot is
+# taken, and a request is sent again O_RETRY_S later), then O_PROFILE_Q
+# short requests of O_PROFILE_NEW tokens decoding together, O_PROFILE_STEPS
+# engine steps of them under torch.profiler.  Its rows, fed (n)'s tokens,
+# are held against (n)'s packed twin at (n)'s gates; with bf16 activations
+# in every product they are expected nearer the twin than (n)'s i4x8 rows
+O_TIMEOUT_S = 300.0
+O_RETRY_S = 0.05
+O_PROMPT_WORDS = 40
+O_PROFILE_Q = 8
+O_PROFILE_NEW = 64
+O_PROFILE_STEPS = 24
+ENGINE_O_PROMPTS = ENGINE_N_PROMPTS
+ENGINE_O_MUST = ("fused_decode_step_i4bf16_b32", "i4_matmul_b32",
+                 "chunk_attention")
 
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
@@ -552,6 +614,15 @@ KERNEL_SOURCES = {
     **{name: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
               "inferflow_tpu/kernels/decode_step.py:537")
        for name in ("i4x8_gemv_b32", "i4x8_gemv_b32f", "i4x8_gemv_b16f")},
+    # B4 in its mode (b') (the TPU kernel's bf16-unpack i4 tile,
+    # stream_mm :573-583), one instantiation per geometry, and its GEMV
+    # alone
+    **{step: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+              "inferflow_tpu/kernels/decode_step.py:255")
+       for _, _, step in I4BF16_FORMATS.values()},
+    **{gemv: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+              "inferflow_tpu/kernels/decode_step.py:573")
+       for gemv, _, _ in I4BF16_FORMATS.values()},
 }
 
 
@@ -2776,6 +2847,7 @@ def phase_engine_n_twin(dev, root: str, ctx) -> dict:
     report["ok"] = bool(report["ok"] and report["prefill_max_abs_err"]
                         <= ENGINE_N_PREFILL_TOL)
     emit(report)
+    ctx.update(twin_rows=ref_rows, twin_report=report)
     assert report["ok"], "run n: rows disagree with the packed engine"
     return ref_launches
 
@@ -2866,97 +2938,188 @@ def _i4_layers_as(layers, fmt):
     return out
 
 
-def phase_b4_i4_formats(timer, dev, spec, params) -> list:
-    """B4 mode (b) at full llama2-7b width and depth on I4_STEP_FORMATS,
-    B = 8 and B = 1, against its plain version on twin caches: first each
-    layer alone on the plain stack's input to it (ONE_LAYER_TOL x
-    max|plain| each), then the whole stack (I4_FUSED_TOL x max|plain|, the
-    same bits on a second run), as the Q4_B64T1 phase holds it."""
-    from inferflow_tpu_torch.kernels import decode_step
+@contextlib.contextmanager
+def _with_i4_dot(value):
+    """INFERFLOW_I4_DOT set to `value` inside, restored after."""
+    old = os.environ.get("INFERFLOW_I4_DOT")
+    os.environ["INFERFLOW_I4_DOT"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("INFERFLOW_I4_DOT", None)
+        else:
+            os.environ["INFERFLOW_I4_DOT"] = old
+
+
+def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
+                   peak, beside=None) -> list:
+    """B4 at full depth on i4 `layers` in the mode INFERFLOW_I4_DOT selects
+    now (launch count `kernel`), B = 8 (I4_FUSED_LENGTHS) and B = 1,
+    against its plain version on twin caches: first each layer alone on the
+    plain stack's input to it (ONE_LAYER_TOL x max|plain| each), then the
+    whole stack (I4_FUSED_TOL x max|plain|, the same bits on a second run);
+    times the step, its plain version (I4_FORMATS_PLAIN_ITERS calls) and,
+    with `beside` = (name, INFERFLOW_I4_DOT value), the step in that other
+    mode on the same inputs ("<name>_ms").  Bound: the bytes, or the
+    operations at `peak`."""
+    from inferflow_tpu_torch.kernels import _build, decode_step
     hp = spec.hyper_params
     n_layers = hp.decoder_layers
     rows = []
-    for fmt in I4_STEP_FORMATS:
-        layers = _i4_layers_as(params["layers"], fmt)
-        for lengths in (I4_FUSED_LENGTHS, (I4_CONTEXT // 2,)):
-            b = len(lengths)
-            cache, gen = _filled_cache(dev, spec, b, I4_CONTEXT, seed=93,
-                                       context=I4_CONTEXT)
-            cache.with_length(torch.tensor(lengths, device=dev))
-            twin = _twin(cache)
-            tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
-                                   device=dev)
-            x = params["dec_embeddings"][tokens]
-            pos = cache.length[:, None].clone()
-            # layer by layer, each on the plain stack's input to it
-            layer_rel, h = [], x
-            for i in range(n_layers):
-                views = [_twin(_layer_view(cache, i)) for _ in range(2)]
-                got1, _ = decode_step.fused_decode_step(
-                    spec, layers[i:i + 1], h, pos, views[0])
-                ref1, _ = decode_step.fused_decode_step_plain(
-                    spec, layers[i:i + 1], h, pos, views[1])
-                layer_rel.append(compare(got1, ref1, ONE_LAYER_TOL))
-                h = ref1
-                del views
-            got, _ = decode_step.fused_decode_step(spec, layers, x, pos,
-                                                   cache)
-            again, _ = decode_step.fused_decode_step(spec, layers, x, pos,
-                                                     cache)
-            ref, _ = decode_step.fused_decode_step_plain(spec, layers, x,
-                                                         pos, twin)
-            torch.cuda.synchronize()
-            stack = compare(got, ref, I4_FUSED_TOL)
-            live = sum(min(n, I4_CONTEXT) for n in lengths)
-            nblk = hp.head_dim // 32
-            kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
-                                                            + 2 * nblk)
-            new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim
-                                                         + 2 * nblk)
-            wbytes = sum(lp[g][w].nbytes for lp in layers
-                         for g, w in (("attn", "qkv"), ("attn", "wo"),
-                                      ("ffn", "w1n3"), ("ffn", "w2")))
-            wbytes += sum(lp[g]["pre_norm"].nbytes for lp in layers
-                          for g in ("attn", "ffn"))
-            bytes_moved = wbytes + kv_bytes + new_rows + 2 * 2 * b \
-                * hp.embd_dims
-            ops = 2 * b * sum(lp[g][w].storage_k * lp[g][w].shape[-1]
-                              for lp in layers
-                              for g, w in (("attn", "qkv"), ("attn", "wo"),
-                                           ("ffn", "w1n3"), ("ffn", "w2")))
-            b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
-            same = bool(torch.equal(got, again))
-            ok = bool(stack["ok"] and same
-                      and all(r["ok"] for r in layer_rel))
-            row = {"phase": "kernel", "kernel": I4_FORMATS[fmt][2],
-                   "shape": f"{I4_MODEL_NAME} i4 {fmt} L={n_layers} B={b} "
-                            f"lengths={list(lengths)} S={I4_CONTEXT}",
-                   "max_abs_err": stack["max_abs_err"],
-                   "rel_err": stack["rel_err"],
-                   "tolerance": f"stack: {stack['tolerance']}; each layer "
-                                f"alone on the plain stack's input: "
-                                f"max_abs_err <= {ONE_LAYER_TOL} * "
-                                f"max|plain|; the same bits on a second run",
-                   "layer_rel_errs": [r["rel_err"] for r in layer_rel],
-                   "worst_layer_rel_err": max(r["rel_err"]
-                                              for r in layer_rel),
-                   "same_bits_twice": same, "ok": ok,
-                   "ms": timer(lambda: decode_step.fused_decode_step(
-                       spec, layers, x, pos, cache),
-                       f"fused_decode_step i4 {fmt} B={b}"),
-                   "plain_ms": timer(
-                       lambda: decode_step.fused_decode_step_plain(
-                           spec, layers, x, pos, twin),
-                       f"fused_decode_step_plain i4 {fmt} B={b}",
-                       I4_FORMATS_PLAIN_ITERS),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes_bound": bytes_moved, "weight_bytes": wbytes}
-            emit(row)
-            rows.append(row)
-            del cache, twin
-            torch.cuda.empty_cache()
-        del layers
+    for lengths in (I4_FUSED_LENGTHS, (I4_CONTEXT // 2,)):
+        b = len(lengths)
+        cache, gen = _filled_cache(dev, spec, b, I4_CONTEXT, seed=93,
+                                   context=I4_CONTEXT)
+        cache.with_length(torch.tensor(lengths, device=dev))
+        twin = _twin(cache)
+        tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
+                               device=dev)
+        x = embeddings[tokens]
+        pos = cache.length[:, None].clone()
+        # layer by layer, each on the plain stack's input to it
+        layer_rel, h = [], x
+        for i in range(n_layers):
+            views = [_twin(_layer_view(cache, i)) for _ in range(2)]
+            got1, _ = decode_step.fused_decode_step(
+                spec, layers[i:i + 1], h, pos, views[0])
+            ref1, _ = decode_step.fused_decode_step_plain(
+                spec, layers[i:i + 1], h, pos, views[1])
+            layer_rel.append(compare(got1, ref1, ONE_LAYER_TOL))
+            h = ref1
+            del views
+        _build.launch_counts.clear()
+        got, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
+        again, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
+        launched = dict(_build.launch_counts)
+        ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos,
+                                                     twin)
+        torch.cuda.synchronize()
+        stack = compare(got, ref, I4_FUSED_TOL)
+        live = sum(min(n, I4_CONTEXT) for n in lengths)
+        nblk = hp.head_dim // 32
+        kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
+                                                        + 2 * nblk)
+        new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim
+                                                     + 2 * nblk)
+        wbytes = sum(lp[g][w].nbytes for lp in layers
+                     for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                  ("ffn", "w1n3"), ("ffn", "w2")))
+        wbytes += sum(lp[g]["pre_norm"].nbytes for lp in layers
+                      for g in ("attn", "ffn"))
+        bytes_moved = wbytes + kv_bytes + new_rows + 2 * 2 * b * hp.embd_dims
+        ops = 2 * b * sum(lp[g][w].storage_k * lp[g][w].shape[-1]
+                          for lp in layers
+                          for g, w in (("attn", "qkv"), ("attn", "wo"),
+                                       ("ffn", "w1n3"), ("ffn", "w2")))
+        b_ms, b_by = bound(bytes_moved, ops, peak)
+        same = bool(torch.equal(got, again))
+        ok = bool(stack["ok"] and same and launched == {kernel: 2}
+                  and all(r["ok"] for r in layer_rel))
+        row = {"phase": "kernel", "kernel": kernel,
+               "shape": f"{I4_MODEL_NAME} i4 {label} L={n_layers} B={b} "
+                        f"lengths={list(lengths)} S={I4_CONTEXT}",
+               "max_abs_err": stack["max_abs_err"],
+               "rel_err": stack["rel_err"],
+               "tolerance": f"stack: {stack['tolerance']}; each layer "
+                            f"alone on the plain stack's input: "
+                            f"max_abs_err <= {ONE_LAYER_TOL} * "
+                            f"max|plain|; the same bits on a second run",
+               "layer_rel_errs": [r["rel_err"] for r in layer_rel],
+               "worst_layer_rel_err": max(r["rel_err"] for r in layer_rel),
+               "same_bits_twice": same, "launched": launched, "ok": ok,
+               "ms": timer(lambda: decode_step.fused_decode_step(
+                   spec, layers, x, pos, cache),
+                   f"fused_decode_step {kernel} B={b}"),
+               "plain_ms": timer(
+                   lambda: decode_step.fused_decode_step_plain(
+                       spec, layers, x, pos, twin),
+                   f"fused_decode_step_plain {kernel} B={b}",
+                   I4_FORMATS_PLAIN_ITERS),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound": bytes_moved, "weight_bytes": wbytes}
+        if beside is not None:
+            with _with_i4_dot(beside[1]):
+                row[f"{beside[0]}_ms"] = timer(
+                    lambda: decode_step.fused_decode_step(
+                        spec, layers, x, pos, cache),
+                    f"fused_decode_step {beside[0]} B={b}")
+        emit(row)
+        rows.append(row)
+        del cache, twin
+        torch.cuda.empty_cache()
     return rows
+
+
+def phase_b4_i4_formats(timer, dev, spec, params) -> list:
+    """B4 mode (b) at full llama2-7b width and depth on I4_STEP_FORMATS,
+    B = 8 and B = 1, against its plain version (_b4_stack_rows), as the
+    Q4_B64T1 phase holds it."""
+    rows = []
+    with _with_i4_dot("i8"):
+        for fmt in I4_STEP_FORMATS:
+            layers = _i4_layers_as(params["layers"], fmt)
+            rows += _b4_stack_rows(timer, dev, spec, layers,
+                                   params["dec_embeddings"],
+                                   I4_FORMATS[fmt][2], fmt, H100_INT8_OPS)
+            del layers
+    return rows
+
+
+def phase_i4bf16_gemv(timer, dev, params) -> list:
+    """B4 (b')'s GEMV alone on the four block geometries at the five
+    products (the lm_head too, which the engines give B5), M in {1, 8},
+    against its plain version, the same bits twice; mode (b)'s GEMV timed
+    on the same inputs (library: torch.matmul on the pre-dequantized bf16
+    weight, the same function but for summation order)."""
+    from inferflow_tpu_torch.kernels.decode_step import (
+        i4_bf16_matmul_plain, i4bf16_gemv_cuda, i4x8_gemv_cuda)
+    from inferflow_tpu_torch.kernels.dequant_matmul import i4_weight
+    gen = torch.Generator(device=dev).manual_seed(94)
+    rows = []
+    for fmt, (kernel, i4x8, _) in I4BF16_FORMATS.items():
+        for name, qt in _i4_format_weights(params, fmt).items():
+            k, n = (int(v) for v in qt.shape)
+            w_bf16 = i4_weight(qt)
+            for m in (1, 8):
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                got = i4bf16_gemv_cuda(x, qt)
+                ref = i4_bf16_matmul_plain(x, qt)
+                again = i4bf16_gemv_cuda(x, qt)
+                torch.cuda.synchronize()
+                res = compare(got.to(torch.bfloat16), ref)
+                res["same_bits_twice"] = bool(torch.equal(got, again))
+                res["ok"] = res["ok"] and res["same_bits_twice"]
+                bytes_moved = 2 * m * k + qt.nbytes + 4 * m * n
+                b_ms, b_by = bound(bytes_moved, 2 * m * k * n)
+                row = {"phase": "kernel", "kernel": kernel,
+                       "shape": f"{name} {fmt} M={m} K={k} N={n}", **res,
+                       "ms": timer(lambda: i4bf16_gemv_cuda(x, qt)),
+                       "i4x8_ms": timer(lambda: i4x8_gemv_cuda(x, qt)),
+                       "i4x8_kernel": i4x8,
+                       "plain_ms": timer(lambda: i4_bf16_matmul_plain(x, qt),
+                                         f"i4_bf16_matmul_plain {name} "
+                                         f"{fmt}"),
+                       "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
+                       "library": "torch.matmul on the pre-dequantized bf16 "
+                                  "weight",
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes_bound": bytes_moved}
+                emit(row)
+                rows.append(row)
+    return rows
+
+
+def phase_b4_i4bf16(timer, dev, spec, params) -> list:
+    """B4 mode (b') at full llama2-7b width and depth on the loaded
+    Q4_B32T1A weights, B = 8 and B = 1, against its plain version
+    (_b4_stack_rows), with mode (b) timed beside it."""
+    with _with_i4_dot("bf16"):
+        return _b4_stack_rows(timer, dev, spec, params["layers"],
+                              params["dec_embeddings"],
+                              I4BF16_FORMATS["Q4_B32T1A"][2], "Q4_B32T1A",
+                              H100_BF16_FLOPS, beside=("i4x8", "i8"))
 
 
 def phase_engine_n_cut(dev, root: str, label: str, fmt: str,
@@ -3014,6 +3177,285 @@ def phase_engine_n_cut(dev, root: str, label: str, fmt: str,
                               ENGINE_CUT_CPU_TOL, ENGINE_CUT_CPU_NEW))
     emit(report)
     assert report["ok"], f"run {label}: rows disagree with the reference"
+    return launches
+
+
+def _o_request(base: str, body: dict, path: str = "/",
+               stream: bool = False):
+    """One request to the service under O_TIMEOUT_S, sent again after
+    O_RETRY_S while the service answers 429 (every slot taken).  Returns
+    (response JSON or the SSE payloads, seconds to the first SSE payload,
+    seconds in all, attempts)."""
+    import urllib.error
+    import urllib.request
+    attempts = 0
+    while True:
+        attempts += 1
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + path, json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=O_TIMEOUT_S) as resp:
+                if not stream:
+                    out = json.loads(resp.read().decode("utf-8"))
+                    return out, None, time.perf_counter() - t0, attempts
+                payloads, first = [], None
+                for raw in resp:
+                    line = raw.decode("utf-8").rstrip("\n")
+                    if line.startswith("data: "):
+                        first = first or time.perf_counter() - t0
+                        payloads.append(line[len("data: "):])
+                    else:
+                        assert not line, line
+                return payloads, first, time.perf_counter() - t0, attempts
+        except urllib.error.HTTPError as err:
+            if err.code != 429:
+                raise
+        time.sleep(O_RETRY_S)
+
+
+def _detok(tokenizer, ids) -> str:
+    """Tokens as the service turns them into text: each token's bytes, the
+    visible space U+2581 as a space, decoded as utf-8."""
+    return b"".join(tokenizer.vocab.id_to_bytes(t) for t in ids).replace(
+        b"\xe2\x96\x81", b" ").decode("utf-8", "replace")
+
+
+def phase_engine_o(dev, root: str, ctx) -> dict:
+    """Run (o): the HTTP/OpenAI service on run (n)'s checkpoint and ini in
+    mode (b') (INFERFLOW_I4_DOT=bf16 for this run only), warmed up, then
+    driven over HTTP (see O_TIMEOUT_S); its engine's rows held against
+    (n)'s packed twin."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.loaders.synthetic import sample_text
+    from inferflow_tpu_torch.runtime.factory import make_engine
+    from inferflow_tpu_torch.sampling.strategies import SamplingOptions
+    from inferflow_tpu_torch.serving import InferFlowClient, InferFlowService
+    with _with_i4_dot("bf16"):
+        cfg = _ini_from_tree(root)
+        t0 = time.perf_counter()
+        eng = make_engine(cfg)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        spec = eng.spec
+        template = spec.decoder_input_template or cfg.default_prompt_template
+        tok = eng.tokenizer
+        decode_steps = [0]
+        real_decode = eng._decode_step
+
+        def counting(*a):
+            decode_steps[0] += 1
+            return real_decode(*a)
+
+        eng._decode_step = counting
+        svc = InferFlowService(eng, port=0, prompt_template=template,
+                               model_name=Q4B32_MODEL, host="127.0.0.1")
+        base = f"http://127.0.0.1:{svc.port}"
+        client = InferFlowClient(base)
+        _build.launch_counts.clear()
+        svc.start(block=False)
+        try:
+            t_serve = time.perf_counter()
+            health = client.health(timeout=O_TIMEOUT_S)
+            prompt = sample_text(O_PROMPT_WORDS, seed=70)
+            greedy = {"text": prompt, "decoding_alg": "greedy"}
+            _, _, ttft_s, _ = _o_request(base, dict(greedy,
+                                                    max_output_len=1))
+            blocking, _, blocking_s, _ = _o_request(
+                base, dict(greedy, max_output_len=MAX_NEW))
+            streamed, first_s, stream_s, _ = _o_request(
+                base, dict(greedy, max_output_len=MAX_NEW,
+                           is_streaming_mode=True), stream=True)
+            chat = {"messages": [{"role": "user", "content": prompt}],
+                    "max_tokens": MAX_NEW}
+            oa, _, _, _ = _o_request(base, chat, "/v1/chat/completions")
+            oa_stream, _, _, _ = _o_request(base, dict(chat, stream=True),
+                                            "/v1/chat/completions",
+                                            stream=True)
+            # 12 concurrent greedy requests from text
+            ids = _text_prompts(tok, ENGINE_O_PROMPTS, seed=71)
+            texts = [tok.decode(p[1:]) for p in ids]
+            answers = [None] * len(texts)
+
+            def one_request(i):
+                answers[i] = _o_request(base, {"text": texts[i],
+                                               "max_output_len": MAX_NEW,
+                                               "decoding_alg": "greedy"})
+
+            threads = [threading.Thread(target=one_request, args=(i,))
+                       for i in range(len(texts))]
+            t_conc = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(O_TIMEOUT_S)
+            conc_s = time.perf_counter() - t_conc
+            served_s = time.perf_counter() - t_serve
+            launches = dict(_build.launch_counts)
+            steps_served = decode_steps[0]
+            alive = svc.core.is_alive() and svc.error is None
+            # the decode idle share while serving: O_PROFILE_Q requests
+            # decoding together; once every one has its first tokens, the
+            # loop thread itself profiles its next O_PROFILE_STEPS engine
+            # steps (a profiler started on another thread sees none of
+            # the loop's kernels)
+            prof_threads = [threading.Thread(target=_o_request, args=(
+                base, {"text": sample_text(6, seed=80 + i),
+                       "max_output_len": O_PROFILE_NEW,
+                       "decoding_alg": "greedy"})) for i in range(
+                O_PROFILE_Q)]
+            for t in prof_threads:
+                t.start()
+            deadline = time.perf_counter() + O_TIMEOUT_S
+            while time.perf_counter() < deadline:
+                with eng._lock:
+                    act = eng.table.active
+                    ready = len(act) == O_PROFILE_Q and all(
+                        len(q.generated) >= 2 for q in act)
+                if ready:
+                    break
+                time.sleep(0.002)
+            window = {"prof": profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])}
+            real_infer = eng.infer
+
+            def profiled_infer():
+                if "t0" not in window:
+                    window["prof"].__enter__()
+                    window.update(t0=time.perf_counter(), s0=decode_steps[0])
+                out = real_infer()
+                if decode_steps[0] - window["s0"] >= O_PROFILE_STEPS:
+                    torch.cuda.synchronize()
+                    window["wall_ms"] = (time.perf_counter()
+                                         - window["t0"]) * 1e3
+                    window["prof"].__exit__(None, None, None)
+                    with eng._lock:
+                        window["decoding"] = len(eng.table.active)
+                    eng.infer = real_infer
+                return out
+
+            eng.infer = profiled_infer
+            for t in prof_threads:
+                t.join(O_TIMEOUT_S)
+            assert "wall_ms" in window, "the profiled window did not end"
+            prof, wall_ms = window["prof"], window["wall_ms"]
+            prof_steps, still = O_PROFILE_STEPS, window["decoding"]
+            alive = alive and svc.core.is_alive() and svc.error is None
+        finally:
+            svc.stop()
+        svc.raise_if_failed()
+        events = [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU and _device_us(e) > 0]
+        busy_ms = sum(_device_us(e) for e in events) / 1e3
+        # what the same engine's generate gives on the prompt alone
+        eng._decode_step = real_decode
+        want = eng.generate(
+            tok.tokenize(template.replace("{query}", prompt), add_bos=True),
+            SamplingOptions(strategy="greedy"), MAX_NEW)
+        stream_chunks = [json.loads(p) for p in streamed]
+        stream_text = "".join(c["text"] for c in stream_chunks)
+        oa_chunks = [json.loads(p) for p in oa_stream if p != "[DONE]"]
+        conc = []
+        for ans, _, secs, attempts in answers:
+            qs = eng.table.get(ans["query_id"])
+            conc.append({"prompt_tokens": len(qs.prompt_tokens),
+                         "new_tokens": len(qs.generated),
+                         "finish": qs.finish_reason, "seconds": secs,
+                         "attempts": attempts,
+                         "text_is_tokens": ans["text"] == _detok(
+                             tok, qs.generated)})
+        tokens = sum(c["new_tokens"] for c in conc)
+        report = {
+            "phase": "engine_o", "config": Q4B32_INI, "i4_dot": "bf16",
+            "load_s": load_s, "warmup_s": warmup_s, "health": health,
+            "slots": eng.max_slots, "template": template,
+            "ttft_ms_one_token_request": ttft_s * 1e3,
+            "blocking_ms_16_tokens": blocking_s * 1e3,
+            "ms_per_token": (blocking_s - ttft_s) / (MAX_NEW - 1) * 1e3,
+            "stream_first_chunk_ms": first_s * 1e3,
+            "stream_ms": stream_s * 1e3, "stream_chunks": len(stream_chunks),
+            "concurrent": conc, "concurrent_s": conc_s,
+            "concurrent_tokens_per_s": tokens / conc_s,
+            "concurrent_prompt_tokens_per_s": sum(
+                c["prompt_tokens"] for c in conc) / conc_s,
+            "served_s": served_s, "decode_steps": steps_served,
+            "text": blocking["text"],
+            "openai_content": oa["choices"][0]["message"]["content"],
+            "decode_profile": {
+                "steps": prof_steps, "queries_decoding_at_its_end": still,
+                "wall_ms_per_step": wall_ms / max(
+                    prof_steps, 1),
+                "device_busy_ms_per_step": busy_ms / max(prof_steps, 1)
+                if busy_ms else "not measured",
+                "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+                else "not measured"},
+            "kernel_launches": {k: launches.get(k, 0)
+                                for k in KERNEL_SOURCES}}
+        checks = {
+            "health": health.get("status") == "ok",
+            "stream_equals_blocking": stream_text == blocking["text"]
+            and stream_chunks[-1]["is_end"] is True,
+            "text_equals_generate": blocking["text"] == _detok(tok, want)
+            and len(want) == MAX_NEW,
+            "openai": oa["object"] == "chat.completion"
+            and bool(oa["choices"][0]["message"]["content"])
+            and oa_stream[-1] == "[DONE]"
+            and all(c["object"] == "chat.completion.chunk"
+                    for c in oa_chunks)
+            and oa_chunks[-1]["choices"][0]["finish_reason"] == "stop",
+            "concurrent_complete": all(
+                c["text_is_tokens"] and (c["new_tokens"] == MAX_NEW
+                                         or c["finish"] == "eos")
+                for c in conc) and len(conc) == 12,
+            "every_decode_step_b_prime": launches.get(
+                ENGINE_O_MUST[0], 0) == steps_served > 0
+            and launches.get("fused_decode_step_i4_b32", 0) == 0,
+            "launch_set": all(launches.get(k, 0) > 0 for k in ENGINE_O_MUST)
+            and all(k in ENGINE_O_MUST or v == 0
+                    for k, v in launches.items()),
+            "loop_alive_until_stopped": alive and not svc.core.is_alive()}
+        report["checks"] = checks
+        emit(report)
+        assert all(checks.values()), {k: v for k, v in checks.items()
+                                      if not v}
+        # the rows of the same engine fed (n)'s tokens, against (n)'s twin
+        base_qid = len(eng.table) + 1
+        qids, outputs, prompts = ctx["qids"], ctx["outputs"], ctx["prompts"]
+        rows = _record_rows(eng, forced={base_qid + i: o
+                                         for i, o in enumerate(outputs)})
+        o_qids, _, _, _ = _serve(eng, prompts, MAX_NEW)
+        assert o_qids == [base_qid + i for i in range(len(prompts))]
+        twin = ctx["twin_rows"]
+        prefill, decode, agree, n_rows = 0.0, 0.0, 0, 0
+        for q_o, q_n in zip(o_qids, qids):
+            for j, (a, r) in enumerate(zip(rows[q_o], twin[q_n])):
+                err = float(np.abs(a - r).max())
+                if j == 0:
+                    prefill = max(prefill, err)
+                else:
+                    decode = max(decode, err)
+                agree += int(a.argmax() == r.argmax())
+                n_rows += 1
+            assert len(rows[q_o]) == len(twin[q_n]) == MAX_NEW
+        n_report = ctx["twin_report"]
+        rep = {"phase": "engine_o_vs_packed_card",
+               "prefill_max_abs_err": prefill, "decode_max_abs_err": decode,
+               "argmax_equal": agree, "rows": n_rows,
+               "run_n_i4x8_decode_max_abs_err": n_report["decode_max_abs_err"],
+               "run_n_argmax_equal": n_report["argmax_equal"],
+               "tolerance": f"prefill rows max_abs_err <= "
+                            f"{ENGINE_N_PREFILL_TOL}, decode rows <= "
+                            f"{ENGINE_N_DECODE_TOL} (run n's gates)",
+               "ok": prefill <= ENGINE_N_PREFILL_TOL
+               and decode <= ENGINE_N_DECODE_TOL}
+        emit(rep)
+        assert rep["ok"], "run o: rows disagree with (n)'s packed twin"
+        del eng
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -3369,11 +3811,21 @@ def main() -> int:
              lambda: phase_i4x8_formats(timer, dev, params_n))
         _run(results, failed, "fused_decode_step_i4_formats",
              lambda: phase_b4_i4_formats(timer, dev, spec_n, params_n))
+        _run(results, failed, "i4bf16_gemv",
+             lambda: phase_i4bf16_gemv(timer, dev, params_n))
+        _run(results, failed, "fused_decode_step_i4bf16",
+             lambda: phase_b4_i4bf16(timer, dev, spec_n, params_n))
         del params_n
         torch.cuda.empty_cache()
     if "outputs" in ctx:
         _run(results, failed, "engine_n_twin",
              lambda: phase_engine_n_twin(dev, root_n, ctx))
+    # (o): the service over the same checkpoint, in mode (b')
+    if "twin_rows" in ctx:
+        _run(results, failed, "engine_o",
+             lambda: phase_engine_o(dev, root_n, ctx))
+    else:
+        failed.append("engine_o")
     shutil.rmtree(root_n, ignore_errors=True)
     # (n-cpu), (n-t2), (n-b16): a one-layer checkpoint of the same shape
     root_1 = str(ckpt_root / "q4b32_one_layer")
@@ -3394,7 +3846,8 @@ def main() -> int:
                   "chunk_attention_g", "q8_matmul",
                   "fused_decode_step_byte", "fused_decode_step_moe",
                   "subbyte_matmul", "i4_matmul_formats", "i4x8_gemv_formats",
-                  "fused_decode_step_i4_formats"):
+                  "fused_decode_step_i4_formats", "i4bf16_gemv",
+                  "fused_decode_step_i4bf16"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     if failed:
@@ -3424,6 +3877,8 @@ def main() -> int:
                      ("engine_n_b16", "Q4_B16")):
         for kname in (I4_FORMATS[fmt][0], I4_FORMATS[fmt][2]):
             launches[kname] = results[run][kname]
+    o_step = I4BF16_FORMATS["Q4_B32T1A"][2]
+    launches[o_step] = results["engine_o"][o_step]
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -3451,6 +3906,8 @@ def main() -> int:
                          if r["shape"].startswith(f"lm_head {fmt} M=8 "))
         picks[step] = next(r for r in results["fused_decode_step_i4_formats"]
                            if r["kernel"] == step and " B=8 " in r["shape"])
+    picks[o_step] = next(r for r in results["fused_decode_step_i4bf16"]
+                         if " B=8 " in r["shape"])
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

@@ -1,11 +1,14 @@
 // Whole-model fused decode step (B4) for int8 per-column ("i8mm") weights,
-// for the i4 layout's packed nibbles ("i4x8") and for the Q8 block formats
-// ("byte"), with a Q8 KV cache, plus the GEMVs it is built from.
+// for the i4 layout's packed nibbles ("i4x8" and "i4bf16") and for the Q8
+// block formats ("byte"), with a Q8 KV cache, plus the GEMVs it is built
+// from.
 //
 // Replaces inferflow_tpu/kernels/decode_step.py `_make_kernel` (its
 // pallas_call at :1373, public entry `fused_decode_step` at :1574) in its
 // weight modes (a) i8mm (`_MM.percol`), (b) i4x8 (`_MM.i4x8`, the
-// default under INFERFLOW_I4_DOT) and (c) byte-per-code (`_mm_cfg` with
+// default under INFERFLOW_I4_DOT), (b') i4bf16 (the bf16-unpack i4 tile,
+// `stream_mm` :573-583, INFERFLOW_I4_DOT set to anything but i8) and
+// (c) byte-per-code (`_mm_cfg` with
 // pk = 1, `stream_mm`'s single-plane branch :583-606: Q8_B32T2 and
 // Q8_B32T1), and its routed-expert mode (g) (`moe_slot` :1105-1151) for
 // MoE layers, with both attention modes: per-slot for
@@ -19,7 +22,9 @@
 //   qkv  = W(xn): i8mm f32((acc_i32 * xs_row) * wscale_col), or i4x8
 //          sum over quant blocks r (64, 32 or 16 rows) of
 //          bf16(sum_r xn) * bf16(8*sc + base)
-//          + f32(acc_i32 over r) * (xs_row * sc), or byte: sum over
+//          + f32(acc_i32 over r) * (xs_row * sc), or i4bf16 the same
+//          fold term plus sum_{k in r} xn_k * bf16(bf16(n_k) * bf16(sc))
+//          in float32 (no int8 rows), or byte: sum over
 //          32-row blocks r of sum_{k in r} xn_k * bf16(q_k * bf16(sc))
 //          (+ bf16(sum_r xn) * bf16(base) for Q8_B32T1), xn in bf16
 //   q, k = rope(q), rope(k); the step's K/V row quantized to Q8 (f32 scale
@@ -81,6 +86,12 @@
 //     and Q4_B16) are template parameters, one instantiation per geometry
 //     (WeightMode), so each GEMV's loop is unrolled for its block: a row
 //     map read at run time slowed the dense GEMVs on the card;
+//   - the i4bf16 GEMV (b'): the i4x8 GEMV's nibble loads and unrolled
+//     blocks with the byte GEMV's staged bf16 activations: each nibble is
+//     unpacked to bf16(bf16(n) * bf16(sc)) and multiplied by its bf16
+//     activation into a float32 sum, the block's fold term
+//     bf16(sum x) * bf16(8*sc + base) added once per block; its float sums
+//     take the same fixed order (warps, then splits);
 //   - the byte GEMV: one 32-bit load of a (K, N) code row gives 4 columns
 //     of one K row, a 32-row quant block is 32 loads in flight per thread
 //     (64 for the GLU's two column segments);
@@ -139,36 +150,49 @@ enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
 // per geometry of the i4 layout (its quant block's K rows and the type of
 // its scale and base), each its own instantiation of the i4x8 GEMV:
 // kModeI4x8 Q4_B64T1 (64, f16), kModeI4x8B32 Q4_B32T1A/B (32, f16),
-// kModeI4x8B32F Q4_B32T2 (32, f32), kModeI4x8B16F Q4_B16 (16, f32).
+// kModeI4x8B32F Q4_B32T2 (32, f32), kModeI4x8B16F Q4_B16 (16, f32); the
+// (b') modes kModeI4Bf16* the same four geometries with bf16 activations,
+// each its own instantiation of the i4bf16 GEMV.
 enum WeightMode {
   kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3,
-  kModeI4x8B32 = 4, kModeI4x8B32F = 5, kModeI4x8B16F = 6
+  kModeI4x8B32 = 4, kModeI4x8B32F = 5, kModeI4x8B16F = 6,
+  kModeI4Bf16 = 7, kModeI4Bf16B32 = 8, kModeI4Bf16B32F = 9, kModeI4Bf16B16F = 10,
+  kModeLast = kModeI4Bf16B16F
 };
+// the i4x8 modes (int8 activations)
 __host__ __device__ constexpr bool is_i4(int mode) {
-  return mode == kModeI4x8 || mode >= kModeI4x8B32;
+  return mode == kModeI4x8 || (mode >= kModeI4x8B32 && mode <= kModeI4x8B16F);
 }
-// an i4x8 mode's K rows per quant block (nibble-pair byte rows: half that)
+// the (b') modes (bf16 activations)
+__host__ __device__ constexpr bool is_i4bf(int mode) {
+  return mode >= kModeI4Bf16 && mode <= kModeI4Bf16B16F;
+}
+// an i4 layout mode's K rows per quant block (nibble-pair byte rows: half
+// that)
 __host__ __device__ constexpr int i4_block(int mode) {
-  return mode == kModeI4x8 ? 64 : mode == kModeI4x8B16F ? 16 : 32;
+  return mode == kModeI4x8 || mode == kModeI4Bf16      ? 64
+         : mode == kModeI4x8B16F || mode == kModeI4Bf16B16F ? 16
+                                                           : 32;
 }
 __host__ __device__ constexpr bool i4_f32_meta(int mode) {
-  return mode == kModeI4x8B32F || mode == kModeI4x8B16F;
+  return mode == kModeI4x8B32F || mode == kModeI4x8B16F || mode == kModeI4Bf16B32F ||
+         mode == kModeI4Bf16B16F;
 }
 
 struct GemvArgs {
   const __nv_bfloat16* x;      // (M, K) bf16 activations
   const __nv_bfloat16* norm_w; // (K,) rmsnorm weight (kProNorm)
   const unsigned* amax_in;     // (M,) row max |x| as float bits (kProAmax)
-  const void* w;               // i8mm: (K, N) int8; i4x8: (K/2, N) uint8 nibble pairs;
+  const void* w;               // i8mm: (K, N) int8; i4x8, i4bf16: (K/2, N) uint8 nibble pairs;
                                // byte: (K, N) uint8 codes
-  const void* w_scale;         // i8mm: (N,) f32 column scales; i4x8: (K/block, N) f16
+  const void* w_scale;         // i8mm: (N,) f32 column scales; i4: (K/block, N) f16
                                // or f32 (the mode's); byte: (K/32, N) f16
-  const void* w_base;          // i4x8, byte: block bases of the scales' type, or null
+  const void* w_base;          // i4, byte: block bases of the scales' type, or null
   float* out_f32;              // (M, N) (kEpiF32)
   __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, ld_out) hglu (kEpiGlu)
   unsigned* amax_out;          // (M,) row max |hglu| (kEpiGlu)
   int* ws;                     // i8mm: (M, N) int32, zero on entry and on exit
-  float* part;                 // i4x8, byte: (ksplit, M, N) float split partials
+  float* part;                 // i4, byte: (ksplit, M, N) float split partials
   int* counters;               // (column tiles,), zero on entry and on exit
   int M, K, N, kc, ksplit, ld_out;
   int pro, epi, act;           // act: 0 silu, 1 gelu (tanh form), 2 relu
@@ -268,24 +292,30 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
 //        + float(int32 sum_{k in r} xq_k * n_k) * (xs_row * sc),
 // with n the signed nibble and sc, base the block's f16 or f32 metadata
 // as stored (the TPU kernel decodes f32 metadata as f16 bits: ROADMAP C7).
+// i4bf16 (b', the TPU kernel's bf16-unpack tile, :573-583): per quant
+// block r, y += bf16(sum_{k in r} x_k) * bf16(8*sc + base)
+//             + sum_{k in r} x_k * bf16(bf16(n_k) * bf16(sc)),
+// with x the bf16 activations (no row quantization).
 // byte (the TPU kernel's single-plane tile with pk = 1, :583-606): per
 // 32-row quant block r, y += sum_{k in r} x_k * bf16(q_k * bf16(sc))
 //                          (+ bf16(sum_{k in r} x_k) * bf16(base)),
 // with x the bf16 activations (no row quantization) and q the code.
-// i4x8 and byte: every warp takes whole blocks of the CTA's K slice, the
+// i4x8, i4bf16 and byte: every warp takes whole blocks of the CTA's K slice, the
 // warps' float sums are added in warp order and the splits' in split
 // order (by the last CTA of the column tile), so the result is the same
 // bits on every run.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
-  constexpr bool I4 = is_i4(MODE), BYTE = MODE == kModeByte;
+  constexpr bool I4 = is_i4(MODE), I4BF = is_i4bf(MODE), BYTE = MODE == kModeByte;
+  constexpr bool XBF = BYTE || I4BF;  // bf16 activations, no row quantization
   // the float modes' quant block (i8mm: unused)
-  constexpr int kBlk = BYTE ? kByteBlock : I4 ? i4_block(MODE) : 64;
+  constexpr int kBlk = BYTE ? kByteBlock : (I4 || I4BF) ? i4_block(MODE) : 64;
   using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
-  // the CTA's K slice: int8 codes (i8mm, i4x8) or bf16 activations (byte)
-  __shared__ __align__(16) unsigned char x_s[M][kMaxKc * (BYTE ? 2 : 1)];
+  // the CTA's K slice: int8 codes (i8mm, i4x8) or bf16 activations (byte,
+  // i4bf16)
+  __shared__ __align__(16) unsigned char x_s[M][kMaxKc * (XBF ? 2 : 1)];
   __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float sums
-  __shared__ float xsum_s[M][kMaxKc / (I4 ? kBlk : kByteBlock)];
+  __shared__ float xsum_s[M][kMaxKc / ((I4 || I4BF) ? kBlk : kByteBlock)];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
   __shared__ int xrow_s[M], orow_s[M];  // activation and output row of row m
@@ -362,7 +392,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       inv = __frsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)a.K), a.eps));
     }
     float amax = 0.f;
-    if (BYTE) {
+    if (XBF) {
       // no row quantization: the activations stay bf16
     } else if (a.pro == kProAmax) {
       amax = __uint_as_float(a.amax_in[xm]);
@@ -395,13 +425,13 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   for (int i = tid; i < M * kCols; i += kGemvThreads) (&red_s[0][0])[i] = 0;
   __syncthreads();
 
-  // prologue 2: this CTA's K slice of the rows, as int8 codes or (byte)
-  // bf16 activations; for i4x8, and for byte weights with a base, each
-  // quant block's bf16 sum of the activations, one warp each
+  // prologue 2: this CTA's K slice of the rows, as int8 codes or (byte,
+  // i4bf16) bf16 activations; for the i4 modes, and for byte weights with
+  // a base, each quant block's bf16 sum of the activations, one warp each
   for (int i = tid; i < M * klen; i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
     const float v = activation(a, xrow(m), k0 + kk, inv_s[m]);
-    if constexpr (BYTE) {
+    if constexpr (XBF) {
       reinterpret_cast<__nv_bfloat16*>(x_s[m])[kk] = __float2bfloat16_rn(v);  // exact
     } else {
       const float q = rintf(__fdiv_rn(v, xs_s[m]));
@@ -409,7 +439,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     }
   }
   const int nblk = klen / kBlk;  // float modes: klen % kBlk == 0 (the plan)
-  if (I4 || (BYTE && a.w_base != nullptr)) {
+  if (I4 || I4BF || (BYTE && a.w_base != nullptr)) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
       const int kb0 = k0 + lb * kBlk;
@@ -597,6 +627,73 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
         }
       }
     }
+    if constexpr (I4BF) {
+      // (b'): the i4x8 walk over whole blocks, each nibble unpacked to
+      // bf16(bf16(n) * bf16(sc)) and multiplied by its bf16 activation.
+      // One column segment at a time (not unrolled): with both in flight
+      // the 64-row GLU instantiations spilled kilobytes per thread
+      constexpr int kQRows = kBlk / 2;  // nibble-pair byte rows per block
+      const I4Meta* isc = reinterpret_cast<const I4Meta*>(wsc_b);
+      const I4Meta* ibs = reinterpret_cast<const I4Meta*>(wbs_b);
+      for (int lb = warp; col_ok && lb < nblk; lb += kGemvWarps) {
+        const int kb = k0 / kBlk + lb;
+#pragma unroll 1
+        for (int s = 0; s < NSEG; ++s) {
+          const int col = col0 + s * seg_stride;
+          // all byte rows of the block in flight at once
+          uint32_t words[kQRows];
+#pragma unroll
+          for (int r = 0; r < kQRows; ++r)
+            words[r] = __ldg(reinterpret_cast<const uint32_t*>(
+                w4 + ((size_t)kb * kQRows + r) * a.N + col));
+          float scv[4], bsv[4] = {0.f, 0.f, 0.f, 0.f}, scb[4];
+          load_meta4(isc + (size_t)kb * a.N + col, scv);
+          if (ibs != nullptr) load_meta4(ibs + (size_t)kb * a.N + col, bsv);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) scb[c] = round_bf16(scv[c]);
+          float dot[M][4];
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dot[m][c] = 0.f;
+#pragma unroll
+          for (int r = 0; r < kQRows; ++r) {
+            // K rows 2r (low nibbles) and 2r + 1 (high nibbles): one bf16
+            // pair of each activation row
+            float xr[2][M];
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const __nv_bfloat162 xp =
+                  reinterpret_cast<const __nv_bfloat162*>(x_s[m])[lb * kQRows + r];
+              xr[0][m] = __low2float(xp);
+              xr[1][m] = __high2float(xp);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int nib = static_cast<int>((words[r] >> (8 * c + 4 * h)) & 0xFu);
+                const float w = round_bf16(__fmul_rn(static_cast<float>((nib ^ 8) - 8), scb[c]));
+#pragma unroll
+                for (int m = 0; m < M; ++m) dot[m][c] = fmaf(xr[h][m], w, dot[m][c]);
+              }
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float fold = round_bf16(__fadd_rn(__fmul_rn(scv[c], 8.f), bsv[c]));
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const float t = __fadd_rn(__fmul_rn(xsum_s[m][lb], fold), dot[m][c]);
+              // the segment index stays a constant for the register file
+              if (s == 0)
+                acc[m][c] = __fadd_rn(acc[m][c], t);
+              else
+                acc[m][(NSEG - 1) * 4 + c] = __fadd_rn(acc[m][(NSEG - 1) * 4 + c], t);
+            }
+          }
+        }
+      }
+    }
     // the warps' sums, added in warp order
     for (int w = 0; w < kGemvWarps; ++w) {
       if (warp == w && col_ok) {
@@ -681,8 +778,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 }
 
 // CTAs for about two per SM, K rows per CTA a multiple of `unit` (32:
-// whole 4-row groups per warp, or whole byte-mode quant blocks; for i4x8
-// the mode's quant block: whole blocks) and at most kMaxKc.
+// whole 4-row groups per warp, or whole byte-mode quant blocks; for the i4
+// modes the mode's quant block: whole blocks) and at most kMaxKc.
 void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   const int want = std::max(1, (2 * sm_count + tiles - 1) / tiles);
   int rows = (K + want - 1) / want;
@@ -726,9 +823,10 @@ void launch_gemv_mode(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
 // not take.
 bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, int* ksplit) {
   const int nseg = a.epi == kEpiGlu ? 2 : 1;
-  if (mode < kModeI8mm || mode > kModeI4x8B16F) return false;
-  const int unit = is_i4(mode) ? i4_block(mode) : 32;
-  const int k_unit = is_i4(mode) ? i4_block(mode) : mode == kModeI8mm ? 4 : kByteBlock;
+  if (mode < kModeI8mm || mode > kModeLast) return false;
+  const bool i4 = is_i4(mode) || is_i4bf(mode);
+  const int unit = i4 ? i4_block(mode) : 32;
+  const int k_unit = i4 ? i4_block(mode) : mode == kModeI8mm ? 4 : kByteBlock;
   if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
       sm_count <= 0)
     return false;
@@ -754,6 +852,10 @@ cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream,
     case kModeI4x8B32: launch_gemv_mode<kModeI4x8B32>(a, grid, stream); break;
     case kModeI4x8B32F: launch_gemv_mode<kModeI4x8B32F>(a, grid, stream); break;
     case kModeI4x8B16F: launch_gemv_mode<kModeI4x8B16F>(a, grid, stream); break;
+    case kModeI4Bf16: launch_gemv_mode<kModeI4Bf16>(a, grid, stream); break;
+    case kModeI4Bf16B32: launch_gemv_mode<kModeI4Bf16B32>(a, grid, stream); break;
+    case kModeI4Bf16B32F: launch_gemv_mode<kModeI4Bf16B32F>(a, grid, stream); break;
+    case kModeI4Bf16B16F: launch_gemv_mode<kModeI4Bf16B16F>(a, grid, stream); break;
     default:
       a.byte_signed = mode == kModeByte;
       launch_gemv_mode<kModeByte>(a, grid, stream);
@@ -1195,10 +1297,10 @@ const char* ift_error_string(int code) {
 
 // The K splits of a GEMV of (K, N) weights (N the w1n3 width when glu is
 // set) in weight mode `mode` (WeightMode: 0 i8mm, 1 i4x8 Q4_B64T1, 2 byte
-// Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16) on a
-// card of `sm_count` SMs, or -1 for a shape it does not
-// take: the i4x8 and byte GEMVs' float split partials take
-// ksplit * M * N floats.
+// Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16, 7-10
+// i4bf16 Q4_B64T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16) on a card of `sm_count`
+// SMs, or -1 for a shape it does not take: the i4 and byte GEMVs' float
+// split partials take ksplit * M * N floats.
 int ift_gemv_splits(int K, int N, int glu, int mode, int sm_count) {
   GemvArgs a{};
   a.M = 1, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
@@ -1249,6 +1351,28 @@ int ift_i4x8_gemv(const void* x, const void* w, const void* w_scale, const void*
       launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
+// y (M, N) f32 = the (b') product of x (M, K) bf16 (no row quantization)
+// with the i4 layout's data_i4p (K/2, N) uint8 and its block scale and
+// base (K/block, N; base may be null) in i4bf16 mode `mode` (7-10: the
+// block and the metadata type).  part and counters as for ift_i4x8_gemv.
+int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
+                    void* out, void* part, void* counters, int M, int K, int N, int mode,
+                    int sm_count, void* stream) {
+  if (!is_i4bf(mode)) return static_cast<int>(cudaErrorInvalidValue);
+  GemvArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = w;
+  a.w_scale = w_scale;
+  a.w_base = w_base;
+  a.out_f32 = static_cast<float*>(out);
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.M = M, a.K = K, a.N = N;
+  a.pro = kProRow, a.epi = kEpiF32;
+  return static_cast<int>(
+      launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
+}
+
 // Mode (g)'s routing launch alone: xn (B, E) bf16, then per slot its
 // experts sel (B, top_k) int32 and weights (B, top_k) f32.
 int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn, void* sel,
@@ -1272,10 +1396,12 @@ int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn,
 // layer, kTableStride entries: anorm, fnorm (E bf16 device pointers), then
 // for each of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and w2 (F, E)
 // five entries: its weight mode (WeightMode: 0 i8mm, 1 i4x8 Q4_B64T1, 2
-// byte Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16)
+// byte Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16,
+// 7-10 i4bf16 in the same four geometries)
 // and its stored K as integers, then three device pointers, (int8 codes,
 // f32 column scales, null) for i8mm, (data_i4p nibble pairs, block scales
-// and block bases or null, f16 or f32 as the mode says) for i4x8, (uint8 codes,
+// and block bases or null, f16 or f32 as the mode says) for i4x8 and
+// i4bf16, (uint8 codes,
 // f16 block scales, null) for Q8_B32T2 and (uint8 codes, f16 block
 // scales, f16 block bases) for Q8_B32T1; then the MoE gate (E, n_exp)
 // bf16 or null, and the bytes from one expert to the next of w1n3's codes,
@@ -1295,7 +1421,7 @@ int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn,
 // page_table (B, MAXP) on the device and S = MAXP * PT.  Scratch: qkv
 // (B, (Hq+2H)D) f32, ctx (B, HqD) bf16, hglu (B, w2's stored K) bf16 whose
 // columns past F are zero; ws, counters and amax (L*2*B) are zero on entry
-// (ws and counters are left zero); gemv_part holds the i4x8 and byte GEMVs'
+// (ws and counters are left zero); gemv_part holds the i4 and byte GEMVs'
 // split partials (the most ift_gemv_splits(...) * B * N of the step's
 // float-mode products).  attn_part holds B * H * 16 * (Hq / H) * (D + 2) floats;
 // attn_counters (B * H int32) is zero on entry and is left zero.  counters

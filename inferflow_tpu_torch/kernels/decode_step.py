@@ -1,22 +1,26 @@
 """Whole-model fused decode step (kernel B4), the i8mm int8 product and the
-i4x8 product.
+i4 layout's two products.
 
 Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
-`fused_step_preferred`, `fused_decode_step`) for three weight modes: (a)
+`fused_step_preferred`, `fused_decode_step`) for four weight modes: (a)
 i8mm (Int8MXUTensor weights: int8 codes with one f32 scale per column),
-(b) i4x8 (the i4 layout's ``data_i4p`` nibbles with their block scales
-and bases, for every 4-bit single-plane format: Q4_B64T1, Q4_B32T1A/B
-with f16 metadata, Q4_B32T2 and Q4_B16 with f32; int8 row-quantized
-activations, one int32 dot per quant block, the TPU kernel's default for
-that layout; the f32 metadata is read as stored, where the TPU kernel
-reads it as f16 bits, ROADMAP C7) and (c) byte (the Q8 block
-formats Q8_B32T2 and Q8_B32T1, one code per byte: bf16 activations, each
-weight bf16(q * bf16(scale)), Q8_B32T1's base through the blocks'
-activation sums), each product in its own mode; MoE layers in the TPU
-kernel's routed-expert mode (g) (moe_slot: an f32 gate dot, softmax,
-per-slot top-k, then each chosen expert's w1n3 and w2, the residual
-rounded to bf16 after each expert in top-k order), with experts in any
-of the three modes;
+(b) i4x8 and (b') bf16-unpack, the i4 layout's two modes (its
+``data_i4p`` nibbles with their block scales and bases, for every 4-bit
+single-plane format: Q4_B64T1, Q4_B32T1A/B with f16 metadata, Q4_B32T2
+and Q4_B16 with f32; the f32 metadata is read as stored, where the TPU
+kernel reads it as f16 bits, ROADMAP C7): i4x8 quantizes the activations
+to int8 per row and takes one int32 dot per quant block, the TPU kernel's
+default; (b') keeps the exact bf16 activations and unpacks every weight
+to bf16(bf16(n) * bf16(scale)), the TPU kernel's mode under
+INFERFLOW_I4_DOT set to anything but ``i8``, read when a step is routed
+(as the TPU package reads it) so that one process can run both; and (c)
+byte (the Q8 block formats Q8_B32T2 and Q8_B32T1, one code per byte:
+bf16 activations, each weight bf16(q * bf16(scale)), Q8_B32T1's base
+through the blocks' activation sums), each product in its own mode; MoE
+layers in the TPU kernel's routed-expert mode (g) (moe_slot: an f32 gate
+dot, softmax, per-slot top-k, then each chosen expert's w1n3 and w2, the
+residual rounded to bf16 after each expert in top-k order), with experts
+in any of these modes;
 and a Q8 KV cache in the logical layout, dense (runtime/kv_cache.py) or
 paged (runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the
 step's K/V rows go through the page table), with both attention modes of
@@ -38,15 +42,14 @@ the kernels against on the card.
 
 Not ported (``fused_step_supported`` raises NotImplementedError where the
 TPU package would fuse them, naming what is missing): per-matmul output
-biases, and two modes the TPU package supports but does not prefer, so that
-``fused_step_preferred`` routes them to the per-layer loop as there: the
-sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
+biases (mode (d), which only hand-built params with a fused qkv bias
+reach), and two modes the TPU package supports but does not prefer, so
+that ``fused_step_preferred`` routes them to the per-layer loop as there:
+the sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
 planes, kernel B1 in every product) and mode (h), Q3H weights in the
 pair8 layout (kernel B6; its measured unpack cost loses to the per-layer
-path).  The i4 layout's bf16-unpack mode (INFERFLOW_I4_DOT=bf16 in the
-TPU package, a measurement switch) is not ported either, nor MoE layers
-of more than 64 experts.  There is no fallback switch: if the kernel
-fails to build or launch, the step raises.
+path); nor MoE layers of more than 64 experts.  There is no fallback
+switch: if the kernel fails to build or launch, the step raises.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import os
 import weakref
 from typing import Optional
 
@@ -76,6 +80,9 @@ MOE_KERNEL = "fused_decode_step_moe"  # a step over routed MoE layers (g)
 ROUTE_KERNEL = "moe_route"  # mode (g)'s routing launch alone
 GEMV_KERNEL = "i8mm_gemv"
 I4_GEMV_KERNEL = "i4x8_gemv"  # the i4x8 GEMV alone (Q4_B64T1)
+# a step with a (b') product (Q4_B64T1), and the (b') GEMV alone
+I4BF16_KERNEL = "fused_decode_step_i4bf16"
+I4BF16_GEMV_KERNEL = "i4bf16_gemv"
 NEG_INF = -1e30
 # float32 sums of int8 x int8 products are exact integers while they stay
 # below 2**24: 127 * 127 * 1024 < 2**24
@@ -87,7 +94,9 @@ _ACTS = {"silu": 0, "gelu": 1, "relu": 2}
 _MAX_ROWS, _MAX_D = 16, 128  # query heads per kv head, head_dim (csrc)
 _TILE_COLS = 128  # GEMV columns per CTA segment (csrc kTileCols)
 _MAX_SPLIT = 16  # cache-walk splits per (slot, kv head) (csrc kMaxSplit)
-_MODES = {"i8mm": 0, "i4": 1, "byte": 2}  # csrc WeightMode (3: byte with a base)
+# csrc WeightMode (3: byte with a base; "i4" and "i4bf16" are those of
+# Q4_B64T1, the other geometries' follow from _I4_MODES / _I4BF16_MODES)
+_MODES = {"i8mm": 0, "i4": 1, "byte": 2, "i4bf16": 7}
 # the i4x8 modes by (block rows, metadata type): csrc WeightMode, and the
 # launch counts of a step whose i4x8 products take that geometry and of
 # the GEMV alone
@@ -100,6 +109,17 @@ _I4_MODES = {
     (16, torch.float32): (6, I4_KERNEL + "_b16f",
                           I4_GEMV_KERNEL + "_b16f"),  # Q4_B16
 }
+# the (b') modes by the same geometries (csrc WeightMode 7-10)
+_I4BF16_MODES = {
+    (64, torch.float16): (7, I4BF16_KERNEL, I4BF16_GEMV_KERNEL),
+    (32, torch.float16): (8, I4BF16_KERNEL + "_b32",
+                          I4BF16_GEMV_KERNEL + "_b32"),
+    (32, torch.float32): (9, I4BF16_KERNEL + "_b32f",
+                          I4BF16_GEMV_KERNEL + "_b32f"),
+    (16, torch.float32): (10, I4BF16_KERNEL + "_b16f",
+                          I4BF16_GEMV_KERNEL + "_b16f"),
+}
+_I4_FAMILIES = {"i4": _I4_MODES, "i4bf16": _I4BF16_MODES}
 _MAX_EXPERTS = 64  # mode (g): experts per MoE layer (csrc kMaxExperts)
 _BYTE_BLOCK = 32  # the byte mode's quant block (csrc kByteBlock)
 
@@ -131,6 +151,21 @@ def i8mm_matmul_plain(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ i4x8 product
+def _i4_fold_term(x: torch.Tensor, w: QuantizedTensor) -> tuple:
+    """The part both i4 modes share: x padded to w's stored K (its tail
+    zeros), w's block rows, and the block fold term sum_r bf16(sum_{k in
+    r} x_k) * bf16(8*sc_r + base_r) in float32 (the TPU tile's xsum dot,
+    with the +8 code offset and the base folded in)."""
+    blk = get_format(w.format).block
+    x = F.pad(x, (0, w.storage_k - x.shape[-1]))
+    xsum = x.float().reshape(x.shape[0], -1, blk).sum(-1)
+    fold = w.scale.float() * 8.0
+    if w.base is not None:
+        fold = fold + w.base.float()
+    return x, blk, torch.matmul(xsum.to(torch.bfloat16).float(),
+                                fold.to(torch.bfloat16).float())
+
+
 def i4x8_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """B4 mode (b)'s product, the TPU kernel's i4x8 tile (stream_mm), in
     float32.  x: (M, K) bf16 with K the logical or the stored K of w (the
@@ -142,23 +177,42 @@ def i4x8_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     acc = sum_r bf16(sum_{k in r} x_k) * bf16(8*sc_r + base_r), then
     acc += f32(sum_{k in r} xq_k * n_k) * (xs * sc_r) block by block, in
     the TPU kernel's order.  Returns (M, N) float32."""
-    blk = get_format(w.format).block
-    k_s, n = w.storage_k, int(w.shape[-1])
-    x = F.pad(x, (0, k_s - x.shape[-1]))
-    m, nb = x.shape[0], k_s // blk
+    x, blk, acc = _i4_fold_term(x, w)
+    m, nb, n = x.shape[0], w.storage_k // blk, int(w.shape[-1])
     xq, xs = int8_rowwise_activations(x)
-    xsum = x.float().reshape(m, nb, blk).sum(-1).to(torch.bfloat16).float()
     sc = w.scale.float()
-    fold = sc * 8.0
-    if w.base is not None:
-        fold = fold + w.base.float()
-    acc = torch.matmul(xsum, fold.to(torch.bfloat16).float())
     # exact int32 dots as float32: |sum| <= 64 * 127 * 8 < 2**24
     q = i4_nibbles(w.planes[I4_PLANE]).float().reshape(nb, blk, n)
     dots = torch.bmm(xq.float().reshape(m, nb, blk).transpose(0, 1), q)
     for r in range(nb):
         acc = acc + dots[r] * (xs * sc[r])
     return acc
+
+
+def i4_dot_mode() -> str:
+    """The i4 layout's mode of the fused step, as the TPU package's
+    ``_mm_cfg`` decides it: "i4" (i4x8) when INFERFLOW_I4_DOT is unset or
+    ``i8``, "i4bf16" (b') for any other value.  Read at every routing
+    decision, not at import."""
+    return ("i4" if os.environ.get("INFERFLOW_I4_DOT", "i8") == "i8"
+            else "i4bf16")
+
+
+def i4_bf16_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """B4 mode (b')'s product, the TPU kernel's bf16-unpack i4 tile
+    (stream_mm, decode_step.py:573-583), in float32.  x: (M, K) bf16 with K
+    the logical or the stored K of w (the stored K's tail takes zeros).
+    No int8 activations: with n the signed nibbles and, per quant block r
+    (64, 32 or 16 rows; scale and base f16 or f32 as the codec stores them,
+    ROADMAP C7), acc = sum_r bf16(sum_{k in r} x_k) * bf16(8*sc_r +
+    base_r), then acc += sum_k x_k * bf16(bf16(n_k) * bf16(sc_r)) in
+    float32.  Returns (M, N) float32."""
+    x, blk, acc = _i4_fold_term(x, w)
+    k_s, n = w.storage_k, int(w.shape[-1])
+    sc = w.scale.to(torch.bfloat16).float()
+    q = i4_nibbles(w.planes[I4_PLANE]).float().reshape(k_s // blk, blk, n)
+    wq = (q * sc[:, None, :]).to(torch.bfloat16).float()
+    return acc + torch.matmul(x.float(), wq.reshape(k_s, n))
 
 
 # ------------------------------------------------------------ byte product
@@ -191,6 +245,8 @@ def _product_f32(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, Int8MXUTensor):
         return _i8mm_f32(x, w)
     if I4_PLANE in w.planes:
+        if i4_dot_mode() == "i4bf16":
+            return i4_bf16_matmul_plain(x, w)
         return i4x8_matmul_plain(x, w)
     return byte_matmul_plain(x, w)
 
@@ -213,6 +269,8 @@ def _lib():
         lib.ift_i8mm_gemv.restype = ctypes.c_int
         lib.ift_i4x8_gemv.argtypes = [vp] * 7 + [i] * 5 + [vp]
         lib.ift_i4x8_gemv.restype = ctypes.c_int
+        lib.ift_i4bf16_gemv.argtypes = [vp] * 7 + [i] * 5 + [vp]
+        lib.ift_i4bf16_gemv.restype = ctypes.c_int
         lib.ift_gemv_splits.argtypes = [i] * 5
         lib.ift_gemv_splits.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
@@ -258,16 +316,18 @@ def i8mm_gemv_cuda(x2: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
     return out
 
 
-def _i4_geometry(w: QuantizedTensor) -> tuple:
+def _i4_geometry(w: QuantizedTensor, mode: str = "i4") -> tuple:
     """(csrc WeightMode, step launch count, GEMV launch count) of an i4
-    weight's geometry: its format's block and metadata type."""
+    weight's geometry (its format's block and metadata type) in the i4
+    layout's mode `mode`: "i4" (i4x8) or "i4bf16" (b')."""
     key = (get_format(w.format).block, w.scale.dtype)
-    if key not in _I4_MODES:
+    table = _I4_FAMILIES[mode]
+    if key not in table:
         raise NotImplementedError(
-            f"the i4x8 GEMV takes blocks of 64, 32 or 16 rows with f16 or "
+            f"the i4 GEMVs take blocks of 64, 32 or 16 rows with f16 or "
             f"f32 metadata as the 4-bit formats store them, not {key} "
             f"({w.format})")
-    return _I4_MODES[key]
+    return table[key]
 
 
 def _check_i4(w: QuantizedTensor, name: str, k: int, n: int,
@@ -298,39 +358,56 @@ def _gemv_splits(k: int, n: int, glu: bool, sms: int, mode: int = 1) -> int:
     return splits
 
 
+def _i4_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor,
+                  mode: str) -> torch.Tensor:
+    """Launch one of the i4 layout's GEMVs alone (mode "i4": i4x8, "i4bf16":
+    (b')) on (M <= 8, K_s) bf16 rows, in the instantiation of w's geometry;
+    returns (M, N) float32."""
+    _build.require_hopper(x2)
+    m, k = x2.shape
+    n = int(w.shape[-1])
+    code, _, counter = _i4_geometry(w, mode)
+    blk = get_format(w.format).block
+    if not 1 <= m <= _MAX_GEMV_ROWS:
+        raise ValueError(f"{counter} takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
+    if k != w.storage_k or k % blk or n % 4:
+        raise ValueError(f"{counter} needs the stored K (a multiple of the "
+                         f"block, {blk}) and N a multiple of 4, got K={k} "
+                         f"N={n}")
+    _build.check_operand(x2, "x", torch.bfloat16, (m, k))
+    _check_i4(w, "w", k, n)
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    part = torch.empty(_gemv_splits(k, n, False, _sms(x2), code) * m * n,
+                       dtype=torch.float32, device=x2.device)
+    counters = torch.zeros(-(-n // _TILE_COLS), dtype=torch.int32,
+                           device=x2.device)
+    lib = _lib()
+    entry = lib.ift_i4x8_gemv if mode == "i4" else lib.ift_i4bf16_gemv
+    rc = entry(_build.ptr(x2), _build.ptr(w.planes[I4_PLANE]),
+               _build.ptr(w.scale), _build.ptr(w.base), _build.ptr(out),
+               _build.ptr(part), _build.ptr(counters), m, k, n, code,
+               _sms(x2), _build.stream_of(x2))
+    _build.check(lib, rc, counter)
+    _build.launch_counts[counter] += 1
+    return out
+
+
 def i4x8_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """Launch the i4x8 GEMV alone on (M <= 8, K_s) bf16 rows; returns (M, N)
     float32 (B4 mode (b)'s product, i4x8_matmul_plain's arithmetic), in
     the instantiation of w's geometry (launch count ``i4x8_gemv`` for
     Q4_B64T1, ``i4x8_gemv_b32``, ``_b32f`` or ``_b16f`` for Q4_B32T1A/B,
     Q4_B32T2 and Q4_B16)."""
-    _build.require_hopper(x2)
-    m, k = x2.shape
-    n = int(w.shape[-1])
-    mode, _, counter = _i4_geometry(w)
-    blk = get_format(w.format).block
-    if not 1 <= m <= _MAX_GEMV_ROWS:
-        raise ValueError(f"i4x8_gemv takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
-    if k != w.storage_k or k % blk or n % 4:
-        raise ValueError(f"i4x8_gemv needs the stored K (a multiple of the "
-                         f"block, {blk}) and N a multiple of 4, got K={k} "
-                         f"N={n}")
-    _build.check_operand(x2, "x", torch.bfloat16, (m, k))
-    _check_i4(w, "w", k, n)
-    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    part = torch.empty(_gemv_splits(k, n, False, _sms(x2), mode) * m * n,
-                       dtype=torch.float32, device=x2.device)
-    counters = torch.zeros(-(-n // _TILE_COLS), dtype=torch.int32,
-                           device=x2.device)
-    lib = _lib()
-    rc = lib.ift_i4x8_gemv(_build.ptr(x2), _build.ptr(w.planes[I4_PLANE]),
-                           _build.ptr(w.scale), _build.ptr(w.base),
-                           _build.ptr(out), _build.ptr(part),
-                           _build.ptr(counters), m, k, n, mode, _sms(x2),
-                           _build.stream_of(x2))
-    _build.check(lib, rc, counter)
-    _build.launch_counts[counter] += 1
-    return out
+    return _i4_gemv_cuda(x2, w, "i4")
+
+
+def i4bf16_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Launch the (b') GEMV alone on (M <= 8, K_s) bf16 rows; returns (M, N)
+    float32 (B4 mode (b')'s product, i4_bf16_matmul_plain's arithmetic),
+    in the instantiation of w's geometry (launch count ``i4bf16_gemv``
+    for Q4_B64T1, ``i4bf16_gemv_b32``, ``_b32f`` or ``_b16f`` for
+    Q4_B32T1A/B, Q4_B32T2 and Q4_B16)."""
+    return _i4_gemv_cuda(x2, w, "i4bf16")
 
 
 def i8mm_matmul(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
@@ -371,7 +448,8 @@ def _pick_tn(kp: int, n: int) -> int:
 
 def _mm_mode(w) -> Optional[str]:
     """How the TPU kernel would stream weight w (its `_mm_cfg`): 'i8mm';
-    'i4' (the i4 layout's data_i4p nibbles, streamed i4x8); 'pair8' (Q3H's
+    'i4' or 'i4bf16' (the i4 layout's data_i4p nibbles, streamed i4x8 or
+    in mode (b') as INFERFLOW_I4_DOT says now: i4_dot_mode); 'pair8' (Q3H's
     byte-per-pair plane, mode (h), which it routes to the per-layer path);
     'byte' (one code per byte: the Q8 block formats); 'wire' (sub-byte
     single-plane wire formats, also routed to the per-layer path); or None
@@ -386,7 +464,7 @@ def _mm_mode(w) -> Optional[str]:
         kp, n = (int(s) for s in w.planes[I4_PLANE].shape[-2:])
         if (2 * kp) % fmt.block or kp % 8 or not _pick_tn(kp, n):
             return None
-        return "i4"
+        return i4_dot_mode()
     if fmt.pair_base11:
         plane = w.planes.get(PAIR8_PLANE)
         if plane is None or fmt.meta != "f16":
@@ -868,9 +946,12 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
 # per-layer pointer tables, built once per layer list and keyed by its id.
 # An entry holds weak references only (a list cannot be weakly referenced:
 # its tensors are), so freeing an engine frees its weights.  A hit must
-# find the same list length, the same first and last norm tensors (an id
-# can be reused by a later list) and every tensor of the table alive (its
-# pointers then point into live weights).
+# find the i4 mode the table was built in (it holds each product's weight
+# mode, which INFERFLOW_I4_DOT picks for i4 weights: a process that sets
+# the variable between steps gets a new table), the same list length, the
+# same first and last norm tensors (an id can be reused by a later list)
+# and every tensor of the table alive (its pointers then point into live
+# weights).
 _TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _TABLE_CACHE_SIZE = 4
 
@@ -900,8 +981,9 @@ def _cached_table(layers: list):
     hit = _TABLES.get(id(layers))
     if hit is None:
         return None
-    n, first, last, refs, entry = hit
-    if (n == len(layers) and first() is layers[0]["attn"]["pre_norm"]
+    mode, n, first, last, refs, entry = hit
+    if (mode == i4_dot_mode() and n == len(layers)
+            and first() is layers[0]["attn"]["pre_norm"]
             and last() is _fnorm(layers[-1])
             and all(r() is not None for r in refs)):
         return entry
@@ -970,9 +1052,9 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
                 ptrs += [_MODES[mode], k, w.data.data_ptr(),
                          w.scale.data_ptr(), 0]
                 continue
-            if mode == "i4":
+            if mode in _I4_FAMILIES:
                 _check_i4(w, name, k, n, ld)
-                code, plane = _i4_geometry(w)[0], w.planes[I4_PLANE]
+                code, plane = _i4_geometry(w, mode)[0], w.planes[I4_PLANE]
             else:
                 _check_byte(w, name, k, n, ld)
                 code = _MODES[mode] + (w.base is not None)
@@ -992,7 +1074,8 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
     entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s,
              frozenset(float_shapes))
     _TABLES[id(layers)] = (
-        len(layers), weakref.ref(layers[0]["attn"]["pre_norm"]),
+        i4_dot_mode(), len(layers),
+        weakref.ref(layers[0]["attn"]["pre_norm"]),
         weakref.ref(_fnorm(layers[-1])),
         [weakref.ref(t) for t in _table_tensors(layers)], entry)
     _TABLES.move_to_end(id(layers))
@@ -1098,7 +1181,8 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         int(bool(hp.moe_norm_top_k_prob)), spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
     codes = {shape[3] for shape in float_shapes}
-    i4_names = {c: step for c, step, _ in _I4_MODES.values()}
+    i4_names = {c: step for table in _I4_FAMILIES.values()
+                for c, step, _ in table.values()}
     name = (MOE_KERNEL if moe else BYTE_KERNEL if codes - set(i4_names)
             else i4_names[min(codes)] if codes else KERNEL)
     _build.check(lib, rc, name)
@@ -1115,8 +1199,8 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
                       positions: torch.Tensor, cache: KVCache,
                       routes: Optional[list] = None):
     """One decode step over all layers (inferflow_tpu signature), each
-    product in its weight's mode (i8mm, i4x8 or byte), MoE layers routed
-    in mode (g).
+    product in its weight's mode (i8mm, i4x8 or (b') as INFERFLOW_I4_DOT
+    says, or byte), MoE layers routed in mode (g).
 
     x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
     cache lengths; cache: a Q8 KVCache or PagedKVCache.  Returns (x (B, 1,

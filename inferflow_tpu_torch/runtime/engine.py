@@ -423,6 +423,54 @@ class InferenceEngine:
                     self.table.finish(r.query_id, r.finish_reason)
                     self.strategies.end_query(r.query_id)
 
+    def _cache_arrays(self) -> list:
+        c = self.cache
+        return [a for a in (c.k, c.v, c.k_scale, c.v_scale) if a is not None]
+
+    def warmup(self, buckets=None) -> None:
+        """Build the kernels and run each kind of step once (a port of the
+        JAX engine's warmup, which compiles its prefill programs), so that
+        the first request does not pay the build: one bucketed prefill per
+        bucket (16, 64 and 256, at most the context and the prefill chunk),
+        one prefill chunk when prompts can exceed a chunk (dense cache),
+        and one decode step over every slot.  The query table, the cache
+        (its rows and lengths) and the page pool are left as they were:
+        the rows the chunk and the decode step write are saved first and
+        written back."""
+        if self.device.type == "cuda":
+            from ..kernels import _build
+            _build.build()
+        for b in buckets or (16, 64, 256):
+            b = min(b, _bucket(self.max_context_len, hi=self.max_context_len))
+            if b > self.max_context_len or b > self.prefill_chunk:
+                continue
+            self._prefill_step(np.zeros((1, b), np.int32), 1, b)
+        cache = self.cache
+        lengths = cache.length.clone()
+        arrays = self._cache_arrays()
+        if self.max_context_len > self.prefill_chunk and not self._paging:
+            c = self.prefill_chunk
+            saved = [a[:, 0, :, :c].clone() for a in arrays]
+            self._chunk_step(np.zeros((1, c), np.int32), 0, 0, True)
+            for a, rows in zip(arrays, saved):
+                a[:, 0, :, :c] = rows
+        # the decode step writes one row per slot: at its length (clamped),
+        # through the page table when paged
+        if self._paging:
+            at = cache._row_address(lengths)
+        else:
+            at = (torch.arange(self.max_slots, device=self.device),
+                  lengths.to(device=self.device, dtype=torch.long).clamp(
+                      0, cache.max_len - 1))
+        saved = [a[:, at[0], :, at[1]].clone() for a in arrays]
+        self._decode_step(np.zeros((self.max_slots, 1), np.int32),
+                          np.zeros((self.max_slots,), np.int32))
+        for a, rows in zip(arrays, saved):
+            a[:, at[0], :, at[1]] = rows
+        cache.with_length(lengths)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def has_work(self) -> bool:
         with self._lock:
             return bool(self.table.active)

@@ -1,14 +1,15 @@
 """The PyTorch package stands alone, and nothing in it falls back silently.
 
 - Importing every module of ``inferflow_tpu_torch`` (in a fresh process;
-  ``config/``, ``runtime/paged_kv.py``, the loaders, the tokenizer and
-  ``runtime/factory.py`` among them) leaves ``jax`` and
-  ``inferflow_tpu`` out of ``sys.modules``; no module of it, nothing in
-  ``chip_smoke.py`` and no card test (``tests/test_torch_cuda*.py``) names
-  them in an import.
+  ``config/``, ``runtime/paged_kv.py``, the loaders, the tokenizer,
+  ``runtime/factory.py``, ``serving/`` and ``tools/`` among them) leaves
+  ``jax`` and ``inferflow_tpu`` out of ``sys.modules``; no module of it,
+  nothing in ``chip_smoke.py`` and no card test
+  (``tests/test_torch_cuda*.py``) names them in an import.
 - Entry points (the zoo, the engine, ``InferenceEngine.from_config``,
   ``make_engine``, ``load_model``, ``load_std``, the synthetic checkpoint
-  writer) default to the card and raise where there is none; the kernel
+  writer, the service and llm_inference CLIs) default to the card and
+  raise where there is none; the kernel
   wrappers (B1 for Q4, Q8 and the sub-byte weights, B2, B3, B5 on every
   4-bit format, B6, B7, the i8mm product and the fused decode step B4,
   dense and paged, i8mm, i4 (every block geometry) and byte, and its
@@ -49,7 +50,13 @@ missing = [n for n in ("inferflow_tpu_torch.config.ini",
                        "inferflow_tpu_torch.loaders.synthetic",
                        "inferflow_tpu_torch.tokenizer.loading",
                        "inferflow_tpu_torch.utils.study",
-                       "inferflow_tpu_torch.models.network_structure")
+                       "inferflow_tpu_torch.models.network_structure",
+                       "inferflow_tpu_torch.serving.service_data",
+                       "inferflow_tpu_torch.serving.http_server",
+                       "inferflow_tpu_torch.serving.client",
+                       "inferflow_tpu_torch.tools.inferflow_service",
+                       "inferflow_tpu_torch.tools.llm_inference",
+                       "inferflow_tpu_torch.tools.inferflow_client")
            if n not in names]
 print(len(names), bad + missing)
 """
@@ -127,6 +134,12 @@ def test_entry_points_refuse_a_missing_card():
                   lambda: write_llama_checkpoint("unused", {})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+    # the CLIs (the service and llm_inference) run on the card unless
+    # --device cpu
+    from inferflow_tpu_torch.tools import inferflow_service, llm_inference
+    for main in (inferflow_service.main, llm_inference.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--zoo", "test-tiny", "--quant", "Q4_B64T1"])
 
 
 def test_wrappers_refuse_other_devices():
