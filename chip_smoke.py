@@ -241,11 +241,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
-H100_INT8_OPS = 1979e12  # dense int8 tensor cores, H100 SXM data sheet
+# the package's timer and bound (a checkout without it fails here)
+from inferflow_tpu_torch.utils.cuda_timing import (  # noqa: E402
+    H100_BF16_FLOPS, H100_BYTES_PER_S, H100_INT8_OPS, TIMED_ITERS, Timer,
+    bound)
 KERNEL_REL_TOL = 8e-3  # |kernel - plain| <= tol * max|plain|: ~2 bf16 ulps
-TIMED_ITERS = 20
 MODEL = "tinyllama-1.1b"
 PROMPT_LENS = (7, 60, 200, 300)
 MAX_NEW = 16
@@ -559,6 +559,31 @@ ENGINE_O_PROMPTS = ENGINE_N_PROMPTS
 ENGINE_O_MUST = ("fused_decode_step_i4bf16_b32", "i4_matmul_b32",
                  "chunk_attention")
 
+# the kernel bench phase: the port's tools/kernel_bench.py in-process,
+# B6's wire mode and non-pair branch at llama2-13b's products, X1-X5 at
+# exp_unpack's shapes, B2/B3/B7 at gemma-2b's head shape (D = 256)
+KERNEL_BENCH_ARGS = ["--b6", "--b6-model", "llama2-13b", "--m", "1,8,12,256",
+                     "--unpack", "--attention", "--formats",
+                     "Q4_B64T1,Q3H_B64T1"]
+# the mega_ab phase: the fused step against the per-layer loop
+# (INFERFLOW_MEGA=0), tinyllama-1.1b in i8mm, ctx 64/512/4096
+MEGA_AB_ARGS = ["--formats", "none", "--mega", "--mega-model", MODEL,
+                "--mega-layout", "i8mm"]
+# run (p): gemma-2b's published attention shape and widths (hidden 2048,
+# 8 query heads on 1 kv head, head_dim 256, intermediate 16384, 18
+# layers) on a llama-family zoo spec with vocab 32000 (gemma's GeGLU,
+# embedding scale and 256k vocab are model features still to port)
+P_BASE_MODEL = "llama2-7b"
+P_SHAPE = dict(embd=2048, heads=8, kv_heads=1, inter=16384, layers=18,
+               vocab=32000)
+P_SLOTS, P_CONTEXT = 8, 4096
+ENGINE_P_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+# the twin's attention runs the plain versions: the kernels' float32 sums
+# in another order, over 18 random layers (run (g)'s decode gate)
+ENGINE_P_TOL = 0.12
+ENGINE_PCPU_LAYERS = 1
+ENGINE_PCPU_PROMPTS = (7, 300, 13)
+
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
                        "inferflow_tpu/kernels/dequant_matmul.py:146"),
@@ -623,6 +648,25 @@ KERNEL_SOURCES = {
     **{gemv: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
               "inferflow_tpu/kernels/decode_step.py:573")
        for gemv, _, _ in I4BF16_FORMATS.values()},
+    # B6's wire mode (Q3H's three wire planes) and its non-pair branch
+    # (the format-generic kernel)
+    "q3h_wire_matmul": ("inferflow_tpu_torch/kernels/csrc/generic_matmul.cu",
+                        "inferflow_tpu/kernels/dequant_matmul.py:244"),
+    "generic_matmul": ("inferflow_tpu_torch/kernels/csrc/generic_matmul.cu",
+                       "inferflow_tpu/kernels/dequant_matmul.py:244"),
+    # the unpack experiments X1-X5
+    **{f"unpack_{x}": ("inferflow_tpu_torch/kernels/csrc/unpack_exp.cu",
+                       f"tools/exp_unpack.py:{line}")
+       for x, line in (("a", 59), ("b", 90), ("c", 113), ("d", 151),
+                       ("e", 174))},
+    # B2, B3 and B7 in their head_dim 256 instantiations
+    "decode_attention_d256": ("inferflow_tpu_torch/kernels/csrc/attention.cu",
+                              "inferflow_tpu/kernels/attention.py:68"),
+    "chunk_attention_d256": ("inferflow_tpu_torch/kernels/csrc/attention.cu",
+                             "inferflow_tpu/kernels/attention.py:507"),
+    "paged_decode_attention_d256": (
+        "inferflow_tpu_torch/kernels/csrc/attention.cu",
+        "inferflow_tpu/kernels/attention.py:283"),
 }
 
 
@@ -633,70 +677,6 @@ def emit(obj) -> None:
     """One JSON line, stamped with the seconds since the script started."""
     print(json.dumps(dict(obj, elapsed_s=time.perf_counter() - T0)),
           flush=True)
-
-
-class Timer:
-    """Median device time of a callable over TIMED_ITERS calls, each after
-    an L2 flush, measured with CUDA events.
-
-    The flush READS 128 MiB (a write would leave 50 MB of dirty lines whose
-    write-back the timed call would pay for).  Each call is queued behind a
-    device sleep, so the host enqueues all of the call's launches before
-    the device reaches them: the events then time the device work, not the
-    host's Python between launches.  An event behind the sleep proves it:
-    if the device has passed it by the time the call is queued, the host
-    fell behind and the call is timed again behind a four times longer
-    sleep.  One call per sleep keeps the queued launches (the fused step
-    issues about 115) far below the launch queue's depth, past which the
-    host would block.  A callable that waits on the device itself (a
-    device-to-host read) can never be queued ahead: it is timed alone, and
-    its events then include its host gaps (a "timer" line names it)."""
-
-    SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's ~2 GHz clock
-
-    def __init__(self, device):
-        self.flush_buf = torch.ones(32 * 1024 * 1024, dtype=torch.int32,
-                                    device=device)
-
-    def _once(self, fn, sleep_cycles: int):
-        if sleep_cycles:
-            torch.cuda._sleep(sleep_cycles)
-        gate = torch.cuda.Event()
-        gate.record()
-        self.flush_buf.max()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        host_ahead = not gate.query()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end), host_ahead
-
-    def __call__(self, fn, label: str = "", iters: int = TIMED_ITERS) -> float:
-        fn()  # warm up
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            for attempt in range(3):
-                ms, ahead = self._once(fn, self.SLEEP_CYCLES * 4 ** attempt)
-                if ahead:
-                    times.append(ms)
-                    break
-            else:
-                break
-        if len(times) == iters:
-            return float(np.median(times))
-        emit({"phase": "timer", "ungated": label})
-        return float(np.median([self._once(fn, 0)[0]
-                                for _ in range(iters)]))
-
-
-def bound(bytes_moved: float, flops: float,
-          peak: float = H100_BF16_FLOPS) -> tuple:
-    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor,
@@ -3459,6 +3439,147 @@ def phase_engine_o(dev, root: str, ctx) -> dict:
     return launches
 
 
+# ------------------------------------------------------ the kernel bench
+def phase_bench(args) -> dict:
+    """The port's kernel bench in-process with `args`, its launches counted
+    from 0 for this phase: its calls are the path of the kernels it hosts
+    (B6's wire mode and non-pair branch, X1-X5, B7 at head_dim 256)."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.tools import kernel_bench
+    _build.launch_counts.clear()
+    rows = kernel_bench.bench(args)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    emit({"phase": "kernel_bench_launches", "args": args,
+          "kernel_launches": launches})
+    return {"rows": rows, "launches": launches,
+            "ok": all(r["ok"] for r in rows)}
+
+
+# ------------------------------------- (p): gemma-2b's head shape (C13)
+def p_spec(layers: int):
+    """A llama-family spec at gemma-2b's attention shape and widths (the
+    model dir holds no config.json): the zoo's llama2-7b with P_SHAPE."""
+    import dataclasses
+    from inferflow_tpu_torch.models.zoo import make_spec
+    spec = make_spec(P_BASE_MODEL)
+    hp = dataclasses.replace(
+        spec.hyper_params, embd_dims=P_SHAPE["embd"],
+        hidden_dim=P_SHAPE["embd"], decoder_heads=P_SHAPE["heads"],
+        decoder_kv_heads=P_SHAPE["kv_heads"],
+        decoder_intermediate_size=P_SHAPE["inter"], decoder_layers=layers,
+        vocab_size=P_SHAPE["vocab"])
+    spec = dataclasses.replace(spec, sid="gemma-2b-head-shape",
+                               hyper_params=hp)
+    assert hp.head_dim == 256
+    return spec
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The decoder's decode and chunk attention replaced by their plain
+    versions (on the card too) for the block."""
+    from inferflow_tpu_torch.kernels import attention as att
+    from inferflow_tpu_torch.models import decoder
+    saved = decoder.decode_attention, decoder.chunk_attention
+
+    def decode(q, cache, layer, lengths, *, kq_scale=1.0):
+        return att.decode_attention_plain(q[:, 0], cache, layer, lengths,
+                                          kq_scale)[:, None], cache
+
+    def chunk(q, cache, layer, slot, start, *, kq_scale=1.0):
+        return att.chunk_attention_plain(q[0], cache, layer, slot, start,
+                                         kq_scale)[None], cache
+
+    decoder.decode_attention, decoder.chunk_attention = decode, chunk
+    try:
+        yield
+    finally:
+        decoder.decode_attention, decoder.chunk_attention = saved
+
+
+def phase_engine_p(dev, spec, params, memory) -> dict:
+    """(p): the default layout (i8mm on the card) at gemma-2b's head shape,
+    P_SLOTS slots, a P_CONTEXT-row Q8 cache, ENGINE_P_PROMPTS: neither
+    fused step takes head_dim 256, so every decode step is the per-layer
+    loop with B2's D = 256 instantiation in every layer, and chunks run
+    B3's; no other attention kernel and no fused step.  Every sampled row
+    is held against a twin on the card (the same weights and engine, its
+    attention the plain versions) fed (p)'s tokens."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    hp = spec.hyper_params
+    rng = np.random.default_rng(11)
+    prompts = [[int(t) for t in rng.integers(1, hp.vocab_size, n)]
+               for n in ENGINE_P_PROMPTS]
+    engine_kw = dict(max_concurrent_queries=P_SLOTS,
+                     max_context_len=P_CONTEXT, kv_cache_quantized=True,
+                     device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = InferenceEngine(spec, params, **engine_kw)
+    rows = _record_rows(eng)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    outputs = [eng.query_tokens(q) for q in qids]
+    emit({"phase": "engine_p", "model": spec.sid, "base": P_BASE_MODEL,
+          **P_SHAPE, "head_dim": hp.head_dim,
+          "device_layout": spec.device_layout or "auto",
+          "layout_type": type(params["lm_head"]).__name__,
+          "slots": P_SLOTS, "context": P_CONTEXT,
+          "prompt_lens": list(ENGINE_P_PROMPTS),
+          "tokens_served": sum(len(o) for o in outputs),
+          "engine_steps": steps, "decode_steps": len(decode_ms),
+          "wall_s": wall_s, "device_bytes": dict(
+              memory, serving_peak=torch.cuda.max_memory_allocated(dev)
+              - memory["before"]),
+          "prefill_ms_per_step": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step": decode_ms,
+          "first_tokens": [o[:4] for o in outputs],
+          "kernel_launches": {k: launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    path = ("decode_attention_d256", "chunk_attention_d256", "i8mm_gemv")
+    for k in KERNEL_SOURCES:
+        if k in path:
+            assert launches.get(k, 0) > 0, f"{k} never launched in run p"
+        else:
+            assert launches.get(k, 0) == 0, f"{k} launched in run p"
+    assert launches["decode_attention_d256"] \
+        == hp.decoder_layers * len(decode_ms), "a decode step missed B2"
+    profile_decode(eng, prompts[0], "p")
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with _plain_attention():
+        ref = InferenceEngine(spec, params, **engine_kw)
+        ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+        _build.launch_counts.clear()
+        ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+        torch.cuda.synchronize()
+    ref_launches = dict(_build.launch_counts)
+    assert ref_qids == qids, (ref_qids, qids)
+    assert not any(ref_launches.get(k, 0) for k in path[:2]), ref_launches
+    del ref
+    torch.cuda.empty_cache()
+    report = {"phase": "engine_p_vs_plain_attention_twin_card",
+              "reference_s": time.perf_counter() - t0,
+              "reference_decode_ms_median": float(np.median(ref_decode_ms)),
+              "tolerance": f"every sampled row: max_abs_err <= "
+                           f"{ENGINE_P_TOL}"}
+    report.update(_row_errors(qids, prompts, outputs, rows, ref_rows,
+                              ENGINE_P_TOL, MAX_NEW))
+    report.update(_split_row_errors(report))
+    emit(report)
+    assert report["ok"], "run p: rows disagree with the plain-attention twin"
+    return launches
+
+
 def _run(results, failed, pname, fn) -> None:
     try:
         results[pname] = fn()
@@ -3470,11 +3591,6 @@ def _run(results, failed, pname, fn) -> None:
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (Path(__file__).resolve().parent / "inferflow_tpu_torch"
-            / "kernels" / "csrc").is_dir():
-        print("chip_smoke: run it from the root of a checkout: "
-              "inferflow_tpu_torch/ is not beside it", file=sys.stderr)
         return 2
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.models.zoo import make_spec
@@ -3508,6 +3624,12 @@ def main() -> int:
          lambda: phase_b3(timer, dev, packed))
     _run(results, failed, "paged_decode_attention",
          lambda: phase_b7(timer, dev))
+    # the kernel bench (B6's wire mode and non-pair branch, X1-X5, B2, B3
+    # and B7 at head_dim 256), then the fused step against the per-layer
+    # loop under INFERFLOW_MEGA=0
+    _run(results, failed, "kernel_bench",
+         lambda: phase_bench(KERNEL_BENCH_ARGS))
+    _run(results, failed, "mega_ab", lambda: phase_bench(MEGA_AB_ARGS))
 
     # (a) the default layout: resolves to i8mm on the card
     spec_a = make_spec(MODEL)
@@ -3789,6 +3911,23 @@ def main() -> int:
     del params_m
     torch.cuda.empty_cache()
 
+    # (p) gemma-2b's head shape (head_dim 256, 8 query heads on 1 kv
+    # head): the default layout, B2 and B3 at D = 256 (C13)
+    spec_p = p_spec(P_SHAPE["layers"])
+    params_p, memory_p = build_params(dev, spec_p)
+    _run(results, failed, "engine_p",
+         lambda: phase_engine_p(dev, spec_p, params_p, memory_p))
+    spec_cut = p_spec(ENGINE_PCPU_LAYERS)
+    spec_cut.qkv_format = spec_p.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_p, layers=params_p["layers"][:ENGINE_PCPU_LAYERS])
+    _run(results, failed, "engine_p_cpu", lambda: phase_engine_cut_cpu(
+        dev, None, spec_cut, params_cut, "p_cpu", "none", spec_p.sid,
+        ENGINE_PCPU_PROMPTS, P_SLOTS, P_CONTEXT,
+        ("decode_attention_d256", "chunk_attention_d256", "i8mm_gemv"),
+        ("fused_decode_step", "decode_attention", "chunk_attention")))
+    del params_p, params_cut
+    torch.cuda.empty_cache()
+
     # checkpoints from disk: configs/inferflow_service.q4b32.ini, llama2-7b
     # in Q4_B32T1A under the i4 layout, through make_engine
     import shutil
@@ -3850,6 +3989,9 @@ def main() -> int:
                   "fused_decode_step_i4bf16"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
+    for pname in ("kernel_bench", "mega_ab"):
+        if pname in results and not results[pname]["ok"]:
+            failed.append(pname)
     if failed:
         print(f"chip_smoke: failed phases: {sorted(set(failed))}",
               file=sys.stderr)
@@ -3879,6 +4021,15 @@ def main() -> int:
             launches[kname] = results[run][kname]
     o_step = I4BF16_FORMATS["Q4_B32T1A"][2]
     launches[o_step] = results["engine_o"][o_step]
+    # this slice's kernels: the kernel bench's calls are their path; B2
+    # and B3 at head_dim 256 launch in run (p)
+    bench = results["kernel_bench"]
+    for kname in ("q3h_wire_matmul", "generic_matmul", "unpack_a",
+                  "unpack_b", "unpack_c", "unpack_d", "unpack_e",
+                  "paged_decode_attention_d256"):
+        launches[kname] = bench["launches"][kname]
+    for kname in ("decode_attention_d256", "chunk_attention_d256"):
+        launches[kname] = results["engine_p"][kname]
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -3908,6 +4059,20 @@ def main() -> int:
                            if r["kernel"] == step and " B=8 " in r["shape"])
     picks[o_step] = next(r for r in results["fused_decode_step_i4bf16"]
                          if " B=8 " in r["shape"])
+    bench_rows = bench["rows"]
+    picks["q3h_wire_matmul"] = next(
+        r for r in bench_rows if r["kernel"] == "q3h_wire_matmul"
+        and r["shape"].startswith("w1n3 Q3H_B64T1 wire M=8 "))
+    picks["generic_matmul"] = next(
+        r for r in bench_rows if r["kernel"] == "generic_matmul"
+        and r["shape"].startswith("w1n3 Q6_B64T1 M=8 "))
+    for x in "abcde":
+        picks[f"unpack_{x}"] = next(
+            r for r in bench_rows if r["kernel"] == f"unpack_{x}"
+            and r["shape"].endswith(" K=4096 N=4096"))
+    for kname in ("decode_attention_d256", "chunk_attention_d256",
+                  "paged_decode_attention_d256"):
+        picks[kname] = next(r for r in bench_rows if r["kernel"] == kname)
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

@@ -9,6 +9,16 @@ the card.  They read the cache in its logical layout (runtime/kv_cache.py,
 runtime/paged_kv.py) and dequantize K/V in float32, as the Pallas kernels
 do.  ``decode_attention`` dispatches on the cache type as the JAX one does:
 a PagedKVCache takes B7.
+
+Shapes: B2 and B3 take head_dim a multiple of 16 up to 256 and any number
+of query heads per kv head (they are instantiated for head dims up to 128
+and up to 256, each with its own launch count: ``decode_attention`` /
+``decode_attention_d256`` and so on); B7 takes head_dim 32, 64, 128 or
+256.  That covers every head shape the JAX kernels take
+(`decode_attention_supported`) and more, such as 48 or 80, where the JAX
+decoder falls back to XLA's ``mha``.  On the card a shape outside
+``attention_kernel_supported`` raises NotImplementedError; it never runs
+the plain version there.
 """
 
 from __future__ import annotations
@@ -25,10 +35,28 @@ DECODE_KERNEL = "decode_attention"
 CHUNK_KERNEL = "chunk_attention"
 PAGED_KERNEL = "paged_decode_attention"
 NEG_INF = -1e30
-_MAX_ROWS = 16  # query rows per CTA (csrc/attention.cu kMaxRows)
-_MAX_D = 128
-_PAGED_D = (32, 64, 128)  # head dims of the paged kernel (csrc)
+_MAX_D = 256
+_PAGED_D = (32, 64, 128, 256)  # head dims of the paged kernel (csrc)
 _MAX_SPLIT = 16  # CTAs per (slot, kv head) walk
+_MAX_ROWS = 16  # query rows per B2 CTA (csrc kMaxRows)
+_SPLIT_ROWS = 256  # least keys per CTA of B2's split walk (csrc kSplitRows)
+
+
+def attention_kernel_supported(cache) -> bool:
+    """Whether the card's attention kernels take this cache's head shape:
+    B7 (a PagedKVCache) head_dim in _PAGED_D; B2/B3 head_dim a multiple of
+    16 up to _MAX_D, quantized in blocks of a multiple of 16 values."""
+    d = cache.head_dim
+    if isinstance(cache, PagedKVCache):
+        return d in _PAGED_D and cache.page_tokens % 32 == 0
+    return (d <= _MAX_D and d % 16 == 0
+            and not (cache.quantized and cache.block % 16))
+
+
+def kernel_name(base: str, d: int) -> str:
+    """The launch count of a kernel's instantiation for head_dim d: the
+    head dims above 128 run their own (``<base>_d256``)."""
+    return f"{base}_d256" if d > 128 else base
 
 
 def _scale(d: int, kq_scale: float) -> float:
@@ -105,7 +133,7 @@ def _lib():
     lib = _build.load("attention")
     if not getattr(lib, "_ift_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ift_decode_attention.argtypes = [vp] * 7 + [i] * 7 + [i, f, vp]
+        lib.ift_decode_attention.argtypes = [vp] * 9 + [i] * 9 + [f, vp]
         lib.ift_decode_attention.restype = ctypes.c_int
         lib.ift_chunk_attention.argtypes = [vp] * 6 + [i] * 10 + [i, f, vp]
         lib.ift_chunk_attention.restype = ctypes.c_int
@@ -116,13 +144,12 @@ def _lib():
     return lib
 
 
-def _cache_operands(cache: KVCache, g: int):
+def _cache_operands(cache: KVCache):
     """Checked cache pointers: (k, k_scale, v, v_scale, quantized, blk)."""
-    d = cache.head_dim
-    if g > _MAX_ROWS or d > _MAX_D or d % 16:
+    if not attention_kernel_supported(cache):
         raise NotImplementedError(
-            f"attention kernels take g <= {_MAX_ROWS} query heads per kv "
-            f"head and head_dim a multiple of 16 up to {_MAX_D}")
+            f"the attention kernels take head_dim a multiple of 16 up to "
+            f"{_MAX_D} (D={cache.head_dim}, block {cache.block})")
     shape = tuple(cache.k.shape)
     if cache.quantized:
         _build.check_operand(cache.k, "k", torch.int8, shape)
@@ -151,15 +178,28 @@ def decode_attention_cuda(q: torch.Tensor, cache: KVCache, layer: int,
     _build.check_operand(q, "q", torch.bfloat16, (bsz, hq, d))
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     _build.check_operand(lengths, "lengths", torch.int32, (bsz,), align=4)
-    k, ks, v, vs, quantized, blk = _cache_operands(cache, hq // h)
+    k, ks, v, vs, quantized, blk = _cache_operands(cache)
+    g = hq // h
+    ctas = bsz * h * -(-g // _MAX_ROWS)
+    # CTAs per walk: the kernel gives a slot of n rows min(nsplit,
+    # ceil(n / _SPLIT_ROWS)) of them
+    nsplit = max(1, min(_MAX_SPLIT, -(-s // _SPLIT_ROWS)))
+    null = ctypes.c_void_p(0)
+    part = counters = None
+    if nsplit > 1:
+        part = torch.empty(ctas * nsplit * min(g, _MAX_ROWS) * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = torch.zeros(ctas, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     lib = _lib()
     rc = lib.ift_decode_attention(
-        _build.ptr(q), k, ks, v, vs, _build.ptr(lengths), _build.ptr(out),
-        int(layer), bsz, h, s, d, blk, hq // h, quantized,
+        _build.ptr(q), k, ks, v, vs, _build.ptr(lengths),
+        null if part is None else _build.ptr(part),
+        null if counters is None else _build.ptr(counters), _build.ptr(out),
+        int(layer), bsz, h, s, d, blk, g, nsplit, quantized,
         _scale(d, kq_scale), _build.stream_of(q))
     _build.check(lib, rc, DECODE_KERNEL)
-    _build.launch_counts[DECODE_KERNEL] += 1
+    _build.launch_counts[kernel_name(DECODE_KERNEL, d)] += 1
     return out
 
 
@@ -174,7 +214,7 @@ def chunk_attention_cuda(q: torch.Tensor, cache: KVCache, layer: int,
         raise ValueError(f"chunk (layer {layer}, slot {slot}, rows "
                          f"[{start}, {start + c})) outside the cache")
     _build.check_operand(q, "q", torch.bfloat16, (c, hq, d))
-    k, ks, v, vs, quantized, blk = _cache_operands(cache, hq // h)
+    k, ks, v, vs, quantized, blk = _cache_operands(cache)
     out = torch.empty_like(q)
     lib = _lib()
     rc = lib.ift_chunk_attention(
@@ -182,7 +222,7 @@ def chunk_attention_cuda(q: torch.Tensor, cache: KVCache, layer: int,
         d, blk, hq // h, int(slot), int(start), c, quantized,
         _scale(d, kq_scale), _build.stream_of(q))
     _build.check(lib, rc, CHUNK_KERNEL)
-    _build.launch_counts[CHUNK_KERNEL] += 1
+    _build.launch_counts[kernel_name(CHUNK_KERNEL, d)] += 1
     return out
 
 
@@ -194,11 +234,11 @@ def paged_decode_attention_cuda(q: torch.Tensor, cache: PagedKVCache,
     num_layers, pages, h, pt, d = cache.k.shape
     bsz, hq, _ = q.shape
     g = hq // h
-    if d not in _PAGED_D or g * h != hq or g > _MAX_ROWS or pt % 32:
+    if not attention_kernel_supported(cache) or g * h != hq:
         raise NotImplementedError(
-            f"the paged attention kernel takes head_dim in {_PAGED_D}, at "
-            f"most {_MAX_ROWS} query heads per kv head and pages of a "
-            f"multiple of 32 rows (D={d}, Hq={hq}, H={h}, PT={pt})")
+            f"the paged attention kernel takes head_dim in {_PAGED_D} and "
+            f"pages of a multiple of 32 rows (D={d}, Hq={hq}, H={h}, "
+            f"PT={pt})")
     if not 0 <= layer < num_layers:
         raise ValueError(f"layer {layer} out of range")
     maxp = cache.max_pages_per_slot
@@ -223,9 +263,12 @@ def paged_decode_attention_cuda(q: torch.Tensor, cache: PagedKVCache,
         _build.check_operand(cache.k, "k", torch.bfloat16, shape)
         _build.check_operand(cache.v, "v", torch.bfloat16, shape)
     nsplit = min(_MAX_SPLIT, maxp)
-    part = torch.empty(bsz * h * nsplit * g * (d + 2),
+    rows = 16 if d <= 128 else 8  # query rows per CTA (csrc)
+    groups = -(-g // rows)
+    part = torch.empty(bsz * h * groups * nsplit * rows * (d + 2),
                        dtype=torch.float32, device=q.device)
-    counters = torch.zeros(bsz * h, dtype=torch.int32, device=q.device)
+    counters = torch.zeros(bsz * h * groups, dtype=torch.int32,
+                           device=q.device)
     out = torch.empty_like(q)
     lib = _lib()
     rc = lib.ift_paged_decode_attention(
@@ -235,7 +278,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, cache: PagedKVCache,
         pt, maxp, d, g, nsplit, int(cache.quantized),
         _scale(d, kq_scale), _build.stream_of(q))
     _build.check(lib, rc, PAGED_KERNEL)
-    _build.launch_counts[PAGED_KERNEL] += 1
+    _build.launch_counts[kernel_name(PAGED_KERNEL, d)] += 1
     return out
 
 

@@ -21,7 +21,12 @@
 //
 // What the design does about it:
 //   - one CTA per (slot, kv head) for decode serves that head's g query
-//     rows (GQA) from one read of the K/V rows; chunked prefill takes one
+//     rows (GQA) from one read of the K/V rows; each slot's walk is split
+//     by length into up to `nsplit` CTAs of whole tiles (at least
+//     kSplitRows rows each), and the last CTA of a (slot, kv head) to
+//     finish (a counter) merges their partial softmax states, as B7 does:
+//     one long slot no longer sets the step's attention time, and a few
+//     kv heads fill the card; chunked prefill takes one
 //     CTA per (kv head, tile of 16 of the C*g query rows) and reads keys
 //     only up to its last row's causal limit;
 //   - the key loop has a runtime trip count: ceil(len/32) tiles of 32 keys
@@ -35,8 +40,6 @@
 //   - one lane per key computes the scores, then an online softmax in
 //     float32 (running max and sum per row, in registers) rescales the
 //     accumulator.
-//   Still to do (later work): split the sequence across CTAs when B*H is
-//   small (decode at 4 slots runs 16 CTAs on 132 SMs).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -48,10 +51,9 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;  // keys per tile: one per lane
-constexpr int kMaxD = 128;
 constexpr int kMaxRows = 16;  // query rows per CTA
 constexpr int kRowsPerWarp = kMaxRows / kWarps;
-constexpr int kDPerLane = kMaxD / 32;
+constexpr int kSplitRows = 256;  // least keys per CTA of a split decode walk
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -66,20 +68,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// B2 and B3 are instantiated for head dims up to MAXD = 128 and up to
+// MAXD = 256 (gemma-2b's head_dim): the per-lane registers and the shared
+// tiles are sized by MAXD.  The tiles are dynamic shared memory (82,688
+// bytes at MAXD = 256, past the 48 KB of static shared memory).
+template <int MAXD>
+struct Smem {
+  static constexpr int kBytes =
+      (kMaxRows * MAXD + 2 * kTile * (MAXD + 1) + kWarps * kTile) * 4;
+};
+
 // A key/value tile in registers: 16-byte chunks of the contiguous rows
 // t0..t0+31 of one (layer, slot, kv head), plus each chunk's scale.
-constexpr int kMaxChunks = kTile * kMaxD * 2 / 16 / kThreads;
-
+template <int MAXD>
 struct TileRegs {
-  uint4 k[kMaxChunks], v[kMaxChunks];
-  float ksc[kMaxChunks], vsc[kMaxChunks];
+  static constexpr int kChunks = kTile * MAXD * 2 / 16 / kThreads;
+  uint4 k[kChunks], v[kChunks];
+  float ksc[kChunks], vsc[kChunks];
 };
 
 // Issue the loads of rows [t0, t0 + nt): one 16-byte load per chunk (a
 // chunk never straddles a row or a scale block: D % 16 == 0, blk % 16 == 0
 // or blk == D).  Rows past nt read as zeros.
-template <bool QUANT>
-__device__ __forceinline__ void load_tile(TileRegs& r, const uint8_t* k_rows,
+template <bool QUANT, int MAXD>
+__device__ __forceinline__ void load_tile(TileRegs<MAXD>& r, const uint8_t* k_rows,
                                           const uint8_t* v_rows, const __half* k_sc,
                                           const __half* v_sc, int t0, int nt, int D,
                                           int blk, int tid) {
@@ -88,7 +100,7 @@ __device__ __forceinline__ void load_tile(TileRegs& r, const uint8_t* k_rows,
   const uint4* kt = reinterpret_cast<const uint4*>(k_rows + (size_t)t0 * row_bytes);
   const uint4* vt = reinterpret_cast<const uint4*>(v_rows + (size_t)t0 * row_bytes);
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
+  for (int c = 0; c < TileRegs<MAXD>::kChunks; ++c) {
     const int ch = tid + c * kThreads;
     r.k[c] = r.v[c] = make_uint4(0, 0, 0, 0);
     r.ksc[c] = r.vsc[c] = 0.f;
@@ -107,13 +119,13 @@ __device__ __forceinline__ void load_tile(TileRegs& r, const uint8_t* k_rows,
 }
 
 // Dequantize the register tile into shared memory (float32).
-template <bool QUANT>
-__device__ __forceinline__ void store_tile(const TileRegs& r, float (*ks)[kMaxD + 1],
-                                           float (*vs)[kMaxD + 1], int D, int tid) {
+template <bool QUANT, int MAXD>
+__device__ __forceinline__ void store_tile(const TileRegs<MAXD>& r, float (*ks)[MAXD + 1],
+                                           float (*vs)[MAXD + 1], int D, int tid) {
   constexpr int E = QUANT ? 16 : 8;  // elements per 16-byte chunk
   const int total = kTile * D / E;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
+  for (int c = 0; c < TileRegs<MAXD>::kChunks; ++c) {
     const int ch = tid + c * kThreads;
     if (ch < total) {
       const int e0 = ch * E;
@@ -139,29 +151,42 @@ __device__ __forceinline__ void store_tile(const TileRegs& r, float (*ks)[kMaxD 
   }
 }
 
-// CHUNK = false (decode): grid (B, H); rows are the g query heads of kv
-//   head h of slot b = blockIdx.x, every row sees keys [0, lengths[b]).
+// CHUNK = false (decode): grid (B, H, ceil(g / kMaxRows) * nsplit); rows
+//   are query heads h*g + z*kMaxRows .. of kv head h of slot b = blockIdx.x
+//   (z = blockIdx.z / nsplit: any number of query heads per kv head), every
+//   row sees keys [0, lengths[b]), of which this CTA walks split
+//   blockIdx.z % nsplit; part holds (B, H, groups, nsplit, R, D + 2)
+//   floats (m, l, acc), R = min(g, kMaxRows), and counters (B, H, groups)
+//   int32, zero on entry and left zero (both unused when nsplit is 1).
 // CHUNK = true: grid (H, ceil(C*g / kMaxRows)); row r of kv head h is
 //   chunk position c = r / g, query head h*g + r % g of slot `slot`, and
 //   sees keys [0, start + c + 1).
-template <bool QUANT, bool CHUNK>
-__global__ void __launch_bounds__(kThreads)
+// D <= MAXD, a multiple of 16.  At MAXD = 128 the kernel is held to four
+// CTAs per SM (128 registers): left free, ptxas took 96 registers and the
+// decode walk ran slower on the H100.  At MAXD = 256 the shared memory
+// admits two.
+template <bool QUANT, bool CHUNK, int MAXD>
+__global__ void __launch_bounds__(kThreads, MAXD <= 128 ? 4 : 2)
 attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_cache,
                  const __half* __restrict__ k_scale, const void* __restrict__ v_cache,
                  const __half* __restrict__ v_scale, const int* __restrict__ lengths,
-                 __nv_bfloat16* __restrict__ out, int layer, int B, int H, int S,
-                 int D, int blk, int g, int slot, int start, int C, float scale) {
-  __shared__ float qs[kMaxRows][kMaxD];
-  __shared__ float ks[kTile][kMaxD + 1];
-  __shared__ float vs[kTile][kMaxD + 1];
-  __shared__ float ps[kWarps][kTile];
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                 int* __restrict__ counters, int layer, int B, int H, int S, int D,
+                 int blk, int g, int slot, int start, int C, int nsplit, float scale) {
+  constexpr int kDPerLane = MAXD / 32;
+  extern __shared__ float smem[];
+  __shared__ int last_s;
+  float (*qs)[MAXD] = reinterpret_cast<float (*)[MAXD]>(smem);
+  float (*ks)[MAXD + 1] = reinterpret_cast<float (*)[MAXD + 1]>(smem + kMaxRows * MAXD);
+  float (*vs)[MAXD + 1] = ks + kTile;
+  float (*ps)[kTile] = reinterpret_cast<float (*)[kTile]>(vs + kTile);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int hq = H * g;
 
-  int b, h, row0, n_rows, n_keys;
+  int b, h, row0, n_rows, n_keys, key0 = 0, split = 0, ns = 1;
   if (CHUNK) {
     b = slot;
     h = blockIdx.x;
@@ -171,9 +196,19 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
   } else {
     b = blockIdx.x;
     h = blockIdx.y;
-    row0 = 0;
-    n_rows = g;
-    n_keys = min(max(lengths[b], 0), S);
+    split = blockIdx.z % nsplit;
+    row0 = (blockIdx.z / nsplit) * kMaxRows;
+    n_rows = min(kMaxRows, g - row0);
+    // whole tiles per CTA; a slot uses only the CTAs that get keys (one
+    // for an empty slot, so that its output is written)
+    const int len = min(max(lengths[b], 0), S);
+    const int tiles = (len + kTile - 1) / kTile;
+    const int want = min(nsplit, max(1, (len + kSplitRows - 1) / kSplitRows));
+    const int per = max(1, (tiles + want - 1) / want);
+    ns = max(1, (tiles + per - 1) / per);
+    if (split >= ns) return;
+    key0 = split * per * kTile;
+    n_keys = min(len, key0 + per * kTile);
   }
 
   // (B, Hq, D) for decode, (C, Hq, D) for a chunk
@@ -182,7 +217,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
       const int r = row0 + i;
       return ((size_t)(r / g) * hq + h * g + r % g) * D;
     }
-    return ((size_t)b * hq + h * g + i) * D;
+    return ((size_t)b * hq + h * g + row0 + i) * D;
   };
   auto row_limit = [&](int i) -> int {
     if (CHUNK) return min(start + (row0 + i) / g + 1, S);
@@ -212,17 +247,17 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
   const __half* v_sc = QUANT ? v_scale + head_row * (D / blk) : nullptr;
 
   // software pipeline: tile t+1's loads are in flight while tile t is used
-  TileRegs regs;
-  if (n_keys > 0)
-    load_tile<QUANT>(regs, k_rows, v_rows, k_sc, v_sc, 0, min(kTile, n_keys), D, blk,
-                     tid);
-  for (int t0 = 0; t0 < n_keys; t0 += kTile) {
+  TileRegs<MAXD> regs;
+  if (key0 < n_keys)
+    load_tile<QUANT, MAXD>(regs, k_rows, v_rows, k_sc, v_sc, key0, min(kTile, n_keys - key0),
+                           D, blk, tid);
+  for (int t0 = key0; t0 < n_keys; t0 += kTile) {
     const int nt = min(kTile, n_keys - t0);
     __syncthreads();  // the previous tile is consumed (and qs is written)
-    store_tile<QUANT>(regs, ks, vs, D, tid);
+    store_tile<QUANT, MAXD>(regs, ks, vs, D, tid);
     __syncthreads();
     if (t0 + kTile < n_keys)
-      load_tile<QUANT>(regs, k_rows, v_rows, k_sc, v_sc, t0 + kTile,
+      load_tile<QUANT, MAXD>(regs, k_rows, v_rows, k_sc, v_sc, t0 + kTile,
                        min(kTile, n_keys - t0 - kTile), D, blk, tid);
 
 #pragma unroll
@@ -240,8 +275,9 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
         }
         const float m_new = fmaxf(m_r[rr], warp_max(s));
         const float alpha = expf(m_r[rr] - m_new);
-        const float p = expf(s - m_new);  // 0 for masked keys: key 0 is
-                                          // always visible, m_new is finite
+        const float p = expf(s - m_new);  // 0 for masked keys: the walk's
+                                          // first key is always visible,
+                                          // m_new is finite
         l_r[rr] = l_r[rr] * alpha + warp_sum(p);
         m_r[rr] = m_new;
         ps[warp][lane] = p;
@@ -260,36 +296,106 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
     }
   }
 
+  if (ns == 1) {
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int i = warp + rr * kWarps;
+      if (i < n_rows) {
+        const float inv = 1.f / fmaxf(l_r[rr], 1e-30f);
+#pragma unroll
+        for (int dd = 0; dd < kDPerLane; ++dd) {
+          const int d = lane + 32 * dd;
+          if (d < D) out[q_offset(i) + d] = __float2bfloat16_rn(acc[rr][dd] * inv);
+        }
+      }
+    }
+    return;
+  }
+
+  // a split walk (decode only): this CTA's partial state, then the last CTA
+  // of the (slot, kv head, row group) merges the ns states of every row
+  const int stride = D + 2;
+  const int R = min(g, kMaxRows);
+  const size_t cta = ((size_t)b * H + h) * (gridDim.z / nsplit) + blockIdx.z / nsplit;
+  float* pz = part + (cta * nsplit + split) * R * (size_t)stride;
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int i = warp + rr * kWarps;
     if (i < n_rows) {
-      const float inv = 1.f / fmaxf(l_r[rr], 1e-30f);
+      if (lane == 0) {
+        pz[i * stride] = m_r[rr];
+        pz[i * stride + 1] = l_r[rr];
+      }
 #pragma unroll
       for (int dd = 0; dd < kDPerLane; ++dd) {
         const int d = lane + 32 * dd;
-        if (d < D) out[q_offset(i) + d] = __float2bfloat16_rn(acc[rr][dd] * inv);
+        if (d < D) pz[i * stride + 2 + d] = acc[rr][dd];
       }
     }
   }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(&counters[cta], 1) == ns - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const float* pb = part + cta * nsplit * R * (size_t)stride;
+  for (int idx = tid; idx < n_rows * D; idx += kThreads) {
+    const int r = idx / D, d = idx - r * D;
+    float m = kNegInf;
+    for (int zz = 0; zz < ns; ++zz)
+      m = fmaxf(m, __ldcg(pb + ((size_t)zz * R + r) * stride));
+    float l = 0.f, o = 0.f;
+    for (int zz = 0; zz < ns; ++zz) {
+      const float* pr = pb + ((size_t)zz * R + r) * stride;
+      const float wt = expf(__ldcg(pr) - m);
+      l += wt * __ldcg(pr + 1);
+      o += wt * __ldcg(pr + 2 + d);
+    }
+    out[q_offset(r) + d] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+  }
+  if (tid == 0) counters[cta] = 0;
 }
 
+template <bool QUANT, bool CHUNK, int MAXD>
+cudaError_t launch_d(dim3 grid, const void* q, const void* k, const void* ks,
+                     const void* v, const void* vs, const void* lengths, void* out,
+                     void* part, void* counters, int layer, int B, int H, int S, int D,
+                     int blk, int g, int slot, int start, int C, int nsplit, float scale,
+                     cudaStream_t stream) {
+  auto kernel = attention_kernel<QUANT, CHUNK, MAXD>;
+  constexpr int bytes = Smem<MAXD>::kBytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, static_cast<const __half*>(ks), v,
+      static_cast<const __half*>(vs), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+      static_cast<int*>(counters), layer, B, H, S, D, blk, g, slot, start, C, nsplit, scale);
+  return cudaGetLastError();
+}
+
+// B2 / B3 for head_dim D (a multiple of 16 up to 256): the MAXD = 128
+// instantiation up to 128, the MAXD = 256 one above.
 template <bool CHUNK>
-void launch(dim3 grid, bool quantized, const void* q, const void* k, const void* ks,
-            const void* v, const void* vs, const void* lengths, void* out, int layer,
-            int B, int H, int S, int D, int blk, int g, int slot, int start, int C,
-            float scale, cudaStream_t stream) {
-  auto* qb = static_cast<const __nv_bfloat16*>(q);
-  auto* ksh = static_cast<const __half*>(ks);
-  auto* vsh = static_cast<const __half*>(vs);
-  auto* len = static_cast<const int*>(lengths);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (quantized)
-    attention_kernel<true, CHUNK><<<grid, kThreads, 0, stream>>>(
-        qb, k, ksh, v, vsh, len, ob, layer, B, H, S, D, blk, g, slot, start, C, scale);
-  else
-    attention_kernel<false, CHUNK><<<grid, kThreads, 0, stream>>>(
-        qb, k, ksh, v, vsh, len, ob, layer, B, H, S, D, blk, g, slot, start, C, scale);
+cudaError_t launch(dim3 grid, bool quantized, const void* q, const void* k,
+                   const void* ks, const void* v, const void* vs, const void* lengths,
+                   void* out, void* part, void* counters, int layer, int B, int H, int S,
+                   int D, int blk, int g, int slot, int start, int C, int nsplit,
+                   float scale, cudaStream_t stream) {
+  if (D < 16 || D > 256 || D % 16 || g < 1 || nsplit < 1 ||
+      (nsplit > 1 && (part == nullptr || counters == nullptr)) ||
+      (quantized && (blk < 16 || blk % 16 || D % blk)))
+    return cudaErrorInvalidValue;
+#define IFT_LAUNCH_D(QUANT, MAXD)                                                       \
+  launch_d<QUANT, CHUNK, MAXD>(grid, q, k, ks, v, vs, lengths, out, part, counters, layer, \
+                               B, H, S, D, blk, g, slot, start, C, nsplit, scale, stream)
+  if (D <= 128) return quantized ? IFT_LAUNCH_D(true, 128) : IFT_LAUNCH_D(false, 128);
+  return quantized ? IFT_LAUNCH_D(true, 256) : IFT_LAUNCH_D(false, 256);
+#undef IFT_LAUNCH_D
 }
 
 // ------------------------------------------------------ paged decode (B7)
@@ -326,9 +432,16 @@ void launch(dim3 grid, bool quantized, const void* q, const void* k, const void*
 //     permute and one add) instead of the slower integer converts.
 
 // warps per CTA: 8 while the merge buffer of the warps' states fits the
-// 48 KB of static shared memory (g <= 8), else 4
-template <int RM>
-__host__ __device__ constexpr int paged_warps() { return RM <= 8 ? 8 : 4; }
+// 48 KB of static shared memory (g <= 8 at D <= 128, g = 1 at D = 256),
+// else 4
+template <int RM, int D>
+__host__ __device__ constexpr int paged_warps() {
+  return (D <= 128 ? RM <= 8 : RM <= 1) ? 8 : 4;
+}
+// query rows per CTA at most: a kv head's g rows are split into groups of
+// this many (grid.y = H * groups), so that any g is served
+template <int D>
+__host__ __device__ constexpr int paged_max_rows() { return D <= 128 ? 16 : 8; }
 
 struct PagedArgs {
   const __nv_bfloat16* q;   // (B, Hq, D)
@@ -338,8 +451,8 @@ struct PagedArgs {
   const __half* v_scale;
   const int* page_table;    // (B, MAXP)
   const int* lengths;       // (B,)
-  float* part;              // (B, H, nsplit, g, D + 2) per-CTA m, l, acc
-  int* counters;            // (B, H), zero on entry and on exit
+  float* part;              // (B, H * groups, nsplit, RM, D + 2) per-CTA m, l, acc
+  int* counters;            // (B, H * groups), zero on entry and on exit
   __nv_bfloat16* out;       // (B, Hq, D)
   int layer, B, H, P, PT, MAXP, g, nsplit;
   float scale;
@@ -369,6 +482,7 @@ __device__ __forceinline__ float chunk_elem(const uint4& c, int e) {
 
 // The BYTES of one row that a lane accumulates (D/32 elements), as one load.
 template <int BYTES> struct LaneWord;
+template <> struct LaneWord<16> { using T = uint4; };
 template <> struct LaneWord<8> { using T = uint2; };
 template <> struct LaneWord<4> { using T = unsigned int; };
 template <> struct LaneWord<2> { using T = unsigned short; };
@@ -377,9 +491,12 @@ template <> struct LaneWord<1> { using T = unsigned char; };
 // element i of a lane word: an int8 code or a bf16 value
 template <bool QUANT, typename W>
 __device__ __forceinline__ float word_elem(const W& w, int i) {
+  const int wi = i / (QUANT ? 4 : 2);  // the 32-bit word holding element i
   uint32_t x;
-  if constexpr (sizeof(W) == 8)
-    x = i < 2 ? w.x : w.y;  // bf16 only: two values per 32-bit half
+  if constexpr (sizeof(W) == 16)
+    x = chunk_word(w, wi);  // bf16 at D = 256
+  else if constexpr (sizeof(W) == 8)
+    x = wi == 0 ? w.x : w.y;  // int8 at D = 256, bf16 at D = 128
   else
     x = static_cast<uint32_t>(w);
   if constexpr (QUANT)
@@ -388,11 +505,12 @@ __device__ __forceinline__ float word_elem(const W& w, int i) {
     return bf16_half(x, i % 2);
 }
 
-// grid (B, H, nsplit).  RM >= g query rows per kv head.
+// grid (B, H * groups, nsplit): blockIdx.y = h * groups + group, the
+// group's query rows group * RM .. of kv head h (RM >= the rows of a group).
 template <bool QUANT, int D, int RM>
-__global__ void __launch_bounds__(paged_warps<RM>() * 32)
+__global__ void __launch_bounds__(paged_warps<RM, D>() * 32)
     paged_attention_kernel(const PagedArgs a) {
-  constexpr int kPagedWarps = paged_warps<RM>();
+  constexpr int kPagedWarps = paged_warps<RM, D>();
   constexpr int kPagedThreads = kPagedWarps * 32;
   constexpr int DL = D / 32;            // output dims per lane
   constexpr int NBLK = D / 32;          // scale blocks per row (blk = 32)
@@ -407,8 +525,12 @@ __global__ void __launch_bounds__(paged_warps<RM>() * 32)
   __shared__ int last_s;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
-  const int g = a.g, hq = a.H * g;
+  const int b = blockIdx.x, z = blockIdx.z;
+  const int groups = gridDim.y / a.H;
+  const int h = blockIdx.y / groups;
+  const int row_base = (blockIdx.y % groups) * RM;  // first query row of h
+  const int hq = a.H * a.g;
+  const int g = min(RM, a.g - row_base);  // this CTA's query rows
   const int len = min(max(a.lengths[b], 0), a.MAXP * a.PT);
   const int npages = (len + a.PT - 1) / a.PT;
   // whole pages per CTA; a slot uses only the CTAs that get pages (one
@@ -421,7 +543,8 @@ __global__ void __launch_bounds__(paged_warps<RM>() * 32)
   const int r1 = min(len, (z + 1) * per * a.PT);
 
   for (int i = tid; i < g * D; i += kPagedThreads)
-    q_s[i / D][i % D] = __bfloat162float(a.q[((size_t)b * hq + (size_t)h * g) * D + i]);
+    q_s[i / D][i % D] =
+        __bfloat162float(a.q[((size_t)b * hq + (size_t)h * a.g + row_base) * D + i]);
   __syncthreads();
 
   float m_r[RM], l_r[RM], acc[RM][DL];
@@ -554,8 +677,8 @@ __global__ void __launch_bounds__(paged_warps<RM>() * 32)
   }
   __syncthreads();
   const int stride = D + 2;
-  const size_t bh = (size_t)b * a.H + h;
-  float* pz = a.part + ((bh * a.nsplit + z) * g) * (size_t)stride;
+  const size_t bh = (size_t)b * gridDim.y + blockIdx.y;
+  float* pz = a.part + ((bh * a.nsplit + z) * RM) * (size_t)stride;
   for (int i = tid; i < g * D; i += kPagedThreads) {
     const int r = i / D, d = i - r * D;
     float m = kNegInf;
@@ -582,19 +705,19 @@ __global__ void __launch_bounds__(paged_warps<RM>() * 32)
   __threadfence();
 
   // the last CTA: merge the nsplit partial states of every row
-  const float* pb = a.part + bh * a.nsplit * (size_t)g * stride;
+  const float* pb = a.part + bh * a.nsplit * (size_t)RM * stride;
   for (int i = tid; i < g * D; i += kPagedThreads) {
     const int r = i / D, d = i - r * D;
     float m = kNegInf;
-    for (int zz = 0; zz < nsplit; ++zz) m = fmaxf(m, __ldcg(pb + ((size_t)zz * g + r) * stride));
+    for (int zz = 0; zz < nsplit; ++zz) m = fmaxf(m, __ldcg(pb + ((size_t)zz * RM + r) * stride));
     float l = 0.f, o = 0.f;
     for (int zz = 0; zz < nsplit; ++zz) {
-      const float* pr = pb + ((size_t)zz * g + r) * stride;
+      const float* pr = pb + ((size_t)zz * RM + r) * stride;
       const float wt = expf(__ldcg(pr) - m);
       l += wt * __ldcg(pr + 1);
       o += wt * __ldcg(pr + 2 + d);
     }
-    a.out[((size_t)b * hq + (size_t)h * g + r) * D + d] =
+    a.out[((size_t)b * hq + (size_t)h * a.g + row_base + r) * D + d] =
         __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
   }
   if (tid == 0) a.counters[bh] = 0;
@@ -602,26 +725,31 @@ __global__ void __launch_bounds__(paged_warps<RM>() * 32)
 
 template <bool QUANT, int D, int RM>
 void launch_paged_rm(const PagedArgs& a, dim3 grid, cudaStream_t stream) {
-  paged_attention_kernel<QUANT, D, RM><<<grid, paged_warps<RM>() * 32, 0, stream>>>(a);
+  paged_attention_kernel<QUANT, D, RM><<<grid, paged_warps<RM, D>() * 32, 0, stream>>>(a);
 }
 
+// grid.y = H * groups, groups = ceil(g / paged_max_rows<D>())
 template <bool QUANT, int D>
-cudaError_t launch_paged_d(const PagedArgs& a, dim3 grid, cudaStream_t stream) {
+cudaError_t launch_paged_d(const PagedArgs& a, int B, int nsplit, cudaStream_t stream) {
+  constexpr int kRows = paged_max_rows<D>();
+  const dim3 grid(B, a.H * ((a.g + kRows - 1) / kRows), nsplit);
   if (a.g <= 1)
     launch_paged_rm<QUANT, D, 1>(a, grid, stream);
-  else if (a.g <= 8)
+  else if (a.g <= 8 || kRows == 8)
     launch_paged_rm<QUANT, D, 8>(a, grid, stream);
   else
-    launch_paged_rm<QUANT, D, 16>(a, grid, stream);
+    launch_paged_rm<QUANT, D, kRows>(a, grid, stream);
   return cudaGetLastError();
 }
 
 template <bool QUANT>
-cudaError_t launch_paged(const PagedArgs& a, int D, dim3 grid, cudaStream_t stream) {
+cudaError_t launch_paged(const PagedArgs& a, int D, int B, int nsplit,
+                         cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_paged_d<QUANT, 32>(a, grid, stream);
-    case 64: return launch_paged_d<QUANT, 64>(a, grid, stream);
-    case 128: return launch_paged_d<QUANT, 128>(a, grid, stream);
+    case 32: return launch_paged_d<QUANT, 32>(a, B, nsplit, stream);
+    case 64: return launch_paged_d<QUANT, 64>(a, B, nsplit, stream);
+    case 128: return launch_paged_d<QUANT, 128>(a, B, nsplit, stream);
+    case 256: return launch_paged_d<QUANT, 256>(a, B, nsplit, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -635,16 +763,17 @@ const char* ift_error_string(int code) {
 }
 
 // q (B, Hq, D) bf16 -> out (B, Hq, D) bf16 over the page pool; page_table
-// (B, MAXP) and lengths (B,) int32 on the device.  part holds
-// B * H * nsplit * g * (D + 2) floats; counters (B * H int32) is zero on
-// entry and is left zero.
+// (B, MAXP) and lengths (B,) int32 on the device.  With R = 16 query rows
+// per CTA at D <= 128 and 8 at D = 256, and groups = ceil(g / R): part
+// holds B * H * groups * nsplit * R * (D + 2) floats; counters (B * H *
+// groups int32) is zero on entry and is left zero.
 int ift_paged_decode_attention(const void* q, const void* k, const void* ks, const void* v,
                                const void* vs, const void* page_table, const void* lengths,
                                void* part, void* counters, void* out, int layer, int B, int H,
                                int P, int PT, int MAXP, int D, int g, int nsplit,
                                int quantized, float scale, void* stream) {
   if (B < 1 || H < 1 || P < 1 || MAXP < 1 || PT < kTile || PT % kTile || g < 1 ||
-      g > kMaxRows || nsplit < 1 || nsplit > 65535)
+      nsplit < 1 || nsplit > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -657,21 +786,30 @@ int ift_paged_decode_attention(const void* q, const void* k, const void* ks, con
   a.out = static_cast<__nv_bfloat16*>(out);
   a.layer = layer, a.B = B, a.H = H, a.P = P, a.PT = PT, a.MAXP = MAXP, a.g = g;
   a.nsplit = nsplit, a.scale = scale;
-  const dim3 grid(B, H, nsplit);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = quantized ? launch_paged<true>(a, D, grid, st)
-                                    : launch_paged<false>(a, D, grid, st);
+  const cudaError_t err = quantized ? launch_paged<true>(a, D, B, nsplit, st)
+                                    : launch_paged<false>(a, D, B, nsplit, st);
   return static_cast<int>(err);
 }
 
 // q (B, Hq, D) bf16 -> out (B, Hq, D) bf16; lengths (B,) int32 on device.
+// Each slot's walk is split over up to nsplit CTAs; with groups =
+// ceil(g / 16), part holds B * H * groups * nsplit * min(g, 16) * (D + 2)
+// floats and
+// counters B * H * groups int32, zero on entry and left zero (both may be
+// null when nsplit is 1).
 int ift_decode_attention(const void* q, const void* k, const void* ks, const void* v,
-                         const void* vs, const void* lengths, void* out, int layer,
-                         int B, int H, int S, int D, int blk, int g, int quantized,
-                         float scale, void* stream) {
-  launch<false>(dim3(B, H), quantized != 0, q, k, ks, v, vs, lengths, out, layer, B, H,
-                S, D, blk, g, 0, 0, 1, scale, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+                         const void* vs, const void* lengths, void* part, void* counters,
+                         void* out, int layer, int B, int H, int S, int D, int blk, int g,
+                         int nsplit, int quantized, float scale, void* stream) {
+  const int groups = (g + kMaxRows - 1) / kMaxRows;
+  if (nsplit < 1 || (long long)groups * nsplit > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B, H, groups * nsplit);
+  return static_cast<int>(launch<false>(grid, quantized != 0, q, k, ks, v, vs, lengths,
+                                        out, part, counters, layer, B, H, S, D, blk, g,
+                                        0, 0, 1, nsplit, scale,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // q (C, Hq, D) bf16 of slot `slot` at positions start..start+C-1 ->
@@ -681,9 +819,10 @@ int ift_chunk_attention(const void* q, const void* k, const void* ks, const void
                         int D, int blk, int g, int slot, int start, int C, int quantized,
                         float scale, void* stream) {
   dim3 grid(H, (C * g + kMaxRows - 1) / kMaxRows);
-  launch<true>(grid, quantized != 0, q, k, ks, v, vs, nullptr, out, layer, B, H, S, D,
-               blk, g, slot, start, C, scale, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<true>(grid, quantized != 0, q, k, ks, v, vs, nullptr,
+                                       out, nullptr, nullptr, layer, B, H, S, D, blk, g,
+                                       slot, start, C, 1, scale,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

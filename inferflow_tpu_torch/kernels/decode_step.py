@@ -48,7 +48,11 @@ that ``fused_step_preferred`` routes them to the per-layer loop as there:
 the sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
 planes, kernel B1 in every product) and mode (h), Q3H weights in the
 pair8 layout (kernel B6; its measured unpack cost loses to the per-layer
-path); nor MoE layers of more than 64 experts.  There is no fallback
+path); nor MoE layers of more than 64 experts.  INFERFLOW_MEGA is read
+at each routing decision (``mega_mode``), as the TPU package reads it:
+``0`` sends every decode step to the per-layer loop, ``2`` takes the
+fused step wherever it is supported, so that it raises for pair8 and
+wire planes, which the TPU package would fuse.  There is no fallback
 switch: if the kernel fails to build or launch, the step raises.
 """
 
@@ -608,14 +612,26 @@ def _refuse_unported(modes) -> None:
             raise NotImplementedError(why)
 
 
+def mega_mode() -> str:
+    """INFERFLOW_MEGA, read at each routing decision as the TPU package
+    reads it: "0" turns the fused step off (every decode step takes the
+    per-layer loop), "2" forces it for every configuration it supports,
+    anything else ("1", the default) routes by fused_step_preferred's
+    measured rule."""
+    return os.environ.get("INFERFLOW_MEGA", "1")
+
+
 def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
     """Static eligibility for the whole-model fused decode step (the TPU
     package's rule over this package's per-layer lists and logical caches,
     dense or paged; its TPU lane-tile rule for the cache does not apply).
+    False under INFERFLOW_MEGA=0, before any other check, as there.
     Raises NotImplementedError for a configuration the TPU package fuses
     in a mode that is not ported here: Q3H pair8 (mode (h)) and sub-byte
     wire planes (the wire mode), which the TPU package fuses but does not
     prefer."""
+    if mega_mode() == "0":
+        return False
     modes = _fusion_modes(spec, layers, cache, bsz)
     _refuse_unported(modes)
     return modes is not None
@@ -626,8 +642,17 @@ def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
     sub-byte wire planes and Q3H pair8 keep the per-layer path (kernels
     B1 or B6, and B2); the i8mm and i4 layouts and the Q8 block formats
     (byte mode: no product streams more than one code per byte) take the
-    fused step."""
+    fused step.  INFERFLOW_MEGA=0 routes every step to the per-layer loop;
+    INFERFLOW_MEGA=2 takes the fused step wherever it is supported, and so
+    raises NotImplementedError for pair8 and wire planes (modes (h) and
+    wire are not ported) where the TPU package would fuse them."""
+    mega = mega_mode()
+    if mega == "0":
+        return False
     modes = _fusion_modes(spec, layers, cache, bsz)
+    if mega == "2":
+        _refuse_unported(modes)
+        return modes is not None
     return modes is not None and not modes & {"wire", "pair8"}
 
 

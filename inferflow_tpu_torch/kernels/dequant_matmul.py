@@ -12,13 +12,18 @@ layout's ``data_i4p`` plane of the four 4-bit single-plane formats
 (Q4_B64T1: ``i4_matmul``; Q4_B32T1A/B: ``i4_matmul_b32``; Q4_B32T2:
 ``i4_matmul_b32f``; Q4_B16: ``i4_matmul_b16f``), and kernel B6
 (`_make_kernel`) in its pair8 mode for Q3H_B64T1's ``pair8`` plane
-(``q3h_matmul``).  On a CUDA tensor it launches the hand-written kernel of
-``csrc/dequant_matmul.cu`` or ``csrc/subbyte_matmul.cu`` (both built on
-``csrc/dequant_matmul.cuh``) or raises; on a CPU tensor it runs the plain
+(``q3h_matmul``) and in its wire mode for Q3H_B64T1's three wire planes
+(``q3h_wire_matmul``; ``from_np(..., fast_layout=False)`` and
+``pair8_to_wire`` give them, as the JAX ``quantized_matmul`` routes them
+to the same kernel).  B6's non-pair branch, the format-generic kernel,
+is reached only through ``generic_matmul`` (``generic_matmul``), which
+the kernel bench calls: no route of the JAX package reaches it either
+(``_fast_eligible`` sends every non-pair format to B1).  On a CUDA tensor
+the entries launch the hand-written kernel of ``csrc/dequant_matmul.cu``,
+``csrc/subbyte_matmul.cu`` or ``csrc/generic_matmul.cu`` (all built on
+``csrc/dequant_matmul.cuh``) or raise; on a CPU tensor they run the plain
 version, which is also what ``chip_smoke.py`` holds the kernel against on
-the card.  B6's Q3H wire-plane mode and its non-pair generic branch are
-not ported (no serving route reaches them: ``from_np`` and ``quantize``
-give Q3H as pair8).
+the card.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import ctypes
 import torch
 
 from ..quant.codec_torch import (I4_PLANE, PAIR8_PLANE, QuantizedTensor,
-                                 dequantize, i4_nibbles)
+                                 _codes, dequantize, i4_nibbles)
 from ..quant.formats import get_format
 from . import _build
 
@@ -39,6 +44,8 @@ I4_B32_KERNEL = "i4_matmul_b32"  # B5 on Q4_B32T1A / B (32 rows, f16)
 I4_B32F_KERNEL = "i4_matmul_b32f"  # B5 on Q4_B32T2 (32 rows, f32)
 I4_B16F_KERNEL = "i4_matmul_b16f"  # B5 on Q4_B16 (16 rows, f32)
 Q3H_KERNEL = "q3h_matmul"
+Q3H_WIRE_KERNEL = "q3h_wire_matmul"  # B6's wire mode
+GENERIC_KERNEL = "generic_matmul"  # B6's non-pair branch
 SUBBYTE_KERNEL = "subbyte_matmul"
 
 
@@ -93,6 +100,11 @@ def _lib(source: str = "dequant_matmul"):
                 fn = getattr(lib, entry)
                 fn.argtypes = [vp] * 7 + [i] * 5 + [vp]
                 fn.restype = ctypes.c_int
+        if source == "generic_matmul":
+            lib.ift_q3h_wire_matmul.argtypes = [vp] * 8 + [i] * 5 + [vp]
+            lib.ift_q3h_wire_matmul.restype = ctypes.c_int
+            lib.ift_generic_matmul.argtypes = [vp] * 8 + [i] * 12 + [vp]
+            lib.ift_generic_matmul.restype = ctypes.c_int
         lib.ift_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
         lib.ift_matmul_plan.restype = ctypes.c_int
@@ -122,6 +134,22 @@ def _plane_rows(qt: QuantizedTensor, plane: str) -> dict:
     return {p.name: qt.storage_k * p.bits // 8 for p in fmt.planes}
 
 
+def _plane(qt: QuantizedTensor) -> str:
+    """The _KERNELS plane key of qt: its i4 or pair8 plane, else "data"
+    (the format's wire planes)."""
+    return next((p for p in (I4_PLANE, PAIR8_PLANE) if p in qt.planes),
+                "data")
+
+
+def kernel_name(qt: QuantizedTensor) -> str:
+    """The launch count of the kernel quantized_matmul runs for qt on the
+    card (KeyError for a plane it has no kernel for)."""
+    fmt = get_format(qt.format)
+    if fmt.pair_base11 and PAIR8_PLANE not in qt.planes:
+        return Q3H_WIRE_KERNEL
+    return _KERNELS[_plane(qt), fmt.name][0]
+
+
 def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ W through kernel B1, B5 or B6 on the card; x: (..., K) with K
     the logical K of qt.  The kernels take (M, K_s) contiguous bf16 rows,
@@ -129,8 +157,9 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     zero-base pad blocks) takes zero-padded activations, as the JAX
     wrapper does."""
     fmt = get_format(qt.format)
-    plane = next((p for p in (I4_PLANE, PAIR8_PLANE) if p in qt.planes),
-                 "data")
+    if fmt.pair_base11 and PAIR8_PLANE not in qt.planes:
+        return _launch_generic(x, qt)
+    plane = _plane(qt)
     rows = _plane_rows(qt, plane)
     if (plane, fmt.name) not in _KERNELS or set(qt.planes) != set(rows):
         raise NotImplementedError(
@@ -141,16 +170,11 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     has_base = fmt.base_kind != "zero"
     meta = torch.float32 if fmt.meta == "u8" else torch.float16
     _build.require_hopper(x)
-    k, n = int(qt.shape[-2]), int(qt.shape[-1])
+    n = int(qt.shape[-1])
     k_s = qt.storage_k
     if n % 16:
         raise ValueError(f"N={n} must be a multiple of 16")
-    x2 = x.reshape(-1, k).to(torch.bfloat16)
-    if k_s != k:
-        x2 = torch.nn.functional.pad(x2, (0, k_s - k))
-    x2 = x2.contiguous()
-    if x2.data_ptr() % 16:
-        x2 = x2.clone()
+    x2 = _pad_activations(x, qt)
     m = x2.shape[0]
     blk = fmt.block
     for name, r in rows.items():
@@ -176,15 +200,123 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
 
 
+def _pad_activations(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """x (..., K) as the (M, K_s) contiguous, 16-byte aligned bf16 rows
+    the kernels take: zero columns past the logical K of a K-padded
+    tensor (its pad blocks have zero scale and base)."""
+    k, k_s = int(qt.shape[-2]), qt.storage_k
+    x2 = x.reshape(-1, k).to(torch.bfloat16)
+    if k_s != k:
+        x2 = torch.nn.functional.pad(x2, (0, k_s - k))
+    x2 = x2.contiguous()
+    return x2.clone() if x2.data_ptr() % 16 else x2
+
+
+def _launch_generic(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ W through kernel B6 of csrc/generic_matmul.cu: its wire mode
+    for Q3H in its three wire planes, its non-pair branch for the wire
+    planes of any other block format (the plane list passed at run
+    time)."""
+    fmt = get_format(qt.format)
+    names = [p.name for p in fmt.planes]
+    if set(qt.planes) != set(names):
+        raise NotImplementedError(
+            f"B6's wire and non-pair modes read {fmt.name}'s wire planes "
+            f"{names}; got {sorted(qt.planes)}")
+    _build.require_hopper(x)
+    k, n = int(qt.shape[-2]), int(qt.shape[-1])
+    k_s, blk = qt.storage_k, fmt.block
+    if n % 16:
+        raise ValueError(f"N={n} must be a multiple of 16")
+    codes = k_s // 2 if fmt.pair_base11 else k_s
+    for p in fmt.planes:
+        _build.check_operand(qt.planes[p.name], p.name, torch.uint8,
+                             (codes * p.bits // 8, n))
+    meta = torch.float32 if fmt.meta == "u8" else torch.float16
+    has_base = fmt.base_kind != "zero"
+    _build.check_operand(qt.scale, "scale", meta, (k_s // blk, n))
+    if has_base:
+        _build.check_operand(qt.base, "base", meta, (k_s // blk, n))
+    x2 = _pad_activations(x, qt)
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    lib = _lib("generic_matmul")
+    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, blk)
+    work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
+            if ksplit > 1 else out)
+    null = ctypes.c_void_p(0)
+    planes = [_build.ptr(qt.planes[p.name]) for p in fmt.planes]
+    planes += [null] * (3 - len(planes))
+    base = _build.ptr(qt.base) if has_base else null
+    head = (_build.ptr(x2), *planes, _build.ptr(qt.scale), base,
+            _build.ptr(out), _build.ptr(work), m, k_s, n, per, ksplit)
+    if fmt.pair_base11:
+        kernel = Q3H_WIRE_KERNEL
+        rc = lib.ift_q3h_wire_matmul(*head, _build.stream_of(x2))
+    else:
+        kernel = GENERIC_KERNEL
+        bits = [p.bits for p in fmt.planes] + [0] * (3 - len(fmt.planes))
+        flags = (int(fmt.signed) | int(has_base) << 1
+                 | int(fmt.meta == "u8") << 2)
+        rc = lib.ift_generic_matmul(
+            *head, len(fmt.planes), *bits,
+            int(fmt.planes[0].layout == "split_half"), blk, flags,
+            _build.stream_of(x2))
+    _build.check(lib, rc, kernel)
+    _build.launch_counts[kernel] += 1
+    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
+
+
+def generic_weight(qt: QuantizedTensor) -> torch.Tensor:
+    """The (K, N) bf16 weights of B6's non-pair branch (the TPU kernel's
+    non-pair function): the planes' combined codes, reinterpreted as int8
+    (codes - ((codes >> 7) << 8)) when the format is signed, q*scale
+    (+ base when the format has one) in float32, rounded once to bf16."""
+    fmt = get_format(qt.format)
+    k_s, n = qt.storage_k, int(qt.shape[-1])
+    codes = _codes(qt.planes, fmt)
+    if fmt.signed:
+        codes = codes - ((codes >> 7) << 8)
+    w = codes.float().view(k_s // fmt.block, fmt.block, n) \
+        * qt.scale.float()[:, None, :]
+    if fmt.base_kind != "zero":
+        w = w + qt.base.float()[:, None, :]
+    return w.reshape(k_s, n).to(torch.bfloat16)[:int(qt.shape[-2])]
+
+
+def generic_matmul_plain(x: torch.Tensor, qt: QuantizedTensor
+                         ) -> torch.Tensor:
+    """The plain version of B6's non-pair branch: generic_weight's bf16
+    weights and a float32 matmul, cast back to x's dtype."""
+    return torch.matmul(x.float(), generic_weight(qt).float()).to(x.dtype)
+
+
+def generic_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """y = x @ dequant(qt) through B6's non-pair branch, for any block
+    format but Q3H in its wire planes; x: (..., K).  No serving route takes
+    it (quantized_matmul picks B1's per-format kernels): the kernel bench
+    calls it.  CUDA tensors launch the kernel or raise; CPU tensors run
+    generic_matmul_plain."""
+    fmt = get_format(qt.format)
+    if fmt.pair_base11:
+        raise ValueError("Q3H is a pair format: quantized_matmul takes it "
+                         "(B6's pair8 or wire mode)")
+    if x.device.type == "cpu":
+        return generic_matmul_plain(x, qt)
+    if x.device.type != "cuda":
+        raise ValueError(f"generic_matmul: unsupported device {x.device}")
+    return _launch_generic(x, qt)
+
+
 def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ dequant(qt); x: (..., K) with K the logical K of qt; every
     quantized product of ops/linear.py.  CUDA tensors run the kernel of
     qt's plane and format (_KERNELS: B5 for ``data_i4p``, B6 for
-    ``pair8``, B1 for the wire planes of every other block format; M <= 8
-    the split-K GEMV, more rows the tiled tensor-core kernel) or raise;
-    CPU tensors its plain version (i4_matmul_plain for B5,
-    quantized_matmul_plain for B1 and B6, whose weights are the codec's
-    bit for bit)."""
+    ``pair8``, B1 for the wire planes of every other block format; B6's
+    wire mode for Q3H's wire planes; M <= 8 the split-K GEMV, more rows
+    the tiled tensor-core kernel) or raise; CPU tensors its plain version
+    (i4_matmul_plain for B5, quantized_matmul_plain for B1 and B6, whose
+    weights are the codec's bit for bit)."""
     if x.device.type == "cpu":
         if I4_PLANE in qt.planes:
             return i4_matmul_plain(x, qt)

@@ -10,9 +10,11 @@ plane (byte r of a block holds value r in its low nibble and value r +
 block/2 in its high nibble); the ``i8mm`` device layout (``Int8MXUTensor``: per-column int8
 codes for int8 x int8 products); the ``i4`` device layout (``repack_i4``:
 the ``data_i4p`` plane of signed code-8 nibbles); and Q3H's ``pair8``
-plane (one byte per base-11 pair code, the plane kernel B6 reads), which
-``quantize`` emits directly and ``from_np`` re-packs wire planes into, as
-the JAX codec does; and the q8c container (``requantize_q8_container``:
+plane (one byte per base-11 pair code, the plane kernel B6's pair8 mode
+reads), which ``quantize`` emits directly and ``from_np`` re-packs wire
+planes into, as the JAX codec does (``from_np(..., fast_layout=False)``
+keeps Q3H's three wire planes, which B6's wire mode reads, and
+``pair8_to_wire`` rebuilds them); and the q8c container (``requantize_q8_container``:
 any block tensor re-encoded as Q8_B32T2), which the ``q8c`` layout applies
 to every weight and the ``mixed`` layout to the FFN weights.
 """
@@ -88,16 +90,19 @@ class QuantizedTensor:
             None if self.base is None else self.base.to(device))
 
     @classmethod
-    def from_np(cls, qt: dict, device="cuda") -> "QuantizedTensor":
+    def from_np(cls, qt: dict, device="cuda",
+                fast_layout: bool = True) -> "QuantizedTensor":
         """From the JAX package's ``QuantizedTensor.to_np()`` dict, on
-        `device` (the card unless the caller asks for the CPU).  Q3H wire
-        planes (4 + 2 + 1 bits of each base-11 pair code) are re-packed to
-        ``pair8``, one byte per pair code, as the JAX package's from_np
-        does by default (codec_np.repack_pair8): the codes are unchanged."""
+        `device` (the card unless the caller asks for the CPU).  With
+        fast_layout (the default), Q3H wire planes (4 + 2 + 1 bits of each
+        base-11 pair code) are re-packed to ``pair8``, one byte per pair
+        code, as the JAX package's from_np does (codec_np.repack_pair8):
+        the codes are unchanged.  fast_layout=False keeps the wire planes
+        (kernel B6's wire mode reads them)."""
         device = resolve_device(device)
         fmt = get_format(qt["format"])
         planes = {k: _numpy_to_torch(v) for k, v in qt["planes"].items()}
-        if fmt.pair_base11 and PAIR8_PLANE not in planes:
+        if fast_layout and fmt.pair_base11 and PAIR8_PLANE not in planes:
             planes = {PAIR8_PLANE: _codes(planes, fmt).to(torch.uint8)}
         return cls(qt["format"], tuple(int(s) for s in qt["shape"]),
                    {k: v.to(device) for k, v in planes.items()},
@@ -187,7 +192,8 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Full-tensor dequantize to (K, N): w = q*scale + base in float32,
     rounded once to ``dtype``.  Mirrors codec_jax.dequantize, whose i4
     branch computes (n + 8)*scale + base from the signed nibble n, and
-    whose Q3H branch splits each base-11 pair code b into row 2j = b % 11
+    whose Q3H branch splits each base-11 pair code b (the ``pair8`` byte,
+    or the code rebuilt from the three wire planes) into row 2j = b % 11
     and row 2j+1 = b // 11."""
     fmt = get_format(qt.format)
     k, n = qt.shape[-2], qt.shape[-1]
@@ -198,7 +204,9 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     if I4_PLANE in qt.planes:
         q = i4_nibbles(qt.planes[I4_PLANE]).float() + 8.0
     elif fmt.pair_base11:
-        q = pair8_values(qt.planes[PAIR8_PLANE]).float()
+        pair = (qt.planes[PAIR8_PLANE] if PAIR8_PLANE in qt.planes
+                else _codes(qt.planes, fmt).to(torch.uint8))
+        q = pair8_values(pair).float()
     else:
         q = _codes(qt.planes, fmt)
         if fmt.base_kind == "zero":
@@ -210,6 +218,18 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
         w = w + bs
     w = w.reshape(k_s, n).to(dtype)
     return w[:k] if k_s != k else w
+
+
+def pair8_to_wire(qt: QuantizedTensor) -> QuantizedTensor:
+    """Q3H's ``pair8`` plane re-packed into its three wire planes (``data``
+    4 bits, ``data_m`` 2, ``data_h`` 1 of each base-11 pair code, over
+    K_s/2 pair codes): the layout of ``from_np(..., fast_layout=False)``."""
+    fmt = get_format(qt.format)
+    if not fmt.pair_base11 or PAIR8_PLANE not in qt.planes:
+        raise ValueError(f"{qt.format} with planes {sorted(qt.planes)} is "
+                         "not Q3H in the pair8 layout")
+    planes = _pack_planes(qt.planes[PAIR8_PLANE].to(torch.int32), fmt)
+    return QuantizedTensor(qt.format, qt.shape, planes, qt.scale, qt.base)
 
 
 def true_div(a: torch.Tensor, s: float) -> torch.Tensor:

@@ -8,10 +8,13 @@
   (``tests/test_torch_cuda*.py``) names them in an import.
 - Entry points (the zoo, the engine, ``InferenceEngine.from_config``,
   ``make_engine``, ``load_model``, ``load_std``, the synthetic checkpoint
-  writer, the service and llm_inference CLIs) default to the card and
+  writer, the service, llm_inference and kernel bench CLIs) default to
+  the card and
   raise where there is none; the kernel
   wrappers (B1 for Q4, Q8 and the sub-byte weights, B2, B3, B5 on every
-  4-bit format, B6, B7, the i8mm product and the fused decode step B4,
+  4-bit format, B6 in its pair8 and wire modes and its non-pair branch,
+  B7, the unpack experiments X1-X5, the i8mm product and the fused
+  decode step B4,
   dense and paged, i8mm, i4 (every block geometry) and byte, and its
   routed-expert mode (g) with its routing launch) raise for a tensor that
   is neither on the CPU nor on a card, and the kernel build raises
@@ -56,7 +59,10 @@ missing = [n for n in ("inferflow_tpu_torch.config.ini",
                        "inferflow_tpu_torch.serving.client",
                        "inferflow_tpu_torch.tools.inferflow_service",
                        "inferflow_tpu_torch.tools.llm_inference",
-                       "inferflow_tpu_torch.tools.inferflow_client")
+                       "inferflow_tpu_torch.tools.inferflow_client",
+                       "inferflow_tpu_torch.tools.kernel_bench",
+                       "inferflow_tpu_torch.tools.exp_unpack",
+                       "inferflow_tpu_torch.utils.cuda_timing")
            if n not in names]
 print(len(names), bad + missing)
 """
@@ -140,6 +146,10 @@ def test_entry_points_refuse_a_missing_card():
     for main in (inferflow_service.main, llm_inference.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--zoo", "test-tiny", "--quant", "Q4_B64T1"])
+    # the kernel bench (tools/)
+    from inferflow_tpu_torch.tools import kernel_bench
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_bench.main([])
 
 
 def test_wrappers_refuse_other_devices():
@@ -228,6 +238,29 @@ def test_wrappers_refuse_other_devices():
         for fn in (quantized_matmul, linear):
             with pytest.raises(ValueError, match="unsupported device"):
                 fn(torch.empty((2, 128), device="meta"), w)
+
+    # B6's non-pair branch and its wire mode (Q3H's three wire planes),
+    # and the unpack experiments X1-X5
+    from inferflow_tpu_torch.kernels.dequant_matmul import generic_matmul
+    from inferflow_tpu_torch.quant.codec_torch import pair8_to_wire
+    from inferflow_tpu_torch.tools import exp_unpack
+    meta_x = torch.empty((2, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        generic_matmul(meta_x, quantize(torch.randn(128, 64), "Q6_B64T1"))
+    wire = pair8_to_wire(quantize(torch.randn(128, 64), "Q3H_B64T1"))
+    for fn in (quantized_matmul, linear):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(meta_x, wire)
+    inp = exp_unpack.mk_inputs(512, 128, torch.Generator().manual_seed(0),
+                               "cpu")
+    inp = {k: v.to("meta") for k, v in inp.items()}
+    for run, args in ((exp_unpack.run_a, ("x", "packed", "scale")),
+                      (exp_unpack.run_b, ("x", "codes4", "scale")),
+                      (exp_unpack.run_c, ("x", "packed", "scale")),
+                      (exp_unpack.run_d, ("x", "codes8", "scale")),
+                      (exp_unpack.run_e, ("xq", "codes8", "colscale"))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            run(*(inp[a] for a in args))
 
     # the fused step's routed-expert mode (g) and its routing launch
     from inferflow_tpu_torch.kernels.decode_step import moe_route
