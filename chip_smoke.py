@@ -127,17 +127,18 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        (B1-Q8), Q4 wire attention and lm_head (B1-Q4), the per-layer
        decode with B2, chunks B3;
 8. reads configs/inferflow_service.moe.ini the same way: mixtral-8x7b at
-   full width (8 experts, top-2) from seed-0 Q4_B64T1, resolved to i8mm on
-   the card (about 47 GB), 8 slots, a 4096-token context; prints the
+   full width (8 experts, top-2) and ENGINE_K_LAYERS layers from seed-0
+   Q4_B64T1, resolved to i8mm on the card, 8 slots, a 4096-token context;
+   prints the
    weights' bytes against the count and the KV cache's, and
-   - holds B4's routed-expert mode (g) (fused_decode_step_moe) at 32
+   - holds B4's routed-expert mode (g) (fused_decode_step_moe) at those
      layers, B = 8 (MOE_FUSED_LENGTHS) and B = 1, against its plain
      version: each layer alone on the plain stack's input to it (routes
      and outputs), then the stack, the same bits twice, with the share of
      routing decisions that agree; times it against the bytes of the
      experts its routing chose; the same for one layer with Q8_B32T2
      experts (mode (c) products);
-   (k) serves ENGINE_K_PROMPTS (7 to 2000 tokens) at full depth: every
+   (k) serves ENGINE_K_PROMPTS (7 to 2000 tokens) at that depth: every
        decode step B4 (g), chunks B3, the decode lm_head the int8 GEMV; no
        B1, B2, B5, B6, B7 or other B4 mode; every sampled row is held
        against a twin on the card (the same weights and engine fed (k)'s
@@ -155,7 +156,8 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
      Q3_B32T1A/B, Q2_B32T1A/B; the Q6 weights' values quantized again) at
      w1n3 and the K-padded w2; times it (library: torch.matmul on the
      pre-dequantized bf16 weight, a yardstick only);
-   (l) serves ENGINE_L_PROMPTS (7 to 2000 tokens) at full depth: every
+   (l) serves ENGINE_L_PROMPTS (7 to 2000 tokens) at ENGINE_L_LAYERS
+       layers: every
        product B1's sub-byte case, every decode step the per-layer loop
        with B2, chunks B3; no fused step, other B1 case, B5, B6, B7 or
        int8 GEMV; every sampled row is held against a dense bf16 twin on
@@ -186,7 +188,8 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    - holds B5 and the i4x8 GEMV alone on Q4_B32T1A, Q4_B32T1B, Q4_B32T2
      and Q4_B16 (the loaded weights' values quantized again for the other
      three) at the five products' shapes, M in {1, 8, 12, 256} (the GEMV
-     {1, 8}), and B4 (b) at 32 layers on Q4_B32T1A, Q4_B32T2 and Q4_B16,
+     {1, 8}), and B4 (b) at I4_FORMATS_LAYERS layers on Q4_B32T1A,
+     Q4_B32T2 and Q4_B16,
      B = 8 (I4_FUSED_LENGTHS) and B = 1, each layer alone on the plain
      stack's input and then the stack, against their plain versions, and
      times them;
@@ -220,6 +223,26 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
        the same checkpoint in Q4_B32T2 and Q4_B16, the i4 engine on the
        card against its twin on the card whose decode steps run B4 (b)'s
        plain version.
+12. B4's last modes: after B4 (f), mode (d) at tinyllama-1.1b width and
+   depth with seeded biases (scale 0.05) on every product of (a)'s i8mm
+   weights and of Q8_B32T2 and Q4_B64T1 wire weights, B = 4 and 1, and
+   one paged case; before (g), mode (h) at llama2-13b width and depth on
+   (g)'s pair8 weights, B = 8 and 1, and its GEMV alone; after (g)'s
+   serve, (q): the same engine under INFERFLOW_MEGA=2 fed (g)'s tokens,
+   every decode step mode (h), no layer product on B6, rows against the
+   first serve's and the dense twin's; after the q8 section,
+   configs/inferflow_service.ini's deployment (llama2-7b, Q4_B64T1) with
+   device_layout = packed: the wire mode alone (GEMV and step, B = 8 and
+   1) on its weights and their values in Q4_B32T1A and Q2_B32T1A, (r):
+   the engine under INFERFLOW_MEGA=2 (every decode step the wire mode)
+   against itself under 1 fed (r)'s tokens, and (r-cpu) at one layer
+   against the CPU engine; (n)'s packed twin again under
+   INFERFLOW_MEGA=2 (the 32-row wire geometry from disk);
+   convert_tokenizer_data on (n)'s tokenizer.json, read back; at the end
+   ppl_report on tinyllama-1.1b (PPL_REPORT_ARGS) and the perplexity CLI
+   (PERPLEXITY_ARGS).  Each mode is held layer by layer against its plain
+   version at ONE_LAYER_TOL x max|plain|; runs (k) and (l) and the B4 (b)
+   stacks on the other 4-bit formats run 16 layers.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -229,6 +252,7 @@ summary ``{"kernels": [...]}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -322,6 +346,9 @@ I4_FUSED_TOL = 0.25
 # (one for the formats beside Q4_B64T1, whose plain stacks take 1.3-2.2 s)
 I4_PLAIN_ITERS = 3
 I4_FORMATS_PLAIN_ITERS = 1
+# depths cut to keep the whole script within its time limit: the B4 (b)
+# stacks on the other 4-bit formats, runs (k) and (l) (full width each)
+I4_FORMATS_LAYERS = 16
 # run (e): 12 queries of 7 to 2000 tokens; those over 256 take the chunked
 # prefill (B3)
 ENGINE_E_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
@@ -419,6 +446,7 @@ ENGINE_J_LAYERS = 1
 MOE_INI = "configs/inferflow_service.moe.ini"
 MOE_MODEL_NAME = "mixtral-8x7b"
 MOE_CONTEXT = 4096
+ENGINE_K_LAYERS = 16
 # B4 (g) at B = 8 (lengths spread up to the last cache row) and B = 1
 MOE_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
 # B4 (g) against its plain version, first layer by layer, each layer fed
@@ -460,6 +488,7 @@ ENGINE_KCPU_PROMPTS = (7, 128, 13)
 # Q6_B64T1 under the packed layout
 Q6_INI = "configs/inferflow_service.q6.ini"
 Q6_MODEL_NAME = "llama2-7b"
+ENGINE_L_LAYERS = 16
 # B1's sub-byte case beside Q6_B64T1: each format at w1n3 (the widest
 # product of a layer) and w2 stored K-padded (K 11008 as 11264)
 SUBBYTE_FORMATS = ("Q5_B64T1", "Q5_B32T1", "Q4_B32T1A", "Q4_B32T1B",
@@ -667,6 +696,20 @@ KERNEL_SOURCES = {
     "paged_decode_attention_d256": (
         "inferflow_tpu_torch/kernels/csrc/attention.cu",
         "inferflow_tpu/kernels/attention.py:283"),
+    # B4's wire mode (the single-plane tile with pk > 1, stream_mm
+    # :584-615) in its three geometries, mode (h) (the pair8 tile
+    # :511-536) and mode (d) (a step with output biases, `finish` :427),
+    # and the wire and pair8 GEMVs alone
+    **{name: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+              "inferflow_tpu/kernels/decode_step.py:255")
+       for name in ("fused_decode_step_wire", "fused_decode_step_wire_b32",
+                    "fused_decode_step_wire_q2", "fused_decode_step_pair8",
+                    "fused_decode_step_bias")},
+    **{name: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+              "inferflow_tpu/kernels/decode_step.py:584")
+       for name in ("wire_gemv", "wire_gemv_b32", "wire_gemv_q2")},
+    "pair8_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+                   "inferflow_tpu/kernels/decode_step.py:511"),
 }
 
 
@@ -2013,11 +2056,17 @@ def _dense_twin(params):
 
 
 def phase_engine_twin(dev, cfg, spec, params, memory, label, ini, model,
-                      kernel, prompt_lens, seed, tol) -> dict:
+                      kernel, prompt_lens, seed, tol, mega2=None) -> dict:
     """Runs (g) and (l): the ini's engine at full depth on the card (every
     product `kernel`, decode the per-layer loop with B2, chunks B3; no other
     kernel), then, with its engine and cache freed, a dense twin on the
-    card fed its tokens; every sampled row held against the twin's."""
+    card fed its tokens; every sampled row held against the twin's.  With
+    `mega2` = (label, step launch count), the same engine serves the
+    prompts again under INFERFLOW_MEGA=2 fed the first run's tokens
+    (_serve_mega2; run (q)): every decode step takes that fused step and
+    no layer product runs `kernel` (its launches fall by four per layer
+    and decode step: only the lm_head stays on it); its rows are held
+    against the first run's and the twin's within ENGINE_Q_TOL."""
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     hp = spec.hyper_params
@@ -2070,6 +2119,14 @@ def phase_engine_twin(dev, cfg, spec, params, memory, label, ini, model,
     assert launches["decode_attention"] \
         == hp.decoder_layers * len(decode_ms), "a decode step missed B2"
     profile_decode(eng, prompts[0], label)
+    mega = None
+    if mega2 is not None:
+        mega = _serve_mega2(eng, prompts, outputs, mega2[1], mega2[0])
+        assert mega["decode_steps"] == len(decode_ms)
+        assert mega["launches"].get(kernel, 0) == launches[kernel] \
+            - 4 * hp.decoder_layers * len(decode_ms), \
+            f"run {mega2[0]}: a layer product of a decode step ran {kernel}"
+        launches["mega2"] = mega["launches"]
     del eng
     torch.cuda.empty_cache()
 
@@ -2097,6 +2154,12 @@ def phase_engine_twin(dev, cfg, spec, params, memory, label, ini, model,
     report.update(_split_row_errors(report))
     emit(report)
     assert report["ok"], f"run {label}: rows disagree with the dense twin"
+    if mega is not None:
+        rows_q = _by_qid(qids, mega["rows"])
+        _mega2_errors(mega2[0], qids, prompts, outputs, rows_q, rows,
+                      ENGINE_Q_TOL, "same_engine_mega1")
+        _mega2_errors(mega2[0], qids, prompts, outputs, rows_q, ref_rows,
+                      ENGINE_Q_TOL, "dense_twin_card")
     return launches
 
 
@@ -2813,6 +2876,11 @@ def phase_engine_n_twin(dev, root: str, ctx) -> dict:
     assert ref_launches.get("subbyte_matmul", 0) > 0
     assert ref_launches.get("decode_attention", 0) > 0
     assert ref_launches.get("i4_matmul_b32", 0) == 0
+    # the packed twin again under INFERFLOW_MEGA=2: B4's wire mode in its
+    # 32-row Q4 instantiation on every decode step
+    mega = _serve_mega2(ref, prompts, outputs,
+                        WIRE_STEP_FORMATS["Q4_B32T1A"][1], "n_twin_mega2")
+    ref_launches["mega2"] = mega["launches"]
     del ref
     torch.cuda.empty_cache()
     report = {"phase": "engine_n_vs_packed_card", "reference_load_s": load_s,
@@ -2829,6 +2897,9 @@ def phase_engine_n_twin(dev, root: str, ctx) -> dict:
     emit(report)
     ctx.update(twin_rows=ref_rows, twin_report=report)
     assert report["ok"], "run n: rows disagree with the packed engine"
+    _mega2_errors("n_twin_mega2", qids, prompts, outputs,
+                  _by_qid(qids, mega["rows"]), ref_rows, ENGINE_R_TOL,
+                  "packed_twin_mega1")
     return ref_launches
 
 
@@ -2919,38 +2990,55 @@ def _i4_layers_as(layers, fmt):
 
 
 @contextlib.contextmanager
-def _with_i4_dot(value):
-    """INFERFLOW_I4_DOT set to `value` inside, restored after."""
-    old = os.environ.get("INFERFLOW_I4_DOT")
-    os.environ["INFERFLOW_I4_DOT"] = value
+def _with_env(name, value):
+    """Environment variable `name` set to `value` inside, restored
+    after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("INFERFLOW_I4_DOT", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["INFERFLOW_I4_DOT"] = old
+            os.environ[name] = old
+
+
+def _with_i4_dot(value):
+    """INFERFLOW_I4_DOT set to `value` inside, restored after."""
+    return _with_env("INFERFLOW_I4_DOT", value)
 
 
 def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
-                   peak, beside=None) -> list:
-    """B4 at full depth on i4 `layers` in the mode INFERFLOW_I4_DOT selects
-    now (launch count `kernel`), B = 8 (I4_FUSED_LENGTHS) and B = 1,
-    against its plain version on twin caches: first each layer alone on the
-    plain stack's input to it (ONE_LAYER_TOL x max|plain| each), then the
-    whole stack (I4_FUSED_TOL x max|plain|, the same bits on a second run);
-    times the step, its plain version (I4_FORMATS_PLAIN_ITERS calls) and,
-    with `beside` = (name, INFERFLOW_I4_DOT value), the step in that other
-    mode on the same inputs ("<name>_ms").  Bound: the bytes, or the
-    operations at `peak`."""
+                   peak, beside=None, tag="i4", model=I4_MODEL_NAME,
+                   context=I4_CONTEXT, lengths_list=None,
+                   layer_tol=ONE_LAYER_TOL, stack_tol=I4_FUSED_TOL,
+                   launched_want=None) -> list:
+    """B4 at full depth on `layers` (i4 ones in the mode INFERFLOW_I4_DOT
+    selects now; launch count `kernel`, or the counts `launched_want`), B =
+    8 (I4_FUSED_LENGTHS) and B = 1 by default, against its plain version on
+    twin caches of `context` rows: first each layer alone on the plain
+    stack's input to it (`layer_tol` x max|plain| each), then the whole
+    stack (`stack_tol` x max|plain|, or reported only when it is None: a
+    random stack drifts with depth; the same bits on a second run); times
+    the step, its plain version (I4_FORMATS_PLAIN_ITERS calls) and, with
+    `beside` = (name, INFERFLOW_I4_DOT value), the step in that other mode
+    on the same inputs ("<name>_ms").  Bound: the bytes (weights, biases,
+    norms, the live cache rows and the new ones), or the operations at
+    `peak`."""
     from inferflow_tpu_torch.kernels import _build, decode_step
+    if spec.hyper_params.decoder_layers != len(layers):  # a cut depth
+        spec = copy.deepcopy(spec)
+        spec.hyper_params.decoder_layers = len(layers)
     hp = spec.hyper_params
     n_layers = hp.decoder_layers
+    products = (("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"),
+                ("ffn", "w2"))
     rows = []
-    for lengths in (I4_FUSED_LENGTHS, (I4_CONTEXT // 2,)):
+    for lengths in lengths_list or (I4_FUSED_LENGTHS, (context // 2,)):
         b = len(lengths)
-        cache, gen = _filled_cache(dev, spec, b, I4_CONTEXT, seed=93,
-                                   context=I4_CONTEXT)
+        cache, gen = _filled_cache(dev, spec, b, context, seed=93,
+                                   context=context)
         cache.with_length(torch.tensor(lengths, device=dev))
         twin = _twin(cache)
         tokens = torch.randint(1, hp.vocab_size, (b, 1), generator=gen,
@@ -2965,7 +3053,7 @@ def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
                 spec, layers[i:i + 1], h, pos, views[0])
             ref1, _ = decode_step.fused_decode_step_plain(
                 spec, layers[i:i + 1], h, pos, views[1])
-            layer_rel.append(compare(got1, ref1, ONE_LAYER_TOL))
+            layer_rel.append(compare(got1, ref1, layer_tol))
             h = ref1
             del views
         _build.launch_counts.clear()
@@ -2975,38 +3063,41 @@ def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
         ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos,
                                                      twin)
         torch.cuda.synchronize()
-        stack = compare(got, ref, I4_FUSED_TOL)
-        live = sum(min(n, I4_CONTEXT) for n in lengths)
+        stack = compare(got, ref, stack_tol or 1.0)
+        if stack_tol is None:
+            stack.update(ok=True, tolerance="reported, not gated")
+        live = sum(min(n, context) for n in lengths)
         nblk = hp.head_dim // 32
         kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
                                                         + 2 * nblk)
         new_rows = 2 * n_layers * b * hp.kv_heads * (hp.head_dim
                                                      + 2 * nblk)
-        wbytes = sum(lp[g][w].nbytes for lp in layers
-                     for g, w in (("attn", "qkv"), ("attn", "wo"),
-                                  ("ffn", "w1n3"), ("ffn", "w2")))
+        wbytes = sum(lp[g][w].nbytes for lp in layers for g, w in products)
+        wbytes += sum(lp[g][f"{w}_b"].nbytes for lp in layers
+                      for g, w in products if f"{w}_b" in lp[g])
         wbytes += sum(lp[g]["pre_norm"].nbytes for lp in layers
                       for g in ("attn", "ffn"))
         bytes_moved = wbytes + kv_bytes + new_rows + 2 * 2 * b * hp.embd_dims
-        ops = 2 * b * sum(lp[g][w].storage_k * lp[g][w].shape[-1]
-                          for lp in layers
-                          for g, w in (("attn", "qkv"), ("attn", "wo"),
-                                       ("ffn", "w1n3"), ("ffn", "w2")))
+        ops = 2 * b * sum(decode_step._stored_k(lp[g][w]) * lp[g][w].shape[-1]
+                          for lp in layers for g, w in products)
         b_ms, b_by = bound(bytes_moved, ops, peak)
         same = bool(torch.equal(got, again))
-        ok = bool(stack["ok"] and same and launched == {kernel: 2}
+        ok = bool(stack["ok"] and same
+                  and launched == (launched_want or {kernel: 2})
                   and all(r["ok"] for r in layer_rel))
         row = {"phase": "kernel", "kernel": kernel,
-               "shape": f"{I4_MODEL_NAME} i4 {label} L={n_layers} B={b} "
-                        f"lengths={list(lengths)} S={I4_CONTEXT}",
+               "shape": f"{model} {tag} {label} L={n_layers} B={b} "
+                        f"lengths={list(lengths)} S={context}",
                "max_abs_err": stack["max_abs_err"],
                "rel_err": stack["rel_err"],
                "tolerance": f"stack: {stack['tolerance']}; each layer "
                             f"alone on the plain stack's input: "
-                            f"max_abs_err <= {ONE_LAYER_TOL} * "
+                            f"max_abs_err <= {layer_tol} * "
                             f"max|plain|; the same bits on a second run",
                "layer_rel_errs": [r["rel_err"] for r in layer_rel],
                "worst_layer_rel_err": max(r["rel_err"] for r in layer_rel),
+               "layers_within_kernel_rel_tol": sum(
+                   r["rel_err"] <= KERNEL_REL_TOL for r in layer_rel),
                "same_bits_twice": same, "launched": launched, "ok": ok,
                "ms": timer(lambda: decode_step.fused_decode_step(
                    spec, layers, x, pos, cache),
@@ -3032,13 +3123,14 @@ def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
 
 
 def phase_b4_i4_formats(timer, dev, spec, params) -> list:
-    """B4 mode (b) at full llama2-7b width and depth on I4_STEP_FORMATS,
-    B = 8 and B = 1, against its plain version (_b4_stack_rows), as the
-    Q4_B64T1 phase holds it."""
+    """B4 mode (b) at full llama2-7b width on I4_STEP_FORMATS, the first
+    I4_FORMATS_LAYERS layers, B = 8 and B = 1, against its plain version
+    (_b4_stack_rows), as the Q4_B64T1 phase holds it."""
     rows = []
     with _with_i4_dot("i8"):
         for fmt in I4_STEP_FORMATS:
-            layers = _i4_layers_as(params["layers"], fmt)
+            layers = _i4_layers_as(params["layers"][:I4_FORMATS_LAYERS],
+                                   fmt)
             rows += _b4_stack_rows(timer, dev, spec, layers,
                                    params["dec_embeddings"],
                                    I4_FORMATS[fmt][2], fmt, H100_INT8_OPS)
@@ -3580,6 +3672,416 @@ def phase_engine_p(dev, spec, params, memory) -> dict:
     return launches
 
 
+# --------------------------------------- B4's wire, pair8 and bias modes
+WIRE_STEP_FORMATS = {  # format -> (GEMV launch count, step launch count)
+    "Q4_B64T1": ("wire_gemv", "fused_decode_step_wire"),
+    "Q4_B32T1A": ("wire_gemv_b32", "fused_decode_step_wire_b32"),
+    "Q2_B32T1A": ("wire_gemv_q2", "fused_decode_step_wire_q2")}
+PAIR8_GEMV, PAIR8_STEP = "pair8_gemv", "fused_decode_step_pair8"
+BIAS_STEP = "fused_decode_step_bias"
+MODE_CONTEXT = 4096
+BIAS_SCALE = 0.05  # as the JAX package's test_fused_step_biases
+# (weight format, layout, the step's launch count) of phase b4_bias
+BIAS_FORMATS = (("Q4_B64T1", "i8mm", "fused_decode_step"),
+                ("Q8_B32T2", "packed", "fused_decode_step_byte"),
+                ("Q4_B64T1", "packed", "fused_decode_step_wire"))
+# run (r): configs/inferflow_service.ini's deployment (llama2-7b, Q4 =
+# Q4_B64T1, Q8 KV, context 4096, 8 slots) with device_layout = packed,
+# under INFERFLOW_MEGA=2
+R_INI = "configs/inferflow_service.ini"
+R_MODEL_NAME = "llama2-7b"
+ENGINE_R_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
+ENGINE_R_TOL = 0.12
+ENGINE_RCPU_LAYERS = 1
+ENGINE_RCPU_PROMPTS = (7, 300, 13)
+ENGINE_Q_TOL = 0.12  # run (q): (g)'s engine under INFERFLOW_MEGA=2
+PPL_REPORT_ARGS = ["--model", MODEL, "--tokens", "2048",
+                   "--layouts", "Q4_B64T1+i8mm,Q4_B64T1+i4,Q4_B64T1+q8c,"
+                   "Q4_B64T1+packed", "--out", "build/ppl_report.md"]
+PERPLEXITY_ARGS = ["--zoo", MODEL, "--quant", "Q4", "--synthetic-text",
+                   "--max-tokens", "1024"]
+
+
+def _layers_as(layers, fmt):
+    """The fused step's layers with every product's values quantized again
+    in the wire format `fmt` (norms shared)."""
+    out = []
+    for lp in layers:
+        attn = dict(lp["attn"], **{k: _as_format(lp["attn"][k], fmt)
+                                   for k in ("qkv", "wo")})
+        ffn = dict(lp["ffn"], **{k: _as_format(lp["ffn"][k], fmt)
+                                 for k in ("w1n3", "w2")})
+        out.append(dict(lp, attn=attn, ffn=ffn))
+    return out
+
+
+def phase_code_gemv(timer, dev, name, qt, kernel) -> list:
+    """The wire or pair8 GEMV alone on `qt`, M in {1, 8}, against its plain
+    version, the same bits twice; timed beside torch.matmul on the
+    pre-dequantized bf16 weight (the same function but for summation
+    order and the weights' bf16 rounding, a yardstick only)."""
+    from inferflow_tpu_torch.kernels.decode_step import (
+        _product_f32, pair8_gemv_cuda, wire_gemv_cuda)
+    from inferflow_tpu_torch.quant.codec_torch import dequantize
+    launch = pair8_gemv_cuda if kernel == PAIR8_GEMV else wire_gemv_cuda
+    gen = torch.Generator(device=dev).manual_seed(95)
+    k, n = qt.storage_k, int(qt.shape[-1])
+    w_bf16 = dequantize(qt, torch.bfloat16)
+    rows = []
+    for m in (1, 8):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        got = launch(x, qt)
+        ref = _product_f32(x, qt)
+        again = launch(x, qt)
+        torch.cuda.synchronize()
+        res = compare(got.to(torch.bfloat16), ref)
+        res["same_bits_twice"] = bool(torch.equal(got, again))
+        res["ok"] = res["ok"] and res["same_bits_twice"]
+        bytes_moved = 2 * m * k + qt.nbytes + 4 * m * n
+        b_ms, b_by = bound(bytes_moved, 2 * m * k * n)
+        row = {"phase": "kernel", "kernel": kernel,
+               "shape": f"{name} {qt.format} M={m} K={k} N={n}", **res,
+               "ms": timer(lambda: launch(x, qt)),
+               "plain_ms": timer(lambda: _product_f32(x, qt),
+                                 f"plain {kernel} {name}"),
+               "library_ms": timer(lambda: torch.matmul(x[:, :w_bf16.shape[0]],
+                                                        w_bf16)),
+               "library": "torch.matmul on the pre-dequantized bf16 weight",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound": bytes_moved}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_b4_wire(timer, dev, spec, params) -> list:
+    """B4's wire mode at full llama2-7b width and depth in its three
+    geometries: (r)'s Q4_B64T1 weights, and their values quantized again
+    in Q4_B32T1A and Q2_B32T1A.  Per geometry the GEMV alone on w1n3
+    (phase_code_gemv), then the step at B = 8 and B = 1, each layer alone
+    on the plain stack's input at ONE_LAYER_TOL x max|plain| (the earlier
+    B4 phases' rule: the residual is rounded to bf16 twice per layer, so
+    summation order moves an element by a few bf16 steps; the row counts
+    the layers within KERNEL_REL_TOL too), the stack reported (_b4_stack_
+    rows); launches counted per geometry."""
+    from inferflow_tpu_torch.kernels import _build
+    rows = []
+    for fmt, (gemv, step) in WIRE_STEP_FORMATS.items():
+        layers = params["layers"] if fmt == "Q4_B64T1" else _layers_as(
+            params["layers"], fmt)
+        _build.launch_counts.clear()
+        rows += phase_code_gemv(timer, dev, "w1n3", layers[0]["ffn"]["w1n3"],
+                                gemv)
+        rows[-1]["phase_launches"] = dict(_build.launch_counts)
+        rows += _b4_stack_rows(timer, dev, spec, layers,
+                               params["dec_embeddings"], step, fmt,
+                               H100_BF16_FLOPS, tag="wire", model=R_MODEL_NAME,
+                               context=MODE_CONTEXT, stack_tol=None)
+        rows[-1]["phase_launches"] = dict(_build.launch_counts)
+        del layers
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_b4_pair8(timer, dev, spec, params) -> list:
+    """B4's mode (h) at full llama2-13b width and depth on (g)'s Q3H pair8
+    weights: the GEMV alone on w1n3, then the step at B = 8 and B = 1, as
+    phase_b4_wire holds the wire mode."""
+    from inferflow_tpu_torch.kernels import _build
+    _build.launch_counts.clear()
+    rows = phase_code_gemv(timer, dev, "w1n3",
+                           params["layers"][0]["ffn"]["w1n3"], PAIR8_GEMV)
+    rows[-1]["phase_launches"] = dict(_build.launch_counts)
+    rows += _b4_stack_rows(timer, dev, spec, params["layers"],
+                           params["dec_embeddings"], PAIR8_STEP, "Q3H_B64T1",
+                           H100_BF16_FLOPS, tag="pair8", model=Q3H_MODEL_NAME,
+                           context=MODE_CONTEXT, stack_tol=None)
+    rows[-1]["phase_launches"] = dict(_build.launch_counts)
+    return rows
+
+
+def _with_biases(layers, dev, seed):
+    """New layer dicts over the same weights with seeded float32 output
+    biases (BIAS_SCALE) on qkv, wo, w1n3 and w2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for lp in layers:
+        attn, ffn = dict(lp["attn"]), dict(lp["ffn"])
+        for grp, name in ((attn, "qkv"), (attn, "wo"), (ffn, "w1n3"),
+                          (ffn, "w2")):
+            grp[f"{name}_b"] = torch.randn(
+                (int(grp[name].shape[-1]),), generator=gen,
+                device=dev) * BIAS_SCALE
+        out.append(dict(lp, attn=attn, ffn=ffn))
+    return out
+
+
+def phase_b4_bias(timer, dev, spec, params_i8) -> list:
+    """B4's mode (d) at full tinyllama-1.1b width and depth, B = 4
+    (FUSED_LENGTHS) and B = 1: seeded biases on every product of (a)'s
+    i8mm weights and of the same model in Q8_B32T2 and Q4_B64T1 wire
+    planes, each layer alone at ONE_LAYER_TOL x max|plain| and the stack
+    at FUSED_TOL (_b4_stack_rows; each step counted under its mode and under
+    fused_decode_step_bias); then one paged case (mode (f)) on the i8mm
+    weights against its plain version."""
+    import dataclasses
+    from inferflow_tpu_torch.kernels import _build, decode_step
+    from inferflow_tpu_torch.models.zoo import make_spec
+    rows = []
+    for fmt, layout, step in BIAS_FORMATS:
+        params = params_i8 if layout == "i8mm" else build_params(
+            dev, make_spec(MODEL, device_layout=layout), fmt)[0]
+        layers = _with_biases(params["layers"], dev, seed=96)
+        rows += _b4_stack_rows(
+            timer, dev, spec, layers, params["dec_embeddings"], step,
+            f"{fmt} {layout}", H100_INT8_OPS if layout == "i8mm"
+            else H100_BF16_FLOPS, tag="bias", model=MODEL, context=CONTEXT,
+            lengths_list=(FUSED_LENGTHS, (700,)), stack_tol=FUSED_TOL,
+            launched_want={step: 2, BIAS_STEP: 2})
+        del params, layers
+        torch.cuda.empty_cache()
+    layers = _with_biases(params_i8["layers"], dev, seed=97)
+    hp = spec.hyper_params
+    dense, gen = _filled_cache(dev, spec, len(FUSED_LENGTHS), CONTEXT, seed=5)
+    dense.with_length(torch.tensor(FUSED_LENGTHS, device=dev))
+    paged = _paged_twin(dense, (4 * len(FUSED_LENGTHS) + 3) * 256, seed=9)
+    twin = dataclasses.replace(
+        paged, k=paged.k.clone(), v=paged.v.clone(),
+        k_scale=paged.k_scale.clone(), v_scale=paged.v_scale.clone(),
+        length=paged.length.clone())
+    tokens = torch.randint(1, hp.vocab_size, (len(FUSED_LENGTHS), 1),
+                           generator=gen, device=dev)
+    x = params_i8["dec_embeddings"][tokens]
+    pos = dense.length[:, None].clone()
+    _build.launch_counts.clear()
+    got, _ = decode_step.fused_decode_step(spec, layers, x, pos, paged)
+    ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos, twin)
+    torch.cuda.synchronize()
+    launched = dict(_build.launch_counts)
+    res = compare(got, ref, FUSED_TOL)
+    res["ok"] = res["ok"] and launched == {"fused_decode_step": 1,
+                                           BIAS_STEP: 1}
+    nblk = hp.head_dim // 32
+    live = sum(min(n, CONTEXT) for n in FUSED_LENGTHS)
+    rows_bytes = 2 * hp.decoder_layers * (live + len(FUSED_LENGTHS)) \
+        * hp.kv_heads * (hp.head_dim + 2 * nblk)
+    bytes_moved = _weight_bytes(dict(params_i8, layers=layers)) \
+        + rows_bytes + 2 * 2 * len(FUSED_LENGTHS) * hp.embd_dims \
+        + 4 * paged.page_table.numel()
+    ops = 2 * len(FUSED_LENGTHS) * sum(
+        lp[g][w].data.numel() for lp in layers
+        for g, w in (("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"),
+                     ("ffn", "w2")))
+    b_ms, b_by = bound(bytes_moved, ops, H100_INT8_OPS)
+    row = {"phase": "kernel", "kernel": BIAS_STEP,
+           "shape": f"{MODEL} i8mm bias paged L={hp.decoder_layers} "
+                    f"B={len(FUSED_LENGTHS)} lengths={list(FUSED_LENGTHS)}",
+           **res, "launched": launched,
+           "ms": timer(lambda: decode_step.fused_decode_step(
+               spec, layers, x, pos, paged), "fused_decode_step bias paged"),
+           "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
+               spec, layers, x, pos, twin), "plain bias paged", 1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes_bound": bytes_moved}
+    row["phase_launches"] = dict(_build.launch_counts)
+    emit(row)
+    rows.append(row)
+    return rows
+
+
+def _record_in_order(eng, outputs) -> tuple:
+    """Record the logits rows of a second serve of the same prompts on an
+    engine whose query ids have moved on: the k-th query to sample (the
+    k-th admitted: prefill is in admission order) is fed outputs[k], its
+    rows kept under k.  Returns (rows, the sampler to restore)."""
+    rows, order = {}, {}
+    choose = eng.strategies.choose_token
+
+    def recording(qid, logits, prev=()):
+        k = order.setdefault(qid, len(order))
+        seen = rows.setdefault(k, [])
+        seen.append(np.asarray(logits, np.float32).copy())
+        choose(qid, logits, prev)
+        return outputs[k][len(seen) - 1]
+
+    eng.strategies.choose_token = recording
+    return rows, choose
+
+
+def _serve_mega2(eng, prompts, outputs, kernel, label) -> dict:
+    """The same prompts again on `eng` under INFERFLOW_MEGA=2, fed
+    `outputs`: every decode step takes the fused step `kernel` (its launch
+    count equals the decode steps) and B2 never launches; a three-step
+    decode profile under the same switch.  Returns the rows (by admission
+    order), the launches and the decode times."""
+    from inferflow_tpu_torch.kernels import _build
+    with _with_env("INFERFLOW_MEGA", "2"):
+        rows, choose = _record_in_order(eng, outputs)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        _, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        eng.strategies.choose_token = choose
+        emit({"phase": f"engine_{label}", "INFERFLOW_MEGA": "2",
+              "queries": len(prompts), "engine_steps": steps,
+              "decode_steps": len(decode_ms), "wall_s": wall_s,
+              "prefill_ms_per_step": prefill_ms,
+              "decode_ms_per_step_median": float(np.median(decode_ms)),
+              "decode_ms_per_step": decode_ms,
+              "kernel_launches": {k: launches.get(k, 0)
+                                  for k in KERNEL_SOURCES}})
+        assert launches.get(kernel, 0) == len(decode_ms) > 0, \
+            f"run {label}: a decode step did not take {kernel}"
+        assert launches.get("decode_attention", 0) == 0, \
+            f"run {label}: B2 launched under INFERFLOW_MEGA=2"
+        profile_decode(eng, prompts[0], label)
+    return {"rows": rows, "launches": launches, "decode_steps": len(decode_ms)}
+
+
+def _by_qid(qids, rows_in_order) -> dict:
+    """_record_in_order's rows under the query ids of the first serve."""
+    return {q: rows_in_order[k] for k, q in enumerate(qids)}
+
+
+def _mega2_errors(label, qids, prompts, outputs, rows, against, tol,
+                  what) -> dict:
+    """Every row of `rows` against `against` (both by query id and fed the
+    same tokens `outputs`, neither necessarily greedy on them), within
+    `tol`; prefill (each query's first row) and decode rows apart."""
+    report = {"phase": f"engine_{label}_vs_{what}",
+              "tolerance": f"every sampled row: max_abs_err <= {tol}"}
+    prefill, decode, equal, n_rows = [], [], 0, 0
+    for q, prompt, served in zip(qids, prompts, outputs):
+        got, ref = rows[q], against[q]
+        assert len(got) == len(ref) == len(served), q
+        errs = [float(np.abs(a - b).max()) for a, b in zip(got, ref)]
+        prefill.append(errs[0])
+        decode += errs[1:]
+        equal += sum(int(a.argmax()) == int(b.argmax())
+                     for a, b in zip(got, ref))
+        n_rows += len(errs)
+        report[f"q{q}_prompt_{len(prompt)}"] = {"max_abs_err": max(errs),
+                                                "row_errs": errs}
+    report.update(prefill_max_abs_err=max(prefill),
+                  decode_max_abs_err=max(decode, default=0.0),
+                  max_abs_err=max(prefill + decode), argmax_equal=equal,
+                  rows=n_rows, ok=bool(max(prefill + decode) <= tol))
+    emit(report)
+    assert report["ok"], f"run {label}: rows disagree with {what}"
+    return report
+
+
+def phase_engine_r(dev, cfg, spec, params, memory) -> dict:
+    """Run (r): the packed Q4_B64T1 llama2-7b engine on the card under
+    INFERFLOW_MEGA=2 (every decode step B4's wire mode, prefill and the
+    lm_head B1-Q4, chunks B3), then the same engine under INFERFLOW_MEGA=1
+    fed (r)'s tokens (the per-layer loop, B1-Q4 and B2); every row held
+    against it."""
+    from inferflow_tpu_torch.kernels import _build
+    from inferflow_tpu_torch.runtime.engine import InferenceEngine
+    hp = spec.hyper_params
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(1, hp.vocab_size, n)]
+               for n in ENGINE_R_PROMPTS]
+    eng = InferenceEngine(spec, params,
+                          max_concurrent_queries=cfg.max_concurrent_queries,
+                          max_context_len=spec.max_context_len, device=dev)
+    step = WIRE_STEP_FORMATS["Q4_B64T1"][1]
+    with _with_env("INFERFLOW_MEGA", "2"):
+        rows = _record_rows(eng)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        qids, prefill_ms, decode_ms, steps = _serve(eng, prompts, MAX_NEW)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        outputs = [eng.query_tokens(q) for q in qids]
+        emit({"phase": "engine_r", "config": R_INI, "model": R_MODEL_NAME,
+              "INFERFLOW_MEGA": "2", "layers": hp.decoder_layers,
+              "device_layout": spec.device_layout,
+              "weight_format": params["lm_head"].format,
+              "slots": cfg.max_concurrent_queries,
+              "context": spec.max_context_len,
+              "prompt_lens": list(ENGINE_R_PROMPTS), "engine_steps": steps,
+              "decode_steps": len(decode_ms), "wall_s": wall_s,
+              "device_bytes": memory, "model_bytes": _model_bytes(params),
+              "prefill_ms_per_step": prefill_ms,
+              "decode_ms_per_step_median": float(np.median(decode_ms)),
+              "decode_ms_per_step": decode_ms,
+              "kernel_launches": {k: launches.get(k, 0)
+                                  for k in KERNEL_SOURCES}})
+        assert launches.get(step, 0) == len(decode_ms) > 0, \
+            "run r: a decode step did not take the wire mode"
+        for k in ("dequant_matmul", "chunk_attention"):
+            assert launches.get(k, 0) > 0, f"{k} never launched in run r"
+        assert launches.get("decode_attention", 0) == 0, "B2 launched in r"
+        profile_decode(eng, prompts[0], "r")
+    rows1, choose = _record_in_order(eng, outputs)
+    _build.launch_counts.clear()
+    _, _, ref_decode_ms, _ = _serve(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    ref_launches = dict(_build.launch_counts)
+    eng.strategies.choose_token = choose
+    assert ref_launches.get(step, 0) == 0
+    assert ref_launches.get("decode_attention", 0) > 0
+    emit({"phase": "engine_r_mega1", "INFERFLOW_MEGA": "1",
+          "decode_ms_per_step_median": float(np.median(ref_decode_ms)),
+          "kernel_launches": {k: ref_launches.get(k, 0)
+                              for k in KERNEL_SOURCES}})
+    _mega2_errors("r", qids, prompts, outputs, rows, _by_qid(qids, rows1),
+                  ENGINE_R_TOL, "same_engine_mega1")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_convert_tokenizer(root: str) -> dict:
+    """convert_tokenizer_data on (n)'s tokenizer.json, read back through
+    the llama2.c loader and held against the vocab it came from."""
+    from inferflow_tpu_torch.loaders.llama2c import load_llama2c_tokenizer
+    from inferflow_tpu_torch.tokenizer.loading import load_tokenizer_json
+    from inferflow_tpu_torch.tools import convert_tokenizer_data
+    src = Path(root) / "models" / Q4B32_MODEL / "tokenizer.json"
+    out = Path(root) / "tokenizer.bin"
+    n = convert_tokenizer_data.main([str(src), str(out)])
+    vocab = load_tokenizer_json(str(src))
+    back = load_llama2c_tokenizer(str(out), n)
+    ok = bool(n == len(vocab.tokens) == LLAMA2_7B_CONFIG["vocab_size"]
+              and [t.str for t in back.tokens] == [t.str for t in
+                                                   vocab.tokens]
+              and np.allclose([t.score for t in back.tokens],
+                              [t.score for t in vocab.tokens]))
+    report = {"phase": "convert_tokenizer_data", "tokens": n,
+              "bytes": out.stat().st_size, "ok": ok}
+    emit(report)
+    assert ok, "convert_tokenizer_data: the vocab did not read back"
+    return report
+
+
+def phase_ppl(dev) -> dict:
+    """ppl_report on tinyllama-1.1b (a 2048-token corpus sampled from the
+    bf16 model; BF16, Q8_B32T2, Q6_B64T1, Q4_B64T1, Q3H_B64T1, Q2_B32T1A
+    and Q4_B64T1 under i8mm, i4, q8c and packed), one JSON line per row,
+    then the perplexity CLI on synthetic text."""
+    from inferflow_tpu_torch.tools import perplexity, ppl_report
+    t0 = time.perf_counter()
+    rows = ppl_report.main(PPL_REPORT_ARGS)
+    report_s = time.perf_counter() - t0
+    for r in rows:
+        emit(dict(r, phase="ppl_report_row"))
+    t0 = time.perf_counter()
+    ppl = perplexity.main(PERPLEXITY_ARGS)
+    out = {"phase": "ppl", "report_s": report_s,
+           "perplexity_s": time.perf_counter() - t0,
+           "perplexity": ppl, "args": PERPLEXITY_ARGS}
+    emit(out)
+    assert all(np.isfinite(r["ppl"]) and r["scored"] > 0 for r in rows)
+    assert np.isfinite(ppl["ppl"]) and ppl["scored"] > 0
+    return dict(out, rows=rows)
+
+
 def _run(results, failed, pname, fn) -> None:
     try:
         results[pname] = fn()
@@ -3646,6 +4148,10 @@ def main() -> int:
          lambda: phase_b4(timer, dev, spec_a, params_a))
     _run(results, failed, "fused_decode_step_paged",
          lambda: phase_b4_paged(timer, dev, spec_a, params_a))
+    # B4's mode (d): seeded biases on (a)'s i8mm weights, Q8_B32T2 and Q4
+    # wire planes, and one paged case
+    _run(results, failed, "b4_bias",
+         lambda: phase_b4_bias(timer, dev, spec_a, params_a))
     _run(results, failed, "engine_a", lambda: phase_engine(
         dev, spec_a, params_a, memory_a, "a",
         ("fused_decode_step", "chunk_attention", "i8mm_gemv"),
@@ -3755,9 +4261,14 @@ def main() -> int:
         timer, dev, spec_g1, G_ATTN_LENGTHS, spec_g.max_context_len))
     _run(results, failed, "chunk_attention_g",
          lambda: phase_b3(timer, dev, spec_g1, G_CHUNK_START))
+    # B4's mode (h) on the same weights, then (g) and, on (g)'s engine
+    # under INFERFLOW_MEGA=2, run (q)
+    _run(results, failed, "b4_pair8",
+         lambda: phase_b4_pair8(timer, dev, spec_g, params_g))
     _run(results, failed, "engine_g", lambda: phase_engine_twin(
         dev, cfg_g, spec_g, params_g, memory_g, "g", Q3H_INI, Q3H_MODEL_NAME,
-        "q3h_matmul", ENGINE_G_PROMPTS, 6, ENGINE_G_TOL))
+        "q3h_matmul", ENGINE_G_PROMPTS, 6, ENGINE_G_TOL,
+        mega2=("q", PAIR8_STEP)))
     spec_cut = ini_config(Q3H_INI, Q3H_MODEL_NAME,
                           layers=ENGINE_GCPU_LAYERS)[1]
     spec_cut.qkv_format = spec_g.qkv_format  # the weights' fused qkv
@@ -3804,6 +4315,38 @@ def main() -> int:
     del params_h, params_cut
     torch.cuda.empty_cache()
 
+    # (r): configs/inferflow_service.ini's deployment (llama2-7b, Q4) in
+    # the packed layout under INFERFLOW_MEGA=2, and B4's wire mode alone in
+    # its three geometries on the same weights
+    cfg_r, spec_r, fmt_r = ini_config(R_INI, R_MODEL_NAME)
+    spec_r.device_layout = "packed"
+    params_r, memory_r = build_params(dev, spec_r, fmt_r)
+    emit({"phase": "weights", "model": R_MODEL_NAME, "config": R_INI,
+          "weight_format": fmt_r, "device_layout": "packed",
+          "packed_device_bytes": memory_r,
+          "model_bytes": _model_bytes(params_r)})
+    if fmt_r != "Q4_B64T1":
+        failed.append("layout_r")
+    _run(results, failed, "b4_wire",
+         lambda: phase_b4_wire(timer, dev, spec_r, params_r))
+    _run(results, failed, "engine_r", lambda: phase_engine_r(
+        dev, cfg_r, spec_r, params_r, memory_r))
+    spec_cut = ini_config(R_INI, R_MODEL_NAME, layers=ENGINE_RCPU_LAYERS)[1]
+    spec_cut.device_layout = "packed"
+    spec_cut.qkv_format = spec_r.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_r, layers=params_r["layers"][:ENGINE_RCPU_LAYERS])
+    with _with_env("INFERFLOW_MEGA", "2"):
+        _run(results, failed, "engine_r_cpu", lambda: phase_engine_cut_cpu(
+            dev, cfg_r, spec_cut, params_cut, "r_cpu", R_INI, R_MODEL_NAME,
+            ENGINE_RCPU_PROMPTS, cfg_r.max_concurrent_queries,
+            spec_r.max_context_len,
+            (WIRE_STEP_FORMATS["Q4_B64T1"][1], "dequant_matmul",
+             "chunk_attention"),
+            ("decode_attention", "fused_decode_step", "i8mm_gemv",
+             "subbyte_matmul", "q8_matmul", "i4_matmul")))
+    del params_r, params_cut
+    torch.cuda.empty_cache()
+
     # (i) the q8c layout: every weight of tinyllama-1.1b's seed-0 Q4_B64T1
     # re-encoded as Q8_B32T2
     spec_i = make_spec(MODEL, device_layout="q8c", layers=ENGINE_I_LAYERS)
@@ -3832,7 +4375,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # routed MoE: configs/inferflow_service.moe.ini, mixtral-8x7b
-    cfg_k, spec_k, fmt_k = ini_config(MOE_INI, MOE_MODEL_NAME)
+    cfg_k, spec_k, fmt_k = ini_config(MOE_INI, MOE_MODEL_NAME,
+                                      layers=ENGINE_K_LAYERS)
     layout_k = resolve_auto_layout(spec_k, fmt_k, dev)
     emit({"phase": "layout", "model": MOE_MODEL_NAME, "config": MOE_INI,
           "weight_format": fmt_k, "resolved": layout_k})
@@ -3867,7 +4411,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the sub-byte wire formats: configs/inferflow_service.q6.ini, llama2-7b
-    cfg_l, spec_l, fmt_l = ini_config(Q6_INI, Q6_MODEL_NAME)
+    cfg_l, spec_l, fmt_l = ini_config(Q6_INI, Q6_MODEL_NAME,
+                                      layers=ENGINE_L_LAYERS)
     layout_l = resolve_auto_layout(spec_l, fmt_l, dev)
     auto_l = resolve_auto_layout(make_spec(Q6_MODEL_NAME), fmt_l, dev)
     emit({"phase": "layout", "model": Q6_MODEL_NAME, "config": Q6_INI,
@@ -3965,6 +4510,8 @@ def main() -> int:
              lambda: phase_engine_o(dev, root_n, ctx))
     else:
         failed.append("engine_o")
+    _run(results, failed, "convert_tokenizer_data",
+         lambda: phase_convert_tokenizer(root_n))
     shutil.rmtree(root_n, ignore_errors=True)
     # (n-cpu), (n-t2), (n-b16): a one-layer checkpoint of the same shape
     root_1 = str(ckpt_root / "q4b32_one_layer")
@@ -3977,6 +4524,8 @@ def main() -> int:
             _run(results, failed, f"engine_{label}",
                  lambda: phase_engine_n_cut(dev, root_1, label, fmt, against))
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    # the perplexity CLIs on tinyllama-1.1b
+    _run(results, failed, "ppl", lambda: phase_ppl(dev))
 
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
@@ -3986,7 +4535,8 @@ def main() -> int:
                   "fused_decode_step_byte", "fused_decode_step_moe",
                   "subbyte_matmul", "i4_matmul_formats", "i4x8_gemv_formats",
                   "fused_decode_step_i4_formats", "i4bf16_gemv",
-                  "fused_decode_step_i4bf16"):
+                  "fused_decode_step_i4bf16", "b4_bias", "b4_pair8",
+                  "b4_wire"):
         if any(not r["ok"] for r in results.get(pname, [])):
             failed.append(pname)
     for pname in ("kernel_bench", "mega_ab"):
@@ -4030,6 +4580,22 @@ def main() -> int:
         launches[kname] = bench["launches"][kname]
     for kname in ("decode_attention_d256", "chunk_attention_d256"):
         launches[kname] = results["engine_p"][kname]
+    # this slice's: the wire mode on (r)'s and (n)'s packed twin's decode
+    # steps under INFERFLOW_MEGA=2, mode (h) on run (q)'s; the Q2 geometry,
+    # the biased step and the GEMVs alone in their phases (no engine run
+    # serves them)
+    launches["fused_decode_step_wire"] = results["engine_r"][
+        "fused_decode_step_wire"]
+    launches["fused_decode_step_wire_b32"] = results["engine_n_twin"][
+        "mega2"]["fused_decode_step_wire_b32"]
+    launches[PAIR8_STEP] = results["engine_g"]["mega2"][PAIR8_STEP]
+    mode_rows = results["b4_wire"] + results["b4_pair8"]
+    phase_counts = [r["phase_launches"] for r in mode_rows
+                    if "phase_launches" in r]
+    for kname in ("fused_decode_step_wire_q2", "wire_gemv", "wire_gemv_b32",
+                  "wire_gemv_q2", PAIR8_GEMV):
+        launches[kname] = sum(c.get(kname, 0) for c in phase_counts)
+    launches[BIAS_STEP] = results["b4_bias"][-1]["phase_launches"][BIAS_STEP]
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
              "decode_attention": results["decode_attention"][0],
@@ -4073,6 +4639,15 @@ def main() -> int:
     for kname in ("decode_attention_d256", "chunk_attention_d256",
                   "paged_decode_attention_d256"):
         picks[kname] = next(r for r in bench_rows if r["kernel"] == kname)
+    for kname in ("fused_decode_step_wire", "fused_decode_step_wire_b32",
+                  "fused_decode_step_wire_q2", PAIR8_STEP):
+        picks[kname] = next(r for r in mode_rows if r["kernel"] == kname
+                            and " B=8 " in r["shape"])
+    for kname in ("wire_gemv", "wire_gemv_b32", "wire_gemv_q2", PAIR8_GEMV):
+        picks[kname] = next(r for r in mode_rows if r["kernel"] == kname
+                            and " M=8 " in r["shape"])
+    picks[BIAS_STEP] = next(r for r in results["b4_bias"]
+                            if " B=4 " in r["shape"])
     summary = []
     for kname, row in picks.items():
         source, replaces = KERNEL_SOURCES[kname]

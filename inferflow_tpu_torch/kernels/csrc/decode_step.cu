@@ -1,7 +1,8 @@
 // Whole-model fused decode step (B4) for int8 per-column ("i8mm") weights,
-// for the i4 layout's packed nibbles ("i4x8" and "i4bf16") and for the Q8
-// block formats ("byte"), with a Q8 KV cache, plus the GEMVs it is built
-// from.
+// for the i4 layout's packed nibbles ("i4x8" and "i4bf16"), for the Q8
+// block formats ("byte"), for the sub-byte single-plane wire planes
+// ("wire") and for Q3H's pair8 plane ("pair8"), with optional per-product
+// output biases and a Q8 KV cache, plus the GEMVs it is built from.
 //
 // Replaces inferflow_tpu/kernels/decode_step.py `_make_kernel` (its
 // pallas_call at :1373, public entry `fused_decode_step` at :1574) in its
@@ -10,8 +11,11 @@
 // `stream_mm` :573-583, INFERFLOW_I4_DOT set to anything but i8) and
 // (c) byte-per-code (`_mm_cfg` with
 // pk = 1, `stream_mm`'s single-plane branch :583-606: Q8_B32T2 and
-// Q8_B32T1), and its routed-expert mode (g) (`moe_slot` :1105-1151) for
-// MoE layers, with both attention modes: per-slot for
+// Q8_B32T1), the wire mode (the same branch with pk = 2 or 4, :153-169,
+// :584-615: Q4_B64T1, Q4_B32T1A/B, Q2_B32T1A/B), (h) pair8 (`_mm_cfg`
+// :138-152, the pair8 tile :511-536: Q3H_B64T1), (d) per-matmul output
+// biases (`finish` :427-433), and its routed-expert mode (g) (`moe_slot`
+// :1105-1151) for MoE layers, with both attention modes: per-slot for
 // B = 1 and batched (bf16-rounded q and p*vscale) for B > 1; over the
 // dense cache or, in its paged mode (f), over the page pool of
 // runtime/paged_kv.py through the page table.  Each product takes its own
@@ -24,9 +28,11 @@
 //          bf16(sum_r xn) * bf16(8*sc + base)
 //          + f32(acc_i32 over r) * (xs_row * sc), or i4bf16 the same
 //          fold term plus sum_{k in r} xn_k * bf16(bf16(n_k) * bf16(sc))
-//          in float32 (no int8 rows), or byte: sum over
-//          32-row blocks r of sum_{k in r} xn_k * bf16(q_k * bf16(sc))
-//          (+ bf16(sum_r xn) * bf16(base) for Q8_B32T1), xn in bf16
+//          in float32 (no int8 rows), or byte, wire and pair8: sum
+//          over quant blocks r of sum_{k in r} xn_k * bf16(q_k * bf16(sc))
+//          (+ bf16(sum_r xn) * bf16(base) where there is a base), xn in
+//          bf16, q the code (wire: pk codes a byte; pair8: v0 + 11 * v1
+//          for K rows 2j, 2j+1); then + bias where the product has one
 //   q, k = rope(q), rope(k); the step's K/V row quantized to Q8 (f32 scale
 //          for the self term, f16 scale and the codes into cache row
 //          `length` of layer l)
@@ -101,6 +107,19 @@
 //     sum; Q8_B32T1's base enters once per block through the block's
 //     bf16 activation sum.  Its float sums take the i4x8 GEMV's order
 //     (warps, then splits): the same bits on every run;
+//   - the wire and pair8 GEMVs: the byte GEMV with a code decoder per
+//     mode (a template parameter, so each block loop is unrolled for its
+//     geometry): one 32-bit load of a code row gives 4 columns of pk K
+//     rows (2 for pair8), so a 64-row Q4 or pair8 block is 32 loads in
+//     flight, a 32-row Q4 block 16 and a Q2 block 8; each code is decoded
+//     with shifts and masks (pair8: one division by 11 per byte) into
+//     bf16(q * bf16(scale)).  What bounds them: the same weight bytes
+//     (4.5 bits a weight for Q4_B64T1 and for pair8, whose byte holds a pair
+//     and its 64-row metadata) and the per-weight float work, which on
+//     the card held the other 8-row GEMVs at 8-32% of their byte bound;
+//   - mode (d): one f32 bias pointer per product in the layer table, added
+//     to the product's float32 output in the GEMV's epilogue, before the
+//     f32 store, the residual add or the GLU (the TPU kernel's `finish`);
 //   - prologues: every CTA recomputes the row norm and the row max of its
 //     <= 8 rows from L2 (rmsnorm), or reads the row max that the previous
 //     launch accumulated with atomicMax on the float bits (ctx, hglu), then
@@ -153,11 +172,18 @@ enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
 // kModeI4x8B32F Q4_B32T2 (32, f32), kModeI4x8B16F Q4_B16 (16, f32); the
 // (b') modes kModeI4Bf16* the same four geometries with bf16 activations,
 // each its own instantiation of the i4bf16 GEMV.
+// The wire modes, one per geometry of the sub-byte single-plane wire
+// formats (code bits, quant block): kModeWireQ4 Q4_B64T1 (4, 64),
+// kModeWireQ4B32 Q4_B32T1A/B (4, 32), kModeWireQ2 Q2_B32T1A/B (2, 32); and
+// kModePair8, mode (h), Q3H_B64T1's one byte per base-11 value pair.  Each
+// is its own instantiation of the code GEMV (the byte GEMV with the
+// mode's code decoder), all with f16 scales and bases.
 enum WeightMode {
   kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3,
   kModeI4x8B32 = 4, kModeI4x8B32F = 5, kModeI4x8B16F = 6,
   kModeI4Bf16 = 7, kModeI4Bf16B32 = 8, kModeI4Bf16B32F = 9, kModeI4Bf16B16F = 10,
-  kModeLast = kModeI4Bf16B16F
+  kModeWireQ4 = 11, kModeWireQ4B32 = 12, kModeWireQ2 = 13, kModePair8 = 14,
+  kModeLast = kModePair8
 };
 // the i4x8 modes (int8 activations)
 __host__ __device__ constexpr bool is_i4(int mode) {
@@ -174,6 +200,18 @@ __host__ __device__ constexpr int i4_block(int mode) {
          : mode == kModeI4x8B16F || mode == kModeI4Bf16B16F ? 16
                                                            : 32;
 }
+// the whole-code modes (byte, wire, pair8): bf16 activations, every
+// weight bf16(q * bf16(scale)) from its code
+__host__ __device__ constexpr bool is_code(int mode) {
+  return mode == kModeByte || mode == kModeByteU || (mode >= kModeWireQ4 && mode <= kModePair8);
+}
+// a whole-code mode's K rows per quant block and codes per byte
+__host__ __device__ constexpr int code_block(int mode) {
+  return mode == kModeWireQ4 || mode == kModePair8 ? 64 : kByteBlock;
+}
+__host__ __device__ constexpr int code_pk(int mode) {
+  return mode == kModeWireQ2 ? 4 : (mode >= kModeWireQ4 && mode <= kModePair8) ? 2 : 1;
+}
 __host__ __device__ constexpr bool i4_f32_meta(int mode) {
   return mode == kModeI4x8B32F || mode == kModeI4x8B16F || mode == kModeI4Bf16B32F ||
          mode == kModeI4Bf16B16F;
@@ -184,15 +222,17 @@ struct GemvArgs {
   const __nv_bfloat16* norm_w; // (K,) rmsnorm weight (kProNorm)
   const unsigned* amax_in;     // (M,) row max |x| as float bits (kProAmax)
   const void* w;               // i8mm: (K, N) int8; i4x8, i4bf16: (K/2, N) uint8 nibble pairs;
-                               // byte: (K, N) uint8 codes
+                               // byte: (K, N) uint8 codes; wire: (K/pk, N) uint8, pk codes
+                               // a byte; pair8: (K/2, N) uint8 base-11 pairs
   const void* w_scale;         // i8mm: (N,) f32 column scales; i4: (K/block, N) f16
-                               // or f32 (the mode's); byte: (K/32, N) f16
-  const void* w_base;          // i4, byte: block bases of the scales' type, or null
+                               // or f32 (the mode's); byte, wire, pair8: (K/block, N) f16
+  const void* w_base;          // i4, byte, wire, pair8: block bases of the scales' type, or null
+  const float* bias;           // (N,) f32 output bias added before the epilogue, or null
   float* out_f32;              // (M, N) (kEpiF32)
   __nv_bfloat16* out_bf16;     // (M, N) residual (kEpiResid), (M, ld_out) hglu (kEpiGlu)
   unsigned* amax_out;          // (M,) row max |hglu| (kEpiGlu)
   int* ws;                     // i8mm: (M, N) int32, zero on entry and on exit
-  float* part;                 // i4, byte: (ksplit, M, N) float split partials
+  float* part;                 // float modes: (ksplit, M, N) float split partials
   int* counters;               // (column tiles,), zero on entry and on exit
   int M, K, N, kc, ksplit, ld_out;
   int pro, epi, act;           // act: 0 silu, 1 gelu (tanh form), 2 relu
@@ -306,16 +346,16 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
 // bits on every run.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
-  constexpr bool I4 = is_i4(MODE), I4BF = is_i4bf(MODE), BYTE = MODE == kModeByte;
-  constexpr bool XBF = BYTE || I4BF;  // bf16 activations, no row quantization
+  constexpr bool I4 = is_i4(MODE), I4BF = is_i4bf(MODE), FC = is_code(MODE);
+  constexpr bool XBF = FC || I4BF;  // bf16 activations, no row quantization
   // the float modes' quant block (i8mm: unused)
-  constexpr int kBlk = BYTE ? kByteBlock : (I4 || I4BF) ? i4_block(MODE) : 64;
+  constexpr int kBlk = FC ? code_block(MODE) : (I4 || I4BF) ? i4_block(MODE) : 64;
   using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
   // the CTA's K slice: int8 codes (i8mm, i4x8) or bf16 activations (byte,
-  // i4bf16)
+  // wire, pair8, i4bf16)
   __shared__ __align__(16) unsigned char x_s[M][kMaxKc * (XBF ? 2 : 1)];
   __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float sums
-  __shared__ float xsum_s[M][kMaxKc / ((I4 || I4BF) ? kBlk : kByteBlock)];
+  __shared__ float xsum_s[M][kMaxKc / kBlk];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
   __shared__ int xrow_s[M], orow_s[M];  // activation and output row of row m
@@ -426,8 +466,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   __syncthreads();
 
   // prologue 2: this CTA's K slice of the rows, as int8 codes or (byte,
-  // i4bf16) bf16 activations; for the i4 modes, and for byte weights with
-  // a base, each quant block's bf16 sum of the activations, one warp each
+  // wire, pair8, i4bf16) bf16 activations; for the i4 modes, and for
+  // whole-code weights with a base, each quant block's bf16 sum of the
+  // activations, one warp each
   for (int i = tid; i < M * klen; i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
     const float v = activation(a, xrow(m), k0 + kk, inv_s[m]);
@@ -439,7 +480,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     }
   }
   const int nblk = klen / kBlk;  // float modes: klen % kBlk == 0 (the plan)
-  if (I4 || I4BF || (BYTE && a.w_base != nullptr)) {
+  if (I4 || I4BF || (FC && a.w_base != nullptr)) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
       const int kb0 = k0 + lb * kBlk;
@@ -519,43 +560,61 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 #pragma unroll
       for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0.f;
 
-    if (BYTE && col_ok) {
-      // q = code read as signed (Q8_B32T2) or not (Q8_B32T1), exact
+    if constexpr (FC) {
+      // the code of value h (0..kPk-1) of a byte: byte (c) the byte read
+      // as signed (Q8_B32T2) or not (Q8_B32T1); wire bits [bits*h,
+      // bits*h + bits); pair8 v0 = b - 11*v1 (h = 0) or v1 = b / 11, the
+      // TPU tile's floor((b + 0.5) / 11) for every byte.  All exact.
+      constexpr int kPk = code_pk(MODE);   // codes per byte
+      constexpr int kQRows = kBlk / kPk;   // byte rows per quant block
+      constexpr int kBits = 8 / kPk;
       const uint32_t flip = a.byte_signed ? 0x80u : 0u;
       const float sub = a.byte_signed ? 128.f : 0.f;
-      for (int lb = warp; lb < nblk; lb += kGemvWarps) {
-        const int kb = k0 / kByteBlock + lb;
-        // all 32 code rows of the block, of every segment, in flight at once
-        uint32_t words[NSEG][kByteBlock];
+      auto code = [&](uint32_t byte, int h) -> float {
+        if constexpr (MODE == kModePair8) {
+          const uint32_t v1 = byte / 11u;
+          return float(h == 0 ? byte - 11u * v1 : v1);
+        } else if constexpr (kPk > 1) {
+          return float((byte >> (kBits * h)) & ((1u << kBits) - 1u));
+        } else {
+          return float(byte ^ flip) - sub;
+        }
+      };
+      for (int lb = warp; col_ok && lb < nblk; lb += kGemvWarps) {
+        const int kb = k0 / kBlk + lb;
+        // all byte rows of the block, of every segment, in flight at once
+        uint32_t words[NSEG][kQRows];
         float sc[NSEG][4];
 #pragma unroll
         for (int s = 0; s < NSEG; ++s) {
           const int col = col0 + s * seg_stride;
 #pragma unroll
-          for (int r = 0; r < kByteBlock; ++r)
+          for (int r = 0; r < kQRows; ++r)
             words[s][r] = __ldg(reinterpret_cast<const uint32_t*>(
-                w4 + ((size_t)kb * kByteBlock + r) * a.N + col));
+                w4 + ((size_t)kb * kQRows + r) * a.N + col));
           const uint2 sc_bits = __ldg(reinterpret_cast<const uint2*>(wsc + (size_t)kb * a.N + col));
           const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
 #pragma unroll
           for (int c = 0; c < 4; ++c) sc[s][c] = round_bf16(__half2float(sch[c]));
         }
 #pragma unroll
-        for (int r = 0; r < kByteBlock; ++r) {
-          float xr[M];
+        for (int r = 0; r < kQRows; ++r)
 #pragma unroll
-          for (int m = 0; m < M; ++m)
-            xr[m] = bf(reinterpret_cast<const __nv_bfloat16*>(x_s[m])[lb * kByteBlock + r]);
+          for (int h = 0; h < kPk; ++h) {
+            float xr[M];
 #pragma unroll
-          for (int s = 0; s < NSEG; ++s)
+            for (int m = 0; m < M; ++m)
+              xr[m] = bf(reinterpret_cast<const __nv_bfloat16*>(x_s[m])[lb * kBlk + r * kPk + h]);
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float q = float(((words[s][r] >> (8 * c)) & 0xFFu) ^ flip) - sub;
-              const float w = round_bf16(__fmul_rn(q, sc[s][c]));
+            for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-              for (int m = 0; m < M; ++m) acc[m][s * 4 + c] = fmaf(xr[m], w, acc[m][s * 4 + c]);
-            }
-        }
+              for (int c = 0; c < 4; ++c) {
+                const float q = code((words[s][r] >> (8 * c)) & 0xFFu, h);
+                const float w = round_bf16(__fmul_rn(q, sc[s][c]));
+#pragma unroll
+                for (int m = 0; m < M; ++m) acc[m][s * 4 + c] = fmaf(xr[m], w, acc[m][s * 4 + c]);
+              }
+          }
         if (wbs_b != nullptr) {
 #pragma unroll
           for (int s = 0; s < NSEG; ++s) {
@@ -747,8 +806,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     __syncthreads();
   }
 
-  // epilogue: i8mm y = (float(acc) * xs_row) * scale_col; i4x8 and byte
-  // y = the sum
+  // epilogue: i8mm y = (float(acc) * xs_row) * scale_col; the float
+  // modes y = the sum; then y += bias (mode (d)), before the f32 store,
+  // the residual add or the GLU
   for (int i = tid; i < M * kTileCols; i += kGemvThreads) {
     const int m = i / kTileCols, j = i - m * kTileCols;
     const int c = tile * kTileCols + j;
@@ -762,6 +822,10 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       y = __fmul_rn(__fmul_rn((float)red_s[m][j], xs_s[m]), wsc[c]);
       if (NSEG == 2)
         gt = __fmul_rn(__fmul_rn((float)red_s[m][kTileCols + j], xs_s[m]), wsc[c + seg_stride]);
+    }
+    if (a.bias != nullptr) {  // mode (d): the product's output bias
+      y = __fadd_rn(y, a.bias[c]);
+      if (NSEG == 2) gt = __fadd_rn(gt, a.bias[c + seg_stride]);
     }
     const int om = orow(m);
     if (a.epi == kEpiF32) {
@@ -825,8 +889,8 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
   const int nseg = a.epi == kEpiGlu ? 2 : 1;
   if (mode < kModeI8mm || mode > kModeLast) return false;
   const bool i4 = is_i4(mode) || is_i4bf(mode);
-  const int unit = i4 ? i4_block(mode) : 32;
-  const int k_unit = i4 ? i4_block(mode) : mode == kModeI8mm ? 4 : kByteBlock;
+  const int unit = i4 ? i4_block(mode) : is_code(mode) ? code_block(mode) : 32;
+  const int k_unit = i4 ? i4_block(mode) : mode == kModeI8mm ? 4 : code_block(mode);
   if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
       sm_count <= 0)
     return false;
@@ -856,6 +920,10 @@ cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream,
     case kModeI4Bf16B32: launch_gemv_mode<kModeI4Bf16B32>(a, grid, stream); break;
     case kModeI4Bf16B32F: launch_gemv_mode<kModeI4Bf16B32F>(a, grid, stream); break;
     case kModeI4Bf16B16F: launch_gemv_mode<kModeI4Bf16B16F>(a, grid, stream); break;
+    case kModeWireQ4: launch_gemv_mode<kModeWireQ4>(a, grid, stream); break;
+    case kModeWireQ4B32: launch_gemv_mode<kModeWireQ4B32>(a, grid, stream); break;
+    case kModeWireQ2: launch_gemv_mode<kModeWireQ2>(a, grid, stream); break;
+    case kModePair8: launch_gemv_mode<kModePair8>(a, grid, stream); break;
     default:
       a.byte_signed = mode == kModeByte;
       launch_gemv_mode<kModeByte>(a, grid, stream);
@@ -1298,9 +1366,10 @@ const char* ift_error_string(int code) {
 // The K splits of a GEMV of (K, N) weights (N the w1n3 width when glu is
 // set) in weight mode `mode` (WeightMode: 0 i8mm, 1 i4x8 Q4_B64T1, 2 byte
 // Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16, 7-10
-// i4bf16 Q4_B64T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16) on a card of `sm_count`
-// SMs, or -1 for a shape it does not take: the i4 and byte GEMVs' float
-// split partials take ksplit * M * N floats.
+// i4bf16 Q4_B64T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16, 11-13 wire Q4_B64T1,
+// Q4_B32T1A/B, Q2_B32T1A/B, 14 pair8 Q3H_B64T1) on a card of `sm_count`
+// SMs, or -1 for a shape it does not take: the float-mode GEMVs' split
+// partials take ksplit * M * N floats.
 int ift_gemv_splits(int K, int N, int glu, int mode, int sm_count) {
   GemvArgs a{};
   a.M = 1, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
@@ -1373,6 +1442,28 @@ int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const voi
       launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
+// y (M, N) f32 = the whole-code product of x (M, K) bf16 (no row
+// quantization) with a wire plane (K/pk, N) uint8 (mode 11-13) or a pair8
+// plane (K/2, N) uint8 (mode 14), f16 block scales and bases (K/block, N;
+// base may be null).  part and counters as for ift_i4x8_gemv.
+int ift_code_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
+                  void* out, void* part, void* counters, int M, int K, int N, int mode,
+                  int sm_count, void* stream) {
+  if (mode < kModeWireQ4 || mode > kModePair8) return static_cast<int>(cudaErrorInvalidValue);
+  GemvArgs a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = w;
+  a.w_scale = w_scale;
+  a.w_base = w_base;
+  a.out_f32 = static_cast<float*>(out);
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.M = M, a.K = K, a.N = N;
+  a.pro = kProRow, a.epi = kEpiF32;
+  return static_cast<int>(
+      launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
+}
+
 // Mode (g)'s routing launch alone: xn (B, E) bf16, then per slot its
 // experts sel (B, top_k) int32 and weights (B, top_k) f32.
 int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn, void* sel,
@@ -1397,16 +1488,20 @@ int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn,
 // for each of qkv (E, (Hq+2H)D), wo (HqD, E), w1n3 (E, 2F) and w2 (F, E)
 // five entries: its weight mode (WeightMode: 0 i8mm, 1 i4x8 Q4_B64T1, 2
 // byte Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16,
-// 7-10 i4bf16 in the same four geometries)
+// 7-10 i4bf16 in the same four geometries, 11-13 wire Q4_B64T1,
+// Q4_B32T1A/B, Q2_B32T1A/B, 14 pair8 Q3H_B64T1)
 // and its stored K as integers, then three device pointers, (int8 codes,
 // f32 column scales, null) for i8mm, (data_i4p nibble pairs, block scales
 // and block bases or null, f16 or f32 as the mode says) for i4x8 and
 // i4bf16, (uint8 codes,
-// f16 block scales, null) for Q8_B32T2 and (uint8 codes, f16 block
-// scales, f16 block bases) for Q8_B32T1; then the MoE gate (E, n_exp)
-// bf16 or null, and the bytes from one expert to the next of w1n3's codes,
-// scales and bases and of w2's (a MoE layer's w1n3 and w2 point at expert
-// 0 of (n_exp, K, N) stacks).  The stored K of qkv and w1n3 is E, of wo HqD;
+// f16 block scales, null) for Q8_B32T2, (uint8 codes, f16 block
+// scales, f16 block bases) for Q8_B32T1, (the wire or pair8 plane, f16
+// block scales and bases) for the wire modes and pair8; then the MoE gate
+// (E, n_exp) bf16 or null, and the bytes from one expert to the next of
+// w1n3's codes, scales and bases and of w2's (a MoE layer's w1n3 and w2
+// point at expert 0 of (n_exp, K, N) stacks); then each product's (N,)
+// f32 output bias or null (mode (d); a MoE layer's experts share one).
+// The stored K of qkv and w1n3 is E, of wo HqD;
 // w2's may exceed F (zero-scale pad blocks) and is hglu's row length.
 // A layer with a gate runs mode (g): the routing launch, then per row
 // count m = 1..B the w1n3 and the w2 GEMV over the experts holding m rows
@@ -1426,7 +1521,8 @@ int ift_moe_route(const void* x, const void* norm_w, const void* gate, void* xn,
 // float-mode products).  attn_part holds B * H * 16 * (Hq / H) * (D + 2) floats;
 // attn_counters (B * H int32) is zero on entry and is left zero.  counters
 // hold a set of column tiles per expert in mode (g).
-constexpr int kTableStride = 29;
+constexpr int kTableStride = 33;
+constexpr int kTableBias = 29;  // the four products' bias pointers
 
 int ift_fused_decode_step(const void* const* table, int L, void* xres, const void* lengths,
                           const void* cos, const void* sin, void* k_cache, void* v_cache,
@@ -1478,6 +1574,7 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
       g.K = ks[i];
       g.w = p[4 + 5 * i], g.w_scale = p[5 + 5 * i];
       g.w_base = p[6 + 5 * i];
+      g.bias = static_cast<const float*>(p[kTableBias + i]);
     };
 
     // qkv = W(rmsnorm(xres) * anorm)

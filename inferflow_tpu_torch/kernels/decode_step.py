@@ -2,25 +2,30 @@
 i4 layout's two products.
 
 Port of inferflow_tpu/kernels/decode_step.py (`fused_step_supported`,
-`fused_step_preferred`, `fused_decode_step`) for four weight modes: (a)
-i8mm (Int8MXUTensor weights: int8 codes with one f32 scale per column),
-(b) i4x8 and (b') bf16-unpack, the i4 layout's two modes (its
-``data_i4p`` nibbles with their block scales and bases, for every 4-bit
-single-plane format: Q4_B64T1, Q4_B32T1A/B with f16 metadata, Q4_B32T2
-and Q4_B16 with f32; the f32 metadata is read as stored, where the TPU
-kernel reads it as f16 bits, ROADMAP C7): i4x8 quantizes the activations
-to int8 per row and takes one int32 dot per quant block, the TPU kernel's
-default; (b') keeps the exact bf16 activations and unpacks every weight
-to bf16(bf16(n) * bf16(scale)), the TPU kernel's mode under
+`fused_step_preferred`, `fused_decode_step`) in every weight mode of the
+TPU kernel: (a) i8mm (Int8MXUTensor weights: int8 codes with one f32
+scale per column), (b) i4x8 and (b') bf16-unpack, the i4 layout's two
+modes (its ``data_i4p`` nibbles with their block scales and bases, for
+every 4-bit single-plane format: Q4_B64T1, Q4_B32T1A/B with f16 metadata,
+Q4_B32T2 and Q4_B16 with f32; the f32 metadata is read as stored, where
+the TPU kernel reads it as f16 bits, ROADMAP C7): i4x8 quantizes the
+activations to int8 per row and takes one int32 dot per quant block, the
+TPU kernel's default; (b') keeps the exact bf16 activations and unpacks
+every weight to bf16(bf16(n) * bf16(scale)), the TPU kernel's mode under
 INFERFLOW_I4_DOT set to anything but ``i8``, read when a step is routed
-(as the TPU package reads it) so that one process can run both; and (c)
+(as the TPU package reads it) so that one process can run both; (c)
 byte (the Q8 block formats Q8_B32T2 and Q8_B32T1, one code per byte:
 bf16 activations, each weight bf16(q * bf16(scale)), Q8_B32T1's base
-through the blocks' activation sums), each product in its own mode; MoE
-layers in the TPU kernel's routed-expert mode (g) (moe_slot: an f32 gate
-dot, softmax, per-slot top-k, then each chosen expert's w1n3 and w2, the
-residual rounded to bf16 after each expert in top-k order), with experts
-in any of these modes;
+through the blocks' activation sums); the wire mode (the sub-byte
+single-plane wire planes Q4_B64T1, Q4_B32T1A/B and Q2_B32T1A/B, pk = 2 or
+4 codes per byte, with byte (c)'s arithmetic); (h) Q3H in the pair8
+layout (one byte per base-11 value pair, the same arithmetic); each
+product in its own mode; (d) per-matmul float32 output biases, added to
+a product's output before the residual add, the GLU or the qkv split;
+MoE layers in the TPU kernel's routed-expert mode (g) (moe_slot: an f32
+gate dot, softmax, per-slot top-k, then each chosen expert's w1n3 and w2,
+the residual rounded to bf16 after each expert in top-k order), with
+experts in any of these modes;
 and a Q8 KV cache in the logical layout, dense (runtime/kv_cache.py) or
 paged (runtime/paged_kv.py, the TPU kernel's mode (f): the walk and the
 step's K/V rows go through the page table), with both attention modes of
@@ -29,8 +34,8 @@ q, and p * vscale, rounded to bf16 before the cache dots).
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/decode_step.cu`` or raise: the step is one C call that walks a
-per-layer pointer table (a weight mode per product) and issues five
-launches per layer (three kinds of GEMV and the step attention), and
+per-layer pointer table (a weight mode and a bias per product) and issues
+five launches per layer (three kinds of GEMV and the step attention), and
 writes each layer's new K/V row straight into the cache; a MoE layer's
 FFN takes a routing launch, the experts' GEMVs (each chosen expert read
 once for all the slots that chose it, one launch per row count) and a
@@ -40,20 +45,15 @@ arithmetic (outputs, then ``append_rows_all_layers`` or
 ``append_rows_all_layers_paged``) and which ``chip_smoke.py`` also holds
 the kernels against on the card.
 
-Not ported (``fused_step_supported`` raises NotImplementedError where the
-TPU package would fuse them, naming what is missing): per-matmul output
-biases (mode (d), which only hand-built params with a fused qkv bias
-reach), and two modes the TPU package supports but does not prefer, so
-that ``fused_step_preferred`` routes them to the per-layer loop as there:
-the sub-byte single-plane wire mode (Q4_B64T1 and the other 2-4-bit wire
-planes, kernel B1 in every product) and mode (h), Q3H weights in the
-pair8 layout (kernel B6; its measured unpack cost loses to the per-layer
-path); nor MoE layers of more than 64 experts.  INFERFLOW_MEGA is read
-at each routing decision (``mega_mode``), as the TPU package reads it:
-``0`` sends every decode step to the per-layer loop, ``2`` takes the
-fused step wherever it is supported, so that it raises for pair8 and
-wire planes, which the TPU package would fuse.  There is no fallback
-switch: if the kernel fails to build or launch, the step raises.
+Routing follows the TPU package: ``fused_step_preferred`` sends the wire
+mode and mode (h), which the TPU package supports but does not prefer, to
+the per-layer loop (kernels B1 or B6, and B2).  INFERFLOW_MEGA is read at
+each routing decision (``mega_mode``), as the TPU package reads it: ``0``
+sends every decode step to the per-layer loop, ``2`` takes the fused step
+wherever it is supported (the wire mode and mode (h) included).  MoE
+layers of more than 64 experts are not taken (NotImplementedError).
+There is no fallback switch: if the kernel fails to build or launch, the
+step raises.
 """
 
 from __future__ import annotations
@@ -69,8 +69,9 @@ import torch
 import torch.nn.functional as F
 
 from ..quant.codec_torch import (I4_PLANE, PAIR8_PLANE, Int8MXUTensor,
-                                 QuantizedTensor, i4_nibbles,
-                                 int8_rowwise_activations, true_div)
+                                 QuantizedTensor, _unpack_plane, i4_nibbles,
+                                 int8_rowwise_activations, pair8_values,
+                                 true_div)
 from ..quant.formats import get_format
 from ..runtime.kv_cache import KVCache, append_rows_all_layers
 from ..runtime.paged_kv import (PagedKVCache, append_rows_all_layers_paged,
@@ -124,6 +125,21 @@ _I4BF16_MODES = {
                           I4BF16_GEMV_KERNEL + "_b16f"),
 }
 _I4_FAMILIES = {"i4": _I4_MODES, "i4bf16": _I4BF16_MODES}
+WIRE_KERNEL = "fused_decode_step_wire"  # a step with a wire product
+WIRE_GEMV_KERNEL = "wire_gemv"
+# the wire modes by (code bits, block rows): csrc WeightMode, the step's
+# and the GEMV's launch counts
+_WIRE_MODES = {
+    (4, 64): (11, WIRE_KERNEL, WIRE_GEMV_KERNEL),  # Q4_B64T1
+    (4, 32): (12, WIRE_KERNEL + "_b32",
+              WIRE_GEMV_KERNEL + "_b32"),  # Q4_B32T1A / B
+    (2, 32): (13, WIRE_KERNEL + "_q2",
+              WIRE_GEMV_KERNEL + "_q2"),  # Q2_B32T1A / B
+}
+PAIR8_KERNEL = "fused_decode_step_pair8"  # a step with a mode (h) product
+PAIR8_GEMV_KERNEL = "pair8_gemv"
+_PAIR8_MODE = 14  # csrc kModePair8 (Q3H_B64T1)
+BIAS_KERNEL = "fused_decode_step_bias"  # also counted for a biased step
 _MAX_EXPERTS = 64  # mode (g): experts per MoE layer (csrc kMaxExperts)
 _BYTE_BLOCK = 32  # the byte mode's quant block (csrc kByteBlock)
 
@@ -220,20 +236,20 @@ def i4_bf16_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ byte product
-def byte_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """B4 mode (c)'s product, the TPU kernel's single-plane tile with one
-    code per byte (stream_mm, decode_step.py:583-606), in float32.  x: (M,
-    K) bf16 with K the logical or the stored K of w (the stored K's tail
-    takes zeros).  Per 32-row block r the weights are
-    bf16(bf16(q) * bf16(sc_r)), q the code (signed for Q8_B32T2), and
-    acc = sum_k x_k * w_k in float32; a base enters once per block as
-    bf16(sum_{k in r} x_k) * bf16(base_r).  Returns (M, N) float32."""
+def _code_matmul_plain(x: torch.Tensor, w: QuantizedTensor,
+                       q: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's tiles that take every weight as a whole code (the
+    single-plane tile, stream_mm :584-615, and the pair8 tile, :511-536),
+    in float32: x (M, K) bf16 with K the logical or the stored K of w (the
+    stored K's tail takes zeros), q (K_s, N) the codes as float32.  Per
+    quant block r the weights are bf16(bf16(q) * bf16(sc_r)), acc = sum_k
+    x_k * w_k in float32, and a base enters once per block as
+    bf16(sum_{k in r} x_k) * bf16(base_r), first.  Returns (M, N)
+    float32."""
     fmt = get_format(w.format)
     k_s, n = w.storage_k, int(w.shape[-1])
     x = F.pad(x, (0, k_s - x.shape[-1])).float()
     m, nb = x.shape[0], k_s // fmt.block
-    codes = w.planes["data"]
-    q = (codes.view(torch.int8) if fmt.signed else codes).float()
     sc = w.scale.to(torch.bfloat16).float()
     wq = (q.view(nb, fmt.block, n) * sc[:, None, :]).to(torch.bfloat16)
     acc = torch.matmul(x, wq.float().reshape(k_s, n))
@@ -244,15 +260,55 @@ def byte_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return acc
 
 
+def byte_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """B4 mode (c)'s product, the single-plane tile with one code per byte
+    (stream_mm, decode_step.py:583-606), in float32: _code_matmul_plain
+    over the 32-row blocks, q the code (signed for Q8_B32T2)."""
+    codes = w.planes["data"]
+    q = codes.view(torch.int8) if get_format(w.format).signed else codes
+    return _code_matmul_plain(x, w, q.float())
+
+
+def wire_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """B4's wire mode, the single-plane tile with pk = 8 / bits codes per
+    byte (stream_mm, decode_step.py:584-615): byte row r of the (K_s/pk, N)
+    ``data`` plane holds K rows r*pk + s in bits [bits*s, bits*s + bits);
+    the codes are unsigned and every format that takes the mode carries
+    a base.  _code_matmul_plain's arithmetic."""
+    bits = get_format(w.format).planes[0].bits
+    return _code_matmul_plain(x, w, _unpack_plane(w.planes["data"],
+                                                  bits).float())
+
+
+def pair8_matmul_plain(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """B4 mode (h), Q3H's pair8 tile (stream_mm, decode_step.py:511-536):
+    byte row r of the (K_s/2, N) ``pair8`` plane holds v0 + 11*v1 with v0
+    the value of K row 2r and v1 that of K row 2r+1 (v1 = floor((v + 0.5)
+    / 11), exact for every byte); _code_matmul_plain's arithmetic."""
+    return _code_matmul_plain(x, w, pair8_values(w.planes[PAIR8_PLANE])
+                              .float())
+
+
 def _product_f32(x: torch.Tensor, w) -> torch.Tensor:
     """One product of the fused step in its weight's mode, float32."""
     if isinstance(w, Int8MXUTensor):
-        return _i8mm_f32(x, w)
-    if I4_PLANE in w.planes:
-        if i4_dot_mode() == "i4bf16":
-            return i4_bf16_matmul_plain(x, w)
-        return i4x8_matmul_plain(x, w)
-    return byte_matmul_plain(x, w)
+        y = _i8mm_f32(x, w)
+    elif I4_PLANE in w.planes:
+        y = (i4_bf16_matmul_plain if i4_dot_mode() == "i4bf16"
+             else i4x8_matmul_plain)(x, w)
+    elif PAIR8_PLANE in w.planes:
+        y = pair8_matmul_plain(x, w)
+    elif get_format(w.format).planes[0].bits < 8:
+        y = wire_matmul_plain(x, w)
+    else:
+        y = byte_matmul_plain(x, w)
+    return y
+
+
+def _biased(y: torch.Tensor, bias) -> torch.Tensor:
+    """A product's float32 output plus its output bias (mode (d)), if
+    any."""
+    return y if bias is None else y + bias.float()
 
 
 @functools.lru_cache(maxsize=None)
@@ -275,6 +331,8 @@ def _lib():
         lib.ift_i4x8_gemv.restype = ctypes.c_int
         lib.ift_i4bf16_gemv.argtypes = [vp] * 7 + [i] * 5 + [vp]
         lib.ift_i4bf16_gemv.restype = ctypes.c_int
+        lib.ift_code_gemv.argtypes = [vp] * 7 + [i] * 5 + [vp]
+        lib.ift_code_gemv.restype = ctypes.c_int
         lib.ift_gemv_splits.argtypes = [i] * 5
         lib.ift_gemv_splits.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
@@ -414,6 +472,97 @@ def i4bf16_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return _i4_gemv_cuda(x2, w, "i4bf16")
 
 
+def _code_geometry(w: QuantizedTensor) -> tuple:
+    """A whole-code weight's (csrc WeightMode, step launch count, GEMV
+    launch count or None, plane name, codes per byte): byte (c), the wire
+    mode by (bits, block) or mode (h)."""
+    fmt = get_format(w.format)
+    if PAIR8_PLANE in w.planes:
+        return _PAIR8_MODE, PAIR8_KERNEL, PAIR8_GEMV_KERNEL, PAIR8_PLANE, 2
+    bits = fmt.planes[0].bits
+    if bits == 8:
+        return (_MODES["byte"] + (w.base is not None), BYTE_KERNEL, None,
+                "data", 1)
+    key = (bits, fmt.block)
+    if key not in _WIRE_MODES:
+        raise NotImplementedError(
+            f"the wire GEMVs take 4-bit codes in blocks of 64 or 32 rows "
+            f"and 2-bit codes in blocks of 32, not {key} ({w.format})")
+    return _WIRE_MODES[key] + ("data", 8 // bits)
+
+
+def _check_codes(w: QuantizedTensor, name: str, k: int, n: int,
+                 lead: tuple = ()) -> None:
+    """A whole-code operand (byte, wire or pair8): its plane (K/pk, N)
+    uint8 and f16 block scales and bases (K/block, N), each with the
+    leading axes `lead`; K whole blocks."""
+    blk = get_format(w.format).block
+    _, _, _, plane, pk = _code_geometry(w)
+    if k % blk:
+        raise ValueError(f"{name}: K={k} is not a multiple of the block "
+                         f"{blk}")
+    _build.check_operand(w.planes[plane], f"{name}.{plane}", torch.uint8,
+                         lead + (k // pk, n))
+    for part, t in (("scale", w.scale), ("base", w.base)):
+        if t is not None:
+            _build.check_operand(t, f"{name}.{part}", torch.float16,
+                                 lead + (k // blk, n))
+
+
+def _code_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Launch the wire or pair8 GEMV alone on (M <= 8, K_s) bf16 rows, in
+    the instantiation of w's geometry; returns (M, N) float32."""
+    _build.require_hopper(x2)
+    m, k = x2.shape
+    n = int(w.shape[-1])
+    code, _, counter, plane, _ = _code_geometry(w)
+    if counter is None:
+        raise ValueError(f"{w.format}: the byte mode has no GEMV entry")
+    if not 1 <= m <= _MAX_GEMV_ROWS:
+        raise ValueError(f"{counter} takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
+    if k != w.storage_k or n % 4:
+        raise ValueError(f"{counter} needs the stored K and N a multiple of "
+                         f"4, got K={k} N={n}")
+    _build.check_operand(x2, "x", torch.bfloat16, (m, k))
+    _check_codes(w, "w", k, n)
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+    part = torch.empty(_gemv_splits(k, n, False, _sms(x2), code) * m * n,
+                       dtype=torch.float32, device=x2.device)
+    counters = torch.zeros(-(-n // _TILE_COLS), dtype=torch.int32,
+                           device=x2.device)
+    lib = _lib()
+    rc = lib.ift_code_gemv(
+        _build.ptr(x2), _build.ptr(w.planes[plane]), _build.ptr(w.scale),
+        _build.ptr(w.base) if w.base is not None else ctypes.c_void_p(0),
+        _build.ptr(out), _build.ptr(part), _build.ptr(counters), m, k, n,
+        code, _sms(x2), _build.stream_of(x2))
+    _build.check(lib, rc, counter)
+    _build.launch_counts[counter] += 1
+    return out
+
+
+def wire_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Launch the wire-mode GEMV alone on (M <= 8, K_s) bf16 rows; returns
+    (M, N) float32 (wire_matmul_plain's arithmetic), in the instantiation
+    of w's geometry (launch count ``wire_gemv`` for Q4_B64T1,
+    ``wire_gemv_b32`` for Q4_B32T1A/B, ``wire_gemv_q2`` for
+    Q2_B32T1A/B)."""
+    if get_format(w.format).pair_base11 or "data" not in w.planes:
+        raise ValueError(f"wire_gemv takes a wire data plane, not "
+                         f"{sorted(w.planes)} ({w.format})")
+    return _code_gemv_cuda(x2, w)
+
+
+def pair8_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Launch mode (h)'s GEMV alone on (M <= 8, K_s) bf16 rows of a Q3H
+    pair8 weight; returns (M, N) float32 (pair8_matmul_plain's
+    arithmetic; launch count ``pair8_gemv``)."""
+    if PAIR8_PLANE not in w.planes:
+        raise ValueError(f"pair8_gemv takes the {PAIR8_PLANE} plane, not "
+                         f"{sorted(w.planes)} ({w.format})")
+    return _code_gemv_cuda(x2, w)
+
+
 def i8mm_matmul(x: torch.Tensor, w: Int8MXUTensor) -> torch.Tensor:
     """y = x @ w for an Int8MXUTensor (ops/linear.py's i8mm branch); x:
     (..., K).  CPU tensors take the plain version.  On the card up to 8
@@ -454,9 +603,8 @@ def _mm_mode(w) -> Optional[str]:
     """How the TPU kernel would stream weight w (its `_mm_cfg`): 'i8mm';
     'i4' or 'i4bf16' (the i4 layout's data_i4p nibbles, streamed i4x8 or
     in mode (b') as INFERFLOW_I4_DOT says now: i4_dot_mode); 'pair8' (Q3H's
-    byte-per-pair plane, mode (h), which it routes to the per-layer path);
-    'byte' (one code per byte: the Q8 block formats); 'wire' (sub-byte
-    single-plane wire formats, also routed to the per-layer path); or None
+    byte-per-pair plane, mode (h)); 'byte' (one code per byte: the Q8
+    block formats); 'wire' (sub-byte single-plane wire formats); or None
     (not fusable)."""
     if isinstance(w, Int8MXUTensor):
         kp, n = (int(s) for s in w.data.shape[-2:])
@@ -526,11 +674,12 @@ def _moe_shape(spec, lp: dict) -> Optional[tuple]:
 
 
 def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
-    """The weight modes of a configuration the TPU kernel fuses, else
-    None.  Raises NotImplementedError for one it would fuse in a mode this
-    package has not ported.  Dense and paged caches both qualify: the TPU
-    rule takes a pool whose pages are one lane tile, which every pool of
-    runtime/paged_kv.py is."""
+    """The weight modes of a configuration the TPU kernel fuses, with
+    "moe" for routed MoE layers and "bias" when a product carries an
+    output bias (mode (d)), else None.  Dense and paged caches both
+    qualify: the TPU rule takes a pool whose pages are one lane tile,
+    which every pool of runtime/paged_kv.py is.  Raises
+    NotImplementedError for MoE layers of more than 64 experts."""
     if not isinstance(cache, (KVCache, PagedKVCache)) \
             or not isinstance(layers, list) or not layers:
         return None
@@ -554,7 +703,7 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
         return None
     if spec.qkv_format != 1:
         return None
-    modes, biased = set(), False
+    modes = set()
     moe_shapes = {_moe_shape(spec, lp) if "moe" in lp else None
                   for lp in layers}
     if len(moe_shapes) != 1:
@@ -579,7 +728,13 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
             if mode is None:
                 return None
             modes.add(mode)
-            biased |= grp.get(f"{kk}_b") is not None
+            # a layer-stacked (L, N) bias in the TPU rule: one (N,) tensor
+            # per layer here; on a MoE layer every expert shares it
+            bias = grp.get(f"{kk}_b")
+            if bias is not None:
+                if not isinstance(bias, torch.Tensor) or bias.dim() != 1:
+                    return None
+                modes.add("bias")
         e_dim = int(attn["pre_norm"].shape[-1])
         for w, want in ((attn["qkv"], e_dim),
                         (attn["wo"], hp.decoder_heads * hp.head_dim),
@@ -589,27 +744,9 @@ def _fusion_modes(spec, layers, cache, bsz: int) -> Optional[set]:
         f_dim = int(ffn["w2"].shape[-2])
         if int(ffn["w1n3"].shape[-1]) != 2 * f_dim or f_dim % 128:
             return None
-    if biased:
-        raise NotImplementedError(
-            "the fused decode step's per-matmul output biases are not "
-            "ported")
     if moe_shape is not None:
         modes.add("moe")
     return modes
-
-
-_UNPORTED_MODES = {
-    "pair8": "the fused decode step's mode (h), Q3H weights in the pair8 "
-             "layout, is not ported",
-    "wire": "the fused decode step's wire mode (sub-byte single-plane wire "
-            "planes, such as Q4_B64T1 under the packed layout) is not "
-            "ported"}
-
-
-def _refuse_unported(modes) -> None:
-    for mode, why in _UNPORTED_MODES.items():
-        if modes and mode in modes:
-            raise NotImplementedError(why)
 
 
 def mega_mode() -> str:
@@ -625,16 +762,10 @@ def fused_step_supported(spec, layers, cache, bsz: int) -> bool:
     """Static eligibility for the whole-model fused decode step (the TPU
     package's rule over this package's per-layer lists and logical caches,
     dense or paged; its TPU lane-tile rule for the cache does not apply).
-    False under INFERFLOW_MEGA=0, before any other check, as there.
-    Raises NotImplementedError for a configuration the TPU package fuses
-    in a mode that is not ported here: Q3H pair8 (mode (h)) and sub-byte
-    wire planes (the wire mode), which the TPU package fuses but does not
-    prefer."""
+    False under INFERFLOW_MEGA=0, before any other check, as there."""
     if mega_mode() == "0":
         return False
-    modes = _fusion_modes(spec, layers, cache, bsz)
-    _refuse_unported(modes)
-    return modes is not None
+    return _fusion_modes(spec, layers, cache, bsz) is not None
 
 
 def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
@@ -642,18 +773,16 @@ def fused_step_preferred(spec, layers, cache, bsz: int) -> bool:
     sub-byte wire planes and Q3H pair8 keep the per-layer path (kernels
     B1 or B6, and B2); the i8mm and i4 layouts and the Q8 block formats
     (byte mode: no product streams more than one code per byte) take the
-    fused step.  INFERFLOW_MEGA=0 routes every step to the per-layer loop;
-    INFERFLOW_MEGA=2 takes the fused step wherever it is supported, and so
-    raises NotImplementedError for pair8 and wire planes (modes (h) and
-    wire are not ported) where the TPU package would fuse them."""
+    fused step, with or without output biases.  INFERFLOW_MEGA=0 routes
+    every step to the per-layer loop; INFERFLOW_MEGA=2 takes the fused
+    step wherever it is supported (the wire mode and mode (h) included)."""
     mega = mega_mode()
     if mega == "0":
         return False
     modes = _fusion_modes(spec, layers, cache, bsz)
-    if mega == "2":
-        _refuse_unported(modes)
-        return modes is not None
-    return modes is not None and not modes & {"wire", "pair8"}
+    if modes is None:
+        return False
+    return mega == "2" or not modes & {"wire", "pair8"}
 
 
 # ------------------------------------------------------ the plain version
@@ -882,7 +1011,8 @@ def _moe_ffn_plain(spec, moe: dict, xres: torch.Tensor,
                    record: Optional[dict] = None) -> torch.Tensor:
     """Mode (g)'s FFN: route every slot, then per slot b and choice j in
     order, y = W2_e(GLU(W1n3_e(xn_b))) and xres_b = bf16(xres_b + bf16(y *
-    v_j)), each product in the experts' weight mode.  Each chosen expert
+    v_j)), each product in the experts' weight mode plus the bias the
+    experts share, if any.  Each chosen expert
     runs once on the slots that chose it (its rows do not depend on one
     another).  record: a dict of lists that receives the routing (experts,
     weights, the probabilities)."""
@@ -902,10 +1032,11 @@ def _moe_ffn_plain(spec, moe: dict, xres: torch.Tensor,
     for e in sorted(set(sel.flatten().tolist())):
         slots, js = (sel == e).nonzero(as_tuple=True)
         w1n3, w2 = (stacked[k].select(e) for k in ("w1n3", "w2"))
-        h2 = _product_f32(xn[slots], w1n3)
+        h2 = _biased(_product_f32(xn[slots], w1n3), stacked.get("w1n3_b"))
         f_dim = h2.shape[-1] // 2
-        ys[slots, js] = _product_f32(
-            _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn), w2)
+        ys[slots, js] = _biased(_product_f32(
+            _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn), w2),
+            stacked.get("w2_b"))
     for j in range(top_k):
         xres = _add_bf16(xres, ys[:, j] * vals[:, j:j + 1])
     return xres
@@ -915,8 +1046,10 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
                             positions: torch.Tensor, cache,
                             routes: Optional[list] = None):
     """The plain version: the TPU kernel's phases layer by layer, each
-    product in its weight's mode (a K-padded w2 takes hglu with a zero
-    tail; a MoE layer's FFN routed as mode (g), _moe_ffn_plain), then
+    product in its weight's mode plus its output bias (mode (d)) before
+    the qkv split, the residual add or the GLU (a K-padded w2 takes hglu
+    with a zero tail; a MoE layer's FFN routed as mode (g),
+    _moe_ffn_plain), then
     append_rows_all_layers (append_rows_all_layers_paged for a
     paged cache).  routes: see fused_decode_step; the plain version also
     records each layer's input ("inputs", (L, B, E)) and routing
@@ -939,8 +1072,9 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
         attn, ffn = lp["attn"], lp.get("ffn")
         if record is not None:
             record["inputs"].append(xres)
-        qkv = _product_f32(_rmsnorm(xres, attn["pre_norm"], spec.norm_eps),
-                           attn["qkv"])
+        qkv = _biased(_product_f32(
+            _rmsnorm(xres, attn["pre_norm"], spec.norm_eps), attn["qkv"]),
+            attn.get("qkv_b"))
         q = qkv[:, :qdim].reshape(bsz, hq, d)
         k = qkv[:, qdim:qdim + kvdim].reshape(bsz, hk, d)
         v = qkv[:, qdim + kvdim:].reshape(bsz, hk, d)
@@ -950,15 +1084,18 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
         v_new.append(v)
         ctx = _attend_plain(q, _qdq(k, blk), _qdq(v, blk), cache, layer,
                             cache.length, scale, batched)
-        xres = _add_bf16(xres, _product_f32(ctx, attn["wo"]))
+        xres = _add_bf16(xres, _biased(_product_f32(ctx, attn["wo"]),
+                                       attn.get("wo_b")))
         if "moe" in lp:
             xres = _moe_ffn_plain(spec, lp["moe"], xres, record)
             continue
-        h2 = _product_f32(_rmsnorm(xres, ffn["pre_norm"], spec.norm_eps),
-                          ffn["w1n3"])
+        h2 = _biased(_product_f32(
+            _rmsnorm(xres, ffn["pre_norm"], spec.norm_eps), ffn["w1n3"]),
+            ffn.get("w1n3_b"))
         f_dim = h2.shape[-1] // 2
         hglu = _glu(h2[:, :f_dim], h2[:, f_dim:], spec.activation_fn)
-        xres = _add_bf16(xres, _product_f32(hglu, ffn["w2"]))
+        xres = _add_bf16(xres, _biased(_product_f32(hglu, ffn["w2"]),
+                                       ffn.get("w2_b")))
     append = append_rows_all_layers_paged \
         if isinstance(cache, PagedKVCache) else append_rows_all_layers
     append(cache, torch.stack(k_new), torch.stack(v_new), cache.length)
@@ -969,14 +1106,15 @@ def fused_decode_step_plain(spec, layers: list, x: torch.Tensor,
 
 # ------------------------------------------------------------ the kernel
 # per-layer pointer tables, built once per layer list and keyed by its id.
-# An entry holds weak references only (a list cannot be weakly referenced:
-# its tensors are), so freeing an engine frees its weights.  A hit must
-# find the i4 mode the table was built in (it holds each product's weight
-# mode, which INFERFLOW_I4_DOT picks for i4 weights: a process that sets
-# the variable between steps gets a new table), the same list length, the
-# same first and last norm tensors (an id can be reused by a later list)
-# and every tensor of the table alive (its pointers then point into live
-# weights).
+# An entry holds weak references to the tensors whose pointers it holds (a
+# list cannot be weakly referenced: its tensors are), so freeing an engine
+# frees its weights; it holds only the float32 copies it made of biases
+# stored in another type.  A hit must find the i4 mode the table was built
+# in (it holds each product's weight mode, which INFERFLOW_I4_DOT picks
+# for i4 weights: a process that sets the variable between steps gets a
+# new table) and the very tensors the table points into, in order: a
+# list whose id is reused, a weight replaced or a bias added or dropped
+# in place all miss and rebuild.
 _TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _TABLE_CACHE_SIZE = 4
 
@@ -986,19 +1124,31 @@ def _fnorm(lp: dict) -> torch.Tensor:
     return (lp.get("moe") or lp["ffn"])["pre_norm"]
 
 
+def _products(lp: dict) -> tuple:
+    """A layer's four products: (name, weight, whether its GEMV pairs GLU
+    columns, output bias or None); a MoE layer's w1n3 and w2 are its
+    expert stacks, their biases the ones the experts share."""
+    attn, ffn = lp["attn"], _ffn_group(lp)
+    return tuple((name, grp[name], name == "w1n3", grp.get(f"{name}_b"))
+                 for grp, name in ((attn, "qkv"), (attn, "wo"),
+                                   (ffn, "w1n3"), (ffn, "w2")))
+
+
 def _table_tensors(layers: list) -> list:
-    """Every tensor whose pointer the step's table holds."""
+    """Every tensor whose pointer the step's table holds (a bias as the
+    caller stores it), and a None per product without a bias."""
     out = []
     for lp in layers:
         out += [lp["attn"]["pre_norm"], _fnorm(lp)]
         if "moe" in lp:
             out.append(lp["moe"]["gate"])
-        for _, w, _ in _products(lp):
+        for _, w, _, bias in _products(lp):
             if isinstance(w, Int8MXUTensor):
                 out += [w.data, w.scale]
             else:
                 out += [*w.planes.values(), w.scale]
                 out += [] if w.base is None else [w.base]
+            out.append(bias)
     return out
 
 
@@ -1006,57 +1156,57 @@ def _cached_table(layers: list):
     hit = _TABLES.get(id(layers))
     if hit is None:
         return None
-    mode, n, first, last, refs, entry = hit
-    if (mode == i4_dot_mode() and n == len(layers)
-            and first() is layers[0]["attn"]["pre_norm"]
-            and last() is _fnorm(layers[-1])
-            and all(r() is not None for r in refs)):
+    mode, refs, entry = hit
+    if mode != i4_dot_mode():
+        return None
+    now = _table_tensors(layers)
+    if len(now) == len(refs) and all(
+            (t is None) if r is None else (r() is t)
+            for r, t in zip(refs, now)):
         return entry
     return None
 
 
-def _products(lp: dict) -> tuple:
-    """A layer's four products: (name, weight, whether its GEMV pairs GLU
-    columns); a MoE layer's w1n3 and w2 are its expert stacks."""
-    ffn = _ffn_group(lp)
-    return (("qkv", lp["attn"]["qkv"], False), ("wo", lp["attn"]["wo"], False),
-            ("w1n3", ffn["w1n3"], True), ("w2", ffn["w2"], False))
-
-
-def _check_byte(w: QuantizedTensor, name: str, k: int, n: int,
-                lead: tuple = ()) -> None:
-    """A byte-mode operand: codes (K, N) uint8, f16 block scales (K/32, N)
-    and, for Q8_B32T1, f16 block bases, each with the leading axes
-    `lead`."""
-    _build.check_operand(w.planes["data"], f"{name}.data", torch.uint8,
-                         lead + (k, n))
-    for part, t in (("scale", w.scale), ("base", w.base)):
-        if t is not None:
-            _build.check_operand(t, f"{name}.{part}", torch.float16,
-                                 lead + (k // _BYTE_BLOCK, n))
-
-
 def _expert_strides(w) -> list:
     """Bytes from one expert of a stack to the next: codes, scale, base."""
-    parts = ((w.data, w.scale, None) if isinstance(w, Int8MXUTensor) else
-             (w.planes[I4_PLANE if I4_PLANE in w.planes else "data"],
-              w.scale, w.base))
+    if isinstance(w, Int8MXUTensor):
+        parts = (w.data, w.scale, None)
+    else:
+        plane = next(p for p in (I4_PLANE, PAIR8_PLANE, "data")
+                     if p in w.planes)
+        parts = (w.planes[plane], w.scale, w.base)
     return [0 if t is None else t.stride(0) * t.element_size()
             for t in parts]
+
+
+def _bias_f32(bias, name: str, n: int, device, keep: list) -> int:
+    """The device pointer of a product's float32 output bias (N,), or 0
+    for none; a bias of another type or layout is copied (the copy goes
+    to `keep`, which the table entry holds)."""
+    if bias is None:
+        return 0
+    b32 = bias.to(device=device, dtype=torch.float32).contiguous()
+    if b32 is not bias:
+        keep.append(b32)
+    _build.check_operand(b32, f"{name}_b", torch.float32, (n,), align=4)
+    return b32.data_ptr()
 
 
 def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
     """The C step's per-layer table (anorm, fnorm, then per product its
     mode, stored K and (data, scale, base) pointers, then the gate of a
     MoE layer (or null) and the byte strides between experts of w1n3 and
-    w2: csrc kTableStride), w2's stored K (hglu's row length, one for all
-    layers) and the (K, N, GLU, mode, routed) shapes of the float-mode
-    (i4x8 and byte) products, built once per layer list."""
+    w2, then each product's float32 bias (or null): csrc kTableStride),
+    w2's stored K (hglu's row length, one for all layers), the (K, N,
+    GLU, mode, routed) shapes of the float-mode (every mode but i8mm)
+    products and the modes' step launch counts, whether any product has a
+    bias, built once per layer list."""
     entry = _cached_table(layers)
     if entry is not None:
         return entry
-    ptrs, float_shapes = [], set()
+    ptrs, float_shapes, names, keep, biased = [], set(), set(), [], False
     f_s = _stored_k(_ffn_group(layers[0])["w2"])
+    dev = layers[0]["attn"]["pre_norm"].device
     for lp in layers:
         moe = lp.get("moe")
         lead = () if moe is None else (int(moe["gate"].shape[-1]),)
@@ -1067,23 +1217,29 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
         if _stored_k(_ffn_group(lp)["w2"]) != f_s:
             raise ValueError("the fused step takes one stored K of w2 "
                              "across its layers")
-        for (name, w, glu), k, n in zip(_products(lp), (e, qdim, e, f_s),
-                                        (nqkv, e, 2 * f, e)):
+        biases = []
+        for (name, w, glu, bias), k, n in zip(_products(lp), (e, qdim, e, f_s),
+                                              (nqkv, e, 2 * f, e)):
             routed = name in ("w1n3", "w2") and moe is not None
             ld = lead if routed else ()
+            biases.append(_bias_f32(bias, name, n, dev, keep))
+            biased |= bias is not None
             mode = _mm_mode(w)
             if mode == "i8mm":
                 _check_i8(w, name, k, n, ld)
+                names.add(KERNEL)
                 ptrs += [_MODES[mode], k, w.data.data_ptr(),
                          w.scale.data_ptr(), 0]
                 continue
             if mode in _I4_FAMILIES:
                 _check_i4(w, name, k, n, ld)
-                code, plane = _i4_geometry(w, mode)[0], w.planes[I4_PLANE]
+                code, step = _i4_geometry(w, mode)[:2]
+                plane = w.planes[I4_PLANE]
             else:
-                _check_byte(w, name, k, n, ld)
-                code = _MODES[mode] + (w.base is not None)
-                plane = w.planes["data"]
+                _check_codes(w, name, k, n, ld)
+                code, step, _, plane, _ = _code_geometry(w)
+                plane = w.planes[plane]
+            names.add(step)
             float_shapes.add((k, n, glu, code, routed))
             ptrs += [code, k, plane.data_ptr(), w.scale.data_ptr(),
                      0 if w.base is None else w.base.data_ptr()]
@@ -1096,17 +1252,24 @@ def _layer_table(layers: list, e: int, qdim: int, nqkv: int, f: int):
             ptrs += [moe["gate"].data_ptr(),
                      *_expert_strides(stacked["w1n3"]),
                      *_expert_strides(stacked["w2"])]
+        ptrs += biases
     entry = ((ctypes.c_void_p * len(ptrs))(*ptrs), f_s,
-             frozenset(float_shapes))
+             frozenset(float_shapes), frozenset(names), biased, keep)
     _TABLES[id(layers)] = (
-        i4_dot_mode(), len(layers),
-        weakref.ref(layers[0]["attn"]["pre_norm"]),
-        weakref.ref(_fnorm(layers[-1])),
-        [weakref.ref(t) for t in _table_tensors(layers)], entry)
+        i4_dot_mode(), [None if t is None else weakref.ref(t)
+                        for t in _table_tensors(layers)], entry)
     _TABLES.move_to_end(id(layers))
     while len(_TABLES) > _TABLE_CACHE_SIZE:
         _TABLES.popitem(last=False)
     return entry
+
+
+# the step's launch count by the modes of its products: the first of
+# these that the step takes names it (a MoE step is counted as such)
+_STEP_NAME_ORDER = (PAIR8_KERNEL, WIRE_KERNEL, WIRE_KERNEL + "_b32",
+                    WIRE_KERNEL + "_q2", BYTE_KERNEL) + tuple(
+    step for table in _I4_FAMILIES.values()
+    for _, step, _ in sorted(table.values())) + (KERNEL,)
 
 
 def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
@@ -1143,7 +1306,8 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
     n_exp = int(layers[0]["moe"]["gate"].shape[-1]) if moe else 0
     top_k = (hp.moe_top_k or 2) if moe else 0
     nqkv = (hq + 2 * hk) * d
-    table, f_s, float_shapes = _layer_table(layers, e, hq * d, nqkv, f)
+    table, f_s, float_shapes, names, biased, _ = _layer_table(
+        layers, e, hq * d, nqkv, f)
     shape = tuple(cache.k.shape)
     sshape = tuple(cache.k_scale.shape)
     for name, t, dt, shp in (("k", cache.k, torch.int8, shape),
@@ -1205,13 +1369,12 @@ def fused_decode_step_cuda(spec, layers: list, x: torch.Tensor,
         _ACTS[spec.activation_fn], pt, maxp, pages, n_exp, top_k,
         int(bool(hp.moe_norm_top_k_prob)), spec.norm_eps,
         (1.0 / (d ** 0.5)) * spec.kq_scale, _sms(x), _build.stream_of(x))
-    codes = {shape[3] for shape in float_shapes}
-    i4_names = {c: step for table in _I4_FAMILIES.values()
-                for c, step, _ in table.values()}
-    name = (MOE_KERNEL if moe else BYTE_KERNEL if codes - set(i4_names)
-            else i4_names[min(codes)] if codes else KERNEL)
+    name = MOE_KERNEL if moe else next(n for n in _STEP_NAME_ORDER
+                                       if n in names)
     _build.check(lib, rc, name)
     _build.launch_counts[name] += 1
+    if biased:
+        _build.launch_counts[BIAS_KERNEL] += 1
     if routes is not None and moe:
         routes.append({
             "experts": route.view(num_layers, bsz, top_k),
@@ -1225,7 +1388,8 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
                       routes: Optional[list] = None):
     """One decode step over all layers (inferflow_tpu signature), each
     product in its weight's mode (i8mm, i4x8 or (b') as INFERFLOW_I4_DOT
-    says, or byte), MoE layers routed in mode (g).
+    says, byte, wire or pair8) plus its output bias, MoE layers routed in
+    mode (g).
 
     x: (B, 1, E) bf16 after the embedding; positions: (B, 1), the slots'
     cache lengths; cache: a Q8 KVCache or PagedKVCache.  Returns (x (B, 1,
@@ -1234,13 +1398,10 @@ def fused_decode_step(spec, layers: list, x: torch.Tensor,
     advanced.  routes: for MoE layers, a list that receives a dict of
     each layer's routing, "experts" (L, B, top_k) int32 and "weights" (L,
     B, top_k) float32 (for inspection; nothing else changes)."""
-    modes = _fusion_modes(spec, layers, cache, x.shape[0])
-    _refuse_unported(modes)
-    if not modes or not modes - {"moe"} <= set(_MODES):
+    if not _fusion_modes(spec, layers, cache, x.shape[0]):
         raise NotImplementedError(
-            "fused_decode_step serves i8mm, i4 and Q8 block weights and a "
-            f"Q8 cache; this configuration has weight modes "
-            f"{sorted(modes or [])}")
+            "fused_decode_step serves the configurations "
+            "fused_step_supported admits; this one is not among them")
     if x.device.type == "cpu":
         return fused_decode_step_plain(spec, layers, x, positions, cache,
                                        routes)

@@ -44,7 +44,10 @@ class Timer:
     device-to-host read) can never be queued ahead: it is timed alone, and
     its events then include its host gaps (a "timer" line names it)."""
 
-    SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's ~2 GHz clock
+    # ~1 ms at the H100's ~2 GHz clock: enough for a single kernel's
+    # launch; a callable whose launches take the host longer (a fused
+    # step's 160) is timed again behind 4x and 16x that
+    SLEEP_CYCLES = 2_000_000
 
     def __init__(self, device):
         self.flush_buf = torch.ones(32 * 1024 * 1024, dtype=torch.int32,

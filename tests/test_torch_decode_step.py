@@ -249,8 +249,9 @@ def test_fused_decode_step_matches_jax(llama, monkeypatch):
 def test_routing_and_unported_modes(llama, monkeypatch):
     """B <= 8 takes the fused step and B = 9 the per-layer loop; the byte
     mode (Q8 block weights) is supported and preferred, as the TPU package
-    routes it; a configuration the TPU package fuses in an unported mode
-    raises, in fused_step_supported as in fused_decode_step."""
+    routes it; output biases (mode (d)) and Q4 wire planes (the wire mode)
+    are routed as the JAX functions route them, and the fused step runs
+    both."""
     _, _, spec_t, params_t = llama
     hp = spec_t.hyper_params
     calls = []
@@ -287,21 +288,40 @@ def test_routing_and_unported_modes(llama, monkeypatch):
     calls.clear()
     y, _ = tdec.decoder_layers_unrolled(spec_q8, q8["layers"], x, pos, cache)
     assert calls == [2] and torch.isfinite(y.float()).all()
-    # output biases: fused on the TPU, not ported
-    biased = [dict(lp, attn=dict(lp["attn"], qkv_b=torch.zeros(
-        lp["attn"]["qkv"].shape[-1]))) for lp in params_t["layers"]]
-    with pytest.raises(NotImplementedError, match="biases"):
-        tdec.decoder_layers_unrolled(spec_t, biased, x, pos, cache)
-    # Q4 wire planes: fusable on the TPU in its wire mode (not ported),
-    # routed to the per-layer path; supported and the step both raise
+    # output biases (mode (d)) and Q4 wire planes (the wire mode): the
+    # port's answers are the JAX functions' on the same weights; a biased
+    # step is fused and preferred, the wire one supported but routed to
+    # the per-layer loop, and the fused step runs both
+    spec_j, params_j = llama[0], llama[1]
+    # the JAX rule's cache: CACHE_ROWS (its sequence tile needs 128 rows
+    # of the packed cache)
+    jc = JKVCache.create(hp.decoder_layers, 2, CACHE_ROWS, hp.kv_heads,
+                         hp.head_dim, quantized=True)
+    nq = int(params_j["layers"]["attn"]["qkv"].shape[-1])
+    qkv_b = np.random.default_rng(0).standard_normal(
+        (hp.decoder_layers, nq)).astype(np.float32) * 0.05
+    biased_j = dict(params_j["layers"], attn=dict(
+        params_j["layers"]["attn"], qkv_b=jnp.asarray(qkv_b)))
+    biased = [dict(lp, attn=dict(lp["attn"], qkv_b=torch.from_numpy(
+        qkv_b[i]))) for i, lp in enumerate(params_t["layers"])]
+    spec_q4j = jzoo.make_spec("test-llama", device_layout="packed")
+    q4_j = jzoo.make_synthetic_params(spec_q4j, "Q4_B64T1", seed=0,
+                                      stacked=True, device_layout="packed")
     spec_q4 = tzoo.make_spec("test-llama", device_layout="packed")
-    q4 = tzoo.make_synthetic_params(spec_q4, "Q4_B64T1", seed=0,
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="wire mode"):
-        tds.fused_step_supported(spec_q4, q4["layers"], cache, 2)
-    assert not tds.fused_step_preferred(spec_q4, q4["layers"], cache, 2)
-    with pytest.raises(NotImplementedError, match="wire mode"):
-        tds.fused_decode_step(spec_q4, q4["layers"], x, pos, cache)
+    q4 = params_from_numpy(jax_params_to_numpy(q4_j), spec_q4, device="cpu")
+    for (sj, lj), (st, lt), fused in (((spec_j, biased_j), (spec_t, biased),
+                                       True),
+                                      ((spec_q4j, q4_j["layers"]),
+                                       (spec_q4, q4["layers"]), False)):
+        assert jds.fused_step_supported(sj, lj, jc, 2)
+        assert tds.fused_step_supported(st, lt, cache, 2)
+        assert jds.fused_step_preferred(sj, lj, jc, 2) == fused
+        assert tds.fused_step_preferred(st, lt, cache, 2) == fused
+        calls.clear()
+        y, _ = tdec.decoder_layers_unrolled(st, lt, x, pos, cache)
+        assert calls == ([2] if fused else [])
+        y, _ = tds.fused_decode_step(st, lt, x, pos, cache)
+        assert y.shape == x.shape and torch.isfinite(y.float()).all()
 
 
 @pytest.fixture

@@ -8,14 +8,16 @@
   (``tests/test_torch_cuda*.py``) names them in an import.
 - Entry points (the zoo, the engine, ``InferenceEngine.from_config``,
   ``make_engine``, ``load_model``, ``load_std``, the synthetic checkpoint
-  writer, the service, llm_inference and kernel bench CLIs) default to
+  writer, the service, llm_inference, kernel bench, perplexity and PPL
+  report CLIs) default to
   the card and
   raise where there is none; the kernel
   wrappers (B1 for Q4, Q8 and the sub-byte weights, B2, B3, B5 on every
   4-bit format, B6 in its pair8 and wire modes and its non-pair branch,
   B7, the unpack experiments X1-X5, the i8mm product and the fused
   decode step B4,
-  dense and paged, i8mm, i4 (every block geometry) and byte, and its
+  dense and paged, i8mm, i4 (every block geometry), byte, wire and pair8,
+  and its
   routed-expert mode (g) with its routing launch) raise for a tensor that
   is neither on the CPU nor on a card, and the kernel build raises
   without a CUDA compiler.
@@ -62,6 +64,9 @@ missing = [n for n in ("inferflow_tpu_torch.config.ini",
                        "inferflow_tpu_torch.tools.inferflow_client",
                        "inferflow_tpu_torch.tools.kernel_bench",
                        "inferflow_tpu_torch.tools.exp_unpack",
+                       "inferflow_tpu_torch.tools.perplexity",
+                       "inferflow_tpu_torch.tools.ppl_report",
+                       "inferflow_tpu_torch.tools.convert_tokenizer_data",
                        "inferflow_tpu_torch.utils.cuda_timing")
            if n not in names]
 print(len(names), bad + missing)
@@ -146,10 +151,14 @@ def test_entry_points_refuse_a_missing_card():
     for main in (inferflow_service.main, llm_inference.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--zoo", "test-tiny", "--quant", "Q4_B64T1"])
-    # the kernel bench (tools/)
-    from inferflow_tpu_torch.tools import kernel_bench
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        kernel_bench.main([])
+    # the kernel bench and the perplexity CLIs (tools/)
+    from inferflow_tpu_torch.tools import kernel_bench, perplexity, ppl_report
+    for main, argv in ((kernel_bench.main, []),
+                       (perplexity.main, ["--zoo", "test-tiny",
+                                          "--synthetic-text"]),
+                       (ppl_report.main, ["--model", "test-tiny"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
 
 
 def test_wrappers_refuse_other_devices():
@@ -212,10 +221,13 @@ def test_wrappers_refuse_other_devices():
         for fn in (quantized_matmul, linear):
             with pytest.raises(ValueError, match="unsupported device"):
                 fn(torch.empty((2, hp.embd_dims), device="meta"), w)
-    # the fused step has no pair8 mode: it raises whatever the device
-    with pytest.raises(NotImplementedError, match=r"mode \(h\)"):
-        fused_decode_step(spec, q3h["layers"], x,
-                          torch.zeros((2, 1), dtype=torch.int32), cache)
+    # the fused step's mode (h) (pair8) and wire mode (Q4 wire planes)
+    wire = make_synthetic_params(spec, "Q4_B64T1", device="cpu",
+                                 device_layout="packed")
+    for p in (q3h, wire):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fused_decode_step(spec, p["layers"], x,
+                              torch.zeros((2, 1), dtype=torch.int32), cache)
 
     # B1's Q8 case and the fused step's byte mode (Q8_B32T2, the q8c
     # container, and Q8_B32T1)

@@ -4,17 +4,17 @@ package, on the CPU.
 The JAX package reads the switch at each routing decision: 0 turns the
 whole-model fused step off (every decode step takes the per-layer loop),
 2 takes it wherever it is supported, anything else routes by its measured
-rule.  The port reads it the same way (``decode_step.mega_mode``); where
-the JAX package would fuse a mode the port has not ported (Q3H pair8,
-mode (h); sub-byte wire planes, the wire mode), the port raises
-NotImplementedError naming the mode instead of routing elsewhere.
+rule.  The port reads it the same way (``decode_step.mega_mode``) and
+routes as the JAX package does: Q3H pair8 (mode (h)) and sub-byte wire
+planes (the wire mode) are supported and, but under 2, not preferred.
 
 Weights: test-llama from the JAX builder (seed 3; one layer for the
-routing rule, three for the engines), i8mm, Q8_B32T2, Q4 wire planes and
-Q3H pair8, the JAX side layer-stacked, the port's the same bytes per
-layer.  INFERFLOW_MEGA_FORCE=1 lets the JAX engine take
-its fused path on the CPU (its Pallas kernel in interpret mode) where the
-switch allows it.  Engine tolerance: tests/test_torch_decode_step.py's
+routing rule, three for the engines), i8mm, Q8_B32T2, Q4 and Q2 wire
+planes, Q3H pair8, and i8mm and Q4 wire with output biases, the JAX side
+layer-stacked, the port's the same bytes per layer.
+INFERFLOW_MEGA_FORCE=1 lets the JAX engine take its fused path on the
+CPU (its Pallas kernel in interpret mode) where the switch allows it.
+Engine tolerance: tests/test_torch_decode_step.py's
 (5e-2 on logits, greedy streams equal but for near-ties of the JAX
 engine's logits).
 """
@@ -43,12 +43,16 @@ from test_torch_engine import _interleaved, _record_rows
 
 ENGINE_LOGIT_TOL = 5e-2
 CACHE_ROWS = 512  # the JAX rule's sequence tile: 512 / pf = 128
-# (format, layout) of each weight set, with the port's answer under
-# INFERFLOW_MEGA=1: "fused", "per-layer", or the mode it raises for
-LAYOUTS = (("Q4_B64T1", "i8mm", "fused"),
-           ("Q8_B32T2", "packed", "fused"),
-           ("Q4_B64T1", "packed", "wire mode"),
-           ("Q3H_B64T1", "packed", "mode \\(h\\)"))
+# (format, layout, output biases) of each weight set, with the answer
+# under INFERFLOW_MEGA=1: "fused" or "per-layer" (supported, not preferred)
+LAYOUTS = (("Q4_B64T1", "i8mm", False, "fused"),
+           ("Q8_B32T2", "packed", False, "fused"),
+           ("Q4_B64T1", "packed", False, "per-layer"),
+           ("Q4_B32T1B", "packed", False, "per-layer"),
+           ("Q2_B32T1A", "packed", False, "per-layer"),
+           ("Q3H_B64T1", "packed", False, "per-layer"),
+           ("Q4_B64T1", "packed", True, "per-layer"),
+           ("Q4_B64T1", "i8mm", True, "fused"))
 
 
 def _models(fmt, layout, layers=3):
@@ -78,9 +82,18 @@ def test_switch_matches_jax_routing(jax_mega, monkeypatch):
     """fused_step_supported / fused_step_preferred under INFERFLOW_MEGA 0,
     1 and 2 against the JAX functions, B = 2, on each weight set; and a
     bf16 cache (supported by neither) under every value."""
-    for fmt, layout, unported in LAYOUTS:
+    for fmt, layout, biased, routed in LAYOUTS:
         # one layer: the rule reads every layer alike
         spec_j, params_j, spec_t, params_t = _models(fmt, layout, layers=1)
+        if biased:  # qkv and w2 output biases, (L, N) and (N,) per layer
+            params_j["layers"] = {k: dict(v) if isinstance(v, dict) else v
+                                  for k, v in params_j["layers"].items()}
+            for grp, name in (("attn", "qkv"), ("ffn", "w2")):
+                n = int(params_j["layers"][grp][name].shape[-1])
+                b = np.full((1, n), 0.05, np.float32)
+                params_j["layers"][grp][f"{name}_b"] = b
+                params_t["layers"][0][grp][f"{name}_b"] = torch.from_numpy(
+                    b[0])
         hp = spec_t.hyper_params
         jc = JKVCache.create(hp.decoder_layers, 2, CACHE_ROWS, hp.kv_heads,
                              hp.head_dim, quantized=True)
@@ -93,20 +106,10 @@ def test_switch_matches_jax_routing(jax_mega, monkeypatch):
             sup_j = jds.fused_step_supported(*args_j)
             pref_j = jds.fused_step_preferred(*args_j)
             assert sup_j == (mega != "0"), (fmt, layout, mega)
-            if unported == "fused" or mega == "0":
-                assert tds.fused_step_supported(*args_t) == sup_j
-                assert tds.fused_step_preferred(*args_t) == pref_j
-                continue
-            # a mode the JAX package fuses and the port has not ported
-            with pytest.raises(NotImplementedError, match=unported):
-                tds.fused_step_supported(*args_t)
-            if mega == "1":  # supported, not preferred: the per-layer loop
-                assert not pref_j
-                assert not tds.fused_step_preferred(*args_t)
-            else:  # forced: the JAX package fuses it, the port refuses
-                assert pref_j
-                with pytest.raises(NotImplementedError, match=unported):
-                    tds.fused_step_preferred(*args_t)
+            assert pref_j == (mega == "2" or (mega == "1"
+                                              and routed == "fused"))
+            assert tds.fused_step_supported(*args_t) == sup_j
+            assert tds.fused_step_preferred(*args_t) == pref_j
         bf16 = TKVCache.create(hp.decoder_layers, 2, CACHE_ROWS, hp.kv_heads,
                                hp.head_dim, quantized=False, device="cpu")
         for mega in ("0", "1", "2"):

@@ -6,10 +6,11 @@ base-11 into 7-bit codes.  On the device both packages keep it as the
 ``pair8`` plane, one byte per pair code (``codec_jax.quantize`` emits it,
 ``from_np`` re-packs the wire planes into it), and every product runs
 kernel B6 (``kernels/dequant_matmul.quantized_matmul`` picks it for the
-pair8 plane): decode is the per-layer loop, since the TPU package supports but does not prefer its fused mode
-(h).  Weights: the JAX zoo's test-llama params from Q3H_B64T1 under
-``device_layout="packed"``, moved over with ``weights.params_from_numpy``;
-a variant with an intermediate width of 8256, whose w2 the JAX zoo stores
+pair8 plane): decode is the per-layer loop, since both packages support
+but do not prefer the fused mode (h).  Weights: the JAX zoo's test-llama
+params from Q3H_B64T1 under ``device_layout="packed"``, moved over with
+``weights.params_from_numpy``; a variant with an intermediate width of
+8256, whose w2 the JAX zoo stores
 K-padded to 8704 (zero-scale blocks).  The JAX Pallas kernel runs in
 interpret mode.
 
@@ -214,11 +215,9 @@ def test_params_from_jax_stacked_and_padded(llama, llama_pad):
 
 
 def test_routing_follows_jax(llama, monkeypatch):
-    """At B <= 8 the JAX package supports its fused mode (h) for pair8 but
-    does not prefer it; the port prefers it nowhere and, asked whether it
-    supports it, raises NotImplementedError naming mode (h).  At B > 8
-    neither package fuses.  Under the 80 GB capacity rule Q3H resolves to
-    i8mm; 'packed' stays explicit."""
+    """At B <= 8 both packages support the fused mode (h) for pair8 but do
+    not prefer it (the per-layer loop); at B > 8 neither fuses.  Under the
+    80 GB capacity rule Q3H resolves to i8mm; 'packed' stays explicit."""
     spec_j, params_j, spec_t, params_t = llama
     for lengths in ((40,), (30, 7, 0, 100), (5,) * 9):
         b = len(lengths)
@@ -227,12 +226,8 @@ def test_routing_follows_jax(llama, monkeypatch):
                                         b) == (b <= 8)
         assert not jds.fused_step_preferred(spec_j, params_j["layers"], jc, b)
         assert not tds.fused_step_preferred(spec_t, params_t["layers"], tc, b)
-        if b <= 8:
-            with pytest.raises(NotImplementedError, match=r"mode \(h\)"):
-                tds.fused_step_supported(spec_t, params_t["layers"], tc, b)
-        else:
-            assert not tds.fused_step_supported(spec_t, params_t["layers"],
-                                                tc, b)
+        assert tds.fused_step_supported(spec_t, params_t["layers"], tc,
+                                        b) == (b <= 8)
     monkeypatch.setattr(codec_torch, "_device_memory_bytes",
                         lambda dev: 80 * 10 ** 9)
     assert codec_torch.resolve_auto_layout(tzoo.make_spec("llama2-13b"), FMT,

@@ -264,8 +264,7 @@ def test_q6_ini_loads_in_both_packages(monkeypatch):
 
 def test_routing_follows_jax(llama):
     """Neither package fuses Q6_B64T1 (two planes) or prefers its fused
-    wire mode for the single-plane Q4_B32T1A; the JAX package supports that
-    mode, the port raises NotImplementedError naming it."""
+    wire mode for the single-plane Q4_B32T1A; both support that mode."""
     spec_j, params_j, spec_t, params_t = llama["Q6_B64T1"]
     lengths = (30, 7, 0, 100)
     b = len(lengths)
@@ -278,5 +277,4 @@ def test_routing_follows_jax(llama):
     assert jds.fused_step_supported(spec_j, params_j["layers"], jc, b)
     assert not jds.fused_step_preferred(spec_j, params_j["layers"], jc, b)
     assert not tds.fused_step_preferred(spec_t, params_t["layers"], tc, b)
-    with pytest.raises(NotImplementedError, match="wire mode"):
-        tds.fused_step_supported(spec_t, params_t["layers"], tc, b)
+    assert tds.fused_step_supported(spec_t, params_t["layers"], tc, b)
