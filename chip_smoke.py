@@ -30,11 +30,11 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    - B4's paged mode (f) at tinyllama-1.1b width and depth, B = 4 and 1,
      the cache rows of the B4 phase copied into shuffled pages: against its
      plain version and against dense B4 on the same rows;
-3. serves four greedy queries (prompts of 7, 60, 200 and 300 tokens, 16
-   new tokens each in (a), ENGINE_CUT_CPU_NEW in (b) and (d); the
-   300-token prompt takes the chunked path, kernel B3) with the engine at
-   full tinyllama-1.1b width, a Q8 KV cache, 4 slots and a 1024-token
-   context, three times:
+3. serves four greedy queries (prompts of 7, 60, 200 and 300 tokens,
+   ENGINE_A_NEW new tokens each in (a), ENGINE_CUT_CPU_NEW in (b) and
+   (d); the 300-token prompt takes the chunked path, kernel B3) with the
+   engine at full tinyllama-1.1b width, a Q8 KV cache, 4 slots and a
+   1024-token context, three times:
    (a) the default layout, which resolves to i8mm on the card: every
        decode step runs B4 (and the lm_head the int8 GEMV); B1 and B2
        must not launch;
@@ -242,7 +242,16 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    ppl_report on tinyllama-1.1b (PPL_REPORT_ARGS) and the perplexity CLI
    (PERPLEXITY_ARGS).  Each mode is held layer by layer against its plain
    version at ONE_LAYER_TOL x max|plain|; runs (k) and (l) and the B4 (b)
-   stacks on the other 4-bit formats run 16 layers.
+   stacks on the other 4-bit formats run ENGINE_K_LAYERS, ENGINE_L_LAYERS
+   and I4_FORMATS_LAYERS layers.
+13. B3 is the tensor-core kernel with a split key walk: its three rows
+   (phase_b3 on tinyllama-1.1b, chunk_attention_g at llama2-13b width,
+   the kernel bench's head_dim 256 case) carry `nsplit`, the split the
+   timed launches passed to the kernel (attention.last_chunk_split: the
+   most CTAs a row block's walk went over), also in the kernels line; the
+   kernel bench's B6 wire-mode and non-pair rows (B1's template now)
+   carry the pair8 mode's and B1's time on the same weights (`pair8_ms`,
+   `b1_ms`).
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -251,6 +260,7 @@ summary ``{"kernels": [...]}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -273,6 +283,9 @@ KERNEL_REL_TOL = 8e-3  # |kernel - plain| <= tol * max|plain|: ~2 bf16 ulps
 MODEL = "tinyllama-1.1b"
 PROMPT_LENS = (7, 60, 200, 300)
 MAX_NEW = 16
+# run (a): its CPU reference serves all 22 layers on the host (16 new
+# tokens before the script outgrew its time limit on a slow host)
+ENGINE_A_NEW = 8
 SLOTS, CONTEXT = 4, 1024
 # every served logits row on the card against the CPU engine fed the same
 # tokens: kernel and plain version differ only in summation order, and the
@@ -365,10 +378,11 @@ ENGINE_E_DECODE_TOL = 0.12
 # width ((c-cpu), (e-cpu), (f), (g-cpu), (h-cpu), (k-cpu), (l-cpu),
 # (n-cpu)), whose plain versions dequantize every weight on each call (a
 # decode step takes seconds on the host), and the tinyllama runs (b),
-# (d), (i), (j), (m): ENGINE_CUT_CPU_NEW tokens per query (8 before the
-# checkpoint runs (n) were added, 16 for (c-cpu) and the tinyllama runs
-# but (i))
-ENGINE_CUT_CPU_NEW = 4
+# (d), (i), (j), (m): ENGINE_CUT_CPU_NEW tokens per query, a prefill row
+# and a decode row each (4 before the script outgrew its time limit on a
+# slow host, 8 before the checkpoint runs (n) were added, 16 for (c-cpu)
+# and the tinyllama runs but (i))
+ENGINE_CUT_CPU_NEW = 2
 ENGINE_ECPU_LAYERS = 1
 ENGINE_ECPU_PROMPTS = (7, 300, 13)
 # run (f): B > 8, the per-layer loop with B5 and B2
@@ -446,7 +460,7 @@ ENGINE_J_LAYERS = 1
 MOE_INI = "configs/inferflow_service.moe.ini"
 MOE_MODEL_NAME = "mixtral-8x7b"
 MOE_CONTEXT = 4096
-ENGINE_K_LAYERS = 16
+ENGINE_K_LAYERS = 8  # 16 before the script outgrew its time limit
 # B4 (g) at B = 8 (lengths spread up to the last cache row) and B = 1
 MOE_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
 # B4 (g) against its plain version, first layer by layer, each layer fed
@@ -613,6 +627,9 @@ ENGINE_P_TOL = 0.12
 ENGINE_PCPU_LAYERS = 1
 ENGINE_PCPU_PROMPTS = (7, 300, 13)
 
+# compiled while the first phases, which launch none of its kernels, run
+LATE_SOURCES = ("decode_step",)
+
 KERNEL_SOURCES = {
     "dequant_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
                        "inferflow_tpu/kernels/dequant_matmul.py:146"),
@@ -677,11 +694,12 @@ KERNEL_SOURCES = {
     **{gemv: ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
               "inferflow_tpu/kernels/decode_step.py:573")
        for gemv, _, _ in I4BF16_FORMATS.values()},
-    # B6's wire mode (Q3H's three wire planes) and its non-pair branch
-    # (the format-generic kernel)
-    "q3h_wire_matmul": ("inferflow_tpu_torch/kernels/csrc/generic_matmul.cu",
+    # B6's wire mode (Q3H's three wire planes: the Q3HWire policy on B1's
+    # template) and its non-pair branch (each format's B1 entry; the row
+    # below is Q6_B64T1's, in subbyte_matmul.cu)
+    "q3h_wire_matmul": ("inferflow_tpu_torch/kernels/csrc/dequant_matmul.cu",
                         "inferflow_tpu/kernels/dequant_matmul.py:244"),
-    "generic_matmul": ("inferflow_tpu_torch/kernels/csrc/generic_matmul.cu",
+    "generic_matmul": ("inferflow_tpu_torch/kernels/csrc/subbyte_matmul.cu",
                        "inferflow_tpu/kernels/dequant_matmul.py:244"),
     # the unpack experiments X1-X5
     **{f"unpack_{x}": ("inferflow_tpu_torch/kernels/csrc/unpack_exp.cu",
@@ -717,9 +735,58 @@ T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
-    """One JSON line, stamped with the seconds since the script started."""
-    print(json.dumps(dict(obj, elapsed_s=time.perf_counter() - T0)),
-          flush=True)
+    """One JSON line, stamped with the seconds since the script started,
+    in one write (the CPU references' worker emits too)."""
+    line = json.dumps(dict(obj, elapsed_s=time.perf_counter() - T0))
+    with _EMIT_LOCK:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+
+# The CPU references (each run's engine on the host, fed the card's tokens)
+# run one at a time on a worker thread while the card goes on with the next
+# phases: together they are about a quarter of the script, all of it host
+# time.  A reference reads INFERFLOW_MEGA, INFERFLOW_I4_DOT and
+# models.decoder.fused_decode_step at every step, so whatever changes one
+# of those first waits for the references in flight (_cpu_idle), and a
+# reference asked for while one is changed runs at once.  The worker takes
+# all cores but two for its intra-op threads: one for the card's host loop.
+_EMIT_LOCK = threading.Lock()
+_CPU_POOL = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+_CPU_REFS: list = []  # (phase name, future), in the order asked for
+_OVERRIDES: list = []  # what is changed now (names, innermost last)
+CPU_REF_THREADS = max(1, len(os.sched_getaffinity(0)) - 2)
+
+
+def _cpu_idle() -> None:
+    """Wait for every CPU reference asked for so far (its failure is read
+    at the end)."""
+    concurrent.futures.wait([f for _, f in _CPU_REFS])
+
+
+def _on_cpu(name: str, job) -> None:
+    """Run `job` (a CPU reference and its check) on the worker, or at once
+    while an override is in force."""
+    if _OVERRIDES:
+        job()
+        return
+
+    def run():
+        torch.set_num_threads(CPU_REF_THREADS)  # this thread's pool
+        job()
+    _CPU_REFS.append((name, _CPU_POOL.submit(run)))
+
+
+@contextlib.contextmanager
+def _override(name: str):
+    """Mark `name` changed inside: the references in flight finish first,
+    and those asked for inside run at once."""
+    _cpu_idle()
+    _OVERRIDES.append(name)
+    try:
+        yield
+    finally:
+        _OVERRIDES.pop()
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor,
@@ -851,10 +918,12 @@ def phase_b2(timer, dev, spec, lengths=(CONTEXT, 700, 301, 17),
 
 def phase_b3(timer, dev, spec, start=256) -> list:
     """B3: a 256-row chunk of slot 1 at row `start` (the spec's last
-    layer)."""
+    layer), with the split its launches used (nsplit: the most CTAs a
+    row block's key walk went over)."""
     import torch.nn.functional as F
     from inferflow_tpu_torch.kernels.attention import (
-        chunk_attention, chunk_attention_plain)
+        CHUNK_KERNEL, chunk_attention, chunk_attention_plain, kernel_name,
+        last_chunk_split)
     hp = spec.hyper_params
     c, slot, layer, d = 256, 1, hp.decoder_layers - 1, hp.head_dim
     g = hp.decoder_heads // hp.kv_heads
@@ -887,7 +956,8 @@ def phase_b3(timer, dev, spec, start=256) -> list:
                q[0], cache, layer, slot, start)),
            "library_ms": timer(lambda: F.scaled_dot_product_attention(
                qs, k, v, attn_mask=mask)),
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "nsplit": last_chunk_split[kernel_name(CHUNK_KERNEL, d)]}
     emit(row)
     return [row]
 
@@ -1415,18 +1485,25 @@ def check_against_cpu(spec, params, prompts, qids, rows, outputs, label,
     against the card's within `tol`."""
     from inferflow_tpu_torch.runtime.engine import InferenceEngine
     t0 = time.perf_counter()
+    # built here: its copies off the card stay in the main thread
     cpu = InferenceEngine(spec, params, device="cpu", **engine_kw)
     cpu_rows = _record_rows(cpu, forced=dict(zip(qids, outputs)))
-    ref_qids, _, _, _ = _serve(cpu, prompts, max_new)
-    assert ref_qids == qids, (ref_qids, qids)
-    report = {"phase": f"engine_{label}_vs_cpu",
-              "cpu_reference_s": time.perf_counter() - t0,
-              "tolerance": f"every sampled row: max_abs_err <= {tol}"}
-    report.update(_row_errors(qids, prompts, outputs, rows, cpu_rows, tol,
-                              max_new))
-    emit(report)
-    assert report["ok"], \
-        f"run {label}: served logits disagree with the CPU reference"
+    build_s = time.perf_counter() - t0
+
+    def reference():
+        t0 = time.perf_counter()
+        ref_qids, _, _, _ = _serve(cpu, prompts, max_new)
+        assert ref_qids == qids, (ref_qids, qids)
+        report = {"phase": f"engine_{label}_vs_cpu",
+                  "cpu_engine_build_s": build_s,
+                  "cpu_reference_s": time.perf_counter() - t0,
+                  "tolerance": f"every sampled row: max_abs_err <= {tol}"}
+        report.update(_row_errors(qids, prompts, outputs, rows, cpu_rows,
+                                  tol, max_new))
+        emit(report)
+        assert report["ok"], \
+            f"run {label}: served logits disagree with the CPU reference"
+    _on_cpu(f"engine_{label}_vs_cpu", reference)
 
 
 def _row_errors(qids, prompts, outputs, rows, ref_rows, tol,
@@ -2670,16 +2747,17 @@ def phase_engine_k(dev, cfg, spec, params, memory) -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    real = decoder_mod.fused_decode_step
-    decoder_mod.fused_decode_step = decode_step.fused_decode_step_plain
-    try:
-        ref = InferenceEngine(spec, params, **engine_kw)
-        ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
-        _build.launch_counts.clear()
-        ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
-        torch.cuda.synchronize()
-    finally:
-        decoder_mod.fused_decode_step = real
+    with _override("fused_decode_step"):
+        real = decoder_mod.fused_decode_step
+        decoder_mod.fused_decode_step = decode_step.fused_decode_step_plain
+        try:
+            ref = InferenceEngine(spec, params, **engine_kw)
+            ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
+            _build.launch_counts.clear()
+            ref_qids, _, ref_decode_ms, _ = _serve(ref, prompts, MAX_NEW)
+            torch.cuda.synchronize()
+        finally:
+            decoder_mod.fused_decode_step = real
     ref_launches = dict(_build.launch_counts)
     assert ref_qids == qids, (ref_qids, qids)
     assert ref_launches.get("fused_decode_step_moe", 0) == 0
@@ -2992,16 +3070,17 @@ def _i4_layers_as(layers, fmt):
 @contextlib.contextmanager
 def _with_env(name, value):
     """Environment variable `name` set to `value` inside, restored
-    after."""
-    old = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = old
+    after (an override: the CPU references in flight finish first)."""
+    with _override(name):
+        old = os.environ.get(name)
+        os.environ[name] = value
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = old
 
 
 def _with_i4_dot(value):
@@ -3231,13 +3310,15 @@ def phase_engine_n_cut(dev, root: str, label: str, fmt: str,
     ref = make_engine(_ini_from_tree(root, **fields),
                       device="cpu" if against == "cpu" else dev)
     ref_rows = _record_rows(ref, forced=dict(zip(qids, outputs)))
-    real = decoder_mod.fused_decode_step
-    if against == "plain_step":
-        decoder_mod.fused_decode_step = decode_step.fused_decode_step_plain
-    try:
-        ref_qids, _, _, _ = _serve(ref, prompts, ENGINE_CUT_CPU_NEW)
-    finally:
-        decoder_mod.fused_decode_step = real
+    with _override("fused_decode_step"):
+        real = decoder_mod.fused_decode_step
+        if against == "plain_step":
+            decoder_mod.fused_decode_step = \
+                decode_step.fused_decode_step_plain
+        try:
+            ref_qids, _, _, _ = _serve(ref, prompts, ENGINE_CUT_CPU_NEW)
+        finally:
+            decoder_mod.fused_decode_step = real
     assert ref_qids == qids, (ref_qids, qids)
     del ref
     torch.cuda.empty_cache()
@@ -3539,7 +3620,9 @@ def phase_bench(args) -> dict:
     from inferflow_tpu_torch.kernels import _build
     from inferflow_tpu_torch.tools import kernel_bench
     _build.launch_counts.clear()
-    rows = kernel_bench.bench(args)
+    with (_override("INFERFLOW_MEGA") if "--mega" in args  # sets it to 0
+          else contextlib.nullcontext()):
+        rows = kernel_bench.bench(args)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     emit({"phase": "kernel_bench_launches", "args": args,
@@ -4111,9 +4194,16 @@ def main() -> int:
                       "python": sys.version.split()[0]}))
 
     t0 = time.perf_counter()
-    _build.build()
+    # every other source's nvcc at once, then decode_step.cu's four parts
+    # (_build.PARTS; started with the others, they held the others' builds
+    # back by 40 s): they compile while the phases that need only the
+    # other sources run, and the first phase that needs decode_step.cu
+    # waits for it (the second "build" line)
+    early = tuple(s for s in _build.SOURCES if s not in LATE_SOURCES)
+    _build.build(early)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": list(_build.SOURCES)})
+          "sources": list(early)})
+    _build.start(LATE_SOURCES)
 
     packed = make_spec(MODEL, device_layout="packed")
     timer = Timer(dev)
@@ -4127,48 +4217,11 @@ def main() -> int:
     _run(results, failed, "paged_decode_attention",
          lambda: phase_b7(timer, dev))
     # the kernel bench (B6's wire mode and non-pair branch, X1-X5, B2, B3
-    # and B7 at head_dim 256), then the fused step against the per-layer
-    # loop under INFERFLOW_MEGA=0
+    # and B7 at head_dim 256)
     _run(results, failed, "kernel_bench",
          lambda: phase_bench(KERNEL_BENCH_ARGS))
-    _run(results, failed, "mega_ab", lambda: phase_bench(MEGA_AB_ARGS))
-
-    # (a) the default layout: resolves to i8mm on the card
-    spec_a = make_spec(MODEL)
-    layout = resolve_auto_layout(spec_a, "Q4_B64T1", dev)
-    emit({"phase": "layout", "model": MODEL, "weight_format": "Q4_B64T1",
-          "resolved": layout,
-          "device_memory": torch.cuda.get_device_properties(0).total_memory})
-    if layout != "i8mm":
-        failed.append("layout")
-    params_a, memory_a = build_params(dev, spec_a)
-    _run(results, failed, "i8mm_gemv",
-         lambda: phase_i8mm_gemv(timer, dev, params_a))
-    _run(results, failed, "fused_decode_step",
-         lambda: phase_b4(timer, dev, spec_a, params_a))
-    _run(results, failed, "fused_decode_step_paged",
-         lambda: phase_b4_paged(timer, dev, spec_a, params_a))
-    # B4's mode (d): seeded biases on (a)'s i8mm weights, Q8_B32T2 and Q4
-    # wire planes, and one paged case
-    _run(results, failed, "b4_bias",
-         lambda: phase_b4_bias(timer, dev, spec_a, params_a))
-    _run(results, failed, "engine_a", lambda: phase_engine(
-        dev, spec_a, params_a, memory_a, "a",
-        ("fused_decode_step", "chunk_attention", "i8mm_gemv"),
-        ("decode_attention", "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL))
-    # (d) paging on, the first ENGINE_D_LAYERS layers of (a)'s weights
-    spec_d = make_spec(MODEL, layers=ENGINE_D_LAYERS)
-    spec_d.qkv_format = spec_a.qkv_format  # the weights' fused qkv
-    params_d = dict(params_a, layers=params_a["layers"][:ENGINE_D_LAYERS])
-    _run(results, failed, "engine_d", lambda: phase_engine(
-        dev, spec_d, params_d, dict(memory_a), "d",
-        ("fused_decode_step", "i8mm_gemv"),
-        ("paged_decode_attention", "chunk_attention", "decode_attention",
-         "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL,
-        engine_kw={"kv_cache_paging": True}, max_new=ENGINE_CUT_CPU_NEW))
-    del params_a, params_d
-    torch.cuda.empty_cache()
-
+    # the runs that launch nothing of decode_step.cu, while it compiles:
+    # (b), (c) and (c-cpu), (j), (l) and (l-cpu), (m)
     # (b) slice 1's packed wire layout, per-layer decode
     spec_b = make_spec(MODEL, device_layout="packed", layers=ENGINE_B_LAYERS)
     params_b, memory_b = build_params(dev, spec_b)
@@ -4196,6 +4249,108 @@ def main() -> int:
     _run(results, failed, "engine_c_cpu", lambda: phase_engine_ccpu(
         dev, cfg, spec_cc, params_cc))
     del params_cc
+
+    # (j) the mixed layout: q8c FFN weights, Q4 wire attention and lm_head
+    spec_j = make_spec(MODEL, device_layout="mixed", layers=ENGINE_J_LAYERS)
+    params_j, memory_j = build_params(dev, spec_j)
+    _run(results, failed, "engine_j", lambda: phase_engine(
+        dev, spec_j, params_j, memory_j, "j",
+        ("dequant_matmul", "q8_matmul", "decode_attention",
+         "chunk_attention"),
+        ("fused_decode_step", "fused_decode_step_i4",
+         "fused_decode_step_byte", "i8mm_gemv", "i4_matmul"),
+        ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
+    del params_j
+    torch.cuda.empty_cache()
+
+    # the sub-byte wire formats: configs/inferflow_service.q6.ini, llama2-7b
+    cfg_l, spec_l, fmt_l = ini_config(Q6_INI, Q6_MODEL_NAME,
+                                      layers=ENGINE_L_LAYERS)
+    layout_l = resolve_auto_layout(spec_l, fmt_l, dev)
+    auto_l = resolve_auto_layout(make_spec(Q6_MODEL_NAME), fmt_l, dev)
+    emit({"phase": "layout", "model": Q6_MODEL_NAME, "config": Q6_INI,
+          "weight_format": fmt_l, "resolved": layout_l,
+          "auto_rule_would_pick": auto_l})
+    if fmt_l != "Q6_B64T1" or layout_l != "packed" or auto_l != "i8mm":
+        failed.append("layout_l")
+    params_l, memory_l = build_params(dev, spec_l, fmt_l)
+    emit({"phase": "weights", "model": Q6_MODEL_NAME,
+          "q6_device_bytes": memory_l,
+          "q6_model_bytes": _model_bytes(params_l),
+          "i8mm_model_bytes_auto_rule": _i8mm_bytes(params_l)})
+    _run(results, failed, "subbyte_matmul",
+         lambda: phase_b1_subbyte(timer, dev, params_l))
+    _run(results, failed, "engine_l", lambda: phase_engine_twin(
+        dev, cfg_l, spec_l, params_l, memory_l, "l", Q6_INI, Q6_MODEL_NAME,
+        "subbyte_matmul", ENGINE_L_PROMPTS, 10, ENGINE_L_TOL))
+    spec_cut = ini_config(Q6_INI, Q6_MODEL_NAME,
+                          layers=ENGINE_LCPU_LAYERS)[1]
+    spec_cut.qkv_format = spec_l.qkv_format  # the weights' fused qkv
+    params_cut = dict(params_l, layers=params_l["layers"][:ENGINE_LCPU_LAYERS])
+    _run(results, failed, "engine_l_cpu", lambda: phase_engine_cut_cpu(
+        dev, cfg_l, spec_cut, params_cut, "l_cpu", Q6_INI, Q6_MODEL_NAME,
+        ENGINE_LCPU_PROMPTS, cfg_l.max_concurrent_queries,
+        spec_l.max_context_len,
+        ("subbyte_matmul", "decode_attention", "chunk_attention"),
+        [k for k in KERNEL_SOURCES if k not in (
+            "subbyte_matmul", "decode_attention", "chunk_attention")]))
+    del params_l, params_cut
+    torch.cuda.empty_cache()
+    # (m) tinyllama-1.1b in Q3_B32T1A: a 2-bit and a 1-bit plane, 32-row
+    # blocks
+    spec_m = make_spec(MODEL, device_layout="packed", layers=ENGINE_M_LAYERS)
+    params_m, memory_m = build_params(dev, spec_m, "Q3_B32T1A")
+    _run(results, failed, "engine_m", lambda: phase_engine(
+        dev, spec_m, params_m, memory_m, "m",
+        ("subbyte_matmul", "decode_attention", "chunk_attention"),
+        [k for k in KERNEL_SOURCES if k not in (
+            "subbyte_matmul", "decode_attention", "chunk_attention")],
+        ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
+    del params_m
+    torch.cuda.empty_cache()
+
+    waited = time.perf_counter()
+    _build.build(LATE_SOURCES)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "waited_s": time.perf_counter() - waited,
+          "sources": list(LATE_SOURCES)})
+
+    # (a) the default layout: resolves to i8mm on the card
+    spec_a = make_spec(MODEL)
+    layout = resolve_auto_layout(spec_a, "Q4_B64T1", dev)
+    emit({"phase": "layout", "model": MODEL, "weight_format": "Q4_B64T1",
+          "resolved": layout,
+          "device_memory": torch.cuda.get_device_properties(0).total_memory})
+    if layout != "i8mm":
+        failed.append("layout")
+    params_a, memory_a = build_params(dev, spec_a)
+    _run(results, failed, "i8mm_gemv",
+         lambda: phase_i8mm_gemv(timer, dev, params_a))
+    _run(results, failed, "fused_decode_step",
+         lambda: phase_b4(timer, dev, spec_a, params_a))
+    _run(results, failed, "fused_decode_step_paged",
+         lambda: phase_b4_paged(timer, dev, spec_a, params_a))
+    # B4's mode (d): seeded biases on (a)'s i8mm weights, Q8_B32T2 and Q4
+    # wire planes, and one paged case
+    _run(results, failed, "b4_bias",
+         lambda: phase_b4_bias(timer, dev, spec_a, params_a))
+    _run(results, failed, "engine_a", lambda: phase_engine(
+        dev, spec_a, params_a, memory_a, "a",
+        ("fused_decode_step", "chunk_attention", "i8mm_gemv"),
+        ("decode_attention", "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL,
+        max_new=ENGINE_A_NEW))
+    # (d) paging on, the first ENGINE_D_LAYERS layers of (a)'s weights
+    spec_d = make_spec(MODEL, layers=ENGINE_D_LAYERS)
+    spec_d.qkv_format = spec_a.qkv_format  # the weights' fused qkv
+    params_d = dict(params_a, layers=params_a["layers"][:ENGINE_D_LAYERS])
+    _run(results, failed, "engine_d", lambda: phase_engine(
+        dev, spec_d, params_d, dict(memory_a), "d",
+        ("fused_decode_step", "i8mm_gemv"),
+        ("paged_decode_attention", "chunk_attention", "decode_attention",
+         "dequant_matmul"), ENGINE_I8MM_LOGIT_TOL,
+        engine_kw={"kv_cache_paging": True}, max_new=ENGINE_CUT_CPU_NEW))
+    del params_a, params_d
+    torch.cuda.empty_cache()
 
     # the i4 layout: configs/inferflow_service.i4.ini, llama2-7b
     cfg_e, spec_e, fmt_e = ini_config(I4_INI, I4_MODEL_NAME)
@@ -4361,19 +4516,6 @@ def main() -> int:
         max_new=ENGINE_CUT_CPU_NEW))
     del params_i
     torch.cuda.empty_cache()
-    # (j) the mixed layout: q8c FFN weights, Q4 wire attention and lm_head
-    spec_j = make_spec(MODEL, device_layout="mixed", layers=ENGINE_J_LAYERS)
-    params_j, memory_j = build_params(dev, spec_j)
-    _run(results, failed, "engine_j", lambda: phase_engine(
-        dev, spec_j, params_j, memory_j, "j",
-        ("dequant_matmul", "q8_matmul", "decode_attention",
-         "chunk_attention"),
-        ("fused_decode_step", "fused_decode_step_i4",
-         "fused_decode_step_byte", "i8mm_gemv", "i4_matmul"),
-        ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
-    del params_j
-    torch.cuda.empty_cache()
-
     # routed MoE: configs/inferflow_service.moe.ini, mixtral-8x7b
     cfg_k, spec_k, fmt_k = ini_config(MOE_INI, MOE_MODEL_NAME,
                                       layers=ENGINE_K_LAYERS)
@@ -4408,52 +4550,6 @@ def main() -> int:
          "dequant_matmul", "q8_matmul", "decode_attention", "i4_matmul",
          "q3h_matmul")))
     del params_k, params_cut
-    torch.cuda.empty_cache()
-
-    # the sub-byte wire formats: configs/inferflow_service.q6.ini, llama2-7b
-    cfg_l, spec_l, fmt_l = ini_config(Q6_INI, Q6_MODEL_NAME,
-                                      layers=ENGINE_L_LAYERS)
-    layout_l = resolve_auto_layout(spec_l, fmt_l, dev)
-    auto_l = resolve_auto_layout(make_spec(Q6_MODEL_NAME), fmt_l, dev)
-    emit({"phase": "layout", "model": Q6_MODEL_NAME, "config": Q6_INI,
-          "weight_format": fmt_l, "resolved": layout_l,
-          "auto_rule_would_pick": auto_l})
-    if fmt_l != "Q6_B64T1" or layout_l != "packed" or auto_l != "i8mm":
-        failed.append("layout_l")
-    params_l, memory_l = build_params(dev, spec_l, fmt_l)
-    emit({"phase": "weights", "model": Q6_MODEL_NAME,
-          "q6_device_bytes": memory_l,
-          "q6_model_bytes": _model_bytes(params_l),
-          "i8mm_model_bytes_auto_rule": _i8mm_bytes(params_l)})
-    _run(results, failed, "subbyte_matmul",
-         lambda: phase_b1_subbyte(timer, dev, params_l))
-    _run(results, failed, "engine_l", lambda: phase_engine_twin(
-        dev, cfg_l, spec_l, params_l, memory_l, "l", Q6_INI, Q6_MODEL_NAME,
-        "subbyte_matmul", ENGINE_L_PROMPTS, 10, ENGINE_L_TOL))
-    spec_cut = ini_config(Q6_INI, Q6_MODEL_NAME,
-                          layers=ENGINE_LCPU_LAYERS)[1]
-    spec_cut.qkv_format = spec_l.qkv_format  # the weights' fused qkv
-    params_cut = dict(params_l, layers=params_l["layers"][:ENGINE_LCPU_LAYERS])
-    _run(results, failed, "engine_l_cpu", lambda: phase_engine_cut_cpu(
-        dev, cfg_l, spec_cut, params_cut, "l_cpu", Q6_INI, Q6_MODEL_NAME,
-        ENGINE_LCPU_PROMPTS, cfg_l.max_concurrent_queries,
-        spec_l.max_context_len,
-        ("subbyte_matmul", "decode_attention", "chunk_attention"),
-        [k for k in KERNEL_SOURCES if k not in (
-            "subbyte_matmul", "decode_attention", "chunk_attention")]))
-    del params_l, params_cut
-    torch.cuda.empty_cache()
-    # (m) tinyllama-1.1b in Q3_B32T1A: a 2-bit and a 1-bit plane, 32-row
-    # blocks
-    spec_m = make_spec(MODEL, device_layout="packed", layers=ENGINE_M_LAYERS)
-    params_m, memory_m = build_params(dev, spec_m, "Q3_B32T1A")
-    _run(results, failed, "engine_m", lambda: phase_engine(
-        dev, spec_m, params_m, memory_m, "m",
-        ("subbyte_matmul", "decode_attention", "chunk_attention"),
-        [k for k in KERNEL_SOURCES if k not in (
-            "subbyte_matmul", "decode_attention", "chunk_attention")],
-        ENGINE_LOGIT_TOL, max_new=ENGINE_CUT_CPU_NEW))
-    del params_m
     torch.cuda.empty_cache()
 
     # (p) gemma-2b's head shape (head_dim 256, 8 query heads on 1 kv
@@ -4526,6 +4622,16 @@ def main() -> int:
     shutil.rmtree(ckpt_root, ignore_errors=True)
     # the perplexity CLIs on tinyllama-1.1b
     _run(results, failed, "ppl", lambda: phase_ppl(dev))
+    # the fused step against the per-layer loop under INFERFLOW_MEGA=0
+    # (last: the CPU references in flight finish before it changes that)
+    _run(results, failed, "mega_ab", lambda: phase_bench(MEGA_AB_ARGS))
+    # every CPU reference's check
+    for ref_phase, fut in _CPU_REFS:
+        try:
+            fut.result()
+        except Exception:  # noqa: BLE001 - report each, then fail
+            traceback.print_exc()
+            failed.append(ref_phase)
 
     for pname in ("dequant_matmul", "decode_attention", "chunk_attention",
                   "i8mm_gemv", "fused_decode_step", "fused_decode_step_paged",
@@ -4658,7 +4764,9 @@ def main() -> int:
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        **({"nsplit": row["nsplit"]} if "nsplit" in row
+                           else {})})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

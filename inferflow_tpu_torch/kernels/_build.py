@@ -5,7 +5,8 @@ into a shared library with a plain C interface and loaded with ``ctypes``.
 Libraries are built at first use into ``build/inferflow_tpu_torch/`` at the
 root of the checkout, named after a hash of the source, the headers under
 ``csrc/`` and the flags, so an edited source or header is rebuilt and an
-unchanged one is reused.
+unchanged one is reused.  ``start()`` begins compiles without waiting
+for them; ``build()`` and ``load()`` then wait for their own sources only.
 
 Every pointer and the stream cross into C as ``ctypes.c_void_p``; each C
 entry returns the ``cudaGetLastError()`` of its launch and the wrapper
@@ -28,18 +29,25 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "inferflow_tpu_torch"
-SOURCES = ("dequant_matmul", "subbyte_matmul", "generic_matmul", "unpack_exp",
+SOURCES = ("dequant_matmul", "subbyte_matmul", "unpack_exp",
            "attention", "decode_step")
 # --split-compile=0: nvcc runs a source's optimization passes on every
 # core it finds, which shortens the longest build (decode_step.cu's)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--split-compile=0")
+# sources compiled as several translation units at once (-DIFT_PARTS=n,
+# -DIFT_PART=p) and linked into one library: decode_step.cu's GEMV
+# instantiations are the longest build by far
+PARTS = {"decode_step": 4}
 
 # kernel name -> launches since the last clear()
 launch_counts: collections.Counter = collections.Counter()
 
 _libs: dict = {}
-_lock = threading.Lock()
+# source name -> (library, temporary file, part objects, nvcc processes)
+# of a compile that start() began and no build() has waited for yet
+_pending: dict = {}
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -55,35 +63,70 @@ def library_path(name: str) -> Path:
     for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(str(PARTS.get(name, 1)).encode())
     digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=SOURCES, ptxas_verbose: bool = False) -> dict:
-    """Compile every source of ``names`` that is not built yet, one nvcc
-    process per source, all started together.  Returns {name: compiler
-    output} for the sources compiled now; raises if any compile failed."""
+def start(names=SOURCES, ptxas_verbose: bool = False) -> None:
+    """Start the nvcc processes of every source of ``names`` that is
+    neither built nor being built (one per source, or one per part of a
+    source in PARTS), all together, and return at once; build() and load()
+    wait for a source's own compile."""
     nvcc = _nvcc()
-    jobs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose
-                                    else ()),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+    verbose = ("-Xptxas", "-v") if ptxas_verbose else ()
+    with _lock:
+        for name in names:
+            out = library_path(name)
+            if out.exists() or name in _pending:
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            src = str(CSRC / f"{name}.cu")
+            n = PARTS.get(name, 1)
+            objs = ([tmp.with_name(f"{tmp.name}.{p}.o") for p in range(n)]
+                    if n > 1 else [])
+            if objs:
+                flags = [f for f in NVCC_FLAGS if f != "-shared"]
+                cmds = [[nvcc, *flags, *verbose, f"-DIFT_PARTS={n}",
+                         f"-DIFT_PART={p}", "-c", "-o", str(obj), src]
+                        for p, obj in enumerate(objs)]
+            else:
+                cmds = [[nvcc, *NVCC_FLAGS, *verbose, "-o", str(tmp), src]]
+            _pending[name] = (out, tmp, objs, [subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for cmd in cmds])
+
+
+def build(names=SOURCES, ptxas_verbose: bool = False) -> dict:
+    """Compile every source of ``names`` that is not built yet (start())
+    and wait for each; a source in PARTS is linked from its parts once
+    they are all compiled.  Returns {name: compiler output} for the
+    sources compiled by this call or by an earlier start(); raises if any
+    compile failed."""
+    start(names, ptxas_verbose)
     logs, failed = {}, []
-    for name, out, tmp, proc in jobs:
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, out)
+    with _lock:
+        for name in names:
+            if name not in _pending:
+                continue
+            out, tmp, objs, procs = _pending.pop(name)
+            logs[name] = "".join(proc.communicate()[0] for proc in procs)
+            ok = all(proc.returncode == 0 for proc in procs)
+            if ok and objs:
+                link = subprocess.run(
+                    [_nvcc(), "-shared", "-o", str(tmp),
+                     *(str(obj) for obj in objs)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                logs[name] += link.stdout
+                ok = link.returncode == 0
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if ok:
+                os.replace(tmp, out)
+            else:
+                failed.append(name)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -11,10 +11,10 @@ do.  ``decode_attention`` dispatches on the cache type as the JAX one does:
 a PagedKVCache takes B7.
 
 Shapes: B2 and B3 take head_dim a multiple of 16 up to 256 and any number
-of query heads per kv head (they are instantiated for head dims up to 128
-and up to 256, each with its own launch count: ``decode_attention`` /
-``decode_attention_d256`` and so on); B7 takes head_dim 32, 64, 128 or
-256.  That covers every head shape the JAX kernels take
+of query heads per kv head (B2 is instantiated for head dims up to 128 and
+up to 256, B3 up to 64, 128 and 256; the head dims above 128 have their own
+launch count: ``decode_attention`` / ``decode_attention_d256`` and so on);
+B7 takes head_dim 32, 64, 128 or 256.  That covers every head shape the JAX kernels take
 (`decode_attention_supported`) and more, such as 48 or 80, where the JAX
 decoder falls back to XLA's ``mha``.  On the card a shape outside
 ``attention_kernel_supported`` raises NotImplementedError; it never runs
@@ -24,6 +24,7 @@ the plain version there.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +41,13 @@ _PAGED_D = (32, 64, 128, 256)  # head dims of the paged kernel (csrc)
 _MAX_SPLIT = 16  # CTAs per (slot, kv head) walk
 _MAX_ROWS = 16  # query rows per B2 CTA (csrc kMaxRows)
 _SPLIT_ROWS = 256  # least keys per CTA of B2's split walk (csrc kSplitRows)
+_CHUNK_ROWS = 64  # query rows per B3 CTA (csrc kChunkRows)
+_CHUNK_SPLIT_TILES = 8  # least key tiles per CTA of B3's split walk
+
+# B3's launch count name -> the nsplit its last launch passed to the kernel
+# (the most CTAs a row block's walk was split over; a row block with fewer
+# key tiles uses fewer)
+last_chunk_split: dict = {}
 
 
 def attention_kernel_supported(cache) -> bool:
@@ -57,6 +65,26 @@ def kernel_name(base: str, d: int) -> str:
     """The launch count of a kernel's instantiation for head_dim d: the
     head dims above 128 run their own (``<base>_d256``)."""
     return f"{base}_d256" if d > 128 else base
+
+
+def chunk_tile(d: int) -> int:
+    """Keys per tile of B3's walk at head_dim d (csrc chunk_tile)."""
+    return 32 if d > 128 else 64
+
+
+def chunk_split(c: int, hq: int, h: int, d: int, start: int,
+                resident: int) -> int:
+    """CTAs over which B3 splits each row block's key walk, given the
+    CTAs of B3 the card holds at once (`resident`: SMs x chunk_ctas_per_sm):
+    as many as keep every CTA of the (H, ceil(C*g / 64)) grid's splits
+    resident together, at most _MAX_SPLIT, and no fewer than
+    _CHUNK_SPLIT_TILES key tiles each (the longest walk's); 1 when a split
+    of two would not fit (a second wave costs more than the balance
+    gains)."""
+    ctas = h * -(-c * (hq // h) // _CHUNK_ROWS)
+    tiles = -(-(start + c) // chunk_tile(d))
+    return max(1, min(_MAX_SPLIT, resident // ctas,
+                      tiles // _CHUNK_SPLIT_TILES))
 
 
 def _scale(d: int, kq_scale: float) -> float:
@@ -135,8 +163,10 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ift_decode_attention.argtypes = [vp] * 9 + [i] * 9 + [f, vp]
         lib.ift_decode_attention.restype = ctypes.c_int
-        lib.ift_chunk_attention.argtypes = [vp] * 6 + [i] * 10 + [i, f, vp]
+        lib.ift_chunk_attention.argtypes = [vp] * 8 + [i] * 12 + [f, vp]
         lib.ift_chunk_attention.restype = ctypes.c_int
+        lib.ift_chunk_ctas_per_sm.argtypes = [i] * 3 + [vp]
+        lib.ift_chunk_ctas_per_sm.restype = ctypes.c_int
         lib.ift_paged_decode_attention.argtypes = \
             [vp] * 10 + [i] * 10 + [f, vp]
         lib.ift_paged_decode_attention.restype = ctypes.c_int
@@ -203,9 +233,24 @@ def decode_attention_cuda(q: torch.Tensor, cache: KVCache, layer: int,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def chunk_ctas_per_sm(device: int, d: int, blk: int, quantized: int) -> int:
+    """CTAs of B3 one SM of card `device` holds at once for head_dim d
+    (the CUDA runtime's occupancy of the instantiation and shared memory
+    that ift_chunk_attention launches)."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.ift_chunk_ctas_per_sm(d, blk, quantized, ctypes.byref(n))
+    _build.check(lib, rc, CHUNK_KERNEL)
+    return n.value
+
+
 def chunk_attention_cuda(q: torch.Tensor, cache: KVCache, layer: int,
-                         slot: int, start: int, kq_scale: float = 1.0):
-    """Launch kernel B3: q (C, Hq, D) bf16 -> (C, Hq, D) bf16."""
+                         slot: int, start: int, kq_scale: float = 1.0,
+                         nsplit: int | None = None):
+    """Launch kernel B3: q (C, Hq, D) bf16 -> (C, Hq, D) bf16; each row
+    block's key walk split over `nsplit` CTAs (None: chunk_split's)."""
     _build.require_hopper(q)
     num_layers, bsz, h, s, d = cache.k.shape
     c, hq, _ = q.shape
@@ -215,14 +260,30 @@ def chunk_attention_cuda(q: torch.Tensor, cache: KVCache, layer: int,
                          f"[{start}, {start + c})) outside the cache")
     _build.check_operand(q, "q", torch.bfloat16, (c, hq, d))
     k, ks, v, vs, quantized, blk = _cache_operands(cache)
+    if nsplit is None:
+        dev = q.device.index if q.device.index is not None \
+            else torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nsplit = chunk_split(c, hq, h, d, start, sms * chunk_ctas_per_sm(
+            dev, d, blk, quantized))
+    null = ctypes.c_void_p(0)
+    part = counters = None
+    if nsplit > 1:
+        blocks = h * -(-c * (hq // h) // _CHUNK_ROWS)
+        part = torch.empty(blocks * nsplit * _CHUNK_ROWS * (d + 4),
+                           dtype=torch.float32, device=q.device)
+        counters = torch.zeros(blocks, dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     lib = _lib()
     rc = lib.ift_chunk_attention(
-        _build.ptr(q), k, ks, v, vs, _build.ptr(out), int(layer), bsz, h, s,
-        d, blk, hq // h, int(slot), int(start), c, quantized,
-        _scale(d, kq_scale), _build.stream_of(q))
+        _build.ptr(q), k, ks, v, vs,
+        null if part is None else _build.ptr(part),
+        null if counters is None else _build.ptr(counters), _build.ptr(out),
+        int(layer), bsz, h, s, d, blk, hq // h, int(slot), int(start), c,
+        nsplit, quantized, _scale(d, kq_scale), _build.stream_of(q))
     _build.check(lib, rc, CHUNK_KERNEL)
     _build.launch_counts[kernel_name(CHUNK_KERNEL, d)] += 1
+    last_chunk_split[kernel_name(CHUNK_KERNEL, d)] = nsplit
     return out
 
 

@@ -149,6 +149,29 @@
 #include <algorithm>
 #include <type_traits>
 
+// The GEMVs (14 instantiated weight modes x 8 row counts x 4 variants) are
+// most of this file's build.  The build compiles it as IFT_PARTS
+// translation units at once (-DIFT_PARTS=4 -DIFT_PART=p) and links them
+// into one library: part p instantiates the GEMVs of the modes with
+// mode % IFT_PARTS == p and defines ift_gemv_part<p>, and the last part
+// also holds the routing, the step attention and the C entries.  Without
+// the macros one unit holds everything.
+#ifndef IFT_PARTS
+#define IFT_PARTS 1
+#define IFT_PART 0
+#endif
+static_assert(IFT_PARTS == 1 || IFT_PARTS == 4, "the file is built as 1 or 4 parts");
+static_assert(IFT_PART >= 0 && IFT_PART < IFT_PARTS, "IFT_PART out of range");
+
+// Launch the GEMV of weight mode `mode` (one that part p instantiates) for
+// the GemvArgs behind `args`.
+void ift_gemv_part0(const void* args, int mode, dim3 grid, cudaStream_t stream);
+#if IFT_PARTS == 4
+void ift_gemv_part1(const void* args, int mode, dim3 grid, cudaStream_t stream);
+void ift_gemv_part2(const void* args, int mode, dim3 grid, cudaStream_t stream);
+void ift_gemv_part3(const void* args, int mode, dim3 grid, cudaStream_t stream);
+#endif
+
 namespace {
 
 // ---------------------------------------------------------- the GEMVs
@@ -883,6 +906,40 @@ void launch_gemv_mode(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
   }
 }
 
+// The GEMVs of weight mode MODE, instantiated in its part only.
+template <int MODE>
+void launch_gemv_owned(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
+  if constexpr (MODE % IFT_PARTS == IFT_PART) launch_gemv_mode<MODE>(a, grid, stream);
+}
+
+}  // namespace
+
+#define IFT_CAT2(a, b) a##b
+#define IFT_CAT(a, b) IFT_CAT2(a, b)
+void IFT_CAT(ift_gemv_part, IFT_PART)(const void* args, int mode, dim3 grid,
+                                      cudaStream_t stream) {
+  const GemvArgs& a = *static_cast<const GemvArgs*>(args);
+  switch (mode) {
+    case kModeI8mm: launch_gemv_owned<kModeI8mm>(a, grid, stream); break;
+    case kModeI4x8: launch_gemv_owned<kModeI4x8>(a, grid, stream); break;
+    case kModeByte: launch_gemv_owned<kModeByte>(a, grid, stream); break;
+    case kModeI4x8B32: launch_gemv_owned<kModeI4x8B32>(a, grid, stream); break;
+    case kModeI4x8B32F: launch_gemv_owned<kModeI4x8B32F>(a, grid, stream); break;
+    case kModeI4x8B16F: launch_gemv_owned<kModeI4x8B16F>(a, grid, stream); break;
+    case kModeI4Bf16: launch_gemv_owned<kModeI4Bf16>(a, grid, stream); break;
+    case kModeI4Bf16B32: launch_gemv_owned<kModeI4Bf16B32>(a, grid, stream); break;
+    case kModeI4Bf16B32F: launch_gemv_owned<kModeI4Bf16B32F>(a, grid, stream); break;
+    case kModeI4Bf16B16F: launch_gemv_owned<kModeI4Bf16B16F>(a, grid, stream); break;
+    case kModeWireQ4: launch_gemv_owned<kModeWireQ4>(a, grid, stream); break;
+    case kModeWireQ4B32: launch_gemv_owned<kModeWireQ4B32>(a, grid, stream); break;
+    case kModeWireQ2: launch_gemv_owned<kModeWireQ2>(a, grid, stream); break;
+    case kModePair8: launch_gemv_owned<kModePair8>(a, grid, stream); break;
+    default: break;
+  }
+}
+
+namespace {
+
 // The column tiles and the plan of a GEMV, or false for a shape it does
 // not take.
 bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, int* ksplit) {
@@ -899,6 +956,7 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
   return true;
 }
 
+#if IFT_PART == IFT_PARTS - 1
 // experts > 1: mode (g)'s routed GEMV over an expert stack (a.moe_sel set)
 cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream,
                         int experts = 1) {
@@ -910,23 +968,16 @@ cudaError_t launch_gemv(GemvArgs a, int mode, int sm_count, cudaStream_t stream,
       experts < 1 || (experts > 1 && a.moe_sel == nullptr) || a.out_rows < a.M)
     return cudaErrorInvalidValue;
   const dim3 grid(tiles, a.ksplit, experts);
-  switch (mode) {
-    case kModeI8mm: launch_gemv_mode<kModeI8mm>(a, grid, stream); break;
-    case kModeI4x8: launch_gemv_mode<kModeI4x8>(a, grid, stream); break;
-    case kModeI4x8B32: launch_gemv_mode<kModeI4x8B32>(a, grid, stream); break;
-    case kModeI4x8B32F: launch_gemv_mode<kModeI4x8B32F>(a, grid, stream); break;
-    case kModeI4x8B16F: launch_gemv_mode<kModeI4x8B16F>(a, grid, stream); break;
-    case kModeI4Bf16: launch_gemv_mode<kModeI4Bf16>(a, grid, stream); break;
-    case kModeI4Bf16B32: launch_gemv_mode<kModeI4Bf16B32>(a, grid, stream); break;
-    case kModeI4Bf16B32F: launch_gemv_mode<kModeI4Bf16B32F>(a, grid, stream); break;
-    case kModeI4Bf16B16F: launch_gemv_mode<kModeI4Bf16B16F>(a, grid, stream); break;
-    case kModeWireQ4: launch_gemv_mode<kModeWireQ4>(a, grid, stream); break;
-    case kModeWireQ4B32: launch_gemv_mode<kModeWireQ4B32>(a, grid, stream); break;
-    case kModeWireQ2: launch_gemv_mode<kModeWireQ2>(a, grid, stream); break;
-    case kModePair8: launch_gemv_mode<kModePair8>(a, grid, stream); break;
-    default:
-      a.byte_signed = mode == kModeByte;
-      launch_gemv_mode<kModeByte>(a, grid, stream);
+  // Q8_B32T1 (kModeByteU) takes the byte GEMV with unsigned codes
+  if (mode == kModeByte || mode == kModeByteU) a.byte_signed = mode == kModeByte;
+  const int inst = mode == kModeByteU ? kModeByte : mode;
+  switch (inst % IFT_PARTS) {
+    case 0: ift_gemv_part0(&a, inst, grid, stream); break;
+#if IFT_PARTS == 4
+    case 1: ift_gemv_part1(&a, inst, grid, stream); break;
+    case 2: ift_gemv_part2(&a, inst, grid, stream); break;
+    default: ift_gemv_part3(&a, inst, grid, stream);
+#endif
   }
   return cudaGetLastError();
 }
@@ -1354,9 +1405,11 @@ __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a)
     a.v_scale[row * nblk + c] = __float2half_rn(bsc_s[1][c]);
   }
 }
+#endif  // IFT_PART == IFT_PARTS - 1
 
 }  // namespace
 
+#if IFT_PART == IFT_PARTS - 1
 extern "C" {
 
 const char* ift_error_string(int code) {
@@ -1678,3 +1731,4 @@ int ift_fused_decode_step(const void* const* table, int L, void* xres, const voi
 }
 
 }  // extern "C"
+#endif  // IFT_PART == IFT_PARTS - 1

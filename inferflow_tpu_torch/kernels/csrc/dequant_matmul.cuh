@@ -1,13 +1,16 @@
 // The dequantize-matmul kernels, y = x @ dequant(W), templated on how a
 // block of W decodes; shared by dequant_matmul.cu (B1 for Q4_B64T1 and
-// the Q8 formats, B5, B6) and subbyte_matmul.cu (B1 for the sub-byte wire
-// formats), each of which instantiates its own policies.
+// the Q8 formats, B5, B6 in its pair8 and wire modes) and subbyte_matmul.cu
+// (B1 for the sub-byte wire formats), each of which instantiates its own
+// policies.
 //
 // Operands (row-major):
 //   x       (M, K)    bf16 activations
 //   data    (K*b0/8, N) uint8: plane 0, the policy's low code bits
-//   data_h  (K*b1/8, N) uint8: plane 1, the high code bits (two-plane
-//                      formats only; null otherwise)
+//   data_h  (K*b1/8, N) uint8: plane 1, the next code bits (two- and
+//                      three-plane formats only; null otherwise)
+//   data_2  (K*b2/8, N) uint8: plane 2, the top code bits (Q3H's wire
+//                      planes only; null otherwise)
 //   scale   (K/B, N)  per-block scales, f16 or f32 (the policy's Meta)
 //   base    (K/B, N)  per-block bases of the same type; null for a format
 //                     without one
@@ -18,12 +21,12 @@
 // its plain version differ in summation order only.  Pad blocks of a
 // K-padded tensor have scale 0 and base 0 and add exact zeros.
 //
-// A policy D describes a quant block of D::kBlock K rows stored in one or
-// two byte planes, D::kRows0 and D::kRows1 byte rows of each per block
-// (kRows1 = 0 for one plane):
+// A policy D describes a quant block of D::kBlock K rows stored in one to
+// three byte planes, D::kRows0, D::kRows1 and D::kRows2 byte rows of each
+// per block (0 for a plane the format lacks):
 //   row(p, k)          the byte row of plane p (within the block) that holds
 //                      K row k of the block;
-//   value(b0, b1, k)   K row k's multiplier from those two bytes;
+//   value(b0, b1, b2, k)  K row k's multiplier from those bytes;
 //   offset(sc, base)   the block's additive term; kBase: whether the
 //                      format stores a base (read only then);
 //   Meta               the type of the scale and base planes.
@@ -95,12 +98,13 @@ struct Wire {
   static constexpr int kPer0 = 8 / kBits0, kPer1 = kBits1 ? 8 / kBits1 : 1;
   static constexpr int kRows0 = kBlock / kPer0;
   static constexpr int kRows1 = kBits1 ? kBlock / kPer1 : 0;
+  static constexpr int kRows2 = 0;
   static constexpr bool kBase = true;
   __host__ __device__ static constexpr int row(int p, int k) {
     return p == 0 ? (kSplit ? k % (kBlock / 2) : k / kPer0) : k / kPer1;
   }
   __device__ static float offset(float, float base) { return base; }
-  __device__ static float value(uint32_t b0, uint32_t b1, int k) {
+  __device__ static float value(uint32_t b0, uint32_t b1, uint32_t, int k) {
     const int s0 = kSplit ? (k / (kBlock / 2)) * 4 : (k % kPer0) * kBits0;
     uint32_t code = (b0 >> s0) & ((1u << kBits0) - 1u);
     if constexpr (kBits1 > 0)
@@ -124,12 +128,12 @@ constexpr int kGemvMaxKRows = 512;  // K rows per CTA (x staging)
 template <class D, int M>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 dq_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
-        const uint8_t* __restrict__ data1,
+        const uint8_t* __restrict__ data1, const uint8_t* __restrict__ data2,
         const typename D::Meta* __restrict__ scale,
         const typename D::Meta* __restrict__ base, float* __restrict__ partial,
         __nv_bfloat16* __restrict__ out, int K, int N, int kb_per_split,
         int ksplit) {
-  constexpr int kBlock = D::kBlock, R0 = D::kRows0, R1 = D::kRows1;
+  constexpr int kBlock = D::kBlock, R0 = D::kRows0, R1 = D::kRows1, R2 = D::kRows2;
   __shared__ float xs[M][kGemvMaxKRows];
   __shared__ float red[kGemvWarps][M][kGemvCols];
 
@@ -163,7 +167,7 @@ dq_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
 #pragma unroll
       for (int j = 0; j < 4; ++j) off[j] = D::offset(sc[j], bs[j]);
       // every plane row of the quant block in flight at once
-      uint32_t w0[R0], w1[R1 > 0 ? R1 : 1];
+      uint32_t w0[R0], w1[R1 > 0 ? R1 : 1], w2[R2 > 0 ? R2 : 1];
       const uint8_t* p0 = data0 + (size_t)kb * R0 * N + col0;
 #pragma unroll
       for (int r = 0; r < R0; ++r)
@@ -174,16 +178,23 @@ dq_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
         for (int r = 0; r < R1; ++r)
           w1[r] = __ldg(reinterpret_cast<const uint32_t*>(p1 + (size_t)r * N));
       }
+      if constexpr (R2 > 0) {
+        const uint8_t* p2 = data2 + (size_t)kb * R2 * N + col0;
+#pragma unroll
+        for (int r = 0; r < R2; ++r)
+          w2[r] = __ldg(reinterpret_cast<const uint32_t*>(p2 + (size_t)r * N));
+      }
       const int kk0 = (kb - kb_begin) * kBlock;
 #pragma unroll
       for (int k = 0; k < kBlock; ++k) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const uint32_t b0 = (w0[D::row(0, k)] >> (8 * j)) & 0xFFu;
-          uint32_t b1 = 0;
+          uint32_t b1 = 0, b2 = 0;
           if constexpr (R1 > 0) b1 = (w1[D::row(1, k)] >> (8 * j)) & 0xFFu;
+          if constexpr (R2 > 0) b2 = (w2[D::row(2, k)] >> (8 * j)) & 0xFFu;
           const float w =
-              round_bf16(dequant<D>(D::value(b0, b1, k), sc[j], off[j]));
+              round_bf16(dequant<D>(D::value(b0, b1, b2, k), sc[j], off[j]));
 #pragma unroll
           for (int m = 0; m < M; ++m)
             acc[m][j] = fmaf(xs[m][kk0 + k], w, acc[m][j]);
@@ -245,12 +256,12 @@ struct GemmSmem {
 template <class D>
 __global__ void __launch_bounds__(kGemmThreads)
 dq_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
-        const uint8_t* __restrict__ data1,
+        const uint8_t* __restrict__ data1, const uint8_t* __restrict__ data2,
         const typename D::Meta* __restrict__ scale,
         const typename D::Meta* __restrict__ base,
         __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   using namespace nvcuda;
-  constexpr int kBK = D::kBlock, R0 = D::kRows0, R1 = D::kRows1;
+  constexpr int kBK = D::kBlock, R0 = D::kRows0, R1 = D::kRows1, R2 = D::kRows2;
   constexpr int kLdx = GemmSmem<kBK>::kLdx;
   __shared__ __align__(128) unsigned char smem[GemmSmem<kBK>::kBytes];
   __shared__ float sc_s[kBN], off_s[kBN];
@@ -298,20 +309,24 @@ dq_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
       const int k = it / (kBN / 16);
       const int c0 = (it % (kBN / 16)) * 16;
       const int col = n0 + c0;
-      uint4 v0 = make_uint4(0, 0, 0, 0), v1 = make_uint4(0, 0, 0, 0);
+      uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0, v2 = v0;
       if (col < N) {  // N % 16 == 0: the 16-column run is in range
         v0 = *reinterpret_cast<const uint4*>(
             data0 + ((size_t)kb * R0 + D::row(0, k)) * N + col);
         if constexpr (R1 > 0)
           v1 = *reinterpret_cast<const uint4*>(
               data1 + ((size_t)kb * R1 + D::row(1, k)) * N + col);
+        if constexpr (R2 > 0)
+          v2 = *reinterpret_cast<const uint4*>(
+              data2 + ((size_t)kb * R2 + D::row(2, k)) * N + col);
       }
       const uint8_t* b0 = reinterpret_cast<const uint8_t*>(&v0);
       const uint8_t* b1 = reinterpret_cast<const uint8_t*>(&v1);
+      const uint8_t* b2 = reinterpret_cast<const uint8_t*>(&v2);
 #pragma unroll
       for (int i = 0; i < 16; ++i)
         ws[k * kLdw + c0 + i] = __float2bfloat16_rn(dequant<D>(
-            D::value(b0[i], b1[i], k), sc_s[c0 + i], off_s[c0 + i]));
+            D::value(b0[i], b1[i], b2[i], k), sc_s[c0 + i], off_s[c0 + i]));
     }
     __syncthreads();
 #pragma unroll
@@ -352,27 +367,29 @@ dq_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
 
 template <class D, int M>
 void launch_gemv(const __nv_bfloat16* x, const uint8_t* data0,
-                 const uint8_t* data1, const typename D::Meta* scale,
+                 const uint8_t* data1, const uint8_t* data2,
+                 const typename D::Meta* scale,
                  const typename D::Meta* base, float* partial,
                  __nv_bfloat16* out, int K, int N, int kb_per_split,
                  int ksplit, cudaStream_t stream) {
   dim3 grid((N + kGemvCols - 1) / kGemvCols, ksplit);
   dq_gemv<D, M><<<grid, kGemvWarps * 32, 0, stream>>>(
-      x, data0, data1, scale, base, partial, out, K, N, kb_per_split, ksplit);
+      x, data0, data1, data2, scale, base, partial, out, K, N, kb_per_split, ksplit);
 }
 
 // y = x @ dequant(W) with a plan from plan_matmul; a decode plan that does
 // not cover K exactly once, or that overflows the x staging buffer, is
-// refused with cudaErrorInvalidValue, as is a missing base or high plane
-// for a format that has one.
+// refused with cudaErrorInvalidValue, as is a missing base or second or
+// third plane for a format that has one.
 template <class D>
 int run_matmul(const void* x, const void* data0, const void* data1,
-               const void* scale, const void* base, void* out,
+               const void* data2, const void* scale, const void* base, void* out,
                void* workspace, int M, int K, int N, int kb_per_split,
                int ksplit, void* stream_ptr) {
   constexpr int kBlock = D::kBlock;
   if (M <= 0 || K <= 0 || K % kBlock || N <= 0 || N % 16 ||
-      (D::kBase && base == nullptr) || (D::kRows1 > 0 && data1 == nullptr))
+      (D::kBase && base == nullptr) || (D::kRows1 > 0 && data1 == nullptr) ||
+      (D::kRows2 > 0 && data2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 8) {
     const int nkb = K / kBlock;
@@ -386,20 +403,21 @@ int run_matmul(const void* x, const void* data0, const void* data1,
   auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* d0 = static_cast<const uint8_t*>(data0);
   auto* d1 = static_cast<const uint8_t*>(data1);
+  auto* d2 = static_cast<const uint8_t*>(data2);
   auto* sc = static_cast<const Meta*>(scale);
   auto* bs = static_cast<const Meta*>(base);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   auto* ws = static_cast<float*>(workspace);
   if (M <= 8) {
     switch (M) {
-      case 1: launch_gemv<D, 1>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 2: launch_gemv<D, 2>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 3: launch_gemv<D, 3>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 4: launch_gemv<D, 4>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 5: launch_gemv<D, 5>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 6: launch_gemv<D, 6>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 7: launch_gemv<D, 7>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      default: launch_gemv<D, 8>(xb, d0, d1, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 1: launch_gemv<D, 1>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 2: launch_gemv<D, 2>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 3: launch_gemv<D, 3>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 4: launch_gemv<D, 4>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 5: launch_gemv<D, 5>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 6: launch_gemv<D, 6>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      case 7: launch_gemv<D, 7>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
+      default: launch_gemv<D, 8>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || ksplit == 1) return static_cast<int>(err);
@@ -408,7 +426,7 @@ int run_matmul(const void* x, const void* data0, const void* data1,
     return static_cast<int>(cudaGetLastError());
   }
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  dq_gemm<D><<<grid, kGemmThreads, 0, stream>>>(xb, d0, d1, sc, bs, ob, M, K, N);
+  dq_gemm<D><<<grid, kGemmThreads, 0, stream>>>(xb, d0, d1, d2, sc, bs, ob, M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,6 +471,18 @@ int plan_matmul(int M, int K, int N, int block, int sm_count,
            const void* scale, const void* base, void* out, void* workspace, \
            int M, int K, int N, int kb_per_split, int ksplit,               \
            void* stream_ptr) {                                              \
-    return run_matmul<D>(x, data, data_h, scale, base, out, workspace, M, K, \
-                         N, kb_per_split, ksplit, stream_ptr);              \
+    return run_matmul<D>(x, data, data_h, nullptr, scale, base, out,        \
+                         workspace, M, K, N, kb_per_split, ksplit,          \
+                         stream_ptr);                                       \
+  }
+// The same for a three-plane policy: (x, data, data_m, data_h, scale, ...)
+// with the planes in the policy's order 0, 1, 2.
+#define IFT_MATMUL_ENTRY3(name, D)                                          \
+  int name(const void* x, const void* data, const void* data_m,             \
+           const void* data_h, const void* scale, const void* base,         \
+           void* out, void* workspace, int M, int K, int N,                 \
+           int kb_per_split, int ksplit, void* stream_ptr) {                \
+    return run_matmul<D>(x, data, data_m, data_h, scale, base, out,         \
+                         workspace, M, K, N, kb_per_split, ksplit,          \
+                         stream_ptr);                                       \
   }

@@ -15,15 +15,16 @@ layout's ``data_i4p`` plane of the four 4-bit single-plane formats
 (``q3h_matmul``) and in its wire mode for Q3H_B64T1's three wire planes
 (``q3h_wire_matmul``; ``from_np(..., fast_layout=False)`` and
 ``pair8_to_wire`` give them, as the JAX ``quantized_matmul`` routes them
-to the same kernel).  B6's non-pair branch, the format-generic kernel,
-is reached only through ``generic_matmul`` (``generic_matmul``), which
-the kernel bench calls: no route of the JAX package reaches it either
-(``_fast_eligible`` sends every non-pair format to B1).  On a CUDA tensor
-the entries launch the hand-written kernel of ``csrc/dequant_matmul.cu``,
-``csrc/subbyte_matmul.cu`` or ``csrc/generic_matmul.cu`` (all built on
-``csrc/dequant_matmul.cuh``) or raise; on a CPU tensor they run the plain
-version, which is also what ``chip_smoke.py`` holds the kernel against on
-the card.
+to the same kernel).  B6's non-pair branch, the format-generic function,
+is reached only through ``generic_matmul`` (launch count
+``generic_matmul``), which the kernel bench calls: no route of the JAX
+package reaches it either (``_fast_eligible`` sends every non-pair format
+to B1).  Its weights are B1's bit for bit, so it launches the B1 entry
+compiled for the format (``_launch_generic``).  On a CUDA tensor the
+entries launch the hand-written kernel of ``csrc/dequant_matmul.cu`` or
+``csrc/subbyte_matmul.cu`` (both built on ``csrc/dequant_matmul.cuh``) or
+raise; on a CPU tensor they run the plain version, which is also what
+``chip_smoke.py`` holds the kernel against on the card.
 """
 
 from __future__ import annotations
@@ -58,8 +59,9 @@ def quantized_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor
 
 # (plane, format) -> (launch count, source under csrc/, C entry).  The
 # ``data`` plane stands for a format's wire planes (``data`` and, for the
-# two-plane formats, ``data_h``); the i4 and pair8 planes hold two K rows
-# per byte.
+# two-plane formats, ``data_h``; Q3H's ``data``, ``data_m`` and ``data_h``
+# over its K/2 pair codes, an entry with three plane arguments); the i4 and
+# pair8 planes hold two K rows per byte.
 _KERNELS = {
     ("data", "Q4_B64T1"): (KERNEL, "dequant_matmul", "ift_q4_matmul"),
     ("data", "Q8_B32T2"): (Q8_KERNEL, "dequant_matmul", "ift_q8_matmul"),
@@ -75,6 +77,8 @@ _KERNELS = {
                            "ift_i4b16f_matmul"),
     (PAIR8_PLANE, "Q3H_B64T1"): (Q3H_KERNEL, "dequant_matmul",
                                  "ift_q3h_matmul"),
+    ("data", "Q3H_B64T1"): (Q3H_WIRE_KERNEL, "dequant_matmul",
+                            "ift_q3h_wire_matmul"),
     **{("data", fmt): (SUBBYTE_KERNEL, "subbyte_matmul", entry)
        for fmt, entry in (("Q6_B64T1", "ift_q6_matmul"),
                           ("Q5_B64T1", "ift_q5_matmul"),
@@ -95,16 +99,12 @@ def _lib(source: str = "dequant_matmul"):
     lib = _build.load(source)
     if not getattr(lib, "_ift_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for _, src, entry in _KERNELS.values():
+        for (plane, fmt), (_, src, entry) in _KERNELS.items():
             if src == source:
                 fn = getattr(lib, entry)
-                fn.argtypes = [vp] * 7 + [i] * 5 + [vp]
+                planes = max(2, len(_plane_names(plane, get_format(fmt))))
+                fn.argtypes = [vp] * (5 + planes) + [i] * 5 + [vp]
                 fn.restype = ctypes.c_int
-        if source == "generic_matmul":
-            lib.ift_q3h_wire_matmul.argtypes = [vp] * 8 + [i] * 5 + [vp]
-            lib.ift_q3h_wire_matmul.restype = ctypes.c_int
-            lib.ift_generic_matmul.argtypes = [vp] * 8 + [i] * 12 + [vp]
-            lib.ift_generic_matmul.restype = ctypes.c_int
         lib.ift_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
         lib.ift_matmul_plan.restype = ctypes.c_int
@@ -126,12 +126,20 @@ def matmul_plan(lib, m: int, k: int, n: int, device, block: int = 64
     return per.value, ksplit.value
 
 
+def _plane_names(plane: str, fmt) -> list:
+    """The planes the kernel of `plane` reads, in its argument order."""
+    return [p.name for p in fmt.planes] if plane == "data" else [plane]
+
+
 def _plane_rows(qt: QuantizedTensor, plane: str) -> dict:
-    """{plane name: stored byte rows} the kernel of `plane` reads."""
+    """{plane name: stored byte rows} the kernel of `plane` reads: a wire
+    plane of b bits holds b/8 byte rows per code (a Q3H code per two K
+    rows), the i4 and pair8 planes one byte row per two K rows."""
     fmt = get_format(qt.format)
     if plane != "data":
         return {plane: qt.storage_k // 2}
-    return {p.name: qt.storage_k * p.bits // 8 for p in fmt.planes}
+    codes = qt.storage_k // 2 if fmt.pair_base11 else qt.storage_k
+    return {p.name: codes * p.bits // 8 for p in fmt.planes}
 
 
 def _plane(qt: QuantizedTensor) -> str:
@@ -144,21 +152,18 @@ def _plane(qt: QuantizedTensor) -> str:
 def kernel_name(qt: QuantizedTensor) -> str:
     """The launch count of the kernel quantized_matmul runs for qt on the
     card (KeyError for a plane it has no kernel for)."""
-    fmt = get_format(qt.format)
-    if fmt.pair_base11 and PAIR8_PLANE not in qt.planes:
-        return Q3H_WIRE_KERNEL
-    return _KERNELS[_plane(qt), fmt.name][0]
+    return _KERNELS[_plane(qt), get_format(qt.format).name][0]
 
 
-def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, qt: QuantizedTensor,
+            count: str = None) -> torch.Tensor:
     """y = x @ W through kernel B1, B5 or B6 on the card; x: (..., K) with K
     the logical K of qt.  The kernels take (M, K_s) contiguous bf16 rows,
     16-byte aligned: a stored K beyond the logical K (zero-scale,
     zero-base pad blocks) takes zero-padded activations, as the JAX
-    wrapper does."""
+    wrapper does.  The launch counts under `count`, else the kernel's
+    name."""
     fmt = get_format(qt.format)
-    if fmt.pair_base11 and PAIR8_PLANE not in qt.planes:
-        return _launch_generic(x, qt)
     plane = _plane(qt)
     rows = _plane_rows(qt, plane)
     if (plane, fmt.name) not in _KERNELS or set(qt.planes) != set(rows):
@@ -187,14 +192,15 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, blk)
     work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
             if ksplit > 1 else out)
-    planes = [_build.ptr(qt.planes[name]) for name in rows]
-    null = ctypes.c_void_p(0)
-    data_h = planes[1] if len(planes) > 1 else null
-    base = _build.ptr(qt.base) if has_base else null
-    rc = getattr(lib, entry)(_build.ptr(x2), planes[0], data_h,
+    planes = [_build.ptr(qt.planes[name])
+              for name in _plane_names(plane, fmt)]
+    planes += [ctypes.c_void_p(0)] * (2 - len(planes))  # data_h unused
+    base = _build.ptr(qt.base) if has_base else ctypes.c_void_p(0)
+    rc = getattr(lib, entry)(_build.ptr(x2), *planes,
                              _build.ptr(qt.scale), base,
                              _build.ptr(out), _build.ptr(work), m, k_s, n,
                              per, ksplit, _build.stream_of(x2))
+    kernel = count or kernel
     _build.check(lib, rc, kernel)
     _build.launch_counts[kernel] += 1
     return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
@@ -212,59 +218,31 @@ def _pad_activations(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return x2.clone() if x2.data_ptr() % 16 else x2
 
 
+def generic_entry(fmt_name: str) -> tuple:
+    """(source under csrc/, C entry) that B6's non-pair branch launches for
+    a block format's wire planes: the format's own B1 entry, whose weights
+    (bf16(code*scale + base), or code*scale without a base, as two rounded
+    float32 operations) are the branch's bit for bit.  NotImplementedError
+    names a format with no compiled entry."""
+    fmt = get_format(fmt_name)
+    if fmt.pair_base11 or ("data", fmt.name) not in _KERNELS:
+        raise NotImplementedError(
+            f"B6's non-pair branch has no compiled entry for {fmt.name}")
+    return _KERNELS["data", fmt.name][1:]
+
+
 def _launch_generic(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """y = x @ W through kernel B6 of csrc/generic_matmul.cu: its wire mode
-    for Q3H in its three wire planes, its non-pair branch for the wire
-    planes of any other block format (the plane list passed at run
-    time)."""
+    """y = x @ W through B6's non-pair branch on the card: the B1 entry of
+    qt's format (generic_entry) on its wire planes, counted as
+    ``generic_matmul``."""
     fmt = get_format(qt.format)
+    generic_entry(fmt.name)
     names = [p.name for p in fmt.planes]
     if set(qt.planes) != set(names):
         raise NotImplementedError(
-            f"B6's wire and non-pair modes read {fmt.name}'s wire planes "
+            f"B6's non-pair branch reads {fmt.name}'s wire planes "
             f"{names}; got {sorted(qt.planes)}")
-    _build.require_hopper(x)
-    k, n = int(qt.shape[-2]), int(qt.shape[-1])
-    k_s, blk = qt.storage_k, fmt.block
-    if n % 16:
-        raise ValueError(f"N={n} must be a multiple of 16")
-    codes = k_s // 2 if fmt.pair_base11 else k_s
-    for p in fmt.planes:
-        _build.check_operand(qt.planes[p.name], p.name, torch.uint8,
-                             (codes * p.bits // 8, n))
-    meta = torch.float32 if fmt.meta == "u8" else torch.float16
-    has_base = fmt.base_kind != "zero"
-    _build.check_operand(qt.scale, "scale", meta, (k_s // blk, n))
-    if has_base:
-        _build.check_operand(qt.base, "base", meta, (k_s // blk, n))
-    x2 = _pad_activations(x, qt)
-    m = x2.shape[0]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    lib = _lib("generic_matmul")
-    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, blk)
-    work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
-            if ksplit > 1 else out)
-    null = ctypes.c_void_p(0)
-    planes = [_build.ptr(qt.planes[p.name]) for p in fmt.planes]
-    planes += [null] * (3 - len(planes))
-    base = _build.ptr(qt.base) if has_base else null
-    head = (_build.ptr(x2), *planes, _build.ptr(qt.scale), base,
-            _build.ptr(out), _build.ptr(work), m, k_s, n, per, ksplit)
-    if fmt.pair_base11:
-        kernel = Q3H_WIRE_KERNEL
-        rc = lib.ift_q3h_wire_matmul(*head, _build.stream_of(x2))
-    else:
-        kernel = GENERIC_KERNEL
-        bits = [p.bits for p in fmt.planes] + [0] * (3 - len(fmt.planes))
-        flags = (int(fmt.signed) | int(has_base) << 1
-                 | int(fmt.meta == "u8") << 2)
-        rc = lib.ift_generic_matmul(
-            *head, len(fmt.planes), *bits,
-            int(fmt.planes[0].layout == "split_half"), blk, flags,
-            _build.stream_of(x2))
-    _build.check(lib, rc, kernel)
-    _build.launch_counts[kernel] += 1
-    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
+    return _launch(x, qt, count=GENERIC_KERNEL)
 
 
 def generic_weight(qt: QuantizedTensor) -> torch.Tensor:
@@ -312,9 +290,9 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """y = x @ dequant(qt); x: (..., K) with K the logical K of qt; every
     quantized product of ops/linear.py.  CUDA tensors run the kernel of
     qt's plane and format (_KERNELS: B5 for ``data_i4p``, B6 for
-    ``pair8``, B1 for the wire planes of every other block format; B6's
-    wire mode for Q3H's wire planes; M <= 8 the split-K GEMV, more rows
-    the tiled tensor-core kernel) or raise; CPU tensors its plain version
+    ``pair8`` and, in its wire mode, for Q3H's wire planes, B1 for the
+    wire planes of every other block format; M <= 8 the split-K GEMV, more
+    rows the tiled tensor-core kernel) or raise; CPU tensors its plain version
     (i4_matmul_plain for B5, quantized_matmul_plain for B1 and B6, whose
     weights are the codec's bit for bit)."""
     if x.device.type == "cpu":

@@ -14,24 +14,32 @@ raises (nothing is caught).
         [--k 8192] [--n 8192] [--m 1] [--skip-perf] [--tol 2e-2]
         [--attention] [--i8mm] [--mega] [--mega-model tinyllama-1.1b]
         [--mega-quant Q4_B64T1] [--mega-layout ''] [--unpack] [--b6]
-        [--b6-model llama2-13b] [--device cpu]
+        [--b6-model llama2-13b] [--b3] [--b3-nsplit 1,2,3] [--device cpu]
 
-Parts (the JAX bench's, plus --unpack and --b6):
+Parts (the JAX bench's, plus --unpack, --b6 and --b3):
   - each of --formats (default: the JAX bench's twelve; ``none``: no
     format) through
     ``quantized_matmul`` at (M, K) x (K, N): the kernel its plane takes
     (B1, B6's pair8 mode), norm_rmsd against x @ dequantize(W) in float32
     below --tol;
-  - --b6: kernel B6's wire mode on Q3H's wire planes (``pair8_to_wire``)
-    and its non-pair branch (``generic_matmul``) on every non-pair block
-    format; at --b6-model's five products (qkv, wo, w1n3, w2, lm_head) for
-    the wire mode and its w1n3 for the non-pair branch, else at (K, N);
+  - --b6: kernel B6's wire mode on Q3H's wire planes (``pair8_to_wire``;
+    the pair8 mode on the same weights timed beside it, ``pair8_ms``) and
+    its non-pair branch (``generic_matmul``) on every non-pair block format
+    (B1 on the same weights timed beside it, ``b1_ms``: the branch
+    launches B1's entry for the format); at --b6-model's five products
+    (qkv, wo, w1n3, w2, lm_head) for the wire mode and its w1n3 for the
+    non-pair branch, else at (K, N);
   - --unpack: X1-X5 (tools/exp_unpack.py) at the JAX tool's shapes, or
     EXP_SHAPE=KxN;
   - --attention: B2 at the JAX bench's D = 128 and D = 64 cases, and at
     head_dim 256 (gemma-2b's head shape: 8 query heads on 1 kv head): B2 at
-    8 slots of up to 4096 rows, B3 a 256-row chunk at row 1536, B7 over the
-    same rows on shuffled pages;
+    8 slots of up to 4096 rows, B3 a 256-row chunk at row 1536 (with its
+    key walk's split, ``nsplit``), B7 over the same rows on shuffled
+    pages;
+  - --b3: B3 on 256-row chunks at B3_SHAPES (chip_smoke.py's three shapes
+    and llama2-7b's width at rows 768, 1280 and 1792), each row with the
+    split its launch used (``nsplit``); --b3-nsplit adds, for each count
+    given, a row with the split forced to it (the kernel alone timed);
   - --i8mm: the int8 GEMV of the i8mm layout against the float32 product;
   - --mega: the whole-model fused decode step (B4) against the per-layer
     loop (INFERFLOW_MEGA=0 around the per-layer call, restored after), its
@@ -74,6 +82,14 @@ NONPAIR_FORMATS = ["Q8_B32T1", "Q8_B32T2", "Q6_B64T1", "Q5_B64T1",
                    "Q2_B32T1A", "Q2_B32T1B"]
 KERNEL_REL_TOL = 8e-3  # |kernel - plain| <= tol * max|plain|: ~2 bf16 ulps
 D256_LENGTHS = (4096, 3000, 2048, 1500, 1023, 700, 301, 17)
+# --b3: (label, kv heads, query heads per kv head, head_dim, chunk starts)
+# of B3's 256-row chunks on a Q8 cache: chip_smoke.py's three shapes
+# (tinyllama-1.1b, llama2-13b's width, gemma-2b's head shape) and
+# llama2-7b's width along a long prompt
+B3_SHAPES = (("tinyllama-1.1b", 4, 8, 64, (256,)),
+             ("llama2-7b", 32, 1, 128, (768, 1280, 1792)),
+             ("llama2-13b", 40, 1, 128, (1536,)),
+             ("gemma-2b", 1, 8, 256, (1536,)))
 D256_CHUNK_START = 1536
 MEGA_CTX = (64, 512, 4096)
 # the fused step follows the TPU kernel's rounding points, the per-layer
@@ -164,17 +180,24 @@ def model_products(name: str) -> dict:
 
 
 def _matmul_case(b: Bench, part: str, kernel: str, label: str, qt, w_bf16,
-                 x, fn, plain) -> dict:
+                 x, fn, plain, beside=None) -> dict:
+    """One product against its plain version; `beside` = {key: callable}
+    of other kernels on the same inputs, each timed in the same run (its
+    key in the row: ms)."""
     m, k = x.shape
     n = int(qt.shape[-1])
     got = fn(x, qt)
     ref_plain = plain(x, qt)
     ref = torch.matmul(x.float(), w_bf16.float())
+    extra = {}
+    if b.timer is not None:
+        extra = {key: b.timer(call, f"{kernel} {key}")
+                 for key, call in (beside or {}).items()}
     return b.row(part, kernel, f"{label} M={m} K={k} N={n}", got, ref_plain,
                  ref, (lambda: fn(x, qt), lambda: plain(x, qt),
                        lambda: torch.matmul(x, w_bf16)),
                  bytes_moved=qt.nbytes + 2 * m * k + 2 * m * n,
-                 ops=2 * m * k * n, packed_bytes=qt.nbytes)
+                 ops=2 * m * k * n, packed_bytes=qt.nbytes, **extra)
 
 
 def formats_part(b: Bench, formats, k: int, n: int, ms) -> None:
@@ -195,8 +218,10 @@ def formats_part(b: Bench, formats, k: int, n: int, ms) -> None:
 
 
 def b6_part(b: Bench, shapes: dict, generic_shape, ms) -> None:
-    """B6's wire mode on Q3H at every shape, its non-pair branch on every
-    non-pair format at `generic_shape`."""
+    """B6's wire mode on Q3H at every shape, with the pair8 mode on the
+    same weights timed beside it (``pair8_ms``); its non-pair branch on
+    every non-pair format at `generic_shape`, with B1 on the same weights
+    timed beside it (``b1_ms``)."""
     from ..kernels.dequant_matmul import (GENERIC_KERNEL, Q3H_WIRE_KERNEL,
                                           generic_matmul, generic_matmul_plain,
                                           quantized_matmul,
@@ -204,23 +229,26 @@ def b6_part(b: Bench, shapes: dict, generic_shape, ms) -> None:
     from ..quant.codec_torch import dequantize, pair8_to_wire, quantize
     gen = b.gen(1)
     for name, (k, n) in shapes.items():
-        qt = pair8_to_wire(quantize(_weight(gen, k, n, b.device),
-                                    "Q3H_B64T1"))
+        pair8 = quantize(_weight(gen, k, n, b.device), "Q3H_B64T1")
+        qt = pair8_to_wire(pair8)
         w_bf16 = dequantize(qt, torch.bfloat16)
         for m in ms:
+            x = _acts(gen, m, k, b.device)
             _matmul_case(b, "b6", Q3H_WIRE_KERNEL, f"{name} Q3H_B64T1 wire",
-                         qt, w_bf16, _acts(gen, m, k, b.device),
-                         quantized_matmul, quantized_matmul_plain)
-        del qt, w_bf16
+                         qt, w_bf16, x, quantized_matmul,
+                         quantized_matmul_plain,
+                         {"pair8_ms": lambda: quantized_matmul(x, pair8)})
+        del qt, w_bf16, pair8
     name, (k, n) = generic_shape
     w = _weight(gen, k, n, b.device)
     for fmt in NONPAIR_FORMATS:
         qt = quantize(w, fmt)
         w_bf16 = dequantize(qt, torch.bfloat16)
         for m in ms:
+            x = _acts(gen, m, k, b.device)
             _matmul_case(b, "b6", GENERIC_KERNEL, f"{name} {fmt}", qt, w_bf16,
-                         _acts(gen, m, k, b.device), generic_matmul,
-                         generic_matmul_plain)
+                         x, generic_matmul, generic_matmul_plain,
+                         {"b1_ms": lambda: quantized_matmul(x, qt)})
 
 
 def unpack_part(b: Bench) -> None:
@@ -311,10 +339,55 @@ def _decode_case(b: Bench, label: str, cache, lengths, hq: int, gen,
           ops=4 * live * hq * d)
 
 
-def attention_part(b: Bench) -> None:
+def _chunk_case(b: Bench, label: str, cache, gen, hq: int, start: int,
+                nsplits=()) -> None:
+    """B3 on a 256-row chunk of slot 0 at row `start`: against its plain
+    version, timed beside the plain version and ``sdpa``; on the card the
+    row carries the split the wrapper launched with (``nsplit``) and the
+    CTAs of B3 one SM holds (``ctas_per_sm``, the occupancy the split rule
+    reads), and each count of `nsplits` gives one more row with the split
+    forced to it (the kernel alone timed; ``"forced": true``)."""
     import torch.nn.functional as F
-    from ..kernels.attention import (CHUNK_KERNEL, chunk_attention,
-                                     chunk_attention_plain, kernel_name)
+    from ..kernels import attention as att
+    h, s, d = cache.k.shape[2:]
+    c, slot, g = 256, 0, hq // h
+    name = att.kernel_name(att.CHUNK_KERNEL, d)
+    q = (torch.randn((1, c, hq, d), generator=gen, device=b.device)
+         * 0.3).to(torch.bfloat16)
+    got = att.chunk_attention(q, cache, 0, slot, start)[0][0]
+    ref = att.chunk_attention_plain(q[0], cache, 0, slot, start)
+    n_keys = start + c
+    qs, k, v = _sdpa_inputs(cache, q, g)
+    k, v = k[slot:slot + 1, :, :n_keys], v[slot:slot + 1, :, :n_keys]
+    mask = (torch.arange(n_keys, device=b.device)[None, :]
+            <= start + torch.arange(c, device=b.device)[:, None])
+    visible = c * start + c * (c + 1) // 2
+    shape = f"{label} C={c} start={start} Hq={hq} H={h} D={d}"
+    cost = {"bytes_moved": _kv_bytes(n_keys, h, d) + 4 * q.numel(),
+            "ops": 4 * visible * hq * d}
+    on_card = b.device.type == "cuda"
+    card = {}
+    if on_card:
+        card["ctas_per_sm"] = att.chunk_ctas_per_sm(
+            torch.cuda.current_device() if b.device.index is None
+            else b.device.index, d, cache.block if cache.quantized else d,
+            int(cache.quantized))
+    b.row("attention", name, shape, got, ref, ref,
+          (lambda: att.chunk_attention(q, cache, 0, slot, start),
+           lambda: att.chunk_attention_plain(q[0], cache, 0, slot, start),
+           lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask)),
+          **cost, **card, **({"nsplit": att.last_chunk_split[name]}
+                             if on_card else {}))
+    for n in nsplits if on_card else ():
+        def forced():
+            return att.chunk_attention_cuda(q[0], cache, 0, slot, start,
+                                            nsplit=n)
+        extra = {} if b.timer is None else {"ms": b.timer(forced, name)}
+        b.row("attention", name, shape, forced(), ref, **cost, **extra,
+              nsplit=att.last_chunk_split[name], forced=True)
+
+
+def attention_part(b: Bench) -> None:
     # the JAX bench's cases: 2 slots of 97 and 1024 rows, 4 kv heads
     for d, label in ((128, "decode D=128"), (64, "decode D=64")):
         cache, gen = _filled_cache(b, 2, 1024, 1024, 4, d, seed=d)
@@ -327,25 +400,17 @@ def attention_part(b: Bench) -> None:
     _decode_case(b, "decode D=256", cache, D256_LENGTHS, hq, gen)
     _decode_case(b, "paged decode D=256", cache, D256_LENGTHS, hq, gen,
                  paged=_paged_copy(cache, gen))
-    c, slot, start = 256, 0, D256_CHUNK_START
-    q = (torch.randn((1, c, hq, d), generator=gen, device=b.device)
-         * 0.3).to(torch.bfloat16)
-    got = chunk_attention(q, cache, 0, slot, start)[0][0]
-    ref = chunk_attention_plain(q[0], cache, 0, slot, start)
-    n_keys = start + c
-    qs, k, v = _sdpa_inputs(cache, q, hq // h)
-    k, v = k[slot:slot + 1, :, :n_keys], v[slot:slot + 1, :, :n_keys]
-    mask = (torch.arange(n_keys, device=b.device)[None, :]
-            <= start + torch.arange(c, device=b.device)[:, None])
-    visible = c * start + c * (c + 1) // 2
-    b.row("attention", kernel_name(CHUNK_KERNEL, d),
-          f"chunk D=256 C={c} start={start} Hq={hq} H={h} D={d}", got, ref,
-          ref,
-          (lambda: chunk_attention(q, cache, 0, slot, start),
-           lambda: chunk_attention_plain(q[0], cache, 0, slot, start),
-           lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask)),
-          bytes_moved=_kv_bytes(n_keys, h, d) + 4 * q.numel(),
-          ops=4 * visible * hq * d)
+    _chunk_case(b, "chunk D=256", cache, gen, hq, D256_CHUNK_START)
+
+
+def b3_part(b: Bench, nsplits) -> None:
+    """B3 at B3_SHAPES, each chunk also with its split forced to each count
+    of `nsplits`."""
+    for label, h, g, d, starts in B3_SHAPES:
+        for start in starts:
+            cache, gen = _filled_cache(b, 1, start + 256, start + 256, h, d,
+                                       seed=start + d)
+            _chunk_case(b, label, cache, gen, h * g, start, nsplits)
 
 
 def i8mm_part(b: Bench, k: int, n: int, ms) -> None:
@@ -518,6 +583,10 @@ def parse_args(argv=None):
                     help="B6's wire mode (Q3H) and non-pair branch")
     ap.add_argument("--b6-model", default="",
                     help="a zoo model whose products --b6 runs at")
+    ap.add_argument("--b3", action="store_true",
+                    help="B3 at B3_SHAPES")
+    ap.add_argument("--b3-nsplit", default="",
+                    help="comma list of key-walk splits to force on --b3")
     ap.add_argument("--tol", type=float, default=2e-2,
                     help="norm_rmsd bound against the float32 reference")
     ap.add_argument("--device", default="cuda")
@@ -549,6 +618,8 @@ def bench(argv=None) -> list:
         unpack_part(b)
     if args.attention:
         attention_part(b)
+    if args.b3:
+        b3_part(b, [int(v) for v in args.b3_nsplit.split(",") if v])
     if args.i8mm:
         i8mm_part(b, args.k, args.n, ms)
     if args.mega:

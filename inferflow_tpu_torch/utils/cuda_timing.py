@@ -7,6 +7,7 @@ Times come only from CUDA events on a card; nothing here runs on the CPU.
 from __future__ import annotations
 
 import json
+import time
 
 import numpy as np
 import torch
@@ -15,6 +16,12 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor cores, H100 SXM data sheet
 TIMED_ITERS = 20
+# a callable slower than SLOW_BUDGET_S / TIMED_ITERS (a plain version of a
+# many-layer decode step takes 0.05-1.5 s) is timed over fewer calls, as
+# many as fit SLOW_BUDGET_S and at least SLOW_MIN_ITERS (never more than
+# asked for), without the sleep ahead of each call
+SLOW_BUDGET_S = 1.0
+SLOW_MIN_ITERS = 3
 
 
 def bound(bytes_moved: float, ops: float, peak: float = H100_BF16_FLOPS
@@ -42,7 +49,13 @@ class Timer:
     issues about 115) far below the launch queue's depth, past which the
     host would block.  A callable that waits on the device itself (a
     device-to-host read) can never be queued ahead: it is timed alone, and
-    its events then include its host gaps (a "timer" line names it)."""
+    its events then include its host gaps (a "timer" line names it).
+    A callable whose second warm-up call takes longer than SLOW_BUDGET_S /
+    TIMED_ITERS is timed over min(iters, max(SLOW_MIN_ITERS, SLOW_BUDGET_S /
+    that)) calls, each alone: a sleep of at most 16 ms cannot cover its
+    host time (the plain versions of the decode steps spend 0.05-1.5 s
+    launching small kernels), so the sleep would only cost three wasted
+    calls before the same fallback."""
 
     # ~1 ms at the H100's ~2 GHz clock: enough for a single kernel's
     # launch; a callable whose launches take the host longer (a fused
@@ -69,8 +82,15 @@ class Timer:
         return start.elapsed_time(end), host_ahead
 
     def __call__(self, fn, label: str = "", iters: int = TIMED_ITERS) -> float:
-        fn()  # warm up
+        fn()  # warm up (a first call may build or load a kernel)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        if call_s * TIMED_ITERS > SLOW_BUDGET_S:
+            return self._alone(fn, label, min(iters, max(
+                SLOW_MIN_ITERS, int(SLOW_BUDGET_S / call_s))))
         times = []
         for _ in range(iters):
             for attempt in range(3):
@@ -82,6 +102,11 @@ class Timer:
                 break
         if len(times) == iters:
             return float(np.median(times))
+        return self._alone(fn, label, iters)
+
+    def _alone(self, fn, label: str, iters: int) -> float:
+        """Median over `iters` calls, each timed without a sleep ahead of
+        it: its events include the host's gaps between its launches."""
         print(json.dumps({"phase": "timer", "ungated": label}), flush=True)
         return float(np.median([self._once(fn, 0)[0]
                                 for _ in range(iters)]))

@@ -1,5 +1,6 @@
 """Kernel B6's wire mode (Q3H in its three wire planes) and its non-pair
-branch (the format-generic kernel) against the JAX package, on the CPU.
+branch (the format-generic function) against the JAX package, on the CPU,
+and the table that sends both to B1's compiled entries on the card.
 
 Q3H's wire planes reach the port through ``QuantizedTensor.from_np(...,
 fast_layout=False)`` (and ``pair8_to_wire``), as the JAX package's
@@ -20,6 +21,9 @@ Tolerances:
     bf16 step of the output, the bound of tests/test_torch_subbyte.py.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,9 +32,10 @@ import torch
 from inferflow_tpu.kernels import dequant_matmul as jdm
 from inferflow_tpu.quant import codec_jax
 from inferflow_tpu.quant import codec_np as jcodec_np
+from inferflow_tpu_torch.kernels import _build
 from inferflow_tpu_torch.kernels import dequant_matmul as tdm
 from inferflow_tpu_torch.quant import codec_torch
-from inferflow_tpu_torch.quant.formats import get_format
+from inferflow_tpu_torch.quant.formats import FORMATS, get_format
 
 Q3H = "Q3H_B64T1"
 WIRE = {"data", "data_m", "data_h"}
@@ -179,3 +184,32 @@ def test_generic_entry_refuses_pairs_and_other_devices():
     qt = codec_torch.quantize(w, "Q6_B64T1")
     with pytest.raises(ValueError, match="unsupported device"):
         tdm.generic_matmul(torch.empty((2, 128), device="meta"), qt)
+
+
+def test_generic_and_wire_modes_map_to_compiled_entries():
+    """On the card, B6's non-pair branch launches the B1 entry of each
+    format: every non-pair block format of quant/formats maps
+    (generic_entry) to an entry that its source compiles with
+    IFT_MATMUL_ENTRY; Q3H, a pair format, has none and is refused by
+    name.  Q3H's three wire planes map to ift_q3h_wire_matmul, compiled
+    with IFT_MATMUL_ENTRY3 on the Q3HWire policy; no source of its own
+    remains."""
+    csrc = Path(tdm.__file__).parent / "csrc"
+    text = {src: (csrc / f"{src}.cu").read_text() for src in _build.SOURCES}
+    nonpair = [name for name, fmt in FORMATS.items() if not fmt.pair_base11]
+    assert len(nonpair) == 14
+    for name in nonpair:
+        source, entry = tdm.generic_entry(name)
+        assert re.search(rf"IFT_MATMUL_ENTRY\({entry}, \w+\)",
+                         text[source]), (name, source, entry)
+    with pytest.raises(NotImplementedError, match=Q3H):
+        tdm.generic_entry(Q3H)
+    wire = codec_torch.pair8_to_wire(
+        codec_torch.quantize(torch.randn(128, 64) * 0.05, Q3H))
+    assert set(wire.planes) == WIRE
+    assert tdm.kernel_name(wire) == tdm.Q3H_WIRE_KERNEL
+    _, source, entry = tdm._KERNELS["data", Q3H]
+    assert entry == "ift_q3h_wire_matmul"
+    assert re.search(r"IFT_MATMUL_ENTRY3\(ift_q3h_wire_matmul, Q3HWire\)",
+                     text[source])
+    assert not (csrc / "generic_matmul.cu").exists()
