@@ -52,10 +52,11 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    load_engine_config: llama2-7b at full width (make_spec; the model dir
    has no config.json) from seed-0 Q4_B64T1, resolved to i8mm on the card,
    16 slots, a 32768-token context and a 131072-token Q8 page pool:
-   (c) at full depth, 24 greedy queries (ENGINE_C_PROMPTS, 7 to 1024
-       tokens, 16 new tokens each; more queries than slots, so 8 reuse a
-       slot and released pages): every decode step takes the per-layer
-       loop (B = 16) with B7 in each layer; B4, B2 and B3 must not launch;
+   (c) at ENGINE_C_LAYERS layers, 24 greedy queries (ENGINE_C_PROMPTS, 7
+       to 1024 tokens, 16 new tokens each; more queries than slots, so 8
+       reuse a slot and released pages): every decode step takes the
+       per-layer loop (B = 16) with B7 in each layer; B4, B2 and B3 must
+       not launch;
        every sampled row is held against a dense-cache engine on the card
        (same weights, 16 slots, a 2048-token context, whole-prompt
        prefill), served first and freed before the paged one is built,
@@ -73,11 +74,12 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    - holds B4 mode (b) at 32 layers, B = 8 (I4_FUSED_LENGTHS) and B = 1,
      against its plain version (one layer and the stack; B4 (a) on (c)'s
      i8mm weights as a control) and times it beside B4 (a);
-   (e) serves ENGINE_E_PROMPTS (7 to 2000 tokens) at full depth: every
-       decode step B4 (b), B5 and B3 launch, B1, B2, B7, B4 (a) and the
-       int8 GEMV do not; every sampled row is held against a packed engine
-       on the card (B1/B2) built from the same Q4_B64T1 values and fed (e)'s
-       tokens; reports the resident weight bytes against (c)'s i8mm ones;
+   (e) serves ENGINE_E_PROMPTS (7 to 2000 tokens) at ENGINE_E_LAYERS
+       layers: every decode step B4 (b), B5 and B3 launch, B1, B2, B7,
+       B4 (a) and the int8 GEMV do not; every sampled row is held against
+       a packed engine on the card (B1/B2) built from the same Q4_B64T1
+       values and fed (e)'s tokens; reports the resident weight bytes
+       against (c)'s i8mm ones;
    (e-cpu) the same at ENGINE_ECPU_LAYERS layers, against the CPU engine;
    (f) ENGINE_F_LAYERS layers at ENGINE_F_SLOTS slots (B > 8: the per-layer
        loop, B5 and B2), against the CPU engine;
@@ -90,9 +92,10 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    - holds B2 and B3 at llama2-13b width (H = 40, D = 128) against their
      plain versions: B2 at (g)'s 8 slots (G_ATTN_LENGTHS) over a
      4096-row cache, B3 a 256-row chunk at row G_CHUNK_START;
-   (g) serves ENGINE_G_PROMPTS (7 to 2000 tokens) at full depth: every
-       product B6, every decode step the per-layer loop with B2, chunks
-       B3; no fused step, B1, B5 or int8 GEMV; every sampled row is held
+   (g) serves ENGINE_G_PROMPTS (7 to 2000 tokens) at ENGINE_G_LAYERS
+       layers: every product B6, every decode step the per-layer loop
+       with B2, chunks B3; no fused step, B1, B5 or int8 GEMV; every
+       sampled row is held
        against a dense twin on the card (the same values dequantized to
        bf16, linear's dense branch) fed (g)'s tokens, built after (g)'s
        engine and cache are freed; reports the model's bytes against the
@@ -239,11 +242,12 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    against the CPU engine; (n)'s packed twin again under
    INFERFLOW_MEGA=2 (the 32-row wire geometry from disk);
    convert_tokenizer_data on (n)'s tokenizer.json, read back; at the end
-   ppl_report on tinyllama-1.1b (PPL_REPORT_ARGS) and the perplexity CLI
-   (PERPLEXITY_ARGS).  Each mode is held layer by layer against its plain
-   version at ONE_LAYER_TOL x max|plain|; runs (k) and (l) and the B4 (b)
-   stacks on the other 4-bit formats run ENGINE_K_LAYERS, ENGINE_L_LAYERS
-   and I4_FORMATS_LAYERS layers.
+   ppl_report on tinyllama-1.1b cut to 11 layers (PPL_REPORT_ARGS) and
+   the perplexity CLI (PERPLEXITY_ARGS).  Each mode is held layer by layer
+   against its plain version at ONE_LAYER_TOL x max|plain|; runs (c), (e),
+   (g), (k) and (l) and the B4 (b) stacks on the other 4-bit formats run
+   ENGINE_C_LAYERS, ENGINE_E_LAYERS, ENGINE_G_LAYERS, ENGINE_K_LAYERS,
+   ENGINE_L_LAYERS and I4_FORMATS_LAYERS layers.
 13. B3 is the tensor-core kernel with a split key walk: its three rows
    (phase_b3 on tinyllama-1.1b, chunk_attention_g at llama2-13b width,
    the kernel bench's head_dim 256 case) carry `nsplit`, the split the
@@ -277,9 +281,12 @@ import torch
 
 # the package's timer and bound (a checkout without it fails here)
 from inferflow_tpu_torch.utils.cuda_timing import (  # noqa: E402
-    H100_BF16_FLOPS, H100_BYTES_PER_S, H100_INT8_OPS, TIMED_ITERS, Timer,
-    bound)
+    H100_BF16_FLOPS, H100_BYTES_PER_S, H100_INT8_OPS, Timer, bound)
 KERNEL_REL_TOL = 8e-3  # |kernel - plain| <= tol * max|plain|: ~2 bf16 ulps
+# event-timed calls of a fast callable (the Timer's default 20 did not fit
+# the script's time limit); a plain decode step over many layers is read
+# from the call its check makes, on the host clock (_host_ms)
+TIMER_ITERS = 10
 MODEL = "tinyllama-1.1b"
 PROMPT_LENS = (7, 60, 200, 300)
 MAX_NEW = 16
@@ -327,6 +334,12 @@ I4_MODEL_NAME = "llama2-7b"
 ENGINE_C_PROMPTS = (7, 1024, 13, 600, 33, 300, 64, 900, 100, 17, 256, 512,
                     129, 700, 45, 1000, 8, 384, 200, 77, 1023, 150, 60, 450)
 ENGINE_C_DENSE_CONTEXT = 2048
+# the depths of the host-bound engine runs (c), (e) and (g) at full width
+# (full depth, 32, 32 and 40, before the script outgrew its time limit);
+# the kernel phases on the same weights keep full depth
+ENGINE_C_LAYERS = 16
+ENGINE_E_LAYERS = 16
+ENGINE_G_LAYERS = 20
 # the runs against the CPU engine at llama2-7b and llama2-13b width, (c-cpu),
 # (e-cpu), (f), (g-cpu) and (h-cpu), take one layer (two before the MoE
 # runs were added): their CPU references are most of the script's time,
@@ -355,10 +368,9 @@ I4_FUSED_LENGTHS = (4095, 3000, 2048, 1500, 1023, 700, 301, 17)
 # 10.6% for the stack (H100, 700 W), against B4 (a)'s 4.2% and 6.9% over
 # tinyllama's 22 layers
 I4_FUSED_TOL = 0.25
-# the plain step takes about a second at this size: timed over fewer calls
-# (one for the formats beside Q4_B64T1, whose plain stacks take 1.3-2.2 s)
+# the plain MoE step's timed calls (a plain step slower than the Timer's
+# SLOW_S is read from one call)
 I4_PLAIN_ITERS = 3
-I4_FORMATS_PLAIN_ITERS = 1
 # depths cut to keep the whole script within its time limit: the B4 (b)
 # stacks on the other 4-bit formats, runs (k) and (l) (full width each)
 I4_FORMATS_LAYERS = 16
@@ -394,8 +406,8 @@ ENGINE_CUT_CPU_TOL = 0.12
 # Q3H: configs/inferflow_service.q3h.ini, llama2-13b, pair8 weights
 Q3H_INI = "configs/inferflow_service.q3h.ini"
 Q3H_MODEL_NAME = "llama2-13b"
-# run (g): 12 queries of 7 to 2000 tokens at full depth; those over 256
-# take the chunked prefill (B3)
+# run (g): 12 queries of 7 to 2000 tokens; those over 256 take the
+# chunked prefill (B3)
 ENGINE_G_PROMPTS = (7, 2000, 13, 600, 33, 300, 64, 1200, 100, 17, 256, 900)
 # run (g) against a dense twin on the card (the same bf16 weights, the
 # float32 matmul of linear's dense branch) fed (g)'s tokens: B6 multiplies
@@ -603,15 +615,17 @@ ENGINE_O_MUST = ("fused_decode_step_i4bf16_b32", "i4_matmul_b32",
                  "chunk_attention")
 
 # the kernel bench phase: the port's tools/kernel_bench.py in-process,
-# B6's wire mode and non-pair branch at llama2-13b's products, X1-X5 at
-# exp_unpack's shapes, B2/B3/B7 at gemma-2b's head shape (D = 256)
+# B6's wire mode and non-pair branch at llama2-13b's products and B1/B6 on
+# Q4_B64T1 and Q3H_B64T1 at 8192 x 8192, each at M in {1, 8, 12, 256}
+# (timed at M = 8, for the script's time limit), X1-X5 at exp_unpack's
+# shapes, B2/B3/B7 at gemma-2b's head shape (D = 256)
 KERNEL_BENCH_ARGS = ["--b6", "--b6-model", "llama2-13b", "--m", "1,8,12,256",
-                     "--unpack", "--attention", "--formats",
-                     "Q4_B64T1,Q3H_B64T1"]
+                     "--time-m", "8", "--iters", str(TIMER_ITERS), "--unpack",
+                     "--attention", "--formats", "Q4_B64T1,Q3H_B64T1"]
 # the mega_ab phase: the fused step against the per-layer loop
 # (INFERFLOW_MEGA=0), tinyllama-1.1b in i8mm, ctx 64/512/4096
 MEGA_AB_ARGS = ["--formats", "none", "--mega", "--mega-model", MODEL,
-                "--mega-layout", "i8mm"]
+                "--mega-layout", "i8mm", "--iters", str(TIMER_ITERS)]
 # run (p): gemma-2b's published attention shape and widths (hidden 2048,
 # 8 query heads on 1 kv head, head_dim 256, intermediate 16384, 18
 # layers) on a llama-family zoo spec with vocab 32000 (gemma's GeGLU,
@@ -728,10 +742,25 @@ KERNEL_SOURCES = {
        for name in ("wire_gemv", "wire_gemv_b32", "wire_gemv_q2")},
     "pair8_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
                    "inferflow_tpu/kernels/decode_step.py:511"),
+    # B4 (c)'s byte GEMV alone (the single-plane tile with pk = 1)
+    "byte_gemv": ("inferflow_tpu_torch/kernels/csrc/decode_step.cu",
+                  "inferflow_tpu/kernels/decode_step.py:583"),
 }
 
 
 T0 = time.perf_counter()
+
+
+def _host_ms(fn) -> tuple:
+    """(fn(), its ms on the host clock, the card idle before and after):
+    the reading of a plain decode step from the call its check makes (the
+    Timer would read such a host-bound callable from one more call after a
+    warm-up)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def emit(obj) -> None:
@@ -1042,9 +1071,9 @@ def phase_b4(timer, dev, spec, params) -> list:
         one_layer = compare(got1, ref1, ONE_LAYER_TOL)
         got, _ = decode_step.fused_decode_step(spec, params["layers"], x,
                                                pos, cache)
-        ref, _ = decode_step.fused_decode_step_plain(spec, params["layers"],
-                                                     x, pos, twin)
-        torch.cuda.synchronize()
+        (ref, _), plain_ms = _host_ms(
+            lambda: decode_step.fused_decode_step_plain(
+                spec, params["layers"], x, pos, twin))
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         steps = []
@@ -1084,9 +1113,7 @@ def phase_b4(timer, dev, spec, params) -> list:
                "ms": timer(lambda: decode_step.fused_decode_step(
                    spec, params["layers"], x, pos, cache),
                    f"fused_decode_step B={b}"),
-               "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
-                   spec, params["layers"], x, pos, twin),
-                   f"fused_decode_step_plain B={b}"),
+               "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bytes_bound": bytes_moved}
         emit(row)
@@ -1256,9 +1283,9 @@ def phase_b4_paged(timer, dev, spec, params) -> list:
         layers = params["layers"]
         got, _ = decode_step.fused_decode_step(spec, layers, x, pos, paged)
         got_d, _ = decode_step.fused_decode_step(spec, layers, x, pos, dense)
-        ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos,
-                                                     twin)
-        torch.cuda.synchronize()
+        (ref, _), plain_ms = _host_ms(
+            lambda: decode_step.fused_decode_step_plain(spec, layers, x, pos,
+                                                        twin))
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         vs_dense = (got.float() - got_d.float()).abs().max().item()
@@ -1275,9 +1302,7 @@ def phase_b4_paged(timer, dev, spec, params) -> list:
                      f"B={b}"),
                  "dense_ms": timer(lambda: decode_step.fused_decode_step(
                      spec, layers, x, pos, dense), f"fused_decode_step B={b}"),
-                 "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
-                     spec, layers, x, pos, twin),
-                     f"fused_decode_step_plain paged B={b}")}
+                 "plain_ms": plain_ms}
         live = sum(min(n, CONTEXT) for n in lengths)
         nblk = hp.head_dim // 32
         kv_bytes = 2 * n_layers * live * hp.kv_heads * (hp.head_dim
@@ -1717,12 +1742,13 @@ def _i4_weights(params) -> dict:
             "lm_head": params["lm_head"]}
 
 
-def _matmul_rows(timer, kernel, label, qt, w_bf16, gen, plain) -> list:
+def _matmul_rows(timer, kernel, label, qt, w_bf16, gen, plain,
+                 timed=(1, 8, 12, 256)) -> list:
     """One product's kernel rows, M in {1, 8, 12, 256} (decode at B <= 8
     and B > 8, prefill chunks): quantized_matmul against `plain` on the
-    same inputs, the same bits on a second launch; timed beside the plain
-    version and torch.matmul on the pre-dequantized bf16 weight `w_bf16`
-    (a yardstick only)."""
+    same inputs, the same bits on a second launch; the rows of M in `timed`
+    timed beside the plain version and torch.matmul on the pre-dequantized
+    bf16 weight `w_bf16` (a yardstick only)."""
     from inferflow_tpu_torch.kernels.dequant_matmul import quantized_matmul
     k, n = (int(v) for v in qt.shape)
     k_s = qt.storage_k
@@ -1741,11 +1767,13 @@ def _matmul_rows(timer, kernel, label, qt, w_bf16, gen, plain) -> list:
         b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n)
         row = {"phase": "kernel", "kernel": kernel,
                "shape": f"{label} M={m} K={k} K_s={k_s} N={n}", **res,
-               "ms": timer(lambda: quantized_matmul(x, qt)),
-               "plain_ms": timer(lambda: plain(x, qt)),
-               "library_ms": timer(lambda: torch.matmul(x, w_bf16)),
-               "library": "torch.matmul on the pre-dequantized bf16 weight",
                "bound_ms": b_ms, "bound_by": b_by, "bytes_bound": bytes_moved}
+        if m in timed:
+            row.update(
+                ms=timer(lambda: quantized_matmul(x, qt)),
+                plain_ms=timer(lambda: plain(x, qt)),
+                library_ms=timer(lambda: torch.matmul(x, w_bf16)),
+                library="torch.matmul on the pre-dequantized bf16 weight")
         emit(row)
         rows.append(row)
     return rows
@@ -1840,9 +1868,9 @@ def phase_b4_i4(timer, dev, spec, params, spec_i8, params_i8) -> list:
                                                pos, cache)
         again, _ = decode_step.fused_decode_step(spec, params["layers"], x,
                                                  pos, cache)
-        ref, _ = decode_step.fused_decode_step_plain(spec, params["layers"],
-                                                     x, pos, twin)
-        torch.cuda.synchronize()
+        (ref, _), plain_ms = _host_ms(
+            lambda: decode_step.fused_decode_step_plain(
+                spec, params["layers"], x, pos, twin))
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         steps = []
@@ -1896,9 +1924,7 @@ def phase_b4_i4(timer, dev, spec, params, spec_i8, params_i8) -> list:
                "ms": timer(lambda: decode_step.fused_decode_step(
                    spec, params["layers"], x, pos, cache),
                    f"fused_decode_step i4 B={b}"),
-               "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
-                   spec, params["layers"], x, pos, twin),
-                   f"fused_decode_step_plain i4 B={b}", I4_PLAIN_ITERS),
+               "plain_ms": plain_ms,
                "i8mm_ms": timer(lambda: decode_step.fused_decode_step(
                    spec_i8, params_i8["layers"], x, pos, cache),
                    f"fused_decode_step i8mm B={b}"),
@@ -2300,14 +2326,14 @@ def phase_b1_q8(timer, dev, params) -> list:
 def _step_vs_plain(spec, layers, x, pos, cache, twin):
     """One fused step on the card against its plain version on a twin
     cache (the same rows): (kernel out, plain out, the kernel's out of a
-    second step on a third twin)."""
+    second step on a third twin, the plain step's ms on the host clock)."""
     from inferflow_tpu_torch.kernels import decode_step
     third = _twin(cache)
     got, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
     again, _ = decode_step.fused_decode_step(spec, layers, x, pos, third)
-    ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos, twin)
-    torch.cuda.synchronize()
-    return got, ref, again
+    (ref, _), plain_ms = _host_ms(lambda: decode_step.fused_decode_step_plain(
+        spec, layers, x, pos, twin))
+    return got, ref, again, plain_ms
 
 
 def phase_b4_byte(timer, dev, spec, params) -> list:
@@ -2345,7 +2371,7 @@ def phase_b4_byte(timer, dev, spec, params) -> list:
         one_layer = {}
         for fmt, layer in (("Q8_B32T2", params["layers"][:1]),
                            ("Q8_B32T1", t1_layer)):
-            got1, ref1, again1 = _step_vs_plain(
+            got1, ref1, again1, _ = _step_vs_plain(
                 spec, layer, x, pos,
                 *(dataclasses.replace(c, k=c.k.clone(), v=c.v.clone(),
                                       k_scale=c.k_scale.clone(),
@@ -2354,8 +2380,8 @@ def phase_b4_byte(timer, dev, spec, params) -> list:
             one_layer[fmt] = compare(got1, ref1, ONE_LAYER_TOL)
             one_layer[fmt]["same_bits_twice"] = bool(torch.equal(got1,
                                                                  again1))
-        got, ref, again = _step_vs_plain(spec, params["layers"], x, pos,
-                                         cache, twin)
+        got, ref, again, plain_ms = _step_vs_plain(
+            spec, params["layers"], x, pos, cache, twin)
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         steps = []
@@ -2401,9 +2427,7 @@ def phase_b4_byte(timer, dev, spec, params) -> list:
                "ms": timer(lambda: decode_step.fused_decode_step(
                    spec, params["layers"], x, pos, cache),
                    f"fused_decode_step byte B={b}"),
-               "plain_ms": timer(lambda: decode_step.fused_decode_step_plain(
-                   spec, params["layers"], x, pos, twin),
-                   f"fused_decode_step_plain byte B={b}", I4_PLAIN_ITERS),
+               "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bytes_bound": bytes_moved}
         emit(row)
@@ -2997,7 +3021,8 @@ def _i4_format_weights(params, fmt) -> dict:
 
 def phase_b5_formats(timer, dev, params) -> list:
     """Kernel B5 on the four formats at llama2-7b's five products, M in {1,
-    8, 12, 256}, against its plain version (_matmul_rows)."""
+    8, 12, 256}, against its plain version (_matmul_rows; timed at M = 8
+    and 256, for the script's time limit)."""
     from inferflow_tpu_torch.kernels.dequant_matmul import (i4_matmul_plain,
                                                             i4_weight)
     gen = torch.Generator(device=dev).manual_seed(91)
@@ -3005,7 +3030,8 @@ def phase_b5_formats(timer, dev, params) -> list:
     for fmt, (kernel, _, _) in I4_FORMATS.items():
         for name, qt in _i4_format_weights(params, fmt).items():
             rows += _matmul_rows(timer, kernel, f"{name} {fmt}", qt,
-                                 i4_weight(qt), gen, i4_matmul_plain)
+                                 i4_weight(qt), gen, i4_matmul_plain,
+                                 (8, 256))
     return rows
 
 
@@ -3100,7 +3126,7 @@ def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
     stack's input to it (`layer_tol` x max|plain| each), then the whole
     stack (`stack_tol` x max|plain|, or reported only when it is None: a
     random stack drifts with depth; the same bits on a second run); times
-    the step, its plain version (I4_FORMATS_PLAIN_ITERS calls) and, with
+    the step, its plain version (the checked call, _host_ms) and, with
     `beside` = (name, INFERFLOW_I4_DOT value), the step in that other mode
     on the same inputs ("<name>_ms").  Bound: the bytes (weights, biases,
     norms, the live cache rows and the new ones), or the operations at
@@ -3139,9 +3165,9 @@ def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
         got, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
         again, _ = decode_step.fused_decode_step(spec, layers, x, pos, cache)
         launched = dict(_build.launch_counts)
-        ref, _ = decode_step.fused_decode_step_plain(spec, layers, x, pos,
-                                                     twin)
-        torch.cuda.synchronize()
+        (ref, _), plain_ms = _host_ms(
+            lambda: decode_step.fused_decode_step_plain(spec, layers, x, pos,
+                                                        twin))
         stack = compare(got, ref, stack_tol or 1.0)
         if stack_tol is None:
             stack.update(ok=True, tolerance="reported, not gated")
@@ -3181,11 +3207,7 @@ def _b4_stack_rows(timer, dev, spec, layers, embeddings, kernel, label,
                "ms": timer(lambda: decode_step.fused_decode_step(
                    spec, layers, x, pos, cache),
                    f"fused_decode_step {kernel} B={b}"),
-               "plain_ms": timer(
-                   lambda: decode_step.fused_decode_step_plain(
-                       spec, layers, x, pos, twin),
-                   f"fused_decode_step_plain {kernel} B={b}",
-                   I4_FORMATS_PLAIN_ITERS),
+               "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bytes_bound": bytes_moved, "weight_bytes": wbytes}
         if beside is not None:
@@ -3224,7 +3246,8 @@ def phase_i4bf16_gemv(timer, dev, params) -> list:
     on the same inputs (library: torch.matmul on the pre-dequantized bf16
     weight, the same function but for summation order)."""
     from inferflow_tpu_torch.kernels.decode_step import (
-        i4_bf16_matmul_plain, i4bf16_gemv_cuda, i4x8_gemv_cuda)
+        i4_bf16_matmul_plain, i4bf16_bytes_in_flight, i4bf16_gemv_cuda,
+        i4x8_gemv_cuda)
     from inferflow_tpu_torch.kernels.dequant_matmul import i4_weight
     gen = torch.Generator(device=dev).manual_seed(94)
     rows = []
@@ -3256,7 +3279,9 @@ def phase_i4bf16_gemv(timer, dev, params) -> list:
                        "library": "torch.matmul on the pre-dequantized bf16 "
                                   "weight",
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "bytes_bound": bytes_moved}
+                       "bytes_bound": bytes_moved,
+                       "bytes_in_flight_per_sm": i4bf16_bytes_in_flight(
+                           m, qt, False, dev)}
                 emit(row)
                 rows.append(row)
     return rows
@@ -3265,12 +3290,24 @@ def phase_i4bf16_gemv(timer, dev, params) -> list:
 def phase_b4_i4bf16(timer, dev, spec, params) -> list:
     """B4 mode (b') at full llama2-7b width and depth on the loaded
     Q4_B32T1A weights, B = 8 and B = 1, against its plain version
-    (_b4_stack_rows), with mode (b) timed beside it."""
+    (_b4_stack_rows), with mode (b) timed beside it; each step row also
+    names the weight bytes its four GEMVs keep in flight per SM."""
+    from inferflow_tpu_torch.kernels.decode_step import i4bf16_bytes_in_flight
     with _with_i4_dot("bf16"):
-        return _b4_stack_rows(timer, dev, spec, params["layers"],
+        rows = _b4_stack_rows(timer, dev, spec, params["layers"],
                               params["dec_embeddings"],
                               I4BF16_FORMATS["Q4_B32T1A"][2], "Q4_B32T1A",
                               H100_BF16_FLOPS, beside=("i4x8", "i8"))
+    lp = params["layers"][0]
+    for row in rows:
+        b = int(row["shape"].split(" B=")[1].split()[0])
+        row["gemv_bytes_in_flight_per_sm"] = in_flight = {
+            name: i4bf16_bytes_in_flight(b, lp[g][name], name == "w1n3", dev)
+            for g, name in (("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"),
+                            ("ffn", "w2"))}
+        emit({"phase": "b4_i4bf16_in_flight", "kernel": row["kernel"],
+              "shape": row["shape"], "gemv_bytes_in_flight_per_sm": in_flight})
+    return rows
 
 
 def phase_engine_n_cut(dev, root: str, label: str, fmt: str,
@@ -3761,6 +3798,7 @@ WIRE_STEP_FORMATS = {  # format -> (GEMV launch count, step launch count)
     "Q4_B32T1A": ("wire_gemv_b32", "fused_decode_step_wire_b32"),
     "Q2_B32T1A": ("wire_gemv_q2", "fused_decode_step_wire_q2")}
 PAIR8_GEMV, PAIR8_STEP = "pair8_gemv", "fused_decode_step_pair8"
+BYTE_GEMV = "byte_gemv"  # B4 (c)'s GEMV alone
 BIAS_STEP = "fused_decode_step_bias"
 MODE_CONTEXT = 4096
 BIAS_SCALE = 0.05  # as the JAX package's test_fused_step_biases
@@ -3778,7 +3816,7 @@ ENGINE_R_TOL = 0.12
 ENGINE_RCPU_LAYERS = 1
 ENGINE_RCPU_PROMPTS = (7, 300, 13)
 ENGINE_Q_TOL = 0.12  # run (q): (g)'s engine under INFERFLOW_MEGA=2
-PPL_REPORT_ARGS = ["--model", MODEL, "--tokens", "2048",
+PPL_REPORT_ARGS = ["--model", MODEL, "--tokens", "512", "--layers", "11",
                    "--layouts", "Q4_B64T1+i8mm,Q4_B64T1+i4,Q4_B64T1+q8c,"
                    "Q4_B64T1+packed", "--out", "build/ppl_report.md"]
 PERPLEXITY_ARGS = ["--zoo", MODEL, "--quant", "Q4", "--synthetic-text",
@@ -3799,14 +3837,15 @@ def _layers_as(layers, fmt):
 
 
 def phase_code_gemv(timer, dev, name, qt, kernel) -> list:
-    """The wire or pair8 GEMV alone on `qt`, M in {1, 8}, against its plain
-    version, the same bits twice; timed beside torch.matmul on the
+    """The byte, wire or pair8 GEMV alone on `qt`, M in {1, 8}, against its
+    plain version, the same bits twice; timed beside torch.matmul on the
     pre-dequantized bf16 weight (the same function but for summation
     order and the weights' bf16 rounding, a yardstick only)."""
     from inferflow_tpu_torch.kernels.decode_step import (
-        _product_f32, pair8_gemv_cuda, wire_gemv_cuda)
+        _product_f32, byte_gemv_cuda, pair8_gemv_cuda, wire_gemv_cuda)
     from inferflow_tpu_torch.quant.codec_torch import dequantize
-    launch = pair8_gemv_cuda if kernel == PAIR8_GEMV else wire_gemv_cuda
+    launch = {PAIR8_GEMV: pair8_gemv_cuda,
+              BYTE_GEMV: byte_gemv_cuda}.get(kernel, wire_gemv_cuda)
     gen = torch.Generator(device=dev).manual_seed(95)
     k, n = qt.storage_k, int(qt.shape[-1])
     w_bf16 = dequantize(qt, torch.bfloat16)
@@ -4144,10 +4183,10 @@ def phase_convert_tokenizer(root: str) -> dict:
 
 
 def phase_ppl(dev) -> dict:
-    """ppl_report on tinyllama-1.1b (a 2048-token corpus sampled from the
-    bf16 model; BF16, Q8_B32T2, Q6_B64T1, Q4_B64T1, Q3H_B64T1, Q2_B32T1A
-    and Q4_B64T1 under i8mm, i4, q8c and packed), one JSON line per row,
-    then the perplexity CLI on synthetic text."""
+    """ppl_report on tinyllama-1.1b cut to 11 layers (a 512-token corpus
+    sampled from the bf16 model; BF16, Q8_B32T2, Q6_B64T1, Q4_B64T1,
+    Q3H_B64T1, Q2_B32T1A and Q4_B64T1 under i8mm, i4, q8c and packed), one
+    JSON line per row, then the perplexity CLI on synthetic text."""
     from inferflow_tpu_torch.tools import perplexity, ppl_report
     t0 = time.perf_counter()
     rows = ppl_report.main(PPL_REPORT_ARGS)
@@ -4163,6 +4202,14 @@ def phase_ppl(dev) -> dict:
     assert all(np.isfinite(r["ppl"]) and r["scored"] > 0 for r in rows)
     assert np.isfinite(ppl["ppl"]) and ppl["scored"] > 0
     return dict(out, rows=rows)
+
+
+def _cut_run(ini, model, spec, params, layers) -> tuple:
+    """An ini's spec and params cut to their first `layers` layers (the
+    weights' fused qkv kept), for an engine run."""
+    spec_cut = ini_config(ini, model, layers=layers)[1]
+    spec_cut.qkv_format = spec.qkv_format
+    return spec_cut, dict(params, layers=params["layers"][:layers])
 
 
 def _run(results, failed, pname, fn) -> None:
@@ -4206,7 +4253,7 @@ def main() -> int:
     _build.start(LATE_SOURCES)
 
     packed = make_spec(MODEL, device_layout="packed")
-    timer = Timer(dev)
+    timer = Timer(dev, TIMER_ITERS)
     results, failed = {}, []
     _run(results, failed, "dequant_matmul",
          lambda: phase_b1(timer, dev, packed))
@@ -4241,7 +4288,8 @@ def main() -> int:
         failed.append("layout_c")
     params_c, memory_c = build_params(dev, spec_c, fmt_c)
     _run(results, failed, "engine_c", lambda: phase_engine_c(
-        dev, cfg, spec_c, params_c, memory_c))
+        dev, cfg, *_cut_run(PAGED_INI, PAGED_MODEL, spec_c, params_c,
+                            ENGINE_C_LAYERS), memory_c))
     spec_cc = ini_config(PAGED_INI, PAGED_MODEL,
                          layers=ENGINE_CCPU_LAYERS)[1]
     spec_cc.qkv_format = spec_c.qkv_format  # the weights' fused qkv
@@ -4375,7 +4423,8 @@ def main() -> int:
     del params_c
     torch.cuda.empty_cache()
     _run(results, failed, "engine_e", lambda: phase_engine_e(
-        dev, cfg_e, spec_e, params_e, memory_e, i8mm_bytes))
+        dev, cfg_e, *_cut_run(I4_INI, I4_MODEL_NAME, spec_e, params_e,
+                              ENGINE_E_LAYERS), memory_e, i8mm_bytes))
     for label, layers, slots, context, prompts, must, must_not in (
             ("e_cpu", ENGINE_ECPU_LAYERS, cfg_e.max_concurrent_queries,
              spec_e.max_context_len, ENGINE_ECPU_PROMPTS,
@@ -4421,7 +4470,9 @@ def main() -> int:
     _run(results, failed, "b4_pair8",
          lambda: phase_b4_pair8(timer, dev, spec_g, params_g))
     _run(results, failed, "engine_g", lambda: phase_engine_twin(
-        dev, cfg_g, spec_g, params_g, memory_g, "g", Q3H_INI, Q3H_MODEL_NAME,
+        dev, cfg_g, *_cut_run(Q3H_INI, Q3H_MODEL_NAME, spec_g, params_g,
+                              ENGINE_G_LAYERS), memory_g, "g", Q3H_INI,
+        Q3H_MODEL_NAME,
         "q3h_matmul", ENGINE_G_PROMPTS, 6, ENGINE_G_TOL,
         mega2=("q", PAIR8_STEP)))
     spec_cut = ini_config(Q3H_INI, Q3H_MODEL_NAME,
@@ -4454,6 +4505,8 @@ def main() -> int:
          lambda: phase_b1_q8(timer, dev, params_h))
     _run(results, failed, "fused_decode_step_byte",
          lambda: phase_b4_byte(timer, dev, spec_h, params_h))
+    _run(results, failed, BYTE_GEMV, lambda: phase_code_gemv(
+        timer, dev, "w1n3", params_h["layers"][0]["ffn"]["w1n3"], BYTE_GEMV))
     _run(results, failed, "engine_h", lambda: phase_engine_h(
         dev, cfg_h, spec_h, params_h, memory_h, memory_c["weights"]))
     spec_cut = ini_config(Q8_INI, Q8_MODEL_NAME,
@@ -4765,8 +4818,9 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        **({"nsplit": row["nsplit"]} if "nsplit" in row
-                           else {})})
+                        **{key: row[key] for key in (
+                            "nsplit", "bytes_in_flight_per_sm",
+                            "gemv_bytes_in_flight_per_sm") if key in row}})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -92,12 +92,20 @@
 //     and Q4_B16) are template parameters, one instantiation per geometry
 //     (WeightMode), so each GEMV's loop is unrolled for its block: a row
 //     map read at run time slowed the dense GEMVs on the card;
-//   - the i4bf16 GEMV (b'): the i4x8 GEMV's nibble loads and unrolled
-//     blocks with the byte GEMV's staged bf16 activations: each nibble is
-//     unpacked to bf16(bf16(n) * bf16(sc)) and multiplied by its bf16
-//     activation into a float32 sum, the block's fold term
-//     bf16(sum x) * bf16(8*sc + base) added once per block; its float sums
-//     take the same fixed order (warps, then splits);
+//   - the i4bf16 GEMV (b') runs on the tensor cores (gemv_mma.cuh's
+//     design, i4bf_walk below): y^T = W^T x^T by mma.sync m16n8k16 with
+//     the <= 8 activation rows as its narrow side, each nibble pair turned
+//     into one bf16x2 register of bf16(n * bf16(sc)) in 4 instructions
+//     (the old walk spent about 13 float instructions a weight), the
+//     block's fold term bf16(sum x) * bf16(8*sc + base) added in float32
+//     once per block; each warp streams its blocks a k16 step (1 KB of
+//     codes) at a time through a 4-step cp.async ring in shared memory:
+//     3 steps ahead, 8 warps a CTA, two CTAs an SM: 55 KB in flight per
+//     SM for Q4_B64T1, 61 for Q4_B32T1A/B, 74 for Q4_B32T2 and 98 for
+//     Q4_B16, whose f32 metadata is half its bytes (ift_i4bf16_inflight).
+//     Its plan fills one wave of two CTAs an SM
+//     when the splits that do so take at most 2048 K rows (bf_one_wave).
+//     Its float sums take the same fixed order (warps, then splits);
 //   - the byte GEMV: one 32-bit load of a (K, N) code row gives 4 columns
 //     of one K row, a 32-row quant block is 32 loads in flight per thread
 //     (64 for the GLU's two column segments);
@@ -149,8 +157,11 @@
 #include <algorithm>
 #include <type_traits>
 
-// The GEMVs (14 instantiated weight modes x 8 row counts x 4 variants) are
-// most of this file's build.  The build compiles it as IFT_PARTS
+#include "gemv_mma.cuh"
+
+// The GEMVs (14 instantiated weight modes x 8 row counts x 4 variants; the
+// four (b') modes take their row count at run time: one each) are most of
+// this file's build.  The build compiles it as IFT_PARTS
 // translation units at once (-DIFT_PARTS=4 -DIFT_PART=p) and links them
 // into one library: part p instantiates the GEMVs of the modes with
 // mode % IFT_PARTS == p and defines ift_gemv_part<p>, and the last part
@@ -179,6 +190,7 @@ constexpr int kGemvWarps = 8;
 constexpr int kGemvThreads = kGemvWarps * 32;
 constexpr int kTileCols = 128;  // columns per segment: 32 lanes x 4
 constexpr int kMaxKc = 1024;    // K rows per CTA (shared x staging)
+constexpr int kMaxKcBf = 2048;  // (b'): K rows per CTA (its one-wave plan)
 constexpr int kMinKc = 64;
 constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
 constexpr int kByteBlock = 32;  // byte mode: K rows (= byte rows) per quant block
@@ -340,6 +352,216 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
   v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
 }
 
+// ---------------------------------------- (b') on the tensor cores
+// The i4bf16 GEMV's walk (weight modes 7-10), gemv_mma.cuh's design: each
+// warp streams its quant blocks (lb = warp, warp + 8, ... of the CTA's
+// slice), one k16 step at a time, through a ring of kBfRing steps in
+// dynamic shared memory filled by cp.async: per step 2 code chunks a lane
+// (byte rows t and t+4 of its 16 columns: 1 KB a warp), and at a block's
+// first step the block's scale and base chunks of each group of 4 lanes
+// (f16: 512 B a warp, f32: 1 KB), copied by its lanes in turn.  Each
+// nibble pair becomes one bf16x2 A register in 4 instructions; one mma per
+// 16 columns x 16 K; the block's fold term bf16(sum x) * bf16(8*sc + base)
+// is added in float32 into the same sums at its first step.  Segments (the
+// GLU's a and g halves) are walked one after the other, each warp's sums
+// of a segment added into redf in warp order.
+constexpr int kBfRing = 4;  // k16 steps of a warp's ring: 3 in flight
+// CTAs an SM holds (gemv_bf's __launch_bounds__; the shared memory of two
+// fits)
+constexpr int kBfCtasPerSm = 2;
+
+// metadata chunks of a quant block per group of 4 lanes (16 columns):
+// scale, then base
+__host__ __device__ constexpr int bf_meta_chunks(int mode) { return i4_f32_meta(mode) ? 8 : 4; }
+// 16-byte chunks of one ring slot: 2 code chunks per lane, then the
+// metadata chunks of the 8 groups
+__host__ __device__ constexpr int bf_slot_chunks(int mode) {
+  return 2 * 32 + 8 * bf_meta_chunks(mode);
+}
+// the dynamic shared memory of a CTA's rings
+__host__ __device__ constexpr int bf_ring_bytes(int mode) {
+  return kGemvWarps * kBfRing * bf_slot_chunks(mode) * 16;
+}
+
+// metadata value i of a chunk run held as 32-bit words (f16 pairs or f32)
+template <typename Meta>
+__device__ __forceinline__ float meta_value(const uint32_t* words, int i) {
+  if constexpr (std::is_same_v<Meta, float>) {
+    return __uint_as_float(words[i]);
+  } else {
+    return __half2float(__ushort_as_half(
+        static_cast<unsigned short>(i % 2 ? words[i / 2] >> 16 : words[i / 2] & 0xFFFFu)));
+  }
+}
+
+// A warp's weight stream of the (b') GEMV: its steps u = 0, 1, ... (segment
+// by segment, block by block, k16 step by step) and the cp.async copies of
+// step u into ring slot u % kBfRing.  Its first steps are issued right
+// after the prologue's activation loads, which would otherwise queue
+// behind them.
+template <int NSEG, int MODE>
+struct BfRing {
+  using Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
+  static constexpr int kBlk = i4_block(MODE);
+  static constexpr int kSteps = kBlk / 16;  // k16 steps per quant block
+  static constexpr int kMeta = bf_meta_chunks(MODE);
+  static constexpr int kSlot = bf_slot_chunks(MODE);
+  static constexpr int kPer = 16 / sizeof(Meta);  // metadata values per chunk
+  uint4* ring;  // this warp's slots in dynamic shared memory
+  const uint8_t* w4;
+  const char* wsc;
+  const char* wbs;
+  int N, ncols, seg_stride, kb0, warp, lane, g, t, lcol, cvalid, cpiece, mpiece;
+  int steps;  // per segment
+
+  __device__ BfRing(const GemvArgs& a, long long w_off, long long sc_off, long long base_off,
+                    int k0, int klen, int ncols_, int seg_stride_, int tile, int warp_,
+                    int lane_) {
+    extern __shared__ uint4 ring_s[];
+    warp = warp_, lane = lane_, g = lane / 4, t = lane % 4;
+    ring = ring_s + (size_t)warp * kBfRing * kSlot;
+    w4 = static_cast<const uint8_t*>(a.w) + w_off;
+    wsc = static_cast<const char*>(a.w_scale) + sc_off;
+    wbs = a.w_base == nullptr ? nullptr : static_cast<const char*>(a.w_base) + base_off;
+    N = a.N, ncols = ncols_, seg_stride = seg_stride_, kb0 = k0 / kBlk;
+    lcol = tile * kTileCols + 16 * g;  // the lane's 16 columns of a segment
+    cvalid = min(max(ncols - lcol, 0), 16);
+    const long long offs = (long long)lcol | seg_stride;
+    cpiece = gemv_mma::piece_of(w4, N, offs);
+    const long long mstride = (long long)N * sizeof(Meta), moffs = offs * (long long)sizeof(Meta);
+    mpiece = min(gemv_mma::piece_of(wsc, mstride, moffs),
+                 wbs ? gemv_mma::piece_of(wbs, mstride, moffs) : 16);
+    const int nblk = klen / kBlk;  // the warp takes blocks warp, warp + 8, ...
+    steps = warp < nblk ? ((nblk - 1 - warp) / kGemvWarps + 1) * kSteps : 0;
+  }
+
+  __device__ const uint4* slot(int u) const { return ring + (u % kBfRing) * kSlot; }
+
+  // step u: byte rows t and t + 4 of the lane's 16 columns; at a block's
+  // first step its scale and base chunks, lane t of a group copying chunks
+  // t and t + 4
+  __device__ void issue(int u) const {
+    using gemv_mma::cp_async_chunk;
+    if (u < NSEG * steps) {
+      const int s = u / steps, r = u - s * steps, j = r % kSteps;
+      const int kb = kb0 + warp + (r / kSteps) * kGemvWarps;
+      const int col = lcol + s * seg_stride;
+      uint4* sl = ring + (u % kBfRing) * kSlot;
+      const size_t row = (size_t)kb * (kBlk / 2) + j * 8 + t;
+      cp_async_chunk(&sl[lane], cvalid ? w4 + row * N + col : w4, cvalid, cpiece);
+      cp_async_chunk(&sl[32 + lane], cvalid ? w4 + (row + 4) * N + col : w4, cvalid, cpiece);
+      if (j == 0) {
+        for (int i = t; i < kMeta; i += 4) {
+          const char* base = i < kMeta / 2 ? wsc : wbs;
+          const int c = lcol + (i % (kMeta / 2)) * kPer;
+          const int v = base == nullptr ? 0 : min(max(ncols - c, 0), kPer) * (int)sizeof(Meta);
+          cp_async_chunk(&sl[64 + i * 8 + g],
+                         v ? base + ((size_t)kb * N + c + s * seg_stride) * sizeof(Meta) : wsc,
+                         v, mpiece);
+        }
+      }
+    }
+    gemv_mma::cp_async_commit();
+  }
+
+  __device__ void start() const {
+#pragma unroll
+    for (int u = 0; u < kBfRing - 1; ++u) issue(u);
+  }
+};
+
+// the other modes' stand-in for BfRing
+struct NoRing {
+  template <typename... T>
+  __device__ explicit NoRing(const T&...) {}
+};
+
+// The walk over the ring's steps for M rows: per segment, each step's A
+// registers dequantized into mma with the B fragments of x_frag, the
+// block's fold term at its first step, then the warps' sums added into
+// redf in warp order (gemv_mma::sum_slot's layout, rows of kTileCols *
+// NSEG + 4).  xsum holds each row's block sums, kMaxKcBf / block a row.
+template <int NSEG, int MODE>
+__device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
+                                          const unsigned char* x_frag, const float* xsum,
+                                          float* redf) {
+  using namespace gemv_mma;
+  using Ring = BfRing<NSEG, MODE>;
+  using Meta = typename Ring::Meta;
+  constexpr int kSteps = Ring::kSteps, kMeta = Ring::kMeta;
+  constexpr int kXsumLd = kMaxKcBf / Ring::kBlk;
+  constexpr int kSumLd = kTileCols * NSEG + 4;
+  const uint2* xb = reinterpret_cast<const uint2*>(x_frag);
+  const int warp = rg.warp, lane = rg.lane, g = rg.g, t = rg.t, steps = rg.steps;
+
+#pragma unroll 1
+  for (int s = 0; s < NSEG; ++s) {
+    float acc[8][4];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+    uint32_t sc2[16];  // the block's bf16(scale) of each column, in both halves
+    for (int r = 0; r < steps; ++r) {
+      const int u = s * steps + r, j = r % kSteps, lb = warp + (r / kSteps) * kGemvWarps;
+      __syncwarp();  // every lane has read the slot refilled next
+      rg.issue(u + kBfRing - 1);
+      cp_async_wait<kBfRing - 1>();
+      __syncwarp();  // the group's metadata came from its 4 lanes
+      const uint4* sl = rg.slot(u);
+      if (j == 0) {
+        uint32_t mw[kMeta * 4];
+#pragma unroll
+        for (int i = 0; i < kMeta; ++i) {
+          const uint4 c = sl[64 + i * 8 + g];
+          mw[4 * i] = c.x, mw[4 * i + 1] = c.y, mw[4 * i + 2] = c.z, mw[4 * i + 3] = c.w;
+        }
+        const float x0 = 2 * t < M ? xsum[(2 * t) * kXsumLd + lb] : 0.f;
+        const float x1 = 2 * t + 1 < M ? xsum[(2 * t + 1) * kXsumLd + lb] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const float sc = meta_value<Meta>(mw, c), bs = meta_value<Meta>(mw, 16 + c);
+          sc2[c] = splat_bf16(sc);
+          const float fold = round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), bs));
+          // column c is C register 2 * (c % 2) (row 2t) and + 1 (2t+1) of n-tile c / 2
+          acc[c / 2][2 * (c % 2)] = fmaf(x0, fold, acc[c / 2][2 * (c % 2)]);
+          acc[c / 2][2 * (c % 2) + 1] = fmaf(x1, fold, acc[c / 2][2 * (c % 2) + 1]);
+        }
+      }
+      const uint4 lo = sl[lane], hi = sl[32 + lane];  // byte rows t, t + 4
+      // B column g is activation row g: zeros past M (never staged)
+      const uint2 b = g < M ? xb[(lb * kSteps + j) * 32 + lane] : make_uint2(0u, 0u);
+      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const uint32_t l = wl[v], l4 = l >> 4, h = wh[v], h4 = h >> 4;
+        mma(acc[2 * v], nibble_pair<0>(l, l4, sc2[4 * v]), nibble_pair<1>(l, l4, sc2[4 * v + 1]),
+            nibble_pair<0>(h, h4, sc2[4 * v]), nibble_pair<1>(h, h4, sc2[4 * v + 1]), b);
+        mma(acc[2 * v + 1], nibble_pair<2>(l, l4, sc2[4 * v + 2]),
+            nibble_pair<3>(l, l4, sc2[4 * v + 3]), nibble_pair<2>(h, h4, sc2[4 * v + 2]),
+            nibble_pair<3>(h, h4, sc2[4 * v + 3]), b);
+      }
+    }
+    // this segment's warp sums, added in warp order
+    for (int wp = 0; wp < kGemvWarps; ++wp) {
+      if (warp == wp) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = 2 * t + e % 2;
+            if (m < M) {
+              float* rr = &redf[sum_slot(m, s * kTileCols + 16 * g + 2 * q + e / 2, kSumLd)];
+              *rr = __fadd_rn(*rr, acc[q][e]);
+            }
+          }
+      }
+      __syncthreads();
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // The int8 GEMV (MODE kModeI8mm: i8mm weights), the i4x8 GEMV (kModeI4x8:
 // the i4 layout's nibble pairs) and the byte GEMV (kModeByte: Q8 block
 // codes, signed or not by a.byte_signed), with the same prologues and
@@ -358,7 +580,8 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
 // i4bf16 (b', the TPU kernel's bf16-unpack tile, :573-583): per quant
 // block r, y += bf16(sum_{k in r} x_k) * bf16(8*sc + base)
 //             + sum_{k in r} x_k * bf16(bf16(n_k) * bf16(sc)),
-// with x the bf16 activations (no row quantization).
+// with x the bf16 activations (no row quantization), on the tensor cores
+// (i4bf_walk).
 // byte (the TPU kernel's single-plane tile with pk = 1, :583-606): per
 // 32-row quant block r, y += sum_{k in r} x_k * bf16(q_k * bf16(sc))
 //                          (+ bf16(sum_{k in r} x_k) * bf16(base)),
@@ -366,19 +589,24 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
 // i4x8, i4bf16 and byte: every warp takes whole blocks of the CTA's K slice, the
 // warps' float sums are added in warp order and the splits' in split
 // order (by the last CTA of the column tile), so the result is the same
-// bits on every run.
+// bits on every run.  The body of the kernels gemv and gemv_bf below.
 template <int M, int NSEG, int MODE, bool ROUTED>
-__global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
+__device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   constexpr bool I4 = is_i4(MODE), I4BF = is_i4bf(MODE), FC = is_code(MODE);
   constexpr bool XBF = FC || I4BF;  // bf16 activations, no row quantization
   // the float modes' quant block (i8mm: unused)
   constexpr int kBlk = FC ? code_block(MODE) : (I4 || I4BF) ? i4_block(MODE) : 64;
   using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
-  // the CTA's K slice: int8 codes (i8mm, i4x8) or bf16 activations (byte,
-  // wire, pair8, i4bf16)
-  __shared__ __align__(16) unsigned char x_s[M][kMaxKc * (XBF ? 2 : 1)];
-  __shared__ int red_s[M][kTileCols * NSEG];  // int32 (i8mm) or float sums
-  __shared__ float xsum_s[M][kMaxKc / kBlk];
+  // the CTA's K slice: int8 codes (i8mm, i4x8), bf16 activations (byte,
+  // wire, pair8), or i4bf16's mma B fragments of up to 8 bf16 rows (the
+  // walk takes zeros past M; gemv_mma.cuh's fragment order)
+  constexpr int kKc = I4BF ? kMaxKcBf : kMaxKc;  // K rows of a CTA at most
+  __shared__ __align__(16) unsigned char x_s[I4BF ? kMaxSlots : M][kKc * (XBF ? 2 : 1)];
+  // int32 (i8mm) or float sums; (b') in gemv_mma::sum_slot's order, rows
+  // of kSumLd floats
+  constexpr int kSumLd = kTileCols * NSEG + (I4BF ? 4 : 0);
+  __shared__ int red_s[M][kSumLd];
+  __shared__ float xsum_s[M][kKc / kBlk];
   __shared__ float xs_s[M];
   __shared__ float inv_s[M];
   __shared__ int xrow_s[M], orow_s[M];  // activation and output row of row m
@@ -386,6 +614,9 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tile = blockIdx.x;
+  // the rows: M, or for (b') a.M (one instantiation of M = 8 serves 1..8:
+  // mma's 8 columns take any count)
+  const int Mr = I4BF ? a.M : M;
   // ROUTED (mode (g)): expert z's slice of the weight stack (offsets of
   // its codes, scales and bases; 0 for the dense GEMV, folded away), its
   // set of tile counters, and row m's activation and output rows (row m
@@ -409,7 +640,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       int n = 0;
       for (int r = 0; r < a.moe_ids; ++r)
         if (a.moe_sel[r] == z) {
-          if (n < M) {
+          if (n < Mr) {
             xrow_s[n] = r / a.x_div;
             orow_s[n] = r;
           }
@@ -418,7 +649,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       nrows_s = n;
     }
     __syncthreads();
-    if (nrows_s != M) return;  // the whole CTA
+    if (nrows_s != Mr) return;  // the whole CTA
   }
   const int k0 = blockIdx.y * a.kc;
   const int klen = min(a.kc, a.K - k0);
@@ -426,10 +657,19 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   const int seg_stride = NSEG == 2 ? ncols : 0;
   constexpr int kCols = kTileCols * NSEG;
   float* redf = reinterpret_cast<float*>(&red_s[0][0]);
+  // the float sum of row m, column j of the tile's kCols
+  auto sum_at = [&](int m, int j) -> float& {
+    if constexpr (I4BF) return redf[gemv_mma::sum_slot(m, j, kSumLd)];
+    return redf[m * kCols + j];
+  };
+  // (b'): each warp's weight stream, started once the prologues' loads
+  // are out (they would otherwise queue behind it)
+  const std::conditional_t<I4BF, BfRing<NSEG, MODE>, NoRing> ring(
+      a, w_off, sc_off, base_off, k0, klen, ncols, seg_stride, tile, warp, lane);
 
   // prologue 1: per-row norm factor and row scale, one warp per row; a
   // row of K % 8 == 0 is read as 16-byte chunks, 4 in flight per lane
-  if (warp < M) {
+  if (warp < Mr) {
     const int m = warp, xm = xrow(m);
     const bool vec = a.K % 8 == 0;
     const uint4* xr = reinterpret_cast<const uint4*>(a.x + (size_t)xm * a.K);
@@ -485,14 +725,60 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
       xs_s[m] = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
     }
   }
-  for (int i = tid; i < M * kCols; i += kGemvThreads) (&red_s[0][0])[i] = 0;
+  for (int i = tid; i < Mr * kSumLd; i += kGemvThreads) (&red_s[0][0])[i] = 0;
   __syncthreads();
 
   // prologue 2: this CTA's K slice of the rows, as int8 codes or (byte,
   // wire, pair8, i4bf16) bf16 activations; for the i4 modes, and for
   // whole-code weights with a base, each quant block's bf16 sum of the
   // activations, one warp each
-  for (int i = tid; i < M * klen; i += kGemvThreads) {
+  if constexpr (I4BF) {
+    // (b'): the M activation rows as mma B fragments, 8 values a thread
+    // from one 16-byte load (K % 16 == 0), and each quant block's bf16
+    // sum: the thread's 8 values, then the block's kBlk / 8 threads,
+    // neighbouring lanes
+    constexpr int kGrp = kBlk / 8;
+    constexpr int kIters = 4;  // chunks a thread loads at once
+    uint32_t* xw = reinterpret_cast<uint32_t*>(&x_s[0][0]);
+    const int nch = klen / 8, total = Mr * nch;
+    const bool norm = a.pro == kProNorm;
+    for (int i0 = 0; i0 < total; i0 += kIters * kGemvThreads) {
+      uint4 xv[kIters], wv[kIters];  // the batch's loads first: one latency a batch
+#pragma unroll
+      for (int it = 0; it < kIters; ++it) {
+        const int i = i0 + it * kGemvThreads + tid, m = i / nch, k = k0 + 8 * (i - m * nch);
+        xv[it] = wv[it] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < total && m < Mr) {
+          xv[it] = __ldg(reinterpret_cast<const uint4*>(a.x + (size_t)xrow(m) * a.K + k));
+          if (norm) wv[it] = __ldg(reinterpret_cast<const uint4*>(a.norm_w + k));
+        }
+      }
+      if (i0 == 0) ring.start();
+#pragma unroll
+      for (int it = 0; it < kIters; ++it) {
+        const int i = i0 + it * kGemvThreads + tid, m = i / nch, c = i - m * nch;
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&xv[it]);
+        const __nv_bfloat16* wh = reinterpret_cast<const __nv_bfloat16*>(&wv[it]);
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = norm && m < Mr ? round_bf16(__fmul_rn(__fmul_rn(bf(h[e]), inv_s[m]), bf(wh[e])))
+                               : bf(h[e]);
+        if (i < total) {
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            xw[gemv_mma::frag_word(m, 8 * c + 2 * p)] = gemv_mma::pack_bf16(v[2 * p], v[2 * p + 1]);
+        }
+        float sum = v[0];
+#pragma unroll
+        for (int e = 1; e < 8; ++e) sum = __fadd_rn(sum, v[e]);
+#pragma unroll
+        for (int o = 1; o < kGrp; o <<= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+        if (i < total && m < Mr && c % kGrp == 0) xsum_s[m][c / kGrp] = round_bf16(sum);
+      }
+    }
+  }
+  for (int i = tid; i < (I4BF ? 0 : M * klen); i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
     const float v = activation(a, xrow(m), k0 + kk, inv_s[m]);
     if constexpr (XBF) {
@@ -503,7 +789,7 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     }
   }
   const int nblk = klen / kBlk;  // float modes: klen % kBlk == 0 (the plan)
-  if (I4 || I4BF || (FC && a.w_base != nullptr)) {
+  if (I4 || (FC && a.w_base != nullptr)) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
       const int kb0 = k0 + lb * kBlk;
@@ -569,6 +855,8 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
             atomicAdd(&red_s[m][s * kTileCols + lane * 4 + c], acc[m][s * 4 + c]);
     }
     __syncthreads();
+  } else if constexpr (I4BF) {
+    i4bf_walk<NSEG, MODE>(ring, Mr, x_s[0], &xsum_s[0][0], redf);
   } else {
     // per quant block, in float32: i4x8 the int32 dot of the block, scaled,
     // plus its fold term; byte the block's products and its base term;
@@ -709,73 +997,6 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
         }
       }
     }
-    if constexpr (I4BF) {
-      // (b'): the i4x8 walk over whole blocks, each nibble unpacked to
-      // bf16(bf16(n) * bf16(sc)) and multiplied by its bf16 activation.
-      // One column segment at a time (not unrolled): with both in flight
-      // the 64-row GLU instantiations spilled kilobytes per thread
-      constexpr int kQRows = kBlk / 2;  // nibble-pair byte rows per block
-      const I4Meta* isc = reinterpret_cast<const I4Meta*>(wsc_b);
-      const I4Meta* ibs = reinterpret_cast<const I4Meta*>(wbs_b);
-      for (int lb = warp; col_ok && lb < nblk; lb += kGemvWarps) {
-        const int kb = k0 / kBlk + lb;
-#pragma unroll 1
-        for (int s = 0; s < NSEG; ++s) {
-          const int col = col0 + s * seg_stride;
-          // all byte rows of the block in flight at once
-          uint32_t words[kQRows];
-#pragma unroll
-          for (int r = 0; r < kQRows; ++r)
-            words[r] = __ldg(reinterpret_cast<const uint32_t*>(
-                w4 + ((size_t)kb * kQRows + r) * a.N + col));
-          float scv[4], bsv[4] = {0.f, 0.f, 0.f, 0.f}, scb[4];
-          load_meta4(isc + (size_t)kb * a.N + col, scv);
-          if (ibs != nullptr) load_meta4(ibs + (size_t)kb * a.N + col, bsv);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) scb[c] = round_bf16(scv[c]);
-          float dot[M][4];
-#pragma unroll
-          for (int m = 0; m < M; ++m)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) dot[m][c] = 0.f;
-#pragma unroll
-          for (int r = 0; r < kQRows; ++r) {
-            // K rows 2r (low nibbles) and 2r + 1 (high nibbles): one bf16
-            // pair of each activation row
-            float xr[2][M];
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const __nv_bfloat162 xp =
-                  reinterpret_cast<const __nv_bfloat162*>(x_s[m])[lb * kQRows + r];
-              xr[0][m] = __low2float(xp);
-              xr[1][m] = __high2float(xp);
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const int nib = static_cast<int>((words[r] >> (8 * c + 4 * h)) & 0xFu);
-                const float w = round_bf16(__fmul_rn(static_cast<float>((nib ^ 8) - 8), scb[c]));
-#pragma unroll
-                for (int m = 0; m < M; ++m) dot[m][c] = fmaf(xr[h][m], w, dot[m][c]);
-              }
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float fold = round_bf16(__fadd_rn(__fmul_rn(scv[c], 8.f), bsv[c]));
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const float t = __fadd_rn(__fmul_rn(xsum_s[m][lb], fold), dot[m][c]);
-              // the segment index stays a constant for the register file
-              if (s == 0)
-                acc[m][c] = __fadd_rn(acc[m][c], t);
-              else
-                acc[m][(NSEG - 1) * 4 + c] = __fadd_rn(acc[m][(NSEG - 1) * 4 + c], t);
-            }
-          }
-        }
-      }
-    }
     // the warps' sums, added in warp order
     for (int w = 0; w < kGemvWarps; ++w) {
       if (warp == w && col_ok) {
@@ -795,13 +1016,13 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
 
   // split-K: the last CTA of the tile takes the totals
   if (a.ksplit > 1) {
-    for (int i = tid; i < M * kCols; i += kGemvThreads) {
+    for (int i = tid; i < Mr * kCols; i += kGemvThreads) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
       const size_t o = (size_t)orow(m) * a.N + c + (j / kTileCols) * seg_stride;
       if constexpr (MODE != kModeI8mm)
-        a.part[(size_t)blockIdx.y * a.out_rows * a.N + o] = redf[i];
+        a.part[(size_t)blockIdx.y * a.out_rows * a.N + o] = sum_at(m, j);
       else
         atomicAdd(&a.ws[o], red_s[m][j]);
     }
@@ -811,7 +1032,42 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
     __syncthreads();
     if (!last_s) return;
     __threadfence();
-    for (int i = tid; i < M * kCols; i += kGemvThreads) {
+    if constexpr (I4BF) {
+      // the splits in split order: every element of the thread, four
+      // splits at a time, all their loads in flight at once
+      constexpr int kE = (M * kCols + kGemvThreads - 1) / kGemvThreads;
+      const size_t stride = (size_t)a.out_rows * a.N;
+      size_t off[kE];
+      float sum[kE];
+      bool live[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int i = tid + e * kGemvThreads, m = i / kCols, j = i - m * kCols;
+        const int c = tile * kTileCols + (j % kTileCols);
+        live[e] = i < Mr * kCols && c < ncols;
+        off[e] = live[e] ? (size_t)orow(m) * a.N + c + (j / kTileCols) * seg_stride : 0;
+        sum[e] = 0.f;
+      }
+      for (int z0 = 0; z0 < a.ksplit; z0 += 4) {
+        float f[kE][4];
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+            f[e][d] = live[e] && z0 + d < a.ksplit ? __ldcg(a.part + (z0 + d) * stride + off[e]) : 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+            if (z0 + d < a.ksplit) sum[e] = __fadd_rn(sum[e], f[e][d]);
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int i = tid + e * kGemvThreads;
+        if (live[e]) sum_at(i / kCols, i % kCols) = sum[e];
+      }
+    }
+    for (int i = tid; i < (I4BF ? 0 : M * kCols); i += kGemvThreads) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
@@ -832,14 +1088,14 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   // epilogue: i8mm y = (float(acc) * xs_row) * scale_col; the float
   // modes y = the sum; then y += bias (mode (d)), before the f32 store,
   // the residual add or the GLU
-  for (int i = tid; i < M * kTileCols; i += kGemvThreads) {
+  for (int i = tid; i < Mr * kTileCols; i += kGemvThreads) {
     const int m = i / kTileCols, j = i - m * kTileCols;
     const int c = tile * kTileCols + j;
     if (c >= ncols) continue;
     float y, gt = 0.f;
     if constexpr (MODE != kModeI8mm) {
-      y = redf[m * kCols + j];
-      if (NSEG == 2) gt = redf[m * kCols + kTileCols + j];
+      y = sum_at(m, j);
+      if (NSEG == 2) gt = sum_at(m, kTileCols + j);
     } else {
       const float* wsc = static_cast<const float*>(a.w_scale) + sc_off / 4;
       y = __fmul_rn(__fmul_rn((float)red_s[m][j], xs_s[m]), wsc[c]);
@@ -864,6 +1120,32 @@ __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   }
 }
 
+// The GEMV kernels.  gemv takes every mode but (b') and is bounded by its
+// thread count alone: ptxas then keeps the i4x8 GEMV within the registers
+// of two CTAs an SM (a second bound of one CTA an SM let the Q4_B64T1 and
+// Q4_B32T2 instantiations grow past them, to one CTA an SM and 1.5x their
+// time).  gemv_bf takes the (b') modes, kBfCtasPerSm CTAs an SM.
+template <int M, int NSEG, int MODE, bool ROUTED>
+__global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
+  gemv_body<M, NSEG, MODE, ROUTED>(a);
+}
+
+template <int M, int NSEG, int MODE, bool ROUTED>
+__global__ void __launch_bounds__(kGemvThreads, kBfCtasPerSm) gemv_bf(const GemvArgs a) {
+  gemv_body<M, NSEG, MODE, ROUTED>(a);
+}
+
+// (b'): when the K splits that fill one wave of kBfCtasPerSm CTAs an SM
+// take at most kMaxKcBf rows each, those: the default plan's second wave
+// would cost a whole CTA's time for a few CTAs.
+void bf_one_wave(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
+  const int fit = kBfCtasPerSm * sm_count / tiles;
+  if (fit < 1) return;
+  int rows = (K + fit - 1) / fit;
+  rows = std::max((rows + unit - 1) / unit * unit, kMinKc);
+  if (rows <= kMaxKcBf) *kc = rows, *ksplit = (K + rows - 1) / rows;
+}
+
 // CTAs for about two per SM, K rows per CTA a multiple of `unit` (32:
 // whole 4-row groups per warp, or whole byte-mode quant blocks; for the i4
 // modes the mode's quant block: whole blocks) and at most kMaxKc.
@@ -876,17 +1158,44 @@ void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   *ksplit = (K + rows - 1) / rows;
 }
 
+// Launch one GEMV instantiation.  The (b') modes take their cp.async rings
+// as dynamic shared memory (above the 48 KB a kernel gets without asking)
+// and prefer the SM's memory as shared memory, so that kBfCtasPerSm CTAs
+// fit.
+template <int M, int NSEG, int MODE, bool ROUTED>
+void launch_one(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
+  if constexpr (is_i4bf(MODE)) {
+    constexpr int dyn = bf_ring_bytes(MODE);
+    static const bool ready = [] {
+      cudaFuncSetAttribute(gemv_bf<M, NSEG, MODE, ROUTED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+      cudaFuncSetAttribute(gemv_bf<M, NSEG, MODE, ROUTED>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+      return true;
+    }();
+    (void)ready;
+    gemv_bf<M, NSEG, MODE, ROUTED><<<grid, kGemvThreads, dyn, stream>>>(a);
+  } else {
+    gemv<M, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a);
+  }
+}
+
 template <int NSEG, int MODE, bool ROUTED>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
-  switch (a.M) {
-    case 1: gemv<1, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 2: gemv<2, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 3: gemv<3, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 4: gemv<4, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 5: gemv<5, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 6: gemv<6, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    case 7: gemv<7, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
-    default: gemv<8, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a); break;
+  if constexpr (is_i4bf(MODE)) {  // rows at run time (gemv_body's Mr)
+    launch_one<kMaxSlots, NSEG, MODE, ROUTED>(a, grid, stream);
+  } else {  // the other modes: one instantiation per row count
+    switch (a.M) {
+      case 1: launch_one<1, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      case 2: launch_one<2, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      case 3: launch_one<3, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      case 4: launch_one<4, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      case 5: launch_one<5, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      case 6: launch_one<6, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      case 7: launch_one<7, NSEG, MODE, ROUTED>(a, grid, stream); break;
+      default: launch_one<8, NSEG, MODE, ROUTED>(a, grid, stream); break;
+    }
   }
 }
 
@@ -953,6 +1262,7 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
     return false;
   *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
   gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
+  if (is_i4bf(mode)) bf_one_wave(a.K, *tiles, sm_count, unit, kc, ksplit);
   return true;
 }
 
@@ -1495,14 +1805,33 @@ int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const voi
       launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
+// The weight bytes the (b') GEMV of weight mode `mode` (7-10) keeps in
+// flight per SM for M rows of (K, N) weights (N the w1n3 width when glu is
+// set): the CTAs an SM holds at once (kBfCtasPerSm, at most the grid's
+// share) x 8 warps x the 3 k16 steps a warp's ring holds ahead (1 KB of
+// codes each, and a block's metadata spread over its steps); -1 for a
+// shape it does not take.
+int ift_i4bf16_inflight(int M, int K, int N, int glu, int mode, int sm_count) {
+  if (!is_i4bf(mode)) return -1;
+  GemvArgs a{};
+  a.M = M, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
+  int tiles = 0, kc = 0, ksplit = 0;
+  if (!gemv_shape(a, mode, sm_count, &tiles, &kc, &ksplit)) return -1;
+  const int resident = std::min(kBfCtasPerSm, (tiles * ksplit + sm_count - 1) / sm_count);
+  const int step_bytes = 32 * 2 * 16 + 8 * bf_meta_chunks(mode) * 16 / (i4_block(mode) / 16);
+  return resident * kGemvWarps * (kBfRing - 1) * step_bytes;
+}
+
 // y (M, N) f32 = the whole-code product of x (M, K) bf16 (no row
-// quantization) with a wire plane (K/pk, N) uint8 (mode 11-13) or a pair8
-// plane (K/2, N) uint8 (mode 14), f16 block scales and bases (K/block, N;
-// base may be null).  part and counters as for ift_i4x8_gemv.
+// quantization) with a byte plane (K, N) uint8 (mode 2 Q8_B32T2, no base;
+// 3 Q8_B32T1, with its base), a wire plane (K/pk, N) uint8 (mode 11-13) or
+// a pair8 plane (K/2, N) uint8 (mode 14), f16 block scales and bases
+// (K/block, N; base may be null but for mode 3).  part and counters as for
+// ift_i4x8_gemv.
 int ift_code_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
                   void* out, void* part, void* counters, int M, int K, int N, int mode,
                   int sm_count, void* stream) {
-  if (mode < kModeWireQ4 || mode > kModePair8) return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_code(mode)) return static_cast<int>(cudaErrorInvalidValue);
   GemvArgs a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = w;

@@ -81,6 +81,7 @@ from . import _build
 KERNEL = "fused_decode_step"  # a step whose products are all i8mm
 I4_KERNEL = "fused_decode_step_i4"  # a step with an i4x8 product (Q4_B64T1)
 BYTE_KERNEL = "fused_decode_step_byte"  # a step with a byte-mode product
+BYTE_GEMV_KERNEL = "byte_gemv"  # the byte GEMV alone (Q8_B32T2, Q8_B32T1)
 MOE_KERNEL = "fused_decode_step_moe"  # a step over routed MoE layers (g)
 ROUTE_KERNEL = "moe_route"  # mode (g)'s routing launch alone
 GEMV_KERNEL = "i8mm_gemv"
@@ -335,6 +336,8 @@ def _lib():
         lib.ift_code_gemv.restype = ctypes.c_int
         lib.ift_gemv_splits.argtypes = [i] * 5
         lib.ift_gemv_splits.restype = ctypes.c_int
+        lib.ift_i4bf16_inflight.argtypes = [i] * 6
+        lib.ift_i4bf16_inflight.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
             [ctypes.POINTER(vp), i] + [vp] * 21 + [i] * 16 + [f, f, i, vp])
         lib.ift_fused_decode_step.restype = ctypes.c_int
@@ -472,17 +475,33 @@ def i4bf16_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return _i4_gemv_cuda(x2, w, "i4bf16")
 
 
+def i4bf16_bytes_in_flight(m: int, w: QuantizedTensor, glu: bool,
+                           device) -> int:
+    """The weight bytes the (b') GEMV keeps in flight per SM for m rows of
+    w (N its w1n3 width when glu) on the card `device`: csrc
+    ift_i4bf16_inflight (the two CTAs an SM holds, at most the grid's
+    share, x 8 warps x the 3 k16 steps of a warp's cp.async ring)."""
+    code = _i4_geometry(w, "i4bf16")[0]
+    got = _lib().ift_i4bf16_inflight(
+        m, w.storage_k, int(w.shape[-1]), int(glu), code,
+        _sm_count(torch.device(device).index or 0))
+    if got < 0:
+        raise ValueError(f"the (b') GEMV does not take {w.format} "
+                         f"{tuple(w.shape)} at M={m}")
+    return got
+
+
 def _code_geometry(w: QuantizedTensor) -> tuple:
     """A whole-code weight's (csrc WeightMode, step launch count, GEMV
-    launch count or None, plane name, codes per byte): byte (c), the wire
-    mode by (bits, block) or mode (h)."""
+    launch count, plane name, codes per byte): byte (c), the wire mode by
+    (bits, block) or mode (h)."""
     fmt = get_format(w.format)
     if PAIR8_PLANE in w.planes:
         return _PAIR8_MODE, PAIR8_KERNEL, PAIR8_GEMV_KERNEL, PAIR8_PLANE, 2
     bits = fmt.planes[0].bits
     if bits == 8:
-        return (_MODES["byte"] + (w.base is not None), BYTE_KERNEL, None,
-                "data", 1)
+        return (_MODES["byte"] + (w.base is not None), BYTE_KERNEL,
+                BYTE_GEMV_KERNEL, "data", 1)
     key = (bits, fmt.block)
     if key not in _WIRE_MODES:
         raise NotImplementedError(
@@ -510,14 +529,12 @@ def _check_codes(w: QuantizedTensor, name: str, k: int, n: int,
 
 
 def _code_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """Launch the wire or pair8 GEMV alone on (M <= 8, K_s) bf16 rows, in
-    the instantiation of w's geometry; returns (M, N) float32."""
+    """Launch the byte, wire or pair8 GEMV alone on (M <= 8, K_s) bf16
+    rows, in the instantiation of w's geometry; returns (M, N) float32."""
     _build.require_hopper(x2)
     m, k = x2.shape
     n = int(w.shape[-1])
     code, _, counter, plane, _ = _code_geometry(w)
-    if counter is None:
-        raise ValueError(f"{w.format}: the byte mode has no GEMV entry")
     if not 1 <= m <= _MAX_GEMV_ROWS:
         raise ValueError(f"{counter} takes 1..{_MAX_GEMV_ROWS} rows, got {m}")
     if k != w.storage_k or n % 4:
@@ -541,13 +558,25 @@ def _code_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return out
 
 
+def byte_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Launch mode (c)'s byte GEMV alone on (M <= 8, K_s) bf16 rows of a Q8
+    block weight (Q8_B32T2, or Q8_B32T1 with its base); returns (M, N)
+    float32 (byte_matmul_plain's arithmetic; launch count
+    ``byte_gemv``)."""
+    if PAIR8_PLANE in w.planes or get_format(w.format).planes[0].bits != 8:
+        raise ValueError(f"byte_gemv takes a Q8 data plane, not "
+                         f"{sorted(w.planes)} ({w.format})")
+    return _code_gemv_cuda(x2, w)
+
+
 def wire_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """Launch the wire-mode GEMV alone on (M <= 8, K_s) bf16 rows; returns
     (M, N) float32 (wire_matmul_plain's arithmetic), in the instantiation
     of w's geometry (launch count ``wire_gemv`` for Q4_B64T1,
     ``wire_gemv_b32`` for Q4_B32T1A/B, ``wire_gemv_q2`` for
     Q2_B32T1A/B)."""
-    if get_format(w.format).pair_base11 or "data" not in w.planes:
+    if (get_format(w.format).pair_base11 or "data" not in w.planes
+            or get_format(w.format).planes[0].bits == 8):
         raise ValueError(f"wire_gemv takes a wire data plane, not "
                          f"{sorted(w.planes)} ({w.format})")
     return _code_gemv_cuda(x2, w)

@@ -11,7 +11,9 @@ scales) and as a share of the card's byte bound:
   X3 ``run_c``  X1's nibbles dotted raw per `blk`-value superblock, the sum
                 times the scale of the superblock's first 64-row block only
                 (a speed shape, not exact dequantization)
-  X4 ``run_d``  int8 codes, w = bf16(code * scale)
+  X4 ``run_d``  int8 codes, w = bf16(code * scale); on the card the
+                tensor-core design of ``csrc/gemv_mma.cuh`` (B4 (b')'s GEMV
+                shares it)
   X5 ``run_e``  int8 activations (32 rows) x int8 codes, int32 sums, times
                 a per-column scale
 
@@ -139,12 +141,17 @@ def _lib():
     lib = _build.load("unpack_exp")
     if not getattr(lib, "_ift_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("a", "b", "d", "e"):
+        for name in ("a", "b", "e"):
             fn = getattr(lib, f"ift_unpack_{name}")
             fn.argtypes = [vp] * 5 + [i] * 3 + [vp]
             fn.restype = ctypes.c_int
+        lib.ift_unpack_d.argtypes = [vp] * 6 + [i] * 3 + [vp]
+        lib.ift_unpack_d.restype = ctypes.c_int
         lib.ift_unpack_c.argtypes = [vp] * 5 + [i] * 4 + [vp]
         lib.ift_unpack_c.restype = ctypes.c_int
+        for name in ("ift_unpack_d_splits", "ift_unpack_d_inflight"):
+            getattr(lib, name).argtypes = [i] * 3
+            getattr(lib, name).restype = ctypes.c_int
         lib._ift_typed = True
     return lib
 
@@ -157,19 +164,59 @@ def _k_per_cta(k: int, unit: int) -> int:
     raise ValueError(f"K={k} is not a multiple of {unit}")
 
 
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _d_plan(entry: str, k: int, n: int, sms: int) -> int:
+    value = getattr(_lib(), entry)(k, n, sms)
+    if value < 0:
+        raise ValueError(f"unpack_d takes K a multiple of 64 and N of 4, "
+                         f"got K={k} N={n}")
+    return value
+
+
+def d_bytes_in_flight(k: int, n: int, device) -> int:
+    """The code bytes X4's kernel keeps in flight per SM at (K, N) on the
+    card `device` (csrc ift_unpack_d_inflight: the CTAs an SM holds at
+    once x 4 warps x the 3 k16 steps of a warp's cp.async ring)."""
+    return _d_plan("ift_unpack_d_inflight", k, n,
+                   torch.cuda.get_device_properties(device)
+                   .multi_processor_count)
+
+
+# X4's column-tile counters by device: zero between launches (the kernel
+# leaves them zero), so no launch pays for zeroing them
+_D_COUNTERS: dict = {}
+
+
+def _d_counters(device, tiles: int) -> torch.Tensor:
+    buf = _D_COUNTERS.get(device)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+        _D_COUNTERS[device] = buf
+    return buf
+
+
 def _launch(name: str, a, codes, meta, m: int, partial_dtype,
             blk: int = 0) -> torch.Tensor:
     _build.require_hopper(a)
     k, n = a.shape[1], codes.shape[1]
     if n % 4:
         raise ValueError(f"N={n} must be a multiple of 4")
-    kc = blk if name == "c" else _k_per_cta(k, 64)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    partial = torch.empty((k // kc, m, n), dtype=partial_dtype,
+    if name == "d":  # X4 plans in C: its K splits for the card's SMs
+        splits = _d_plan("ift_unpack_d_splits", k, n, _sms(a))
+        counters = [_build.ptr(_d_counters(a.device, -(-n // 128)))]
+        plan = _sms(a)
+    else:
+        kc = blk if name == "c" else _k_per_cta(k, 64)
+        splits, counters, plan = k // kc, [], kc
+    partial = torch.empty((splits, m, n), dtype=partial_dtype,
                           device=a.device)
     lib = _lib()
     args = [_build.ptr(a), _build.ptr(codes), _build.ptr(meta),
-            _build.ptr(partial), _build.ptr(out), k, n, kc]
+            _build.ptr(partial), *counters, _build.ptr(out), k, n, plan]
     if name == "c":
         args.append(blk)
     rc = getattr(lib, f"ift_unpack_{name}")(*args, _build.stream_of(a))
@@ -298,6 +345,9 @@ def bench(device, shapes=SHAPES, timer=None, seed: int = 0,
             b_ms, b_by = bound(moved, ops,
                                H100_INT8_OPS if int8 else H100_BF16_FLOPS)
             row.update(bound_ms=b_ms, bound_by=b_by)
+            if name == "unpack_d" and timer is not None:
+                row["bytes_in_flight_per_sm"] = d_bytes_in_flight(k, n,
+                                                                  device)
             if timer is not None:
                 ms = timer(kern, name)
                 row.update(ms=ms, plain_ms=timer(plain, f"{name} plain"),

@@ -16,12 +16,10 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor cores, H100 SXM data sheet
 TIMED_ITERS = 20
-# a callable slower than SLOW_BUDGET_S / TIMED_ITERS (a plain version of a
-# many-layer decode step takes 0.05-1.5 s) is timed over fewer calls, as
-# many as fit SLOW_BUDGET_S and at least SLOW_MIN_ITERS (never more than
-# asked for), without the sleep ahead of each call
-SLOW_BUDGET_S = 1.0
-SLOW_MIN_ITERS = 3
+# a callable whose call after the warm-up takes longer than SLOW_S (a
+# plain version of a many-layer decode step takes 0.05-1.9 s, all of it
+# the host's launches) is read from that call on the host clock
+SLOW_S = 0.05
 
 
 def bound(bytes_moved: float, ops: float, peak: float = H100_BF16_FLOPS
@@ -35,7 +33,8 @@ def bound(bytes_moved: float, ops: float, peak: float = H100_BF16_FLOPS
 
 
 class Timer:
-    """Median device time of a callable over TIMED_ITERS calls, each after
+    """Median device time of a callable over `iters` calls (TIMED_ITERS
+    unless the constructor or the call asks for another count), each after
     an L2 flush, measured with CUDA events.
 
     The flush READS 128 MiB (a write would leave 50 MB of dirty lines whose
@@ -50,19 +49,19 @@ class Timer:
     host would block.  A callable that waits on the device itself (a
     device-to-host read) can never be queued ahead: it is timed alone, and
     its events then include its host gaps (a "timer" line names it).
-    A callable whose second warm-up call takes longer than SLOW_BUDGET_S /
-    TIMED_ITERS is timed over min(iters, max(SLOW_MIN_ITERS, SLOW_BUDGET_S /
-    that)) calls, each alone: a sleep of at most 16 ms cannot cover its
-    host time (the plain versions of the decode steps spend 0.05-1.5 s
-    launching small kernels), so the sleep would only cost three wasted
-    calls before the same fallback."""
+    A callable whose call after the warm-up takes longer than SLOW_S is
+    read from that one call on the host clock (a "timer" line names it): a
+    sleep of at most 16 ms cannot cover its host time (the plain versions
+    of the decode steps spend 0.05-1.9 s launching small kernels), and
+    more calls would only repeat a host-bound reading."""
 
     # ~1 ms at the H100's ~2 GHz clock: enough for a single kernel's
     # launch; a callable whose launches take the host longer (a fused
     # step's 160) is timed again behind 4x and 16x that
     SLEEP_CYCLES = 2_000_000
 
-    def __init__(self, device):
+    def __init__(self, device, iters: int = TIMED_ITERS):
+        self.iters = iters
         self.flush_buf = torch.ones(32 * 1024 * 1024, dtype=torch.int32,
                                     device=device)
 
@@ -81,16 +80,18 @@ class Timer:
         torch.cuda.synchronize()
         return start.elapsed_time(end), host_ahead
 
-    def __call__(self, fn, label: str = "", iters: int = TIMED_ITERS) -> float:
+    def __call__(self, fn, label: str = "", iters: int = 0) -> float:
+        iters = iters or self.iters
         fn()  # warm up (a first call may build or load a kernel)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
-        if call_s * TIMED_ITERS > SLOW_BUDGET_S:
-            return self._alone(fn, label, min(iters, max(
-                SLOW_MIN_ITERS, int(SLOW_BUDGET_S / call_s))))
+        if call_s > SLOW_S:
+            print(json.dumps({"phase": "timer", "host_clock_once": label}),
+                  flush=True)
+            return call_s * 1e3
         times = []
         for _ in range(iters):
             for attempt in range(3):

@@ -59,17 +59,31 @@ def _close(got, ref, tol=REL_TOL):
 
 
 def test_i4bf16_gemv_kernel(dev):
-    """The (b') GEMV alone on each format, at test and llama2-7b shapes,
-    M in {1, 5, 8}."""
-    from inferflow_tpu_torch.kernels.decode_step import (i4_bf16_matmul_plain,
-                                                         i4bf16_gemv_cuda)
+    """The (b') GEMV alone (the tensor-core walk) on each format, at test
+    and llama2-7b shapes, M in {1, 5, 8}; at the edges its tiling brings,
+    every M in 1..8: N = 100 and 36 (multiples of 4, not of 16: 4- and
+    8-byte copies, a ragged tile), K of one quant block, and K = 1088 at N
+    = 4096, whose K splits end in a short one (on 132 SMs, 8 of 128 rows
+    and one of 64)."""
+    from inferflow_tpu_torch.kernels.decode_step import (
+        _gemv_splits, _i4_geometry, _sms, i4_bf16_matmul_plain,
+        i4bf16_gemv_cuda)
+    from inferflow_tpu_torch.quant.formats import get_format
     gen = torch.Generator(device=dev).manual_seed(51)
     for fmt, (gemv, _) in FORMATS.items():
-        for k, n in ((256, 512), (4096, 12288), (11008, 4096), (128, 128)):
+        blk = get_format(fmt).block
+        shapes = [((256, 512), (1, 5, 8)), ((4096, 12288), (1, 5, 8)),
+                  ((11008, 4096), (1, 5, 8)), ((128, 128), (1, 5, 8)),
+                  ((256, 100), range(1, 9)), ((blk, 36), range(1, 9)),
+                  ((1088, 4096), range(1, 9))]
+        for (k, n), ms in shapes:
             w = torch.randn((k, n), generator=gen, device=dev) * (
                 0.5 / k ** 0.5)
             qt = repack_i4(quantize(w, fmt))
-            for m in (1, 5, 8):
+            if k == 1088:  # several K splits
+                code = _i4_geometry(qt, "i4bf16")[0]
+                assert _gemv_splits(k, n, False, _sms(w), code) > 1
+            for m in ms:
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 _build.launch_counts.clear()
@@ -82,10 +96,11 @@ def test_i4bf16_gemv_kernel(dev):
 
 
 def test_fused_decode_step_i4bf16(dev, monkeypatch):
-    """B4 mode (b') against its plain version on every geometry: test-llama
-    (3 layers) and llama2-7b width (2 layers), B = 1 and B = 4; then the
-    same weights with INFERFLOW_I4_DOT=i8 in the same process take mode
-    (b) (the pointer-table cache keys on the mode)."""
+    """B4 mode (b') against its plain version on every geometry (the GLU's
+    a and g segments in one CTA): test-llama (3 layers) and llama2-7b width
+    (2 layers), B = 1 and B = 4; then the same weights with
+    INFERFLOW_I4_DOT=i8 in the same process take mode (b) (the
+    pointer-table cache keys on the mode)."""
     from inferflow_tpu_torch.kernels.decode_step import (
         fused_decode_step, fused_decode_step_plain)
     from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params

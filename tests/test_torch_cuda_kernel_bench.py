@@ -68,19 +68,28 @@ def test_b6_wire_and_generic(dev):
 
 @pytest.mark.parametrize("name", ["a", "b", "c", "d", "e"])
 def test_unpack_kernel(dev, name):
+    """Each experiment at (1024, 640); X4 (the tensor-core kernel) also at
+    N = 100 (a multiple of 4, not of 16: 4- and 8-byte copies, a ragged
+    tile), K = 64 (one block), and K = 37 blocks at N = 4096, whose K
+    splits end in a short one; the same bits on a second run."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    inp = exp_unpack.mk_inputs(1024, 640, gen, dev)
-    case = next(c for c in exp_unpack.cases(inp)
-                if c[0] == f"unpack_{name}")
-    _, kern, plain, _, _, _, _, int8 = case
-    before = _build.launch_counts[f"unpack_{name}"]
-    got = kern()
-    assert _build.launch_counts[f"unpack_{name}"] == before + 1
-    if int8:
-        torch.cuda.synchronize()
-        assert torch.equal(got, plain())
-    else:
-        _close(got, plain(), 2.0 ** -7)
+    shapes = [(1024, 640)]
+    if name == "d":
+        shapes += [(1024, 100), (64, 640), (64 * 37, 4096)]
+    for k, n in shapes:
+        inp = exp_unpack.mk_inputs(k, n, gen, dev)
+        case = next(c for c in exp_unpack.cases(inp)
+                    if c[0] == f"unpack_{name}")
+        _, kern, plain, _, _, _, _, int8 = case
+        before = _build.launch_counts[f"unpack_{name}"]
+        got = kern()
+        assert _build.launch_counts[f"unpack_{name}"] == before + 1
+        if int8:
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain())
+        else:
+            _close(got, plain(), 2.0 ** -7)
+        assert torch.equal(kern(), got), (name, k, n)
 
 
 def test_attention_head_dim_256_and_wide_groups(dev):
