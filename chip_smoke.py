@@ -3244,11 +3244,13 @@ def phase_i4bf16_gemv(timer, dev, params) -> list:
     products (the lm_head too, which the engines give B5), M in {1, 8},
     against its plain version, the same bits twice; mode (b)'s GEMV timed
     on the same inputs (library: torch.matmul on the pre-dequantized bf16
-    weight, the same function but for summation order)."""
+    weight, the same function but for summation order).  A first line
+    gives each instantiation's registers."""
     from inferflow_tpu_torch.kernels.decode_step import (
         i4_bf16_matmul_plain, i4bf16_bytes_in_flight, i4bf16_gemv_cuda,
-        i4x8_gemv_cuda)
+        i4bf16_registers, i4x8_gemv_cuda)
     from inferflow_tpu_torch.kernels.dequant_matmul import i4_weight
+    emit({"phase": "i4bf16_registers", "registers": i4bf16_registers(dev)})
     gen = torch.Generator(device=dev).manual_seed(94)
     rows = []
     for fmt, (kernel, i4x8, _) in I4BF16_FORMATS.items():

@@ -182,6 +182,15 @@ void ift_gemv_part1(const void* args, int mode, dim3 grid, cudaStream_t stream);
 void ift_gemv_part2(const void* args, int mode, dim3 grid, cudaStream_t stream);
 void ift_gemv_part3(const void* args, int mode, dim3 grid, cudaStream_t stream);
 #endif
+// The registers a thread of the (b') GEMV of weight mode `mode` (one that
+// part p instantiates) takes, w1n3's instantiation when glu is set; -1
+// for another mode.
+int ift_bf_registers_part0(int mode, int glu);
+#if IFT_PARTS == 4
+int ift_bf_registers_part1(int mode, int glu);
+int ift_bf_registers_part2(int mode, int glu);
+int ift_bf_registers_part3(int mode, int glu);
+#endif
 
 namespace {
 
@@ -1248,6 +1257,30 @@ void IFT_CAT(ift_gemv_part, IFT_PART)(const void* args, int mode, dim3 grid,
 }
 
 namespace {
+template <int MODE>
+int bf_registers_owned(int glu) {
+  if constexpr (is_i4bf(MODE) && MODE % IFT_PARTS == IFT_PART) {
+    cudaFuncAttributes attr{};
+    const cudaError_t err =
+        glu ? cudaFuncGetAttributes(&attr, gemv_bf<kMaxSlots, 2, MODE, false>)
+            : cudaFuncGetAttributes(&attr, gemv_bf<kMaxSlots, 1, MODE, false>);
+    return err == cudaSuccess ? attr.numRegs : -1;
+  }
+  return -1;
+}
+}  // namespace
+
+int IFT_CAT(ift_bf_registers_part, IFT_PART)(int mode, int glu) {
+  switch (mode) {
+    case kModeI4Bf16: return bf_registers_owned<kModeI4Bf16>(glu);
+    case kModeI4Bf16B32: return bf_registers_owned<kModeI4Bf16B32>(glu);
+    case kModeI4Bf16B32F: return bf_registers_owned<kModeI4Bf16B32F>(glu);
+    case kModeI4Bf16B16F: return bf_registers_owned<kModeI4Bf16B16F>(glu);
+    default: return -1;
+  }
+}
+
+namespace {
 
 // The column tiles and the plan of a GEMV, or false for a shape it does
 // not take.
@@ -1803,6 +1836,22 @@ int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const voi
   a.pro = kProRow, a.epi = kEpiF32;
   return static_cast<int>(
       launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
+}
+
+// The registers a thread of the (b') GEMV of weight mode `mode` (7-10)
+// takes (cudaFuncGetAttributes), its w1n3 instantiation when glu is set;
+// -1 for another mode.
+int ift_i4bf16_registers(int mode, int glu) {
+  if (!is_i4bf(mode)) return -1;
+  switch (mode % IFT_PARTS) {
+    case 0: return ift_bf_registers_part0(mode, glu);
+#if IFT_PARTS == 4
+    case 1: return ift_bf_registers_part1(mode, glu);
+    case 2: return ift_bf_registers_part2(mode, glu);
+    default: return ift_bf_registers_part3(mode, glu);
+#endif
+  }
+  return -1;
 }
 
 // The weight bytes the (b') GEMV of weight mode `mode` (7-10) keeps in

@@ -1,6 +1,6 @@
-// The 8-row code GEMV on Hopper's tensor cores: the pieces that X4
-// (unpack_exp.cu, `unpack_mma_d`) and B4 (b')'s GEMV (decode_step.cu,
-// weight modes 7-10) share.
+// The 8-row code GEMV on Hopper's tensor cores: the pieces that X2, X3
+// and X4 (unpack_exp.cu, `unpack_mma_nibble`, `unpack_mma_d`) and B4
+// (b')'s GEMV (decode_step.cu, weight modes 7-10) share.
 //
 // y (M <= 8, N) = x (M, K) bf16 @ W (K, N), W dequantized from stored codes
 // to bf16 in registers, is computed as y^T = W^T x^T with
@@ -28,6 +28,8 @@
 //     0x4300 | (u ^ 8) are 128 + (u ^ 8); minus 136 is n exactly; one
 //     fma.rn.bf16x2 by the column's bf16(scale) (and -0.0) rounds the exact
 //     product n * sc once: bf16(n * sc);
+//   - a raw unsigned nibble u (X3, scaled after the dot): 0x4300 | u minus
+//     128, exactly u;
 //   - int8 code v: the float32 bits 0x4B0000uu with uu = v ^ 0x80 are
 //     2^23 + v + 128; minus 2^23 + 128 is v exactly; two of them packed by
 //     cvt.rn.bf16x2.f32 (exact: |v| <= 128 has 8 bits), then the same
@@ -146,6 +148,18 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w4, uint32_
   // mantissa of 128.0 with the nibble's bit 3 flipped: 128 + (u ^ 8)
   const uint32_t t = (__byte_perm(w, w4, sel) & 0x000F000Fu) ^ 0x43084308u;
   return fma_bf16x2(fma_bf16x2(t, kOne2, kM136x2), sc2, kNegZero2);
+}
+
+constexpr uint32_t kM128x2 = 0xC300C300u;   // bf16x2 (-128, -128)
+
+// Byte C of a word of raw unsigned nibbles w (w4 = w >> 4), the i4
+// layout's order: bf16x2 {u_lo, u_hi}, exact.  The bits 0x4300 | u are
+// 128 + u; minus 128 is u, with no scale.
+template <int C>
+__device__ __forceinline__ uint32_t raw_nibble_pair(uint32_t w, uint32_t w4) {
+  constexpr uint32_t sel = C | (C << 4) | ((C + 4) << 8) | ((C + 4) << 12);
+  const uint32_t t = (__byte_perm(w, w4, sel) & 0x000F000Fu) | 0x43004300u;
+  return fma_bf16x2(t, kOne2, kM128x2);
 }
 
 // Column C of two int8 code words (K rows k and k+1, 4 columns each), each

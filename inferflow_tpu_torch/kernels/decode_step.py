@@ -338,6 +338,8 @@ def _lib():
         lib.ift_gemv_splits.restype = ctypes.c_int
         lib.ift_i4bf16_inflight.argtypes = [i] * 6
         lib.ift_i4bf16_inflight.restype = ctypes.c_int
+        lib.ift_i4bf16_registers.argtypes = [i] * 2
+        lib.ift_i4bf16_registers.restype = ctypes.c_int
         lib.ift_fused_decode_step.argtypes = (
             [ctypes.POINTER(vp), i] + [vp] * 21 + [i] * 16 + [f, f, i, vp])
         lib.ift_fused_decode_step.restype = ctypes.c_int
@@ -489,6 +491,18 @@ def i4bf16_bytes_in_flight(m: int, w: QuantizedTensor, glu: bool,
         raise ValueError(f"the (b') GEMV does not take {w.format} "
                          f"{tuple(w.shape)} at M={m}")
     return got
+
+
+def i4bf16_registers(device) -> dict:
+    """The registers a thread of each (b') GEMV instantiation takes on the
+    card `device` (cudaFuncGetAttributes), by its launch count: the w1n3
+    (GLU) instantiation and the one of the other products."""
+    torch.cuda.init()
+    with torch.cuda.device(device):
+        lib = _lib()
+        return {gemv: {"w1n3": lib.ift_i4bf16_registers(code, 1),
+                       "other": lib.ift_i4bf16_registers(code, 0)}
+                for code, _, gemv in _I4BF16_MODES.values()}
 
 
 def _code_geometry(w: QuantizedTensor) -> tuple:

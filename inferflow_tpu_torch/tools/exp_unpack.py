@@ -11,11 +11,12 @@ scales) and as a share of the card's byte bound:
   X3 ``run_c``  X1's nibbles dotted raw per `blk`-value superblock, the sum
                 times the scale of the superblock's first 64-row block only
                 (a speed shape, not exact dequantization)
-  X4 ``run_d``  int8 codes, w = bf16(code * scale); on the card the
-                tensor-core design of ``csrc/gemv_mma.cuh`` (B4 (b')'s GEMV
-                shares it)
+  X4 ``run_d``  int8 codes, w = bf16(code * scale)
   X5 ``run_e``  int8 activations (32 rows) x int8 codes, int32 sums, times
                 a per-column scale
+
+X2, X3 and X4 run the tensor-core design of ``csrc/gemv_mma.cuh`` on the
+card (B4 (b')'s GEMV shares it), one launch a call, planned in C.
 
 Inputs (``mk_inputs``): x (8, K) bf16, packed (K/2, N) uint8, codes4 (K/2,
 N) uint8 holding signed nibbles, codes8 (K, N) int8, scale (K/64, N) bf16,
@@ -141,17 +142,21 @@ def _lib():
     lib = _build.load("unpack_exp")
     if not getattr(lib, "_ift_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("a", "b", "e"):
+        for name in ("a", "e"):
             fn = getattr(lib, f"ift_unpack_{name}")
             fn.argtypes = [vp] * 5 + [i] * 3 + [vp]
-            fn.restype = ctypes.c_int
+        lib.ift_unpack_b.argtypes = [vp] * 6 + [i] * 3 + [vp]
+        lib.ift_unpack_c.argtypes = [vp] * 6 + [i] * 4 + [vp]
         lib.ift_unpack_d.argtypes = [vp] * 6 + [i] * 3 + [vp]
-        lib.ift_unpack_d.restype = ctypes.c_int
-        lib.ift_unpack_c.argtypes = [vp] * 5 + [i] * 4 + [vp]
-        lib.ift_unpack_c.restype = ctypes.c_int
-        for name in ("ift_unpack_d_splits", "ift_unpack_d_inflight"):
-            getattr(lib, name).argtypes = [i] * 3
-            getattr(lib, name).restype = ctypes.c_int
+        for name in "abcde":
+            getattr(lib, f"ift_unpack_{name}").restype = ctypes.c_int
+        for x in "bcd":
+            for what in ("splits", "inflight"):
+                fn = getattr(lib, f"ift_unpack_{x}_{what}")
+                fn.argtypes = [i] * (4 if x == "c" else 3)
+                fn.restype = ctypes.c_int
+        lib.ift_unpack_registers.argtypes = [i]
+        lib.ift_unpack_registers.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
 
@@ -164,37 +169,54 @@ def _k_per_cta(k: int, unit: int) -> int:
     raise ValueError(f"K={k} is not a multiple of {unit}")
 
 
-def _sms(t: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _d_plan(entry: str, k: int, n: int, sms: int) -> int:
-    value = getattr(_lib(), entry)(k, n, sms)
+def _plan(name: str, what: str, k: int, n: int, blk: int, sms: int) -> int:
+    """X2-X4's plan from C (csrc ift_unpack_<name>_<what>): the K splits
+    or the code bytes in flight per SM."""
+    args = (k, n, blk, sms) if name == "c" else (k, n, sms)
+    value = getattr(_lib(), f"ift_unpack_{name}_{what}")(*args)
     if value < 0:
-        raise ValueError(f"unpack_d takes K a multiple of 64 and N of 4, "
-                         f"got K={k} N={n}")
+        raise ValueError(f"unpack_{name} takes K a multiple of 64 and N of "
+                         f"4 (X3: superblocks of a multiple of 128 up to "
+                         f"{_MAX_KC} values dividing K), got K={k} N={n}"
+                         + (f" blk={blk}" if name == "c" else ""))
     return value
 
 
-def d_bytes_in_flight(k: int, n: int, device) -> int:
-    """The code bytes X4's kernel keeps in flight per SM at (K, N) on the
-    card `device` (csrc ift_unpack_d_inflight: the CTAs an SM holds at
-    once x 4 warps x the 3 k16 steps of a warp's cp.async ring)."""
-    return _d_plan("ift_unpack_d_inflight", k, n,
-                   torch.cuda.get_device_properties(device)
-                   .multi_processor_count)
+def bytes_in_flight(name: str, k: int, n: int, device,
+                    blk: int = X3_BLOCK) -> int:
+    """The code bytes X2 (`name` "b"), X3 ("c", superblocks of `blk`) or X4
+    ("d") keeps in flight per SM at (K, N) on the card `device` (csrc
+    ift_unpack_<name>_inflight: the CTAs an SM holds at once x their warps
+    x the 2 KB slots a warp has requested when it first waits: for X2 and
+    X3 each warp with a block (8 at 512 rows a CTA) its block's two, for
+    X4 each of 4 warps the 3 k16 steps its ring holds ahead)."""
+    return _plan(name, "inflight", k, n, blk, _sms(device))
 
 
-# X4's column-tile counters by device: zero between launches (the kernel
-# leaves them zero), so no launch pays for zeroing them
-_D_COUNTERS: dict = {}
+def kernel_registers(device) -> dict:
+    """The registers a thread of each kernel takes on the card (the
+    runtime's cudaFuncGetAttributes; X1 and X5 without their reduce
+    kernels)."""
+    torch.cuda.init()
+    with torch.cuda.device(device):
+        lib = _lib()
+        return {KERNELS[x]: lib.ift_unpack_registers(ord(x)) for x in "abcde"}
 
 
-def _d_counters(device, tiles: int) -> torch.Tensor:
-    buf = _D_COUNTERS.get(device)
+# X2-X4's column-tile counters by device: zero between launches (the
+# kernels leave them zero), so no launch pays for zeroing them
+_COUNTERS: dict = {}
+
+
+def _counters(device, tiles: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < tiles:
         buf = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
-        _D_COUNTERS[device] = buf
+        _COUNTERS[device] = buf
     return buf
 
 
@@ -205,21 +227,21 @@ def _launch(name: str, a, codes, meta, m: int, partial_dtype,
     if n % 4:
         raise ValueError(f"N={n} must be a multiple of 4")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if name == "d":  # X4 plans in C: its K splits for the card's SMs
-        splits = _d_plan("ift_unpack_d_splits", k, n, _sms(a))
-        counters = [_build.ptr(_d_counters(a.device, -(-n // 128)))]
-        plan = _sms(a)
+    if name in "bcd":  # X2-X4 plan in C; their K splits meet in the kernel
+        sms = _sms(a.device)
+        splits = _plan(name, "splits", k, n, blk, sms)
+        counters = [_build.ptr(_counters(a.device, -(-n // 128)))]
+        tail = [blk, sms] if name == "c" else [sms]
     else:
-        kc = blk if name == "c" else _k_per_cta(k, 64)
-        splits, counters, plan = k // kc, [], kc
+        kc = _k_per_cta(k, 64)
+        splits, counters, tail = k // kc, [], [kc]
     partial = torch.empty((splits, m, n), dtype=partial_dtype,
                           device=a.device)
     lib = _lib()
-    args = [_build.ptr(a), _build.ptr(codes), _build.ptr(meta),
-            _build.ptr(partial), *counters, _build.ptr(out), k, n, plan]
-    if name == "c":
-        args.append(blk)
-    rc = getattr(lib, f"ift_unpack_{name}")(*args, _build.stream_of(a))
+    rc = getattr(lib, f"ift_unpack_{name}")(
+        _build.ptr(a), _build.ptr(codes), _build.ptr(meta),
+        _build.ptr(partial), *counters, _build.ptr(out), k, n, *tail,
+        _build.stream_of(a))
     _build.check(lib, rc, KERNELS[name])
     _build.launch_counts[KERNELS[name]] += 1
     return out
@@ -232,9 +254,9 @@ def _check(a, a_dtype, m, codes, codes_dtype, code_rows, meta, meta_rows):
     _build.check_operand(meta, "scale", torch.bfloat16, (meta_rows(k), n))
 
 
-def _run(name, plain, a, codes, meta, *extra):
+def _run(name, plain, a, codes, meta, blk: int = 0):
     if a.device.type == "cpu":
-        return plain(a, codes, meta, *extra)
+        return plain(a, codes, meta, *([blk] if name == "c" else []))
     if a.device.type != "cuda":
         raise ValueError(f"unpack_{name}: unsupported device {a.device}")
     if name == "e":
@@ -245,7 +267,7 @@ def _run(name, plain, a, codes, meta, *extra):
     _check(a, torch.bfloat16, 8, codes,
            torch.int8 if name == "d" else torch.uint8, rows, meta,
            lambda k: k // 64)
-    return _launch(name, a, codes, meta, 8, torch.float32, *extra)
+    return _launch(name, a, codes, meta, 8, torch.float32, blk)
 
 
 def run_a(x, packed, scale):
@@ -261,7 +283,7 @@ def run_b(x, codes4, scale):
 def run_c(x, packed, scale, blk: int = X3_BLOCK):
     """X3 on X1's inputs with superblocks of `blk` K values (a multiple of
     128, at most 512, dividing K)."""
-    if x.device.type == "cuda" and (blk % 128 or blk > _MAX_KC
+    if x.device.type == "cuda" and (blk <= 0 or blk % 128 or blk > _MAX_KC
                                     or x.shape[1] % blk):
         raise ValueError(f"X3 takes superblocks of a multiple of 128 up to "
                          f"{_MAX_KC} values dividing K; got {blk}")
@@ -282,12 +304,14 @@ def run_e(xq, codes8, colscale):
 def cases(inp: dict) -> list:
     """(name, kernel call, plain call, library call, bytes the kernel
     streams (codes and scales), bytes moved in all, operations, int8?) for
-    X1-X5 on mk_inputs' tensors."""
+    X1-X5 on mk_inputs' tensors.  X3 reads one scale row per superblock
+    (K / X3_BLOCK rows), the others every row of the (K/64, N) scale."""
     x, packed, codes4, codes8, scale = (inp[k] for k in (
         "x", "packed", "codes4", "codes8", "scale"))
     xq, colscale = inp["xq"], inp["colscale"]
     k, n = codes8.shape
     meta = scale.numel() * 2
+    meta_c = k // X3_BLOCK * n * 2
     io8 = x.numel() * 2 + 8 * n * 4
     sc64 = _scale_rows(scale, 64)
     w_a = torch.stack([(packed & 0xF).float(), (packed >> 4).float()],
@@ -305,7 +329,8 @@ def cases(inp: dict) -> list:
          codes4.numel() + meta, codes4.numel() + meta + io8, flops8, False),
         ("unpack_c", lambda: run_c(x, packed, scale),
          lambda: plain_c(x, packed, scale), lambda: torch.matmul(x, w_a),
-         packed.numel() + meta, packed.numel() + meta + io8, flops8, False),
+         packed.numel() + meta_c, packed.numel() + meta_c + io8, flops8,
+         False),
         ("unpack_d", lambda: run_d(x, codes8, scale),
          lambda: plain_d(x, codes8, scale), lambda: torch.matmul(x, w_d),
          codes8.numel() + meta, codes8.numel() + meta + io8, flops8, False),
@@ -324,9 +349,11 @@ def bench(device, shapes=SHAPES, timer=None, seed: int = 0,
     version (max |kernel - plain| <= tol * max|plain|; X5 exact), and,
     with a timer (on the card), kernel, plain and library times in ms, the
     byte bound, GB/s of the streamed bytes and their share of the card's
-    memory rate.  One dict per case."""
+    memory rate.  On the card X2-X4's rows also give the code bytes in
+    flight per SM.  One dict per case."""
     from ..utils.cuda_timing import (H100_BF16_FLOPS, H100_BYTES_PER_S,
                                      H100_INT8_OPS, bound)
+    on_card = torch.device(device).type == "cuda"
     rows = []
     for k, n in shapes:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -345,9 +372,9 @@ def bench(device, shapes=SHAPES, timer=None, seed: int = 0,
             b_ms, b_by = bound(moved, ops,
                                H100_INT8_OPS if int8 else H100_BF16_FLOPS)
             row.update(bound_ms=b_ms, bound_by=b_by)
-            if name == "unpack_d" and timer is not None:
-                row["bytes_in_flight_per_sm"] = d_bytes_in_flight(k, n,
-                                                                  device)
+            if on_card and name[-1] in "bcd":
+                row["bytes_in_flight_per_sm"] = bytes_in_flight(
+                    name[-1], k, n, device)
             if timer is not None:
                 ms = timer(kern, name)
                 row.update(ms=ms, plain_ms=timer(plain, f"{name} plain"),

@@ -32,7 +32,8 @@ Parts (the JAX bench's, plus --unpack, --b6 and --b3):
     (qkv, wo, w1n3, w2, lm_head) for the wire mode and its w1n3 for the
     non-pair branch, else at (K, N);
   - --unpack: X1-X5 (tools/exp_unpack.py) at the JAX tool's shapes, or
-    EXP_SHAPE=KxN;
+    EXP_SHAPE=KxN[,KxN...] (on the card a first line gives each kernel's
+    registers);
   - --attention: B2 at the JAX bench's D = 128 and D = 64 cases, and at
     head_dim 256 (gemma-2b's head shape: 8 query heads on 1 kv head): B2 at
     8 slots of up to 4096 rows, B3 a 256-row chunk at row 1536 (with its
@@ -46,7 +47,8 @@ Parts (the JAX bench's, plus --unpack, --b6 and --b3):
   - --i4bf16: B4 (b')'s GEMV alone (the tensor-core walk of weight modes
     7-10) on the i4 layout's four geometries at --i4bf16-model's four
     decode products, with mode (b)'s i4x8 GEMV on the same weights timed
-    beside it (``i4x8_ms``), and the same bits on a second run;
+    beside it (``i4x8_ms``), and the same bits on a second run (on the
+    card a first line gives each instantiation's registers);
   - --i4bf16-step L: B4's fused step in mode (b') on L random Q4_B32T1A
     layers of --i4bf16-model at B = 8 and B = 1, with mode (b)'s step on
     the same inputs timed beside it (``i4x8_ms``);
@@ -276,11 +278,16 @@ def i4bf16_part(b: Bench, shapes: dict, ms) -> None:
     i4x8 GEMV timed beside it; the card's GEMVs, or on the CPU the plain
     version against itself."""
     from ..kernels.decode_step import (_i4_geometry, i4_bf16_matmul_plain,
-                                       i4bf16_gemv_cuda, i4x8_gemv_cuda)
+                                       i4bf16_gemv_cuda, i4bf16_registers,
+                                       i4x8_gemv_cuda)
     from ..kernels.dequant_matmul import i4_weight
     from ..quant.codec_torch import quantize, repack_i4
     card = b.device.type == "cuda"
     fn = i4bf16_gemv_cuda if card else i4_bf16_matmul_plain
+    if card:
+        print(json.dumps({"phase": "kernel_bench", "part": "i4bf16_registers",
+                          "registers": i4bf16_registers(b.device)}),
+              flush=True)
     gen = b.gen(2)
     for name, (k, n) in shapes.items():
         w = _weight(gen, k, n, b.device)
@@ -358,9 +365,13 @@ def i4bf16_step_part(b: Bench, model: str, layers: int) -> None:
 def unpack_part(b: Bench) -> None:
     from . import exp_unpack
     shapes = exp_unpack.SHAPES
-    if os.environ.get("EXP_SHAPE"):
-        kk, nn = os.environ["EXP_SHAPE"].split("x")
-        shapes = ((int(kk), int(nn)),)
+    if os.environ.get("EXP_SHAPE"):  # KxN[,KxN...]
+        shapes = tuple(tuple(int(v) for v in shape.split("x"))
+                       for shape in os.environ["EXP_SHAPE"].split(","))
+    if b.device.type == "cuda":
+        print(json.dumps({"phase": "kernel_bench", "part": "unpack_registers",
+                          "registers": exp_unpack.kernel_registers(
+                              b.device)}), flush=True)
     for row in exp_unpack.bench(b.device, shapes, b.timer):
         row.update(phase="kernel_bench", part="unpack")
         print(json.dumps(row), flush=True)

@@ -66,21 +66,36 @@ def test_b6_wire_and_generic(dev):
             assert torch.equal(got, fn(x, qt))  # fixed summation order
 
 
+# (K, N, X3's superblock) of each experiment's cases: the tensor-core
+# kernels X2-X4 also at N = 100 (a multiple of 4, not of 16: 4- and 8-byte
+# per-lane copies, a ragged tile), K = 64 (one block), and K = 37 blocks at
+# N = 4096, whose K splits end in a short one; X2 and X3 also at K = 4608
+# (nine splits); X3 at superblocks of 128, 256, 384 and 512 values, with
+# odd numbers of superblocks
+UNPACK_CASES = {
+    "b": ((1024, 640, 0), (1024, 100, 0), (64, 640, 0), (64 * 37, 4096, 0),
+          (4608, 640, 0)),
+    "c": ((1024, 640, 512), (1152, 640, 128), (768, 640, 256),
+          (1536, 640, 512), (768, 100, 384), (1024, 100, 128),
+          (4608, 640, 512)),
+    "d": ((1024, 640, 0), (1024, 100, 0), (64, 640, 0), (64 * 37, 4096, 0)),
+}
+
+
 @pytest.mark.parametrize("name", ["a", "b", "c", "d", "e"])
 def test_unpack_kernel(dev, name):
-    """Each experiment at (1024, 640); X4 (the tensor-core kernel) also at
-    N = 100 (a multiple of 4, not of 16: 4- and 8-byte copies, a ragged
-    tile), K = 64 (one block), and K = 37 blocks at N = 4096, whose K
-    splits end in a short one; the same bits on a second run."""
+    """Each experiment at (1024, 640), the tensor-core kernels at
+    UNPACK_CASES; one launch a call, the same bits on a second run."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    shapes = [(1024, 640)]
-    if name == "d":
-        shapes += [(1024, 100), (64, 640), (64 * 37, 4096)]
-    for k, n in shapes:
+    for k, n, blk in UNPACK_CASES.get(name, ((1024, 640, 0),)):
         inp = exp_unpack.mk_inputs(k, n, gen, dev)
         case = next(c for c in exp_unpack.cases(inp)
                     if c[0] == f"unpack_{name}")
         _, kern, plain, _, _, _, _, int8 = case
+        if blk:
+            x, packed, scale = inp["x"], inp["packed"], inp["scale"]
+            kern = lambda: exp_unpack.run_c(x, packed, scale, blk)  # noqa: E731
+            plain = lambda: exp_unpack.plain_c(x, packed, scale, blk)  # noqa: E731
         before = _build.launch_counts[f"unpack_{name}"]
         got = kern()
         assert _build.launch_counts[f"unpack_{name}"] == before + 1
@@ -89,7 +104,7 @@ def test_unpack_kernel(dev, name):
             assert torch.equal(got, plain())
         else:
             _close(got, plain(), 2.0 ** -7)
-        assert torch.equal(kern(), got), (name, k, n)
+        assert torch.equal(kern(), got), (name, k, n, blk)
 
 
 def test_attention_head_dim_256_and_wide_groups(dev):
