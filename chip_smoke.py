@@ -3282,8 +3282,8 @@ def phase_i4bf16_gemv(timer, dev, params) -> list:
                                   "weight",
                        "bound_ms": b_ms, "bound_by": b_by,
                        "bytes_bound": bytes_moved,
-                       "bytes_in_flight_per_sm": i4bf16_bytes_in_flight(
-                           m, qt, False, dev)}
+                       "planned_bytes_in_flight_per_sm":
+                           i4bf16_bytes_in_flight(m, qt, False, dev)}
                 emit(row)
                 rows.append(row)
     return rows
@@ -3293,7 +3293,8 @@ def phase_b4_i4bf16(timer, dev, spec, params) -> list:
     """B4 mode (b') at full llama2-7b width and depth on the loaded
     Q4_B32T1A weights, B = 8 and B = 1, against its plain version
     (_b4_stack_rows), with mode (b) timed beside it; each step row also
-    names the weight bytes its four GEMVs keep in flight per SM."""
+    names the weight bytes its four GEMVs keep in flight per SM by their
+    launch plan (worked out, not measured)."""
     from inferflow_tpu_torch.kernels.decode_step import i4bf16_bytes_in_flight
     with _with_i4_dot("bf16"):
         rows = _b4_stack_rows(timer, dev, spec, params["layers"],
@@ -3303,12 +3304,13 @@ def phase_b4_i4bf16(timer, dev, spec, params) -> list:
     lp = params["layers"][0]
     for row in rows:
         b = int(row["shape"].split(" B=")[1].split()[0])
-        row["gemv_bytes_in_flight_per_sm"] = in_flight = {
+        row["planned_gemv_bytes_in_flight_per_sm"] = in_flight = {
             name: i4bf16_bytes_in_flight(b, lp[g][name], name == "w1n3", dev)
             for g, name in (("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"),
                             ("ffn", "w2"))}
         emit({"phase": "b4_i4bf16_in_flight", "kernel": row["kernel"],
-              "shape": row["shape"], "gemv_bytes_in_flight_per_sm": in_flight})
+              "shape": row["shape"],
+              "planned_gemv_bytes_in_flight_per_sm": in_flight})
     return rows
 
 
@@ -3842,9 +3844,12 @@ def phase_code_gemv(timer, dev, name, qt, kernel) -> list:
     """The byte, wire or pair8 GEMV alone on `qt`, M in {1, 8}, against its
     plain version, the same bits twice; timed beside torch.matmul on the
     pre-dequantized bf16 weight (the same function but for summation
-    order and the weights' bf16 rounding, a yardstick only)."""
+    order and the weights' bf16 rounding, a yardstick only); the wire
+    GEMV's rows also give the weight bytes in flight per SM that its
+    launch plan gives (worked out, not measured)."""
     from inferflow_tpu_torch.kernels.decode_step import (
-        _product_f32, byte_gemv_cuda, pair8_gemv_cuda, wire_gemv_cuda)
+        _product_f32, byte_gemv_cuda, i4bf16_bytes_in_flight,
+        pair8_gemv_cuda, wire_gemv_cuda)
     from inferflow_tpu_torch.quant.codec_torch import dequantize
     launch = {PAIR8_GEMV: pair8_gemv_cuda,
               BYTE_GEMV: byte_gemv_cuda}.get(kernel, wire_gemv_cuda)
@@ -3873,6 +3878,9 @@ def phase_code_gemv(timer, dev, name, qt, kernel) -> list:
                "library": "torch.matmul on the pre-dequantized bf16 weight",
                "bound_ms": b_ms, "bound_by": b_by,
                "bytes_bound": bytes_moved}
+        if launch is wire_gemv_cuda:  # on (b')'s tensor-core walk
+            row["planned_bytes_in_flight_per_sm"] = (
+                i4bf16_bytes_in_flight(m, qt, False, dev))
         emit(row)
         rows.append(row)
     return rows
@@ -4820,9 +4828,8 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        **{key: row[key] for key in (
-                            "nsplit", "bytes_in_flight_per_sm",
-                            "gemv_bytes_in_flight_per_sm") if key in row}})
+                        **({"nsplit": row["nsplit"]} if "nsplit" in row
+                           else {})})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

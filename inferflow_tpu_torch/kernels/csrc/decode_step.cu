@@ -106,6 +106,14 @@
 //     Its plan fills one wave of two CTAs an SM
 //     when the splits that do so take at most 2048 K rows (bf_one_wave).
 //     Its float sums take the same fixed order (warps, then splits);
+//   - the wire GEMV runs on the same walk: its Q4 codes are the i4
+//     layout's byte order with unsigned nibbles (unsigned_nibble_pair),
+//     its Q2 codes 4 a byte, so that a ring slot of 8 byte rows is two k16
+//     steps and the activations' B fragments are staged in their order
+//     (frag_word_q2); the fold term is bf16(sum x) * bf16(base).  Its
+//     plan keeps 55 KB in flight per SM for Q4_B64T1, 61 for Q4_B32T1A/B
+//     and 74 for Q2_B32T1A/B, whose 32-row block is one slot
+//     (ift_i4bf16_inflight works the figure out; it is not measured);
 //   - the byte GEMV: one 32-bit load of a (K, N) code row gives 4 columns
 //     of one K row, a 32-row quant block is 32 loads in flight per thread
 //     (64 for the GLU's two column segments);
@@ -115,16 +123,14 @@
 //     sum; Q8_B32T1's base enters once per block through the block's
 //     bf16 activation sum.  Its float sums take the i4x8 GEMV's order
 //     (warps, then splits): the same bits on every run;
-//   - the wire and pair8 GEMVs: the byte GEMV with a code decoder per
-//     mode (a template parameter, so each block loop is unrolled for its
-//     geometry): one 32-bit load of a code row gives 4 columns of pk K
-//     rows (2 for pair8), so a 64-row Q4 or pair8 block is 32 loads in
-//     flight, a 32-row Q4 block 16 and a Q2 block 8; each code is decoded
-//     with shifts and masks (pair8: one division by 11 per byte) into
-//     bf16(q * bf16(scale)).  What bounds them: the same weight bytes
-//     (4.5 bits a weight for Q4_B64T1 and for pair8, whose byte holds a pair
-//     and its 64-row metadata) and the per-weight float work, which on
-//     the card held the other 8-row GEMVs at 8-32% of their byte bound;
+//   - the pair8 GEMV: the byte GEMV with pair8's code decoder (a template
+//     parameter, so its block loop is unrolled): one 32-bit load of a code
+//     row gives 4 columns of 2 K rows, so a 64-row block is 32 loads in
+//     flight; each byte is decoded by one division by 11 into two codes,
+//     each bf16(q * bf16(scale)).  What bounds it: the same weight bytes
+//     (4.5 bits a weight, a byte holding a pair, and its 64-row metadata)
+//     and the per-weight float work, which on the card held the other
+//     8-row GEMVs at 8-32% of their byte bound;
 //   - mode (d): one f32 bias pointer per product in the layer table, added
 //     to the product's float32 output in the GEMV's epilogue, before the
 //     f32 store, the residual add or the GLU (the TPU kernel's `finish`);
@@ -160,8 +166,8 @@
 #include "gemv_mma.cuh"
 
 // The GEMVs (14 instantiated weight modes x 8 row counts x 4 variants; the
-// four (b') modes take their row count at run time: one each) are most of
-// this file's build.  The build compiles it as IFT_PARTS
+// four (b') and the three wire modes take their row count at run time: one
+// each) are most of this file's build.  The build compiles it as IFT_PARTS
 // translation units at once (-DIFT_PARTS=4 -DIFT_PART=p) and links them
 // into one library: part p instantiates the GEMVs of the modes with
 // mode % IFT_PARTS == p and defines ift_gemv_part<p>, and the last part
@@ -182,9 +188,9 @@ void ift_gemv_part1(const void* args, int mode, dim3 grid, cudaStream_t stream);
 void ift_gemv_part2(const void* args, int mode, dim3 grid, cudaStream_t stream);
 void ift_gemv_part3(const void* args, int mode, dim3 grid, cudaStream_t stream);
 #endif
-// The registers a thread of the (b') GEMV of weight mode `mode` (one that
-// part p instantiates) takes, w1n3's instantiation when glu is set; -1
-// for another mode.
+// The registers a thread of the tensor-core GEMV of weight mode `mode` (a
+// (b') or wire mode that part p instantiates) takes, w1n3's instantiation
+// when glu is set; -1 for another mode.
 int ift_bf_registers_part0(int mode, int glu);
 #if IFT_PARTS == 4
 int ift_bf_registers_part1(int mode, int glu);
@@ -199,7 +205,7 @@ constexpr int kGemvWarps = 8;
 constexpr int kGemvThreads = kGemvWarps * 32;
 constexpr int kTileCols = 128;  // columns per segment: 32 lanes x 4
 constexpr int kMaxKc = 1024;    // K rows per CTA (shared x staging)
-constexpr int kMaxKcBf = 2048;  // (b'): K rows per CTA (its one-wave plan)
+constexpr int kMaxKcBf = 2048;  // (b'), wire: K rows per CTA (its one-wave plan)
 constexpr int kMinKc = 64;
 constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
 constexpr int kByteBlock = 32;  // byte mode: K rows (= byte rows) per quant block
@@ -219,9 +225,10 @@ enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
 // The wire modes, one per geometry of the sub-byte single-plane wire
 // formats (code bits, quant block): kModeWireQ4 Q4_B64T1 (4, 64),
 // kModeWireQ4B32 Q4_B32T1A/B (4, 32), kModeWireQ2 Q2_B32T1A/B (2, 32); and
-// kModePair8, mode (h), Q3H_B64T1's one byte per base-11 value pair.  Each
-// is its own instantiation of the code GEMV (the byte GEMV with the
-// mode's code decoder), all with f16 scales and bases.
+// kModePair8, mode (h), Q3H_B64T1's one byte per base-11 value pair, all
+// with f16 scales and bases.  Each wire mode is its own instantiation of
+// the tensor-core GEMV ((b')'s walk with the mode's decoder and block),
+// pair8 of the code GEMV (the byte GEMV with pair8's code decoder).
 enum WeightMode {
   kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3,
   kModeI4x8B32 = 4, kModeI4x8B32F = 5, kModeI4x8B16F = 6,
@@ -244,12 +251,19 @@ __host__ __device__ constexpr int i4_block(int mode) {
          : mode == kModeI4x8B16F || mode == kModeI4Bf16B16F ? 16
                                                            : 32;
 }
-// the whole-code modes (byte, wire, pair8): bf16 activations, every
-// weight bf16(q * bf16(scale)) from its code
-__host__ __device__ constexpr bool is_code(int mode) {
-  return mode == kModeByte || mode == kModeByteU || (mode >= kModeWireQ4 && mode <= kModePair8);
+// the wire modes (bf16 activations, every weight bf16(q * bf16(scale))
+// from its unsigned code, on the tensor-core walk)
+__host__ __device__ constexpr bool is_wire(int mode) {
+  return mode >= kModeWireQ4 && mode <= kModeWireQ2;
 }
-// a whole-code mode's K rows per quant block and codes per byte
+// the modes of the tensor-core walk (gemv_bf, i4bf_walk): (b') and wire
+__host__ __device__ constexpr bool is_bf(int mode) { return is_i4bf(mode) || is_wire(mode); }
+// the whole-code modes of the code loop (byte, pair8): bf16 activations,
+// every weight bf16(q * bf16(scale)) from its code
+__host__ __device__ constexpr bool is_code(int mode) {
+  return mode == kModeByte || mode == kModeByteU || mode == kModePair8;
+}
+// a whole-code or wire mode's K rows per quant block and codes per byte
 __host__ __device__ constexpr int code_block(int mode) {
   return mode == kModeWireQ4 || mode == kModePair8 ? 64 : kByteBlock;
 }
@@ -260,6 +274,14 @@ __host__ __device__ constexpr bool i4_f32_meta(int mode) {
   return mode == kModeI4x8B32F || mode == kModeI4x8B16F || mode == kModeI4Bf16B32F ||
          mode == kModeI4Bf16B16F;
 }
+// a tensor-core walk mode's K rows per quant block and codes per byte
+__host__ __device__ constexpr int bf_block(int mode) {
+  return is_wire(mode) ? code_block(mode) : i4_block(mode);
+}
+__host__ __device__ constexpr int bf_pk(int mode) { return is_wire(mode) ? code_pk(mode) : 2; }
+// ring slots per quant block: a slot is 8 byte rows (16 K rows at 2 codes
+// a byte, 32 at 4)
+__host__ __device__ constexpr int bf_slots(int mode) { return bf_block(mode) / (8 * bf_pk(mode)); }
 
 struct GemvArgs {
   const __nv_bfloat16* x;      // (M, K) bf16 activations
@@ -361,20 +383,28 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
   v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
 }
 
-// ---------------------------------------- (b') on the tensor cores
-// The i4bf16 GEMV's walk (weight modes 7-10), gemv_mma.cuh's design: each
-// warp streams its quant blocks (lb = warp, warp + 8, ... of the CTA's
-// slice), one k16 step at a time, through a ring of kBfRing steps in
-// dynamic shared memory filled by cp.async: per step 2 code chunks a lane
-// (byte rows t and t+4 of its 16 columns: 1 KB a warp), and at a block's
-// first step the block's scale and base chunks of each group of 4 lanes
-// (f16: 512 B a warp, f32: 1 KB), copied by its lanes in turn.  Each
-// nibble pair becomes one bf16x2 A register in 4 instructions; one mma per
-// 16 columns x 16 K; the block's fold term bf16(sum x) * bf16(8*sc + base)
-// is added in float32 into the same sums at its first step.  Segments (the
-// GLU's a and g halves) are walked one after the other, each warp's sums
-// of a segment added into redf in warp order.
-constexpr int kBfRing = 4;  // k16 steps of a warp's ring: 3 in flight
+// ----------------------------- (b') and the wire modes on the tensor cores
+// The walk of the i4bf16 GEMV (weight modes 7-10) and of the wire GEMV
+// (11-13), gemv_mma.cuh's design: each warp streams its quant blocks (lb =
+// warp, warp + 8, ... of the CTA's slice), one slot of 8 byte rows at a
+// time, through a ring of kBfRing slots in dynamic shared memory filled by
+// cp.async: per slot 2 code chunks a lane (byte rows t and t+4 of its 16
+// columns: 1 KB a warp), and at a block's first slot the block's scale and
+// base chunks of each group of 4 lanes (f16: 512 B a warp, f32: 1 KB),
+// copied by its lanes in turn.  A slot of nibbles (2 codes a byte) is one
+// k16 step: byte rows t and t+4 are K rows (2t, 2t+1) and (2t+8, 2t+9).  A
+// slot of Q2 codes (4 a byte) is two k16 steps: byte row t (t+4) holds K
+// rows 4t..4t+3 of the first (second) step, the lane's K pairs
+// (4t, 4t+1) for a0/a1 and (4t+2, 4t+3) for a2/a3, and the B fragments
+// are staged in the matching order (frag_word_q2).  Each code pair becomes
+// one bf16x2 A register in 4 instructions (nibble_pair for (b')'s signed
+// nibbles, unsigned_nibble_pair and q2_pair for the wire codes); one mma
+// per 16 columns x 16 K; the block's fold term, bf16(sum x) * bf16(8*sc +
+// base) for (b') and bf16(sum x) * bf16(base) for the wire modes, is added
+// in float32 into the same sums at its first slot.  Segments (the GLU's a
+// and g halves) are walked one after the other, each warp's sums of a
+// segment added into redf in warp order.
+constexpr int kBfRing = 4;  // slots of a warp's ring: 3 in flight
 // CTAs an SM holds (gemv_bf's __launch_bounds__; the shared memory of two
 // fits)
 constexpr int kBfCtasPerSm = 2;
@@ -403,16 +433,17 @@ __device__ __forceinline__ float meta_value(const uint32_t* words, int i) {
   }
 }
 
-// A warp's weight stream of the (b') GEMV: its steps u = 0, 1, ... (segment
-// by segment, block by block, k16 step by step) and the cp.async copies of
-// step u into ring slot u % kBfRing.  Its first steps are issued right
-// after the prologue's activation loads, which would otherwise queue
-// behind them.
+// A warp's weight stream of the (b') or wire GEMV: its slots u = 0, 1, ...
+// (segment by segment, block by block, 8 byte rows by 8) and the cp.async
+// copies of slot u into ring slot u % kBfRing.  Its first slots are
+// issued right after the prologue's activation loads, which would
+// otherwise queue behind them.
 template <int NSEG, int MODE>
 struct BfRing {
   using Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
-  static constexpr int kBlk = i4_block(MODE);
-  static constexpr int kSteps = kBlk / 16;  // k16 steps per quant block
+  static constexpr int kBlk = bf_block(MODE);
+  static constexpr int kRows = kBlk / bf_pk(MODE);  // byte rows per quant block
+  static constexpr int kSlots = bf_slots(MODE);     // ring slots per quant block
   static constexpr int kMeta = bf_meta_chunks(MODE);
   static constexpr int kSlot = bf_slot_chunks(MODE);
   static constexpr int kPer = 16 / sizeof(Meta);  // metadata values per chunk
@@ -421,7 +452,7 @@ struct BfRing {
   const char* wsc;
   const char* wbs;
   int N, ncols, seg_stride, kb0, warp, lane, g, t, lcol, cvalid, cpiece, mpiece;
-  int steps;  // per segment
+  int steps;  // slots per segment
 
   __device__ BfRing(const GemvArgs& a, long long w_off, long long sc_off, long long base_off,
                     int k0, int klen, int ncols_, int seg_stride_, int tile, int warp_,
@@ -441,22 +472,22 @@ struct BfRing {
     mpiece = min(gemv_mma::piece_of(wsc, mstride, moffs),
                  wbs ? gemv_mma::piece_of(wbs, mstride, moffs) : 16);
     const int nblk = klen / kBlk;  // the warp takes blocks warp, warp + 8, ...
-    steps = warp < nblk ? ((nblk - 1 - warp) / kGemvWarps + 1) * kSteps : 0;
+    steps = warp < nblk ? ((nblk - 1 - warp) / kGemvWarps + 1) * kSlots : 0;
   }
 
   __device__ const uint4* slot(int u) const { return ring + (u % kBfRing) * kSlot; }
 
-  // step u: byte rows t and t + 4 of the lane's 16 columns; at a block's
-  // first step its scale and base chunks, lane t of a group copying chunks
+  // slot u: byte rows t and t + 4 of the lane's 16 columns; at a block's
+  // first slot its scale and base chunks, lane t of a group copying chunks
   // t and t + 4
   __device__ void issue(int u) const {
     using gemv_mma::cp_async_chunk;
     if (u < NSEG * steps) {
-      const int s = u / steps, r = u - s * steps, j = r % kSteps;
-      const int kb = kb0 + warp + (r / kSteps) * kGemvWarps;
+      const int s = u / steps, r = u - s * steps, j = r % kSlots;
+      const int kb = kb0 + warp + (r / kSlots) * kGemvWarps;
       const int col = lcol + s * seg_stride;
       uint4* sl = ring + (u % kBfRing) * kSlot;
-      const size_t row = (size_t)kb * (kBlk / 2) + j * 8 + t;
+      const size_t row = (size_t)kb * kRows + j * 8 + t;
       cp_async_chunk(&sl[lane], cvalid ? w4 + row * N + col : w4, cvalid, cpiece);
       cp_async_chunk(&sl[32 + lane], cvalid ? w4 + (row + 4) * N + col : w4, cvalid, cpiece);
       if (j == 0) {
@@ -485,11 +516,12 @@ struct NoRing {
   __device__ explicit NoRing(const T&...) {}
 };
 
-// The walk over the ring's steps for M rows: per segment, each step's A
-// registers dequantized into mma with the B fragments of x_frag, the
-// block's fold term at its first step, then the warps' sums added into
-// redf in warp order (gemv_mma::sum_slot's layout, rows of kTileCols *
-// NSEG + 4).  xsum holds each row's block sums, kMaxKcBf / block a row.
+// The walk over the ring's slots for M rows: per segment, each slot's A
+// registers dequantized into mma with the B fragments of x_frag (one k16
+// step a slot, two for Q2), the block's fold term at its first slot, then
+// the warps' sums added into redf in warp order (gemv_mma::sum_slot's
+// layout, rows of kTileCols * NSEG + 4).  xsum holds each row's block sums,
+// kMaxKcBf / block a row.
 template <int NSEG, int MODE>
 __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
                                           const unsigned char* x_frag, const float* xsum,
@@ -497,8 +529,9 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
   using namespace gemv_mma;
   using Ring = BfRing<NSEG, MODE>;
   using Meta = typename Ring::Meta;
-  constexpr int kSteps = Ring::kSteps, kMeta = Ring::kMeta;
+  constexpr int kSlots = Ring::kSlots, kMeta = Ring::kMeta;
   constexpr int kXsumLd = kMaxKcBf / Ring::kBlk;
+  constexpr bool kWire = is_wire(MODE), kQ2 = bf_pk(MODE) == 4;
   constexpr int kSumLd = kTileCols * NSEG + 4;
   const uint2* xb = reinterpret_cast<const uint2*>(x_frag);
   const int warp = rg.warp, lane = rg.lane, g = rg.g, t = rg.t, steps = rg.steps;
@@ -512,7 +545,7 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
       for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
     uint32_t sc2[16];  // the block's bf16(scale) of each column, in both halves
     for (int r = 0; r < steps; ++r) {
-      const int u = s * steps + r, j = r % kSteps, lb = warp + (r / kSteps) * kGemvWarps;
+      const int u = s * steps + r, j = r % kSlots, lb = warp + (r / kSlots) * kGemvWarps;
       __syncwarp();  // every lane has read the slot refilled next
       rg.issue(u + kBfRing - 1);
       cp_async_wait<kBfRing - 1>();
@@ -531,24 +564,56 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
         for (int c = 0; c < 16; ++c) {
           const float sc = meta_value<Meta>(mw, c), bs = meta_value<Meta>(mw, 16 + c);
           sc2[c] = splat_bf16(sc);
-          const float fold = round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), bs));
+          const float fold = kWire ? round_bf16(bs) : round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), bs));
           // column c is C register 2 * (c % 2) (row 2t) and + 1 (2t+1) of n-tile c / 2
           acc[c / 2][2 * (c % 2)] = fmaf(x0, fold, acc[c / 2][2 * (c % 2)]);
           acc[c / 2][2 * (c % 2) + 1] = fmaf(x1, fold, acc[c / 2][2 * (c % 2) + 1]);
         }
       }
       const uint4 lo = sl[lane], hi = sl[32 + lane];  // byte rows t, t + 4
-      // B column g is activation row g: zeros past M (never staged)
-      const uint2 b = g < M ? xb[(lb * kSteps + j) * 32 + lane] : make_uint2(0u, 0u);
-      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+      if constexpr (kQ2) {
+        // byte row t (t + 4) is K rows 4t..4t+3 of k16 step 0 (1): codes
+        // 0, 1 of each byte into a0/a1, codes 2, 3 into a2/a3
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const uint32_t l = wl[v], l4 = l >> 4, h = wh[v], h4 = h >> 4;
-        mma(acc[2 * v], nibble_pair<0>(l, l4, sc2[4 * v]), nibble_pair<1>(l, l4, sc2[4 * v + 1]),
-            nibble_pair<0>(h, h4, sc2[4 * v]), nibble_pair<1>(h, h4, sc2[4 * v + 1]), b);
-        mma(acc[2 * v + 1], nibble_pair<2>(l, l4, sc2[4 * v + 2]),
-            nibble_pair<3>(l, l4, sc2[4 * v + 3]), nibble_pair<2>(h, h4, sc2[4 * v + 2]),
-            nibble_pair<3>(h, h4, sc2[4 * v + 3]), b);
+        for (int st = 0; st < 2; ++st) {
+          const uint4 c = st ? hi : lo;
+          // B column g is activation row g: zeros past M (never staged)
+          const uint2 b = g < M ? xb[((lb * kSlots + j) * 2 + st) * 32 + lane] : make_uint2(0u, 0u);
+          const uint32_t wv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const uint32_t w0 = wv[v], w2 = w0 >> 2, w4 = w0 >> 4, w6 = w0 >> 6;
+            mma(acc[2 * v], q2_pair<0>(w0, w2, sc2[4 * v]), q2_pair<1>(w0, w2, sc2[4 * v + 1]),
+                q2_pair<0>(w4, w6, sc2[4 * v]), q2_pair<1>(w4, w6, sc2[4 * v + 1]), b);
+            mma(acc[2 * v + 1], q2_pair<2>(w0, w2, sc2[4 * v + 2]),
+                q2_pair<3>(w0, w2, sc2[4 * v + 3]), q2_pair<2>(w4, w6, sc2[4 * v + 2]),
+                q2_pair<3>(w4, w6, sc2[4 * v + 3]), b);
+          }
+        }
+      } else {
+        // B column g is activation row g: zeros past M (never staged)
+        const uint2 b = g < M ? xb[(lb * kSlots + j) * 32 + lane] : make_uint2(0u, 0u);
+        const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const uint32_t l = wl[v], l4 = l >> 4, h = wh[v], h4 = h >> 4;
+          if constexpr (kWire) {
+            mma(acc[2 * v], unsigned_nibble_pair<0>(l, l4, sc2[4 * v]),
+                unsigned_nibble_pair<1>(l, l4, sc2[4 * v + 1]),
+                unsigned_nibble_pair<0>(h, h4, sc2[4 * v]),
+                unsigned_nibble_pair<1>(h, h4, sc2[4 * v + 1]), b);
+            mma(acc[2 * v + 1], unsigned_nibble_pair<2>(l, l4, sc2[4 * v + 2]),
+                unsigned_nibble_pair<3>(l, l4, sc2[4 * v + 3]),
+                unsigned_nibble_pair<2>(h, h4, sc2[4 * v + 2]),
+                unsigned_nibble_pair<3>(h, h4, sc2[4 * v + 3]), b);
+          } else {
+            mma(acc[2 * v], nibble_pair<0>(l, l4, sc2[4 * v]), nibble_pair<1>(l, l4, sc2[4 * v + 1]),
+                nibble_pair<0>(h, h4, sc2[4 * v]), nibble_pair<1>(h, h4, sc2[4 * v + 1]), b);
+            mma(acc[2 * v + 1], nibble_pair<2>(l, l4, sc2[4 * v + 2]),
+                nibble_pair<3>(l, l4, sc2[4 * v + 3]), nibble_pair<2>(h, h4, sc2[4 * v + 2]),
+                nibble_pair<3>(h, h4, sc2[4 * v + 3]), b);
+          }
+        }
       }
     }
     // this segment's warp sums, added in warp order
@@ -591,29 +656,34 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
 //             + sum_{k in r} x_k * bf16(bf16(n_k) * bf16(sc)),
 // with x the bf16 activations (no row quantization), on the tensor cores
 // (i4bf_walk).
+// wire (the single-plane tile with pk = 2 or 4, :584-615): per quant
+// block r (64 or 32 K rows), y += bf16(sum_{k in r} x_k) * bf16(base)
+//                                 + sum_{k in r} x_k * bf16(q_k * bf16(sc)),
+// with q the unsigned code, on the same walk.
 // byte (the TPU kernel's single-plane tile with pk = 1, :583-606): per
 // 32-row quant block r, y += sum_{k in r} x_k * bf16(q_k * bf16(sc))
 //                          (+ bf16(sum_{k in r} x_k) * bf16(base)),
 // with x the bf16 activations (no row quantization) and q the code.
-// i4x8, i4bf16 and byte: every warp takes whole blocks of the CTA's K slice, the
+// The float modes: every warp takes whole blocks of the CTA's K slice, the
 // warps' float sums are added in warp order and the splits' in split
 // order (by the last CTA of the column tile), so the result is the same
 // bits on every run.  The body of the kernels gemv and gemv_bf below.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
-  constexpr bool I4 = is_i4(MODE), I4BF = is_i4bf(MODE), FC = is_code(MODE);
-  constexpr bool XBF = FC || I4BF;  // bf16 activations, no row quantization
+  constexpr bool I4 = is_i4(MODE), BF = is_bf(MODE), FC = is_code(MODE);
+  constexpr bool XBF = FC || BF;  // bf16 activations, no row quantization
   // the float modes' quant block (i8mm: unused)
-  constexpr int kBlk = FC ? code_block(MODE) : (I4 || I4BF) ? i4_block(MODE) : 64;
+  constexpr int kBlk = BF ? bf_block(MODE) : FC ? code_block(MODE) : I4 ? i4_block(MODE) : 64;
   using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
   // the CTA's K slice: int8 codes (i8mm, i4x8), bf16 activations (byte,
-  // wire, pair8), or i4bf16's mma B fragments of up to 8 bf16 rows (the
-  // walk takes zeros past M; gemv_mma.cuh's fragment order)
-  constexpr int kKc = I4BF ? kMaxKcBf : kMaxKc;  // K rows of a CTA at most
-  __shared__ __align__(16) unsigned char x_s[I4BF ? kMaxSlots : M][kKc * (XBF ? 2 : 1)];
-  // int32 (i8mm) or float sums; (b') in gemv_mma::sum_slot's order, rows
-  // of kSumLd floats
-  constexpr int kSumLd = kTileCols * NSEG + (I4BF ? 4 : 0);
+  // pair8), or the tensor-core walk's (i4bf16, wire) mma B fragments of up
+  // to 8 bf16 rows (the walk takes zeros past M; gemv_mma.cuh's fragment
+  // order, Q2's own)
+  constexpr int kKc = BF ? kMaxKcBf : kMaxKc;  // K rows of a CTA at most
+  __shared__ __align__(16) unsigned char x_s[BF ? kMaxSlots : M][kKc * (XBF ? 2 : 1)];
+  // int32 (i8mm) or float sums; (b') and wire in gemv_mma::sum_slot's
+  // order, rows of kSumLd floats
+  constexpr int kSumLd = kTileCols * NSEG + (BF ? 4 : 0);
   __shared__ int red_s[M][kSumLd];
   __shared__ float xsum_s[M][kKc / kBlk];
   __shared__ float xs_s[M];
@@ -623,9 +693,9 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tile = blockIdx.x;
-  // the rows: M, or for (b') a.M (one instantiation of M = 8 serves 1..8:
-  // mma's 8 columns take any count)
-  const int Mr = I4BF ? a.M : M;
+  // the rows: M, or for (b') and wire a.M (one instantiation of M = 8
+  // serves 1..8: mma's 8 columns take any count)
+  const int Mr = BF ? a.M : M;
   // ROUTED (mode (g)): expert z's slice of the weight stack (offsets of
   // its codes, scales and bases; 0 for the dense GEMV, folded away), its
   // set of tile counters, and row m's activation and output rows (row m
@@ -668,12 +738,12 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   float* redf = reinterpret_cast<float*>(&red_s[0][0]);
   // the float sum of row m, column j of the tile's kCols
   auto sum_at = [&](int m, int j) -> float& {
-    if constexpr (I4BF) return redf[gemv_mma::sum_slot(m, j, kSumLd)];
+    if constexpr (BF) return redf[gemv_mma::sum_slot(m, j, kSumLd)];
     return redf[m * kCols + j];
   };
-  // (b'): each warp's weight stream, started once the prologues' loads
-  // are out (they would otherwise queue behind it)
-  const std::conditional_t<I4BF, BfRing<NSEG, MODE>, NoRing> ring(
+  // (b') and wire: each warp's weight stream, started once the
+  // prologues' loads are out (they would otherwise queue behind it)
+  const std::conditional_t<BF, BfRing<NSEG, MODE>, NoRing> ring(
       a, w_off, sc_off, base_off, k0, klen, ncols, seg_stride, tile, warp, lane);
 
   // prologue 1: per-row norm factor and row scale, one warp per row; a
@@ -741,8 +811,9 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   // wire, pair8, i4bf16) bf16 activations; for the i4 modes, and for
   // whole-code weights with a base, each quant block's bf16 sum of the
   // activations, one warp each
-  if constexpr (I4BF) {
-    // (b'): the M activation rows as mma B fragments, 8 values a thread
+  if constexpr (BF) {
+    // (b') and wire: the M activation rows as mma B fragments (Q2's
+    // order for 4 codes a byte), 8 values a thread
     // from one 16-byte load (K % 16 == 0), and each quant block's bf16
     // sum: the thread's 8 values, then the block's kBlk / 8 threads,
     // neighbouring lanes
@@ -776,7 +847,9 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
         if (i < total) {
 #pragma unroll
           for (int p = 0; p < 4; ++p)
-            xw[gemv_mma::frag_word(m, 8 * c + 2 * p)] = gemv_mma::pack_bf16(v[2 * p], v[2 * p + 1]);
+            xw[bf_pk(MODE) == 4 ? gemv_mma::frag_word_q2(m, 8 * c + 2 * p)
+                                : gemv_mma::frag_word(m, 8 * c + 2 * p)] =
+                gemv_mma::pack_bf16(v[2 * p], v[2 * p + 1]);
         }
         float sum = v[0];
 #pragma unroll
@@ -787,7 +860,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
       }
     }
   }
-  for (int i = tid; i < (I4BF ? 0 : M * klen); i += kGemvThreads) {
+  for (int i = tid; i < (BF ? 0 : M * klen); i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
     const float v = activation(a, xrow(m), k0 + kk, inv_s[m]);
     if constexpr (XBF) {
@@ -864,7 +937,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
             atomicAdd(&red_s[m][s * kTileCols + lane * 4 + c], acc[m][s * 4 + c]);
     }
     __syncthreads();
-  } else if constexpr (I4BF) {
+  } else if constexpr (BF) {
     i4bf_walk<NSEG, MODE>(ring, Mr, x_s[0], &xsum_s[0][0], redf);
   } else {
     // per quant block, in float32: i4x8 the int32 dot of the block, scaled,
@@ -882,20 +955,17 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
 
     if constexpr (FC) {
       // the code of value h (0..kPk-1) of a byte: byte (c) the byte read
-      // as signed (Q8_B32T2) or not (Q8_B32T1); wire bits [bits*h,
-      // bits*h + bits); pair8 v0 = b - 11*v1 (h = 0) or v1 = b / 11, the
-      // TPU tile's floor((b + 0.5) / 11) for every byte.  All exact.
+      // as signed (Q8_B32T2) or not (Q8_B32T1); pair8 v0 = b - 11*v1 (h =
+      // 0) or v1 = b / 11, the TPU tile's floor((b + 0.5) / 11) for every
+      // byte.  All exact.
       constexpr int kPk = code_pk(MODE);   // codes per byte
       constexpr int kQRows = kBlk / kPk;   // byte rows per quant block
-      constexpr int kBits = 8 / kPk;
       const uint32_t flip = a.byte_signed ? 0x80u : 0u;
       const float sub = a.byte_signed ? 128.f : 0.f;
       auto code = [&](uint32_t byte, int h) -> float {
         if constexpr (MODE == kModePair8) {
           const uint32_t v1 = byte / 11u;
           return float(h == 0 ? byte - 11u * v1 : v1);
-        } else if constexpr (kPk > 1) {
-          return float((byte >> (kBits * h)) & ((1u << kBits) - 1u));
         } else {
           return float(byte ^ flip) - sub;
         }
@@ -1041,7 +1111,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
     __syncthreads();
     if (!last_s) return;
     __threadfence();
-    if constexpr (I4BF) {
+    if constexpr (BF) {
       // the splits in split order: every element of the thread, four
       // splits at a time, all their loads in flight at once
       constexpr int kE = (M * kCols + kGemvThreads - 1) / kGemvThreads;
@@ -1076,7 +1146,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
         if (live[e]) sum_at(i / kCols, i % kCols) = sum[e];
       }
     }
-    for (int i = tid; i < (I4BF ? 0 : M * kCols); i += kGemvThreads) {
+    for (int i = tid; i < (BF ? 0 : M * kCols); i += kGemvThreads) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
@@ -1129,11 +1199,12 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   }
 }
 
-// The GEMV kernels.  gemv takes every mode but (b') and is bounded by its
-// thread count alone: ptxas then keeps the i4x8 GEMV within the registers
-// of two CTAs an SM (a second bound of one CTA an SM let the Q4_B64T1 and
-// Q4_B32T2 instantiations grow past them, to one CTA an SM and 1.5x their
-// time).  gemv_bf takes the (b') modes, kBfCtasPerSm CTAs an SM.
+// The GEMV kernels.  gemv takes every mode but (b') and wire and is
+// bounded by its thread count alone: ptxas then keeps the i4x8 GEMV within
+// the registers of two CTAs an SM (a second bound of one CTA an SM let the
+// Q4_B64T1 and Q4_B32T2 instantiations grow past them, to one CTA an SM
+// and 1.5x their time).  gemv_bf takes the (b') and wire modes,
+// kBfCtasPerSm CTAs an SM.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   gemv_body<M, NSEG, MODE, ROUTED>(a);
@@ -1167,13 +1238,13 @@ void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   *ksplit = (K + rows - 1) / rows;
 }
 
-// Launch one GEMV instantiation.  The (b') modes take their cp.async rings
-// as dynamic shared memory (above the 48 KB a kernel gets without asking)
-// and prefer the SM's memory as shared memory, so that kBfCtasPerSm CTAs
-// fit.
+// Launch one GEMV instantiation.  The (b') and wire modes take their
+// cp.async rings as dynamic shared memory (above the 48 KB a kernel gets
+// without asking) and prefer the SM's memory as shared memory, so that
+// kBfCtasPerSm CTAs fit.
 template <int M, int NSEG, int MODE, bool ROUTED>
 void launch_one(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
-  if constexpr (is_i4bf(MODE)) {
+  if constexpr (is_bf(MODE)) {
     constexpr int dyn = bf_ring_bytes(MODE);
     static const bool ready = [] {
       cudaFuncSetAttribute(gemv_bf<M, NSEG, MODE, ROUTED>,
@@ -1192,7 +1263,7 @@ void launch_one(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
 
 template <int NSEG, int MODE, bool ROUTED>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
-  if constexpr (is_i4bf(MODE)) {  // rows at run time (gemv_body's Mr)
+  if constexpr (is_bf(MODE)) {  // rows at run time (gemv_body's Mr)
     launch_one<kMaxSlots, NSEG, MODE, ROUTED>(a, grid, stream);
   } else {  // the other modes: one instantiation per row count
     switch (a.M) {
@@ -1259,7 +1330,7 @@ void IFT_CAT(ift_gemv_part, IFT_PART)(const void* args, int mode, dim3 grid,
 namespace {
 template <int MODE>
 int bf_registers_owned(int glu) {
-  if constexpr (is_i4bf(MODE) && MODE % IFT_PARTS == IFT_PART) {
+  if constexpr (is_bf(MODE) && MODE % IFT_PARTS == IFT_PART) {
     cudaFuncAttributes attr{};
     const cudaError_t err =
         glu ? cudaFuncGetAttributes(&attr, gemv_bf<kMaxSlots, 2, MODE, false>)
@@ -1276,6 +1347,9 @@ int IFT_CAT(ift_bf_registers_part, IFT_PART)(int mode, int glu) {
     case kModeI4Bf16B32: return bf_registers_owned<kModeI4Bf16B32>(glu);
     case kModeI4Bf16B32F: return bf_registers_owned<kModeI4Bf16B32F>(glu);
     case kModeI4Bf16B16F: return bf_registers_owned<kModeI4Bf16B16F>(glu);
+    case kModeWireQ4: return bf_registers_owned<kModeWireQ4>(glu);
+    case kModeWireQ4B32: return bf_registers_owned<kModeWireQ4B32>(glu);
+    case kModeWireQ2: return bf_registers_owned<kModeWireQ2>(glu);
     default: return -1;
   }
 }
@@ -1287,15 +1361,18 @@ namespace {
 bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, int* ksplit) {
   const int nseg = a.epi == kEpiGlu ? 2 : 1;
   if (mode < kModeI8mm || mode > kModeLast) return false;
-  const bool i4 = is_i4(mode) || is_i4bf(mode);
-  const int unit = i4 ? i4_block(mode) : is_code(mode) ? code_block(mode) : 32;
-  const int k_unit = i4 ? i4_block(mode) : mode == kModeI8mm ? 4 : code_block(mode);
+  // the quant block: whole blocks per CTA (i8mm: 32-row units of 4-row
+  // groups, K a multiple of 4)
+  const int blk = is_i4(mode) || is_i4bf(mode) ? i4_block(mode)
+                  : mode == kModeI8mm        ? 0
+                                             : code_block(mode);
+  const int unit = blk ? blk : 32, k_unit = blk ? blk : 4;
   if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
       sm_count <= 0)
     return false;
   *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
   gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
-  if (is_i4bf(mode)) bf_one_wave(a.K, *tiles, sm_count, unit, kc, ksplit);
+  if (is_bf(mode)) bf_one_wave(a.K, *tiles, sm_count, unit, kc, ksplit);
   return true;
 }
 
@@ -1838,11 +1915,11 @@ int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const voi
       launch_gemv(a, mode, sm_count, static_cast<cudaStream_t>(stream)));
 }
 
-// The registers a thread of the (b') GEMV of weight mode `mode` (7-10)
-// takes (cudaFuncGetAttributes), its w1n3 instantiation when glu is set;
-// -1 for another mode.
+// The registers a thread of the tensor-core GEMV of weight mode `mode`
+// (7-10 (b'), 11-13 wire) takes (cudaFuncGetAttributes), its w1n3
+// instantiation when glu is set; -1 for another mode.
 int ift_i4bf16_registers(int mode, int glu) {
-  if (!is_i4bf(mode)) return -1;
+  if (!is_bf(mode)) return -1;
   switch (mode % IFT_PARTS) {
     case 0: return ift_bf_registers_part0(mode, glu);
 #if IFT_PARTS == 4
@@ -1854,33 +1931,33 @@ int ift_i4bf16_registers(int mode, int glu) {
   return -1;
 }
 
-// The weight bytes the (b') GEMV of weight mode `mode` (7-10) keeps in
-// flight per SM for M rows of (K, N) weights (N the w1n3 width when glu is
-// set): the CTAs an SM holds at once (kBfCtasPerSm, at most the grid's
-// share) x 8 warps x the 3 k16 steps a warp's ring holds ahead (1 KB of
-// codes each, and a block's metadata spread over its steps); -1 for a
-// shape it does not take.
+// The weight bytes the tensor-core GEMV of weight mode `mode` (7-10 (b'),
+// 11-13 wire) keeps in flight per SM for M rows of (K, N) weights (N the
+// w1n3 width when glu is set): the CTAs an SM holds at once
+// (kBfCtasPerSm, at most the grid's share) x 8 warps x the 3 slots a
+// warp's ring holds ahead (1 KB of codes each, and a block's metadata
+// spread over its slots); -1 for a shape it does not take.
 int ift_i4bf16_inflight(int M, int K, int N, int glu, int mode, int sm_count) {
-  if (!is_i4bf(mode)) return -1;
+  if (!is_bf(mode)) return -1;
   GemvArgs a{};
   a.M = M, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
   int tiles = 0, kc = 0, ksplit = 0;
   if (!gemv_shape(a, mode, sm_count, &tiles, &kc, &ksplit)) return -1;
   const int resident = std::min(kBfCtasPerSm, (tiles * ksplit + sm_count - 1) / sm_count);
-  const int step_bytes = 32 * 2 * 16 + 8 * bf_meta_chunks(mode) * 16 / (i4_block(mode) / 16);
+  const int step_bytes = 32 * 2 * 16 + 8 * bf_meta_chunks(mode) * 16 / bf_slots(mode);
   return resident * kGemvWarps * (kBfRing - 1) * step_bytes;
 }
 
 // y (M, N) f32 = the whole-code product of x (M, K) bf16 (no row
 // quantization) with a byte plane (K, N) uint8 (mode 2 Q8_B32T2, no base;
-// 3 Q8_B32T1, with its base), a wire plane (K/pk, N) uint8 (mode 11-13) or
-// a pair8 plane (K/2, N) uint8 (mode 14), f16 block scales and bases
-// (K/block, N; base may be null but for mode 3).  part and counters as for
-// ift_i4x8_gemv.
+// 3 Q8_B32T1, with its base), a wire plane (K/pk, N) uint8 (mode 11-13, on
+// the tensor cores) or a pair8 plane (K/2, N) uint8 (mode 14), f16 block
+// scales and bases (K/block, N; base may be null but for mode 3).  part
+// and counters as for ift_i4x8_gemv.
 int ift_code_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
                   void* out, void* part, void* counters, int M, int K, int N, int mode,
                   int sm_count, void* stream) {
-  if (!is_code(mode)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_code(mode) && !is_wire(mode)) return static_cast<int>(cudaErrorInvalidValue);
   GemvArgs a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = w;

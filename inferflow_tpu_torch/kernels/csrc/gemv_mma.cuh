@@ -1,6 +1,6 @@
-// The 8-row code GEMV on Hopper's tensor cores: the pieces that X2, X3
-// and X4 (unpack_exp.cu, `unpack_mma_nibble`, `unpack_mma_d`) and B4
-// (b')'s GEMV (decode_step.cu, weight modes 7-10) share.
+// The 8-row code GEMV on Hopper's tensor cores: the pieces that X1-X4
+// (unpack_exp.cu, `unpack_mma_nibble`, `unpack_mma_d`) and B4's (b') and
+// wire GEMVs (decode_step.cu, weight modes 7-13, `i4bf_walk`) share.
 //
 // y (M <= 8, N) = x (M, K) bf16 @ W (K, N), W dequantized from stored codes
 // to bf16 in registers, is computed as y^T = W^T x^T with
@@ -14,13 +14,18 @@
 // rows 2t and 2t+1.  Word w (columns 4w..4w+3) of a chunk feeds n-tiles
 // 2w and 2w+1: byte c of the word is A row g (c even) or g + 8 (c odd) of
 // n-tile 2w + c / 2.  Within a k16 step the lane takes K pairs (2t, 2t+1)
-// (A registers a0, a1; B register b0) and (2t+8, 2t+9) (a2, a3; b1), the
-// natural order, so no K permutation is needed:
+// (A registers a0, a1; B register b0) and (2t+8, 2t+9) (a2, a3; b1), in
+// the natural order for the first two layouts (no K permutation):
 //   - i4 layout (K/2, N) bytes, byte row r = K rows 2r (low nibble) and
 //     2r+1 (high nibble): byte rows t and t+4 of the step, one A register
 //     per byte;
 //   - int8 (K, N) codes: rows 2t, 2t+1, 2t+8, 2t+9 of the step, one A
-//     register per column from two rows' bytes.
+//     register per column from two rows' bytes;
+//   - Q2 (K/4, N) bytes, 4 codes a byte, byte row r = K rows 4r..4r+3
+//     (code h in bits [2h, 2h+2)): the one map that permutes K.  Lane t
+//     reads byte row t of the step; its codes 0, 1 are the mma's K pair
+//     (2t, 2t+1) (a0, a1) and codes 2, 3 the pair (2t+8, 2t+9) (a2, a3),
+//     and the B fragments are staged in the same order (frag_word_q2).
 // C register e of n-tile 2w + h holds column 4w + 2h + e / 2, row 2t + e % 2.
 //
 // Dequantization in bf16x2, bit for bit what the plain versions compute:
@@ -29,14 +34,17 @@
 //     fma.rn.bf16x2 by the column's bf16(scale) (and -0.0) rounds the exact
 //     product n * sc once: bf16(n * sc);
 //   - a raw unsigned nibble u (X3, scaled after the dot): 0x4300 | u minus
-//     128, exactly u;
+//     128, exactly u; times bf16(scale) by one fma (unsigned_nibble_pair:
+//     X1, the wire Q4 modes) bf16(u * sc); a 2-bit code the same way
+//     (q2_pair, the wire Q2 mode);
 //   - int8 code v: the float32 bits 0x4B0000uu with uu = v ^ 0x80 are
 //     2^23 + v + 128; minus 2^23 + 128 is v exactly; two of them packed by
 //     cvt.rn.bf16x2.f32 (exact: |v| <= 128 has 8 bits), then the same
 //     multiply.
 // The activations' B fragments come from shared memory in fragment order
-// (word ((s * 32 + lane) * 2 + j) holds b_j of k16 step s), one 8-byte load
-// per lane per step, free of bank conflicts.
+// (word ((s * 32 + lane) * 2 + j) holds b_j of k16 step s; frag_word, or
+// frag_word_q2 for Q2's K order), one 8-byte load per lane per step, free
+// of bank conflicts.
 //
 // The weight bytes stream through a per-warp ring in shared memory filled
 // by cp.async: each lane copies the 16-byte chunks that it alone reads, so
@@ -162,6 +170,26 @@ __device__ __forceinline__ uint32_t raw_nibble_pair(uint32_t w, uint32_t w4) {
   return fma_bf16x2(t, kOne2, kM128x2);
 }
 
+// Byte C of a word of unsigned nibbles w (w4 = w >> 4), the i4 layout's
+// order: bf16x2 {bf16(u_lo * sc), bf16(u_hi * sc)}, sc2 the scale in both
+// halves.  raw_nibble_pair's exact u, then one fma.rn.bf16x2 by the scale
+// (and -0.0) rounds the exact product once.
+template <int C>
+__device__ __forceinline__ uint32_t unsigned_nibble_pair(uint32_t w, uint32_t w4, uint32_t sc2) {
+  return fma_bf16x2(raw_nibble_pair<C>(w, w4), sc2, kNegZero2);
+}
+
+// Byte C of two 2-bit code words (Q2: 4 codes a byte, code h in bits [2h,
+// 2h + 2)), a and b = a >> 2: bf16x2 {bf16(q_a * sc), bf16(q_b * sc)} of
+// the lowest code of byte C of each.  With a = w >> 4 * H it is the
+// codes 2H and 2H + 1 of the byte: 0x4300 | q minus 128, then the scale.
+template <int C>
+__device__ __forceinline__ uint32_t q2_pair(uint32_t a, uint32_t b, uint32_t sc2) {
+  constexpr uint32_t sel = C | (C << 4) | ((C + 4) << 8) | ((C + 4) << 12);
+  const uint32_t t = (__byte_perm(a, b, sel) & 0x00030003u) | 0x43004300u;
+  return fma_bf16x2(fma_bf16x2(t, kOne2, kM128x2), sc2, kNegZero2);
+}
+
 // Column C of two int8 code words (K rows k and k+1, 4 columns each), each
 // already xor-ed with 0x80808080: bf16x2 {bf16(v_k * sc), bf16(v_k+1 * sc)}.
 template <int C>
@@ -185,6 +213,13 @@ __host__ __device__ constexpr int sum_slot(int m, int j, int ld) {
 __device__ __forceinline__ int frag_word(int m, int kk) {
   const int s = kk / 16, w = kk % 16;
   return ((s * 32 + m * 4 + (w % 8) / 2) * 2) + w / 8;
+}
+
+// The same word for 2-bit codes (Q2, 4 codes a byte: a lane's K pairs of
+// a k16 step are (4t, 4t+1) and (4t+2, 4t+3), the codes of byte row t),
+// so that lane t's b0 and b1 are its 8 neighbouring bf16 values.
+__device__ __forceinline__ int frag_word_q2(int m, int kk) {
+  return (kk / 16) * 64 + m * 8 + (kk % 16) / 2;
 }
 
 }  // namespace gemv_mma

@@ -8,8 +8,9 @@
 // the same types (x (8, K) bf16; scale (K/64, N) bf16, one row per 64 K
 // values; out (8, N) float32):
 //   X1 (unpack_a): packed (K/2, N) uint8, byte row r holding K row 2r in
-//       its low nibble and 2r+1 in its high one; w = bf16(nibble * scale),
-//       both nibbles shifted, masked and converted, two FMA sub-dots;
+//       its low nibble and 2r+1 in its high one; w = bf16(nibble * scale)
+//       (the TPU experiment's two sub-dots, even and odd K, are one dot
+//       here);
 //   X2 (unpack_b): int4 codes in -8..7, stored two per byte in the same
 //       order (torch has no int4 type); w = bf16(float(code) * scale);
 //   X3 (unpack_c): X1's nibbles dotted raw (unscaled) over each `blk`-value
@@ -24,15 +25,15 @@
 // 32) activation rows, far below the card's operations per byte: the code
 // and scale bytes.
 //
-// X1 and X5 (unpack_gemv, unpack_dp4a): a thread owns 4 neighbouring
-// columns (one 32-bit load per code row: a warp reads 128 contiguous
-// bytes), the 4 warps of a CTA split its K range (64-row chunks), the
-// CTA's activations are staged once in shared memory, and the K ranges of
-// the CTAs (split-K, about two CTAs per SM) meet in a second small kernel
-// that adds the partial sums in a fixed order.  Few bytes are in flight: a
-// warp has one 128-byte load per code row outstanding.
+// X5 (unpack_dp4a): a thread owns 4 neighbouring columns (one 32-bit load
+// per code row: a warp reads 128 contiguous bytes), the 4 warps of a CTA
+// split its K range (64-row chunks), the CTA's activations are staged once
+// in shared memory, and the K ranges of the CTAs (split-K, about two CTAs
+// per SM) meet in a second small kernel that adds the partial sums in a
+// fixed order.  Few bytes are in flight: a warp has one 128-byte load per
+// code row outstanding.
 //
-// X2, X3 and X4 (unpack_mma_nibble, unpack_mma_d) are gemv_mma.cuh's
+// X1-X4 (unpack_mma_nibble, unpack_mma_d) are gemv_mma.cuh's
 // tensor-core design: the codes become bf16 two at a time in registers,
 // mma.sync m16n8k16 takes 16 columns x 16 K per instruction with the 8
 // activation rows as its narrow side, and each warp streams its share of
@@ -44,16 +45,18 @@
 //       cp.async: 3 steps (6 KB) in flight per warp, 4 warps per CTA, the
 //       grid sized for two CTAs per SM (48 KB in flight per SM;
 //       ift_unpack_d_inflight gives the figure for a shape).
-//   X2 and X3: the i4 layout's bytes, one A register per byte (byte rows t
-//       and t+4 of a k16 step), so a k16 step is only 1 KB a warp: a slot
-//       of the ring is two k16 steps (32 K rows, 2 KB), a warp takes one
-//       64-row block (two slots, both requested before it first waits) and
-//       a CTA has 8 warps (512 rows), two CTAs an SM: 64 KB requested per
-//       SM (ift_unpack_b_inflight / _c_inflight).  X2: nibble_pair
-//       (bf16(n * sc) in 4 instructions); X3: raw_nibble_pair (exact
-//       nibbles, no scale) into per-warp sums `part`, folded into the
-//       totals by one fma per C register with that register's column scale
-//       when the warp's share of a superblock ends (one scale row read per
+//   X1, X2 and X3: the i4 layout's bytes, one A register per byte (byte
+//       rows t and t+4 of a k16 step), so a k16 step is only 1 KB a warp:
+//       a slot of the ring is two k16 steps (32 K rows, 2 KB), a warp
+//       takes one 64-row block (two slots, both requested before it first
+//       waits) and a CTA has 8 warps (512 rows), two CTAs an SM: 64 KB
+//       requested per SM (ift_unpack_a_inflight / _b_ / _c_).  X2:
+//       nibble_pair (bf16(n * sc) in 4 instructions); X1:
+//       unsigned_nibble_pair (the same for u in 0..15: 0x4300 | u minus
+//       128, times the scale); X3: raw_nibble_pair (exact nibbles, no
+//       scale) into per-warp sums `part`, folded into the totals by one
+//       fma per C register with that register's column scale when the
+//       warp's share of a superblock ends (one scale row read per
 //       superblock).  Each lane copies its own 16-byte chunks (cp.async,
 //       piece_of's pieces where a row is not 16-byte aligned); a slot's
 //       byte rows sit 160 bytes apart, so that the 8 lanes of a quarter
@@ -93,77 +96,6 @@ constexpr int kMaxKc = 512;  // K values per CTA (activation staging)
 
 __device__ __forceinline__ float bf(const __nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float round_bf16(float w) {
-  return __bfloat162float(__float2bfloat16_rn(w));
-}
-
-// X1: grid (N / kCols, K / kc); out partial (ksplit, 8, N) float.
-__global__ void __launch_bounds__(kThreads)
-unpack_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-            const __nv_bfloat16* __restrict__ scale, float* __restrict__ partial, int K,
-            int N, int kc) {
-  constexpr int M = 8;
-  __shared__ float xs[M][kMaxKc];
-  __shared__ float red[kWarps][M][kCols];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col0 = blockIdx.x * kCols + lane * 4;
-  const int k_begin = blockIdx.y * kc;
-  for (int i = threadIdx.x; i < M * kc; i += kThreads) {
-    const int m = i / kc, kk = i - m * kc;
-    xs[m][kk] = bf(x[(size_t)m * K + k_begin + kk]);
-  }
-  __syncthreads();
-
-  float acc[M][4];
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  // a warp's chunks: 64 K values each
-  if (col0 < N) {
-    for (int c0 = warp * 64; c0 < kc; c0 += kWarps * 64) {
-      const int k0 = k_begin + c0;
-      float sc[4];
-      for (int r = 0; r < 32; ++r) {  // byte rows: K rows 2r, 2r+1
-        const int k = 2 * r;
-        if (k == 0) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[j] = bf(scale[(size_t)(k0 / 64) * N + col0 + j]);
-        }
-        const uint32_t w4 = __ldg(reinterpret_cast<const uint32_t*>(
-            codes + (size_t)((k0 + k) / 2) * N + col0));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t b = (w4 >> (8 * j)) & 0xFFu;
-          const float wl = round_bf16(float(b & 0xFu) * sc[j]);
-          const float wh = round_bf16(float(b >> 4) * sc[j]);
-#pragma unroll
-          for (int m = 0; m < M; ++m) {
-            acc[m][j] = fmaf(xs[m][c0 + k], wl, acc[m][j]);
-            acc[m][j] = fmaf(xs[m][c0 + k + 1], wh, acc[m][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][m][lane * 4 + j] = acc[m][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < M * kCols; i += kThreads) {
-    const int m = i / kCols, c = i - m * kCols;
-    const int col = blockIdx.x * kCols + c;
-    if (col >= N) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][m][c];
-    partial[((size_t)blockIdx.y * M + m) * N + col] = s;
-  }
 }
 
 // X5: grid (N / kCols, K / kc); xq (32, K) int8, codes (K, N) int8; out
@@ -432,16 +364,19 @@ bool bad_d(int K, int N, int sm_count) {
   return K <= 0 || K % 64 || N <= 0 || N % 4 || sm_count <= 0;
 }
 
-// X2 (RAW false) and X3 (RAW true) on the tensor cores.  grid (N / 128,
-// ksplit), planned as X4's (plan_d); CTA y takes K rows [y * kc, y * kc +
+// X1, X2 and X3 on the tensor cores, one kernel in three decode modes
+// (DEC): X2 kDecSigned (nibble_pair), X1 kDecUnsigned
+// (unsigned_nibble_pair), X3 kDecRaw (raw_nibble_pair, scaled after the
+// dot).  grid (N / 128, ksplit), planned as X4's (plan_d); CTA y takes K rows [y * kc, y * kc +
 // kc) (the last fewer), its 8 warps the 64-row blocks w, w + 8, ... of
 // them for all 128 columns of tile x, each block as two slots (byte rows
 // 0-15 and 16-31 of the block).  The ring's slots (kNSlot 16-byte chunks):
 // byte row r's 128 bytes at chunk r * kNRowChunks, the scale row's 256 at
-// kNScale.  X2 reads each block's scale row (kb); X3 the scale row of the
+// kNScale.  X1 and X2 read each block's scale row (kb); X3 the scale row of the
 // superblock's first block (kb rounded down to a multiple of blk / 64),
 // copied only with the last block of the warp's share of a superblock,
 // where its sums `part` fold into acc.
+enum NibbleDecode { kDecSigned = 0, kDecUnsigned = 1, kDecRaw = 2 };
 constexpr int kNWarps = 8;      // one 64-row block each at kNMaxKc rows a CTA
 constexpr int kNThreads = kNWarps * 32;
 constexpr int kNCtasPerSm = 2;  // __launch_bounds__: at most 128 registers
@@ -555,13 +490,14 @@ __device__ __forceinline__ void finish_tile(const float (&acc)[8][4], float* red
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 
-template <bool RAW>
+template <int DEC>
 __global__ void __launch_bounds__(kNThreads, kNCtasPerSm)
 unpack_mma_nibble(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
                   const __nv_bfloat16* __restrict__ scale, float* __restrict__ partial,
                   int* __restrict__ counters, float* __restrict__ out, int K, int N, int kc,
                   int blk) {
   using namespace gemv_mma;
+  constexpr bool RAW = DEC == kDecRaw;
   extern __shared__ uint4 smem_nib[];
   uint2* xb = reinterpret_cast<uint2*>(smem_nib);  // B fragments of the CTA's K slice
   // the warps' rings; after the walk, their sums [warp * 8 + row][kDSumLd]
@@ -617,7 +553,7 @@ unpack_mma_nibble(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[q][e] = 0.f, part[q][e] = 0.f;
   uint32_t sw[8];     // the scale row's bf16 pairs of the lane's 16 columns
-  uint32_t sc2[16];   // X2: the block's bf16 scale of each column, in both halves
+  uint32_t sc2[16];   // X1, X2: the block's bf16 scale of each column, in both halves
   for (int u = 0; u < slots; ++u) {
     __syncwarp();  // every lane has read the slot refilled next
     issue(u + kNRing - 1);
@@ -650,6 +586,15 @@ unpack_mma_nibble(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
               raw_nibble_pair<0>(r, r4), raw_nibble_pair<1>(r, r4), b);
           mma(part[2 * v + 1], raw_nibble_pair<2>(l, l4), raw_nibble_pair<3>(l, l4),
               raw_nibble_pair<2>(r, r4), raw_nibble_pair<3>(r, r4), b);
+        } else if constexpr (DEC == kDecUnsigned) {
+          mma(acc[2 * v], unsigned_nibble_pair<0>(l, l4, sc2[4 * v]),
+              unsigned_nibble_pair<1>(l, l4, sc2[4 * v + 1]),
+              unsigned_nibble_pair<0>(r, r4, sc2[4 * v]),
+              unsigned_nibble_pair<1>(r, r4, sc2[4 * v + 1]), b);
+          mma(acc[2 * v + 1], unsigned_nibble_pair<2>(l, l4, sc2[4 * v + 2]),
+              unsigned_nibble_pair<3>(l, l4, sc2[4 * v + 3]),
+              unsigned_nibble_pair<2>(r, r4, sc2[4 * v + 2]),
+              unsigned_nibble_pair<3>(r, r4, sc2[4 * v + 3]), b);
         } else {
           mma(acc[2 * v], nibble_pair<0>(l, l4, sc2[4 * v]), nibble_pair<1>(l, l4, sc2[4 * v + 1]),
               nibble_pair<0>(r, r4, sc2[4 * v]), nibble_pair<1>(r, r4, sc2[4 * v + 1]), b);
@@ -680,7 +625,7 @@ unpack_mma_nibble(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
   finish_tile(acc, reinterpret_cast<float*>(rings), partial, counters, out, N, &last_s);
 }
 
-// X2's and X3's plan: X4's, in whole superblocks for X3.  False for a
+// X1's, X2's and X3's plan: X4's, in whole superblocks for X3.  False for a
 // shape the kernel refuses (K a multiple of 64 and N of 4; X3: blk a
 // multiple of 128 up to 512 that divides K).
 bool plan_nibble(int K, int N, int blk, int sm_count, int* kc, int* ksplit) {
@@ -692,13 +637,13 @@ bool plan_nibble(int K, int N, int blk, int sm_count, int* kc, int* ksplit) {
 
 // the kernel's dynamic shared memory (above the 48 KB a kernel gets
 // without asking), with the SM's memory preferred as shared memory
-template <bool RAW>
+template <int DEC>
 cudaError_t nibble_ready() {
   static const cudaError_t err = [] {
-    cudaError_t e = cudaFuncSetAttribute(unpack_mma_nibble<RAW>,
+    cudaError_t e = cudaFuncSetAttribute(unpack_mma_nibble<DEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kNSmem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(unpack_mma_nibble<RAW>,
+      e = cudaFuncSetAttribute(unpack_mma_nibble<DEC>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     return e;
@@ -706,15 +651,15 @@ cudaError_t nibble_ready() {
   return err;
 }
 
-template <bool RAW>
+template <int DEC>
 int run_nibble(const void* x, const void* codes, const void* scale, void* partial,
                void* counters, void* out, int K, int N, int blk, int sm_count, void* stream) {
   int kc = 0, ksplit = 0;
-  if (RAW != (blk > 0) || !plan_nibble(K, N, blk, sm_count, &kc, &ksplit))
+  if ((DEC == kDecRaw) != (blk > 0) || !plan_nibble(K, N, blk, sm_count, &kc, &ksplit))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = nibble_ready<RAW>();
+  const cudaError_t err = nibble_ready<DEC>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  unpack_mma_nibble<RAW><<<dim3((N + 127) / 128, ksplit), kNThreads, kNSmem,
+  unpack_mma_nibble<DEC><<<dim3((N + 127) / 128, ksplit), kNThreads, kNSmem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat16*>(scale), static_cast<float*>(partial),
@@ -722,16 +667,16 @@ int run_nibble(const void* x, const void* codes, const void* scale, void* partia
   return static_cast<int>(cudaGetLastError());
 }
 
-// The code bytes X2 or X3 keeps in flight per SM at (K, N): the CTAs an SM
+// The code bytes X1, X2 or X3 keeps in flight per SM at (K, N): the CTAs an SM
 // holds at once (the runtime's occupancy, at most the grid's share) x the
 // warps with a block (one block each) x its two slots, all requested
 // before the warp's first wait; -1 for a shape it refuses.
-template <bool RAW>
+template <int DEC>
 int nibble_inflight(int K, int N, int blk, int sm_count) {
   int kc = 0, ksplit = 0, resident = 0;
-  if (RAW != (blk > 0) || !plan_nibble(K, N, blk, sm_count, &kc, &ksplit) ||
-      nibble_ready<RAW>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, unpack_mma_nibble<RAW>, kNThreads,
+  if ((DEC == kDecRaw) != (blk > 0) || !plan_nibble(K, N, blk, sm_count, &kc, &ksplit) ||
+      nibble_ready<DEC>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, unpack_mma_nibble<DEC>, kNThreads,
                                                     kNSmem) != cudaSuccess)
     return -1;
   const int grid = (N + 127) / 128 * ksplit;
@@ -742,15 +687,6 @@ int nibble_inflight(int K, int N, int blk, int sm_count) {
 int registers_of(const void* kernel) {
   cudaFuncAttributes attr{};
   return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
-}
-
-__global__ void reduce_float(const float* __restrict__ partial, float* __restrict__ out,
-                             int mn, int ksplit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += partial[(size_t)k * mn + i];
-  out[i] = s;
 }
 
 __global__ void reduce_int_scale(const int* __restrict__ partial,
@@ -768,23 +704,6 @@ bool bad_shape(int K, int N, int kc, int unit) {
          K % kc;
 }
 
-int run_unpack_a(const void* x, const void* codes, const void* scale, void* partial,
-                 void* out, int K, int N, int kc, void* stream_ptr) {
-  if (bad_shape(K, N, kc, 64)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int ksplit = K / kc;
-  const dim3 grid((N + kCols - 1) / kCols, ksplit);
-  unpack_gemv<<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<float*>(partial), K, N, kc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int mn = 8 * N;
-  reduce_float<<<(mn + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), mn, ksplit);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -793,19 +712,17 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// X1: x (8, K) bf16, packed (K/2, N) uint8, scale (K/64, N) bf16 -> out
-// (8, N) float; `partial` holds (K/kc, 8, N) floats; each CTA takes kc K
-// values (a multiple of 64, at most 512).
-int ift_unpack_a(const void* x, const void* packed, const void* scale, void* partial,
-                 void* out, int K, int N, int kc, void* stream) {
-  return run_unpack_a(x, packed, scale, partial, out, K, N, kc, stream);
-}
 // X2: x (8, K) bf16, codes4 (K/2, N) uint8 (signed nibbles), scale (K/64,
-// N) bf16 -> out (8, N) float (K a multiple of 64, N of 4).  X3: the same
-// on packed (K/2, N) raw nibbles, superblocks of blk values (a multiple of
-// 128 up to 512 that divides K).  `partial` holds ift_unpack_b_splits(K,
-// N, sm_count) (ift_unpack_c_splits(K, N, blk, sm_count)) * 8 * N floats,
-// `counters` ceil(N / 128) int32, zero on entry and left zero.
+// N) bf16 -> out (8, N) float (K a multiple of 64, N of 4).  X1: the same
+// on packed (K/2, N) unsigned nibbles.  X3: the same on packed (K/2, N)
+// raw nibbles, superblocks of blk values (a multiple of 128 up to 512 that
+// divides K).  `partial` holds ift_unpack_b_splits(K, N, sm_count)
+// (ift_unpack_a_splits, ift_unpack_c_splits(K, N, blk, sm_count)) * 8 * N
+// floats, `counters` ceil(N / 128) int32, zero on entry and left zero.
+int ift_unpack_a_splits(int K, int N, int sm_count) {
+  int kc = 0, ksplit = 0;
+  return plan_nibble(K, N, 0, sm_count, &kc, &ksplit) ? ksplit : -1;
+}
 int ift_unpack_b_splits(int K, int N, int sm_count) {
   int kc = 0, ksplit = 0;
   return plan_nibble(K, N, 0, sm_count, &kc, &ksplit) ? ksplit : -1;
@@ -814,27 +731,37 @@ int ift_unpack_c_splits(int K, int N, int blk, int sm_count) {
   int kc = 0, ksplit = 0;
   return blk > 0 && plan_nibble(K, N, blk, sm_count, &kc, &ksplit) ? ksplit : -1;
 }
+int ift_unpack_a(const void* x, const void* packed, const void* scale, void* partial,
+                 void* counters, void* out, int K, int N, int sm_count, void* stream) {
+  return run_nibble<kDecUnsigned>(x, packed, scale, partial, counters, out, K, N, 0, sm_count,
+                                  stream);
+}
 int ift_unpack_b(const void* x, const void* codes4, const void* scale, void* partial,
                  void* counters, void* out, int K, int N, int sm_count, void* stream) {
-  return run_nibble<false>(x, codes4, scale, partial, counters, out, K, N, 0, sm_count, stream);
+  return run_nibble<kDecSigned>(x, codes4, scale, partial, counters, out, K, N, 0, sm_count,
+                                stream);
 }
 int ift_unpack_c(const void* x, const void* packed, const void* scale, void* partial,
                  void* counters, void* out, int K, int N, int blk, int sm_count, void* stream) {
-  return run_nibble<true>(x, packed, scale, partial, counters, out, K, N, blk, sm_count, stream);
+  return run_nibble<kDecRaw>(x, packed, scale, partial, counters, out, K, N, blk, sm_count,
+                             stream);
+}
+int ift_unpack_a_inflight(int K, int N, int sm_count) {
+  return nibble_inflight<kDecUnsigned>(K, N, 0, sm_count);
 }
 int ift_unpack_b_inflight(int K, int N, int sm_count) {
-  return nibble_inflight<false>(K, N, 0, sm_count);
+  return nibble_inflight<kDecSigned>(K, N, 0, sm_count);
 }
 int ift_unpack_c_inflight(int K, int N, int blk, int sm_count) {
-  return nibble_inflight<true>(K, N, blk, sm_count);
+  return nibble_inflight<kDecRaw>(K, N, blk, sm_count);
 }
-// The registers a thread of X`which`'s kernel takes ('a' .. 'e'; X1 and
-// X5 without their reduce kernels); -1 for another letter.
+// The registers a thread of X`which`'s kernel takes ('a' .. 'e'; X5
+// without its reduce kernel); -1 for another letter.
 int ift_unpack_registers(int which) {
   switch (which) {
-    case 'a': return registers_of(reinterpret_cast<const void*>(unpack_gemv));
-    case 'b': return registers_of(reinterpret_cast<const void*>(unpack_mma_nibble<false>));
-    case 'c': return registers_of(reinterpret_cast<const void*>(unpack_mma_nibble<true>));
+    case 'a': return registers_of(reinterpret_cast<const void*>(unpack_mma_nibble<kDecUnsigned>));
+    case 'b': return registers_of(reinterpret_cast<const void*>(unpack_mma_nibble<kDecSigned>));
+    case 'c': return registers_of(reinterpret_cast<const void*>(unpack_mma_nibble<kDecRaw>));
     case 'd': return registers_of(reinterpret_cast<const void*>(unpack_mma_d));
     case 'e': return registers_of(reinterpret_cast<const void*>(unpack_dp4a));
     default: return -1;

@@ -18,7 +18,8 @@ byte (the Q8 block formats Q8_B32T2 and Q8_B32T1, one code per byte:
 bf16 activations, each weight bf16(q * bf16(scale)), Q8_B32T1's base
 through the blocks' activation sums); the wire mode (the sub-byte
 single-plane wire planes Q4_B64T1, Q4_B32T1A/B and Q2_B32T1A/B, pk = 2 or
-4 codes per byte, with byte (c)'s arithmetic); (h) Q3H in the pair8
+4 codes per byte, with byte (c)'s arithmetic, its GEMV on (b')'s
+tensor-core walk); (h) Q3H in the pair8
 layout (one byte per base-11 value pair, the same arithmetic); each
 product in its own mode; (d) per-matmul float32 output biases, added to
 a product's output before the residual add, the GLU or the qkv split;
@@ -479,11 +480,14 @@ def i4bf16_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
 
 def i4bf16_bytes_in_flight(m: int, w: QuantizedTensor, glu: bool,
                            device) -> int:
-    """The weight bytes the (b') GEMV keeps in flight per SM for m rows of
-    w (N its w1n3 width when glu) on the card `device`: csrc
-    ift_i4bf16_inflight (the two CTAs an SM holds, at most the grid's
-    share, x 8 warps x the 3 k16 steps of a warp's cp.async ring)."""
-    code = _i4_geometry(w, "i4bf16")[0]
+    """The weight bytes the (b') GEMV (w in the i4 layout) or the wire
+    GEMV (w a wire plane) is planned to keep in flight per SM for m rows
+    of w (N its w1n3 width when glu) on the card `device`: csrc
+    ift_i4bf16_inflight works it out from the launch plan (the two CTAs an
+    SM is launched for, at most the grid's share, x 8 warps x the 3 slots
+    of a warp's cp.async ring); a plan figure, not a measurement."""
+    code = (_i4_geometry(w, "i4bf16") if I4_PLANE in w.planes
+            else _code_geometry(w))[0]
     got = _lib().ift_i4bf16_inflight(
         m, w.storage_k, int(w.shape[-1]), int(glu), code,
         _sm_count(torch.device(device).index or 0))
@@ -494,15 +498,17 @@ def i4bf16_bytes_in_flight(m: int, w: QuantizedTensor, glu: bool,
 
 
 def i4bf16_registers(device) -> dict:
-    """The registers a thread of each (b') GEMV instantiation takes on the
-    card `device` (cudaFuncGetAttributes), by its launch count: the w1n3
-    (GLU) instantiation and the one of the other products."""
+    """The registers a thread of each tensor-core GEMV instantiation (the
+    (b') and the wire modes) takes on the card `device`
+    (cudaFuncGetAttributes), by its launch count: the w1n3 (GLU)
+    instantiation and the one of the other products."""
     torch.cuda.init()
     with torch.cuda.device(device):
         lib = _lib()
         return {gemv: {"w1n3": lib.ift_i4bf16_registers(code, 1),
                        "other": lib.ift_i4bf16_registers(code, 0)}
-                for code, _, gemv in _I4BF16_MODES.values()}
+                for code, _, gemv in (*_I4BF16_MODES.values(),
+                                      *_WIRE_MODES.values())}
 
 
 def _code_geometry(w: QuantizedTensor) -> tuple:

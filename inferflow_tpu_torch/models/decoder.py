@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from ..kernels.attention import chunk_attention, decode_attention
 from ..kernels.decode_step import fused_decode_step, fused_step_preferred
-from ..ops.activations import activate
+from ..ops.activations import activate, weak_scalar
 from ..ops.attention import mha
 from ..ops.linear import linear
 from ..ops.norms import apply_norm, linear_norm
@@ -157,7 +157,7 @@ def attention_block(spec: ModelSpec, lp: dict, x, positions,
     out = linear(out.reshape(b, t, n_heads * head_dim), lp["wo"],
                  lp.get("wo_b"))
     if spec.attn_out_scale != 1.0:
-        out = out * spec.attn_out_scale
+        out = out * weak_scalar(spec.attn_out_scale, out)
     return out, layer_cache
 
 
@@ -173,7 +173,7 @@ def ffn_block(spec: ModelSpec, lp: dict, x):
     out = linear(activate(spec.activation_fn, a, g), lp["w2"],
                  lp.get("w2_b"))
     if spec.ffn_out_scale != 1.0:
-        out = out * spec.ffn_out_scale
+        out = out * weak_scalar(spec.ffn_out_scale, out)
     return out
 
 
@@ -291,7 +291,7 @@ def output_logits(spec: ModelSpec, params: dict, x):
                                             keepdim=True).to(head.dtype)
     logits = linear(x, head, params.get("lm_head_b"))
     if spec.out_scale != 1.0:
-        logits = logits * spec.out_scale
+        logits = logits * weak_scalar(spec.out_scale, logits)
     return logits.float()
 
 

@@ -4,8 +4,25 @@ as the JAX version writes them."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def weak_scalar(value: float, like: torch.Tensor) -> float:
+    """A Python scalar as JAX's weak typing takes it against `like`:
+    rounded to like's dtype first (bf16 * 0.111111 multiplies by
+    bf16(0.111111)), where torch would keep it at full precision.  The
+    rounding is done on the host and the result stays a Python float (no
+    device tensor, no copy to the card): torch multiplies a bf16 tensor by
+    it in float32 and rounds once, the same bits as JAX's bf16 product."""
+    return _rounded(float(value), like.dtype)
 
 
 def _sigmoid(x):
@@ -19,7 +36,11 @@ def _silu(x):
 
 
 def _gelu(x):
-    return F.gelu(x, approximate="tanh")
+    # jax.nn.gelu(approximate=True) op by op in x's dtype, each constant
+    # rounded to it: x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))
+    inner = weak_scalar(0.7978845608028654, x) * (
+        x + weak_scalar(0.044715, x) * x ** 3)
+    return x * (weak_scalar(0.5, x) * (1 + torch.tanh(inner)))
 
 
 ACT_FNS = {

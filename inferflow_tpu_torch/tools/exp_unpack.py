@@ -15,8 +15,9 @@ scales) and as a share of the card's byte bound:
   X5 ``run_e``  int8 activations (32 rows) x int8 codes, int32 sums, times
                 a per-column scale
 
-X2, X3 and X4 run the tensor-core design of ``csrc/gemv_mma.cuh`` on the
-card (B4 (b')'s GEMV shares it), one launch a call, planned in C.
+X1-X4 run the tensor-core design of ``csrc/gemv_mma.cuh`` on the card
+(B4 (b')'s and the wire modes' GEMVs share it), one launch a call,
+planned in C.
 
 Inputs (``mk_inputs``): x (8, K) bf16, packed (K/2, N) uint8, codes4 (K/2,
 N) uint8 holding signed nibbles, codes8 (K, N) int8, scale (K/64, N) bf16,
@@ -142,15 +143,14 @@ def _lib():
     lib = _build.load("unpack_exp")
     if not getattr(lib, "_ift_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("a", "e"):
-            fn = getattr(lib, f"ift_unpack_{name}")
-            fn.argtypes = [vp] * 5 + [i] * 3 + [vp]
-        lib.ift_unpack_b.argtypes = [vp] * 6 + [i] * 3 + [vp]
+        lib.ift_unpack_e.argtypes = [vp] * 5 + [i] * 3 + [vp]
+        for name in "abd":
+            getattr(lib, f"ift_unpack_{name}").argtypes = \
+                [vp] * 6 + [i] * 3 + [vp]
         lib.ift_unpack_c.argtypes = [vp] * 6 + [i] * 4 + [vp]
-        lib.ift_unpack_d.argtypes = [vp] * 6 + [i] * 3 + [vp]
         for name in "abcde":
             getattr(lib, f"ift_unpack_{name}").restype = ctypes.c_int
-        for x in "bcd":
+        for x in "abcd":
             for what in ("splits", "inflight"):
                 fn = getattr(lib, f"ift_unpack_{x}_{what}")
                 fn.argtypes = [i] * (4 if x == "c" else 3)
@@ -174,7 +174,7 @@ def _sms(device) -> int:
 
 
 def _plan(name: str, what: str, k: int, n: int, blk: int, sms: int) -> int:
-    """X2-X4's plan from C (csrc ift_unpack_<name>_<what>): the K splits
+    """X1-X4's plan from C (csrc ift_unpack_<name>_<what>): the K splits
     or the code bytes in flight per SM."""
     args = (k, n, blk, sms) if name == "c" else (k, n, sms)
     value = getattr(_lib(), f"ift_unpack_{name}_{what}")(*args)
@@ -188,26 +188,27 @@ def _plan(name: str, what: str, k: int, n: int, blk: int, sms: int) -> int:
 
 def bytes_in_flight(name: str, k: int, n: int, device,
                     blk: int = X3_BLOCK) -> int:
-    """The code bytes X2 (`name` "b"), X3 ("c", superblocks of `blk`) or X4
-    ("d") keeps in flight per SM at (K, N) on the card `device` (csrc
-    ift_unpack_<name>_inflight: the CTAs an SM holds at once x their warps
-    x the 2 KB slots a warp has requested when it first waits: for X2 and
-    X3 each warp with a block (8 at 512 rows a CTA) its block's two, for
-    X4 each of 4 warps the 3 k16 steps its ring holds ahead)."""
+    """The code bytes X1 (`name` "a"), X2 ("b"), X3 ("c", superblocks of
+    `blk`) or X4 ("d") is planned to keep in flight per SM (a plan
+    figure, not a measurement) at (K, N) on the card
+    `device` (csrc ift_unpack_<name>_inflight: the CTAs an SM holds at
+    once x their warps x the 2 KB slots a warp has requested when it first
+    waits: for X1-X3 each warp with a block (8 at 512 rows a CTA) its
+    block's two, for X4 each of 4 warps the 3 k16 steps its ring holds
+    ahead)."""
     return _plan(name, "inflight", k, n, blk, _sms(device))
 
 
 def kernel_registers(device) -> dict:
     """The registers a thread of each kernel takes on the card (the
-    runtime's cudaFuncGetAttributes; X1 and X5 without their reduce
-    kernels)."""
+    runtime's cudaFuncGetAttributes; X5 without its reduce kernel)."""
     torch.cuda.init()
     with torch.cuda.device(device):
         lib = _lib()
         return {KERNELS[x]: lib.ift_unpack_registers(ord(x)) for x in "abcde"}
 
 
-# X2-X4's column-tile counters by device: zero between launches (the
+# X1-X4's column-tile counters by device: zero between launches (the
 # kernels leave them zero), so no launch pays for zeroing them
 _COUNTERS: dict = {}
 
@@ -227,7 +228,7 @@ def _launch(name: str, a, codes, meta, m: int, partial_dtype,
     if n % 4:
         raise ValueError(f"N={n} must be a multiple of 4")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if name in "bcd":  # X2-X4 plan in C; their K splits meet in the kernel
+    if name in "abcd":  # X1-X4 plan in C; their K splits meet in the kernel
         sms = _sms(a.device)
         splits = _plan(name, "splits", k, n, blk, sms)
         counters = [_build.ptr(_counters(a.device, -(-n // 128)))]
@@ -349,7 +350,7 @@ def bench(device, shapes=SHAPES, timer=None, seed: int = 0,
     version (max |kernel - plain| <= tol * max|plain|; X5 exact), and,
     with a timer (on the card), kernel, plain and library times in ms, the
     byte bound, GB/s of the streamed bytes and their share of the card's
-    memory rate.  On the card X2-X4's rows also give the code bytes in
+    memory rate.  On the card X1-X4's rows also give the code bytes in
     flight per SM.  One dict per case."""
     from ..utils.cuda_timing import (H100_BF16_FLOPS, H100_BYTES_PER_S,
                                      H100_INT8_OPS, bound)
@@ -372,8 +373,8 @@ def bench(device, shapes=SHAPES, timer=None, seed: int = 0,
             b_ms, b_by = bound(moved, ops,
                                H100_INT8_OPS if int8 else H100_BF16_FLOPS)
             row.update(bound_ms=b_ms, bound_by=b_by)
-            if on_card and name[-1] in "bcd":
-                row["bytes_in_flight_per_sm"] = bytes_in_flight(
+            if on_card and name[-1] in "abcd":
+                row["planned_bytes_in_flight_per_sm"] = bytes_in_flight(
                     name[-1], k, n, device)
             if timer is not None:
                 ms = timer(kern, name)

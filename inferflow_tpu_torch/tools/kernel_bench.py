@@ -44,14 +44,17 @@ Parts (the JAX bench's, plus --unpack, --b6 and --b3):
     split its launch used (``nsplit``); --b3-nsplit adds, for each count
     given, a row with the split forced to it (the kernel alone timed);
   - --i8mm: the int8 GEMV of the i8mm layout against the float32 product;
-  - --i4bf16: B4 (b')'s GEMV alone (the tensor-core walk of weight modes
-    7-10) on the i4 layout's four geometries at --i4bf16-model's four
-    decode products, with mode (b)'s i4x8 GEMV on the same weights timed
-    beside it (``i4x8_ms``), and the same bits on a second run (on the
-    card a first line gives each instantiation's registers);
-  - --i4bf16-step L: B4's fused step in mode (b') on L random Q4_B32T1A
-    layers of --i4bf16-model at B = 8 and B = 1, with mode (b)'s step on
-    the same inputs timed beside it (``i4x8_ms``);
+  - --i4bf16: B4's GEMVs on the tensor-core walk alone at
+    --i4bf16-model's four decode products: (b')'s (weight modes 7-10) on
+    the i4 layout's four geometries, with mode (b)'s i4x8 GEMV on the same
+    weights timed beside it (``i4x8_ms``), and the wire mode's (11-13) on
+    Q4_B64T1, Q4_B32T1A and Q2_B32T1A; the same bits on a second run (on
+    the card a first line gives each instantiation's registers);
+  - --i4bf16-step L: B4's fused step on the walk on L random layers of
+    --i4bf16-model at B = 8 and B = 1: mode (b') on Q4_B32T1A's i4 layout,
+    with mode (b)'s step on the same inputs timed beside it
+    (``i4x8_ms``), and the wire mode on the packed planes of its three
+    geometries (the step that INFERFLOW_MEGA=2 routes them to);
   - --mega: the whole-model fused decode step (B4) against the per-layer
     loop (INFERFLOW_MEGA=0 around the per-layer call, restored after), its
     parity at lengths 33 and 500 (norm_rmsd of the hidden state and of
@@ -269,97 +272,126 @@ def b6_part(b: Bench, shapes: dict, generic_shape, ms) -> None:
                          {"b1_ms": lambda: quantized_matmul(x, qt)})
 
 
-I4_GEOMETRIES = ("Q4_B64T1", "Q4_B32T1A", "Q4_B32T2", "Q4_B16")
+# the GEMVs on B4's tensor-core walk: (b')'s on the i4 layout's four
+# geometries (weight modes 7-10) and the wire mode's on its three (11-13)
+WALK_GEOMETRIES = (("Q4_B64T1", "i4"), ("Q4_B32T1A", "i4"), ("Q4_B32T2", "i4"),
+                   ("Q4_B16", "i4"), ("Q4_B64T1", "wire"),
+                   ("Q4_B32T1A", "wire"), ("Q2_B32T1A", "wire"))
 
 
-def i4bf16_part(b: Bench, shapes: dict, ms) -> None:
-    """B4 (b')'s GEMV alone on the four i4 geometries at every shape, each
-    M, against its plain version and twice (the same bits), mode (b)'s
-    i4x8 GEMV timed beside it; the card's GEMVs, or on the CPU the plain
-    version against itself."""
-    from ..kernels.decode_step import (_i4_geometry, i4_bf16_matmul_plain,
-                                       i4bf16_gemv_cuda, i4bf16_registers,
-                                       i4x8_gemv_cuda)
+def walk_part(b: Bench, shapes: dict, ms) -> None:
+    """B4's GEMVs on the tensor-core walk alone (WALK_GEOMETRIES) at every
+    shape, each M, against the plain version and twice (the same bits),
+    mode (b)'s i4x8 GEMV timed beside (b')'s on the same weights
+    (``i4x8_ms``); the card's GEMVs, or on the CPU the plain version
+    against itself.  On the card a first line gives each instantiation's
+    registers, and each row the weight bytes in flight per SM that the
+    launch plan gives (``planned_bytes_in_flight_per_sm``: worked out, not
+    measured)."""
+    from ..kernels.decode_step import (
+        _code_geometry, _i4_geometry, i4_bf16_matmul_plain,
+        i4bf16_bytes_in_flight, i4bf16_gemv_cuda, i4bf16_registers,
+        i4x8_gemv_cuda, wire_gemv_cuda, wire_matmul_plain)
     from ..kernels.dequant_matmul import i4_weight
-    from ..quant.codec_torch import quantize, repack_i4
+    from ..quant.codec_torch import dequantize, quantize, repack_i4
     card = b.device.type == "cuda"
-    fn = i4bf16_gemv_cuda if card else i4_bf16_matmul_plain
     if card:
-        print(json.dumps({"phase": "kernel_bench", "part": "i4bf16_registers",
+        print(json.dumps({"phase": "kernel_bench", "part": "walk_registers",
                           "registers": i4bf16_registers(b.device)}),
               flush=True)
     gen = b.gen(2)
     for name, (k, n) in shapes.items():
         w = _weight(gen, k, n, b.device)
-        for fmt in I4_GEOMETRIES:
-            qt = repack_i4(quantize(w, fmt))
-            w_bf16 = i4_weight(qt)
+        for fmt, layout in WALK_GEOMETRIES:
+            if layout == "i4":
+                qt = repack_i4(quantize(w, fmt))
+                w_bf16, gemv, plain = (i4_weight(qt), i4bf16_gemv_cuda,
+                                       i4_bf16_matmul_plain)
+                part, kernel = "i4bf16", _i4_geometry(qt, "i4bf16")[2]
+            else:
+                qt = quantize(w, fmt)
+                w_bf16, gemv, plain = (dequantize(qt, torch.bfloat16),
+                                       wire_gemv_cuda, wire_matmul_plain)
+                part, kernel = "wire", _code_geometry(qt)[2]
+            fn = gemv if card else plain
             for m in ms:
                 x = _acts(gen, m, k, b.device)
-                info = {"same_bits_twice": bool(torch.equal(fn(x, qt),
-                                                            fn(x, qt)))}
-                _matmul_case(b, "i4bf16", _i4_geometry(qt, "i4bf16")[2],
-                             f"{name} {fmt}", qt, w_bf16, x, fn,
-                             i4_bf16_matmul_plain,
-                             {"i4x8_ms": lambda: i4x8_gemv_cuda(x, qt)}
-                             if card else None,
-                             dict(info, ok=info["same_bits_twice"]))
+                same = bool(torch.equal(fn(x, qt), fn(x, qt)))
+                info, beside = {"same_bits_twice": same, "ok": same}, None
+                if card:
+                    info["planned_bytes_in_flight_per_sm"] = (
+                        i4bf16_bytes_in_flight(m, qt, False, b.device))
+                    if layout == "i4":
+                        beside = {"i4x8_ms": lambda: i4x8_gemv_cuda(x, qt)}
+                _matmul_case(b, part, kernel, f"{name} {fmt}", qt, w_bf16, x,
+                             fn, plain, beside, info)
             del qt, w_bf16
 
 
-# the (b') step part: chip_smoke.py's B = 8 lengths and its B = 1 row, on
-# a cache of STEP_CONTEXT rows
+# the step part: chip_smoke.py's B = 8 lengths and its B = 1 row, on a
+# cache of STEP_CONTEXT rows
 STEP_LENGTHS = ((4095, 3000, 2048, 1500, 1023, 700, 301, 17), (2048,))
 STEP_CONTEXT = 4096
+# the steps on the walk: (b') on the i4 layout (mode (b) timed beside it)
+# and the wire mode on the packed planes of its three geometries
+WALK_STEPS = (("Q4_B32T1A", "i4"), ("Q4_B64T1", "packed"),
+              ("Q4_B32T1A", "packed"), ("Q2_B32T1A", "packed"))
 
 
-def i4bf16_step_part(b: Bench, model: str, layers: int) -> None:
-    """B4's fused step in mode (b') on `layers` random Q4_B32T1A layers of
-    `model` (the i4 layout) at B = 8 and B = 1, mode (b) timed beside it on
-    the same inputs (``i4x8_ms``); the same bits on a second step and, on
-    the card, two launches of the (b') step's kernel (chip_smoke.py holds
-    the step against its plain version layer by layer).  Bound: the
-    products' weight bytes and the live cache rows."""
+def walk_step_part(b: Bench, model: str, layers: int) -> None:
+    """B4's fused step on the walk (WALK_STEPS) on `layers` random layers
+    of `model` at B = 8 and B = 1, mode (b) timed beside (b') on the same
+    inputs (``i4x8_ms``); the same bits on a second step and, on the card,
+    two launches of the step's kernel (chip_smoke.py holds the steps
+    against their plain versions layer by layer).  Bound: the products'
+    weight bytes and the live cache rows."""
     from ..kernels import _build
-    from ..kernels.decode_step import fused_decode_step
+    from ..kernels.decode_step import _code_geometry, fused_decode_step
     from ..models.zoo import make_spec, make_synthetic_params
-    spec = make_spec(model, device_layout="i4", layers=layers)
-    params = make_synthetic_params(spec, "Q4_B32T1A", device=b.device,
-                                   device_layout="i4")
-    hp, lays = spec.hyper_params, params["layers"]
-    wbytes = sum(lp[g][w].nbytes for lp in lays for g, w in (
-        ("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"), ("ffn", "w2")))
-    gen = b.gen(6)
-    for lengths in STEP_LENGTHS:
-        n = len(lengths)
-        cache = _mega_cache(b, hp, STEP_CONTEXT, lengths, 7)
-        x = (torch.randn((n, 1, hp.embd_dims), generator=gen,
-                         device=b.device) * 0.3).to(torch.bfloat16)
-        pos = cache.length[:, None].clone()
+    for fmt, layout in WALK_STEPS:
+        spec = make_spec(model, device_layout=layout, layers=layers)
+        params = make_synthetic_params(spec, fmt, device=b.device,
+                                       device_layout=layout)
+        hp, lays = spec.hyper_params, params["layers"]
+        kernel = ("fused_decode_step_i4bf16_b32" if layout == "i4"
+                  else _code_geometry(lays[0]["attn"]["qkv"])[1])
+        wbytes = sum(lp[g][w].nbytes for lp in lays for g, w in (
+            ("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"), ("ffn", "w2")))
+        gen = b.gen(6)
+        for lengths in STEP_LENGTHS:
+            n = len(lengths)
+            cache = _mega_cache(b, hp, STEP_CONTEXT, lengths, 7)
+            x = (torch.randn((n, 1, hp.embd_dims), generator=gen,
+                             device=b.device) * 0.3).to(torch.bfloat16)
+            pos = cache.length[:, None].clone()
 
-        def step():
-            return fused_decode_step(spec, lays, x, pos, cache)[0]
+            def step():
+                return fused_decode_step(spec, lays, x, pos, cache)[0]
 
-        times = {}
-        with _env("INFERFLOW_I4_DOT", "bf16"):
-            _build.launch_counts.clear()
-            got, again = step(), step()
-            launched = dict(_build.launch_counts)
-            if b.timer is not None:
-                times["ms"] = b.timer(step, f"(b') step B={n}")
-        if b.timer is not None:
-            with _env("INFERFLOW_I4_DOT", "i8"):
-                times["i4x8_ms"] = b.timer(step, f"(b) step B={n}")
-        kv = 2 * layers * sum(lengths) * hp.kv_heads * (
-            hp.head_dim + 2 * (hp.head_dim // 32))
-        same = bool(torch.equal(got, again))
-        kernel = "fused_decode_step_i4bf16_b32"
-        ok = same and (b.device.type != "cuda" or launched == {kernel: 2})
-        b.row("i4bf16_step", kernel,
-              f"{model} Q4_B32T1A L={layers} B={n} lengths={list(lengths)} "
-              f"S={STEP_CONTEXT}", got, None, bytes_moved=wbytes + kv,
-              same_bits_twice=same, launched=launched, ok=ok, **times)
-        del cache
+            times = {}
+            with _env("INFERFLOW_I4_DOT", "bf16"):  # the i4 layout's (b')
+                _build.launch_counts.clear()
+                got, again = step(), step()
+                launched = dict(_build.launch_counts)
+                if b.timer is not None:
+                    times["ms"] = b.timer(step, f"{kernel} B={n}")
+            if b.timer is not None and layout == "i4":
+                with _env("INFERFLOW_I4_DOT", "i8"):
+                    times["i4x8_ms"] = b.timer(step, f"(b) step B={n}")
+            kv = 2 * layers * sum(lengths) * hp.kv_heads * (
+                hp.head_dim + 2 * (hp.head_dim // 32))
+            same = bool(torch.equal(got, again))
+            ok = same and (b.device.type != "cuda"
+                           or launched == {kernel: 2})
+            b.row("walk_step", kernel,
+                  f"{model} {fmt} {layout} L={layers} B={n} "
+                  f"lengths={list(lengths)} S={STEP_CONTEXT}", got, None,
+                  bytes_moved=wbytes + kv, same_bits_twice=same,
+                  launched=launched, ok=ok, **times)
+            del cache
+        del params, lays
+        if b.device.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def unpack_part(b: Bench) -> None:
@@ -714,10 +746,12 @@ def parse_args(argv=None):
     ap.add_argument("--b3-nsplit", default="",
                     help="comma list of key-walk splits to force on --b3")
     ap.add_argument("--i4bf16", action="store_true",
-                    help="B4 (b')'s GEMV alone on the four i4 geometries")
+                    help="B4's GEMVs on the tensor-core walk alone: (b') "
+                         "on the four i4 geometries, the wire mode on its "
+                         "three")
     ap.add_argument("--i4bf16-step", type=int, default=0,
-                    help="layers of --i4bf16-model for B4's (b') step "
-                         "beside mode (b) (0: no step part)")
+                    help="layers of --i4bf16-model for B4's steps on the "
+                         "walk, (b') beside mode (b) (0: no step part)")
     ap.add_argument("--i4bf16-model", default="llama2-7b",
                     help="the zoo model whose decode products --i4bf16 "
                          "runs at")
@@ -760,9 +794,9 @@ def bench(argv=None) -> list:
     if args.i4bf16:
         products = model_products(args.i4bf16_model)
         products.pop("lm_head")
-        i4bf16_part(b, products, ms)
+        walk_part(b, products, ms)
     if args.i4bf16_step:
-        i4bf16_step_part(b, args.i4bf16_model, args.i4bf16_step)
+        walk_step_part(b, args.i4bf16_model, args.i4bf16_step)
     if args.mega:
         mega_part(b, args.mega_model, args.mega_quant, args.mega_layout)
     return b.rows

@@ -56,17 +56,20 @@ def _close(got, ref, tol=REL_TOL):
 
 def test_code_gemvs(dev):
     """The wire and pair8 GEMVs alone on each format, at test and llama2
-    shapes, M in {1, 5, 8}."""
+    shapes and at N = 100 and 1000 (a ragged last column tile; rows 4 and
+    8 bytes aligned: the wire GEMV's copies take piece_of's 4- and 8-byte
+    pieces), M = 1..8."""
     from inferflow_tpu_torch.kernels.decode_step import (
         _product_f32, pair8_gemv_cuda, wire_gemv_cuda)
     gen = torch.Generator(device=dev).manual_seed(52)
     for fmt, (gemv, _) in FORMATS.items():
         launch = pair8_gemv_cuda if fmt.startswith("Q3H") else wire_gemv_cuda
-        for k, n in ((256, 512), (4096, 12288), (11008, 4096), (128, 128)):
+        for k, n in ((256, 512), (4096, 12288), (11008, 4096), (128, 128),
+                     (256, 100), (512, 1000)):
             w = torch.randn((k, n), generator=gen, device=dev) * (
                 0.5 / k ** 0.5)
             qt = quantize(w, fmt)
-            for m in (1, 5, 8):
+            for m in range(1, 9):
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 _build.launch_counts.clear()
@@ -146,9 +149,9 @@ def test_fused_step_wire_and_pair8(dev):
 
 def test_fused_step_biases(dev):
     """Mode (d): biases on all four products in every weight mode (i8mm,
-    i4x8, byte, wire, pair8) at test-llama, B = 1 and 4, each step
-    counted under its mode and under fused_decode_step_bias; a bias of
-    the wrong length raises."""
+    i4x8, byte, the three wire geometries, pair8) at test-llama, B = 1 and
+    4, each step counted under its mode and under fused_decode_step_bias;
+    a bias of the wrong length raises."""
     from inferflow_tpu_torch.kernels.decode_step import fused_decode_step
     from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params
     gen = torch.Generator(device=dev).manual_seed(53)
@@ -157,6 +160,8 @@ def test_fused_step_biases(dev):
             ("Q4_B64T1", "i4", "fused_decode_step_i4"),
             ("Q8_B32T2", "packed", "fused_decode_step_byte"),
             ("Q4_B64T1", "packed", "fused_decode_step_wire"),
+            ("Q4_B32T1A", "packed", "fused_decode_step_wire_b32"),
+            ("Q2_B32T1A", "packed", "fused_decode_step_wire_q2"),
             ("Q3H_B64T1", "packed", "fused_decode_step_pair8")):
         spec = make_spec("test-llama", device_layout=layout)
         params = make_synthetic_params(spec, fmt, seed=0, device=dev,

@@ -67,14 +67,18 @@ def test_b6_wire_and_generic(dev):
 
 
 # (K, N, X3's superblock) of each experiment's cases: the tensor-core
-# kernels X2-X4 also at N = 100 (a multiple of 4, not of 16: 4- and 8-byte
+# kernels X1-X4 also at N = 100 (a multiple of 4, not of 16: 4-byte
 # per-lane copies, a ragged tile), K = 64 (one block), and K = 37 blocks at
-# N = 4096, whose K splits end in a short one; X2 and X3 also at K = 4608
-# (nine splits); X3 at superblocks of 128, 256, 384 and 512 values, with
-# odd numbers of superblocks
+# N = 4096, whose K splits end in a short one; X1-X3 also at K = 4608
+# (nine splits); X1 and X2 at N = 1000 (8-byte copies) and at X1's bench
+# shapes; X3 at superblocks of 128, 256, 384 and 512 values, with odd
+# numbers of superblocks
+NIBBLE_CASES = ((1024, 640, 0), (1024, 100, 0), (64, 640, 0),
+                (64 * 37, 4096, 0), (4608, 640, 0), (1024, 1000, 0),
+                (4096, 4096, 0), (2048, 5632, 0))
 UNPACK_CASES = {
-    "b": ((1024, 640, 0), (1024, 100, 0), (64, 640, 0), (64 * 37, 4096, 0),
-          (4608, 640, 0)),
+    "a": NIBBLE_CASES,
+    "b": NIBBLE_CASES,
     "c": ((1024, 640, 512), (1152, 640, 128), (768, 640, 256),
           (1536, 640, 512), (768, 100, 384), (1024, 100, 128),
           (4608, 640, 512)),

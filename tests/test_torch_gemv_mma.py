@@ -1,6 +1,6 @@
 """The tensor-core design of the 8-row code GEMV (csrc/gemv_mma.cuh: X4's
-`unpack_mma_d` and B4 (b')'s GEMV in weight modes 7-10), emulated in numpy
-on the CPU, where no card runs it.
+`unpack_mma_d`, B4 (b')'s GEMV in weight modes 7-10 and B4's wire GEMV in
+modes 11-13), emulated in numpy on the CPU, where no card runs it.
 
 (i)  The bf16x2 bit tricks (a nibble or an int8 code turned into bf16 by
      the bits of a magic number, times bf16(scale) by one fma.rn.bf16x2)
@@ -9,10 +9,15 @@ on the CPU, where no card runs it.
      f32 metadata down to f32 subnormals).
 (ii) The fragment map (each lane's 16 columns and K pairs, the A, B and C
      registers of mma.sync m16n8k16 as PTX lays them out) covers every (k,
-     n) of a tile once, and the emulated GEMV, register by register, forms
+     n) of a tile once, Q2's too (4 codes a byte: lane t's K pairs (4t,
+     4t+1) and (4t+2, 4t+3), the B fragments staged in that order by
+     frag_word_q2), and the emulated GEMV, register by register, forms
      exactly the plain versions' bf16 weights and their product within a
      float32 summation bound: i4_bf16_matmul_plain on the four i4
-     geometries at test-llama shapes (and a ragged N), plain_d for X4.
+     geometries at test-llama shapes (and a ragged N), plain_d for X4,
+     wire_matmul_plain on the three wire geometries (Q4_B64T1, Q4_B32T1A,
+     Q2_B32T1A: unsigned_nibble_pair and q2_pair, the fold term
+     bf16(sum x) * bf16(base)).
 (iii) plain_d against the JAX package's run_d (interpret mode), so the
      emulation is tied to the reference.
 
@@ -32,9 +37,11 @@ import pytest
 import torch
 from jax.experimental import pallas
 
-from inferflow_tpu_torch.kernels.decode_step import i4_bf16_matmul_plain
-from inferflow_tpu_torch.quant.codec_torch import (I4_PLANE, i4_nibbles,
-                                                   quantize, repack_i4)
+from inferflow_tpu_torch.kernels.decode_step import (i4_bf16_matmul_plain,
+                                                     wire_matmul_plain)
+from inferflow_tpu_torch.quant.codec_torch import (I4_PLANE, _unpack_plane,
+                                                   i4_nibbles, quantize,
+                                                   repack_i4)
 from inferflow_tpu_torch.quant.formats import get_format
 from inferflow_tpu_torch.tools import exp_unpack as tx
 
@@ -70,10 +77,11 @@ def fma_bf16x2(a, b, c):
     one factor here is a small integer, so no float32 subnormal loses a
     bit), and so is + c where c is -0.0 or the other addend is exact."""
     out = np.zeros(np.broadcast(a, b, c).shape, np.uint32)
-    for h in (0, 16):
-        va, vb, vc = (bf16_value((np.asarray(v, np.uint32) >> h) & 0xFFFF)
-                      for v in (a, b, c))
-        r = bf16_round(va * vb + vc).astype(np.uint32)
+    for h in (0, 16):  # a product past bf16's range rounds to inf, as IEEE
+        with np.errstate(over="ignore"):
+            va, vb, vc = (bf16_value((np.asarray(v, np.uint32) >> h)
+                                     & 0xFFFF) for v in (a, b, c))
+            r = bf16_round(va * vb + vc).astype(np.uint32)
         out |= r << h
     return out
 
@@ -89,6 +97,28 @@ def nibble_pair(w, c, sc2):
     t = (byte_perm(w, np.asarray(w, np.uint32) >> 4, sel) & 0x000F000F) \
         ^ 0x43084308
     return fma_bf16x2(fma_bf16x2(t, 0x3F803F80, 0xC308C308), sc2, 0x80008000)
+
+
+def raw_nibble_pair(w, c):
+    """gemv_mma::raw_nibble_pair<c>: byte c of a word of raw nibbles."""
+    sel = c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12)
+    t = (byte_perm(w, np.asarray(w, np.uint32) >> 4, sel) & 0x000F000F) \
+        | 0x43004300
+    return fma_bf16x2(t, 0x3F803F80, 0xC300C300)
+
+
+def unsigned_nibble_pair(w, c, sc2):
+    """gemv_mma::unsigned_nibble_pair<c>: byte c of a word of unsigned
+    nibbles, times the scale."""
+    return fma_bf16x2(raw_nibble_pair(w, c), sc2, 0x80008000)
+
+
+def q2_pair(a, b, c, sc2):
+    """gemv_mma::q2_pair<c>: the lowest 2-bit code of byte c of a and of
+    b (= a >> 2), times the scale."""
+    sel = c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12)
+    t = (byte_perm(a, b, sel) & 0x00030003) | 0x43004300
+    return fma_bf16x2(fma_bf16x2(t, 0x3F803F80, 0xC300C300), sc2, 0x80008000)
 
 
 def int8_pair(lo, hi, c, sc2):
@@ -139,6 +169,23 @@ def test_dequant_bits_match_plain_weights():
                 lo, hi = halves(nibble_pair(w, c, sc2))
                 np.testing.assert_array_equal(lo, want[pairs & 15])
                 np.testing.assert_array_equal(hi, want[pairs >> 4])
+            # the wire modes: unsigned nibble u -> bf16(u * bf16(sc)), Q2
+            # code q -> bf16(q * bf16(sc)) (codes 2H, 2H + 1 of a byte from
+            # a = byte >> 4H)
+            plain_u = bits_of((torch.arange(16).float() * scb[s_i])
+                              .to(torch.bfloat16))
+            for c in range(4):
+                w = pairs << np.uint32(8 * c)
+                lo, hi = halves(unsigned_nibble_pair(w, c, sc2))
+                np.testing.assert_array_equal(lo, plain_u[pairs & 15])
+                np.testing.assert_array_equal(hi, plain_u[pairs >> 4])
+                for h in (0, 1):
+                    a = w >> np.uint32(4 * h)
+                    lo, hi = halves(q2_pair(a, a >> np.uint32(2), c, sc2))
+                    np.testing.assert_array_equal(
+                        lo, plain_u[(pairs >> (4 * h)) & 3])
+                    np.testing.assert_array_equal(
+                        hi, plain_u[(pairs >> (4 * h + 2)) & 3])
             # X4: int8 v -> bf16(v * bf16(sc)); the codes in both rows
             codes = np.arange(-128, 128, dtype=np.int32)
             plain8 = bits_of((torch.from_numpy(codes).float() * scb[s_i])
@@ -183,14 +230,28 @@ def c_lanes(d):
                      d[..., G + 8, 2 * T], d[..., G + 8, 2 * T + 1]], -1)
 
 
-def frag_buffer(x_bits, kc):
+def frag_word(m, kk, q2=False):
+    """csrc gemv_mma::frag_word (q2: frag_word_q2): the word of the B
+    fragment buffer holding the bf16 pair (kk, kk + 1) of row m."""
+    s, w = kk // 16, kk % 16
+    if q2:
+        return s * 64 + m * 8 + w // 2
+    return ((s * 32 + m * 4 + (w % 8) // 2) * 2) + w // 8
+
+
+# the mma K index of a k16 step -> its K row for Q2's map (lane t's a0/b0
+# K pair (2t, 2t+1) is K rows (4t, 4t+1), a2/b1's (2t+8, 2t+9) rows
+# (4t+2, 4t+3)); the identity for the other maps
+Q2_K = np.array([4 * (k % 8 // 2) + 2 * (k // 8) + k % 2 for k in range(16)])
+
+
+def frag_buffer(x_bits, kc, q2=False):
     """The B fragment buffer (uint32 words) of 8 rows of bf16 bits (rows
     past x's zero), each pair stored at csrc frag_word's index."""
     buf = np.zeros(kc * 4, np.uint32)  # kc / 16 steps x 32 lanes x 2
     m, kk = np.meshgrid(np.arange(x_bits.shape[0]), np.arange(0, kc, 2),
                         indexing="ij")
-    s, w = kk // 16, kk % 16
-    word = ((s * 32 + m * 4 + (w % 8) // 2) * 2) + w // 8
+    word = frag_word(m, kk, q2)
     buf[word] = (x_bits[:, 0::2].astype(np.uint32)
                  | (x_bits[:, 1::2].astype(np.uint32) << 16))
     return buf.reshape(-1, 32, 2)
@@ -207,17 +268,17 @@ A_COLUMN = 16 * (np.arange(16) % 8)[None, :] + 2 * np.arange(8)[:, None] \
     + (np.arange(16) // 8)[None, :]
 
 
-def emulate(x, n, a_regs, fold=None):
+def emulate(x, n, a_regs, fold=None, q2=False):
     """The warps' walk over every 128-column tile: a_regs (tiles, k16
     steps, 32 lanes, 8 n-tiles, 4) A registers, B from the fragment
-    buffer, D = A @ B in float64 per step, summed into the lanes' C
-    registers; fold (8, N_pad) the quant blocks' fold terms, added into
-    the C registers of their columns.  Returns y (M, N) float64 and the
-    dequantized W (K, N) bf16 bits rebuilt from the A tiles through the C
-    map's columns."""
+    buffer (q2: Q2's order), D = A @ B in float64 per step, summed into the
+    lanes' C registers; fold (8, N_pad) the quant blocks' fold terms, added
+    into the C registers of their columns.  Returns y (M, N) float64 and
+    the dequantized W (K, N) bf16 bits rebuilt from the A tiles through the
+    C map's columns and the K map (Q2_K for q2)."""
     m, k = x.shape
     tiles, steps = a_regs.shape[:2]
-    xb = frag_buffer(bits_of(torch.from_numpy(x).to(torch.bfloat16)), k)
+    xb = frag_buffer(bits_of(torch.from_numpy(x).to(torch.bfloat16)), k, q2)
     at = a_matrix(a_regs.transpose(0, 1, 3, 2, 4))  # (tiles, S, 8, 16, 16)
     d = bf16_value(at).astype(np.float64) @ bf16_value(b_matrix(xb))[
         None, :, None]
@@ -233,18 +294,20 @@ def emulate(x, n, a_regs, fold=None):
         for e in range(4):
             y[2 * T + e % 2, cols[:, :, 2 * q + e // 2]] = acc[:, :, q, e]
     w = np.zeros((k, tiles * 128), np.uint16)
-    w[(np.arange(steps)[:, None, None, None] * 16 + np.arange(16))[None],
+    krow = Q2_K if q2 else np.arange(16)
+    w[(np.arange(steps)[:, None, None, None] * 16 + krow)[None],
       (np.arange(tiles)[:, None, None, None, None] * 128
        + A_COLUMN[None, None, :, :, None])] = at
     return y[:m, :n], w[:, :n]
 
 
 def test_fragment_map_covers_each_element_once():
-    """A step's A registers (through the i4 byte rows t, t+4 and the int8
-    rows 2t, 2t+1, 2t+8, 2t+9), the B fragment words and the C registers
-    each cover their tile exactly once, and A and C name the same column
-    for every (lane, n-tile)."""
-    for kind in ("i4", "int8"):
+    """A step's A registers (through the i4 byte rows t, t+4, the int8
+    rows 2t, 2t+1, 2t+8, 2t+9 and Q2's byte row t), the B fragment words
+    (both orders) and the C registers each cover their tile exactly once,
+    A and C name the same column for every (lane, n-tile), and Q2's B
+    words hold each lane's K rows in its A registers' order."""
+    for kind in ("i4", "int8", "q2"):
         seen = np.zeros((16, 128), int)
         for lane in range(32):
             g, t = lane // 4, lane % 4
@@ -254,18 +317,26 @@ def test_fragment_map_covers_each_element_once():
                     q, r = 2 * v + c // 2, g + 8 * (c % 2)
                     # A row r of n-tile q holds this column: the C map
                     assert 16 * (r % 8) + 2 * q + r // 8 == col
-                    ks = ([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
-                          if kind == "int8" else
-                          [2 * t, 2 * t + 1, 2 * (t + 4), 2 * (t + 4) + 1])
+                    ks = {"int8": [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9],
+                          "i4": [2 * t, 2 * t + 1, 2 * (t + 4),
+                                 2 * (t + 4) + 1],
+                          "q2": [4 * t + h for h in range(4)]}[kind]
                     for kk in ks:
                         seen[kk, col] += 1
         assert (seen == 1).all(), kind
-    words = np.zeros(64, int)  # one step: 32 lanes x 2 words
-    for m in range(8):
-        for kk in range(0, 16, 2):
-            w = kk % 16
-            words[((m * 4 + (w % 8) // 2) * 2) + w // 8] += 1
-    assert (words == 1).all()
+    for q2 in (False, True):
+        words = np.zeros(64, int)  # one step: 32 lanes x 2 words
+        for m in range(8):
+            for kk in range(0, 16, 2):
+                words[frag_word(m, kk, q2)] += 1
+        assert (words == 1).all()
+    # Q2: lane t's b0 / b1 (words 2 lane, 2 lane + 1) hold K rows (4t,
+    # 4t+1) / (4t+2, 4t+3), the codes of its a0 / a2
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for j in (0, 1):
+            assert frag_word(g, 4 * t + 2 * j, True) == 2 * lane + j
+            assert Q2_K[2 * t + 8 * j] == 4 * t + 2 * j
     out = np.zeros((128, 8), int)
     for lane in range(32):
         for q in range(8):
@@ -337,6 +408,84 @@ def test_i4bf16_emulation_matches_plain():
         np.testing.assert_array_equal(w_bits, want_w)
         ref = i4_bf16_matmul_plain(torch.from_numpy(x).to(torch.bfloat16),
                                    qt).numpy()
+        assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max(), (
+            fmt, k, n, m, np.abs(y - ref).max())
+
+
+def emulate_wire(qt, x):
+    """B4's wire GEMV, register by register (i4bf_walk in a wire mode):
+    Q4 byte rows t, t + 4 of each k16 step through unsigned_nibble_pair,
+    Q2 byte row t of each step (a ring slot's two steps: rows t and t + 4)
+    through q2_pair, with the B fragments in Q2's order."""
+    fmt = get_format(qt.format)
+    blk, bits = fmt.block, fmt.planes[0].bits
+    k, n = qt.storage_k, int(qt.shape[-1])
+    tiles, steps = -(-n // 128), k // 16
+    pad = tiles * 128 - n
+    data = np.pad(qt.planes["data"].numpy(), ((0, 0), (0, pad)))
+    sc = np.pad(qt.scale.float().numpy(), ((0, 0), (0, pad)))
+    bs = np.pad(qt.base.float().numpy(), ((0, 0), (0, pad)))
+    xsum = torch.from_numpy(x).to(torch.bfloat16).float().reshape(
+        x.shape[0], -1, blk).sum(-1).numpy()
+    xsum = np.pad(bf16_value(bf16_round(xsum)), ((0, 8 - x.shape[0]), (0, 0)))
+    fold = bf16_value(bf16_round(bs))
+    cols = lane_columns(tiles)[:, None]
+    sc2 = splat(sc[(np.arange(steps) * 16 // blk)[None, :, None, None], cols])
+    words = data.view(np.uint32)
+    wcol = (np.arange(tiles)[:, None, None, None] * 32
+            + 4 * G[None, None, :, None] + np.arange(4))
+    a = np.zeros((tiles, steps, 32, 8, 4), np.uint32)
+    if bits == 4:
+        row = (np.arange(steps) * 8)[None, :, None, None] \
+            + T[None, None, :, None]
+        wl, wh = words[row, wcol], words[row + 4, wcol]
+        lows = (wl, wl >> np.uint32(4), unsigned_nibble_pair)
+        highs = (wh, wh >> np.uint32(4), unsigned_nibble_pair)
+    else:
+        row = (np.arange(steps) * 4)[None, :, None, None] \
+            + T[None, None, :, None]
+        w0 = words[row, wcol]
+        lows = (w0, w0 >> np.uint32(2), q2_pair)
+        highs = (w0 >> np.uint32(4), w0 >> np.uint32(6), q2_pair)
+    for v in range(4):
+        for h in range(2):
+            c0, c1 = 2 * h, 2 * h + 1
+            s0, s1 = sc2[..., 4 * v + c0], sc2[..., 4 * v + c1]
+            regs = []
+            for lo_w, lo_b, dec in (lows, highs):
+                for c, s_ in ((c0, s0), (c1, s1)):
+                    regs.append(dec(lo_w[..., v], lo_b[..., v], c, s_)
+                                if dec is q2_pair else
+                                dec(lo_w[..., v], c, s_))
+            a[..., 2 * v + h, :] = np.stack(regs, -1)
+    return emulate(x, n, a, xsum @ fold, q2=bits == 2)
+
+
+def test_wire_emulation_matches_plain():
+    """The three wire geometries (Q4_B64T1, Q4_B32T1A, Q2_B32T1A) at
+    test-llama's qkv (256 x 384, 8 rows) and w2 (512 x 256, 3 rows) and a
+    ragged N = 100: the emulated wire GEMV's weights are
+    wire_matmul_plain's bits (the K rows through Q2's map), its sums
+    within 1e-5 * max|plain|."""
+    for seed, (fmt, (k, n, m)) in enumerate(
+            (fmt, shape) for fmt in ("Q4_B64T1", "Q4_B32T1A", "Q2_B32T1A")
+            for shape in ((256, 384, 8), (512, 256, 3), (128, 100, 5))):
+        rng = np.random.default_rng(40 + seed)
+        w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)
+                             * 0.05)
+        qt = quantize(w, fmt)
+        assert "data" in qt.planes and qt.storage_k == k
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(torch.bfloat16).float().numpy()
+        y, w_bits = emulate_wire(qt, x)
+        fm = get_format(fmt)
+        codes = _unpack_plane(qt.planes["data"], fm.planes[0].bits).float()
+        scb = qt.scale.to(torch.bfloat16).float()
+        want_w = bits_of((codes.reshape(k // fm.block, fm.block, n)
+                          * scb[:, None, :]).to(torch.bfloat16).reshape(k, n))
+        np.testing.assert_array_equal(w_bits, want_w)
+        ref = wire_matmul_plain(torch.from_numpy(x).to(torch.bfloat16),
+                                qt).numpy()
         assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max(), (
             fmt, k, n, m, np.abs(y - ref).max())
 

@@ -23,14 +23,20 @@ def _rows(out: str) -> list:
 def test_every_part_passes_on_cpu(monkeypatch, capsys):
     monkeypatch.setenv("EXP_SHAPE", "512x256")
     assert kernel_bench.main(SMALL + ["--m", "1,20", "--b6", "--unpack",
-                                      "--attention", "--b3", "--i8mm"]) == 0
+                                      "--attention", "--b3", "--i8mm",
+                                      "--i4bf16", "--i4bf16-model",
+                                      "test-llama", "--i4bf16-step", "1"]) == 0
     rows = _rows(capsys.readouterr().out)
     kernels = {r["kernel"] for r in rows}
     assert {"dequant_matmul", "q3h_matmul", "q8_matmul", "subbyte_matmul",
             "q3h_wire_matmul", "generic_matmul", "unpack_a", "unpack_b",
             "unpack_c", "unpack_d", "unpack_e", "decode_attention",
             "decode_attention_d256", "chunk_attention", "chunk_attention_d256",
-            "paged_decode_attention_d256", "i8mm_gemv"} <= kernels
+            "paged_decode_attention_d256", "i8mm_gemv", "i4bf16_gemv",
+            "i4bf16_gemv_b32", "i4bf16_gemv_b32f", "i4bf16_gemv_b16f",
+            "wire_gemv", "wire_gemv_b32", "wire_gemv_q2",
+            "fused_decode_step_i4bf16_b32", "fused_decode_step_wire",
+            "fused_decode_step_wire_b32", "fused_decode_step_wire_q2"} <= kernels
     generic = {r["shape"].split()[1] for r in rows
                if r["kernel"] == "generic_matmul"}
     assert generic == set(kernel_bench.NONPAIR_FORMATS)

@@ -1,12 +1,13 @@
-"""X2 and X3 on the tensor cores (csrc/unpack_exp.cu's `unpack_mma_nibble`,
-gemv_mma.cuh's design), emulated in numpy on the CPU, where no card runs
-them.
+"""X1, X2 and X3 on the tensor cores (csrc/unpack_exp.cu's
+`unpack_mma_nibble` in its three decode modes, gemv_mma.cuh's design),
+emulated in numpy on the CPU, where no card runs them.
 
 (i)   The bf16x2 bit tricks give the plain versions' weights bit for bit:
       X3's raw nibble (the bits 0x4300 | u minus 128) for all 16 nibbles in
-      every byte position, and X2's signed nibble times a bf16 scale
-      (nibble_pair) over a sweep of scales, against plain_c's and
-      plain_b's own weight arithmetic.
+      every byte position, and X2's signed and X1's unsigned nibble times a
+      bf16 scale (nibble_pair, unsigned_nibble_pair) over a sweep of
+      scales, against plain_c's, plain_b's and plain_a's own weight
+      arithmetic.
 (ii)  The ring's slot map: the 16-byte chunks that a lane copies are
       exactly those it reads, each chunk of a slot's byte rows is read by
       one lane, and the 8 lanes of each quarter warp read 8 distinct bank
@@ -17,33 +18,34 @@ them.
       sums folded by one fma per C register with that register's column
       scale when the warp's share of a superblock ends, the warps' sums in
       warp order and the splits' in split order, each in float32) against
-      plain_b and plain_c within 1e-5 * max|plain|: the emulation sums
-      each mma's 16 products in float64, the plain versions in float32 in
-      another order.  plain_b and plain_c are tied to the JAX package's
-      run_b and run_c by tests/test_torch_unpack.py.
+      plain_a, plain_b and plain_c within 1e-5 * max|plain|: the emulation
+      sums each mma's 16 products in float64, the plain versions in
+      float32 in another order.  plain_b and plain_c are tied to the JAX
+      package's run_b and run_c by tests/test_torch_unpack.py; X1's test
+      also holds plain_a against run_a in interpret mode here, within
+      2^-7 * max|ref| (as tests/test_torch_unpack.py).
 """
 
+import functools
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.experimental import pallas
 
 from inferflow_tpu_torch.tools import exp_unpack as tx
-from test_torch_gemv_mma import (G, T, a_matrix, b_matrix, bf16_round,
-                                 bf16_value, bits_of, byte_perm, c_lanes,
-                                 fma_bf16x2, frag_buffer, halves,
-                                 nibble_pair, splat)
+from test_torch_gemv_mma import (G, T, a_matrix, b_matrix, bf16_value,
+                                 bits_of, byte_perm, c_lanes, frag_buffer,
+                                 halves, nibble_pair, raw_nibble_pair, splat,
+                                 unsigned_nibble_pair)
 
 # csrc unpack_exp.cu: kNWarps, kNRing, kNRows, kNRowChunks, kNScale,
 # kNSlot, kNMaxKc
 WARPS, RING, ROWS, ROW_CHUNKS, SCALE, SLOT, MAX_KC = 8, 2, 16, 10, 160, 176, 512
 SMS = 132  # an H100's SMs
-
-
-def raw_nibble_pair(w, c):
-    """gemv_mma::raw_nibble_pair<c>: byte c of a word of raw nibbles."""
-    sel = c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12)
-    t = (byte_perm(w, np.asarray(w, np.uint32) >> 4, sel) & 0x000F000F) \
-        | 0x43004300
-    return fma_bf16x2(t, 0x3F803F80, 0xC300C300)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def plan(k, n, blk, sms):
@@ -76,13 +78,21 @@ def test_nibble_bits_match_plain_weights():
         scale = sc.reshape(1, 1).expand(4, 2).contiguous()  # K/64 rows
         want = bits_of((tx._nibbles(codes4, True) * tx._scale_rows(scale, 64))
                        .to(torch.bfloat16))  # plain_b's weights, (256, 2)
+        # plain_a's weights: the low and high nibbles of byte row r
+        sc32 = tx._scale_rows(scale, 32)
+        want_a = [bits_of(((codes4 >> sh) & 0xF).float().mul(sc32)
+                          .to(torch.bfloat16)) for sh in (0, 4)]
         sc2 = splat(sc.float().item())
         for c in range(4):
-            lo, hi = halves(nibble_pair(pairs << np.uint32(8 * c), c, sc2))
+            w = pairs << np.uint32(8 * c)
+            lo, hi = halves(nibble_pair(w, c, sc2))
             np.testing.assert_array_equal(
                 lo, want[2 * (pairs // 2), pairs % 2])
             np.testing.assert_array_equal(
                 hi, want[2 * (pairs // 2) + 1, pairs % 2])
+            lo, hi = halves(unsigned_nibble_pair(w, c, sc2))
+            np.testing.assert_array_equal(lo, want_a[0][pairs // 2, pairs % 2])
+            np.testing.assert_array_equal(hi, want_a[1][pairs // 2, pairs % 2])
 
 
 # ----------------------------------------------------------------- (ii)
@@ -117,10 +127,11 @@ def test_ring_slot_map():
 
 
 # ----------------------------------------------------------------- (iii)
-def emulate_walk(x, codes, scale, blk=0, sms=SMS):
-    """X2 (blk 0: codes signed nibbles) or X3 (raw nibbles, superblocks of
-    blk values): unpack_mma_nibble register by register, planned for a
-    card of `sms` SMs.  x (8, K) float32 (bf16 values), codes (K/2, N)
+def emulate_walk(x, codes, scale, blk=0, sms=SMS, unsigned=False):
+    """X2 (blk 0: codes signed nibbles), X1 (blk 0 and `unsigned`: codes
+    unsigned nibbles) or X3 (raw nibbles, superblocks of blk values):
+    unpack_mma_nibble register by register, planned for a card of `sms`
+    SMs.  x (8, K) float32 (bf16 values), codes (K/2, N)
     uint8, scale (K/64, N) float32 (bf16 values).  Returns y (8, N)
     float32."""
     k, n = 2 * codes.shape[0], codes.shape[1]
@@ -187,10 +198,12 @@ def emulate_walk(x, codes, scale, blk=0, sms=SMS):
                                         raw_nibble_pair(hi[..., v], c1)]
                             else:
                                 s0, s1 = sc2[..., 4 * v + c0], sc2[..., 4 * v + c1]
-                                regs = [nibble_pair(lo[..., v], c0, s0),
-                                        nibble_pair(lo[..., v], c1, s1),
-                                        nibble_pair(hi[..., v], c0, s0),
-                                        nibble_pair(hi[..., v], c1, s1)]
+                                dec = (unsigned_nibble_pair if unsigned
+                                       else nibble_pair)
+                                regs = [dec(lo[..., v], c0, s0),
+                                        dec(lo[..., v], c1, s1),
+                                        dec(hi[..., v], c0, s0),
+                                        dec(hi[..., v], c1, s1)]
                             a[..., 2 * v + hh, :] = np.stack(regs, -1)
                     b = xb[k0 // 16 + lb * 4 + 2 * h + j]
                     d = (bf16_value(a_matrix(a.transpose(0, 2, 1, 3)))
@@ -268,3 +281,34 @@ def test_x3_walk_matches_plain():
                          scale.float().numpy(), blk, sms)
         err = np.abs(y - plain).max()
         assert err <= 1e-5 * np.abs(plain).max(), (blk, k, n, err)
+
+
+def test_x1_walk_matches_plain_and_jax(monkeypatch):
+    """X1 (unsigned nibbles, X2's walk) at X2's shapes and plans: the
+    emulated kernel within 1e-5 * max|plain_a|, and plain_a within 2^-7 *
+    max|ref| of the JAX package's run_a in interpret mode (K = 512 and
+    1024, N = 256, its column tile 128)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_exp_unpack", ROOT / "tools" / "exp_unpack.py")
+    jx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jx)
+    monkeypatch.setattr(pallas, "pallas_call", functools.partial(
+        pallas.pallas_call, interpret=True))
+    rng = np.random.default_rng(17)
+    for k, n, sms in ((512, 256, 1), (512, 256, SMS), (1024, 100, 1),
+                      (64, 100, SMS), (64 * 37, 128, 1), (1024, 256, SMS)):
+        x, scale = _inputs(rng, k, n)
+        packed = torch.from_numpy(rng.integers(0, 256, (k // 2, n)).astype(
+            np.uint8))
+        plain = tx.plain_a(x, packed, scale).numpy()
+        y = emulate_walk(x.float().numpy(), packed.numpy(),
+                         scale.float().numpy(), sms=sms, unsigned=True)
+        err = np.abs(y - plain).max()
+        assert err <= 1e-5 * np.abs(plain).max(), (k, n, err)
+        if n == 256 and sms == SMS:
+            ref = np.asarray(jx.run_a(
+                jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                jnp.asarray(packed.numpy()),
+                jnp.asarray(scale.float().numpy()).astype(jnp.bfloat16),
+                k, n, 128), np.float32)
+            assert np.abs(plain - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
