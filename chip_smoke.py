@@ -256,6 +256,11 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    kernel bench's B6 wire-mode and non-pair rows (B1's template now)
    carry the pair8 mode's and B1's time on the same weights (`pair8_ms`,
    `b1_ms`).
+14. The wire and pair8 GEMVs alone run on the tensor-core walk (the byte
+   GEMV on the CUDA cores): their rows (M = 1 and 8, the same bits twice)
+   carry the walk's planned bytes in flight per SM, and the byte GEMV's
+   M = 8 row on (h)'s w1n3, with its launches in its phase, is in the
+   kernels line.
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -1379,12 +1384,32 @@ def _device_us(event) -> float:
     return float(event.self_device_time_total)
 
 
+def _busy_ms(prof) -> float:
+    """The device's busy time in a profile: the union of its events'
+    intervals.  Kernel times overlap (a walk GEMV of the fused step starts
+    in the tail of the launch before it), so their sum would overstate
+    it."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+    busy, start, end = 0, None, None
+    for s0, s1 in spans:
+        if end is None or s0 > end:
+            busy += 0 if end is None else end - start
+            start, end = s0, s1
+        else:
+            end = max(end, s1)
+    return (busy + (0 if end is None else end - start)) / 1e6
+
+
 def profile_decode(eng, prompt, label: str, steps: int = 3) -> None:
     """Where a decode step's time goes: torch.profiler over `steps` decode
     steps of one query (after its prefill and one warm step); the device's
-    busy time is the sum of its kernels' times (one stream: they do not
-    overlap), the rest of the wall time it idles.  Only device events
-    count: a host op's "self device time" is its kernels' time again."""
+    busy time is the union of its events' intervals (_busy_ms), the rest
+    of the wall time it idles.  The per-kernel times are each kernel's own
+    (only device events: a host op's "self device time" is its kernels'
+    time again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from inferflow_tpu_torch.sampling.strategies import SamplingOptions
@@ -1402,7 +1427,7 @@ def profile_decode(eng, prompt, label: str, steps: int = 3) -> None:
     assert not eng.has_work()
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and _device_us(e) > 0]
-    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    busy_ms = _busy_ms(prof)
     top = sorted(events, key=_device_us, reverse=True)[:12]
     emit({"phase": f"decode_profile_{label}", "decode_steps": steps,
           "device_launches_per_step": sum(e.count for e in events) / steps,
@@ -3844,9 +3869,10 @@ def phase_code_gemv(timer, dev, name, qt, kernel) -> list:
     """The byte, wire or pair8 GEMV alone on `qt`, M in {1, 8}, against its
     plain version, the same bits twice; timed beside torch.matmul on the
     pre-dequantized bf16 weight (the same function but for summation
-    order and the weights' bf16 rounding, a yardstick only); the wire
-    GEMV's rows also give the weight bytes in flight per SM that its
-    launch plan gives (worked out, not measured)."""
+    order and the weights' bf16 rounding, a yardstick only); the rows of
+    the GEMVs on the tensor-core walk (wire, pair8) also give the weight
+    bytes in flight per SM that its launch plan gives (worked out, not
+    measured)."""
     from inferflow_tpu_torch.kernels.decode_step import (
         _product_f32, byte_gemv_cuda, i4bf16_bytes_in_flight,
         pair8_gemv_cuda, wire_gemv_cuda)
@@ -3878,7 +3904,7 @@ def phase_code_gemv(timer, dev, name, qt, kernel) -> list:
                "library": "torch.matmul on the pre-dequantized bf16 weight",
                "bound_ms": b_ms, "bound_by": b_by,
                "bytes_bound": bytes_moved}
-        if launch is wire_gemv_cuda:  # on (b')'s tensor-core walk
+        if launch is not byte_gemv_cuda:  # on the tensor-core walk
             row["planned_bytes_in_flight_per_sm"] = (
                 i4bf16_bytes_in_flight(m, qt, False, dev))
         emit(row)
@@ -3912,6 +3938,17 @@ def phase_b4_wire(timer, dev, spec, params) -> list:
         rows[-1]["phase_launches"] = dict(_build.launch_counts)
         del layers
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_byte_gemv(timer, dev, params) -> list:
+    """B4 (c)'s byte GEMV alone on (h)'s Q8_B32T2 w1n3 (phase_code_gemv),
+    its launches counted."""
+    from inferflow_tpu_torch.kernels import _build
+    _build.launch_counts.clear()
+    rows = phase_code_gemv(timer, dev, "w1n3",
+                           params["layers"][0]["ffn"]["w1n3"], BYTE_GEMV)
+    rows[-1]["phase_launches"] = dict(_build.launch_counts)
     return rows
 
 
@@ -4515,8 +4552,8 @@ def main() -> int:
          lambda: phase_b1_q8(timer, dev, params_h))
     _run(results, failed, "fused_decode_step_byte",
          lambda: phase_b4_byte(timer, dev, spec_h, params_h))
-    _run(results, failed, BYTE_GEMV, lambda: phase_code_gemv(
-        timer, dev, "w1n3", params_h["layers"][0]["ffn"]["w1n3"], BYTE_GEMV))
+    _run(results, failed, BYTE_GEMV,
+         lambda: phase_byte_gemv(timer, dev, params_h))
     _run(results, failed, "engine_h", lambda: phase_engine_h(
         dev, cfg_h, spec_h, params_h, memory_h, memory_c["weights"]))
     spec_cut = ini_config(Q8_INI, Q8_MODEL_NAME,
@@ -4749,10 +4786,9 @@ def main() -> int:
         launches[kname] = bench["launches"][kname]
     for kname in ("decode_attention_d256", "chunk_attention_d256"):
         launches[kname] = results["engine_p"][kname]
-    # this slice's: the wire mode on (r)'s and (n)'s packed twin's decode
-    # steps under INFERFLOW_MEGA=2, mode (h) on run (q)'s; the Q2 geometry,
-    # the biased step and the GEMVs alone in their phases (no engine run
-    # serves them)
+    # the wire mode on (r)'s and (n)'s packed twin's decode steps under
+    # INFERFLOW_MEGA=2, mode (h) on run (q)'s; the Q2 geometry, the biased
+    # step and the GEMVs alone in their phases (no engine run serves them)
     launches["fused_decode_step_wire"] = results["engine_r"][
         "fused_decode_step_wire"]
     launches["fused_decode_step_wire_b32"] = results["engine_n_twin"][
@@ -4764,6 +4800,7 @@ def main() -> int:
     for kname in ("fused_decode_step_wire_q2", "wire_gemv", "wire_gemv_b32",
                   "wire_gemv_q2", PAIR8_GEMV):
         launches[kname] = sum(c.get(kname, 0) for c in phase_counts)
+    launches[BYTE_GEMV] = results[BYTE_GEMV][-1]["phase_launches"][BYTE_GEMV]
     launches[BIAS_STEP] = results["b4_bias"][-1]["phase_launches"][BIAS_STEP]
     picks = {"dequant_matmul": next(r for r in results["dequant_matmul"]
                                     if r["shape"].startswith("w1n3 M=4 ")),
@@ -4815,6 +4852,8 @@ def main() -> int:
     for kname in ("wire_gemv", "wire_gemv_b32", "wire_gemv_q2", PAIR8_GEMV):
         picks[kname] = next(r for r in mode_rows if r["kernel"] == kname
                             and " M=8 " in r["shape"])
+    picks[BYTE_GEMV] = next(r for r in results[BYTE_GEMV]
+                            if " M=8 " in r["shape"])
     picks[BIAS_STEP] = next(r for r in results["b4_bias"]
                             if " B=4 " in r["shape"])
     summary = []

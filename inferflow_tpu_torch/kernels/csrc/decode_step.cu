@@ -103,9 +103,17 @@
 //     3 steps ahead, 8 warps a CTA, two CTAs an SM: 55 KB in flight per
 //     SM for Q4_B64T1, 61 for Q4_B32T1A/B, 74 for Q4_B32T2 and 98 for
 //     Q4_B16, whose f32 metadata is half its bytes (ift_i4bf16_inflight).
-//     Its plan fills one wave of two CTAs an SM
-//     when the splits that do so take at most 2048 K rows (bf_one_wave).
-//     Its float sums take the same fixed order (warps, then splits);
+//     Its plan takes the whole waves of two CTAs an SM, at most 2048 K rows
+//     a CTA, that cost least, one wave wherever it fits (bf_plan).  Its
+//     float sums take the same fixed order (warps, then splits); the last
+//     segment's warps leave theirs in the freed activation buffer at once
+//     and each thread adds its elements' eight in warp order (two barriers,
+//     not eight).  The walk's GEMVs are launched as programmatic dependents
+//     of the launch before them: a CTA streams its first weight slots
+//     before grid_wait, so that the start of each GEMV overlaps the tail of
+//     the one before it.  So no launch of a stream may write the weights of
+//     a walk GEMV that follows it (the port writes weights only at load
+//     time, before any step);
 //   - the wire GEMV runs on the same walk: its Q4 codes are the i4
 //     layout's byte order with unsigned nibbles (unsigned_nibble_pair),
 //     its Q2 codes 4 a byte, so that a ring slot of 8 byte rows is two k16
@@ -114,23 +122,23 @@
 //     plan keeps 55 KB in flight per SM for Q4_B64T1, 61 for Q4_B32T1A/B
 //     and 74 for Q2_B32T1A/B, whose 32-row block is one slot
 //     (ift_i4bf16_inflight works the figure out; it is not measured);
-//   - the byte GEMV: one 32-bit load of a (K, N) code row gives 4 columns
-//     of one K row, a 32-row quant block is 32 loads in flight per thread
-//     (64 for the GLU's two column segments);
+//   - the pair8 GEMV (h) runs on it as the wire Q4_B64T1 mode does (the i4
+//     layout's byte order, 64-row blocks with an f16 scale and base, the
+//     same fold term): each byte b = v0 + 11 * v1 becomes one A register
+//     by a divide by 11 in integers (pair8_pair); 55 KB in flight per SM;
+//   - the byte GEMV (c) stays on the CUDA cores: one 32-bit load of a (K,
+//     N) code row gives 4 columns of one K row, a 32-row quant block is 32
+//     loads in flight per thread (64 for the GLU's two column segments);
 //     the activations stay bf16 (no row quantization: the CTA stages its
 //     bf16 K slice in shared memory) and every weight is
 //     bf16(q * bf16(scale)), multiplied by its activation into a float32
 //     sum; Q8_B32T1's base enters once per block through the block's
 //     bf16 activation sum.  Its float sums take the i4x8 GEMV's order
-//     (warps, then splits): the same bits on every run;
-//   - the pair8 GEMV: the byte GEMV with pair8's code decoder (a template
-//     parameter, so its block loop is unrolled): one 32-bit load of a code
-//     row gives 4 columns of 2 K rows, so a 64-row block is 32 loads in
-//     flight; each byte is decoded by one division by 11 into two codes,
-//     each bf16(q * bf16(scale)).  What bounds it: the same weight bytes
-//     (4.5 bits a weight, a byte holding a pair, and its 64-row metadata)
-//     and the per-weight float work, which on the card held the other
-//     8-row GEMVs at 8-32% of their byte bound;
+//     (warps, then splits): the same bits on every run.  On the walk (X4's
+//     int8 map) it ran 0.7x this loop's time at 8 rows but 1.4x at one row,
+//     where the loop's five CTAs an SM of 48 registers keep more loads in
+//     flight than the walk's two of 128 (PERF.md): it moves to the walk
+//     with a walk that keeps one row as fast;
 //   - mode (d): one f32 bias pointer per product in the layer table, added
 //     to the product's float32 output in the GEMV's epilogue, before the
 //     f32 store, the residual add or the GLU (the TPU kernel's `finish`);
@@ -165,9 +173,10 @@
 
 #include "gemv_mma.cuh"
 
-// The GEMVs (14 instantiated weight modes x 8 row counts x 4 variants; the
-// four (b') and the three wire modes take their row count at run time: one
-// each) are most of this file's build.  The build compiles it as IFT_PARTS
+// The GEMVs (i8mm, the byte mode and the four i4x8 modes: one
+// instantiation per row count 1-8; the walk's eight modes, (b'), wire and
+// pair8: one serving every row count; each x 4 variants) are most of this
+// file's build.  The build compiles it as IFT_PARTS
 // translation units at once (-DIFT_PARTS=4 -DIFT_PART=p) and links them
 // into one library: part p instantiates the GEMVs of the modes with
 // mode % IFT_PARTS == p and defines ift_gemv_part<p>, and the last part
@@ -189,7 +198,7 @@ void ift_gemv_part2(const void* args, int mode, dim3 grid, cudaStream_t stream);
 void ift_gemv_part3(const void* args, int mode, dim3 grid, cudaStream_t stream);
 #endif
 // The registers a thread of the tensor-core GEMV of weight mode `mode` (a
-// (b') or wire mode that part p instantiates) takes, w1n3's instantiation
+// mode of the walk that part p instantiates) takes, w1n3's instantiation
 // when glu is set; -1 for another mode.
 int ift_bf_registers_part0(int mode, int glu);
 #if IFT_PARTS == 4
@@ -205,7 +214,7 @@ constexpr int kGemvWarps = 8;
 constexpr int kGemvThreads = kGemvWarps * 32;
 constexpr int kTileCols = 128;  // columns per segment: 32 lanes x 4
 constexpr int kMaxKc = 1024;    // K rows per CTA (shared x staging)
-constexpr int kMaxKcBf = 2048;  // (b'), wire: K rows per CTA (its one-wave plan)
+constexpr int kMaxKcBf = 2048;  // the walk's modes: K rows per CTA at most
 constexpr int kMinKc = 64;
 constexpr int kUnroll = 4;      // i8mm: 4-row groups in flight per warp
 constexpr int kByteBlock = 32;  // byte mode: K rows (= byte rows) per quant block
@@ -226,9 +235,9 @@ enum Epilogue { kEpiF32 = 0, kEpiResid = 1, kEpiGlu = 2 };
 // formats (code bits, quant block): kModeWireQ4 Q4_B64T1 (4, 64),
 // kModeWireQ4B32 Q4_B32T1A/B (4, 32), kModeWireQ2 Q2_B32T1A/B (2, 32); and
 // kModePair8, mode (h), Q3H_B64T1's one byte per base-11 value pair, all
-// with f16 scales and bases.  Each wire mode is its own instantiation of
-// the tensor-core GEMV ((b')'s walk with the mode's decoder and block),
-// pair8 of the code GEMV (the byte GEMV with pair8's code decoder).
+// with f16 scales and bases.  Each wire mode and pair8 is its own
+// instantiation of the tensor-core GEMV ((b')'s walk with the mode's
+// decoder and block).
 enum WeightMode {
   kModeI8mm = 0, kModeI4x8 = 1, kModeByte = 2, kModeByteU = 3,
   kModeI4x8B32 = 4, kModeI4x8B32F = 5, kModeI4x8B16F = 6,
@@ -251,24 +260,24 @@ __host__ __device__ constexpr int i4_block(int mode) {
          : mode == kModeI4x8B16F || mode == kModeI4Bf16B16F ? 16
                                                            : 32;
 }
-// the wire modes (bf16 activations, every weight bf16(q * bf16(scale))
-// from its unsigned code, on the tensor-core walk)
+// the wire modes (sub-byte single-plane wire planes)
 __host__ __device__ constexpr bool is_wire(int mode) {
   return mode >= kModeWireQ4 && mode <= kModeWireQ2;
 }
-// the modes of the tensor-core walk (gemv_bf, i4bf_walk): (b') and wire
-__host__ __device__ constexpr bool is_bf(int mode) { return is_i4bf(mode) || is_wire(mode); }
-// the whole-code modes of the code loop (byte, pair8): bf16 activations,
+// the byte modes (one code a byte, on the CUDA cores): bf16 activations,
 // every weight bf16(q * bf16(scale)) from its code
-__host__ __device__ constexpr bool is_code(int mode) {
-  return mode == kModeByte || mode == kModeByteU || mode == kModePair8;
+__host__ __device__ constexpr bool is_byte(int mode) {
+  return mode == kModeByte || mode == kModeByteU;
 }
-// a whole-code or wire mode's K rows per quant block and codes per byte
-__host__ __device__ constexpr int code_block(int mode) {
-  return mode == kModeWireQ4 || mode == kModePair8 ? 64 : kByteBlock;
+// unsigned codes with an f16 block scale and base (wire, pair8): every
+// weight bf16(q * bf16(scale)), the block's fold term bf16(sum x) *
+// bf16(base)
+__host__ __device__ constexpr bool unsigned_with_base(int mode) {
+  return is_wire(mode) || mode == kModePair8;
 }
-__host__ __device__ constexpr int code_pk(int mode) {
-  return mode == kModeWireQ2 ? 4 : (mode >= kModeWireQ4 && mode <= kModePair8) ? 2 : 1;
+// the modes of the tensor-core walk (gemv_bf, i4bf_walk): bf16 activations
+__host__ __device__ constexpr bool is_bf(int mode) {
+  return is_i4bf(mode) || unsigned_with_base(mode);
 }
 __host__ __device__ constexpr bool i4_f32_meta(int mode) {
   return mode == kModeI4x8B32F || mode == kModeI4x8B16F || mode == kModeI4Bf16B32F ||
@@ -276,9 +285,9 @@ __host__ __device__ constexpr bool i4_f32_meta(int mode) {
 }
 // a tensor-core walk mode's K rows per quant block and codes per byte
 __host__ __device__ constexpr int bf_block(int mode) {
-  return is_wire(mode) ? code_block(mode) : i4_block(mode);
+  return is_i4bf(mode) ? i4_block(mode) : mode == kModeWireQ4 || mode == kModePair8 ? 64 : 32;
 }
-__host__ __device__ constexpr int bf_pk(int mode) { return is_wire(mode) ? code_pk(mode) : 2; }
+__host__ __device__ constexpr int bf_pk(int mode) { return mode == kModeWireQ2 ? 4 : 2; }
 // ring slots per quant block: a slot is 8 byte rows (16 K rows at 2 codes
 // a byte, 32 at 4)
 __host__ __device__ constexpr int bf_slots(int mode) { return bf_block(mode) / (8 * bf_pk(mode)); }
@@ -313,6 +322,18 @@ struct GemvArgs {
   int out_rows;                // rows of out, ws and part (M for the dense GEMV)
   long long w_estride, sc_estride, base_estride;  // bytes from expert z to z + 1
 };
+
+// Programmatic dependent launch (Hopper): a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// CTA of the grid before it has run launch_dependents (or exited), and
+// grid_wait then holds it until that grid has finished and its writes are
+// visible.  The walk's GEMVs are launched so: a CTA streams its first
+// weight slots (which no earlier launch writes) before grid_wait, in the
+// tail of the launch before it.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -383,27 +404,28 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
   v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
 }
 
-// ----------------------------- (b') and the wire modes on the tensor cores
-// The walk of the i4bf16 GEMV (weight modes 7-10) and of the wire GEMV
-// (11-13), gemv_mma.cuh's design: each warp streams its quant blocks (lb =
-// warp, warp + 8, ... of the CTA's slice), one slot of 8 byte rows at a
-// time, through a ring of kBfRing slots in dynamic shared memory filled by
-// cp.async: per slot 2 code chunks a lane (byte rows t and t+4 of its 16
-// columns: 1 KB a warp), and at a block's first slot the block's scale and
-// base chunks of each group of 4 lanes (f16: 512 B a warp, f32: 1 KB),
-// copied by its lanes in turn.  A slot of nibbles (2 codes a byte) is one
-// k16 step: byte rows t and t+4 are K rows (2t, 2t+1) and (2t+8, 2t+9).  A
-// slot of Q2 codes (4 a byte) is two k16 steps: byte row t (t+4) holds K
-// rows 4t..4t+3 of the first (second) step, the lane's K pairs
-// (4t, 4t+1) for a0/a1 and (4t+2, 4t+3) for a2/a3, and the B fragments
-// are staged in the matching order (frag_word_q2).  Each code pair becomes
-// one bf16x2 A register in 4 instructions (nibble_pair for (b')'s signed
-// nibbles, unsigned_nibble_pair and q2_pair for the wire codes); one mma
-// per 16 columns x 16 K; the block's fold term, bf16(sum x) * bf16(8*sc +
-// base) for (b') and bf16(sum x) * bf16(base) for the wire modes, is added
-// in float32 into the same sums at its first slot.  Segments (the GLU's a
-// and g halves) are walked one after the other, each warp's sums of a
-// segment added into redf in warp order.
+// ------------------------------------------- the GEMVs on the tensor cores
+// The walk of the i4bf16 GEMV (weight modes 7-10), the wire GEMV (11-13)
+// and the pair8 GEMV (14), gemv_mma.cuh's design: each warp streams its
+// quant blocks (lb = warp, warp + 8, ... of the CTA's slice), one slot of
+// 8 byte rows at a time, through a ring of kBfRing slots in dynamic shared
+// memory filled by cp.async: per slot 2 code chunks a lane (byte rows t
+// and t+4 of its 16 columns: 1 KB a warp), and at a block's first slot
+// the block's scale and base chunks of each group of 4 lanes (f16: 512 B a
+// warp, f32: 1 KB), copied by its lanes in turn.  A slot of nibbles or
+// pair8 bytes (2 codes a byte) is one k16 step: byte rows t and t+4 are K
+// rows (2t, 2t+1) and (2t+8, 2t+9).  A slot of Q2 codes (4 a byte) is two
+// k16 steps: byte row t (t+4) holds K rows 4t..4t+3 of the first (second)
+// step, the lane's K pairs (4t, 4t+1) for a0/a1 and (4t+2, 4t+3) for
+// a2/a3, and the B fragments are staged in the matching order
+// (frag_word_q2).  Each code pair becomes one bf16x2 A register (a_reg:
+// nibble_pair for (b')'s signed nibbles, unsigned_nibble_pair for the wire
+// Q4 codes, pair8_pair; q2_pair for Q2); one mma per 16 columns x 16 K;
+// the block's fold term, bf16(sum x) * bf16(8*sc + base) for (b') and
+// bf16(sum x) * bf16(base) for the unsigned codes with a base, is added in
+// float32 into the same sums at its first slot.  Segments (the GLU's a and
+// g halves) are walked one after the other, each warp's sums of a segment
+// added into redf in warp order.
 constexpr int kBfRing = 4;  // slots of a warp's ring: 3 in flight
 // CTAs an SM holds (gemv_bf's __launch_bounds__; the shared memory of two
 // fits)
@@ -433,11 +455,11 @@ __device__ __forceinline__ float meta_value(const uint32_t* words, int i) {
   }
 }
 
-// A warp's weight stream of the (b') or wire GEMV: its slots u = 0, 1, ...
+// A warp's weight stream of a GEMV on the walk: its slots u = 0, 1, ...
 // (segment by segment, block by block, 8 byte rows by 8) and the cp.async
-// copies of slot u into ring slot u % kBfRing.  Its first slots are
-// issued right after the prologue's activation loads, which would
-// otherwise queue behind them.
+// copies of slot u into ring slot u % kBfRing.  The dense GEMV issues its
+// first slots before grid_wait, the routed one right after the prologue's
+// activation loads, which would otherwise queue behind them.
 template <int NSEG, int MODE>
 struct BfRing {
   using Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
@@ -510,6 +532,22 @@ struct BfRing {
   }
 };
 
+// Byte C of the code words x (A rows k, k + 1) as the walk mode's A
+// register, bf16x2 {bf16(q_k * sc), bf16(q_k+1 * sc)}: y is x >> 4 (the
+// nibble modes; pair8 reads x alone) or x >> 2 (Q2)
+template <int MODE, int C>
+__device__ __forceinline__ uint32_t a_reg(uint32_t x, uint32_t y, uint32_t sc2) {
+  if constexpr (MODE == kModePair8) {
+    return gemv_mma::pair8_pair<C>(x, sc2);
+  } else if constexpr (MODE == kModeWireQ2) {
+    return gemv_mma::q2_pair<C>(x, y, sc2);
+  } else if constexpr (is_wire(MODE)) {
+    return gemv_mma::unsigned_nibble_pair<C>(x, y, sc2);
+  } else {
+    return gemv_mma::nibble_pair<C>(x, y, sc2);
+  }
+}
+
 // the other modes' stand-in for BfRing
 struct NoRing {
   template <typename... T>
@@ -531,7 +569,8 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
   using Meta = typename Ring::Meta;
   constexpr int kSlots = Ring::kSlots, kMeta = Ring::kMeta;
   constexpr int kXsumLd = kMaxKcBf / Ring::kBlk;
-  constexpr bool kWire = is_wire(MODE), kQ2 = bf_pk(MODE) == 4;
+  constexpr bool kBaseFold = unsigned_with_base(MODE), kQ2 = bf_pk(MODE) == 4;
+  constexpr int kSteps = kQ2 ? 2 : 1;  // k16 steps a slot
   constexpr int kSumLd = kTileCols * NSEG + 4;
   const uint2* xb = reinterpret_cast<const uint2*>(x_frag);
   const int warp = rg.warp, lane = rg.lane, g = rg.g, t = rg.t, steps = rg.steps;
@@ -564,84 +603,96 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
         for (int c = 0; c < 16; ++c) {
           const float sc = meta_value<Meta>(mw, c), bs = meta_value<Meta>(mw, 16 + c);
           sc2[c] = splat_bf16(sc);
-          const float fold = kWire ? round_bf16(bs) : round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), bs));
+          const float fold =
+              kBaseFold ? round_bf16(bs) : round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), bs));
           // column c is C register 2 * (c % 2) (row 2t) and + 1 (2t+1) of n-tile c / 2
           acc[c / 2][2 * (c % 2)] = fmaf(x0, fold, acc[c / 2][2 * (c % 2)]);
           acc[c / 2][2 * (c % 2) + 1] = fmaf(x1, fold, acc[c / 2][2 * (c % 2) + 1]);
         }
       }
       const uint4 lo = sl[lane], hi = sl[32 + lane];  // byte rows t, t + 4
-      if constexpr (kQ2) {
-        // byte row t (t + 4) is K rows 4t..4t+3 of k16 step 0 (1): codes
-        // 0, 1 of each byte into a0/a1, codes 2, 3 into a2/a3
+      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-        for (int st = 0; st < 2; ++st) {
-          const uint4 c = st ? hi : lo;
-          // B column g is activation row g: zeros past M (never staged)
-          const uint2 b = g < M ? xb[((lb * kSlots + j) * 2 + st) * 32 + lane] : make_uint2(0u, 0u);
-          const uint32_t wv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const uint32_t w0 = wv[v], w2 = w0 >> 2, w4 = w0 >> 4, w6 = w0 >> 6;
-            mma(acc[2 * v], q2_pair<0>(w0, w2, sc2[4 * v]), q2_pair<1>(w0, w2, sc2[4 * v + 1]),
-                q2_pair<0>(w4, w6, sc2[4 * v]), q2_pair<1>(w4, w6, sc2[4 * v + 1]), b);
-            mma(acc[2 * v + 1], q2_pair<2>(w0, w2, sc2[4 * v + 2]),
-                q2_pair<3>(w0, w2, sc2[4 * v + 3]), q2_pair<2>(w4, w6, sc2[4 * v + 2]),
-                q2_pair<3>(w4, w6, sc2[4 * v + 3]), b);
-          }
-        }
-      } else {
+      for (int st = 0; st < kSteps; ++st) {
         // B column g is activation row g: zeros past M (never staged)
-        const uint2 b = g < M ? xb[(lb * kSlots + j) * 32 + lane] : make_uint2(0u, 0u);
-        const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+        const uint2 b =
+            g < M ? xb[((lb * kSlots + j) * kSteps + st) * 32 + lane] : make_uint2(0u, 0u);
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          const uint32_t l = wl[v], l4 = l >> 4, h = wh[v], h4 = h >> 4;
-          if constexpr (kWire) {
-            mma(acc[2 * v], unsigned_nibble_pair<0>(l, l4, sc2[4 * v]),
-                unsigned_nibble_pair<1>(l, l4, sc2[4 * v + 1]),
-                unsigned_nibble_pair<0>(h, h4, sc2[4 * v]),
-                unsigned_nibble_pair<1>(h, h4, sc2[4 * v + 1]), b);
-            mma(acc[2 * v + 1], unsigned_nibble_pair<2>(l, l4, sc2[4 * v + 2]),
-                unsigned_nibble_pair<3>(l, l4, sc2[4 * v + 3]),
-                unsigned_nibble_pair<2>(h, h4, sc2[4 * v + 2]),
-                unsigned_nibble_pair<3>(h, h4, sc2[4 * v + 3]), b);
+          // the words whose byte C makes a0/a1 (w0, w1) and a2/a3 (w2, w3):
+          // byte rows t and t + 4 and their high nibbles; Q2's byte row t
+          // (t + 4 in step 1) and its codes 1-3 shifted down
+          uint32_t w0, w1, w2, w3;
+          if constexpr (kQ2) {
+            const uint32_t c = st ? wh[v] : wl[v];
+            w0 = c, w1 = c >> 2, w2 = c >> 4, w3 = c >> 6;
           } else {
-            mma(acc[2 * v], nibble_pair<0>(l, l4, sc2[4 * v]), nibble_pair<1>(l, l4, sc2[4 * v + 1]),
-                nibble_pair<0>(h, h4, sc2[4 * v]), nibble_pair<1>(h, h4, sc2[4 * v + 1]), b);
-            mma(acc[2 * v + 1], nibble_pair<2>(l, l4, sc2[4 * v + 2]),
-                nibble_pair<3>(l, l4, sc2[4 * v + 3]), nibble_pair<2>(h, h4, sc2[4 * v + 2]),
-                nibble_pair<3>(h, h4, sc2[4 * v + 3]), b);
+            w0 = wl[v], w1 = w0 >> 4, w2 = wh[v], w3 = w2 >> 4;
           }
+          mma(acc[2 * v], a_reg<MODE, 0>(w0, w1, sc2[4 * v]),
+              a_reg<MODE, 1>(w0, w1, sc2[4 * v + 1]), a_reg<MODE, 0>(w2, w3, sc2[4 * v]),
+              a_reg<MODE, 1>(w2, w3, sc2[4 * v + 1]), b);
+          mma(acc[2 * v + 1], a_reg<MODE, 2>(w0, w1, sc2[4 * v + 2]),
+              a_reg<MODE, 3>(w0, w1, sc2[4 * v + 3]), a_reg<MODE, 2>(w2, w3, sc2[4 * v + 2]),
+              a_reg<MODE, 3>(w2, w3, sc2[4 * v + 3]), b);
         }
       }
     }
     // this segment's warp sums, added in warp order
-    for (int wp = 0; wp < kGemvWarps; ++wp) {
-      if (warp == wp) {
+    if (s == NSEG - 1) {
+      // the last segment: the walk is done with x_frag, so every warp
+      // leaves its sums there at once ([warp][row][128], sum_slot's order)
+      // and each thread adds its elements' 8 in warp order: the bits of
+      // adding them one warp at a time, with two barriers, not eight
+      float* part = reinterpret_cast<float*>(const_cast<unsigned char*>(x_frag));
+      __syncthreads();
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
+      for (int q = 0; q < 8; ++q)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = 2 * t + e % 2;
-            if (m < M) {
-              float* rr = &redf[sum_slot(m, s * kTileCols + 16 * g + 2 * q + e / 2, kSumLd)];
-              *rr = __fadd_rn(*rr, acc[q][e]);
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int m = 2 * t + e % 2;
+          if (m < M)
+            part[(warp * kMaxSlots) * kTileCols + sum_slot(m, 16 * g + 2 * q + e / 2, kTileCols)] =
+                acc[q][e];
+        }
+      __syncthreads();
+      for (int i = warp * 32 + lane; i < M * kTileCols; i += kGemvThreads) {
+        const int m = i / kTileCols, j = i % kTileCols;
+        float* rr = &redf[sum_slot(m, s * kTileCols + j, kSumLd)];
+        float v = *rr;
+#pragma unroll
+        for (int wp = 0; wp < kGemvWarps; ++wp)
+          v = __fadd_rn(v, part[(wp * kMaxSlots) * kTileCols + sum_slot(m, j, kTileCols)]);
+        *rr = v;
       }
       __syncthreads();
+    } else {
+      for (int wp = 0; wp < kGemvWarps; ++wp) {
+        if (warp == wp) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int m = 2 * t + e % 2;
+              if (m < M) {
+                float* rr = &redf[sum_slot(m, s * kTileCols + 16 * g + 2 * q + e / 2, kSumLd)];
+                *rr = __fadd_rn(*rr, acc[q][e]);
+              }
+            }
+        }
+        __syncthreads();
+      }
     }
   }
   cp_async_wait<0>();
 }
 
 // The int8 GEMV (MODE kModeI8mm: i8mm weights), the i4x8 GEMV (kModeI4x8:
-// the i4 layout's nibble pairs) and the byte GEMV (kModeByte: Q8 block
-// codes, signed or not by a.byte_signed), with the same prologues and
-// epilogues.  grid (column tiles, ksplit).  NSEG = 2 (GLU): segment 1 is
-// column tile*128 + c + N/2, the gate column paired with column
-// tile*128 + c.
+// the i4 layout's nibble pairs), the byte GEMV (kModeByte: Q8 block codes,
+// signed or not by a.byte_signed) and the GEMVs on the tensor-core walk
+// ((b'), wire, pair8), with the same prologues and epilogues.  grid
+// (column tiles, ksplit).  NSEG = 2 (GLU): segment 1 is column tile*128 +
+// c + N/2, the gate column paired with column tile*128 + c.
 //
 // i8mm: y = (float(sum_k xq*wq) * xs_row) * scale_col; the int32 partials
 // of the warps and the splits are added with atomics (order-free).
@@ -660,6 +711,8 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
 // block r (64 or 32 K rows), y += bf16(sum_{k in r} x_k) * bf16(base)
 //                                 + sum_{k in r} x_k * bf16(q_k * bf16(sc)),
 // with q the unsigned code, on the same walk.
+// pair8 (its pair8 tile, :511-536): the same per 64-row block, with q
+// v0 and v1 of a byte, on the same walk.
 // byte (the TPU kernel's single-plane tile with pk = 1, :583-606): per
 // 32-row quant block r, y += sum_{k in r} x_k * bf16(q_k * bf16(sc))
 //                          (+ bf16(sum_{k in r} x_k) * bf16(base)),
@@ -670,18 +723,17 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
 // bits on every run.  The body of the kernels gemv and gemv_bf below.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
-  constexpr bool I4 = is_i4(MODE), BF = is_bf(MODE), FC = is_code(MODE);
+  constexpr bool I4 = is_i4(MODE), BF = is_bf(MODE), FC = is_byte(MODE);
   constexpr bool XBF = FC || BF;  // bf16 activations, no row quantization
   // the float modes' quant block (i8mm: unused)
-  constexpr int kBlk = BF ? bf_block(MODE) : FC ? code_block(MODE) : I4 ? i4_block(MODE) : 64;
+  constexpr int kBlk = BF ? bf_block(MODE) : FC ? kByteBlock : I4 ? i4_block(MODE) : 64;
   using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
-  // the CTA's K slice: int8 codes (i8mm, i4x8), bf16 activations (byte,
-  // pair8), or the tensor-core walk's (i4bf16, wire) mma B fragments of up
-  // to 8 bf16 rows (the walk takes zeros past M; gemv_mma.cuh's fragment
-  // order, Q2's own)
+  // the CTA's K slice: int8 codes (i8mm, i4x8), bf16 activations (byte),
+  // or the tensor-core walk's mma B fragments of up to 8 bf16 rows (the
+  // walk takes zeros past M; gemv_mma.cuh's fragment order, Q2's own)
   constexpr int kKc = BF ? kMaxKcBf : kMaxKc;  // K rows of a CTA at most
   __shared__ __align__(16) unsigned char x_s[BF ? kMaxSlots : M][kKc * (XBF ? 2 : 1)];
-  // int32 (i8mm) or float sums; (b') and wire in gemv_mma::sum_slot's
+  // int32 (i8mm) or float sums; the walk's in gemv_mma::sum_slot's
   // order, rows of kSumLd floats
   constexpr int kSumLd = kTileCols * NSEG + (BF ? 4 : 0);
   __shared__ int red_s[M][kSumLd];
@@ -693,8 +745,12 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tile = blockIdx.x;
-  // the rows: M, or for (b') and wire a.M (one instantiation of M = 8
-  // serves 1..8: mma's 8 columns take any count)
+  if constexpr (BF) {
+    launch_dependents();
+    if constexpr (ROUTED) grid_wait();  // the routing below reads moe_sel
+  }
+  // the rows: M, or on the walk a.M (one instantiation of M = 8 serves
+  // 1..8: mma's 8 columns take any count)
   const int Mr = BF ? a.M : M;
   // ROUTED (mode (g)): expert z's slice of the weight stack (offsets of
   // its codes, scales and bases; 0 for the dense GEMV, folded away), its
@@ -741,10 +797,15 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
     if constexpr (BF) return redf[gemv_mma::sum_slot(m, j, kSumLd)];
     return redf[m * kCols + j];
   };
-  // (b') and wire: each warp's weight stream, started once the
-  // prologues' loads are out (they would otherwise queue behind it)
+  // the walk: each warp's weight stream, started before grid_wait (the
+  // dense GEMV) or once the prologues' loads are out (the routed GEMV,
+  // whose CTAs mostly exit at the routing above)
   const std::conditional_t<BF, BfRing<NSEG, MODE>, NoRing> ring(
       a, w_off, sc_off, base_off, k0, klen, ncols, seg_stride, tile, warp, lane);
+  if constexpr (BF && !ROUTED) {
+    ring.start();
+    grid_wait();
+  }
 
   // prologue 1: per-row norm factor and row scale, one warp per row; a
   // row of K % 8 == 0 is read as 16-byte chunks, 4 in flight per lane
@@ -808,12 +869,11 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   __syncthreads();
 
   // prologue 2: this CTA's K slice of the rows, as int8 codes or (byte,
-  // wire, pair8, i4bf16) bf16 activations; for the i4 modes, and for
-  // whole-code weights with a base, each quant block's bf16 sum of the
-  // activations, one warp each
+  // the walk) bf16 activations, and each quant block's bf16 sum of the
+  // activations (i4x8, and byte codes with a base: one warp each)
   if constexpr (BF) {
-    // (b') and wire: the M activation rows as mma B fragments (Q2's
-    // order for 4 codes a byte), 8 values a thread
+    // the walk: the M activation rows as mma B fragments (Q2's order for
+    // 4 codes a byte), 8 values a thread
     // from one 16-byte load (K % 16 == 0), and each quant block's bf16
     // sum: the thread's 8 values, then the block's kBlk / 8 threads,
     // neighbouring lanes
@@ -833,7 +893,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
           if (norm) wv[it] = __ldg(reinterpret_cast<const uint4*>(a.norm_w + k));
         }
       }
-      if (i0 == 0) ring.start();
+      if (ROUTED && i0 == 0) ring.start();
 #pragma unroll
       for (int it = 0; it < kIters; ++it) {
         const int i = i0 + it * kGemvThreads + tid, m = i / nch, c = i - m * nch;
@@ -954,57 +1014,43 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
       for (int c = 0; c < 4 * NSEG; ++c) acc[m][c] = 0.f;
 
     if constexpr (FC) {
-      // the code of value h (0..kPk-1) of a byte: byte (c) the byte read
-      // as signed (Q8_B32T2) or not (Q8_B32T1); pair8 v0 = b - 11*v1 (h =
-      // 0) or v1 = b / 11, the TPU tile's floor((b + 0.5) / 11) for every
-      // byte.  All exact.
-      constexpr int kPk = code_pk(MODE);   // codes per byte
-      constexpr int kQRows = kBlk / kPk;   // byte rows per quant block
+      // the code of a byte, read as signed (Q8_B32T2) or not (Q8_B32T1):
+      // exact
       const uint32_t flip = a.byte_signed ? 0x80u : 0u;
       const float sub = a.byte_signed ? 128.f : 0.f;
-      auto code = [&](uint32_t byte, int h) -> float {
-        if constexpr (MODE == kModePair8) {
-          const uint32_t v1 = byte / 11u;
-          return float(h == 0 ? byte - 11u * v1 : v1);
-        } else {
-          return float(byte ^ flip) - sub;
-        }
-      };
       for (int lb = warp; col_ok && lb < nblk; lb += kGemvWarps) {
         const int kb = k0 / kBlk + lb;
         // all byte rows of the block, of every segment, in flight at once
-        uint32_t words[NSEG][kQRows];
+        uint32_t words[NSEG][kBlk];
         float sc[NSEG][4];
 #pragma unroll
         for (int s = 0; s < NSEG; ++s) {
           const int col = col0 + s * seg_stride;
 #pragma unroll
-          for (int r = 0; r < kQRows; ++r)
+          for (int r = 0; r < kBlk; ++r)
             words[s][r] = __ldg(reinterpret_cast<const uint32_t*>(
-                w4 + ((size_t)kb * kQRows + r) * a.N + col));
+                w4 + ((size_t)kb * kBlk + r) * a.N + col));
           const uint2 sc_bits = __ldg(reinterpret_cast<const uint2*>(wsc + (size_t)kb * a.N + col));
           const __half* sch = reinterpret_cast<const __half*>(&sc_bits);
 #pragma unroll
           for (int c = 0; c < 4; ++c) sc[s][c] = round_bf16(__half2float(sch[c]));
         }
 #pragma unroll
-        for (int r = 0; r < kQRows; ++r)
+        for (int r = 0; r < kBlk; ++r) {
+          float xr[M];
 #pragma unroll
-          for (int h = 0; h < kPk; ++h) {
-            float xr[M];
+          for (int m = 0; m < M; ++m)
+            xr[m] = bf(reinterpret_cast<const __nv_bfloat16*>(x_s[m])[lb * kBlk + r]);
 #pragma unroll
-            for (int m = 0; m < M; ++m)
-              xr[m] = bf(reinterpret_cast<const __nv_bfloat16*>(x_s[m])[lb * kBlk + r * kPk + h]);
+          for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-            for (int s = 0; s < NSEG; ++s)
+            for (int c = 0; c < 4; ++c) {
+              const float q = float(((words[s][r] >> (8 * c)) & 0xFFu) ^ flip) - sub;
+              const float w = round_bf16(__fmul_rn(q, sc[s][c]));
 #pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const float q = code((words[s][r] >> (8 * c)) & 0xFFu, h);
-                const float w = round_bf16(__fmul_rn(q, sc[s][c]));
-#pragma unroll
-                for (int m = 0; m < M; ++m) acc[m][s * 4 + c] = fmaf(xr[m], w, acc[m][s * 4 + c]);
-              }
-          }
+              for (int m = 0; m < M; ++m) acc[m][s * 4 + c] = fmaf(xr[m], w, acc[m][s * 4 + c]);
+            }
+        }
         if (wbs_b != nullptr) {
 #pragma unroll
           for (int s = 0; s < NSEG; ++s) {
@@ -1199,12 +1245,12 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   }
 }
 
-// The GEMV kernels.  gemv takes every mode but (b') and wire and is
+// The GEMV kernels.  gemv takes the i8mm, i4x8 and byte modes and is
 // bounded by its thread count alone: ptxas then keeps the i4x8 GEMV within
 // the registers of two CTAs an SM (a second bound of one CTA an SM let the
 // Q4_B64T1 and Q4_B32T2 instantiations grow past them, to one CTA an SM
-// and 1.5x their time).  gemv_bf takes the (b') and wire modes,
-// kBfCtasPerSm CTAs an SM.
+// and 1.5x their time).  gemv_bf takes the walk's modes ((b'), wire,
+// pair8), kBfCtasPerSm CTAs an SM.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   gemv_body<M, NSEG, MODE, ROUTED>(a);
@@ -1215,15 +1261,33 @@ __global__ void __launch_bounds__(kGemvThreads, kBfCtasPerSm) gemv_bf(const Gemv
   gemv_body<M, NSEG, MODE, ROUTED>(a);
 }
 
-// (b'): when the K splits that fill one wave of kBfCtasPerSm CTAs an SM
-// take at most kMaxKcBf rows each, those: the default plan's second wave
-// would cost a whole CTA's time for a few CTAs.
-void bf_one_wave(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
-  const int fit = kBfCtasPerSm * sm_count / tiles;
-  if (fit < 1) return;
-  int rows = (K + fit - 1) / fit;
-  rows = std::max((rows + unit - 1) / unit * unit, kMinKc);
-  if (rows <= kMaxKcBf) *kc = rows, *ksplit = (K + rows - 1) / rows;
+// The walk's plan: the K splits (whole quant blocks, at most kMaxKcBf rows
+// a CTA) and the waves of kBfCtasPerSm CTAs an SM they take, chosen to
+// minimise waves x (a CTA's fixed cost + its weight bytes).  The fixed
+// cost (the activation staging and the ring's first fill before the walk,
+// the warps' sums and the split merge after it: 10-16 us a CTA on the
+// card, per-warp %globaltimer stamps) counts as kBfCtaCost bytes, about
+// what a CTA streams in that time.  One wave keeps every CTA resident at
+// once; where one wave would take more than kMaxKcBf rows a CTA, the
+// cheapest whole number of waves does, not 1024-row splits that leave the
+// last wave mostly empty.
+constexpr long long kBfCtaCost = 96 * 1024;
+void bf_plan(int K, int tiles, int nseg, int sm_count, int mode, int* kc, int* ksplit) {
+  const int slots = kBfCtasPerSm * sm_count, unit = bf_block(mode);
+  // one quant block of a tile: its codes, scales and bases
+  const long long blk_bytes =
+      (long long)kTileCols * nseg * (unit / bf_pk(mode) + (i4_f32_meta(mode) ? 8 : 4));
+  long long best = -1;
+  for (int waves = 1; waves <= 16; ++waves) {
+    const int want = waves * slots / tiles;  // CTAs a tile takes in `waves` waves
+    if (want < 1) continue;
+    const int rows = ((K + want - 1) / want + unit - 1) / unit * unit;
+    if (rows > kMaxKcBf) continue;
+    const int splits = (K + rows - 1) / rows;
+    const long long taken = ((long long)tiles * splits + slots - 1) / slots;
+    const long long cost = taken * (kBfCtaCost + rows / unit * blk_bytes);
+    if (best < 0 || cost < best) best = cost, *kc = rows, *ksplit = splits;
+  }
 }
 
 // CTAs for about two per SM, K rows per CTA a multiple of `unit` (32:
@@ -1238,9 +1302,9 @@ void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
   *ksplit = (K + rows - 1) / rows;
 }
 
-// Launch one GEMV instantiation.  The (b') and wire modes take their
-// cp.async rings as dynamic shared memory (above the 48 KB a kernel gets
-// without asking) and prefer the SM's memory as shared memory, so that
+// Launch one GEMV instantiation.  The walk's modes take their cp.async
+// rings as dynamic shared memory (above the 48 KB a kernel gets without
+// asking) and prefer the SM's memory as shared memory, so that
 // kBfCtasPerSm CTAs fit.
 template <int M, int NSEG, int MODE, bool ROUTED>
 void launch_one(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
@@ -1255,7 +1319,13 @@ void launch_one(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
       return true;
     }();
     (void)ready;
-    gemv_bf<M, NSEG, MODE, ROUTED><<<grid, kGemvThreads, dyn, stream>>>(a);
+    cudaLaunchAttribute attr{};
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = grid, cfg.blockDim = dim3(kGemvThreads), cfg.dynamicSmemBytes = dyn;
+    cfg.stream = stream, cfg.attrs = &attr, cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, gemv_bf<M, NSEG, MODE, ROUTED>, a);
   } else {
     gemv<M, NSEG, MODE, ROUTED><<<grid, kGemvThreads, 0, stream>>>(a);
   }
@@ -1265,7 +1335,7 @@ template <int NSEG, int MODE, bool ROUTED>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
   if constexpr (is_bf(MODE)) {  // rows at run time (gemv_body's Mr)
     launch_one<kMaxSlots, NSEG, MODE, ROUTED>(a, grid, stream);
-  } else {  // the other modes: one instantiation per row count
+  } else {  // i8mm, i4x8, byte: one instantiation per row count
     switch (a.M) {
       case 1: launch_one<1, NSEG, MODE, ROUTED>(a, grid, stream); break;
       case 2: launch_one<2, NSEG, MODE, ROUTED>(a, grid, stream); break;
@@ -1350,6 +1420,7 @@ int IFT_CAT(ift_bf_registers_part, IFT_PART)(int mode, int glu) {
     case kModeWireQ4: return bf_registers_owned<kModeWireQ4>(glu);
     case kModeWireQ4B32: return bf_registers_owned<kModeWireQ4B32>(glu);
     case kModeWireQ2: return bf_registers_owned<kModeWireQ2>(glu);
+    case kModePair8: return bf_registers_owned<kModePair8>(glu);
     default: return -1;
   }
 }
@@ -1363,16 +1434,16 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
   if (mode < kModeI8mm || mode > kModeLast) return false;
   // the quant block: whole blocks per CTA (i8mm: 32-row units of 4-row
   // groups, K a multiple of 4)
-  const int blk = is_i4(mode) || is_i4bf(mode) ? i4_block(mode)
-                  : mode == kModeI8mm        ? 0
-                                             : code_block(mode);
+  const int blk = is_bf(mode) ? bf_block(mode)
+                  : is_i4(mode) ? i4_block(mode)
+                                : is_byte(mode) ? kByteBlock : 0;
   const int unit = blk ? blk : 32, k_unit = blk ? blk : 4;
   if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
       sm_count <= 0)
     return false;
   *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
   gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
-  if (is_bf(mode)) bf_one_wave(a.K, *tiles, sm_count, unit, kc, ksplit);
+  if (is_bf(mode)) bf_plan(a.K, *tiles, nseg, sm_count, mode, kc, ksplit);
   return true;
 }
 
@@ -1572,6 +1643,7 @@ __device__ __forceinline__ size_t cache_row(const AttnArgs& a, int b, int h, int
 // The splits depend on the length alone, so a dense and a paged cache
 // holding the same rows give the same result bit for bit.
 __global__ void __launch_bounds__(kAttnThreads) step_attention(const AttnArgs a) {
+  launch_dependents();  // the wo GEMV after it streams its first weights meanwhile
   __shared__ float q_s[kMaxRows][kMaxD];
   __shared__ float kc_s[kKeyTile][kMaxD + 1];  // codes (scratch before the walk)
   __shared__ float vc_s[kKeyTile][kMaxD + 1];
@@ -1916,8 +1988,8 @@ int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const voi
 }
 
 // The registers a thread of the tensor-core GEMV of weight mode `mode`
-// (7-10 (b'), 11-13 wire) takes (cudaFuncGetAttributes), its w1n3
-// instantiation when glu is set; -1 for another mode.
+// (7-10 (b'), 11-13 wire, 14 pair8) takes (cudaFuncGetAttributes), its
+// w1n3 instantiation when glu is set; -1 for another mode.
 int ift_i4bf16_registers(int mode, int glu) {
   if (!is_bf(mode)) return -1;
   switch (mode % IFT_PARTS) {
@@ -1932,8 +2004,8 @@ int ift_i4bf16_registers(int mode, int glu) {
 }
 
 // The weight bytes the tensor-core GEMV of weight mode `mode` (7-10 (b'),
-// 11-13 wire) keeps in flight per SM for M rows of (K, N) weights (N the
-// w1n3 width when glu is set): the CTAs an SM holds at once
+// 11-13 wire, 14 pair8) keeps in flight per SM for M rows of (K, N)
+// weights (N the w1n3 width when glu is set): the CTAs an SM holds at once
 // (kBfCtasPerSm, at most the grid's share) x 8 warps x the 3 slots a
 // warp's ring holds ahead (1 KB of codes each, and a block's metadata
 // spread over its slots); -1 for a shape it does not take.
@@ -1950,14 +2022,14 @@ int ift_i4bf16_inflight(int M, int K, int N, int glu, int mode, int sm_count) {
 
 // y (M, N) f32 = the whole-code product of x (M, K) bf16 (no row
 // quantization) with a byte plane (K, N) uint8 (mode 2 Q8_B32T2, no base;
-// 3 Q8_B32T1, with its base), a wire plane (K/pk, N) uint8 (mode 11-13, on
-// the tensor cores) or a pair8 plane (K/2, N) uint8 (mode 14), f16 block
-// scales and bases (K/block, N; base may be null but for mode 3).  part
-// and counters as for ift_i4x8_gemv.
+// 3 Q8_B32T1, with its base), a wire plane (K/pk, N) uint8 (mode 11-13,
+// on the tensor cores) or a pair8 plane (K/2, N) uint8 (mode 14, on the
+// tensor cores), f16 block scales and bases (K/block, N; base may be null
+// but for mode 3).  part and counters as for ift_i4x8_gemv.
 int ift_code_gemv(const void* x, const void* w, const void* w_scale, const void* w_base,
                   void* out, void* part, void* counters, int M, int K, int N, int mode,
                   int sm_count, void* stream) {
-  if (!is_code(mode) && !is_wire(mode)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_byte(mode) && !unsigned_with_base(mode)) return static_cast<int>(cudaErrorInvalidValue);
   GemvArgs a{};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = w;

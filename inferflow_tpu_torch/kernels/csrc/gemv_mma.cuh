@@ -1,6 +1,7 @@
 // The 8-row code GEMV on Hopper's tensor cores: the pieces that X1-X4
-// (unpack_exp.cu, `unpack_mma_nibble`, `unpack_mma_d`) and B4's (b') and
-// wire GEMVs (decode_step.cu, weight modes 7-13, `i4bf_walk`) share.
+// (unpack_exp.cu, `unpack_mma_nibble`, `unpack_mma_d`) and B4's GEMVs on
+// the walk (decode_step.cu, `i4bf_walk`: the (b') modes 7-10, the wire
+// modes 11-13 and pair8, mode 14) share.
 //
 // y (M <= 8, N) = x (M, K) bf16 @ W (K, N), W dequantized from stored codes
 // to bf16 in registers, is computed as y^T = W^T x^T with
@@ -15,12 +16,14 @@
 // 2w and 2w+1: byte c of the word is A row g (c even) or g + 8 (c odd) of
 // n-tile 2w + c / 2.  Within a k16 step the lane takes K pairs (2t, 2t+1)
 // (A registers a0, a1; B register b0) and (2t+8, 2t+9) (a2, a3; b1), in
-// the natural order for the first two layouts (no K permutation):
+// the natural order for every layout but Q2's (no K permutation):
 //   - i4 layout (K/2, N) bytes, byte row r = K rows 2r (low nibble) and
 //     2r+1 (high nibble): byte rows t and t+4 of the step, one A register
 //     per byte;
-//   - int8 (K, N) codes: rows 2t, 2t+1, 2t+8, 2t+9 of the step, one A
-//     register per column from two rows' bytes;
+//   - int8 (K, N) codes (X4): rows 2t, 2t+1, 2t+8, 2t+9 of the step, one
+//     A register per column from two rows' bytes;
+//   - pair8 (K/2, N) bytes, byte b = v0 + 11 * v1 with v0 K row 2r and v1
+//     K row 2r+1: the i4 layout's byte order, one A register per byte;
 //   - Q2 (K/4, N) bytes, 4 codes a byte, byte row r = K rows 4r..4r+3
 //     (code h in bits [2h, 2h+2)): the one map that permutes K.  Lane t
 //     reads byte row t of the step; its codes 0, 1 are the mma's K pair
@@ -40,7 +43,10 @@
 //   - int8 code v: the float32 bits 0x4B0000uu with uu = v ^ 0x80 are
 //     2^23 + v + 128; minus 2^23 + 128 is v exactly; two of them packed by
 //     cvt.rn.bf16x2.f32 (exact: |v| <= 128 has 8 bits), then the same
-//     multiply.
+//     multiply;
+//   - a pair8 byte b: v1 = b div 11 by one multiply-high, then 0x4300 | v0
+//     and 0x4300 | v1 by one multiply-add, minus 128 and the scale as for
+//     a raw nibble (pair8_pair).
 // The activations' B fragments come from shared memory in fragment order
 // (word ((s * 32 + lane) * 2 + j) holds b_j of k16 step s; frag_word, or
 // frag_word_q2 for Q2's K order), one 8-byte load per lane per step, free
@@ -198,6 +204,20 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t lo, uint32_t hi, uint32_t
   const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, sel)) - 8388736.f;
   const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, sel)) - 8388736.f;
   return fma_bf16x2(pack_bf16(a, b), sc2, kNegZero2);
+}
+
+// Byte C of a word of pair8 codes w (byte b = v0 + 11 * v1, the i4
+// layout's order): bf16x2 {bf16(v0 * sc), bf16(v1 * sc)}.  v1 = b div 11
+// is the high word of b * ceil(2^32 / 11), exact for every byte; the
+// halves 0x4300 | b and 0x4300 plus v1 * (2^16 - 11) are 0x4300 | v0 and
+// 0x4300 | v1 (no carry: v0 <= 10, v1 <= 23), 128 + v exactly; minus 128,
+// then one fma.rn.bf16x2 by the scale (and -0.0).
+template <int C>
+__device__ __forceinline__ uint32_t pair8_pair(uint32_t w, uint32_t sc2) {
+  const uint32_t b = __byte_perm(w, 0u, 0x4440u | C);
+  const uint32_t t = __byte_perm(w, 0x43u, 0x4540u | C);  // 0x4300 | b, 0x4300
+  const uint32_t v = t + __umulhi(b, 0x1745D175u) * 0xFFF5u;
+  return fma_bf16x2(fma_bf16x2(v, kOne2, kM128x2), sc2, kNegZero2);
 }
 
 // A float's slot in a tile of sums with rows of `ld` floats (ld % 16 ==

@@ -18,11 +18,12 @@ byte (the Q8 block formats Q8_B32T2 and Q8_B32T1, one code per byte:
 bf16 activations, each weight bf16(q * bf16(scale)), Q8_B32T1's base
 through the blocks' activation sums); the wire mode (the sub-byte
 single-plane wire planes Q4_B64T1, Q4_B32T1A/B and Q2_B32T1A/B, pk = 2 or
-4 codes per byte, with byte (c)'s arithmetic, its GEMV on (b')'s
-tensor-core walk); (h) Q3H in the pair8
-layout (one byte per base-11 value pair, the same arithmetic); each
-product in its own mode; (d) per-matmul float32 output biases, added to
-a product's output before the residual add, the GLU or the qkv split;
+4 codes per byte, with byte (c)'s arithmetic); (h) Q3H in the pair8
+layout (one byte per base-11 value pair, the same arithmetic); the GEMVs
+of (b'), the wire mode and (h) run on one tensor-core walk, (c)'s on the
+CUDA cores; each product in its own mode; (d) per-matmul float32 output
+biases, added to a product's output before the residual add, the GLU or
+the qkv split;
 MoE layers in the TPU kernel's routed-expert mode (g) (moe_slot: an f32
 gate dot, softmax, per-slot top-k, then each chosen expert's w1n3 and w2,
 the residual rounded to bf16 after each expert in top-k order), with
@@ -40,7 +41,16 @@ five launches per layer (three kinds of GEMV and the step attention), and
 writes each layer's new K/V row straight into the cache; a MoE layer's
 FFN takes a routing launch, the experts' GEMVs (each chosen expert read
 once for all the slots that chose it, one launch per row count) and a
-combine.  On CPU tensors
+combine.  The walk's GEMVs are launched as programmatic dependents: each
+starts to stream its first weight slots while the launch before it on
+the stream (a GEMV of the walk or the step attention, which let their
+dependents start early) is still running, and reads its activations only
+once that launch has finished.  So no kernel may write, on the stream, a
+weight that a walk GEMV after it reads: the port writes weights only when
+it loads, quantizes or repacks them, before any step, and a kernel that
+does not let its dependents start early (any PyTorch kernel) has finished
+before the GEMV starts (``tests/test_torch_cuda_b4_modes.py`` rewrites a
+weight in place between two GEMVs).  On CPU tensors
 they run the plain versions below, which follow the TPU kernel's
 arithmetic (outputs, then ``append_rows_all_layers`` or
 ``append_rows_all_layers_paged``) and which ``chip_smoke.py`` also holds
@@ -143,7 +153,6 @@ PAIR8_GEMV_KERNEL = "pair8_gemv"
 _PAIR8_MODE = 14  # csrc kModePair8 (Q3H_B64T1)
 BIAS_KERNEL = "fused_decode_step_bias"  # also counted for a biased step
 _MAX_EXPERTS = 64  # mode (g): experts per MoE layer (csrc kMaxExperts)
-_BYTE_BLOCK = 32  # the byte mode's quant block (csrc kByteBlock)
 
 
 # ------------------------------------------------------------ i8mm product
@@ -480,26 +489,27 @@ def i4bf16_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
 
 def i4bf16_bytes_in_flight(m: int, w: QuantizedTensor, glu: bool,
                            device) -> int:
-    """The weight bytes the (b') GEMV (w in the i4 layout) or the wire
-    GEMV (w a wire plane) is planned to keep in flight per SM for m rows
-    of w (N its w1n3 width when glu) on the card `device`: csrc
-    ift_i4bf16_inflight works it out from the launch plan (the two CTAs an
-    SM is launched for, at most the grid's share, x 8 warps x the 3 slots
-    of a warp's cp.async ring); a plan figure, not a measurement."""
+    """The weight bytes a GEMV on the tensor-core walk ((b') for w in the
+    i4 layout; the wire or pair8 GEMV for a whole-code plane) is planned
+    to keep in flight per SM for m rows of w (N its w1n3 width when glu)
+    on the card `device`: csrc ift_i4bf16_inflight works it out from the
+    launch plan (the two CTAs an SM is launched for, at most the grid's
+    share, x 8 warps x the 3 slots of 1 KB of codes a warp's cp.async ring
+    holds ahead); a plan figure, not a measurement."""
     code = (_i4_geometry(w, "i4bf16") if I4_PLANE in w.planes
             else _code_geometry(w))[0]
     got = _lib().ift_i4bf16_inflight(
         m, w.storage_k, int(w.shape[-1]), int(glu), code,
         _sm_count(torch.device(device).index or 0))
     if got < 0:
-        raise ValueError(f"the (b') GEMV does not take {w.format} "
+        raise ValueError(f"the tensor-core GEMV does not take {w.format} "
                          f"{tuple(w.shape)} at M={m}")
     return got
 
 
 def i4bf16_registers(device) -> dict:
     """The registers a thread of each tensor-core GEMV instantiation (the
-    (b') and the wire modes) takes on the card `device`
+    (b'), wire and pair8 modes) takes on the card `device`
     (cudaFuncGetAttributes), by its launch count: the w1n3 (GLU)
     instantiation and the one of the other products."""
     torch.cuda.init()
@@ -507,8 +517,9 @@ def i4bf16_registers(device) -> dict:
         lib = _lib()
         return {gemv: {"w1n3": lib.ift_i4bf16_registers(code, 1),
                        "other": lib.ift_i4bf16_registers(code, 0)}
-                for code, _, gemv in (*_I4BF16_MODES.values(),
-                                      *_WIRE_MODES.values())}
+                for code, _, gemv in (
+                    *_I4BF16_MODES.values(), *_WIRE_MODES.values(),
+                    (_PAIR8_MODE, PAIR8_KERNEL, PAIR8_GEMV_KERNEL))}
 
 
 def _code_geometry(w: QuantizedTensor) -> tuple:

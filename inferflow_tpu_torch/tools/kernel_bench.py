@@ -47,14 +47,18 @@ Parts (the JAX bench's, plus --unpack, --b6 and --b3):
   - --i4bf16: B4's GEMVs on the tensor-core walk alone at
     --i4bf16-model's four decode products: (b')'s (weight modes 7-10) on
     the i4 layout's four geometries, with mode (b)'s i4x8 GEMV on the same
-    weights timed beside it (``i4x8_ms``), and the wire mode's (11-13) on
-    Q4_B64T1, Q4_B32T1A and Q2_B32T1A; the same bits on a second run (on
-    the card a first line gives each instantiation's registers);
+    weights timed beside it (``i4x8_ms``), the wire mode's (11-13) on
+    Q4_B64T1, Q4_B32T1A and Q2_B32T1A and mode (h)'s pair8 GEMV (14) on
+    Q3H_B64T1, with mode (c)'s byte GEMV (2-3, on the CUDA cores) on
+    Q8_B32T2 and Q8_B32T1 beside them; the same bits on a second run (on
+    the card a first line gives each walk instantiation's registers);
   - --i4bf16-step L: B4's fused step on the walk on L random layers of
     --i4bf16-model at B = 8 and B = 1: mode (b') on Q4_B32T1A's i4 layout,
     with mode (b)'s step on the same inputs timed beside it
-    (``i4x8_ms``), and the wire mode on the packed planes of its three
-    geometries (the step that INFERFLOW_MEGA=2 routes them to);
+    (``i4x8_ms``), the wire mode on the packed planes of its three
+    geometries (the step that INFERFLOW_MEGA=2 routes them to) and mode
+    (h) on Q3H_B64T1's pair8 plane, with mode (c)'s step on Q8_B32T2
+    beside them;
   - --mega: the whole-model fused decode step (B4) against the per-layer
     loop (INFERFLOW_MEGA=0 around the per-layer call, restored after), its
     parity at lengths 33 and 500 (norm_rmsd of the hidden state and of
@@ -273,10 +277,13 @@ def b6_part(b: Bench, shapes: dict, generic_shape, ms) -> None:
 
 
 # the GEMVs on B4's tensor-core walk: (b')'s on the i4 layout's four
-# geometries (weight modes 7-10) and the wire mode's on its three (11-13)
+# geometries (weight modes 7-10), the wire mode's on its three (11-13) and
+# the pair8 mode's (14); the byte mode's (2-3, on the CUDA cores) beside
 WALK_GEOMETRIES = (("Q4_B64T1", "i4"), ("Q4_B32T1A", "i4"), ("Q4_B32T2", "i4"),
                    ("Q4_B16", "i4"), ("Q4_B64T1", "wire"),
-                   ("Q4_B32T1A", "wire"), ("Q2_B32T1A", "wire"))
+                   ("Q4_B32T1A", "wire"), ("Q2_B32T1A", "wire"),
+                   ("Q8_B32T2", "byte"), ("Q8_B32T1", "byte"),
+                   ("Q3H_B64T1", "pair8"))
 
 
 def walk_part(b: Bench, shapes: dict, ms) -> None:
@@ -285,44 +292,46 @@ def walk_part(b: Bench, shapes: dict, ms) -> None:
     mode (b)'s i4x8 GEMV timed beside (b')'s on the same weights
     (``i4x8_ms``); the card's GEMVs, or on the CPU the plain version
     against itself.  On the card a first line gives each instantiation's
-    registers, and each row the weight bytes in flight per SM that the
-    launch plan gives (``planned_bytes_in_flight_per_sm``: worked out, not
-    measured)."""
-    from ..kernels.decode_step import (
-        _code_geometry, _i4_geometry, i4_bf16_matmul_plain,
-        i4bf16_bytes_in_flight, i4bf16_gemv_cuda, i4bf16_registers,
-        i4x8_gemv_cuda, wire_gemv_cuda, wire_matmul_plain)
+    registers, and each row of an instantiation listed there the weight
+    bytes in flight per SM that the launch plan gives
+    (``planned_bytes_in_flight_per_sm``: worked out, not measured; a tree
+    whose GEMV of the mode is not on the walk has no such figure)."""
+    from ..kernels import decode_step as ds
     from ..kernels.dequant_matmul import i4_weight
     from ..quant.codec_torch import dequantize, quantize, repack_i4
+    codes = {"wire": (ds.wire_gemv_cuda, ds.wire_matmul_plain),
+             "byte": (ds.byte_gemv_cuda, ds.byte_matmul_plain),
+             "pair8": (ds.pair8_gemv_cuda, ds.pair8_matmul_plain)}
     card = b.device.type == "cuda"
+    registers = {}
     if card:
+        registers = ds.i4bf16_registers(b.device)
         print(json.dumps({"phase": "kernel_bench", "part": "walk_registers",
-                          "registers": i4bf16_registers(b.device)}),
-              flush=True)
+                          "registers": registers}), flush=True)
     gen = b.gen(2)
     for name, (k, n) in shapes.items():
         w = _weight(gen, k, n, b.device)
         for fmt, layout in WALK_GEOMETRIES:
             if layout == "i4":
                 qt = repack_i4(quantize(w, fmt))
-                w_bf16, gemv, plain = (i4_weight(qt), i4bf16_gemv_cuda,
-                                       i4_bf16_matmul_plain)
-                part, kernel = "i4bf16", _i4_geometry(qt, "i4bf16")[2]
+                w_bf16, gemv, plain = (i4_weight(qt), ds.i4bf16_gemv_cuda,
+                                       ds.i4_bf16_matmul_plain)
+                part, kernel = "i4bf16", ds._i4_geometry(qt, "i4bf16")[2]
             else:
                 qt = quantize(w, fmt)
-                w_bf16, gemv, plain = (dequantize(qt, torch.bfloat16),
-                                       wire_gemv_cuda, wire_matmul_plain)
-                part, kernel = "wire", _code_geometry(qt)[2]
+                w_bf16 = dequantize(qt, torch.bfloat16)
+                (gemv, plain), part = codes[layout], layout
+                kernel = ds._code_geometry(qt)[2]
             fn = gemv if card else plain
             for m in ms:
                 x = _acts(gen, m, k, b.device)
                 same = bool(torch.equal(fn(x, qt), fn(x, qt)))
                 info, beside = {"same_bits_twice": same, "ok": same}, None
-                if card:
+                if kernel in registers:
                     info["planned_bytes_in_flight_per_sm"] = (
-                        i4bf16_bytes_in_flight(m, qt, False, b.device))
-                    if layout == "i4":
-                        beside = {"i4x8_ms": lambda: i4x8_gemv_cuda(x, qt)}
+                        ds.i4bf16_bytes_in_flight(m, qt, False, b.device))
+                if card and layout == "i4":
+                    beside = {"i4x8_ms": lambda: ds.i4x8_gemv_cuda(x, qt)}
                 _matmul_case(b, part, kernel, f"{name} {fmt}", qt, w_bf16, x,
                              fn, plain, beside, info)
             del qt, w_bf16
@@ -332,10 +341,12 @@ def walk_part(b: Bench, shapes: dict, ms) -> None:
 # cache of STEP_CONTEXT rows
 STEP_LENGTHS = ((4095, 3000, 2048, 1500, 1023, 700, 301, 17), (2048,))
 STEP_CONTEXT = 4096
-# the steps on the walk: (b') on the i4 layout (mode (b) timed beside it)
-# and the wire mode on the packed planes of its three geometries
+# the steps on the walk: (b') on the i4 layout (mode (b) timed beside it),
+# the wire mode on the packed planes of its three geometries and mode (h)
+# on Q3H's pair8 plane; mode (c) on Q8_B32T2 beside
 WALK_STEPS = (("Q4_B32T1A", "i4"), ("Q4_B64T1", "packed"),
-              ("Q4_B32T1A", "packed"), ("Q2_B32T1A", "packed"))
+              ("Q4_B32T1A", "packed"), ("Q2_B32T1A", "packed"),
+              ("Q8_B32T2", "packed"), ("Q3H_B64T1", "packed"))
 
 
 def walk_step_part(b: Bench, model: str, layers: int) -> None:

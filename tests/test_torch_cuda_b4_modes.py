@@ -1,5 +1,6 @@
-"""B4's wire mode, mode (h) (Q3H pair8) and mode (d) (per-product output
-biases) on the card, against their plain versions.
+"""B4's wire mode, mode (c) (Q8 byte codes), mode (h) (Q3H pair8) and mode
+(d) (per-product output biases) on the card, against their plain
+versions.
 
 Marked ``cuda``: every test skips (with its reason) where no Hopper card is
 present; on the card run ``python -m pytest -m cuda
@@ -37,7 +38,9 @@ FORMATS = {"Q4_B64T1": ("wire_gemv", "fused_decode_step_wire"),
            "Q4_B32T1B": ("wire_gemv_b32", "fused_decode_step_wire_b32"),
            "Q2_B32T1A": ("wire_gemv_q2", "fused_decode_step_wire_q2"),
            "Q2_B32T1B": ("wire_gemv_q2", "fused_decode_step_wire_q2"),
-           "Q3H_B64T1": ("pair8_gemv", "fused_decode_step_pair8")}
+           "Q3H_B64T1": ("pair8_gemv", "fused_decode_step_pair8"),
+           "Q8_B32T2": ("byte_gemv", "fused_decode_step_byte"),
+           "Q8_B32T1": ("byte_gemv", "fused_decode_step_byte")}
 
 
 @pytest.fixture(scope="module")
@@ -55,15 +58,17 @@ def _close(got, ref, tol=REL_TOL):
 
 
 def test_code_gemvs(dev):
-    """The wire and pair8 GEMVs alone on each format, at test and llama2
-    shapes and at N = 100 and 1000 (a ragged last column tile; rows 4 and
-    8 bytes aligned: the wire GEMV's copies take piece_of's 4- and 8-byte
-    pieces), M = 1..8."""
+    """The wire and pair8 GEMVs (on the tensor-core walk) and the byte GEMV
+    alone on each format, at test and llama2 shapes and at N = 100 and 1000
+    (a ragged last column tile; rows 4 and 8 bytes aligned: the walk's
+    copies take piece_of's 4- and 8-byte pieces), M = 1..8, the same bits
+    on a second run."""
     from inferflow_tpu_torch.kernels.decode_step import (
-        _product_f32, pair8_gemv_cuda, wire_gemv_cuda)
+        _product_f32, byte_gemv_cuda, pair8_gemv_cuda, wire_gemv_cuda)
+    launches = {"pair8_gemv": pair8_gemv_cuda, "byte_gemv": byte_gemv_cuda}
     gen = torch.Generator(device=dev).manual_seed(52)
     for fmt, (gemv, _) in FORMATS.items():
-        launch = pair8_gemv_cuda if fmt.startswith("Q3H") else wire_gemv_cuda
+        launch = launches.get(gemv, wire_gemv_cuda)
         for k, n in ((256, 512), (4096, 12288), (11008, 4096), (128, 128),
                      (256, 100), (512, 1000)):
             w = torch.randn((k, n), generator=gen, device=dev) * (
@@ -79,6 +84,39 @@ def test_code_gemvs(dev):
                 assert dict(_build.launch_counts) == {gemv: 1}
                 assert _close(got, ref), (fmt, k, n, m)
                 assert torch.equal(launch(x, qt), got)
+
+
+def test_walk_gemv_reads_rewritten_weights(dev):
+    """A walk GEMV starts to stream its weights before the launch ahead of
+    it on the stream has finished (programmatic dependent launch): a
+    weight rewritten in place by PyTorch's copies right between two GEMVs,
+    with no synchronization, is read as rewritten, bit for bit as a GEMV
+    on a fresh copy of the new weight."""
+    from inferflow_tpu_torch.kernels.decode_step import (
+        _product_f32, pair8_gemv_cuda, wire_gemv_cuda)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    k, n = 4096, 12288
+    for fmt, launch in (("Q4_B64T1", wire_gemv_cuda),
+                        ("Q3H_B64T1", pair8_gemv_cuda)):
+        old, new = (quantize(torch.randn((k, n), generator=gen, device=dev)
+                             * (0.5 / k ** 0.5), fmt) for _ in range(2))
+        live = dataclasses.replace(
+            old, planes={p: t.clone() for p, t in old.planes.items()},
+            scale=old.scale.clone(),
+            base=None if old.base is None else old.base.clone())
+        x = torch.randn((8, k), generator=gen, device=dev).to(torch.bfloat16)
+        before = launch(x, live)
+        for p, t in live.planes.items():
+            t.copy_(new.planes[p])
+        live.scale.copy_(new.scale)
+        if live.base is not None:
+            live.base.copy_(new.base)
+        after = launch(x, live)
+        fresh = launch(x, new)
+        torch.cuda.synchronize()
+        assert torch.equal(before, launch(x, old)), fmt
+        assert torch.equal(after, fresh), fmt
+        assert _close(after, _product_f32(x, new)), fmt
 
 
 def _biases(spec, layers, gen, dev):
@@ -129,11 +167,12 @@ def _step_vs_plain(spec, layers, lengths, dev, s, counter):
 
 
 def test_fused_step_wire_and_pair8(dev):
-    """B4 in the wire mode and mode (h) against its plain version on every
-    geometry: test-llama (3 layers) and llama2-7b width (2 layers), B = 1
-    and B = 4."""
+    """B4 in the wire mode, mode (h) and mode (c) against its plain version
+    on every geometry: test-llama (3 layers) and llama2-7b width (2
+    layers), B = 1 and B = 4."""
     from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params
-    for fmt in ("Q4_B64T1", "Q4_B32T1A", "Q2_B32T1A", "Q3H_B64T1"):
+    for fmt in ("Q4_B64T1", "Q4_B32T1A", "Q2_B32T1A", "Q3H_B64T1", "Q8_B32T2",
+                "Q8_B32T1"):
         counter = FORMATS[fmt][1]
         for name, layers, s in (("test-llama", 3, 512),
                                 ("llama2-7b", 2, 1024)):
@@ -182,8 +221,8 @@ def test_fused_step_biases(dev):
 
 def test_paged_and_moe_modes(dev, monkeypatch):
     """The new modes under mode (f) (a paged pool, wire weights with
-    biases) and mode (g) (test-moe with wire and pair8 experts, one layer
-    at a time against the plain stack's input)."""
+    biases) and mode (g) (test-moe with wire, pair8 and Q8_B32T1 byte
+    experts, one layer at a time against the plain stack's input)."""
     from inferflow_tpu_torch.models.zoo import make_spec, make_synthetic_params
     from inferflow_tpu_torch.runtime.paged_kv import PagedKVCache
     from inferflow_tpu_torch.kernels.decode_step import (
@@ -213,7 +252,7 @@ def test_paged_and_moe_modes(dev, monkeypatch):
                                           "fused_decode_step_bias": 1}
     assert _close(got, ref, FUSED_TOL)
     monkeypatch.setenv("INFERFLOW_MEGA", "2")
-    for fmt in ("Q4_B64T1", "Q3H_B64T1"):
+    for fmt in ("Q4_B64T1", "Q3H_B64T1", "Q8_B32T1"):
         moe = make_spec("test-moe", device_layout="packed", embd=128,
                         inter=256)
         mp = make_synthetic_params(moe, fmt, seed=0, device=dev,

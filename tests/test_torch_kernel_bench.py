@@ -36,7 +36,9 @@ def test_every_part_passes_on_cpu(monkeypatch, capsys):
             "i4bf16_gemv_b32", "i4bf16_gemv_b32f", "i4bf16_gemv_b16f",
             "wire_gemv", "wire_gemv_b32", "wire_gemv_q2",
             "fused_decode_step_i4bf16_b32", "fused_decode_step_wire",
-            "fused_decode_step_wire_b32", "fused_decode_step_wire_q2"} <= kernels
+            "fused_decode_step_wire_b32", "fused_decode_step_wire_q2",
+            "byte_gemv", "pair8_gemv", "fused_decode_step_byte",
+            "fused_decode_step_pair8"} <= kernels
     generic = {r["shape"].split()[1] for r in rows
                if r["kernel"] == "generic_matmul"}
     assert generic == set(kernel_bench.NONPAIR_FORMATS)
