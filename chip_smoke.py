@@ -11,7 +11,7 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    library call where there is one (timed here only, never used by the
    package), with the L2 cache flushed before every timed launch; one
    JSON line each:
-   - B1 dequant-matmul: M in {1, 4, 256} for the five tinyllama-1.1b
+   - B1 dequant-matmul: M in {1, 4, 8, 256} for the five tinyllama-1.1b
      projections (library: cuBLAS on the pre-dequantized weight);
    - B2 decode attention: 4 slots, 1024-row context, layer 21; B3 chunk
      attention: a 256-row chunk at row 256 (library:
@@ -261,6 +261,14 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    carry the walk's planned bytes in flight per SM, and the byte GEMV's
    M = 8 row on (h)'s w1n3, with its launches in its phase, is in the
    kernels line.
+15. B1's and B6's decode GEMV runs on the tensor cores for every policy
+   (dq_gemv_mma; one row on a single plane of at most 4 bits and on
+   Q5_B32T1 stays on the CUDA-core loop, where dq_gemv_mma is slower):
+   the rows of B1, B1-Q8, B1 sub-byte, B6 and the kernel bench's B6 wire
+   and non-pair rows are timed at M = 1 and 8, and
+   every decode profile reports the device time a step of the B1, B5 and
+   B6 decode GEMVs, their split reduction included
+   (`dequant_gemv_ms_per_step`).
 
 Exits non-zero if any check fails.  The last line is the device record
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -622,11 +630,12 @@ ENGINE_O_MUST = ("fused_decode_step_i4bf16_b32", "i4_matmul_b32",
 # the kernel bench phase: the port's tools/kernel_bench.py in-process,
 # B6's wire mode and non-pair branch at llama2-13b's products and B1/B6 on
 # Q4_B64T1 and Q3H_B64T1 at 8192 x 8192, each at M in {1, 8, 12, 256}
-# (timed at M = 8, for the script's time limit), X1-X5 at exp_unpack's
+# (timed at M = 1 and 8, for the script's time limit), X1-X5 at exp_unpack's
 # shapes, B2/B3/B7 at gemma-2b's head shape (D = 256)
 KERNEL_BENCH_ARGS = ["--b6", "--b6-model", "llama2-13b", "--m", "1,8,12,256",
-                     "--time-m", "8", "--iters", str(TIMER_ITERS), "--unpack",
-                     "--attention", "--formats", "Q4_B64T1,Q3H_B64T1"]
+                     "--time-m", "1,8", "--iters", str(TIMER_ITERS),
+                     "--unpack", "--attention", "--formats",
+                     "Q4_B64T1,Q3H_B64T1"]
 # the mega_ab phase: the fused step against the per-layer loop
 # (INFERFLOW_MEGA=0), tinyllama-1.1b in i8mm, ctx 64/512/4096
 MEGA_AB_ARGS = ["--formats", "none", "--mega", "--mega-model", MODEL,
@@ -850,7 +859,7 @@ def phase_b1(timer, dev, spec) -> list:
         w = torch.randn((k, n), generator=gen, device=dev) * (0.5 / k ** 0.5)
         qt = quantize(w, "Q4_B64T1")
         w_bf16 = dequantize(qt, torch.bfloat16)
-        for m in (1, 4, 256):
+        for m in (1, 4, 8, 256):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             got = quantized_matmul(x, qt)
@@ -1429,7 +1438,12 @@ def profile_decode(eng, prompt, label: str, steps: int = 3) -> None:
               if e.device_type != DeviceType.CPU and _device_us(e) > 0]
     busy_ms = _busy_ms(prof)
     top = sorted(events, key=_device_us, reverse=True)[:12]
+    # B1's, B5's and B6's decode GEMVs (dq_gemv_mma, dq_gemv) and the
+    # reduction of dq_gemv's K splits (splitk_reduce)
+    gemv_ms = sum(_device_us(e) for e in events
+                  if "dq_gemv" in e.key or "splitk_reduce" in e.key) / 1e3
     emit({"phase": f"decode_profile_{label}", "decode_steps": steps,
+          "dequant_gemv_ms_per_step": gemv_ms / steps,
           "device_launches_per_step": sum(e.count for e in events) / steps,
           "wall_ms_per_step": wall_ms / steps,
           "device_busy_ms_per_step": (busy_ms / steps) if busy_ms

@@ -72,12 +72,15 @@ using Q8Unsigned = Wire<32, 8, false, 0, __half>;  // B1: Q8_B32T1
 struct Q8Signed {  // B1: Q8_B32T2, signed codes, w = q*scale (no base)
   using Meta = __half;
   static constexpr int kBlock = 32, kRows0 = 32, kRows1 = 0, kRows2 = 0;
-  static constexpr bool kBase = false;
+  static constexpr bool kBase = false, kPair = false;
+  static constexpr int kBias = 128;
   __host__ __device__ static constexpr int row(int, int k) { return k; }
   __device__ static float offset(float, float) { return 0.f; }
   __device__ static float value(uint32_t b, uint32_t, uint32_t, int) {
     return float(int(b ^ 0x80u) - 128);
   }
+  // b ^ 0x80 = q + 128 in every byte
+  __device__ static uint32_t codes(uint32_t w, uint32_t, uint32_t, int) { return w ^ 0x80808080u; }
 };
 // B5: the i4 layout, w = n*scale + (8*scale + base), for a quant block
 // of kBlock_ K rows (kBlock_/2 nibble-pair byte rows) and Meta_ block
@@ -109,12 +112,14 @@ __device__ __forceinline__ float pair_value(uint32_t b, int k) {
 struct Pair8 {  // B6: Q3H pair8, b = v0 + 11*v1, w = v*scale + base
   using Meta = __half;
   static constexpr int kBlock = 64, kRows0 = 32, kRows1 = 0, kRows2 = 0;
-  static constexpr bool kBase = true;
+  static constexpr bool kBase = true, kPair = true;
+  static constexpr int kBias = 0;
   __host__ __device__ static constexpr int row(int, int k) { return k / 2; }
   __device__ static float offset(float, float base) { return base; }
   __device__ static float value(uint32_t b, uint32_t, uint32_t, int k) {
     return pair_value(b, k);
   }
+  __device__ static uint32_t codes(uint32_t w, uint32_t, uint32_t, int) { return w; }
 };
 // B6's wire mode: Q3H's 32 pair codes of a block in three planes, code j
 // in plane 0's byte row j/2 (4 bits), plane 1's j/4 (2) and plane 2's j/8
@@ -122,7 +127,8 @@ struct Pair8 {  // B6: Q3H pair8, b = v0 + 11*v1, w = v*scale + base
 struct Q3HWire {
   using Meta = __half;
   static constexpr int kBlock = 64, kRows0 = 16, kRows1 = 8, kRows2 = 4;
-  static constexpr bool kBase = true;
+  static constexpr bool kBase = true, kPair = true;
+  static constexpr int kBias = 0;
   __host__ __device__ static constexpr int row(int p, int k) {
     return p == 0 ? k / 4 : p == 1 ? k / 8 : k / 16;
   }
@@ -132,6 +138,13 @@ struct Q3HWire {
     const uint32_t b = ((b0 >> (4 * (j & 1))) & 0xFu) | (((b1 >> (2 * (j & 3))) & 0x3u) << 4) |
                        (((b2 >> (j & 7)) & 0x1u) << 6);
     return pair_value(b, k);
+  }
+  // value()'s pair code in four bytes at once (4 + 2 + 1 bits, no bit
+  // crosses a byte)
+  __device__ static uint32_t codes(uint32_t w0, uint32_t w1, uint32_t w2, int k) {
+    const int j = k / 2;
+    return ((w0 >> (4 * (j & 1))) & 0x0F0F0F0Fu) | (((w1 >> (2 * (j & 3))) & 0x03030303u) << 4) |
+           (((w2 >> (j & 7)) & 0x01010101u) << 6);
   }
 };
 
@@ -143,10 +156,11 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// plan_matmul (dequant_matmul.cuh) for ift_q4_matmul / ift_q8_matmul /
-// ift_q8u_matmul / the ift_i4*_matmul entries / ift_q3h_matmul (IFT_MATMUL_ENTRY's
-// signature; these one-plane layouts do not read `data_h`) and
-// ift_q3h_wire_matmul (IFT_MATMUL_ENTRY3's).
+// plan_matmul (dequant_matmul.cuh) for B5's ift_i4*_matmul entries
+// (IFT_GEMV_ENTRY's signature; the i4 plane is one, `data_h` is not read).
+// The B1 and B6 entries (IFT_MATMUL_ENTRY's and, for Q3H's wire planes,
+// IFT_MATMUL_ENTRY3's; the one-plane layouts do not read `data_h`) have a
+// plan each, <entry>_plan.
 int ift_matmul_plan(int M, int K, int N, int block, int sm_count,
                     int* kb_per_split, int* ksplit) {
   return plan_matmul(M, K, N, block, sm_count, kb_per_split, ksplit);
@@ -160,10 +174,10 @@ IFT_MATMUL_ENTRY(ift_q8_matmul, Q8Signed)
 IFT_MATMUL_ENTRY(ift_q8u_matmul, Q8Unsigned)
 // B5: the i4 layout's data_i4p plane (signed code-8 nibbles), one entry
 // per block geometry: Q4_B64T1; Q4_B32T1A / B; Q4_B32T2; Q4_B16.
-IFT_MATMUL_ENTRY(ift_i4_matmul, I4B64)
-IFT_MATMUL_ENTRY(ift_i4b32_matmul, I4B32)
-IFT_MATMUL_ENTRY(ift_i4b32f_matmul, I4B32F32)
-IFT_MATMUL_ENTRY(ift_i4b16f_matmul, I4B16F32)
+IFT_GEMV_ENTRY(ift_i4_matmul, I4B64)
+IFT_GEMV_ENTRY(ift_i4b32_matmul, I4B32)
+IFT_GEMV_ENTRY(ift_i4b32f_matmul, I4B32F32)
+IFT_GEMV_ENTRY(ift_i4b16f_matmul, I4B16F32)
 // B6: Q3H_B64T1 in the pair8 layout (one base-11 pair code per byte).
 IFT_MATMUL_ENTRY(ift_q3h_matmul, Pair8)
 // B6's wire mode: Q3H_B64T1's planes data (4 bits), data_m (2), data_h (1)

@@ -27,10 +27,11 @@
 //
 // The kernels are dequant_matmul.cuh's, on the `Wire` policy of each
 // geometry: a quant block is 4 to 32 byte rows per plane (a 1-bit plane's
-// byte covers 8 K rows), every plane row of a block is loaded (one 32-bit
-// load per thread and row in the GEMV) before any is decoded, and the
-// prefill tile steps K one quant block at a time (16 rows for Q4_B16: one
-// WMMA step).
+// byte covers 8 K rows); the GEMV (`dq_gemv_mma`) streams the planes' byte
+// rows 16 K rows at a time (Q5_B32T1's split half: a whole block) through
+// each warp's ring and decodes them for the tensor cores, and the prefill
+// tile steps K one quant block at a time (16 rows for Q4_B16: one WMMA
+// step).
 //
 // What bounds it on the H100: at decode (M <= 8) the bytes of the planes
 // and metadata, 3 (Q2) to 8 (Q4_B16, whose f32 metadata is 4 of them)
@@ -57,14 +58,9 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// plan_matmul (dequant_matmul.cuh) for the entries below.
-int ift_matmul_plan(int M, int K, int N, int block, int sm_count,
-                    int* kb_per_split, int* ksplit) {
-  return plan_matmul(M, K, N, block, sm_count, kb_per_split, ksplit);
-}
-
-// One entry per geometry (IFT_MATMUL_ENTRY's signature): `data` is the
-// low plane, `data_h` the high one (not read by the one-plane formats);
+// One entry per geometry (IFT_MATMUL_ENTRY's signature, with its plan
+// <entry>_plan): `data` is the low plane, `data_h` the high one (not read
+// by the one-plane formats);
 // scale and base are f16, or f32 for Q4_B32T2 and Q4_B16.
 IFT_MATMUL_ENTRY(ift_q6_matmul, Q6)
 IFT_MATMUL_ENTRY(ift_q5_matmul, Q5)

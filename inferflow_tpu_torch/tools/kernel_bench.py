@@ -14,11 +14,12 @@ raises (nothing is caught).
         [--k 8192] [--n 8192] [--m 1] [--skip-perf] [--tol 2e-2]
         [--attention] [--i8mm] [--mega] [--mega-model tinyllama-1.1b]
         [--mega-quant Q4_B64T1] [--mega-layout ''] [--unpack] [--b6]
-        [--b6-model llama2-13b] [--b3] [--b3-nsplit 1,2,3]
+        [--b6-model llama2-13b] [--b1] [--b1-model llama2-7b]
+        [--b3] [--b3-nsplit 1,2,3]
         [--i4bf16] [--i4bf16-step 32] [--i4bf16-model llama2-7b]
         [--time-m 8] [--iters 20] [--device cpu]
 
-Parts (the JAX bench's, plus --unpack, --b6 and --b3):
+Parts (the JAX bench's, plus --unpack, --b6, --b1 and --b3):
   - each of --formats (default: the JAX bench's twelve; ``none``: no
     format) through
     ``quantized_matmul`` at (M, K) x (K, N): the kernel its plane takes
@@ -31,6 +32,11 @@ Parts (the JAX bench's, plus --unpack, --b6 and --b3):
     launches B1's entry for the format); at --b6-model's five products
     (qkv, wo, w1n3, w2, lm_head) for the wire mode and its w1n3 for the
     non-pair branch, else at (K, N);
+  - --b1: B1's and B6's GEMV on each of its 13 policies (B1_POLICIES:
+    every wire format's, Q3H's pair8 and wire planes) and B5 beside them
+    (policy PackedI4: Q4_B64T1's i4 layout) at --b1-model's w1n3
+    product, the same weights in each format, with the library call
+    beside it (``--m 1,8`` for the decode batch sizes);
   - --unpack: X1-X5 (tools/exp_unpack.py) at the JAX tool's shapes, or
     EXP_SHAPE=KxN[,KxN...] (on the card a first line gives each kernel's
     registers);
@@ -101,6 +107,18 @@ NONPAIR_FORMATS = ["Q8_B32T1", "Q8_B32T2", "Q6_B64T1", "Q5_B64T1",
                    "Q5_B32T1", "Q4_B64T1", "Q4_B32T1A", "Q4_B32T1B",
                    "Q4_B32T2", "Q4_B16", "Q3_B32T1A", "Q3_B32T1B",
                    "Q2_B32T1A", "Q2_B32T1B"]
+# --b1: the 13 policies of B1's and B6's GEMV (csrc dequant_matmul.cu and
+# subbyte_matmul.cu): (format, layout, policy); Q4_B32T1B, Q3_B32T1B and
+# Q2_B32T1B share the A variants' policies
+B1_POLICIES = (("Q4_B64T1", "wire", "WireQ4"),
+               ("Q8_B32T2", "wire", "Q8Signed"),
+               ("Q8_B32T1", "wire", "Q8Unsigned"), ("Q6_B64T1", "wire", "Q6"),
+               ("Q5_B64T1", "wire", "Q5"), ("Q5_B32T1", "wire", "Q5Split"),
+               ("Q4_B32T1A", "wire", "Q4B32"),
+               ("Q4_B32T2", "wire", "Q4B32F32"),
+               ("Q4_B16", "wire", "Q4B16F32"), ("Q3_B32T1A", "wire", "Q3"),
+               ("Q2_B32T1A", "wire", "Q2"), ("Q3H_B64T1", "pair8", "Pair8"),
+               ("Q3H_B64T1", "wire", "Q3HWire"))
 KERNEL_REL_TOL = 8e-3  # |kernel - plain| <= tol * max|plain|: ~2 bf16 ulps
 D256_LENGTHS = (4096, 3000, 2048, 1500, 1023, 700, 301, 17)
 # --b3: (label, kv heads, query heads per kv head, head_dim, chunk starts)
@@ -274,6 +292,39 @@ def b6_part(b: Bench, shapes: dict, generic_shape, ms) -> None:
             _matmul_case(b, "b6", GENERIC_KERNEL, f"{name} {fmt}", qt, w_bf16,
                          x, generic_matmul, generic_matmul_plain,
                          {"b1_ms": lambda: quantized_matmul(x, qt)})
+
+
+def b1_part(b: Bench, shapes: dict, ms) -> None:
+    """B1's and B6's GEMV on each of B1_POLICIES at every shape (the same
+    weights in each format), then B5 (the i4 layout of Q4_B64T1, policy
+    PackedI4, still on the CUDA-core GEMV), against the plain version,
+    with the library call beside it; each row names its policy."""
+    from ..kernels.dequant_matmul import (i4_matmul_plain, i4_weight,
+                                          kernel_name, quantized_matmul,
+                                          quantized_matmul_plain)
+    from ..quant.codec_torch import (dequantize, pair8_to_wire, quantize,
+                                     repack_i4)
+    gen = b.gen(2)
+    for name, (k, n) in shapes.items():
+        w = _weight(gen, k, n, b.device)
+        for fmt, layout, policy in B1_POLICIES + (
+                ("Q4_B64T1", "i4", "PackedI4"),):
+            qt = quantize(w, fmt)
+            if fmt == "Q3H_B64T1" and layout == "wire":
+                qt = pair8_to_wire(qt)
+            plain = quantized_matmul_plain
+            if layout == "i4":
+                qt, plain = repack_i4(qt), i4_matmul_plain
+            w_bf16 = (i4_weight(qt) if layout == "i4"
+                      else dequantize(qt, torch.bfloat16))
+            for m in ms:
+                x = _acts(gen, m, k, b.device)
+                _matmul_case(b, "b1", kernel_name(qt),
+                             f"{name} {fmt} {layout}", qt, w_bf16, x,
+                             quantized_matmul, plain,
+                             info={"policy": policy})
+            del qt, w_bf16
+        del w
 
 
 # the GEMVs on B4's tensor-core walk: (b')'s on the i4 layout's four
@@ -752,6 +803,10 @@ def parse_args(argv=None):
                     help="B6's wire mode (Q3H) and non-pair branch")
     ap.add_argument("--b6-model", default="",
                     help="a zoo model whose products --b6 runs at")
+    ap.add_argument("--b1", action="store_true",
+                    help="B1's and B6's GEMV on its 13 policies")
+    ap.add_argument("--b1-model", default="llama2-7b",
+                    help="the zoo model whose w1n3 product --b1 runs at")
     ap.add_argument("--b3", action="store_true",
                     help="B3 at B3_SHAPES")
     ap.add_argument("--b3-nsplit", default="",
@@ -794,6 +849,8 @@ def bench(argv=None) -> list:
             shapes = {"w": (args.k, args.n)}
             generic = ("w", (args.k, args.n))
         b6_part(b, shapes, generic, ms)
+    if args.b1:
+        b1_part(b, {"w1n3": model_products(args.b1_model)["w1n3"]}, ms)
     if args.unpack:
         unpack_part(b)
     if args.attention:

@@ -52,9 +52,11 @@ def test_dequant_matmul_kernel(dev):
 
 def _dequant_matmul_case(dev, k, n):
     """Each M of the decode (GEMV) and prefill (tiled) paths against the
-    plain version; a decode plan that would overflow the x staging buffer
-    or leave K uncovered is refused by the C entry."""
-    from inferflow_tpu_torch.kernels.dequant_matmul import _lib, matmul_plan
+    plain version; a decode plan that would overflow the activation staging
+    (more than 2048 K rows a CTA) or leave K uncovered is refused by the C
+    entry."""
+    from inferflow_tpu_torch.kernels.dequant_matmul import (_counters, _lib,
+                                                            matmul_plan)
     for m in (1, 4, 8, 9, 130):
         gen = torch.Generator(device=dev).manual_seed(m * 7 + k)
         w = torch.randn((k, n), generator=gen, device=dev) * (0.5 / k ** 0.5)
@@ -67,16 +69,18 @@ def _dequant_matmul_case(dev, k, n):
         _close(got, quantized_matmul_plain(x, qt))
 
     lib = _lib()
-    per, ksplit = matmul_plan(lib, 4, k, n, dev)
-    assert 1 <= per <= 8 and per * ksplit >= k // 64 > per * (ksplit - 1)
+    per, ksplit = matmul_plan(lib, 4, k, n, dev, entry="ift_q4_matmul")
+    assert 1 <= per <= 32 and per * ksplit >= k // 64 > per * (ksplit - 1)
     x = torch.zeros((4, k), dtype=torch.bfloat16, device=dev)
     out = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
     work = torch.empty((k // 64, 4, n), dtype=torch.float32, device=dev)
-    for bad_per, bad_split in ((9, -(-k // 64 // 9)), (1, k // 64 - 1)):
+    counters = _counters(x, -(-n // 128))
+    for bad_per, bad_split in ((33, -(-k // 64 // 33)), (1, k // 64 - 1)):
         rc = lib.ift_q4_matmul(
             _build.ptr(x), _build.ptr(qt.planes["data"]), None,
             _build.ptr(qt.scale), _build.ptr(qt.base), _build.ptr(out),
-            _build.ptr(work), 4, k, n, bad_per, bad_split, _build.stream_of(x))
+            _build.ptr(work), _build.ptr(counters), 4, k, n, bad_per,
+            bad_split, _build.stream_of(x))
         assert rc != 0, (bad_per, bad_split)
 
 

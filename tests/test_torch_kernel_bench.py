@@ -25,7 +25,8 @@ def test_every_part_passes_on_cpu(monkeypatch, capsys):
     assert kernel_bench.main(SMALL + ["--m", "1,20", "--b6", "--unpack",
                                       "--attention", "--b3", "--i8mm",
                                       "--i4bf16", "--i4bf16-model",
-                                      "test-llama", "--i4bf16-step", "1"]) == 0
+                                      "test-llama", "--i4bf16-step", "1",
+                                      "--b1", "--b1-model", "test-llama"]) == 0
     rows = _rows(capsys.readouterr().out)
     kernels = {r["kernel"] for r in rows}
     assert {"dequant_matmul", "q3h_matmul", "q8_matmul", "subbyte_matmul",
@@ -42,6 +43,10 @@ def test_every_part_passes_on_cpu(monkeypatch, capsys):
     generic = {r["shape"].split()[1] for r in rows
                if r["kernel"] == "generic_matmul"}
     assert generic == set(kernel_bench.NONPAIR_FORMATS)
+    policies = {r["policy"] for r in rows if r["part"] == "b1"}
+    assert policies == {p for _, _, p in kernel_bench.B1_POLICIES} | {
+        "PackedI4"}
+    assert len(policies) == 14
     assert all(r["ok"] and "ms" not in r for r in rows)
 
 
