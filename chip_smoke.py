@@ -69,8 +69,9 @@ per source, all at once, into ``build/inferflow_tpu_torch/``), then:
    4096-token context, and
    - holds B5 (i4_matmul) at the five products' shapes (w2 also stored
      K-padded to 11264), M in {1, 8, 12, 256}, and B4 mode (b)'s i4x8 GEMV
-     alone (M in {1, 8}) against their plain versions; times them (B5's
-     library: torch.matmul on the pre-dequantized bf16 weight);
+     alone (M in {1, 8}; at 8 rows each row also against the one-row
+     GEMV) against their plain versions; times them (B5's library:
+     torch.matmul on the pre-dequantized bf16 weight);
    - holds B4 mode (b) at 32 layers, B = 8 (I4_FUSED_LENGTHS) and B = 1,
      against its plain version (one layer and the stack; B4 (a) on (c)'s
      i8mm weights as a control) and times it beside B4 (a);
@@ -1831,10 +1832,13 @@ def phase_b5(timer, dev, params) -> list:
 
 def phase_i4x8_gemv(timer, dev, params) -> list:
     """B4 mode (b)'s i4x8 GEMV alone at the four layer shapes (w2 also
-    stored K-padded), M in {1, 8}, against its plain version.  No PyTorch
-    call computes the i4x8 product; the yardstick is torch.matmul on the
-    pre-dequantized bf16 weight (another function, same bytes to read if
-    the weight were 4-bit)."""
+    stored K-padded), M in {1, 8}, against its plain version; at M = 8 (the
+    int8 tensor-core walk) each row also against the one-row GEMV (the
+    dp4a loop) on that row alone (``loop_rows``: the same arithmetic on
+    other K splits, held to the same tolerance).  No PyTorch call computes
+    the i4x8 product; the yardstick is torch.matmul on the pre-dequantized
+    bf16 weight (another function, same bytes to read if the weight were
+    4-bit)."""
     from inferflow_tpu_torch.kernels.decode_step import (i4x8_gemv_cuda,
                                                          i4x8_matmul_plain)
     from inferflow_tpu_torch.kernels.dequant_matmul import i4_weight
@@ -1857,6 +1861,11 @@ def phase_i4x8_gemv(timer, dev, params) -> list:
             res = compare(got.to(torch.bfloat16), ref)
             res["same_bits_twice"] = bool(torch.equal(got, again))
             res["ok"] = res["ok"] and res["same_bits_twice"]
+            if m > 1:
+                loop = torch.cat([i4x8_gemv_cuda(x[r:r + 1], qt)
+                                  for r in range(m)])
+                res["loop_rows"] = compare(got.to(torch.bfloat16), loop)
+                res["ok"] = res["ok"] and res["loop_rows"]["ok"]
             bytes_moved = 2 * m * k_s + qt.nbytes + 4 * m * n
             b_ms, b_by = bound(bytes_moved, 2 * m * k_s * n, H100_INT8_OPS)
             row = {"phase": "kernel", "kernel": "i4x8_gemv",

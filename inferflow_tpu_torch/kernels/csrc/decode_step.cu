@@ -78,7 +78,11 @@
 //     zeroed int32 workspace, and the last CTA of each column tile (a
 //     counter per tile) applies the scales and the epilogue and zeroes the
 //     workspace again.  The result does not depend on the order;
-//   - the i4x8 GEMV: one 32-bit load of a (K/2, N) nibble-pair row gives 4
+//   - the i4x8 GEMV at 2..8 rows runs on the tensor-core walk below
+//     (i4x8_walk): each block's int32 dot by mma.sync with s8 operands (the
+//     nibbles as int8 16 * n, the rows' int8 codes), then the block's
+//     float term with the loop's operations.  At one row it keeps the
+//     CUDA-core loop: one 32-bit load of a (K/2, N) nibble-pair row gives 4
 //     columns x 2 K rows; two rows' nibbles, sign-extended in place to
 //     int8 (sext_nibbles), are 4 K rows of 4 columns, which transpose4 and
 //     __dp4a take as in the i8mm GEMV.  Each warp takes whole quant blocks
@@ -87,11 +91,12 @@
 //     makes the partials floats, which do not add in any order to the same
 //     bits, so the warps' sums are added in warp order and the K splits'
 //     partials go to a float workspace that the last CTA of the column
-//     tile adds in split order: the same bits on every run.  The block's
-//     K rows (64, 32 or 16) and its metadata type (f16, or f32 for Q4_B32T2
-//     and Q4_B16) are template parameters, one instantiation per geometry
-//     (WeightMode), so each GEMV's loop is unrolled for its block: a row
-//     map read at run time slowed the dense GEMVs on the card;
+//     tile adds in split order: the same bits on every run (the walk keeps
+//     both orders).  The block's K rows (64, 32 or 16) and its metadata
+//     type (f16, or f32 for Q4_B32T2 and Q4_B16) are template parameters,
+//     one instantiation per geometry (WeightMode), so each GEMV's loop is
+//     unrolled for its block: a row map read at run time slowed the dense
+//     GEMVs on the card;
 //   - the i4bf16 GEMV (b') runs on the tensor cores (gemv_mma.cuh's
 //     design, i4bf_walk below): y^T = W^T x^T by mma.sync m16n8k16 with
 //     the <= 8 activation rows as its narrow side, each nibble pair turned
@@ -283,14 +288,28 @@ __host__ __device__ constexpr bool i4_f32_meta(int mode) {
   return mode == kModeI4x8B32F || mode == kModeI4x8B16F || mode == kModeI4Bf16B32F ||
          mode == kModeI4Bf16B16F;
 }
+// the GEMV instantiations on the tensor-core walk (gemv_bf): every row
+// count of the walk's modes, and the 8-row one of the i4x8 modes, which
+// serves 2..8 rows (one row stays on the dp4a loop)
+__host__ __device__ constexpr bool walk_inst(int mode, int m) {
+  return is_bf(mode) || (is_i4(mode) && m == kMaxSlots);
+}
 // a tensor-core walk mode's K rows per quant block and codes per byte
 __host__ __device__ constexpr int bf_block(int mode) {
-  return is_i4bf(mode) ? i4_block(mode) : mode == kModeWireQ4 || mode == kModePair8 ? 64 : 32;
+  return is_i4bf(mode) || is_i4(mode) ? i4_block(mode)
+         : mode == kModeWireQ4 || mode == kModePair8 ? 64
+                                                      : 32;
 }
 __host__ __device__ constexpr int bf_pk(int mode) { return mode == kModeWireQ2 ? 4 : 2; }
-// ring slots per quant block: a slot is 8 byte rows (16 K rows at 2 codes
-// a byte, 32 at 4)
-__host__ __device__ constexpr int bf_slots(int mode) { return bf_block(mode) / (8 * bf_pk(mode)); }
+// byte rows of a ring slot: 8 (one k16 step at 2 codes a byte, two at 4);
+// an i4x8 slot is one int8 mma step: k32, 16 byte rows (Q4_B16's k16, 8)
+__host__ __device__ constexpr int walk_rows(int mode) {
+  return is_i4(mode) && i4_block(mode) > 16 ? 16 : 8;
+}
+// ring slots per quant block
+__host__ __device__ constexpr int bf_slots(int mode) {
+  return bf_block(mode) / (walk_rows(mode) * bf_pk(mode));
+}
 
 struct GemvArgs {
   const __nv_bfloat16* x;      // (M, K) bf16 activations
@@ -405,14 +424,16 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
 }
 
 // ------------------------------------------- the GEMVs on the tensor cores
-// The walk of the i4bf16 GEMV (weight modes 7-10), the wire GEMV (11-13)
-// and the pair8 GEMV (14), gemv_mma.cuh's design: each warp streams its
-// quant blocks (lb = warp, warp + 8, ... of the CTA's slice), one slot of
-// 8 byte rows at a time, through a ring of kBfRing slots in dynamic shared
-// memory filled by cp.async: per slot 2 code chunks a lane (byte rows t
-// and t+4 of its 16 columns: 1 KB a warp), and at a block's first slot
-// the block's scale and base chunks of each group of 4 lanes (f16: 512 B a
-// warp, f32: 1 KB), copied by its lanes in turn.  A slot of nibbles or
+// The walk of the i4bf16 GEMV (weight modes 7-10), the wire GEMV (11-13),
+// the pair8 GEMV (14) and the i4x8 GEMV at 2..8 rows (1, 4-6; i4x8_walk
+// below), gemv_mma.cuh's design: each warp streams its quant blocks (lb =
+// warp, warp + 8, ... of the CTA's slice), one slot of 8 byte rows at a
+// time (16 for the i4x8 modes' k32 steps), through a ring of walk_ring
+// slots in dynamic shared memory filled by cp.async: per slot 2 code
+// chunks a lane (byte rows t and t+4 of its 16 columns: 1 KB a warp; 4
+// and 2 KB for a k32 slot), and at a block's first slot (the i4x8 modes:
+// its last) the block's scale and base chunks of each group of 4 lanes
+// (f16: 512 B a warp, f32: 1 KB), copied by its lanes in turn.  A slot of nibbles or
 // pair8 bytes (2 codes a byte) is one k16 step: byte rows t and t+4 are K
 // rows (2t, 2t+1) and (2t+8, 2t+9).  A slot of Q2 codes (4 a byte) is two
 // k16 steps: byte row t (t+4) holds K rows 4t..4t+3 of the first (second)
@@ -426,22 +447,27 @@ __device__ __forceinline__ void load_meta4(const float* p, float v[4]) {
 // float32 into the same sums at its first slot.  Segments (the GLU's a and
 // g halves) are walked one after the other, each warp's sums of a segment
 // added into redf in warp order.
-constexpr int kBfRing = 4;  // slots of a warp's ring: 3 in flight
 // CTAs an SM holds (gemv_bf's __launch_bounds__; the shared memory of two
 // fits)
 constexpr int kBfCtasPerSm = 2;
 
+// slots of a warp's ring (one fewer in flight): 4, but 3 for Q4_B32T2's
+// i4x8 slots of 3 KB, so that two CTAs fit an SM
+__host__ __device__ constexpr int walk_ring(int mode) { return mode == kModeI4x8B32F ? 3 : 4; }
+// code chunks a lane copies a slot: byte rows t, t + 4, ... of its 16
+// columns
+__host__ __device__ constexpr int walk_chunks(int mode) { return walk_rows(mode) / 4; }
 // metadata chunks of a quant block per group of 4 lanes (16 columns):
 // scale, then base
 __host__ __device__ constexpr int bf_meta_chunks(int mode) { return i4_f32_meta(mode) ? 8 : 4; }
-// 16-byte chunks of one ring slot: 2 code chunks per lane, then the
-// metadata chunks of the 8 groups
+// 16-byte chunks of one ring slot: the code chunks of the 32 lanes, then
+// the metadata chunks of the 8 groups
 __host__ __device__ constexpr int bf_slot_chunks(int mode) {
-  return 2 * 32 + 8 * bf_meta_chunks(mode);
+  return walk_chunks(mode) * 32 + 8 * bf_meta_chunks(mode);
 }
 // the dynamic shared memory of a CTA's rings
 __host__ __device__ constexpr int bf_ring_bytes(int mode) {
-  return kGemvWarps * kBfRing * bf_slot_chunks(mode) * 16;
+  return kGemvWarps * walk_ring(mode) * bf_slot_chunks(mode) * 16;
 }
 
 // metadata value i of a chunk run held as 32-bit words (f16 pairs or f32)
@@ -455,19 +481,41 @@ __device__ __forceinline__ float meta_value(const uint32_t* words, int i) {
   }
 }
 
+// Metadata value i of the group g's chunks of a slot (from `meta`, its
+// first metadata chunk; group g's chunk i at meta[8i + g]): the scale of
+// column i (0..15), then the base of column i - 16.
+template <typename Meta>
+__device__ __forceinline__ float slot_meta(const uint4* meta, int g, int i) {
+  constexpr int kPerWord = std::is_same_v<Meta, float> ? 1 : 2;
+  const int wi = i / kPerWord;
+  const uint32_t w = reinterpret_cast<const uint32_t*>(&meta[(wi / 4) * 8 + g])[wi % 4];
+  if constexpr (kPerWord == 1) {
+    return __uint_as_float(w);
+  } else {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(i % 2 ? w >> 16 : w & 0xFFFFu)));
+  }
+}
+
 // A warp's weight stream of a GEMV on the walk: its slots u = 0, 1, ...
-// (segment by segment, block by block, 8 byte rows by 8) and the cp.async
-// copies of slot u into ring slot u % kBfRing.  The dense GEMV issues its
-// first slots before grid_wait, the routed one right after the prologue's
-// activation loads, which would otherwise queue behind them.
+// (segment by segment, block by block, walk_rows byte rows at a time) and
+// the cp.async copies of slot u into ring slot u % kRing.  The dense GEMV
+// issues its first slots before grid_wait, the routed one right after the
+// prologue's activation loads, which would otherwise queue behind them.
 template <int NSEG, int MODE>
 struct BfRing {
   using Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
   static constexpr int kBlk = bf_block(MODE);
   static constexpr int kRows = kBlk / bf_pk(MODE);  // byte rows per quant block
   static constexpr int kSlots = bf_slots(MODE);     // ring slots per quant block
+  static constexpr int kSlotRows = walk_rows(MODE); // byte rows per slot
+  static constexpr int kChunks = walk_chunks(MODE); // code chunks a lane copies a slot
+  static constexpr int kRing = walk_ring(MODE);
   static constexpr int kMeta = bf_meta_chunks(MODE);
   static constexpr int kSlot = bf_slot_chunks(MODE);
+  static constexpr int kMetaAt = 32 * kChunks;     // the slot's first metadata chunk
+  // the slot of a block that carries its metadata: the first, but the
+  // last for the i4x8 modes, which apply it after the block's last step
+  static constexpr int kMetaSlot = is_i4(MODE) ? kSlots - 1 : 0;
   static constexpr int kPer = 16 / sizeof(Meta);  // metadata values per chunk
   uint4* ring;  // this warp's slots in dynamic shared memory
   const uint8_t* w4;
@@ -481,7 +529,7 @@ struct BfRing {
                     int lane_) {
     extern __shared__ uint4 ring_s[];
     warp = warp_, lane = lane_, g = lane / 4, t = lane % 4;
-    ring = ring_s + (size_t)warp * kBfRing * kSlot;
+    ring = ring_s + (size_t)warp * kRing * kSlot;
     w4 = static_cast<const uint8_t*>(a.w) + w_off;
     wsc = static_cast<const char*>(a.w_scale) + sc_off;
     wbs = a.w_base == nullptr ? nullptr : static_cast<const char*>(a.w_base) + base_off;
@@ -497,27 +545,29 @@ struct BfRing {
     steps = warp < nblk ? ((nblk - 1 - warp) / kGemvWarps + 1) * kSlots : 0;
   }
 
-  __device__ const uint4* slot(int u) const { return ring + (u % kBfRing) * kSlot; }
+  __device__ const uint4* slot(int u) const { return ring + (u % kRing) * kSlot; }
 
-  // slot u: byte rows t and t + 4 of the lane's 16 columns; at a block's
-  // first slot its scale and base chunks, lane t of a group copying chunks
-  // t and t + 4
+  // slot u: byte rows t, t + 4, ... (kChunks of them) of the lane's 16
+  // columns, row t + 4i at chunk 32i + lane; at a block's kMetaSlot its
+  // scale and base chunks, lane t of a group copying chunks t and t + 4
   __device__ void issue(int u) const {
     using gemv_mma::cp_async_chunk;
     if (u < NSEG * steps) {
       const int s = u / steps, r = u - s * steps, j = r % kSlots;
       const int kb = kb0 + warp + (r / kSlots) * kGemvWarps;
       const int col = lcol + s * seg_stride;
-      uint4* sl = ring + (u % kBfRing) * kSlot;
-      const size_t row = (size_t)kb * kRows + j * 8 + t;
-      cp_async_chunk(&sl[lane], cvalid ? w4 + row * N + col : w4, cvalid, cpiece);
-      cp_async_chunk(&sl[32 + lane], cvalid ? w4 + (row + 4) * N + col : w4, cvalid, cpiece);
-      if (j == 0) {
+      uint4* sl = ring + (u % kRing) * kSlot;
+      const size_t row = (size_t)kb * kRows + j * kSlotRows + t;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+        cp_async_chunk(&sl[32 * i + lane], cvalid ? w4 + (row + 4 * i) * N + col : w4, cvalid,
+                       cpiece);
+      if (j == kMetaSlot) {
         for (int i = t; i < kMeta; i += 4) {
           const char* base = i < kMeta / 2 ? wsc : wbs;
           const int c = lcol + (i % (kMeta / 2)) * kPer;
           const int v = base == nullptr ? 0 : min(max(ncols - c, 0), kPer) * (int)sizeof(Meta);
-          cp_async_chunk(&sl[64 + i * 8 + g],
+          cp_async_chunk(&sl[kMetaAt + i * 8 + g],
                          v ? base + ((size_t)kb * N + c + s * seg_stride) * sizeof(Meta) : wsc,
                          v, mpiece);
         }
@@ -528,7 +578,7 @@ struct BfRing {
 
   __device__ void start() const {
 #pragma unroll
-    for (int u = 0; u < kBfRing - 1; ++u) issue(u);
+    for (int u = 0; u < kRing - 1; ++u) issue(u);
   }
 };
 
@@ -554,12 +604,66 @@ struct NoRing {
   __device__ explicit NoRing(const T&...) {}
 };
 
+// A warp's sums of segment s of a walk (acc: its C registers of the 8
+// n-tiles, columns 16g + 2q + e / 2, rows 2t + e % 2), added into redf
+// (gemv_mma::sum_slot's layout, rows of kTileCols * NSEG + 4) in warp
+// order.  The last segment's warps leave theirs in `scratch` (8 warps x 8
+// rows x kTileCols floats, free once every warp's walk is done) at once
+// and each thread adds its elements' 8 in warp order: the bits of adding
+// them one warp at a time, with two barriers, not eight.
+template <int NSEG>
+__device__ __forceinline__ void walk_sums(const float (&acc)[8][4], int s, int M, int warp,
+                                          int lane, float* scratch, float* redf) {
+  using gemv_mma::sum_slot;
+  constexpr int kSumLd = kTileCols * NSEG + 4;
+  const int g = lane / 4, t = lane % 4;
+  if (s == NSEG - 1) {
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 2 * t + e % 2;
+        if (m < M)
+          scratch[(warp * kMaxSlots) * kTileCols + sum_slot(m, 16 * g + 2 * q + e / 2, kTileCols)] =
+              acc[q][e];
+      }
+    __syncthreads();
+    for (int i = warp * 32 + lane; i < M * kTileCols; i += kGemvThreads) {
+      const int m = i / kTileCols, j = i % kTileCols;
+      float* rr = &redf[sum_slot(m, s * kTileCols + j, kSumLd)];
+      float v = *rr;
+#pragma unroll
+      for (int wp = 0; wp < kGemvWarps; ++wp)
+        v = __fadd_rn(v, scratch[(wp * kMaxSlots) * kTileCols + sum_slot(m, j, kTileCols)]);
+      *rr = v;
+    }
+    __syncthreads();
+  } else {
+    for (int wp = 0; wp < kGemvWarps; ++wp) {
+      if (warp == wp) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = 2 * t + e % 2;
+            if (m < M) {
+              float* rr = &redf[sum_slot(m, s * kTileCols + 16 * g + 2 * q + e / 2, kSumLd)];
+              *rr = __fadd_rn(*rr, acc[q][e]);
+            }
+          }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // The walk over the ring's slots for M rows: per segment, each slot's A
 // registers dequantized into mma with the B fragments of x_frag (one k16
 // step a slot, two for Q2), the block's fold term at its first slot, then
-// the warps' sums added into redf in warp order (gemv_mma::sum_slot's
-// layout, rows of kTileCols * NSEG + 4).  xsum holds each row's block sums,
-// kMaxKcBf / block a row.
+// the warps' sums (walk_sums; the last segment's meet in x_frag, which the
+// walk is done with).  xsum holds each row's block sums, kMaxKcBf / block
+// a row.
 template <int NSEG, int MODE>
 __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
                                           const unsigned char* x_frag, const float* xsum,
@@ -567,11 +671,10 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
   using namespace gemv_mma;
   using Ring = BfRing<NSEG, MODE>;
   using Meta = typename Ring::Meta;
-  constexpr int kSlots = Ring::kSlots, kMeta = Ring::kMeta;
+  constexpr int kSlots = Ring::kSlots, kMeta = Ring::kMeta, kRing = Ring::kRing;
   constexpr int kXsumLd = kMaxKcBf / Ring::kBlk;
   constexpr bool kBaseFold = unsigned_with_base(MODE), kQ2 = bf_pk(MODE) == 4;
   constexpr int kSteps = kQ2 ? 2 : 1;  // k16 steps a slot
-  constexpr int kSumLd = kTileCols * NSEG + 4;
   const uint2* xb = reinterpret_cast<const uint2*>(x_frag);
   const int warp = rg.warp, lane = rg.lane, g = rg.g, t = rg.t, steps = rg.steps;
 
@@ -586,15 +689,15 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
     for (int r = 0; r < steps; ++r) {
       const int u = s * steps + r, j = r % kSlots, lb = warp + (r / kSlots) * kGemvWarps;
       __syncwarp();  // every lane has read the slot refilled next
-      rg.issue(u + kBfRing - 1);
-      cp_async_wait<kBfRing - 1>();
+      rg.issue(u + kRing - 1);
+      cp_async_wait<kRing - 1>();
       __syncwarp();  // the group's metadata came from its 4 lanes
       const uint4* sl = rg.slot(u);
       if (j == 0) {
         uint32_t mw[kMeta * 4];
 #pragma unroll
         for (int i = 0; i < kMeta; ++i) {
-          const uint4 c = sl[64 + i * 8 + g];
+          const uint4 c = sl[Ring::kMetaAt + i * 8 + g];
           mw[4 * i] = c.x, mw[4 * i + 1] = c.y, mw[4 * i + 2] = c.z, mw[4 * i + 3] = c.w;
         }
         const float x0 = 2 * t < M ? xsum[(2 * t) * kXsumLd + lb] : 0.f;
@@ -638,53 +741,114 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
         }
       }
     }
-    // this segment's warp sums, added in warp order
-    if (s == NSEG - 1) {
-      // the last segment: the walk is done with x_frag, so every warp
-      // leaves its sums there at once ([warp][row][128], sum_slot's order)
-      // and each thread adds its elements' 8 in warp order: the bits of
-      // adding them one warp at a time, with two barriers, not eight
-      float* part = reinterpret_cast<float*>(const_cast<unsigned char*>(x_frag));
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = 2 * t + e % 2;
-          if (m < M)
-            part[(warp * kMaxSlots) * kTileCols + sum_slot(m, 16 * g + 2 * q + e / 2, kTileCols)] =
-                acc[q][e];
-        }
-      __syncthreads();
-      for (int i = warp * 32 + lane; i < M * kTileCols; i += kGemvThreads) {
-        const int m = i / kTileCols, j = i % kTileCols;
-        float* rr = &redf[sum_slot(m, s * kTileCols + j, kSumLd)];
-        float v = *rr;
-#pragma unroll
-        for (int wp = 0; wp < kGemvWarps; ++wp)
-          v = __fadd_rn(v, part[(wp * kMaxSlots) * kTileCols + sum_slot(m, j, kTileCols)]);
-        *rr = v;
-      }
-      __syncthreads();
-    } else {
-      for (int wp = 0; wp < kGemvWarps; ++wp) {
-        if (warp == wp) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int m = 2 * t + e % 2;
-              if (m < M) {
-                float* rr = &redf[sum_slot(m, s * kTileCols + 16 * g + 2 * q + e / 2, kSumLd)];
-                *rr = __fadd_rn(*rr, acc[q][e]);
-              }
-            }
-        }
-        __syncthreads();
-      }
-    }
+    walk_sums<NSEG>(acc, s, M, warp, lane,
+                    reinterpret_cast<float*>(const_cast<unsigned char*>(x_frag)), redf);
   }
   cp_async_wait<0>();
+}
+
+// The walk of the i4x8 GEMV (weight modes 1, 4-6) at 2..8 rows, on int8
+// tensor cores: the i4x8 formula of gemv_body below, each block's int32
+// dot by mma.sync m16n8k32 (Q4_B16's 16-row block: m16n8k16, so that no
+// step mixes two blocks' scales) of the nibbles as int8 16 * n (hi16,
+// lo16) with the rows' int8 codes.  A slot is one step: lane t's chunks of
+// byte rows t, t + 4, t + 8, t + 12 (k16: t, t + 4); transpose4 turns word
+// v of the four into four columns' bytes, and a column's low nibbles are
+// its A register at mma K 4t..4t+3 (K rows 2t + 8i of the step), its high
+// nibbles at 16 + 4t.. (K rows 2t + 1 + 8i); at k16 one register holds
+// the low then the high nibbles of rows t, t + 4 (K rows 2t, 2t + 8, 2t +
+// 1, 2t + 9).  The staging in gemv_body puts the codes in x_frag in the
+// same K order.  The int32 sums of a block are exact in any K order; after
+// its last step each C register becomes the block's float term with the
+// dp4a loop's operations (the same ops, warp and split order, so the two
+// GEMVs agree bit for bit where their K splits do), and the sums meet in
+// the freed rings (walk_sums).  xs holds the rows' scales.
+template <int NSEG, int MODE>
+__device__ __forceinline__ void i4x8_walk(const BfRing<NSEG, MODE>& rg, int M,
+                                          const unsigned char* x_frag, const float* xsum,
+                                          const float* xs, float* redf) {
+  using namespace gemv_mma;
+  using Ring = BfRing<NSEG, MODE>;
+  using Meta = typename Ring::Meta;
+  constexpr int kSlots = Ring::kSlots, kRing = Ring::kRing;
+  constexpr bool kK32 = Ring::kChunks == 4;
+  constexpr int kXsumLd = kMaxKcBf / Ring::kBlk;
+  extern __shared__ uint4 ring_s[];
+  const int warp = rg.warp, lane = rg.lane, g = rg.g, t = rg.t, steps = rg.steps;
+  // the row scales of the lane's C rows 2t, 2t + 1 (zero past M)
+  const float xs0 = 2 * t < M ? xs[2 * t] : 0.f, xs1 = 2 * t + 1 < M ? xs[2 * t + 1] : 0.f;
+
+#pragma unroll 1
+  for (int s = 0; s < NSEG; ++s) {
+    float acc[8][4];
+    int dot[8][4];  // the block's int32 sums (of 16 * n * xq)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f, dot[q][e] = 0;
+    for (int r = 0; r < steps; ++r) {
+      const int u = s * steps + r, j = r % kSlots, lb = warp + (r / kSlots) * kGemvWarps;
+      __syncwarp();  // every lane has read the slot refilled next
+      rg.issue(u + kRing - 1);
+      cp_async_wait<kRing - 1>();
+      __syncwarp();  // the group's metadata came from its 4 lanes
+      const uint4* sl = rg.slot(u);
+      // B column g is activation row g: zeros past M (never staged)
+      if constexpr (kK32) {
+        const uint2 b = g < M ? reinterpret_cast<const uint2*>(x_frag)[(lb * kSlots + j) * 32 + lane]
+                              : make_uint2(0u, 0u);
+        const uint4 c0 = sl[lane], c1 = sl[32 + lane], c2 = sl[64 + lane], c3 = sl[96 + lane];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const uint32_t rows[4] = {chunk_word(c0, v), chunk_word(c1, v), chunk_word(c2, v),
+                                    chunk_word(c3, v)};
+          int col[4];  // column c of word v: its bytes of rows t, t + 4, t + 8, t + 12
+          transpose4(rows, col);
+          // n-tile 2v + h: A row g is column 2h of the word, g + 8 column 2h + 1
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            mma_s8(dot[2 * v + h], lo16(col[2 * h]), lo16(col[2 * h + 1]), hi16(col[2 * h]),
+                   hi16(col[2 * h + 1]), b);
+        }
+      } else {
+        const uint32_t b = g < M ? reinterpret_cast<const uint32_t*>(x_frag)[lb * 32 + lane] : 0u;
+        const uint4 c0 = sl[lane], c1 = sl[32 + lane];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // columns 2h, 2h + 1 of word v: their bytes of rows t, t + 4
+            const uint32_t p =
+                __byte_perm(chunk_word(c0, v), chunk_word(c1, v), h ? 0x7362 : 0x5140);
+            const uint32_t lo = lo16(p), hi = hi16(p);
+            mma_s8_k16(dot[2 * v + h], __byte_perm(lo, hi, 0x5410), __byte_perm(lo, hi, 0x7632),
+                       b);
+          }
+        }
+      }
+      if (j == kSlots - 1) {
+        // the block's terms (its metadata rode in this slot): column c is
+        // C register 2 * (c % 2) (row 2t) and + 1 (row 2t + 1) of n-tile c / 2
+        const float x0 = 2 * t < M ? xsum[(2 * t) * kXsumLd + lb] : 0.f;
+        const float x1 = 2 * t + 1 < M ? xsum[(2 * t + 1) * kXsumLd + lb] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const float sc = slot_meta<Meta>(sl + Ring::kMetaAt, g, c);
+          const float fold =
+              round_bf16(__fadd_rn(__fmul_rn(sc, 8.f), slot_meta<Meta>(sl + Ring::kMetaAt, g, 16 + c)));
+          int* d = dot[c / 2] + 2 * (c % 2);
+          float* y = acc[c / 2] + 2 * (c % 2);
+          y[0] = __fadd_rn(y[0], __fadd_rn(__fmul_rn(x0, fold),
+                                           __fmul_rn((float)(d[0] >> 4), __fmul_rn(xs0, sc))));
+          y[1] = __fadd_rn(y[1], __fadd_rn(__fmul_rn(x1, fold),
+                                           __fmul_rn((float)(d[1] >> 4), __fmul_rn(xs1, sc))));
+          d[0] = d[1] = 0;
+        }
+      }
+    }
+    if (s == NSEG - 1) cp_async_wait<0>();  // the sums meet in the rings
+    walk_sums<NSEG>(acc, s, M, warp, lane, reinterpret_cast<float*>(ring_s), redf);
+  }
 }
 
 // The int8 GEMV (MODE kModeI8mm: i8mm weights), the i4x8 GEMV (kModeI4x8:
@@ -724,18 +888,21 @@ __device__ __forceinline__ void i4bf_walk(const BfRing<NSEG, MODE>& rg, int M,
 template <int M, int NSEG, int MODE, bool ROUTED>
 __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   constexpr bool I4 = is_i4(MODE), BF = is_bf(MODE), FC = is_byte(MODE);
+  constexpr bool WALK = walk_inst(MODE, M);  // on the tensor-core walk
+  constexpr bool I4W = I4 && WALK;           // the i4x8 modes' walk (int8 codes)
   constexpr bool XBF = FC || BF;  // bf16 activations, no row quantization
   // the float modes' quant block (i8mm: unused)
   constexpr int kBlk = BF ? bf_block(MODE) : FC ? kByteBlock : I4 ? i4_block(MODE) : 64;
   using I4Meta = std::conditional_t<i4_f32_meta(MODE), float, __half>;
-  // the CTA's K slice: int8 codes (i8mm, i4x8), bf16 activations (byte),
-  // or the tensor-core walk's mma B fragments of up to 8 bf16 rows (the
-  // walk takes zeros past M; gemv_mma.cuh's fragment order, Q2's own)
-  constexpr int kKc = BF ? kMaxKcBf : kMaxKc;  // K rows of a CTA at most
-  __shared__ __align__(16) unsigned char x_s[BF ? kMaxSlots : M][kKc * (XBF ? 2 : 1)];
+  // the CTA's K slice: int8 codes (i8mm, the i4x8 loop), bf16 activations
+  // (byte), or the tensor-core walk's mma B fragments of up to 8 rows (the
+  // walk takes zeros past M; gemv_mma.cuh's fragment order, Q2's own; the
+  // i4x8 walk's int8 codes in its K order)
+  constexpr int kKc = WALK ? kMaxKcBf : kMaxKc;  // K rows of a CTA at most
+  __shared__ __align__(16) unsigned char x_s[WALK ? kMaxSlots : M][kKc * (XBF ? 2 : 1)];
   // int32 (i8mm) or float sums; the walk's in gemv_mma::sum_slot's
   // order, rows of kSumLd floats
-  constexpr int kSumLd = kTileCols * NSEG + (BF ? 4 : 0);
+  constexpr int kSumLd = kTileCols * NSEG + (WALK ? 4 : 0);
   __shared__ int red_s[M][kSumLd];
   __shared__ float xsum_s[M][kKc / kBlk];
   __shared__ float xs_s[M];
@@ -745,13 +912,13 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tile = blockIdx.x;
-  if constexpr (BF) {
+  if constexpr (WALK) {
     launch_dependents();
     if constexpr (ROUTED) grid_wait();  // the routing below reads moe_sel
   }
   // the rows: M, or on the walk a.M (one instantiation of M = 8 serves
   // 1..8: mma's 8 columns take any count)
-  const int Mr = BF ? a.M : M;
+  const int Mr = WALK ? a.M : M;
   // ROUTED (mode (g)): expert z's slice of the weight stack (offsets of
   // its codes, scales and bases; 0 for the dense GEMV, folded away), its
   // set of tile counters, and row m's activation and output rows (row m
@@ -794,15 +961,15 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   float* redf = reinterpret_cast<float*>(&red_s[0][0]);
   // the float sum of row m, column j of the tile's kCols
   auto sum_at = [&](int m, int j) -> float& {
-    if constexpr (BF) return redf[gemv_mma::sum_slot(m, j, kSumLd)];
+    if constexpr (WALK) return redf[gemv_mma::sum_slot(m, j, kSumLd)];
     return redf[m * kCols + j];
   };
   // the walk: each warp's weight stream, started before grid_wait (the
   // dense GEMV) or once the prologues' loads are out (the routed GEMV,
   // whose CTAs mostly exit at the routing above)
-  const std::conditional_t<BF, BfRing<NSEG, MODE>, NoRing> ring(
+  const std::conditional_t<WALK, BfRing<NSEG, MODE>, NoRing> ring(
       a, w_off, sc_off, base_off, k0, klen, ncols, seg_stride, tile, warp, lane);
-  if constexpr (BF && !ROUTED) {
+  if constexpr (WALK && !ROUTED) {
     ring.start();
     grid_wait();
   }
@@ -919,8 +1086,73 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
         if (i < total && m < Mr && c % kGrp == 0) xsum_s[m][c / kGrp] = round_bf16(sum);
       }
     }
+  } else if constexpr (I4W) {
+    // the i4x8 walk: the rows' int8 codes as mma B fragments in its K
+    // order, and each quant block's bf16 sum in the dp4a loop's order
+    // (warp_sum over lanes k, after the add of k + 32 for 64-row blocks).
+    // A thread takes row m, block lb and its K rows e + 8c (e = lane % 8, c
+    // = 0 .. kBlk / 8 - 1), 32 values in flight, adds them over c as
+    // warp_sum's first levels do (K bits 5, 4, 3; Q4_B16's block adds the
+    // zeros of lanes 16-31 first), then over e across its 8 lanes (4, 2, 1)
+    constexpr int kC = kBlk / 8, kItems = 32 / kC;
+    const int nb = klen / kBlk, total = Mr * nb * 8;
+    const bool norm = a.pro == kProNorm;
+    const unsigned short* xh = reinterpret_cast<const unsigned short*>(a.x);
+    const unsigned short* nh = reinterpret_cast<const unsigned short*>(a.norm_w);
+    for (int i0 = 0; i0 < total; i0 += kItems * kGemvThreads) {
+      unsigned short xv[kItems][kC], wv[kItems][kC];  // the batch's loads first
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int i = i0 + it * kGemvThreads + tid, p = i / 8, m = i < total ? p / nb : 0;
+        const int k = k0 + (p - m * nb) * kBlk + i % 8;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          xv[it][c] = i < total ? __ldg(xh + (size_t)xrow(m) * a.K + k + 8 * c) : 0;
+          wv[it][c] = i < total && norm ? __ldg(nh + k + 8 * c) : 0;
+        }
+      }
+      if (ROUTED && i0 == 0) ring.start();
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int i = i0 + it * kGemvThreads + tid, p = i / 8, e = i % 8;
+        const bool live = i < total;
+        const int m = live ? p / nb : 0, lb = p - m * nb;
+        float v[kC];
+        uint32_t codes = 0;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          v[c] = __bfloat162float(__ushort_as_bfloat16(xv[it][c]));
+          if (norm)
+            v[c] = round_bf16(__fmul_rn(__fmul_rn(v[c], inv_s[m]),
+                                        __bfloat162float(__ushort_as_bfloat16(wv[it][c]))));
+          const float q = rintf(__fdiv_rn(v[c], xs_s[m]));
+          codes |= static_cast<uint32_t>(static_cast<uint8_t>(
+                       static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f))))
+                   << (8 * (c % 4));
+          if (live && kC == 2 && c == 1) {
+            // Q4_B16's k16 step lb: lane (m, e / 2)'s word, half e % 2
+            reinterpret_cast<uint16_t*>(x_s[0])[2 * (lb * 32 + 4 * m + e / 2) + e % 2] =
+                static_cast<uint16_t>(codes);
+          } else if (live && c % 4 == 3) {
+            // k32 step lb * kC / 4 + c / 4: lane (m, e / 2)'s b.x (e even) or b.y
+            reinterpret_cast<uint32_t*>(x_s[0])[2 * ((lb * kC / 4 + c / 4) * 32 + 4 * m + e / 2) +
+                                                e % 2] = codes;
+            codes = 0;
+          }
+        }
+        if constexpr (kC == 2) v[0] = __fadd_rn(v[0], 0.f), v[1] = __fadd_rn(v[1], 0.f);
+#pragma unroll
+        for (int h = kC / 2; h >= 1; h /= 2)
+#pragma unroll
+          for (int c = 0; c < h; ++c) v[c] = __fadd_rn(v[c], v[c + h]);
+        float sum = v[0];
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (live && e == 0) xsum_s[m][lb] = round_bf16(sum);
+      }
+    }
   }
-  for (int i = tid; i < (BF ? 0 : M * klen); i += kGemvThreads) {
+  for (int i = tid; i < (WALK ? 0 : M * klen); i += kGemvThreads) {
     const int m = i / klen, kk = i - m * klen;
     const float v = activation(a, xrow(m), k0 + kk, inv_s[m]);
     if constexpr (XBF) {
@@ -931,7 +1163,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
     }
   }
   const int nblk = klen / kBlk;  // float modes: klen % kBlk == 0 (the plan)
-  if (I4 || (FC && a.w_base != nullptr)) {
+  if ((I4 && !WALK) || (FC && a.w_base != nullptr)) {
     for (int p = warp; p < M * nblk; p += kGemvWarps) {
       const int m = p / nblk, lb = p - m * nblk;
       const int kb0 = k0 + lb * kBlk;
@@ -997,6 +1229,8 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
             atomicAdd(&red_s[m][s * kTileCols + lane * 4 + c], acc[m][s * 4 + c]);
     }
     __syncthreads();
+  } else if constexpr (I4W) {
+    i4x8_walk<NSEG, MODE>(ring, Mr, x_s[0], &xsum_s[0][0], xs_s, redf);
   } else if constexpr (BF) {
     i4bf_walk<NSEG, MODE>(ring, Mr, x_s[0], &xsum_s[0][0], redf);
   } else {
@@ -1157,7 +1391,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
     __syncthreads();
     if (!last_s) return;
     __threadfence();
-    if constexpr (BF) {
+    if constexpr (WALK) {
       // the splits in split order: every element of the thread, four
       // splits at a time, all their loads in flight at once
       constexpr int kE = (M * kCols + kGemvThreads - 1) / kGemvThreads;
@@ -1192,7 +1426,7 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
         if (live[e]) sum_at(i / kCols, i % kCols) = sum[e];
       }
     }
-    for (int i = tid; i < (BF ? 0 : M * kCols); i += kGemvThreads) {
+    for (int i = tid; i < (WALK ? 0 : M * kCols); i += kGemvThreads) {
       const int m = i / kCols, j = i - m * kCols;
       const int c = tile * kTileCols + (j % kTileCols);
       if (c >= ncols) continue;
@@ -1245,12 +1479,13 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a) {
   }
 }
 
-// The GEMV kernels.  gemv takes the i8mm, i4x8 and byte modes and is
-// bounded by its thread count alone: ptxas then keeps the i4x8 GEMV within
-// the registers of two CTAs an SM (a second bound of one CTA an SM let the
-// Q4_B64T1 and Q4_B32T2 instantiations grow past them, to one CTA an SM
-// and 1.5x their time).  gemv_bf takes the walk's modes ((b'), wire,
-// pair8), kBfCtasPerSm CTAs an SM.
+// The GEMV kernels.  gemv takes the i8mm and byte modes and the i4x8
+// modes' one row and is bounded by its thread count alone: ptxas then
+// keeps the i4x8 loop within the registers of two CTAs an SM (a second
+// bound of one CTA an SM let the Q4_B64T1 and Q4_B32T2 instantiations grow
+// past them, to one CTA an SM and 1.5x their time).  gemv_bf takes the
+// walk's modes ((b'), wire, pair8, and the i4x8 modes' 2..8 rows),
+// kBfCtasPerSm CTAs an SM.
 template <int M, int NSEG, int MODE, bool ROUTED>
 __global__ void __launch_bounds__(kGemvThreads) gemv(const GemvArgs a) {
   gemv_body<M, NSEG, MODE, ROUTED>(a);
@@ -1308,7 +1543,7 @@ void gemv_plan(int K, int tiles, int sm_count, int unit, int* kc, int* ksplit) {
 // kBfCtasPerSm CTAs fit.
 template <int M, int NSEG, int MODE, bool ROUTED>
 void launch_one(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
-  if constexpr (is_bf(MODE)) {
+  if constexpr (walk_inst(MODE, M)) {
     constexpr int dyn = bf_ring_bytes(MODE);
     static const bool ready = [] {
       cudaFuncSetAttribute(gemv_bf<M, NSEG, MODE, ROUTED>,
@@ -1335,7 +1570,17 @@ template <int NSEG, int MODE, bool ROUTED>
 void launch_gemv_m(const GemvArgs& a, dim3 grid, cudaStream_t stream) {
   if constexpr (is_bf(MODE)) {  // rows at run time (gemv_body's Mr)
     launch_one<kMaxSlots, NSEG, MODE, ROUTED>(a, grid, stream);
-  } else {  // i8mm, i4x8, byte: one instantiation per row count
+  } else if constexpr (is_i4(MODE)) {
+    // 2..8 rows on the int8 walk; one row keeps the dp4a loop, which the
+    // walk does not beat there: at llama2-7b Q4_B64T1, M = 1, the walk took
+    // 49.1 / 78.2 / 58.4 us at qkv / w1n3 / w2 against the loop's 32.5 /
+    // 39.4 / 42.3, and the (b) step at B = 1, 32 layers, 7.01 against 4.84
+    // ms (NVIDIA H100 80GB HBM3; PERF.md)
+    if (a.M == 1)
+      launch_one<1, NSEG, MODE, ROUTED>(a, grid, stream);
+    else
+      launch_one<kMaxSlots, NSEG, MODE, ROUTED>(a, grid, stream);
+  } else {  // i8mm, byte: one instantiation per row count
     switch (a.M) {
       case 1: launch_one<1, NSEG, MODE, ROUTED>(a, grid, stream); break;
       case 2: launch_one<2, NSEG, MODE, ROUTED>(a, grid, stream); break;
@@ -1400,7 +1645,7 @@ void IFT_CAT(ift_gemv_part, IFT_PART)(const void* args, int mode, dim3 grid,
 namespace {
 template <int MODE>
 int bf_registers_owned(int glu) {
-  if constexpr (is_bf(MODE) && MODE % IFT_PARTS == IFT_PART) {
+  if constexpr (walk_inst(MODE, kMaxSlots) && MODE % IFT_PARTS == IFT_PART) {
     cudaFuncAttributes attr{};
     const cudaError_t err =
         glu ? cudaFuncGetAttributes(&attr, gemv_bf<kMaxSlots, 2, MODE, false>)
@@ -1413,6 +1658,10 @@ int bf_registers_owned(int glu) {
 
 int IFT_CAT(ift_bf_registers_part, IFT_PART)(int mode, int glu) {
   switch (mode) {
+    case kModeI4x8: return bf_registers_owned<kModeI4x8>(glu);
+    case kModeI4x8B32: return bf_registers_owned<kModeI4x8B32>(glu);
+    case kModeI4x8B32F: return bf_registers_owned<kModeI4x8B32F>(glu);
+    case kModeI4x8B16F: return bf_registers_owned<kModeI4x8B16F>(glu);
     case kModeI4Bf16: return bf_registers_owned<kModeI4Bf16>(glu);
     case kModeI4Bf16B32: return bf_registers_owned<kModeI4Bf16B32>(glu);
     case kModeI4Bf16B32F: return bf_registers_owned<kModeI4Bf16B32F>(glu);
@@ -1434,16 +1683,14 @@ bool gemv_shape(const GemvArgs& a, int mode, int sm_count, int* tiles, int* kc, 
   if (mode < kModeI8mm || mode > kModeLast) return false;
   // the quant block: whole blocks per CTA (i8mm: 32-row units of 4-row
   // groups, K a multiple of 4)
-  const int blk = is_bf(mode) ? bf_block(mode)
-                  : is_i4(mode) ? i4_block(mode)
-                                : is_byte(mode) ? kByteBlock : 0;
+  const int blk = is_bf(mode) || is_i4(mode) ? bf_block(mode) : is_byte(mode) ? kByteBlock : 0;
   const int unit = blk ? blk : 32, k_unit = blk ? blk : 4;
   if (a.M < 1 || a.M > 8 || a.K <= 0 || a.K % k_unit || a.N <= 0 || a.N % (4 * nseg) ||
       sm_count <= 0)
     return false;
   *tiles = (a.N / nseg + kTileCols - 1) / kTileCols;
   gemv_plan(a.K, *tiles, sm_count, unit, kc, ksplit);
-  if (is_bf(mode)) bf_plan(a.K, *tiles, nseg, sm_count, mode, kc, ksplit);
+  if (is_bf(mode) || (is_i4(mode) && a.M > 1)) bf_plan(a.K, *tiles, nseg, sm_count, mode, kc, ksplit);
   return true;
 }
 
@@ -1913,13 +2160,19 @@ const char* ift_error_string(int code) {
 // Q8_B32T2, 3 byte Q8_B32T1, 4-6 i4x8 Q4_B32T1A/B, Q4_B32T2, Q4_B16, 7-10
 // i4bf16 Q4_B64T1, Q4_B32T1A/B, Q4_B32T2, Q4_B16, 11-13 wire Q4_B64T1,
 // Q4_B32T1A/B, Q2_B32T1A/B, 14 pair8 Q3H_B64T1) on a card of `sm_count`
-// SMs, or -1 for a shape it does not take: the float-mode GEMVs' split
+// SMs at any row count (the i4x8 modes plan one row and 2..8 rows
+// apart), or -1 for a shape it does not take: the float-mode GEMVs' split
 // partials take ksplit * M * N floats.
 int ift_gemv_splits(int K, int N, int glu, int mode, int sm_count) {
   GemvArgs a{};
   a.M = 1, a.K = K, a.N = N, a.epi = glu ? kEpiGlu : kEpiF32;
-  int tiles = 0, kc = 0, ksplit = 0;
-  return gemv_shape(a, mode, sm_count, &tiles, &kc, &ksplit) ? ksplit : -1;
+  int tiles = 0, kc = 0, ksplit = 0, most = 0;
+  for (const int m : {1, kMaxSlots}) {
+    a.M = m;
+    if (!gemv_shape(a, mode, sm_count, &tiles, &kc, &ksplit)) return -1;
+    most = std::max(most, ksplit);
+  }
+  return most;
 }
 
 // y (M, N) f32 = (int8 rows of x (M, K) bf16) x (K, N) int8, scaled by the
@@ -1988,10 +2241,11 @@ int ift_i4bf16_gemv(const void* x, const void* w, const void* w_scale, const voi
 }
 
 // The registers a thread of the tensor-core GEMV of weight mode `mode`
-// (7-10 (b'), 11-13 wire, 14 pair8) takes (cudaFuncGetAttributes), its
-// w1n3 instantiation when glu is set; -1 for another mode.
+// (1, 4-6 i4x8 at 2..8 rows, 7-10 (b'), 11-13 wire, 14 pair8) takes
+// (cudaFuncGetAttributes), its w1n3 instantiation when glu is set; -1 for
+// another mode.
 int ift_i4bf16_registers(int mode, int glu) {
-  if (!is_bf(mode)) return -1;
+  if (!walk_inst(mode, kMaxSlots)) return -1;
   switch (mode % IFT_PARTS) {
     case 0: return ift_bf_registers_part0(mode, glu);
 #if IFT_PARTS == 4
@@ -2016,8 +2270,9 @@ int ift_i4bf16_inflight(int M, int K, int N, int glu, int mode, int sm_count) {
   int tiles = 0, kc = 0, ksplit = 0;
   if (!gemv_shape(a, mode, sm_count, &tiles, &kc, &ksplit)) return -1;
   const int resident = std::min(kBfCtasPerSm, (tiles * ksplit + sm_count - 1) / sm_count);
-  const int step_bytes = 32 * 2 * 16 + 8 * bf_meta_chunks(mode) * 16 / bf_slots(mode);
-  return resident * kGemvWarps * (kBfRing - 1) * step_bytes;
+  const int step_bytes =
+      32 * walk_chunks(mode) * 16 + 8 * bf_meta_chunks(mode) * 16 / bf_slots(mode);
+  return resident * kGemvWarps * (walk_ring(mode) - 1) * step_bytes;
 }
 
 // y (M, N) f32 = the whole-code product of x (M, K) bf16 (no row

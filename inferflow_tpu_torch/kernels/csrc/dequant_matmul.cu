@@ -87,17 +87,24 @@ struct Q8Signed {  // B1: Q8_B32T2, signed codes, w = q*scale (no base)
 // metadata: Q4_B64T1 (64, f16), Q4_B32T1A/B (32, f16), Q4_B32T2 (32, f32)
 // and Q4_B16 (16, f32).  The f32 formats' scale and base are read as the
 // codec stores them (codec_torch.dequantize's values), not as f16 bits.
+// The tensor-core GEMV's code is the nibble XOR 8, n + 8 in 0..15 (kBias
+// 8), and its offset() the fold of the plain version (i4_weight), not the
+// codec's (n + 8)*scale + base.
 template <int kBlock_, class Meta_>
 struct PackedI4 {
   using Meta = Meta_;
   static constexpr int kBlock = kBlock_, kRows0 = kBlock_ / 2, kRows1 = 0, kRows2 = 0;
-  static constexpr bool kBase = true;
+  static constexpr bool kBase = true, kPair = false;
+  static constexpr int kBias = 8;
   __host__ __device__ static constexpr int row(int, int k) { return k / 2; }
   __device__ static float offset(float scale, float base) {
     return __fadd_rn(__fmul_rn(scale, 8.f), base);
   }
   __device__ static float value(uint32_t b, uint32_t, uint32_t, int k) {
     return float(int(((b >> (4 * (k & 1))) & 0xFu) ^ 8u) - 8);
+  }
+  __device__ static uint32_t codes(uint32_t w, uint32_t, uint32_t, int k) {
+    return ((w >> (4 * (k & 1))) & 0x0F0F0F0Fu) ^ 0x08080808u;
   }
 };
 using I4B64 = PackedI4<64, __half>;    // Q4_B64T1
@@ -156,16 +163,9 @@ const char* ift_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// plan_matmul (dequant_matmul.cuh) for B5's ift_i4*_matmul entries
-// (IFT_GEMV_ENTRY's signature; the i4 plane is one, `data_h` is not read).
-// The B1 and B6 entries (IFT_MATMUL_ENTRY's and, for Q3H's wire planes,
-// IFT_MATMUL_ENTRY3's; the one-plane layouts do not read `data_h`) have a
-// plan each, <entry>_plan.
-int ift_matmul_plan(int M, int K, int N, int block, int sm_count,
-                    int* kb_per_split, int* ksplit) {
-  return plan_matmul(M, K, N, block, sm_count, kb_per_split, ksplit);
-}
-
+// Every entry is IFT_MATMUL_ENTRY's (or, for Q3H's wire planes,
+// IFT_MATMUL_ENTRY3's) and has a plan, <entry>_plan; the one-plane layouts
+// do not read `data_h`.
 // B1: Q4_B64T1 wire planes.
 IFT_MATMUL_ENTRY(ift_q4_matmul, WireQ4)
 // B1: Q8_B32T2 (signed codes, no base: `base` is not read).
@@ -174,10 +174,10 @@ IFT_MATMUL_ENTRY(ift_q8_matmul, Q8Signed)
 IFT_MATMUL_ENTRY(ift_q8u_matmul, Q8Unsigned)
 // B5: the i4 layout's data_i4p plane (signed code-8 nibbles), one entry
 // per block geometry: Q4_B64T1; Q4_B32T1A / B; Q4_B32T2; Q4_B16.
-IFT_GEMV_ENTRY(ift_i4_matmul, I4B64)
-IFT_GEMV_ENTRY(ift_i4b32_matmul, I4B32)
-IFT_GEMV_ENTRY(ift_i4b32f_matmul, I4B32F32)
-IFT_GEMV_ENTRY(ift_i4b16f_matmul, I4B16F32)
+IFT_MATMUL_ENTRY(ift_i4_matmul, I4B64)
+IFT_MATMUL_ENTRY(ift_i4b32_matmul, I4B32)
+IFT_MATMUL_ENTRY(ift_i4b32f_matmul, I4B32F32)
+IFT_MATMUL_ENTRY(ift_i4b16f_matmul, I4B16F32)
 // B6: Q3H_B64T1 in the pair8 layout (one base-11 pair code per byte).
 IFT_MATMUL_ENTRY(ift_q3h_matmul, Pair8)
 // B6's wire mode: Q3H_B64T1's planes data (4 bits), data_m (2), data_h (1)

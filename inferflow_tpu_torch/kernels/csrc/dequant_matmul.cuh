@@ -30,8 +30,8 @@
 //   offset(sc, base)   the block's additive term; kBase: whether the
 //                      format stores a base (read only then);
 //   Meta               the type of the scale and base planes.
-// The policies of the tensor-core GEMV (B1 and B6: every policy but B5's
-// PackedI4) also give value() four columns at a time:
+// Every policy also gives value() four columns at a time, for the
+// tensor-core GEMV:
 //   codes(w0, w1, w2, k)  from the 32-bit words of planes 0-2 that hold K
 //                      row k of 4 neighbouring columns (byte j = column
 //                      j), byte j of the result is column j's code, value
@@ -41,15 +41,16 @@
 //                      odd one.
 //
 // What the design does about the card:
-//   - decode of B1 and B6 (`dq_gemv_mma`, M <= 8): the 8-row code GEMV on
-//     the tensor cores of gemv_mma.cuh, below;
-//   - decode of B5 (`dq_gemv`, M <= 8): neighbouring threads own
+//   - decode (`dq_gemv_mma`, M <= 8): the 8-row code GEMV on the tensor
+//     cores of gemv_mma.cuh, below;
+//   - one row on a single plane of at most 4 bits or on a split plane
+//     (`dq_gemv<D, 1>`, loop_at_one_row): neighbouring threads own
 //     neighbouring 4-column groups, so a warp reads 128 contiguous bytes of
 //     a plane row (one 32-bit load per thread) and the block's scale/base
 //     for its 128 columns; a thread loads every plane row of a quant block
 //     before decoding any (memory-level parallelism); K is split over the
 //     warps of a CTA and over CTAs (about two CTAs per SM, from the SM
-//     count the caller reads off the device: `plan_matmul`), with the x
+//     count the caller reads off the device: `plan_gemv_row`), with the x
 //     slice of the CTA (at most kGemvMaxKRows rows) staged once in shared
 //     memory and one float32 accumulator per (row, column) in registers;
 //     the split-K partial sums are added in a fixed order by a second small
@@ -167,7 +168,7 @@ __device__ __forceinline__ float dequant(float value, float scale, float offset)
 //     the same sum once) and as mul.rn then add.rn for f32 metadata; two
 //     weights of a K pair become one A register by cvt.rn.bf16x2.f32 (the
 //     rounding of round_bf16).  About 4.5 instructions a weight, where
-//     dq_gemv spends some 18 at 8 rows on the CUDA cores.
+//     the CUDA-core loop spent some 18 at 8 rows.
 //   - Each warp streams its quant blocks (lb = warp, warp + 8, ... of the
 //     CTA's K slice) through a ring of kRing slots in dynamic shared memory,
 //     one slot of kSlotK K rows (16; a whole block where a plane's byte rows
@@ -316,11 +317,6 @@ __device__ __forceinline__ float mma_weight(uint32_t bits, float sc, float off) 
   } else {
     return __fadd_rn(__fmul_rn(v, sc), off);
   }
-}
-
-// word v of a chunk
-__device__ __forceinline__ uint32_t chunk_word(const uint4& c, int v) {
-  return v == 0 ? c.x : v == 1 ? c.y : v == 2 ? c.z : c.w;
 }
 
 // Grid (ceil(N / 128), ksplit); CTA y takes the K rows [y * kc, y * kc +
@@ -577,6 +573,10 @@ constexpr int kGemvWarps = 4;
 constexpr int kGemvCols = 128;  // 32 lanes x 4 columns
 constexpr int kGemvMaxKRows = 512;  // K rows per CTA (x staging)
 
+// y (M, N) = x @ W on the CUDA cores, launched at M = 1 only
+// (loop_at_one_row's route; the template's text is kept as it was built at
+// every M: ptxas gave a one-row rewrite 32 registers against this one's 40
+// and the B5 one row 12-19% more time on an H100; PERF.md).
 template <class D, int M>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 dq_gemv(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
@@ -817,89 +817,12 @@ dq_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ data0,
   }
 }
 
-template <class D, int M>
-void launch_gemv(const __nv_bfloat16* x, const uint8_t* data0,
-                 const uint8_t* data1, const uint8_t* data2,
-                 const typename D::Meta* scale,
-                 const typename D::Meta* base, float* partial,
-                 __nv_bfloat16* out, int K, int N, int kb_per_split,
-                 int ksplit, cudaStream_t stream) {
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, ksplit);
-  dq_gemv<D, M><<<grid, kGemvWarps * 32, 0, stream>>>(
-      x, data0, data1, data2, scale, base, partial, out, K, N, kb_per_split, ksplit);
-}
-
-// y = x @ dequant(W) with a plan from plan_matmul; a decode plan that does
-// not cover K exactly once, or that overflows the x staging buffer, is
-// refused with cudaErrorInvalidValue, as is a missing base or second or
-// third plane for a format that has one.
-template <class D>
-int run_matmul(const void* x, const void* data0, const void* data1,
-               const void* data2, const void* scale, const void* base, void* out,
-               void* workspace, int M, int K, int N, int kb_per_split,
-               int ksplit, void* stream_ptr) {
-  constexpr int kBlock = D::kBlock;
-  if (M <= 0 || K <= 0 || K % kBlock || N <= 0 || N % 16 ||
-      (D::kBase && base == nullptr) || (D::kRows1 > 0 && data1 == nullptr) ||
-      (D::kRows2 > 0 && data2 == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 8) {
-    const int nkb = K / kBlock;
-    if (kb_per_split < 1 || kb_per_split * kBlock > kGemvMaxKRows || ksplit < 1 ||
-        kb_per_split * ksplit < nkb || kb_per_split * (ksplit - 1) >= nkb ||
-        (ksplit > 1 && workspace == nullptr))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  using Meta = typename D::Meta;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* d0 = static_cast<const uint8_t*>(data0);
-  auto* d1 = static_cast<const uint8_t*>(data1);
-  auto* d2 = static_cast<const uint8_t*>(data2);
-  auto* sc = static_cast<const Meta*>(scale);
-  auto* bs = static_cast<const Meta*>(base);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  auto* ws = static_cast<float*>(workspace);
-  if (M <= 8) {
-    switch (M) {
-      case 1: launch_gemv<D, 1>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 2: launch_gemv<D, 2>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 3: launch_gemv<D, 3>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 4: launch_gemv<D, 4>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 5: launch_gemv<D, 5>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 6: launch_gemv<D, 6>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      case 7: launch_gemv<D, 7>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-      default: launch_gemv<D, 8>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream); break;
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || ksplit == 1) return static_cast<int>(err);
-    const int mn = M * N;
-    splitk_reduce<<<(mn + 255) / 256, 256, 0, stream>>>(ws, ob, mn, ksplit);
-    return static_cast<int>(cudaGetLastError());
-  }
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  dq_gemm<D><<<grid, kGemmThreads, 0, stream>>>(xb, d0, d1, d2, sc, bs, ob, M, K, N);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The launch plan of an (M, K) x (K, N) product of `block`-row quant
-// blocks (64, 32 or 16) on a card with `sm_count` SMs: M <= 8 takes the
-// decode path with *ksplit K splits of *kb_per_split quant blocks (at most
-// kGemvMaxKRows rows), enough CTAs for about two per SM; larger M the
-// tiled tensor-core path (*kb_per_split 0, *ksplit 1).  The caller
-// allocates ksplit*M*N floats of workspace when *ksplit > 1 and passes the
-// plan to the matmul entry unchanged.
-int plan_matmul(int M, int K, int N, int block, int sm_count,
-                int* kb_per_split, int* ksplit) {
-  if (M <= 0 || K <= 0 || N <= 0 ||
-      (block != 64 && block != 32 && block != 16) || K % block ||
-      sm_count <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M > 8) {
-    *kb_per_split = 0;
-    *ksplit = 1;
-    return 0;
-  }
+// The plan of dq_gemv for one row of K x N weights in `block`-row quant
+// blocks (64, 32 or 16) on a card of `sm_count` SMs: *ksplit K splits of
+// *kb_per_split quant blocks (at most kGemvMaxKRows rows), enough CTAs for
+// about two per SM.  The caller allocates ksplit * N floats of workspace
+// when *ksplit > 1.
+void plan_gemv_row(int K, int N, int block, int sm_count, int* kb_per_split, int* ksplit) {
   const int nkb = K / block;
   const int max_per = kGemvMaxKRows / block;
   const int n_tiles = (N + kGemvCols - 1) / kGemvCols;
@@ -910,14 +833,15 @@ int plan_matmul(int M, int K, int N, int block, int sm_count,
   const int per = (nkb + split - 1) / split;
   *kb_per_split = per;
   *ksplit = (nkb + per - 1) / per;
-  return 0;
 }
 
 // One row on a single plane of at most 4 bits (Q4_B64T1, Q4_B32T1A/B,
-// Q4_B32T2, Q4_B16, Q2_B32T1A/B) or on a split plane (Q5_B32T1, whose
-// slot is a whole block) stays on dq_gemv: at one row dq_gemv_mma is
-// slower than this loop on these planes (PERF.md gives both times); every
-// other policy and row count takes dq_gemv_mma.
+// Q4_B32T2, Q4_B16 in their wire planes and, B5, in the i4 layout;
+// Q2_B32T1A/B) or on a split plane (Q5_B32T1, whose slot is a whole block)
+// stays on dq_gemv: at one row dq_gemv_mma is slower than this loop on
+// these planes (PERF.md gives both times; B5 at llama2-7b's w1n3 6-9% and
+// at its lm_head 2-9% on an H100); every other policy and row count takes
+// dq_gemv_mma.
 template <class D>
 constexpr bool loop_at_one_row() {
   return (D::kRows1 == 0 && !D::kPair && 2 * D::kRows0 <= D::kBlock) || mma_slot_k<D>() > 16;
@@ -957,7 +881,8 @@ int run_matmul_mma(const void* x, const void* data0, const void* data1, const vo
           (ksplit > 1 && workspace == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
       auto* ws = static_cast<float*>(workspace);
-      launch_gemv<D, 1>(xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit, stream);
+      dq_gemv<D, 1><<<dim3((N + kGemvCols - 1) / kGemvCols, ksplit), kGemvWarps * 32, 0, stream>>>(
+          xb, d0, d1, d2, sc, bs, ws, ob, K, N, kb_per_split, ksplit);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess || ksplit == 1) return static_cast<int>(err);
       splitk_reduce<<<(N + 255) / 256, 256, 0, stream>>>(ws, ob, N, ksplit);
@@ -1000,7 +925,7 @@ int run_matmul_mma(const void* x, const void* data0, const void* data1, const vo
 // split merge after it: 10-16 us a CTA of decode_step.cu's walk on the
 // card), counted as kMmaCtaCost bytes, about what a CTA streams in that
 // time; one wave wherever it fits.  *kb_per_split = quant blocks a CTA,
-// *ksplit = CTAs a column tile (loop_at_one_row at M = 1: plan_matmul's
+// *ksplit = CTAs a column tile (loop_at_one_row at M = 1: plan_gemv_row's
 // plan of dq_gemv); larger M the tiled path (0, 1).
 constexpr long long kMmaCtaCost = 96 * 1024;
 template <class D>
@@ -1013,8 +938,10 @@ int plan_matmul_mma(int M, int K, int N, int sm_count, int* kb_per_split, int* k
     *ksplit = 1;
     return 0;
   }
-  if (loop_at_one_row<D>() && M == 1)
-    return plan_matmul(M, K, N, unit, sm_count, kb_per_split, ksplit);
+  if (loop_at_one_row<D>() && M == 1) {
+    plan_gemv_row(K, N, unit, sm_count, kb_per_split, ksplit);
+    return 0;
+  }
   const int tiles = (N + 127) / 128, slots = kMmaCtasPerSm * sm_count;
   // one quant block of a tile: its plane bytes, scales and bases
   const long long blk_bytes =
@@ -1038,7 +965,7 @@ int plan_matmul_mma(int M, int K, int N, int sm_count, int* kb_per_split, int* k
 
 }  // namespace
 
-// A C entry `name` of a tensor-core GEMV policy (B1, B6), inside an extern
+// A C entry `name` of a policy (B1, B5, B6), inside an extern
 // "C" block: (x, data, data_h, scale, base, out, workspace, counters, M, K,
 // N, kb_per_split, ksplit, stream) -> the launch's cudaGetLastError(), and
 // its plan `name`_plan(M, K, N, sm_count, &kb_per_split, &ksplit).
@@ -1063,16 +990,4 @@ int plan_matmul_mma(int M, int K, int N, int sm_count, int* kb_per_split, int* k
   }                                                                                       \
   int name##_plan(int M, int K, int N, int sm_count, int* kb_per_split, int* ksplit) {    \
     return plan_matmul_mma<D>(M, K, N, sm_count, kb_per_split, ksplit);                   \
-  }
-// A C entry `name` of a CUDA-core GEMV policy (B5) running run_matmul<D>:
-// (x, data, data_h, scale, base, out, workspace, M, K, N, kb_per_split,
-// ksplit, stream) with a plan from plan_matmul (ift_matmul_plan).
-#define IFT_GEMV_ENTRY(name, D)                                             \
-  int name(const void* x, const void* data, const void* data_h,             \
-           const void* scale, const void* base, void* out, void* workspace, \
-           int M, int K, int N, int kb_per_split, int ksplit,               \
-           void* stream_ptr) {                                              \
-    return run_matmul<D>(x, data, data_h, nullptr, scale, base, out,        \
-                         workspace, M, K, N, kb_per_split, ksplit,          \
-                         stream_ptr);                                       \
   }

@@ -1,7 +1,8 @@
 // The 8-row code GEMV on Hopper's tensor cores: the pieces that X1-X4
 // (unpack_exp.cu, `unpack_mma_nibble`, `unpack_mma_d`) and B4's GEMVs on
 // the walk (decode_step.cu, `i4bf_walk`: the (b') modes 7-10, the wire
-// modes 11-13 and pair8, mode 14) share.
+// modes 11-13 and pair8, mode 14; `i4x8_walk`: the i4x8 modes 1, 4-6 on
+// int8 operands) share.
 //
 // y (M <= 8, N) = x (M, K) bf16 @ W (K, N), W dequantized from stored codes
 // to bf16 in registers, is computed as y^T = W^T x^T with
@@ -121,6 +122,11 @@ __device__ __forceinline__ int piece_of(const void* base, long long stride, long
   return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : 4;
 }
 
+// word v of a chunk
+__device__ __forceinline__ uint32_t chunk_word(const uint4& c, int v) {
+  return v == 0 ? c.x : v == 1 ? c.y : v == 2 ? c.z : c.w;
+}
+
 // c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), float32 sums
 __device__ __forceinline__ void mma(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                     uint32_t a3, uint2 b) {
@@ -130,6 +136,35 @@ __device__ __forceinline__ void mma(float c[4], uint32_t a0, uint32_t a1, uint32
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
 }
+
+// The int8 GEMV of B4's i4x8 modes (decode_step.cu, `i4x8_walk`) on the
+// same map: c += a (16 columns x 32 K int8, row) * b (32 K x 8 rows int8,
+// col), int32 sums; a0 / a1 hold A rows g / g + 8 at K 4t..4t+3, a2 / a3
+// the same rows at K 16+4t..16+4t+3, b.x / b.y B column g at those K;
+// C as above.
+__device__ __forceinline__ void mma_s8(int c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint2 b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
+}
+
+// The same at K 16 (m16n8k16): a0 / a1 A rows g / g + 8 at K 4t..4t+3, b B
+// column g at those K.
+__device__ __forceinline__ void mma_s8_k16(int c[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// The signed nibbles of the i4 layout's bytes as int8 values 16 * n: a
+// nibble u holds n in two's complement ((q - 8) & 0xF), so u in a byte's
+// high half with zeros below is the int8 16 * n.  hi16: each byte's high
+// nibble in place; lo16: its low nibble moved up.
+__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
+__device__ __forceinline__ uint32_t lo16(uint32_t w) { return (w << 4) & 0xF0F0F0F0u; }
 
 // round_bf16(a * b + c) per half (one rounding)
 __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {

@@ -426,8 +426,9 @@ def _check_i4(w: QuantizedTensor, name: str, k: int, n: int,
 
 @functools.lru_cache(maxsize=None)
 def _gemv_splits(k: int, n: int, glu: bool, sms: int, mode: int = 1) -> int:
-    """The K splits the GEMV of weight mode `mode` (csrc WeightMode; the
-    i4x8 GEMV by default) takes for (K, N) weights."""
+    """The most K splits the GEMV of weight mode `mode` (csrc WeightMode;
+    the i4x8 GEMV by default) takes for (K, N) weights at any row count
+    (the i4x8 GEMV plans one row on its dp4a loop and 2..8 on the walk)."""
     splits = _lib().ift_gemv_splits(k, n, int(glu), mode, sms)
     if splits < 1:
         raise ValueError(f"the GEMV of weight mode {mode} does not take "
@@ -474,7 +475,8 @@ def i4x8_gemv_cuda(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     float32 (B4 mode (b)'s product, i4x8_matmul_plain's arithmetic), in
     the instantiation of w's geometry (launch count ``i4x8_gemv`` for
     Q4_B64T1, ``i4x8_gemv_b32``, ``_b32f`` or ``_b16f`` for Q4_B32T1A/B,
-    Q4_B32T2 and Q4_B16)."""
+    Q4_B32T2 and Q4_B16): 2..8 rows on the int8 tensor cores (csrc
+    i4x8_walk), one row on the dp4a loop."""
     return _i4_gemv_cuda(x2, w, "i4")
 
 
@@ -509,9 +511,9 @@ def i4bf16_bytes_in_flight(m: int, w: QuantizedTensor, glu: bool,
 
 def i4bf16_registers(device) -> dict:
     """The registers a thread of each tensor-core GEMV instantiation (the
-    (b'), wire and pair8 modes) takes on the card `device`
-    (cudaFuncGetAttributes), by its launch count: the w1n3 (GLU)
-    instantiation and the one of the other products."""
+    (b'), wire and pair8 modes, and the i4x8 modes' 2..8-row GEMV) takes
+    on the card `device` (cudaFuncGetAttributes), by its launch count: the
+    w1n3 (GLU) instantiation and the one of the other products."""
     torch.cuda.init()
     with torch.cuda.device(device):
         lib = _lib()
@@ -519,7 +521,8 @@ def i4bf16_registers(device) -> dict:
                        "other": lib.ift_i4bf16_registers(code, 0)}
                 for code, _, gemv in (
                     *_I4BF16_MODES.values(), *_WIRE_MODES.values(),
-                    (_PAIR8_MODE, PAIR8_KERNEL, PAIR8_GEMV_KERNEL))}
+                    (_PAIR8_MODE, PAIR8_KERNEL, PAIR8_GEMV_KERNEL),
+                    *_I4_MODES.values())}
 
 
 def _code_geometry(w: QuantizedTensor) -> tuple:

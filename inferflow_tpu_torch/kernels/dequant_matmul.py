@@ -94,13 +94,6 @@ _KERNELS = {
 }
 
 
-def _mma(plane: str) -> bool:
-    """Whether the kernel of `plane` decodes on the tensor cores at M <= 8
-    (B1 and B6: csrc dequant_matmul.cuh's dq_gemv_mma, planned per entry);
-    B5's i4 plane keeps its CUDA-core GEMV and ift_matmul_plan."""
-    return plane != I4_PLANE
-
-
 def _lib(source: str = "dequant_matmul"):
     """The loaded library of csrc/<source>.cu, its entries typed."""
     lib = _build.load(source)
@@ -110,37 +103,25 @@ def _lib(source: str = "dequant_matmul"):
             if src == source:
                 fn = getattr(lib, entry)
                 planes = max(2, len(_plane_names(plane, get_format(fmt))))
-                # x, planes, scale, base, out, workspace (and counters)
-                pointers = 5 + planes + (1 if _mma(plane) else 0)
-                fn.argtypes = [vp] * pointers + [i] * 5 + [vp]
+                # x, planes, scale, base, out, workspace, counters
+                fn.argtypes = [vp] * (6 + planes) + [i] * 5 + [vp]
                 fn.restype = ctypes.c_int
-                if _mma(plane):
-                    plan = getattr(lib, entry + "_plan")
-                    plan.argtypes = [i, i, i, i, pi, pi]
-                    plan.restype = ctypes.c_int
-        if hasattr(lib, "ift_matmul_plan"):
-            lib.ift_matmul_plan.argtypes = [i, i, i, i, i, pi, pi]
-            lib.ift_matmul_plan.restype = ctypes.c_int
+                plan = getattr(lib, entry + "_plan")
+                plan.argtypes = [i, i, i, i, pi, pi]
+                plan.restype = ctypes.c_int
         lib._ift_typed = True
     return lib
 
 
-def matmul_plan(lib, m: int, k: int, n: int, device, block: int = 64,
-                entry: str = None) -> tuple:
-    """(quant blocks per K split, number of splits) that the kernel's C
-    side picks for this product on this card's SM count: the plan of C
-    entry `entry` (B1, B6: the tensor-core GEMV's, or at one row on a
-    single plane of at most 4 bits or a split plane the CUDA-core GEMV's),
-    or B5's plan of `block`-row quant blocks (64, 32 or 16) when no entry
-    is given; (0, 1) for the tiled (prefill) path."""
+def matmul_plan(lib, m: int, k: int, n: int, device, entry: str) -> tuple:
+    """(quant blocks per K split, number of splits) that C entry `entry`'s
+    plan picks for this product on this card's SM count: the tensor-core
+    GEMV's, or at one row on a single plane of at most 4 bits or a split
+    plane the CUDA-core GEMV's; (0, 1) for the tiled (prefill) path."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per, ksplit = ctypes.c_int(), ctypes.c_int()
-    if entry is None:
-        rc = lib.ift_matmul_plan(m, k, n, block, sms, ctypes.byref(per),
-                                 ctypes.byref(ksplit))
-    else:
-        rc = getattr(lib, entry + "_plan")(m, k, n, sms, ctypes.byref(per),
-                                           ctypes.byref(ksplit))
+    rc = getattr(lib, entry + "_plan")(m, k, n, sms, ctypes.byref(per),
+                                       ctypes.byref(ksplit))
     _build.check(lib, rc, "dequant_matmul plan")
     return per.value, ksplit.value
 
@@ -224,19 +205,17 @@ def _launch(x: torch.Tensor, qt: QuantizedTensor,
         _build.check_operand(qt.base, "base", meta, (k_s // blk, n))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     lib = _lib(source)
-    mma = _mma(plane)
-    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, blk,
-                              entry if mma else None)
+    per, ksplit = matmul_plan(lib, m, k_s, n, x2.device, entry)
     work = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
             if ksplit > 1 else out)
     planes = [_build.ptr(qt.planes[name])
               for name in _plane_names(plane, fmt)]
     planes += [ctypes.c_void_p(0)] * (2 - len(planes))  # data_h unused
     base = _build.ptr(qt.base) if has_base else ctypes.c_void_p(0)
-    counters = [_build.ptr(_counters(x2, -(-n // 128)))] if mma else []
+    counters = _build.ptr(_counters(x2, -(-n // 128)))
     rc = getattr(lib, entry)(_build.ptr(x2), *planes,
                              _build.ptr(qt.scale), base,
-                             _build.ptr(out), _build.ptr(work), *counters,
+                             _build.ptr(out), _build.ptr(work), counters,
                              m, k_s, n, per, ksplit, _build.stream_of(x2))
     kernel = count or kernel
     _build.check(lib, rc, kernel)
@@ -329,10 +308,10 @@ def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     quantized product of ops/linear.py.  CUDA tensors run the kernel of
     qt's plane and format (_KERNELS: B5 for ``data_i4p``, B6 for
     ``pair8`` and, in its wire mode, for Q3H's wire planes, B1 for the
-    wire planes of every other block format; M <= 8 the GEMV, B1's and
-    B6's on the tensor cores with its K splits merged in the same launch,
-    B5's on the CUDA cores; more rows the tiled tensor-core kernel) or
-    raise; CPU tensors its plain version
+    wire planes of every other block format; M <= 8 the GEMV on the tensor
+    cores with its K splits merged in the same launch, or at one row on a
+    single plane of at most 4 bits the CUDA-core loop; more rows the tiled
+    tensor-core kernel) or raise; CPU tensors its plain version
     (i4_matmul_plain for B5, quantized_matmul_plain for B1 and B6, whose
     weights are the codec's bit for bit)."""
     if x.device.type == "cpu":

@@ -14,12 +14,12 @@ raises (nothing is caught).
         [--k 8192] [--n 8192] [--m 1] [--skip-perf] [--tol 2e-2]
         [--attention] [--i8mm] [--mega] [--mega-model tinyllama-1.1b]
         [--mega-quant Q4_B64T1] [--mega-layout ''] [--unpack] [--b6]
-        [--b6-model llama2-13b] [--b1] [--b1-model llama2-7b]
+        [--b6-model llama2-13b] [--b1] [--b1-model llama2-7b] [--b5]
         [--b3] [--b3-nsplit 1,2,3]
         [--i4bf16] [--i4bf16-step 32] [--i4bf16-model llama2-7b]
         [--time-m 8] [--iters 20] [--device cpu]
 
-Parts (the JAX bench's, plus --unpack, --b6, --b1 and --b3):
+Parts (the JAX bench's, plus --unpack, --b6, --b1, --b5 and --b3):
   - each of --formats (default: the JAX bench's twelve; ``none``: no
     format) through
     ``quantized_matmul`` at (M, K) x (K, N): the kernel its plane takes
@@ -33,10 +33,12 @@ Parts (the JAX bench's, plus --unpack, --b6, --b1 and --b3):
     (qkv, wo, w1n3, w2, lm_head) for the wire mode and its w1n3 for the
     non-pair branch, else at (K, N);
   - --b1: B1's and B6's GEMV on each of its 13 policies (B1_POLICIES:
-    every wire format's, Q3H's pair8 and wire planes) and B5 beside them
-    (policy PackedI4: Q4_B64T1's i4 layout) at --b1-model's w1n3
+    every wire format's, Q3H's pair8 and wire planes) at --b1-model's w1n3
     product, the same weights in each format, with the library call
     beside it (``--m 1,8`` for the decode batch sizes);
+  - --b5: B5 (policy PackedI4) on the i4 layout of its four geometries
+    (B5_FORMATS) at --b1-model's w1n3 and lm_head products, with the
+    library call beside it (``--m 1,8,12``);
   - --unpack: X1-X5 (tools/exp_unpack.py) at the JAX tool's shapes, or
     EXP_SHAPE=KxN[,KxN...] (on the card a first line gives each kernel's
     registers);
@@ -59,8 +61,8 @@ Parts (the JAX bench's, plus --unpack, --b6, --b1 and --b3):
     Q8_B32T2 and Q8_B32T1 beside them; the same bits on a second run (on
     the card a first line gives each walk instantiation's registers);
   - --i4bf16-step L: B4's fused step on the walk on L random layers of
-    --i4bf16-model at B = 8 and B = 1: mode (b') on Q4_B32T1A's i4 layout,
-    with mode (b)'s step on the same inputs timed beside it
+    --i4bf16-model at B = 8 and B = 1: mode (b') on the i4 layout of the
+    four geometries, with mode (b)'s step on the same inputs timed beside it
     (``i4x8_ms``), the wire mode on the packed planes of its three
     geometries (the step that INFERFLOW_MEGA=2 routes them to) and mode
     (h) on Q3H_B64T1's pair8 plane, with mode (c)'s step on Q8_B32T2
@@ -296,33 +298,52 @@ def b6_part(b: Bench, shapes: dict, generic_shape, ms) -> None:
 
 def b1_part(b: Bench, shapes: dict, ms) -> None:
     """B1's and B6's GEMV on each of B1_POLICIES at every shape (the same
-    weights in each format), then B5 (the i4 layout of Q4_B64T1, policy
-    PackedI4, still on the CUDA-core GEMV), against the plain version,
-    with the library call beside it; each row names its policy."""
-    from ..kernels.dequant_matmul import (i4_matmul_plain, i4_weight,
-                                          kernel_name, quantized_matmul,
+    weights in each format) against the plain version, with the library
+    call beside it; each row names its policy."""
+    from ..kernels.dequant_matmul import (kernel_name, quantized_matmul,
                                           quantized_matmul_plain)
-    from ..quant.codec_torch import (dequantize, pair8_to_wire, quantize,
-                                     repack_i4)
+    from ..quant.codec_torch import dequantize, pair8_to_wire, quantize
     gen = b.gen(2)
     for name, (k, n) in shapes.items():
         w = _weight(gen, k, n, b.device)
-        for fmt, layout, policy in B1_POLICIES + (
-                ("Q4_B64T1", "i4", "PackedI4"),):
+        for fmt, layout, policy in B1_POLICIES:
             qt = quantize(w, fmt)
             if fmt == "Q3H_B64T1" and layout == "wire":
                 qt = pair8_to_wire(qt)
             plain = quantized_matmul_plain
-            if layout == "i4":
-                qt, plain = repack_i4(qt), i4_matmul_plain
-            w_bf16 = (i4_weight(qt) if layout == "i4"
-                      else dequantize(qt, torch.bfloat16))
+            w_bf16 = dequantize(qt, torch.bfloat16)
             for m in ms:
                 x = _acts(gen, m, k, b.device)
                 _matmul_case(b, "b1", kernel_name(qt),
                              f"{name} {fmt} {layout}", qt, w_bf16, x,
                              quantized_matmul, plain,
                              info={"policy": policy})
+            del qt, w_bf16
+        del w
+
+
+# B5's geometries: the four 4-bit single-plane formats in the i4 layout
+# (policy PackedI4 with their block and metadata)
+B5_FORMATS = ("Q4_B64T1", "Q4_B32T1A", "Q4_B32T2", "Q4_B16")
+
+
+def b5_part(b: Bench, shapes: dict, ms) -> None:
+    """B5 on each of B5_FORMATS at every shape (the same weights in each
+    format) against its plain version, with the library call beside it."""
+    from ..kernels.dequant_matmul import (i4_matmul_plain, i4_weight,
+                                          kernel_name, quantized_matmul)
+    from ..quant.codec_torch import quantize, repack_i4
+    gen = b.gen(3)
+    for name, (k, n) in shapes.items():
+        w = _weight(gen, k, n, b.device)
+        for fmt in B5_FORMATS:
+            qt = repack_i4(quantize(w, fmt))
+            w_bf16 = i4_weight(qt)
+            for m in ms:
+                _matmul_case(b, "b5", kernel_name(qt), f"{name} {fmt} i4", qt,
+                             w_bf16, _acts(gen, m, k, b.device),
+                             quantized_matmul, i4_matmul_plain,
+                             info={"policy": "PackedI4"})
             del qt, w_bf16
         del w
 
@@ -392,10 +413,11 @@ def walk_part(b: Bench, shapes: dict, ms) -> None:
 # cache of STEP_CONTEXT rows
 STEP_LENGTHS = ((4095, 3000, 2048, 1500, 1023, 700, 301, 17), (2048,))
 STEP_CONTEXT = 4096
-# the steps on the walk: (b') on the i4 layout (mode (b) timed beside it),
-# the wire mode on the packed planes of its three geometries and mode (h)
-# on Q3H's pair8 plane; mode (c) on Q8_B32T2 beside
-WALK_STEPS = (("Q4_B32T1A", "i4"), ("Q4_B64T1", "packed"),
+# the steps on the walk: (b') on the i4 layout's four geometries (mode (b)
+# timed beside it), the wire mode on the packed planes of its three
+# geometries and mode (h) on Q3H's pair8 plane; mode (c) on Q8_B32T2 beside
+WALK_STEPS = (("Q4_B64T1", "i4"), ("Q4_B32T1A", "i4"), ("Q4_B32T2", "i4"),
+              ("Q4_B16", "i4"), ("Q4_B64T1", "packed"),
               ("Q4_B32T1A", "packed"), ("Q2_B32T1A", "packed"),
               ("Q8_B32T2", "packed"), ("Q3H_B64T1", "packed"))
 
@@ -408,15 +430,17 @@ def walk_step_part(b: Bench, model: str, layers: int) -> None:
     against their plain versions layer by layer).  Bound: the products'
     weight bytes and the live cache rows."""
     from ..kernels import _build
-    from ..kernels.decode_step import _code_geometry, fused_decode_step
+    from ..kernels.decode_step import (_code_geometry, _i4_geometry,
+                                       fused_decode_step)
     from ..models.zoo import make_spec, make_synthetic_params
     for fmt, layout in WALK_STEPS:
         spec = make_spec(model, device_layout=layout, layers=layers)
         params = make_synthetic_params(spec, fmt, device=b.device,
                                        device_layout=layout)
         hp, lays = spec.hyper_params, params["layers"]
-        kernel = ("fused_decode_step_i4bf16_b32" if layout == "i4"
-                  else _code_geometry(lays[0]["attn"]["qkv"])[1])
+        qkv = lays[0]["attn"]["qkv"]
+        kernel = (_i4_geometry(qkv, "i4bf16")[1] if layout == "i4"
+                  else _code_geometry(qkv)[1])
         wbytes = sum(lp[g][w].nbytes for lp in lays for g, w in (
             ("attn", "qkv"), ("attn", "wo"), ("ffn", "w1n3"), ("ffn", "w2")))
         gen = b.gen(6)
@@ -806,7 +830,10 @@ def parse_args(argv=None):
     ap.add_argument("--b1", action="store_true",
                     help="B1's and B6's GEMV on its 13 policies")
     ap.add_argument("--b1-model", default="llama2-7b",
-                    help="the zoo model whose w1n3 product --b1 runs at")
+                    help="the zoo model whose w1n3 product --b1 runs at "
+                         "(and --b5 its w1n3 and lm_head)")
+    ap.add_argument("--b5", action="store_true",
+                    help="B5 on its four geometries")
     ap.add_argument("--b3", action="store_true",
                     help="B3 at B3_SHAPES")
     ap.add_argument("--b3-nsplit", default="",
@@ -851,6 +878,9 @@ def bench(argv=None) -> list:
         b6_part(b, shapes, generic, ms)
     if args.b1:
         b1_part(b, {"w1n3": model_products(args.b1_model)["w1n3"]}, ms)
+    if args.b5:
+        products = model_products(args.b1_model)
+        b5_part(b, {p: products[p] for p in ("w1n3", "lm_head")}, ms)
     if args.unpack:
         unpack_part(b)
     if args.attention:

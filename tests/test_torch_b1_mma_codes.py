@@ -1,13 +1,16 @@
-"""B1's and B6's decode GEMV on the tensor cores (csrc dequant_matmul.cuh's
-`dq_gemv_mma`, on the 13 policies of dequant_matmul.cu and
-subbyte_matmul.cu), emulated in numpy on the CPU, where no card runs it.
+"""B1's, B5's and B6's decode GEMV on the tensor cores (csrc
+dequant_matmul.cuh's `dq_gemv_mma`, on the 17 policies of dequant_matmul.cu
+and subbyte_matmul.cu), emulated in numpy on the CPU, where no card runs it.
 
 (i)   The weight arithmetic: a code under the float32 bits of 2^23 minus
       2^23 + kBias is the value exactly; value * scale + offset as one
       fma.rn equals the codec's mul.rn then add.rn for every code of at
       most 8 bits, f16 scale and f16 offset of a sweep (extremes,
-      subnormals); Q3H's v1 = b div 11 by one multiply-high is exact for
-      every byte.
+      subnormals); B5's signed nibbles (kBias 8) with its fold offset
+      8 * scale + base reach i4_weight's bf16 bits for every nibble, f16
+      scale and base of the sweep by one fma.rn and for f32 metadata of
+      the f32 sweep by mul.rn then add.rn; Q3H's v1 = b div 11 by one
+      multiply-high is exact for every byte.
 (ii)  The slot geometry: each policy's slot K rows (16; a whole block for
       Q5_B32T1's split half), byte rows a plane, row pitch (the lanes'
       16-byte reads of every row pattern meet no bank twice), ring depth
@@ -21,15 +24,17 @@ subbyte_matmul.cu), emulated in numpy on the CPU, where no card runs it.
       first slot, zeros past N), the lanes' reads of row(p, k), codes()
       on four columns a word, the K-pair packing (cvt.rn.bf16x2.f32) and
       the column map; its A fragments rebuild codec_torch.dequantize's
-      bf16 weights bit for bit (pad blocks of a K-padded tensor exact
-      zeros, whatever their bytes), and its 8-row sums equal
-      quantized_matmul_plain's within 1e-5 * max|plain| (float64 sums of
+      bf16 weights bit for bit (B5: i4_weight's; pad blocks of a K-padded
+      tensor exact zeros, whatever their bytes), and its 8-row sums equal
+      quantized_matmul_plain's (B5: i4_matmul_plain's) within 1e-5 *
+      max|plain| (float64 sums of
       the same bf16 products in another order than the plain version's
       float32 ones), at a ragged N (not a multiple of 128) and 1, 3 and 8
       rows.
 
 The plain version is held against the JAX package in
-tests/test_torch_subbyte.py, test_torch_q8.py and test_torch_q3h.py.
+tests/test_torch_subbyte.py, test_torch_q8.py, test_torch_q3h.py and (B5)
+test_torch_i4.py and test_torch_i4_formats.py.
 """
 
 import numpy as np
@@ -37,13 +42,13 @@ import pytest
 import torch
 
 from inferflow_tpu_torch.kernels import dequant_matmul as dm
-from inferflow_tpu_torch.quant.codec_torch import (QuantizedTensor,
+from inferflow_tpu_torch.quant.codec_torch import (I4_PLANE, QuantizedTensor,
                                                    dequantize, pair8_to_wire,
-                                                   quantize)
+                                                   quantize, repack_i4)
 from inferflow_tpu_torch.quant.formats import get_format
 
-from test_torch_gemv_mma import (SCALES_F16, G, T, bf16_round, bits_of,
-                                 byte_perm, emulate, frag_buffer)
+from test_torch_gemv_mma import (SCALES_F16, SCALES_F32, G, T, bf16_round,
+                                 bits_of, byte_perm, emulate, frag_buffer)
 
 # ------------------------------------------------ the policies, mirrored
 class Wire:
@@ -108,8 +113,26 @@ class Q3HWire:
                 | (((w2 >> (j & 7)) & np.uint32(0x01010101)) << 6))
 
 
+class PackedI4:
+    """csrc dequant_matmul.cu's PackedI4<kBlock, Meta> (B5): the nibble XOR
+    8 as the code, value code - 8, offset 8 * scale + base (`fold`)."""
+
+    pair, bias, base, fold = False, 8, True, True
+
+    def __init__(self, block, meta):
+        self.block, self.meta, self.rows = block, meta, (block // 2, 0, 0)
+
+    def row(self, p, k):
+        return k // 2
+
+    def codes(self, w0, w1, w2, k):
+        k = np.asarray(k, np.uint32)
+        return (((w0 >> (4 * (k & 1))) & np.uint32(0x0F0F0F0F))
+                ^ np.uint32(0x08080808))
+
+
 F16, F32 = np.float16, np.float32
-# (format, layout) -> policy: the 13 of the GEMV (Q4_B32T1B, Q3_B32T1B and
+# (format, layout) -> policy: the 17 of the GEMV (Q4_B32T1B, Q3_B32T1B and
 # Q2_B32T1B share the A variants')
 POLICIES = {
     ("Q4_B64T1", "wire"): Wire(64, 4, False, 0, F16),
@@ -125,6 +148,10 @@ POLICIES = {
     ("Q2_B32T1A", "wire"): Wire(32, 2, False, 0, F16),
     ("Q3H_B64T1", "pair8"): Pair8(),
     ("Q3H_B64T1", "wire"): Q3HWire(),
+    ("Q4_B64T1", "i4"): PackedI4(64, F16),
+    ("Q4_B32T1A", "i4"): PackedI4(32, F16),
+    ("Q4_B32T2", "i4"): PackedI4(32, F32),
+    ("Q4_B16", "i4"): PackedI4(16, F32),
 }
 
 
@@ -204,6 +231,20 @@ def test_weight_arithmetic_matches_codec():
                 np.testing.assert_array_equal(_fma_f32(v, sc, off), two)
                 np.testing.assert_array_equal(bf16_round(_fma_f32(v, sc, off)),
                                               bf16_round(two))
+    # B5: n = code - 8 for the 16 nibbles, fold = 8 * scale + base
+    n = np.arange(-8, 8, dtype=np.float32)
+    v = ((n.astype(np.int64) + 8).astype(np.uint32) | np.uint32(0x4B000000)
+         ).view(np.float32) - np.float32(2 ** 23 + 8)
+    np.testing.assert_array_equal(v, n)
+    for sweep, fma in ((SCALES_F16, True), (SCALES_F32, False)):
+        for s in sweep.astype(np.float32):
+            sc = np.full(16, s, np.float32)
+            for o in sweep.astype(np.float32):
+                fold = (sc * np.float32(8)) + o
+                w = _fma_f32(v, sc, fold) if fma else (v * sc) + fold
+                plain = (torch.from_numpy(n) * torch.from_numpy(sc)
+                         + torch.from_numpy(fold)).to(torch.bfloat16)
+                np.testing.assert_array_equal(bf16_round(w), bits_of(plain))
     v1 = (u.astype(np.uint64) * 0x1745D175) >> np.uint64(32)
     np.testing.assert_array_equal(v1, u // 11)
     np.testing.assert_array_equal(u - 11 * v1.astype(np.uint32), u % 11)
@@ -219,7 +260,9 @@ GEOMETRY = {
     ("Q4_B32T1A", "wire"): (16, 10, 5, 2048), ("Q4_B32T2", "wire"): (16, 10, 4, 2048),
     ("Q4_B16", "wire"): (16, 10, 4, 2048), ("Q3_B32T1A", "wire"): (16, 10, 6, 2048),
     ("Q2_B32T1A", "wire"): (16, 10, 8, 2048), ("Q3H_B64T1", "pair8"): (16, 10, 5, 2048),
-    ("Q3H_B64T1", "wire"): (16, 10, 5, 2048),
+    ("Q3H_B64T1", "wire"): (16, 10, 5, 2048), ("Q4_B64T1", "i4"): (16, 10, 5, 2048),
+    ("Q4_B32T1A", "i4"): (16, 10, 5, 2048), ("Q4_B32T2", "i4"): (16, 10, 4, 2048),
+    ("Q4_B16", "i4"): (16, 10, 4, 2048),
 }
 
 
@@ -378,6 +421,8 @@ def emulate_b1(d, qt, x):
     if d.base:
         off = np.ascontiguousarray(mb[:, :, at + geo["meta_per"]]).view(
             d.meta).reshape(tiles, nslots, 32, 16).astype(np.float32)
+    if getattr(d, "fold", False):  # PackedI4::offset: 8 * scale + base
+        off = (sc * np.float32(8)) + off
     steps = geo["slot_k"] // 16
     a = np.zeros((tiles, nslots, steps, 32, 8, 4), np.uint32)
     for st in range(steps):
@@ -450,9 +495,10 @@ CASES = [(fmt, layout) for fmt, layout in POLICIES]
 @pytest.mark.parametrize("fmt,layout", CASES)
 def test_emulated_gemv_matches_plain(fmt, layout):
     """The policy's weights rebuilt from the emulated A fragments equal
-    the codec's bf16 weights bit for bit, and the 8-row sums equal
-    quantized_matmul_plain's: at (512, 208) with 8 and 3 rows, and
-    K-padded from 448 to 512 (pad bytes 0x5A) with 1 row."""
+    the codec's bf16 weights bit for bit (B5: i4_weight's), and the 8-row
+    sums equal quantized_matmul_plain's (B5: i4_matmul_plain's): at (512,
+    208) with 8 and 3 rows, and K-padded from 448 to 512 (pad bytes 0x5A)
+    with 1 row."""
     d = POLICIES[fmt, layout]
     rng = np.random.default_rng(90 + CASES.index((fmt, layout)))
     for k, k_s, n, ms in ((512, 512, 208, (8, 3)), (448, 512, 144, (1,))):
@@ -461,18 +507,24 @@ def test_emulated_gemv_matches_plain(fmt, layout):
         qt = quantize(w, fmt)
         if layout == "wire" and fmt == "Q3H_B64T1":
             qt = pair8_to_wire(qt)
+        if layout == "i4":
+            qt = repack_i4(qt)
         if k_s != k:
             qt = _pad_k(qt, k_s)
-        assert dm._plane(qt) == ("pair8" if layout == "pair8" else "data")
+        assert dm._plane(qt) == {"pair8": "pair8", "i4": I4_PLANE}.get(
+            layout, "data")
         assert qt.storage_k == k_s
         for m in ms:
             x = torch.from_numpy(rng.standard_normal((m, k)).astype(
                 np.float32)).to(torch.bfloat16).float()
             xp = np.pad(x.numpy(), ((0, 0), (0, k_s - k)))
             y, w_bits = emulate_b1(d, qt, xp)
-            want = bits_of(dequantize(qt, torch.bfloat16))
+            want = bits_of(dm.i4_weight(qt) if layout == "i4"
+                           else dequantize(qt, torch.bfloat16))
             np.testing.assert_array_equal(w_bits[:k], want)
             assert not w_bits[k:].any()  # pad rows: +0.0
-            ref = dm.quantized_matmul_plain(x, qt).numpy()
+            plain = (dm.i4_matmul_plain if layout == "i4"
+                     else dm.quantized_matmul_plain)
+            ref = plain(x, qt).numpy()
             err = np.abs(y - ref).max()
             assert err <= 1e-5 * np.abs(ref).max(), (fmt, layout, k, m, err)

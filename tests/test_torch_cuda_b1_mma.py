@@ -1,13 +1,14 @@
-"""B1's and B6's decode GEMV on the tensor cores (csrc dequant_matmul.cuh's
-``dq_gemv_mma``) on the card, against the plain version, for every one of
-its 13 policies.
+"""B1's, B5's and B6's decode GEMV on the tensor cores (csrc
+dequant_matmul.cuh's ``dq_gemv_mma``) on the card, against the plain
+version, for every one of its 17 policies.
 
 Marked ``cuda``: every test skips (with its reason) where no Hopper card is
 present; on the card run ``python -m pytest -m cuda
 tests/test_torch_cuda_b1_mma.py``.
 
 Tolerance: kernel and plain version multiply the same bf16 weights (the
-codec's, bit for bit: tests/test_torch_b1_mma_codes.py) and sum in
+codec's, B5's i4_weight's, bit for bit: tests/test_torch_b1_mma_codes.py)
+and sum in
 float32 in other orders: |kernel - plain| <= 8e-3 * max|plain| (two bf16
 ulps at the largest output).  The K splits meet in the kernel in a fixed
 order: a second call gives the same bits, and the tile counters are left
@@ -26,15 +27,17 @@ from inferflow_tpu_torch.quant.formats import get_format
 
 pytestmark = pytest.mark.cuda
 REL_TOL = 8e-3
-# (format, layout): the 13 policies (Q4_B32T1B, Q3_B32T1B and Q2_B32T1B
-# share the A variants')
+# (format, layout): the 17 policies (Q4_B32T1B, Q3_B32T1B and Q2_B32T1B
+# share the A variants'; "i4": B5's PackedI4 on the i4 layout)
 POLICIES = (("Q4_B64T1", "wire"), ("Q8_B32T2", "wire"), ("Q8_B32T1", "wire"),
             ("Q6_B64T1", "wire"), ("Q5_B64T1", "wire"), ("Q5_B32T1", "wire"),
             ("Q4_B32T1A", "wire"), ("Q4_B32T2", "wire"), ("Q4_B16", "wire"),
             ("Q3_B32T1A", "wire"), ("Q2_B32T1A", "wire"),
-            ("Q3H_B64T1", "pair8"), ("Q3H_B64T1", "wire"))
-# one row on a single plane of at most 4 bits or a split plane stays on
-# dq_gemv
+            ("Q3H_B64T1", "pair8"), ("Q3H_B64T1", "wire"),
+            ("Q4_B64T1", "i4"), ("Q4_B32T1A", "i4"), ("Q4_B32T2", "i4"),
+            ("Q4_B16", "i4"))
+# one row on a single plane of at most 4 bits (the wire planes and the i4
+# layout) or a split plane stays on dq_gemv
 LOOP_AT_ONE_ROW = {"Q4_B64T1", "Q4_B32T1A", "Q4_B32T2", "Q4_B16",
                    "Q2_B32T1A", "Q5_B32T1"}
 
@@ -51,8 +54,16 @@ def dev():
 def _weights(dev, fmt, layout, k, n, gen):
     w = torch.randn((k, n), generator=gen, device=dev) * (0.5 / k ** 0.5)
     qt = quantize(w, fmt)
+    if layout == "i4":
+        return repack_i4(qt)
     return pair8_to_wire(qt) if layout == "wire" and fmt == "Q3H_B64T1" \
         else qt
+
+
+def _plain(qt: QuantizedTensor):
+    """The plain version of qt's kernel: B5's on the i4 layout."""
+    return (dm.i4_matmul_plain if dm.I4_PLANE in qt.planes
+            else dm.quantized_matmul_plain)
 
 
 def _pad_k(qt: QuantizedTensor, k_s: int) -> QuantizedTensor:
@@ -86,7 +97,7 @@ def test_every_policy_every_row_count(dev):
                 before = _build.launch_counts[kernel]
                 got = dm.quantized_matmul(x, qt)
                 again = dm.quantized_matmul(x, qt)
-                ref = dm.quantized_matmul_plain(x, qt)
+                ref = _plain(qt)(x, qt)
                 torch.cuda.synchronize()
                 assert _build.launch_counts[kernel] == before + 2
                 assert got.shape == (m, n) and got.dtype == torch.bfloat16
@@ -116,9 +127,9 @@ def _kernels_launched(fn) -> str:
 
 
 def test_routes_by_policy_and_rows(dev):
-    """B1 and B6 run dq_gemv_mma at 2-8 rows and, but for the single
-    planes of at most 4 bits and the split plane, at one row; B5 (the i4
-    layout) still runs dq_gemv; more than 8 rows dq_gemm."""
+    """Every policy runs dq_gemv_mma at 2-8 rows and, but for the single
+    planes of at most 4 bits (B5's i4 layout among them) and the split
+    plane, at one row, where they run dq_gemv; more than 8 rows dq_gemm."""
     gen = torch.Generator(device=dev).manual_seed(19)
     for fmt, layout in POLICIES:
         qt = _weights(dev, fmt, layout, 1024, 512, gen)
@@ -128,18 +139,13 @@ def test_routes_by_policy_and_rows(dev):
             names = _kernels_launched(lambda: dm.quantized_matmul(x, qt))
             if m == 12:
                 want = "dq_gemm"
-            elif m == 1 and layout == "wire" and fmt in LOOP_AT_ONE_ROW:
+            elif m == 1 and layout != "pair8" and fmt in LOOP_AT_ONE_ROW:
                 want = "dq_gemv<"
             else:
                 want = "dq_gemv_mma<"
             assert want in names, (fmt, layout, m, names)
-    i4 = repack_i4(quantize(torch.randn((1024, 512), generator=gen,
-                                        device=dev) * 0.05, "Q4_B64T1"))
-    for m in (1, 8):
-        x = torch.randn((m, 1024), generator=gen, device=dev).to(
-            torch.bfloat16)
-        names = _kernels_launched(lambda: dm.quantized_matmul(x, i4))
-        assert "dq_gemv<" in names and "dq_gemv_mma" not in names, names
+            if want == "dq_gemv<":
+                assert "dq_gemv_mma" not in names, (fmt, layout, names)
 
 
 def test_refused_plan_and_failed_build_raise(dev, monkeypatch):

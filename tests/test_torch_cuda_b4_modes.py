@@ -1,6 +1,7 @@
-"""B4's wire mode, mode (c) (Q8 byte codes), mode (h) (Q3H pair8) and mode
-(d) (per-product output biases) on the card, against their plain
-versions.
+"""B4's wire mode, mode (c) (Q8 byte codes), mode (h) (Q3H pair8), mode
+(d) (per-product output biases) and mode (b)'s i4x8 GEMV on the int8
+tensor cores (2..8 rows; one row on the dp4a loop) on the card, against
+their plain versions.
 
 Marked ``cuda``: every test skips (with its reason) where no Hopper card is
 present; on the card run ``python -m pytest -m cuda
@@ -15,7 +16,11 @@ element, as tests/test_torch_cuda_i4_bf16.py holds its modes (the
 residual is rounded to bf16 after every product); a MoE layer in mode (g)
 within tests/test_torch_cuda_moe.py's ONE_LAYER_TOL of max|plain| where
 every route agrees.  Every kernel gives the same bits on a second run,
-and each geometry launches its own instantiation (its launch count).
+and each geometry launches its own instantiation (its launch count).  The
+i4x8 GEMV: its int8 row codes and int32 block dots are the plain
+version's, its float32 sums in another order: the same 8e-3; and rows of
+the walk equal the dp4a loop's one-row result bit for bit where both
+plans take one K split (K 1024, 2 x SMs column tiles).
 """
 
 import dataclasses
@@ -32,6 +37,9 @@ from test_torch_cuda_moe import ONE_LAYER_TOL, _one_layer
 pytestmark = pytest.mark.cuda
 REL_TOL = 8e-3
 FUSED_TOL = 5e-2
+# the i4 layout's geometries in mode (b): format -> GEMV launch count
+I4X8 = {"Q4_B64T1": "i4x8_gemv", "Q4_B32T1A": "i4x8_gemv_b32",
+        "Q4_B32T2": "i4x8_gemv_b32f", "Q4_B16": "i4x8_gemv_b16f"}
 # format -> (GEMV launch count, step launch count)
 FORMATS = {"Q4_B64T1": ("wire_gemv", "fused_decode_step_wire"),
            "Q4_B32T1A": ("wire_gemv_b32", "fused_decode_step_wire_b32"),
@@ -58,32 +66,52 @@ def _close(got, ref, tol=REL_TOL):
 
 
 def test_code_gemvs(dev):
-    """The wire and pair8 GEMVs (on the tensor-core walk) and the byte GEMV
-    alone on each format, at test and llama2 shapes and at N = 100 and 1000
-    (a ragged last column tile; rows 4 and 8 bytes aligned: the walk's
-    copies take piece_of's 4- and 8-byte pieces), M = 1..8, the same bits
-    on a second run."""
+    """The wire and pair8 GEMVs (on the tensor-core walk), the byte GEMV
+    and mode (b)'s i4x8 GEMV (the i4 layout's four geometries) alone on
+    each format, at test and llama2 shapes and at N = 100 and 1000 (a
+    ragged last column tile; rows 4 and 8 bytes aligned: the walk's copies
+    take piece_of's 4- and 8-byte pieces), M = 1..8, the same bits on a
+    second run; then the i4x8 walk's rows against the dp4a loop's one-row
+    GEMV, bit for bit, where both take one K split."""
     from inferflow_tpu_torch.kernels.decode_step import (
-        _product_f32, byte_gemv_cuda, pair8_gemv_cuda, wire_gemv_cuda)
+        _product_f32, byte_gemv_cuda, i4x8_gemv_cuda, i4x8_matmul_plain,
+        pair8_gemv_cuda, wire_gemv_cuda)
+    from inferflow_tpu_torch.quant.codec_torch import repack_i4
     launches = {"pair8_gemv": pair8_gemv_cuda, "byte_gemv": byte_gemv_cuda}
     gen = torch.Generator(device=dev).manual_seed(52)
-    for fmt, (gemv, _) in FORMATS.items():
-        launch = launches.get(gemv, wire_gemv_cuda)
+    cases = [(fmt, gemv, launches.get(gemv, wire_gemv_cuda), _product_f32, False)
+             for fmt, (gemv, _) in FORMATS.items()]
+    cases += [(fmt, gemv, i4x8_gemv_cuda, i4x8_matmul_plain, True)
+              for fmt, gemv in I4X8.items()]
+    for fmt, gemv, launch, plain, i4 in cases:
         for k, n in ((256, 512), (4096, 12288), (11008, 4096), (128, 128),
                      (256, 100), (512, 1000)):
             w = torch.randn((k, n), generator=gen, device=dev) * (
                 0.5 / k ** 0.5)
             qt = quantize(w, fmt)
+            if i4:
+                qt = repack_i4(qt)
             for m in range(1, 9):
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 _build.launch_counts.clear()
                 got = launch(x, qt)
-                ref = _product_f32(x, qt)
+                ref = plain(x, qt)
                 torch.cuda.synchronize()
                 assert dict(_build.launch_counts) == {gemv: 1}
                 assert _close(got, ref), (fmt, k, n, m)
                 assert torch.equal(launch(x, qt), got)
+    # one K split in both plans: K <= 1024 and a column tile for each of
+    # the two CTAs an SM
+    n = 2 * torch.cuda.get_device_properties(dev).multi_processor_count * 128
+    for fmt in I4X8:
+        qt = repack_i4(quantize(torch.randn((1024, n), generator=gen, device=dev)
+                                * (0.5 / 32), fmt))
+        x = torch.randn((8, 1024), generator=gen, device=dev).to(torch.bfloat16)
+        walk = i4x8_gemv_cuda(x, qt)
+        for m in range(8):
+            assert torch.equal(walk[m:m + 1], i4x8_gemv_cuda(x[m:m + 1], qt)), (
+                fmt, m)
 
 
 def test_walk_gemv_reads_rewritten_weights(dev):
@@ -93,13 +121,18 @@ def test_walk_gemv_reads_rewritten_weights(dev):
     with no synchronization, is read as rewritten, bit for bit as a GEMV
     on a fresh copy of the new weight."""
     from inferflow_tpu_torch.kernels.decode_step import (
-        _product_f32, pair8_gemv_cuda, wire_gemv_cuda)
+        _product_f32, i4x8_gemv_cuda, i4x8_matmul_plain, pair8_gemv_cuda,
+        wire_gemv_cuda)
+    from inferflow_tpu_torch.quant.codec_torch import repack_i4
     gen = torch.Generator(device=dev).manual_seed(53)
     k, n = 4096, 12288
     for fmt, launch in (("Q4_B64T1", wire_gemv_cuda),
-                        ("Q3H_B64T1", pair8_gemv_cuda)):
-        old, new = (quantize(torch.randn((k, n), generator=gen, device=dev)
-                             * (0.5 / k ** 0.5), fmt) for _ in range(2))
+                        ("Q3H_B64T1", pair8_gemv_cuda),
+                        ("Q4_B32T1A", i4x8_gemv_cuda)):
+        i4 = launch is i4x8_gemv_cuda
+        old, new = ((repack_i4 if i4 else lambda q: q)(
+            quantize(torch.randn((k, n), generator=gen, device=dev)
+                     * (0.5 / k ** 0.5), fmt)) for _ in range(2))
         live = dataclasses.replace(
             old, planes={p: t.clone() for p, t in old.planes.items()},
             scale=old.scale.clone(),
@@ -116,7 +149,8 @@ def test_walk_gemv_reads_rewritten_weights(dev):
         torch.cuda.synchronize()
         assert torch.equal(before, launch(x, old)), fmt
         assert torch.equal(after, fresh), fmt
-        assert _close(after, _product_f32(x, new)), fmt
+        assert _close(after, (i4x8_matmul_plain if i4 else _product_f32)(
+            x, new)), fmt
 
 
 def _biases(spec, layers, gen, dev):

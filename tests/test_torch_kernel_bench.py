@@ -26,7 +26,8 @@ def test_every_part_passes_on_cpu(monkeypatch, capsys):
                                       "--attention", "--b3", "--i8mm",
                                       "--i4bf16", "--i4bf16-model",
                                       "test-llama", "--i4bf16-step", "1",
-                                      "--b1", "--b1-model", "test-llama"]) == 0
+                                      "--b1", "--b5", "--b1-model",
+                                      "test-llama"]) == 0
     rows = _rows(capsys.readouterr().out)
     kernels = {r["kernel"] for r in rows}
     assert {"dequant_matmul", "q3h_matmul", "q8_matmul", "subbyte_matmul",
@@ -39,11 +40,14 @@ def test_every_part_passes_on_cpu(monkeypatch, capsys):
             "fused_decode_step_i4bf16_b32", "fused_decode_step_wire",
             "fused_decode_step_wire_b32", "fused_decode_step_wire_q2",
             "byte_gemv", "pair8_gemv", "fused_decode_step_byte",
-            "fused_decode_step_pair8"} <= kernels
+            "fused_decode_step_pair8", "i4_matmul", "i4_matmul_b32",
+            "i4_matmul_b32f", "i4_matmul_b16f", "fused_decode_step_i4bf16",
+            "fused_decode_step_i4bf16_b32f",
+            "fused_decode_step_i4bf16_b16f"} <= kernels
     generic = {r["shape"].split()[1] for r in rows
                if r["kernel"] == "generic_matmul"}
     assert generic == set(kernel_bench.NONPAIR_FORMATS)
-    policies = {r["policy"] for r in rows if r["part"] == "b1"}
+    policies = {r["policy"] for r in rows if r["part"] in ("b1", "b5")}
     assert policies == {p for _, _, p in kernel_bench.B1_POLICIES} | {
         "PackedI4"}
     assert len(policies) == 14
